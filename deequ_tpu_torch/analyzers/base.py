@@ -1,0 +1,297 @@
+"""Analyzer protocol: the core algebra of the engine.
+
+An analyzer is a pair of functions ``computeStateFrom: Data -> S`` and
+``computeMetricFrom: S -> M`` where ``S`` is a commutative-semigroup state
+(reference `analyzers/Analyzer.scala:34-53`). Here a state is a dataclass
+of tensors; ``update`` folds a whole column *batch* into it on the run's
+device and ``merge`` is the semigroup sum.
+
+Scan-sharing (reference `ScanShareableAnalyzer`, `analyzers/Analyzer.scala:
+169-197`): N analyzers contribute their feature requirements; the runner
+computes the union of features once per batch, and the analyzers whose
+update is a scalar reduction describe it as a ``scan_reduce`` slot, so one
+kernel launch per batch serves all of them (see ``runners/engine.py``).
+"""
+
+from __future__ import annotations
+
+import abc
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Generic, List, Optional, Sequence, Tuple, TypeVar
+
+import torch
+
+from ..data import ColumnKind, Schema
+from ..exceptions import (
+    MetricCalculationException,
+    NoColumnsSpecifiedException,
+    NoSuchColumnException,
+    WrongColumnTypeException,
+    wrap_if_necessary,
+)
+from ..expr import Predicate
+from ..kernels.scan_reduce import Partials, Slot, partials, scan_reduce
+from ..metrics import (
+    DoubleMetric,
+    Entity,
+    Metric,
+    metric_from_empty,
+    metric_from_failure,
+    metric_from_value,
+)
+
+S = TypeVar("S")
+M = TypeVar("M", bound=Metric)
+
+
+# ---------------------------------------------------------------------------
+# Feature specs: what a scan-shareable analyzer needs per batch on device.
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FeatureSpec:
+    """A named, device-resident numeric array derived from the batch.
+
+    ``kind`` selects the host computation (see `runners/features.py`);
+    ``payload`` carries a predicate (str or callable) or regex pattern.
+    ``key`` is the stable string under which the array appears in the
+    features dict handed to the analyzers' updates.
+    """
+
+    kind: str
+    column: Optional[str] = None
+    payload: Any = None
+
+    @property
+    def key(self) -> str:
+        parts = [self.kind]
+        if self.column is not None:
+            parts.append(self.column)
+        if self.payload is not None:
+            parts.append(
+                self.payload if isinstance(self.payload, str) else f"callable:{id(self.payload)}"
+            )
+        return ":".join(parts)
+
+
+def rows_feature() -> FeatureSpec:
+    return FeatureSpec("rows")
+
+
+def numeric_feature(column: str) -> FeatureSpec:
+    return FeatureSpec("num", column)
+
+
+def mask_feature(column: str) -> FeatureSpec:
+    return FeatureSpec("mask", column)
+
+
+def length_feature(column: str) -> FeatureSpec:
+    return FeatureSpec("len", column)
+
+
+def predicate_feature(predicate: Predicate) -> FeatureSpec:
+    return FeatureSpec("pred", None, predicate)
+
+
+def regex_feature(column: str, pattern: str) -> FeatureSpec:
+    return FeatureSpec("match", column, pattern)
+
+
+def hll_feature(column: str) -> FeatureSpec:
+    """uint16 packed (register index << 6 | rank) keys for HLL++."""
+    return FeatureSpec("hll", column)
+
+
+def codes_feature(column: str) -> FeatureSpec:
+    """int32 dictionary codes of an encoded column (nulls/padding coded
+    out-of-range) — the device frequency path's input."""
+    return FeatureSpec("codes", column)
+
+
+# ---------------------------------------------------------------------------
+# Preconditions (reference `analyzers/Analyzer.scala:285-359`)
+# ---------------------------------------------------------------------------
+
+
+class Preconditions:
+    @staticmethod
+    def has_column(column: str) -> Callable[[Schema], None]:
+        def check(schema: Schema) -> None:
+            if column not in schema:
+                raise NoSuchColumnException(f"Input data does not include column {column}!")
+
+        return check
+
+    @staticmethod
+    def is_numeric(column: str) -> Callable[[Schema], None]:
+        def check(schema: Schema) -> None:
+            kind = schema[column].kind
+            if not (kind.is_numeric or kind == ColumnKind.BOOLEAN):
+                raise WrongColumnTypeException(
+                    f"Expected type of column {column} to be numeric, but found {kind.value}!"
+                )
+
+        return check
+
+    @staticmethod
+    def is_string(column: str) -> Callable[[Schema], None]:
+        def check(schema: Schema) -> None:
+            if schema[column].kind != ColumnKind.STRING:
+                raise WrongColumnTypeException(
+                    f"Expected type of column {column} to be string, but found "
+                    f"{schema[column].kind.value}!"
+                )
+
+        return check
+
+    @staticmethod
+    def is_not_nested(column: str) -> Callable[[Schema], None]:
+        def check(schema: Schema) -> None:
+            if schema[column].kind == ColumnKind.UNKNOWN:
+                raise WrongColumnTypeException(
+                    f"Unsupported nested column type of column {column}!"
+                )
+
+        return check
+
+    @staticmethod
+    def at_least_one(columns: Sequence[str]) -> Callable[[Schema], None]:
+        def check(schema: Schema) -> None:
+            if len(columns) == 0:
+                raise NoColumnsSpecifiedException("At least one column needs to be specified!")
+
+        return check
+
+    @staticmethod
+    def find_first_failing(
+        schema: Schema, conditions: Sequence[Callable[[Schema], None]]
+    ) -> Optional[MetricCalculationException]:
+        for condition in conditions:
+            try:
+                condition(schema)
+            except MetricCalculationException as exc:
+                return exc
+            except Exception as exc:  # noqa: BLE001
+                return wrap_if_necessary(exc)
+        return None
+
+
+# ---------------------------------------------------------------------------
+# Analyzer base classes
+# ---------------------------------------------------------------------------
+
+
+class Analyzer(abc.ABC, Generic[S, M]):
+    """Base analyzer. Subclasses are frozen dataclasses, hashable for dedupe
+    (reference dedupes analyzers against repository results,
+    `AnalysisRunner.scala:116-134`)."""
+
+    name: str = "Analyzer"
+
+    @property
+    def instance(self) -> str:
+        return "*"
+
+    @property
+    def entity(self) -> Entity:
+        return Entity.DATASET
+
+    def preconditions(self) -> List[Callable[[Schema], None]]:
+        return []
+
+    @abc.abstractmethod
+    def compute_metric_from(self, state: Optional[S]) -> M:
+        ...
+
+    def to_failure_metric(self, exception: BaseException) -> DoubleMetric:
+        return metric_from_failure(
+            wrap_if_necessary(exception), self.name, self.instance, self.entity
+        )
+
+    def merge(self, a: S, b: S) -> S:  # pragma: no cover - overridden
+        raise NotImplementedError
+
+
+#: a slot as an analyzer names it: (kind, where key, sel key, values key),
+#: feature keys or None; equal specs share one slot of a launch
+SlotSpec = Tuple[int, Optional[str], Optional[str], Optional[str]]
+
+
+def resolve_slot(spec: SlotSpec, features: Dict[str, torch.Tensor]) -> Slot:
+    kind, where, sel, vals = spec
+    return Slot(
+        kind,
+        None if where is None else features[where],
+        None if sel is None else features[sel],
+        None if vals is None else features[vals],
+    )
+
+
+class ScanShareableAnalyzer(Analyzer[S, M]):
+    """Analyzer whose state updates fuse into the shared single-pass scan.
+
+    Scalar reductions implement ``scan_slot`` and ``fold_slot``: the engine
+    reduces every analyzer's slot in one ``scan_reduce`` launch per batch
+    and hands each analyzer its slot's partials. Other analyzers (sketches,
+    frequency counts) implement ``update`` with their own kernel."""
+
+    @abc.abstractmethod
+    def feature_specs(self) -> List[FeatureSpec]:
+        ...
+
+    @abc.abstractmethod
+    def init_state(self, device) -> S:
+        ...
+
+    def scan_slot(self) -> Optional[SlotSpec]:
+        """The ``scan_reduce`` slot this analyzer's update reduces, or None
+        when its update launches a kernel of its own."""
+        return None
+
+    def fold_slot(self, state: S, p: Partials) -> S:  # pragma: no cover - overridden
+        raise NotImplementedError
+
+    def update(self, state: S, features: Dict[str, torch.Tensor]) -> S:
+        """Fold one batch into the state. For a slot analyzer: one
+        ``scan_reduce`` launch over its own slot (the engine batches all
+        slots of a battery into one launch instead)."""
+        spec = self.scan_slot()
+        if spec is None:  # pragma: no cover - overridden
+            raise NotImplementedError
+        out_i, out_f = scan_reduce([resolve_slot(spec, features)], features["rows"])
+        return self.fold_slot(state, partials(out_i, out_f, 0))
+
+    def _where_key(self) -> Optional[str]:
+        """Feature key of this analyzer's where-filter (the
+        `conditionalSelection` analog, reference `analyzers/Analyzer.scala:
+        409-432`), or None without one."""
+        where = getattr(self, "where", None)
+        return None if where is None else predicate_feature(where).key
+
+
+class StandardScanShareableAnalyzer(ScanShareableAnalyzer[S, DoubleMetric]):
+    """Adds the success/empty/failure DoubleMetric mapping
+    (reference `analyzers/Analyzer.scala:200-226`)."""
+
+    def compute_metric_from(self, state: Optional[S]) -> DoubleMetric:
+        if state is None or self.is_empty(state):
+            return metric_from_empty(self.name, self.instance, self.entity)
+        try:
+            value = self.metric_value(state)
+        except Exception as exc:  # noqa: BLE001
+            return metric_from_failure(wrap_if_necessary(exc), self.name, self.instance, self.entity)
+        if value is None:
+            return metric_from_empty(self.name, self.instance, self.entity)
+        # a NaN from a NON-empty state is a real result (Spark: max/sum/avg
+        # over data containing NaN is NaN) and surfaces as Success(NaN)
+        return metric_from_value(float(value), self.name, self.instance, self.entity)
+
+    @abc.abstractmethod
+    def metric_value(self, state: S) -> float:
+        ...
+
+    def is_empty(self, state: S) -> bool:
+        """Whether the folded state saw no values at all."""
+        return False

@@ -1,0 +1,364 @@
+"""Scan-shareable single-pass reduction analyzers.
+
+Each mirrors an analyzer of the JAX reference (deequ_tpu/analyzers/
+simple.py, with the reference deequ's file:line cited per class). Every
+update here is a scalar reduction: the analyzer names its reduction as a
+``scan_reduce`` slot (``scan_slot``) and folds the slot's batch partials
+into its state (``fold_slot``), so the engine serves a whole battery with
+one kernel launch per batch — the analog of deequ's fused ``data.agg(...)``
+scan (reference `analyzers/runners/AnalysisRunner.scala:303-318`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional
+
+from ..data import Schema
+from ..expr import Predicate
+from ..kernels.scan_reduce import KIND_COUNTS, KIND_MOMENTS, Partials
+from ..metrics import Entity
+from .base import (
+    FeatureSpec,
+    Preconditions,
+    SlotSpec,
+    StandardScanShareableAnalyzer,
+    length_feature,
+    mask_feature,
+    numeric_feature,
+    predicate_feature,
+    regex_feature,
+    rows_feature,
+)
+from .states import (
+    MaxState,
+    MeanState,
+    MinState,
+    NumMatches,
+    NumMatchesAndCount,
+    StandardDeviationState,
+    SumState,
+    max_nan,
+    min_nan_largest,
+)
+
+
+def _with_where(specs: List[FeatureSpec], where: Optional[Predicate]) -> List[FeatureSpec]:
+    if where is not None:
+        specs.append(predicate_feature(where))
+    return specs
+
+
+@dataclass(frozen=True)
+class Size(StandardScanShareableAnalyzer[NumMatches]):
+    """Row count (reference `analyzers/Size.scala:23-48`)."""
+
+    where: Optional[Predicate] = None
+    name: str = field(default="Size", init=False)
+
+    def feature_specs(self) -> List[FeatureSpec]:
+        return _with_where([rows_feature()], self.where)
+
+    def init_state(self, device) -> NumMatches:
+        return NumMatches.init(device)
+
+    def scan_slot(self) -> SlotSpec:
+        return (KIND_COUNTS, self._where_key(), None, None)
+
+    def fold_slot(self, state: NumMatches, p: Partials) -> NumMatches:
+        return NumMatches(state.num_matches + p.count)
+
+    def merge(self, a: NumMatches, b: NumMatches) -> NumMatches:
+        return a.merge(b)
+
+    def metric_value(self, state: NumMatches) -> float:
+        return state.metric_value()
+
+
+@dataclass(frozen=True)
+class _RatioAnalyzer(StandardScanShareableAnalyzer[NumMatchesAndCount]):
+    """Shared logic for matches/count analyzers: the slot selects the
+    matching rows among the (where-filtered) counted rows."""
+
+    def init_state(self, device) -> NumMatchesAndCount:
+        return NumMatchesAndCount.init(device)
+
+    def _match_key(self) -> str:
+        raise NotImplementedError
+
+    def scan_slot(self) -> SlotSpec:
+        return (KIND_COUNTS, self._where_key(), self._match_key(), None)
+
+    def fold_slot(self, state: NumMatchesAndCount, p: Partials) -> NumMatchesAndCount:
+        return NumMatchesAndCount(state.num_matches + p.matches, state.count + p.count)
+
+    def merge(self, a: NumMatchesAndCount, b: NumMatchesAndCount) -> NumMatchesAndCount:
+        return a.merge(b)
+
+    def metric_value(self, state: NumMatchesAndCount) -> float:
+        return state.metric_value()
+
+    def is_empty(self, state: NumMatchesAndCount) -> bool:
+        return int(state.count) == 0
+
+
+@dataclass(frozen=True)
+class Completeness(_RatioAnalyzer):
+    """Fraction of non-null values (reference `analyzers/Completeness.scala:26-46`)."""
+
+    column: str = ""
+    where: Optional[Predicate] = None
+    name: str = field(default="Completeness", init=False)
+
+    @property
+    def instance(self) -> str:
+        return self.column
+
+    @property
+    def entity(self) -> Entity:
+        return Entity.COLUMN
+
+    def preconditions(self) -> List[Callable[[Schema], None]]:
+        return [Preconditions.has_column(self.column), Preconditions.is_not_nested(self.column)]
+
+    def feature_specs(self) -> List[FeatureSpec]:
+        return _with_where([rows_feature(), mask_feature(self.column)], self.where)
+
+    def _match_key(self) -> str:
+        return mask_feature(self.column).key
+
+
+@dataclass(frozen=True)
+class Compliance(_RatioAnalyzer):
+    """Fraction of rows satisfying a predicate
+    (reference `analyzers/Compliance.scala:37-53`). Null predicate results
+    count as non-compliant but stay in the denominator (SQL semantics)."""
+
+    instance_name: str = ""
+    predicate: Predicate = "True"
+    where: Optional[Predicate] = None
+    name: str = field(default="Compliance", init=False)
+
+    @property
+    def instance(self) -> str:
+        return self.instance_name
+
+    @property
+    def entity(self) -> Entity:
+        return Entity.COLUMN
+
+    def feature_specs(self) -> List[FeatureSpec]:
+        return _with_where([rows_feature(), predicate_feature(self.predicate)], self.where)
+
+    def _match_key(self) -> str:
+        return predicate_feature(self.predicate).key
+
+
+class Patterns:
+    """Built-in regexes (reference `analyzers/PatternMatch.scala:58-72`)."""
+
+    EMAIL = (
+        r"""(?:[a-z0-9!#$%&'*+/=?^_`{|}~-]+(?:\.[a-z0-9!#$%&'*+/=?^_`{|}~-]+)*"""
+        r"""|"(?:[\x01-\x08\x0b\x0c\x0e-\x1f\x21\x23-\x5b\x5d-\x7f]|\\[\x01-\x09\x0b\x0c\x0e-\x7f])*")"""
+        r"""@(?:(?:[a-z0-9](?:[a-z0-9-]*[a-z0-9])?\.)+[a-z0-9](?:[a-z0-9-]*[a-z0-9])?"""
+        r"""|\[(?:(?:25[0-5]|2[0-4][0-9]|[01]?[0-9][0-9]?)\.){3}"""
+        r"""(?:25[0-5]|2[0-4][0-9]|[01]?[0-9][0-9]?|[a-z0-9-]*[a-z0-9]:"""
+        r"""(?:[\x01-\x08\x0b\x0c\x0e-\x1f\x21-\x5a\x53-\x7f]|\\[\x01-\x09\x0b\x0c\x0e-\x7f])+)\])"""
+    )
+    URL = r"""(https?|ftp)://[^\s/$.?#].[^\s]*"""
+    SOCIAL_SECURITY_NUMBER_US = (
+        r"""((?!219-09-9999|078-05-1120)(?!666|000|9\d{2})\d{3}-(?!00)\d{2}-(?!0{4})\d{4})"""
+        r"""|((?!219 09 9999|078 05 1120)(?!666|000|9\d{2})\d{3} (?!00)\d{2} (?!0{4})\d{4})"""
+        r"""|((?!219099999|078051120)(?!666|000|9\d{2})\d{3}(?!00)\d{2}(?!0{4})\d{4})"""
+    )
+    CREDITCARD = (
+        r"""\b(?:3[47]\d{2}([\ \-]?)\d{6}\1\d|(?:(?:4\d|5[1-5]|65)\d{2}|6011)([\ \-]?)\d{4}\2\d{4}\2)\d{4}\b"""
+    )
+
+
+@dataclass(frozen=True)
+class PatternMatch(_RatioAnalyzer):
+    """Fraction of values matching a regex, unanchored search; nulls stay in
+    the denominator (reference `analyzers/PatternMatch.scala:37-55`)."""
+
+    column: str = ""
+    pattern: str = ""
+    where: Optional[Predicate] = None
+    name: str = field(default="PatternMatch", init=False)
+
+    @property
+    def instance(self) -> str:
+        return self.column
+
+    @property
+    def entity(self) -> Entity:
+        return Entity.COLUMN
+
+    def preconditions(self) -> List[Callable[[Schema], None]]:
+        return [Preconditions.has_column(self.column), Preconditions.is_string(self.column)]
+
+    def feature_specs(self) -> List[FeatureSpec]:
+        return _with_where(
+            [rows_feature(), regex_feature(self.column, self.pattern)], self.where
+        )
+
+    def _match_key(self) -> str:
+        return regex_feature(self.column, self.pattern).key
+
+
+@dataclass(frozen=True)
+class _ValueAnalyzer(StandardScanShareableAnalyzer):
+    """Shared plumbing of reductions over one column's present values: the
+    slot selects present rows among the (where-filtered) counted rows and
+    reduces their values."""
+
+    column: str = ""
+    where: Optional[Predicate] = None
+
+    @property
+    def instance(self) -> str:
+        return self.column
+
+    @property
+    def entity(self) -> Entity:
+        return Entity.COLUMN
+
+    def _value_feature(self) -> FeatureSpec:
+        raise NotImplementedError
+
+    def feature_specs(self) -> List[FeatureSpec]:
+        return _with_where(
+            [rows_feature(), self._value_feature(), mask_feature(self.column)], self.where
+        )
+
+    def scan_slot(self) -> SlotSpec:
+        return (
+            KIND_MOMENTS, self._where_key(), mask_feature(self.column).key,
+            self._value_feature().key,
+        )
+
+    def merge(self, a, b):
+        return a.merge(b)
+
+    def metric_value(self, state) -> float:
+        return state.metric_value()
+
+    def is_empty(self, state) -> bool:
+        return int(state.count) == 0
+
+
+@dataclass(frozen=True)
+class _NumericColumnAnalyzer(_ValueAnalyzer):
+    """Single numeric-column reductions."""
+
+    def preconditions(self) -> List[Callable[[Schema], None]]:
+        return [Preconditions.has_column(self.column), Preconditions.is_numeric(self.column)]
+
+    def _value_feature(self) -> FeatureSpec:
+        return numeric_feature(self.column)
+
+
+@dataclass(frozen=True)
+class Mean(_NumericColumnAnalyzer):
+    """(reference `analyzers/Mean.scala:25-54`)."""
+
+    name: str = field(default="Mean", init=False)
+
+    def init_state(self, device) -> MeanState:
+        return MeanState.init(device)
+
+    def fold_slot(self, state: MeanState, p: Partials) -> MeanState:
+        return MeanState(state.total + p.total, state.count + p.matches)
+
+
+@dataclass(frozen=True)
+class Sum(_NumericColumnAnalyzer):
+    """(reference `analyzers/Sum.scala:25-52`)."""
+
+    name: str = field(default="Sum", init=False)
+
+    def init_state(self, device) -> SumState:
+        return SumState.init(device)
+
+    def fold_slot(self, state: SumState, p: Partials) -> SumState:
+        return SumState(state.total + p.total, state.count + p.matches)
+
+
+@dataclass(frozen=True)
+class Minimum(_NumericColumnAnalyzer):
+    """NaN-largest order: NaN values never win, and a min over only NaNs is
+    NaN (reference `analyzers/Minimum.scala:25-53`)."""
+
+    name: str = field(default="Minimum", init=False)
+
+    def init_state(self, device) -> MinState:
+        return MinState.init(device)
+
+    def fold_slot(self, state: MinState, p: Partials) -> MinState:
+        return MinState(min_nan_largest(state.min_value, p.min), state.count + p.matches)
+
+
+@dataclass(frozen=True)
+class Maximum(_NumericColumnAnalyzer):
+    """Any valid NaN wins the max (reference `analyzers/Maximum.scala:25-53`)."""
+
+    name: str = field(default="Maximum", init=False)
+
+    def init_state(self, device) -> MaxState:
+        return MaxState.init(device)
+
+    def fold_slot(self, state: MaxState, p: Partials) -> MaxState:
+        return MaxState(max_nan(state.max_value, p.max), state.count + p.matches)
+
+
+@dataclass(frozen=True)
+class _LengthAnalyzer(_ValueAnalyzer):
+    def preconditions(self) -> List[Callable[[Schema], None]]:
+        return [Preconditions.has_column(self.column), Preconditions.is_string(self.column)]
+
+    def _value_feature(self) -> FeatureSpec:
+        return length_feature(self.column)
+
+
+@dataclass(frozen=True)
+class MinLength(_LengthAnalyzer):
+    """Min string length, nulls ignored (reference `analyzers/MinLength.scala:25-41`)."""
+
+    name: str = field(default="MinLength", init=False)
+
+    def init_state(self, device) -> MinState:
+        return MinState.init(device)
+
+    def fold_slot(self, state: MinState, p: Partials) -> MinState:
+        return MinState(min_nan_largest(state.min_value, p.min), state.count + p.matches)
+
+
+@dataclass(frozen=True)
+class MaxLength(_LengthAnalyzer):
+    """(reference `analyzers/MaxLength.scala:25-41`)."""
+
+    name: str = field(default="MaxLength", init=False)
+
+    def init_state(self, device) -> MaxState:
+        return MaxState.init(device)
+
+    def fold_slot(self, state: MaxState, p: Partials) -> MaxState:
+        return MaxState(max_nan(state.max_value, p.max), state.count + p.matches)
+
+
+@dataclass(frozen=True)
+class StandardDeviation(_NumericColumnAnalyzer):
+    """Population stddev via Welford/Chan merges
+    (reference `analyzers/StandardDeviation.scala:25-73`)."""
+
+    name: str = field(default="StandardDeviation", init=False)
+
+    def init_state(self, device) -> StandardDeviationState:
+        return StandardDeviationState.init(device)
+
+    def fold_slot(self, state: StandardDeviationState, p: Partials) -> StandardDeviationState:
+        batch = StandardDeviationState(p.matches.to(state.n.dtype), p.mean, p.m2)
+        return state.merge(batch)
+
+    def is_empty(self, state) -> bool:
+        return float(state.n) == 0

@@ -1,0 +1,273 @@
+// K1 scan_reduce: every scalar reduction of one batch, for a table of slots,
+// in one launch.
+//
+// Replaces the fused per-batch update of the JAX reference,
+// PackedScanProgram.fused_update (deequ_tpu/runners/engine.py:366) over the
+// analyzers' update functions in deequ_tpu/analyzers/simple.py: Size :127,
+// Completeness :189, Compliance :232, PatternMatch :302, Mean :354, Sum :383,
+// Minimum :415, Maximum :448, MinLength :519, MaxLength :545 and
+// StandardDeviation :572.
+//
+// A slot names up to three byte masks and a value array; the batch row mask
+// is shared by all slots. Per slot the kernel writes
+//   out_i[s] = (matches, count)    matches = sum(rows & where & sel),
+//                                  count   = sum(rows & where)
+//   out_f[s] = (sum, min, max, mean, m2) over the selected values:
+//              min in the NaN-largest order (NaN skipped; NaN if none),
+//              max with NaN propagation (-inf if none), and the batch's
+//              (mean, M2) about its own mean for StandardDeviation.
+// Counting slots (kind 0) carry no values and leave out_f at identities.
+//
+// Bound on the card: bytes. Each distinct input array is read from device
+// memory once (the row mask, each mask and value array: 1 to 8 bytes per
+// row); the arithmetic is a few adds and compares per selected value, far
+// below the H100's rate. Design: each block owns a chunk of 4096 rows and
+// walks the slot table over it; slots that share an array re-read the
+// chunk from L1/L2, not from device memory. The second pass of the two-pass
+// moments re-reads the chunk the same way.
+//
+// Determinism: no float atomics. Blocks write per-slot partials; a second
+// one-block launch folds them in block order (counts and sums added, min and
+// max by the rules in common.cuh, moments merged by Chan's rule). Within a
+// block, threads reduce in a fixed shuffle tree. The result is the same on
+// every run.
+#include <string.h>
+
+#include <math_constants.h>
+
+#include "common.cuh"
+
+#define SR_MAX_SLOTS 64
+#define SR_THREADS 256
+#define SR_ROWS_PER_THREAD 16
+#define SR_CHUNK (SR_THREADS * SR_ROWS_PER_THREAD)
+#define SR_WARPS (SR_THREADS / 32)
+
+#define SR_KIND_COUNTS 0
+#define SR_KIND_MOMENTS 1
+
+// mirrors deequ_tpu_torch/kernels/scan_reduce.py _SlotStruct
+struct SrSlot {
+  int32_t kind;         // SR_KIND_COUNTS or SR_KIND_MOMENTS
+  int32_t vals_i32;     // 1: int32 values (string lengths); 0: float64
+  const void* vals;     // null for counting slots
+  const uint8_t* where;  // null: no where-filter
+  const uint8_t* sel;    // null: every counted row is selected
+};
+
+struct SrTable {
+  SrSlot s[SR_MAX_SLOTS];
+};
+
+struct SrAcc {
+  long long base;    // rows & where
+  long long sel;     // rows & where & sel
+  long long nonnan;  // selected values that are not NaN
+  double sum;
+  double mn;         // min over non-NaN selected values, +inf if none
+  double mx;         // max over non-NaN selected values, -inf if none
+  int has_nan;       // a selected value was NaN
+};
+
+__device__ __forceinline__ double sr_value(const SrSlot& s, long long i) {
+  return s.vals_i32 ? (double)((const int32_t*)s.vals)[i]
+                    : ((const double*)s.vals)[i];
+}
+
+__device__ __forceinline__ void sr_combine(SrAcc& a, const SrAcc& b) {
+  a.base += b.base;
+  a.sel += b.sel;
+  a.nonnan += b.nonnan;
+  a.sum += b.sum;
+  a.mn = dq_min_z(a.mn, b.mn);
+  a.mx = dq_max_z(a.mx, b.mx);
+  a.has_nan |= b.has_nan;
+}
+
+__device__ __forceinline__ SrAcc sr_shfl_down(const SrAcc& a, int offset) {
+  SrAcc o;
+  o.base = __shfl_down_sync(0xffffffffu, a.base, offset);
+  o.sel = __shfl_down_sync(0xffffffffu, a.sel, offset);
+  o.nonnan = __shfl_down_sync(0xffffffffu, a.nonnan, offset);
+  o.sum = __shfl_down_sync(0xffffffffu, a.sum, offset);
+  o.mn = __shfl_down_sync(0xffffffffu, a.mn, offset);
+  o.mx = __shfl_down_sync(0xffffffffu, a.mx, offset);
+  o.has_nan = __shfl_down_sync(0xffffffffu, a.has_nan, offset);
+  return o;
+}
+
+__global__ void __launch_bounds__(SR_THREADS)
+scan_reduce_blocks(const SrTable table, int n_slots,
+                   const uint8_t* __restrict__ rows, long long n,
+                   long long* __restrict__ part_i,
+                   double* __restrict__ part_f) {
+  __shared__ SrAcc warp_acc[SR_WARPS];
+  __shared__ double warp_m2[SR_WARPS];
+  __shared__ double block_mean;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long start = (long long)blockIdx.x * SR_CHUNK;
+
+  for (int s = 0; s < n_slots; ++s) {
+    const SrSlot slot = table.s[s];
+    const bool moments = slot.kind == SR_KIND_MOMENTS;
+    SrAcc acc;
+    acc.base = 0;
+    acc.sel = 0;
+    acc.nonnan = 0;
+    acc.sum = 0.0;
+    acc.mn = CUDART_INF;
+    acc.mx = -CUDART_INF;
+    acc.has_nan = 0;
+    for (int k = 0; k < SR_ROWS_PER_THREAD; ++k) {
+      const long long i = start + (long long)k * SR_THREADS + threadIdx.x;
+      if (i >= n) break;
+      if (!rows[i] || (slot.where != nullptr && !slot.where[i])) continue;
+      acc.base += 1;
+      if (slot.sel != nullptr && !slot.sel[i]) continue;
+      acc.sel += 1;
+      if (moments) {
+        const double v = sr_value(slot, i);
+        acc.sum += v;
+        if (isnan(v)) {
+          acc.has_nan = 1;
+        } else {
+          acc.nonnan += 1;
+          acc.mn = dq_min_z(acc.mn, v);
+          acc.mx = dq_max_z(acc.mx, v);
+        }
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const SrAcc o = sr_shfl_down(acc, off);
+      sr_combine(acc, o);
+    }
+    if (lane == 0) warp_acc[warp] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      SrAcc b = warp_acc[0];
+      for (int w = 1; w < SR_WARPS; ++w) sr_combine(b, warp_acc[w]);
+      warp_acc[0] = b;
+      block_mean = b.sel > 0 ? b.sum / (double)b.sel : 0.0;
+    }
+    __syncthreads();
+    const SrAcc blk = warp_acc[0];
+    const double mean = block_mean;
+
+    // second pass: M2 about the block's own mean (the chunk is in cache)
+    double m2 = 0.0;
+    if (moments && blk.sel > 0) {  // uniform across the block
+      for (int k = 0; k < SR_ROWS_PER_THREAD; ++k) {
+        const long long i = start + (long long)k * SR_THREADS + threadIdx.x;
+        if (i >= n) break;
+        if (!rows[i] || (slot.where != nullptr && !slot.where[i])) continue;
+        if (slot.sel != nullptr && !slot.sel[i]) continue;
+        const double d = sr_value(slot, i) - mean;
+        m2 += d * d;
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        m2 += __shfl_down_sync(0xffffffffu, m2, off);
+      }
+      if (lane == 0) warp_m2[warp] = m2;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        double t = warp_m2[0];
+        for (int w = 1; w < SR_WARPS; ++w) t += warp_m2[w];
+        m2 = t;
+      }
+    }
+
+    if (threadIdx.x == 0) {
+      const long long o = (long long)blockIdx.x * n_slots + s;
+      part_i[o * 2 + 0] = blk.sel;
+      part_i[o * 2 + 1] = blk.base;
+      part_f[o * 5 + 0] = blk.sum;
+      part_f[o * 5 + 1] = blk.nonnan > 0 ? blk.mn : CUDART_NAN;
+      part_f[o * 5 + 2] = blk.has_nan ? CUDART_NAN : blk.mx;
+      part_f[o * 5 + 3] = mean;
+      part_f[o * 5 + 4] = blk.sel > 0 ? m2 : 0.0;
+    }
+    __syncthreads();  // warp_acc and block_mean are rewritten by the next slot
+  }
+}
+
+// one thread per slot folds the block partials in block order
+__global__ void scan_reduce_fold(int n_blocks, int n_slots,
+                                 const long long* __restrict__ part_i,
+                                 const double* __restrict__ part_f,
+                                 long long* __restrict__ out_i,
+                                 double* __restrict__ out_f) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n_slots) return;
+  long long matches = 0;
+  long long count = 0;
+  double sum = 0.0;
+  double mn = CUDART_NAN;
+  double mx = -CUDART_INF;
+  double n = 0.0;
+  double mean = 0.0;
+  double m2 = 0.0;
+  for (int b = 0; b < n_blocks; ++b) {
+    const long long o = (long long)b * n_slots + s;
+    const long long nb = part_i[o * 2 + 0];
+    matches += nb;
+    count += part_i[o * 2 + 1];
+    sum += part_f[o * 5 + 0];
+    mn = dq_min_nan_largest(mn, part_f[o * 5 + 1]);
+    mx = dq_max_nan(mx, part_f[o * 5 + 2]);
+    if (nb > 0) {
+      const double nbd = (double)nb;
+      const double mean_b = part_f[o * 5 + 3];
+      const double m2_b = part_f[o * 5 + 4];
+      if (n == 0.0) {
+        mean = mean_b;
+        m2 = m2_b;
+        n = nbd;
+      } else {
+        const double tot = n + nbd;
+        const double d = mean_b - mean;
+        mean += d * nbd / tot;
+        m2 += m2_b + d * d * n * nbd / tot;
+        n = tot;
+      }
+    }
+  }
+  out_i[s * 2 + 0] = matches;
+  out_i[s * 2 + 1] = count;
+  out_f[s * 5 + 0] = sum;
+  out_f[s * 5 + 1] = mn;
+  out_f[s * 5 + 2] = mx;
+  out_f[s * 5 + 3] = mean;
+  out_f[s * 5 + 4] = m2;
+}
+
+extern "C" int scan_reduce_max_slots() { return SR_MAX_SLOTS; }
+
+extern "C" int scan_reduce_num_blocks(long long n) {
+  const long long b = (n + SR_CHUNK - 1) / SR_CHUNK;
+  return b < 1 ? 1 : (int)b;
+}
+
+// part_i: int64[num_blocks * n_slots * 2], part_f: float64[num_blocks *
+// n_slots * 5] scratch; out_i: int64[n_slots * 2]; out_f: float64[n_slots * 5]
+extern "C" int scan_reduce_launch(const SrSlot* slots, int n_slots,
+                                  const uint8_t* rows, long long n,
+                                  long long* part_i, double* part_f,
+                                  long long* out_i, double* out_f,
+                                  void* stream) {
+  if (n_slots < 1 || n_slots > SR_MAX_SLOTS || n < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  SrTable table;
+  memset(&table, 0, sizeof(table));
+  memcpy(table.s, slots, sizeof(SrSlot) * (size_t)n_slots);
+  const int nb = scan_reduce_num_blocks(n);
+  cudaStream_t st = (cudaStream_t)stream;
+  scan_reduce_blocks<<<nb, SR_THREADS, 0, st>>>(table, n_slots, rows, n,
+                                                part_i, part_f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  scan_reduce_fold<<<1, SR_MAX_SLOTS, 0, st>>>(nb, n_slots, part_i, part_f,
+                                               out_i, out_f);
+  return (int)cudaGetLastError();
+}

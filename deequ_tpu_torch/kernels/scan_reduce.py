@@ -1,0 +1,195 @@
+"""K1 ``scan_reduce``: all scalar reductions of one batch in one launch.
+
+Replaces the fused per-batch update of the JAX reference
+(``PackedScanProgram.fused_update``, deequ_tpu/runners/engine.py:366, over
+the ``update`` functions of deequ_tpu/analyzers/simple.py). The CUDA source
+is ``csrc/scan_reduce.cu``; :func:`scan_reduce_plain` is the same function
+in plain PyTorch.
+
+A :class:`Slot` describes one reduction: the rows counted are ``rows &
+where``, the rows selected are those & ``sel``, and a moments slot also
+reduces ``vals`` over the selected rows. Analyzers that need the same
+reduction (Mean, Sum, Minimum, Maximum and StandardDeviation of one column
+under one filter) share one slot.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from . import build, check_status, check_tensor, count_launch, on_cuda, stream_handle
+
+NAME = "scan_reduce"
+KIND_COUNTS = 0
+KIND_MOMENTS = 1
+#: slots per launch; equals SR_MAX_SLOTS in csrc/scan_reduce.cu
+MAX_SLOTS = 64
+#: columns of the int64 output
+I_MATCHES, I_COUNT = 0, 1
+#: columns of the float64 output
+F_SUM, F_MIN, F_MAX, F_MEAN, F_M2 = 0, 1, 2, 3, 4
+
+
+@dataclass(frozen=True)
+class Slot:
+    kind: int
+    where: Optional[torch.Tensor] = None  # bool[n] where-filter
+    sel: Optional[torch.Tensor] = None    # bool[n] presence / predicate
+    vals: Optional[torch.Tensor] = None   # float64[n] or int32[n]
+
+
+class Partials(NamedTuple):
+    """One slot's batch partials: 0-d views into the launch's outputs."""
+
+    matches: torch.Tensor  # int64: rows & where & sel
+    count: torch.Tensor    # int64: rows & where
+    total: torch.Tensor    # float64 sum of selected values
+    min: torch.Tensor      # float64, NaN-largest order (NaN if none)
+    max: torch.Tensor      # float64, NaN propagates (-inf if none)
+    mean: torch.Tensor     # float64 batch mean (0 if none)
+    m2: torch.Tensor       # float64 sum of squares about the batch mean
+
+
+def partials(out_i: torch.Tensor, out_f: torch.Tensor, slot: int) -> Partials:
+    return Partials(
+        out_i[slot, I_MATCHES], out_i[slot, I_COUNT], out_f[slot, F_SUM],
+        out_f[slot, F_MIN], out_f[slot, F_MAX], out_f[slot, F_MEAN],
+        out_f[slot, F_M2],
+    )
+
+
+class _SlotStruct(ctypes.Structure):
+    # mirrors struct SrSlot in csrc/scan_reduce.cu
+    _fields_ = [
+        ("kind", ctypes.c_int32),
+        ("vals_i32", ctypes.c_int32),
+        ("vals", ctypes.c_void_p),
+        ("where", ctypes.c_void_p),
+        ("sel", ctypes.c_void_p),
+    ]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(NAME)
+    if not getattr(lib, "_deequ_bound", False):
+        lib.scan_reduce_max_slots.restype = ctypes.c_int
+        lib.scan_reduce_max_slots.argtypes = []
+        lib.scan_reduce_num_blocks.restype = ctypes.c_int
+        lib.scan_reduce_num_blocks.argtypes = [ctypes.c_longlong]
+        lib.scan_reduce_launch.restype = ctypes.c_int
+        lib.scan_reduce_launch.argtypes = [
+            ctypes.POINTER(_SlotStruct), ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        if lib.scan_reduce_max_slots() != MAX_SLOTS:
+            raise RuntimeError("scan_reduce library and wrapper disagree on MAX_SLOTS")
+        lib._deequ_bound = True
+    return lib
+
+
+def _validate(slots: Sequence[Slot], rows: torch.Tensor) -> None:
+    if not slots or len(slots) > MAX_SLOTS:
+        raise ValueError(f"{NAME}: takes 1 to {MAX_SLOTS} slots, got {len(slots)}")
+    n = rows.shape[0] if rows.dim() == 1 else -1
+    check_tensor(rows, NAME, "rows", torch.bool, n, rows.device)
+    for i, slot in enumerate(slots):
+        if slot.kind not in (KIND_COUNTS, KIND_MOMENTS):
+            raise ValueError(f"{NAME}: slot {i} has unknown kind {slot.kind}")
+        for what in ("where", "sel"):
+            mask = getattr(slot, what)
+            if mask is not None:
+                check_tensor(mask, NAME, f"slot {i} {what}", torch.bool, n, rows.device)
+        if slot.kind == KIND_MOMENTS:
+            if slot.vals is None:
+                raise ValueError(f"{NAME}: moments slot {i} has no values")
+            dtype = torch.int32 if slot.vals.dtype == torch.int32 else torch.float64
+            check_tensor(slot.vals, NAME, f"slot {i} vals", dtype, n, rows.device)
+
+
+def scan_reduce(slots: Sequence[Slot], rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reduce every slot over one batch. Returns ``(out_i, out_f)``:
+    int64[S, 2] (matches, count) and float64[S, 5] (sum, min, max, mean,
+    m2). CPU tensors take :func:`scan_reduce_plain`; CUDA tensors launch
+    the kernel."""
+    _validate(slots, rows)
+    if not on_cuda(rows, NAME):
+        return scan_reduce_plain(slots, rows)
+    lib = _lib()
+    device = rows.device
+    n = rows.shape[0]
+    s = len(slots)
+    table = (_SlotStruct * s)(*[
+        _SlotStruct(
+            slot.kind,
+            int(slot.vals is not None and slot.vals.dtype == torch.int32),
+            None if slot.vals is None else slot.vals.data_ptr(),
+            None if slot.where is None else slot.where.data_ptr(),
+            None if slot.sel is None else slot.sel.data_ptr(),
+        )
+        for slot in slots
+    ])
+    blocks = lib.scan_reduce_num_blocks(n)
+    part_i = torch.empty(blocks * s * 2, dtype=torch.int64, device=device)
+    part_f = torch.empty(blocks * s * 5, dtype=torch.float64, device=device)
+    out_i = torch.empty((s, 2), dtype=torch.int64, device=device)
+    out_f = torch.empty((s, 5), dtype=torch.float64, device=device)
+    status = lib.scan_reduce_launch(
+        table, s, rows.data_ptr(), n, part_i.data_ptr(), part_f.data_ptr(),
+        out_i.data_ptr(), out_f.data_ptr(), stream_handle(device),
+    )
+    check_status(NAME, status)
+    count_launch(NAME)
+    return out_i, out_f
+
+
+def scan_reduce_plain(slots: Sequence[Slot], rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same function as the kernel in plain PyTorch, one slot at a
+    time. Counts, min and max agree with the kernel bit for bit; sums, means
+    and M2 agree to rounding (the two add in different orders)."""
+    device = rows.device
+    out_i = torch.empty((len(slots), 2), dtype=torch.int64, device=device)
+    out_f = torch.empty((len(slots), 5), dtype=torch.float64, device=device)
+    for s, slot in enumerate(slots):
+        base = rows if slot.where is None else rows & slot.where
+        sel = base if slot.sel is None else base & slot.sel
+        matches = sel.sum(dtype=torch.int64)
+        out_i[s, I_MATCHES] = matches
+        out_i[s, I_COUNT] = base.sum(dtype=torch.int64)
+        if slot.kind == KIND_MOMENTS:
+            out_f[s] = _moments_plain(slot.vals, sel, matches)
+        else:
+            out_f[s] = torch.tensor(
+                [0.0, math.nan, -math.inf, 0.0, 0.0], dtype=torch.float64, device=device
+            )
+    return out_i, out_f
+
+
+def _moments_plain(vals: torch.Tensor, sel: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    v = vals.to(torch.float64)
+    zero = torch.zeros((), dtype=torch.float64, device=v.device)
+    inf = torch.full((), math.inf, dtype=torch.float64, device=v.device)
+    nan = torch.full((), math.nan, dtype=torch.float64, device=v.device)
+    if v.numel() == 0:
+        return torch.stack([zero, nan, -inf, zero, zero])
+    total = torch.where(sel, v, zero).sum()
+    # min: NaN skipped, NaN when nothing is left; -0.0 wins over +0.0
+    nonnan = sel & ~torch.isnan(v)
+    mn = torch.where(nonnan, v, inf).amin()
+    neg_zero = (nonnan & (v == 0) & torch.signbit(v)).any()
+    mn = torch.where(mn == 0, torch.where(neg_zero, -zero, zero), mn)
+    mn = torch.where(nonnan.any(), mn, nan)
+    # max: NaN propagates (amax does), -inf when empty; +0.0 wins over -0.0
+    mx = torch.where(sel, v, -inf).amax()
+    pos_zero = (sel & (v == 0) & ~torch.signbit(v)).any()
+    mx = torch.where(mx == 0, torch.where(pos_zero, zero, -zero), mx)
+    nf = n.to(torch.float64)
+    mean = torch.where(n > 0, total / torch.clamp(nf, min=1.0), zero)
+    centered = torch.where(sel, v - mean, zero)
+    m2 = torch.where(n > 0, (centered * centered).sum(), zero)
+    return torch.stack([total, mn, mx, mean, m2])

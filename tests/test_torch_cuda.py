@@ -1,0 +1,149 @@
+"""The CUDA kernels of deequ_tpu_torch against their plain PyTorch versions,
+on the card.
+
+Every test here is marked ``cuda`` and needs a CUDA device and ``nvcc``:
+without a card it skips (the kernels are CUDA C++ with no CPU build). The
+file imports neither JAX nor the reference package, so on a machine
+without JAX it runs with ``python -m pytest --noconftest -m cuda
+tests/test_torch_cuda.py``. Tolerances: counts, min, max, HLL registers
+and dictionary counts bit-exact (floats with their sign bit, NaN equal to
+NaN); float64 sums, means and M2 within 1e-12 relative to the magnitude
+that bounds their rounding when the adds are reordered (sum of |v|, max |v|
+and sum of v^2).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+from deequ_tpu_torch.kernels.dict_code_counts import dict_code_counts, dict_code_counts_plain
+from deequ_tpu_torch.kernels.hll_registers import hll_registers, hll_registers_plain
+from deequ_tpu_torch.kernels.scan_reduce import (
+    KIND_COUNTS,
+    KIND_MOMENTS,
+    Slot,
+    scan_reduce,
+    scan_reduce_plain,
+)
+
+RTOL = 1e-12
+
+
+def _bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    nan_a, nan_b = np.isnan(a), np.isnan(b)
+    return bool(
+        np.array_equal(nan_a, nan_b)
+        and np.array_equal(a[~nan_a], b[~nan_b])
+        and np.array_equal(np.signbit(a[~nan_a]), np.signbit(b[~nan_b]))
+    )
+
+
+def _close(a: float, b: float, scale: float) -> bool:
+    if np.isnan(a) or np.isnan(b):
+        return bool(np.isnan(a) and np.isnan(b))
+    if np.isinf(a) or np.isinf(b):
+        return a == b
+    return abs(a - b) <= RTOL * max(scale, 1.0)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ with no CPU build")
+    return torch.device("cuda")
+
+
+def _random_slots(n, device, seed=5):
+    rng = np.random.default_rng(seed)
+
+    def mask(p):
+        return torch.from_numpy(rng.random(n) < p).to(device)
+
+    v = rng.normal(3.0, 7.0, n)
+    v[rng.random(n) < 0.001] = np.nan
+    v[rng.random(n) < 0.001] = np.inf
+    head = np.array([0.0, -0.0, -0.0, 0.0, -np.inf, np.inf])
+    v[: min(n, 6)] = head[: min(n, 6)]
+    vals = torch.from_numpy(v).to(device)
+    finite = torch.from_numpy(rng.normal(-2.0, 1.0, n)).to(device)
+    zeros = torch.from_numpy(np.where(rng.random(n) < 0.5, -0.0, 0.0)).to(device)
+    lens = torch.from_numpy(rng.integers(0, 90, n).astype(np.int32)).to(device)
+    nothing = torch.zeros(n, dtype=torch.bool, device=device)
+    slots = [
+        Slot(KIND_COUNTS),
+        Slot(KIND_COUNTS, where=mask(0.5)),
+        Slot(KIND_COUNTS, where=mask(0.5), sel=mask(0.9)),
+        Slot(KIND_MOMENTS, sel=mask(0.95), vals=vals),
+        Slot(KIND_MOMENTS, sel=mask(0.95), vals=finite),
+        Slot(KIND_MOMENTS, where=mask(0.3), sel=mask(0.95), vals=finite),
+        Slot(KIND_MOMENTS, sel=mask(0.8), vals=zeros),
+        Slot(KIND_MOMENTS, sel=nothing, vals=finite),
+        Slot(KIND_MOMENTS, sel=mask(0.9), vals=lens),
+    ]
+    return slots, mask(0.97)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4095, 4096, 1_000_003])
+def test_scan_reduce_kernel_matches_plain(cuda_device, n):
+    slots, rows = _random_slots(n, cuda_device)
+    ki, kf = scan_reduce(slots, rows)
+    pi, pf = scan_reduce_plain(slots, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    kf, pf = kf.cpu().numpy(), pf.cpu().numpy()
+    for col in (1, 2):  # min, max: bit-exact
+        assert _bits_equal(kf[:, col], pf[:, col]), col
+    for s, slot in enumerate(slots):  # sum, mean, m2: reordered float adds
+        if slot.vals is None:
+            continue
+        v = slot.vals.double().cpu().numpy()
+        v = v[np.isfinite(v)]
+        if v.size == 0:
+            continue
+        scales = (np.abs(v).sum(), np.abs(v).max(), (v * v).sum())
+        for col, scale in zip((0, 3, 4), scales):
+            assert _close(kf[s, col], pf[s, col], float(scale)), (s, col)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1_000_003])
+def test_hll_registers_kernel_matches_plain(cuda_device, n):
+    rng = np.random.default_rng(9)
+    keys = torch.from_numpy(rng.integers(0, 1 << 15, n).astype(np.uint16)).to(cuda_device)
+    rows = torch.from_numpy(rng.random(n) < 0.97).to(cuda_device)
+    where = torch.from_numpy(rng.random(n) < 0.6).to(cuda_device)
+    present = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
+    for w in (None, where):
+        got = hll_registers(keys, rows, w, present)
+        want = hll_registers_plain(keys, rows, w, present)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 1, 4096, 4097, 20000, 32768, 32769, 65536])
+def test_dict_code_counts_kernel_matches_plain(cuda_device, k):
+    n = 1_000_003
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, k + 1, n).astype(np.int32)  # k is the sentinel
+    codes_t = torch.from_numpy(codes).to(cuda_device)
+    rows = torch.from_numpy(rng.random(n) < 0.97).to(cuda_device)
+    present = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
+    counts, num_rows = dict_code_counts(codes_t, rows, present, k)
+    want_counts, want_rows = dict_code_counts_plain(codes_t, rows, present, k)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, want_counts)
+    assert int(num_rows) == int(want_rows)
+
+
+@pytest.mark.cuda
+def test_kernels_count_their_launches(cuda_device):
+    reset_launch_counts()
+    slots, rows = _random_slots(1000, cuda_device)
+    scan_reduce(slots, rows)
+    scan_reduce_plain(slots, rows)
+    assert launch_counts()["scan_reduce"] == 1

@@ -1,0 +1,284 @@
+"""Per-kernel parity of the PyTorch/CUDA port (deequ_tpu_torch) with the JAX
+reference (deequ_tpu).
+
+CPU tests: the same batch (made with numpy from a seed, one pyarrow table
+for both packages) goes through the JAX analyzer's ``update`` and the
+port's ``update`` on ``device="cpu"``, where each kernel wrapper runs its
+plain PyTorch version. Tolerances:
+
+- counts, min, max, HLL registers and dictionary counts: bit-exact
+  (floats compared with their sign bit; NaN equals NaN);
+- float64 sums, means and M2: within 1e-12 relative to the magnitude that
+  bounds their rounding when the adds are reordered: the sum of |v| for a
+  sum, max |v| for a mean, the sum of v^2 for M2.
+
+The kernels themselves are held against these plain versions on the card
+by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pyarrow as pa
+import pytest
+import torch
+
+import deequ_tpu.analyzers as J
+import deequ_tpu.analyzers.grouping as JG
+import deequ_tpu.data as JD
+import deequ_tpu.runners.features as JF
+import deequ_tpu_torch.analyzers as T
+import deequ_tpu_torch.analyzers.grouping as TG
+import deequ_tpu_torch.data as TD
+import deequ_tpu_torch.runners.features as TF
+from deequ_tpu_torch.analyzers.states import leaves as torch_leaves
+from deequ_tpu_torch.kernels.dict_code_counts import dict_code_counts
+from deequ_tpu_torch.kernels.scan_reduce import KIND_COUNTS, KIND_MOMENTS, Slot, scan_reduce
+from deequ_tpu_torch.runners.engine import to_device
+
+CPU = torch.device("cpu")
+RTOL = 1e-12
+
+# ---------------------------------------------------------------------------
+# data
+# ---------------------------------------------------------------------------
+
+
+def _table(n: int = 3000, seed: int = 7) -> pa.Table:
+    rng = np.random.default_rng(seed)
+    v = rng.normal(5.0, 2.0, n)
+    v[rng.random(n) < 0.03] = np.nan
+    v[rng.random(n) < 0.02] = np.inf
+    v[rng.random(n) < 0.02] = -np.inf
+    v[:4] = [0.0, -0.0, -0.0, 0.0]
+    w = rng.normal(-1.0, 10.0, n)
+    zeros = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    strings = [None if i % 9 == 0 else "x" * (i % 13) + "@" + str(i % 5) for i in range(n)]
+    codes = rng.integers(0, 40, n).astype(np.int32)
+    return pa.table({
+        "v": pa.array(v, mask=rng.random(n) < 0.1),
+        "w": pa.array(w, mask=rng.random(n) < 0.05),
+        "allnan": pa.array(np.full(n, np.nan), mask=rng.random(n) < 0.2),
+        "zeros": pa.array(zeros, mask=rng.random(n) < 0.2),
+        "ints": pa.array(rng.integers(-1000, 1000, n)),
+        "s": pa.array(strings),
+        "d": pa.DictionaryArray.from_arrays(
+            pa.array(codes, mask=rng.random(n) < 0.1),
+            pa.array([f"k{i:02d}" for i in range(40)]),
+        ),
+    })
+
+
+def _batches(table: pa.Table, batch_size: int):
+    """The same padded batches in both packages."""
+    jb = list(JD.Dataset.from_arrow(table).batches(batch_size))
+    tb = list(TD.Dataset.from_arrow(table).batches(batch_size))
+    assert len(jb) == len(tb)
+    return jb, tb
+
+
+def _jax_features(analyzer, batch):
+    built = JF.FeatureBuilder(analyzer.feature_specs()).build(batch)
+    return {k: jnp.asarray(v) for k, v in built.items()}
+
+
+def _torch_features(analyzer, batch):
+    return to_device(TF.FeatureBuilder(analyzer.feature_specs()).build(batch), CPU)
+
+
+def _fold(jax_a, torch_a, table, batch_size=1024):
+    """Fold every batch through both packages' updates; returns the JAX
+    leaves and the port's leaves as numpy arrays."""
+    jb, tb = _batches(table, batch_size)
+    js, ts = jax_a.init_state(), torch_a.init_state(CPU)
+    for jbatch, tbatch in zip(jb, tb):
+        js = jax_a.update(js, _jax_features(jax_a, jbatch))
+        ts = torch_a.update(ts, _torch_features(torch_a, tbatch))
+    return (
+        [np.asarray(x) for x in jax.tree_util.tree_leaves(js)],
+        [t.numpy() for t in torch_leaves(ts)],
+    )
+
+
+def _bits_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if np.issubdtype(a.dtype, np.floating):
+        nan_a, nan_b = np.isnan(a), np.isnan(b)
+        return bool(
+            np.array_equal(nan_a, nan_b)
+            and np.array_equal(a[~nan_a], b[~nan_b])
+            and np.array_equal(np.signbit(a[~nan_a]), np.signbit(b[~nan_b]))
+        )
+    return bool(np.array_equal(a, b))
+
+
+def _close(a: np.ndarray, b: np.ndarray, scale: float) -> bool:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    nan_a, nan_b = np.isnan(a), np.isnan(b)
+    if not np.array_equal(nan_a, nan_b):
+        return False
+    a, b = a[~nan_a], b[~nan_b]
+    inf = np.isinf(a) | np.isinf(b)
+    if not np.array_equal(a[inf], b[inf]):
+        return False
+    return bool(np.all(np.abs(a[~inf] - b[~inf]) <= RTOL * max(scale, 1.0)))
+
+
+def _scales(table: pa.Table, column) -> dict:
+    """Rounding scales of a column's finite values, per float leaf kind."""
+    if column not in ("v", "w", "ints"):
+        return {"sum": 0.0, "avg": 0.0, "m2": 0.0}
+    vals = table[column].to_numpy(zero_copy_only=False).astype(np.float64)
+    vals = vals[np.isfinite(vals)]
+    return {
+        "sum": float(np.abs(vals).sum()),
+        "avg": float(np.abs(vals).max()),
+        "m2": float((vals * vals).sum()),
+    }
+
+
+# ---------------------------------------------------------------------------
+# K1 scan_reduce, through every slot analyzer's update
+# ---------------------------------------------------------------------------
+
+#: (analyzer constructor, per-leaf comparison): "exact" leaves are counts,
+#: min and max; "sum", "avg" and "m2" leaves are float64 moments
+SCAN_CASES = {
+    "size": (lambda m: m.Size(), ["exact"]),
+    "size_where": (lambda m: m.Size(where="w > 0"), ["exact"]),
+    "completeness_nulls": (lambda m: m.Completeness("v"), ["exact", "exact"]),
+    "completeness_where": (lambda m: m.Completeness("s", "w < 3"), ["exact", "exact"]),
+    "compliance": (lambda m: m.Compliance("v pos", "v > 0"), ["exact", "exact"]),
+    "compliance_where": (lambda m: m.Compliance("i", "ints >= 0", "v < 5"), ["exact", "exact"]),
+    "pattern_match": (lambda m: m.PatternMatch("s", r"x{3,}@[12]"), ["exact", "exact"]),
+    "mean_nan_inf": (lambda m: m.Mean("v"), ["sum", "exact"]),
+    "mean_finite": (lambda m: m.Mean("w"), ["sum", "exact"]),
+    "mean_where": (lambda m: m.Mean("w", "ints > 100"), ["sum", "exact"]),
+    "mean_all_masked": (lambda m: m.Mean("w", "w > 1e12"), ["sum", "exact"]),
+    "sum_ints": (lambda m: m.Sum("ints"), ["sum", "exact"]),
+    "sum_where": (lambda m: m.Sum("w", "v > 5"), ["sum", "exact"]),
+    "min_nan_inf_zeros": (lambda m: m.Minimum("v"), ["exact", "exact"]),
+    "min_nan_only": (lambda m: m.Minimum("allnan"), ["exact", "exact"]),
+    "min_signed_zeros": (lambda m: m.Minimum("zeros"), ["exact", "exact"]),
+    "min_all_masked": (lambda m: m.Minimum("w", "w > 1e12"), ["exact", "exact"]),
+    "max_nan_inf": (lambda m: m.Maximum("v"), ["exact", "exact"]),
+    "max_where_no_nan": (lambda m: m.Maximum("v", "v < 1e300"), ["exact", "exact"]),
+    "max_nan_only": (lambda m: m.Maximum("allnan"), ["exact", "exact"]),
+    "max_signed_zeros": (lambda m: m.Maximum("zeros"), ["exact", "exact"]),
+    "max_all_masked": (lambda m: m.Maximum("w", "w > 1e12"), ["exact", "exact"]),
+    "min_length": (lambda m: m.MinLength("s"), ["exact", "exact"]),
+    "max_length_where": (lambda m: m.MaxLength("s", "ints < 0"), ["exact", "exact"]),
+    "stddev": (lambda m: m.StandardDeviation("w"), ["exact", "avg", "m2"]),
+    "stddev_where": (lambda m: m.StandardDeviation("ints", "w > 0"), ["exact", "avg", "m2"]),
+    "stddev_nan": (lambda m: m.StandardDeviation("v"), ["exact", "avg", "m2"]),
+    "stddev_all_masked": (lambda m: m.StandardDeviation("w", "w > 1e12"), ["exact", "avg", "m2"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_scan_reduce_update_matches_jax(case):
+    make, kinds = SCAN_CASES[case]
+    table = _table()
+    jax_a, torch_a = make(J), make(T)
+    jl, tl = _fold(jax_a, torch_a, table)
+    assert len(jl) == len(tl) == len(kinds)
+    scales = _scales(table, getattr(torch_a, "column", None))
+    for i, (a, b, kind) in enumerate(zip(jl, tl, kinds)):
+        if kind == "exact":
+            assert _bits_equal(a, b), (case, i, a, b)
+        else:
+            assert _close(a, b, scales[kind]), (case, i, a, b)
+
+
+def test_scan_reduce_plain_batches_many_slots_at_once():
+    """One launch over a table of slots equals one launch per slot."""
+    rng = np.random.default_rng(3)
+    n = 5000
+    rows = torch.from_numpy(rng.random(n) < 0.95)
+    masks = [torch.from_numpy(rng.random(n) < p) for p in (0.3, 0.7, 0.99)]
+    vals = torch.from_numpy(np.where(rng.random(n) < 0.01, np.nan, rng.normal(0, 1, n)))
+    lens = torch.from_numpy(rng.integers(0, 50, n).astype(np.int32))
+    slots = [
+        Slot(KIND_COUNTS),
+        Slot(KIND_COUNTS, where=masks[0], sel=masks[1]),
+        Slot(KIND_MOMENTS, sel=masks[2], vals=vals),
+        Slot(KIND_MOMENTS, where=masks[1], sel=masks[2], vals=lens),
+    ]
+    out_i, out_f = scan_reduce(slots, rows)
+    for s, slot in enumerate(slots):
+        one_i, one_f = scan_reduce([slot], rows)
+        assert torch.equal(out_i[s], one_i[0])
+        assert _bits_equal(out_f[s].numpy(), one_f[0].numpy())
+
+
+def test_scan_reduce_rejects_bad_inputs():
+    rows = torch.ones(10, dtype=torch.bool)
+    with pytest.raises(TypeError):
+        scan_reduce([Slot(KIND_MOMENTS, vals=torch.zeros(10, dtype=torch.float32))], rows)
+    with pytest.raises(ValueError):
+        scan_reduce([Slot(KIND_COUNTS, sel=torch.ones(9, dtype=torch.bool))], rows)
+    with pytest.raises(ValueError):
+        scan_reduce([Slot(KIND_MOMENTS)], rows)
+    with pytest.raises(ValueError):
+        scan_reduce([], rows)
+
+
+# ---------------------------------------------------------------------------
+# K2 hll_registers, through ApproxCountDistinct.update
+# ---------------------------------------------------------------------------
+
+HLL_CASES = {
+    "numeric_nulls": lambda m: m.ApproxCountDistinct("v"),
+    "integral": lambda m: m.ApproxCountDistinct("ints"),
+    "strings_nulls": lambda m: m.ApproxCountDistinct("s"),
+    "dictionary": lambda m: m.ApproxCountDistinct("d"),
+    "where": lambda m: m.ApproxCountDistinct("ints", "w > 2"),
+    "all_masked": lambda m: m.ApproxCountDistinct("ints", "w > 1e12"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HLL_CASES))
+def test_hll_registers_update_matches_jax(case):
+    make = HLL_CASES[case]
+    jl, tl = _fold(make(J), make(T), _table())
+    assert len(jl) == len(tl) == 1
+    assert _bits_equal(jl[0], tl[0])
+
+
+# ---------------------------------------------------------------------------
+# K3 dict_code_counts, through DeviceFrequencyScan.update
+# ---------------------------------------------------------------------------
+
+
+def _dict_table(k: int, n: int = 3000, seed: int = 11) -> pa.Table:
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, k, n).astype(np.int32)
+    if k > 1:
+        codes[: min(n, k) // 2] = np.arange(min(n, k) // 2, dtype=np.int32)
+    return pa.table({
+        "c": pa.DictionaryArray.from_arrays(
+            pa.array(codes, mask=rng.random(n) < 0.1),
+            pa.array([f"v{i}" for i in range(k)]),
+        ),
+    })
+
+
+@pytest.mark.parametrize("k", [1, 4096, 4097, 65536])
+def test_dict_code_counts_update_matches_jax(k):
+    table = _dict_table(k)
+    jl, tl = _fold(JG.DeviceFrequencyScan("c", k), TG.DeviceFrequencyScan("c", k), table)
+    assert len(jl) == len(tl) == 2
+    assert _bits_equal(jl[0], tl[0])  # counts[k]
+    assert _bits_equal(jl[1], tl[1])  # num_rows
+
+
+def test_dict_code_counts_plain_drops_masked_and_sentinel():
+    codes = torch.tensor([0, 1, 2, 3, 3, -1, 1], dtype=torch.int32)
+    rows = torch.tensor([1, 1, 1, 1, 0, 1, 1], dtype=torch.bool)
+    present = torch.tensor([1, 1, 0, 1, 1, 1, 1], dtype=torch.bool)
+    counts, num_rows = dict_code_counts(codes, rows, present, 3)
+    assert counts.tolist() == [1, 2, 0]  # code 3 is the sentinel K
+    assert int(num_rows) == 6
