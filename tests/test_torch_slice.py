@@ -210,6 +210,62 @@ def test_verification_suite_matches_jax(case, df_missing):
             "feature_build.rows"} <= set(monitor.phase_seconds)
 
 
+def _edge_checks(m):
+    yes = lambda _: True  # noqa: E731 - the values are compared, not asserted
+    return [
+        m.Check(m.CheckLevel.ERROR, "edges").has_size(lambda v: v == 0).is_complete("x")
+        .has_mean("x", yes).has_min("b", yes).has_max("f", yes).has_sum("b", yes)
+        .has_uniqueness(["d"], yes).has_histogram_values("d", yes).has_entropy("d", yes)
+        .has_approx_count_distinct("x", yes).has_min_length("s", yes)
+        .has_number_of_distinct_values("d", yes),
+    ]
+
+
+def _edge_table(case: str) -> pa.Table:
+    n = 50
+    if case == "empty":
+        return pa.table({
+            "x": pa.array([], pa.float64()), "b": pa.array([], pa.bool_()),
+            "f": pa.array([], pa.float32()), "s": pa.array([], pa.string()),
+            "d": pa.DictionaryArray.from_arrays(pa.array([], pa.int32()), pa.array([], pa.string())),
+        })
+    base = {
+        "x": pa.array(np.arange(n, dtype=np.float64)),
+        "f": pa.array(np.linspace(-1, 1, n).astype(np.float32)),
+    }
+    if case == "all_null_dictionary":
+        return pa.table({
+            **base,
+            "b": pa.array([i % 3 == 0 for i in range(n)]),
+            "s": pa.array([None] * n, pa.string()),
+            "d": pa.DictionaryArray.from_arrays(pa.array([None] * n, pa.int32()), pa.array([], pa.string())),
+        })
+    return pa.table({  # int8 dictionary indices, nullable booleans
+        **base,
+        "b": pa.array([None if i % 5 == 0 else i % 3 == 0 for i in range(n)]),
+        "s": pa.array(["ab" * (i % 4) for i in range(n)]),
+        "d": pa.DictionaryArray.from_arrays(
+            pa.array(np.arange(n) % 3, pa.int8()), pa.array(["p", "q", "r"])),
+    })
+
+
+@pytest.mark.parametrize("case", ["empty", "all_null_dictionary", "narrow_types"])
+def test_edge_tables_match_jax(case):
+    """Empty tables, an empty dictionary (no codes at all), boolean and
+    float32 columns, int8 dictionary indices."""
+    table = _edge_table(case)
+    jax_result = (
+        deequ_tpu.VerificationSuite.on_data(JD.Dataset.from_arrow(table))
+        .add_checks(_edge_checks(deequ_tpu)).with_batch_size(16).run()
+    )
+    torch_result = (
+        deequ_tpu_torch.VerificationSuite.on_data(TD.Dataset.from_arrow(table), device="cpu")
+        .add_checks(_edge_checks(deequ_tpu_torch)).with_batch_size(16).run()
+    )
+    _assert_metrics_match(jax_result.metrics, torch_result.metrics)
+    assert _statuses(torch_result) == _statuses(jax_result)
+
+
 def _battery(m):
     return [
         m.Size(), m.Size(where="y > 0"), m.Completeness("x"), m.Completeness("nope"),
