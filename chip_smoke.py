@@ -40,8 +40,8 @@ import numpy as np
 import pyarrow as pa
 
 #: H100 SXM data sheet: HBM3 bandwidth, and the highest non-tensor-core
-#: rate of the on-chip-measurement table (float32, 67 TFLOP/s) as the
-#: peak for the kernels' scalar adds and compares
+#: rate (float32, 67 TFLOP/s) as the peak for the kernels' scalar adds
+#: and compares
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
