@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (deequ_tpu_torch) once on one CUDA GPU.
 
-    python3 chip_smoke.py [--rows N] [--seed S]
+    python3 chip_smoke.py [--seed S]
 
 Phases, each of which fails the run when it fails:
 
@@ -10,8 +10,9 @@ Phases, each of which fails the run when it fails:
    and print ptxas's register and shared-memory report;
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (the features of the first 1M-row batch), with
-   CUDA-event times of the kernel, the plain version and, where one exists,
-   the single PyTorch call that computes the same function;
+   CUDA-event times of the device work of the kernel, of the plain version
+   and, where one exists, of the single PyTorch call that computes the same
+   function, and the host time of each call apart;
 3. the main path: one ``VerificationSuite`` over a 10M-row dataset (BASELINE
    config 2's synthetic numeric/categorical table: four nullable float64
    columns with NaN, an int64 id, dictionary columns of ~1,000 and ~50,000
@@ -39,13 +40,18 @@ import time
 import numpy as np
 import pyarrow as pa
 
+#: cycles of ``torch.cuda._sleep`` per millisecond at the H100 SXM's
+#: highest clock (1.98 GHz); at a lower clock the spin only lasts longer
+SPIN_CYCLES_PER_MS = 2_000_000
+
 #: H100 SXM data sheet: HBM3 bandwidth, and the highest non-tensor-core
 #: rate (float32, 67 TFLOP/s) as the peak for the kernels' scalar adds
 #: and compares
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 
-DEFAULT_ROWS = 10_000_000
+#: rows of the main path's table: BASELINE config 2's 10M
+ROWS = 10_000_000
 BATCH_ROWS = 1 << 20
 SMALL_CATEGORIES = 1_000
 LARGE_CATEGORIES = 50_000
@@ -228,25 +234,56 @@ def compare_oracle(got: dict, want: dict, rtol: float = 1e-9) -> list:
 # ---------------------------------------------------------------------------
 
 
-def _time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median time of one call on the card, from CUDA events around each
-    call, with the L2 cache flushed before every call (the main path reads
-    freshly copied features, not cached ones)."""
+def _time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> dict:
+    """Times of one call of ``fn``: ``ms``, the median CUDA-event time of
+    the device work the call queues; ``host_ms``, the median host time the
+    call takes to queue it; ``ahead``, how many of the ``reps`` calls were
+    queued whole before their start event fired. Where any was, ``ms`` is
+    the median over those alone.
+
+    Before every call the L2 cache is flushed (the main path reads freshly
+    copied features, not cached ones) and a spin kernel is queued that
+    outlasts the call's host work, with the start event behind it. So the
+    events bracket the queued work alone, back to back, and not the host
+    time between launches. A call that waits for the card itself (a copy
+    to the host, a data-dependent size) cannot be queued ahead; its ``ms``
+    then includes the host time after that wait, and ``ahead`` says so."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    events = []
+    t0 = time.perf_counter()
+    fn()
+    spin_ms = 2.0 + 4e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    device, host, queued = [], [], []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(int(SPIN_CYCLES_PER_MS * spin_ms))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        t0 = time.perf_counter()
         fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        queued.append(not start.query())
         end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end))
+    if any(queued):
+        device = [ms for ms, q in zip(device, queued) if q]
+    return {"ms": statistics.median(device), "host_ms": statistics.median(host),
+            "ahead": sum(queued), "reps": reps}
+
+
+def _time_kernel_ms(torch, fn) -> dict:
+    """:func:`_time_ms` of a kernel's wrapper, which never waits for the
+    card: most calls must have been queued ahead of their start event (a
+    host thread descheduled past the spin can miss it now and then)."""
+    t = _time_ms(torch, fn)
+    if 2 * t["ahead"] < t["reps"]:
+        raise AssertionError(f"a kernel call started before it was queued whole: {t}")
+    return t
 
 
 def _bound_ms(nbytes: float, ops: float) -> tuple:
@@ -265,8 +302,8 @@ def _max_abs_err(got, want) -> float:
 
 def check_kernels(torch, engine, features) -> dict:
     """Hold every kernel launch the main path makes on one batch against
-    its plain version; returns per kernel the summed measurements of one
-    batch's launches."""
+    its plain version, printing each launch's times; returns per kernel the
+    summed measurements of one batch's launches."""
     from deequ_tpu_torch.analyzers.base import resolve_slot
     from deequ_tpu_torch.analyzers.grouping import DeviceFrequencyScan
     from deequ_tpu_torch.analyzers.sketches import ApproxCountDistinct
@@ -280,16 +317,21 @@ def check_kernels(torch, engine, features) -> dict:
                       "max_abs_err": 0.0, "bound_by": "bytes"}
                for name in TPU_KERNELS}
 
-    def add(name, err, ms, plain_ms, nbytes, ops, library_ms=None):
+    def add(name, label, err, kernel, plain, nbytes, ops, library=None):
         r = results[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
+        r["ms"] += kernel["ms"]
+        r["plain_ms"] += plain["ms"]
         bound, by = _bound_ms(nbytes, ops)
         r["bound_ms"] += bound
         r["bound_by"] = by
-        if library_ms is not None:
-            r["library_ms"] = (r["library_ms"] or 0.0) + library_ms
+        if library is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + library["ms"]
+        lib = "None" if library is None else (
+            f"{library['ms']:.4f} (queued ahead {library['ahead']}/{library['reps']})")
+        print(f"[launch {name} {label}] ms={kernel['ms']:.4f} host_ms={kernel['host_ms']:.4f} "
+              f"plain_ms={plain['ms']:.4f} (queued ahead {plain['ahead']}/{plain['reps']}) "
+              f"library_ms={lib} bound_ms={bound:.4f} ({by}) bytes={nbytes}", flush=True)
 
     # K1: one launch per bundle of slots
     for bundle in engine.program.bundles:
@@ -321,8 +363,8 @@ def check_kernels(torch, engine, features) -> dict:
         sel = pi[:, 0].cpu().numpy()
         ops = sum(2 * n + (7 * int(sel[s]) if slot.kind == KIND_MOMENTS else 0)
                   for s, slot in enumerate(slots))
-        add("scan_reduce", _max_abs_err(kf, pf),
-            _time_ms(torch, lambda: scan_reduce(slots, rows)),
+        add("scan_reduce", f"{len(slots)} slots", _max_abs_err(kf, pf),
+            _time_kernel_ms(torch, lambda: scan_reduce(slots, rows)),
             _time_ms(torch, lambda: scan_reduce_plain(slots, rows)), nbytes, ops)
 
     for a in engine.scan_analyzers:
@@ -339,8 +381,8 @@ def check_kernels(torch, engine, features) -> dict:
             idx, rank = (k >> 6).long(), k & 63
             library = _time_ms(torch, lambda: torch.zeros(512, dtype=torch.int32, device="cuda")
                                .scatter_reduce_(0, idx, rank, "amax"))
-            add("hll_registers", _max_abs_err(got, want),
-                _time_ms(torch, lambda: hll_registers(*args)),
+            add("hll_registers", a.column, _max_abs_err(got, want),
+                _time_kernel_ms(torch, lambda: hll_registers(*args)),
                 _time_ms(torch, lambda: hll_registers_plain(*args)),
                 4 * n + 512 * 4, 2 * n, library)
         elif isinstance(a, DeviceFrequencyScan):
@@ -366,10 +408,16 @@ def _check_counts(torch, add, codes, rows, present, k, kernel, plain, main_path)
     n = codes.shape[0]
     keys = torch.where(rows & present & (codes >= 0) & (codes < k), codes, k).long()
     library = _time_ms(torch, lambda: torch.bincount(keys, minlength=k + 1))
-    add("dict_code_counts", _max_abs_err(got, want),
-        _time_ms(torch, lambda: kernel(codes, rows, present, k)),
+    add("dict_code_counts", f"K={k}", _max_abs_err(got, want),
+        _time_kernel_ms(torch, lambda: kernel(codes, rows, present, k)),
         _time_ms(torch, lambda: plain(codes, rows, present, k)),
         6 * n + 8 * k + 8, 2 * n, library)
+    # the same launch on codes spread evenly over the K codes: the time the
+    # skew of the main path's codes adds (atomics on the same few bins)
+    even = torch.randint(0, k, (n,), dtype=torch.int32, device=codes.device,
+                         generator=torch.Generator(codes.device).manual_seed(0))
+    t = _time_kernel_ms(torch, lambda: kernel(even, rows, present, k))
+    print(f"[launch dict_code_counts K={k} even codes] ms={t['ms']:.4f}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -387,7 +435,6 @@ def _nvidia_smi() -> str:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--rows", type=int, default=DEFAULT_ROWS)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
 
@@ -420,10 +467,10 @@ def main(argv=None) -> int:
 
     # the data and the battery of the main path
     t0 = time.perf_counter()
-    table = build_table(args.rows, args.seed)
+    table = build_table(ROWS, args.seed)
     data = dq.Dataset.from_arrow(table)
-    check = build_check(dq, args.rows)
-    print(f"[data] {args.rows} rows in {time.perf_counter() - t0:.1f}s", flush=True)
+    check = build_check(dq, ROWS)
+    print(f"[data] {ROWS} rows in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # phase 2: each kernel against its plain version at main-path shapes
     analyzers = list(dict.fromkeys(collect_required_analyzers([check])))
@@ -453,13 +500,13 @@ def main(argv=None) -> int:
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     phases = {k: round(v, 4) for k, v in monitor.phase_seconds.items()}
-    print(f"[main] {args.rows} rows in {seconds:.3f}s = {args.rows / seconds:.0f} rows/s; "
+    print(f"[main] {ROWS} rows in {seconds:.3f}s = {ROWS / seconds:.0f} rows/s; "
           f"batches={monitor.batches}; launches={launches}; peak device memory "
           f"{peak / 2**20:.1f} MiB; phases={phases}", flush=True)
     missing = [name for name in TPU_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"the main path launched no {missing}")
-    expected_batches = -(-args.rows // BATCH_ROWS)
+    expected_batches = -(-ROWS // BATCH_ROWS)
     if monitor.batches != expected_batches or monitor.passes != 1:
         raise AssertionError(f"expected 1 pass of {expected_batches} batches, got {monitor}")
 
