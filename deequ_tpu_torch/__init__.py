@@ -1,25 +1,32 @@
 """deequ_tpu_torch: "unit tests for data" on PyTorch and CUDA.
 
 A port of ``deequ_tpu`` (JAX) to PyTorch with hand-written CUDA kernels for
-Hopper GPUs. One verification run reads the data once: per batch the host
-builds features, and three kernels reduce them on the device —
-``scan_reduce`` (all scalar reductions of the battery in one launch),
-``hll_registers`` (HLL++ registers) and ``dict_code_counts`` (per-code
-counts of dictionary columns). Entry points run on ``device="cuda"`` unless
-the caller passes ``device="cpu"``, which runs the kernels' plain PyTorch
-versions.
+Hopper GPUs. One verification run, or one pass of the column profiler,
+reads the data once: per batch the host builds features, and five kernels
+reduce them on the device — ``scan_reduce`` (all scalar reductions of the
+battery, DataType's class counts included, in one launch),
+``hll_registers`` (HLL++ registers), ``dict_code_counts`` (per-code counts
+of dictionary columns), and ``kll_sample`` and ``kll_compact`` (the KLL
+quantile sketch's batch pre-collapse and its compaction cascade). Entry
+points run on ``device="cuda"`` unless the caller passes ``device="cpu"``,
+which runs the kernels' plain PyTorch versions.
 
 The package imports neither JAX nor ``deequ_tpu``.
 """
 
 from .analyzers import (
     ApproxCountDistinct,
+    ApproxQuantile,
+    ApproxQuantiles,
     Completeness,
     Compliance,
     CountDistinct,
+    DataType,
     Distinctness,
     Entropy,
     Histogram,
+    KLLParameters,
+    KLLSketch,
     Maximum,
     MaxLength,
     Mean,
@@ -34,8 +41,9 @@ from .analyzers import (
     UniqueValueRatio,
 )
 from .checks import Check, CheckLevel, CheckStatus
-from .constraints import ConstraintStatus
+from .constraints import ConstrainableDataTypes, ConstraintStatus
 from .data import Dataset
+from .profiles import ColumnProfiler, ColumnProfilerRunner, ColumnProfiles
 from .runners import AnalysisRunner, AnalyzerContext, RunMonitor
 from .verification import VerificationResult, VerificationSuite
 
@@ -43,17 +51,26 @@ __all__ = [
     "AnalysisRunner",
     "AnalyzerContext",
     "ApproxCountDistinct",
+    "ApproxQuantile",
+    "ApproxQuantiles",
     "Check",
     "CheckLevel",
     "CheckStatus",
+    "ColumnProfiler",
+    "ColumnProfilerRunner",
+    "ColumnProfiles",
     "Completeness",
     "Compliance",
+    "ConstrainableDataTypes",
     "ConstraintStatus",
     "CountDistinct",
+    "DataType",
     "Dataset",
     "Distinctness",
     "Entropy",
     "Histogram",
+    "KLLParameters",
+    "KLLSketch",
     "MaxLength",
     "Maximum",
     "Mean",

@@ -104,6 +104,12 @@ def hll_feature(column: str) -> FeatureSpec:
     return FeatureSpec("hll", column)
 
 
+def typeclass_feature(column: str) -> FeatureSpec:
+    """int32 inferred-type class codes 0..4 (Unknown/Fractional/Integral/
+    Boolean/String) per row, the DataType analyzer's input."""
+    return FeatureSpec("type", column)
+
+
 def codes_feature(column: str) -> FeatureSpec:
     """int32 dictionary codes of an encoded column (nulls/padding coded
     out-of-range) — the device frequency path's input."""

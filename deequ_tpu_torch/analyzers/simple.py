@@ -2,7 +2,8 @@
 
 Each mirrors an analyzer of the JAX reference (deequ_tpu/analyzers/
 simple.py, with the reference deequ's file:line cited per class). Every
-update here is a scalar reduction: the analyzer names its reduction as a
+update here is a scalar reduction (DataType's is five counts): the analyzer
+names its reduction as a
 ``scan_reduce`` slot (``scan_slot``) and folds the slot's batch partials
 into its state (``fold_slot``), so the engine serves a whole battery with
 one kernel launch per batch — the analog of deequ's fused ``data.agg(...)``
@@ -14,13 +15,23 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
+import numpy as np
+
 from ..data import Schema
 from ..expr import Predicate
-from ..kernels.scan_reduce import KIND_COUNTS, KIND_MOMENTS, Partials
-from ..metrics import Entity
+from ..kernels.scan_reduce import KIND_CLASSES, KIND_COUNTS, KIND_MOMENTS, Partials
+from ..metrics import (
+    Distribution,
+    DistributionValue,
+    Entity,
+    HistogramMetric,
+    Success,
+    metric_from_empty,
+)
 from .base import (
     FeatureSpec,
     Preconditions,
+    ScanShareableAnalyzer,
     SlotSpec,
     StandardScanShareableAnalyzer,
     length_feature,
@@ -29,8 +40,10 @@ from .base import (
     predicate_feature,
     regex_feature,
     rows_feature,
+    typeclass_feature,
 )
 from .states import (
+    DataTypeHistogram,
     MaxState,
     MeanState,
     MinState,
@@ -362,3 +375,62 @@ class StandardDeviation(_NumericColumnAnalyzer):
 
     def is_empty(self, state) -> bool:
         return float(state.n) == 0
+
+
+#: order of DataTypeHistogram buckets (reference `analyzers/DataType.scala:32-52`)
+DATA_TYPE_INSTANCES = ("Unknown", "Fractional", "Integral", "Boolean", "String")
+
+
+@dataclass(frozen=True)
+class DataType(ScanShareableAnalyzer[DataTypeHistogram, HistogramMetric]):
+    """Histogram of inferred value types. Classification per value follows the
+    reference decision order null -> fractional -> integral -> boolean ->
+    string with the reference regexes (reference
+    `analyzers/catalyst/StatefulDataType.scala:36-38`, `analyzers/DataType.scala:32-183`).
+    The host classifies (``runners/features.py``); the five class counts
+    are a class-count slot of ``scan_reduce``."""
+
+    column: str = ""
+    where: Optional[Predicate] = None
+    name: str = field(default="DataType", init=False)
+
+    @property
+    def instance(self) -> str:
+        return self.column
+
+    @property
+    def entity(self) -> Entity:
+        return Entity.COLUMN
+
+    def preconditions(self) -> List[Callable[[Schema], None]]:
+        return [Preconditions.has_column(self.column), Preconditions.is_not_nested(self.column)]
+
+    def feature_specs(self) -> List[FeatureSpec]:
+        return _with_where([rows_feature(), typeclass_feature(self.column)], self.where)
+
+    def init_state(self, device) -> DataTypeHistogram:
+        return DataTypeHistogram.init(device)
+
+    def scan_slot(self) -> SlotSpec:
+        return (KIND_CLASSES, self._where_key(), None, typeclass_feature(self.column).key)
+
+    def fold_slot(self, state: DataTypeHistogram, p: Partials) -> DataTypeHistogram:
+        return DataTypeHistogram(state.counts + p.classes)
+
+    def merge(self, a, b):
+        return a.merge(b)
+
+    def compute_metric_from(self, state: Optional[DataTypeHistogram]) -> HistogramMetric:
+        if state is None:
+            empty = metric_from_empty(self.name, self.instance, self.entity)
+            return HistogramMetric(self.entity, self.name, self.instance, empty.value, self.column)
+        counts = np.asarray(state.counts.cpu())
+        total = int(counts.sum())
+        values = {
+            DATA_TYPE_INSTANCES[i]: DistributionValue(
+                int(counts[i]), (int(counts[i]) / total) if total > 0 else 0.0
+            )
+            for i in range(5)
+        }
+        dist = Distribution(values, number_of_bins=5)
+        return HistogramMetric(self.entity, self.name, self.instance, Success(dist), self.column)

@@ -11,13 +11,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from dataclasses import dataclass
-from typing import List
+from dataclasses import dataclass, field
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
 from ..config import ACC_DTYPE, COUNT_DTYPE
+from ..ops.kll import KLLSketchState  # noqa: F401 - the KLL analyzers' state
+from ..ops.order import max_nan, min_nan_largest
 
 
 def _f(x: float, device) -> torch.Tensor:
@@ -28,28 +30,23 @@ def _i(x: int, device) -> torch.Tensor:
     return torch.tensor(x, dtype=COUNT_DTYPE, device=device)
 
 
-def min_nan_largest(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Pairwise min under Spark's NaN-largest total order (reals < +inf <
-    NaN): NaN never wins, making it the identity — and the init value — of
-    MinState. Between zeros, -0.0 wins whatever the order, as XLA's minimum
-    does in the reference."""
-    both_zero = (a == 0) & (b == 0)
-    zero_min = torch.where(torch.signbit(a), a, b)
-    mn = torch.where(both_zero, zero_min, torch.minimum(a, b))
-    return torch.where(torch.isnan(a), b, torch.where(torch.isnan(b), a, mn))
-
-
-def max_nan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Pairwise max with NaN propagation; between zeros +0.0 wins whatever
-    the order (the reference's ``jnp.maximum``)."""
-    both_zero = (a == 0) & (b == 0)
-    zero_max = torch.where(torch.signbit(a), b, a)
-    return torch.where(both_zero, zero_max, torch.maximum(a, b))
+def tensor_fields(state) -> List[dataclasses.Field]:
+    """The state's tensor fields in order. A field marked
+    ``metadata={"static": True}`` (a sketch size, a constant) is
+    configuration, not a leaf, as a non-pytree field is in the reference."""
+    return [f for f in dataclasses.fields(state) if not f.metadata.get("static")]
 
 
 def leaves(state) -> List[torch.Tensor]:
     """The state's tensors in field order (the reference's leaf order)."""
-    return [getattr(state, f.name) for f in dataclasses.fields(state)]
+    return [getattr(state, f.name) for f in tensor_fields(state)]
+
+
+def with_leaves(state, tensors: Sequence[torch.Tensor]):
+    """A state of the same class and static fields with these tensors."""
+    return dataclasses.replace(
+        state, **{f.name: t for f, t in zip(tensor_fields(state), tensors)}
+    )
 
 
 @dataclass
@@ -221,6 +218,23 @@ class StandardDeviationState:
         if n == 0:
             return float("nan")
         return float(np.sqrt(float(self.m2) / n))
+
+
+@dataclass
+class DataTypeHistogram:
+    """Counts of inferred value types [null, fractional, integral, boolean,
+    string] (reference `analyzers/DataType.scala:32-96`)."""
+
+    counts: torch.Tensor  # int64[5]
+
+    NULL_POS: int = field(default=0, metadata={"static": True})
+
+    @staticmethod
+    def init(device) -> "DataTypeHistogram":
+        return DataTypeHistogram(torch.zeros(5, dtype=COUNT_DTYPE, device=device))
+
+    def merge(self, other: "DataTypeHistogram") -> "DataTypeHistogram":
+        return DataTypeHistogram(self.counts + other.counts)
 
 
 @dataclass

@@ -14,6 +14,7 @@ from . import constraints as C
 from .analyzers import Analyzer, Patterns
 from .constraints import (
     AnalysisBasedConstraint,
+    ConstrainableDataTypes,
     Constraint,
     ConstraintDecorator,
     ConstraintStatus,
@@ -156,6 +157,23 @@ class Check:
     def has_histogram_values(self, column, assertion, max_bins=None, hint=None) -> "Check":
         return self.add_constraint(
             C.histogram_constraint(column, assertion, max_bins, hint=hint)
+        )
+
+    def kll_sketch_satisfies(self, column, assertion, kll_parameters=None, hint=None) -> "Check":
+        return self.add_constraint(C.kll_constraint(column, assertion, kll_parameters, hint))
+
+    def has_approx_quantile(
+        self, column, quantile, assertion, relative_error=0.01, hint=None
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._add_filterable(
+            lambda where: C.approx_quantile_constraint(
+                column, quantile, assertion, relative_error, where, hint
+            )
+        )
+
+    def has_data_type(self, column, data_type: ConstrainableDataTypes, assertion=is_one, hint=None):
+        return self._add_filterable(
+            lambda where: C.data_type_constraint(column, data_type, assertion, where, hint)
         )
 
     def has_entropy(self, column, assertion, hint=None) -> "Check":

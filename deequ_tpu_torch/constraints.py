@@ -18,11 +18,14 @@ from typing import Any, Callable, Dict, Optional, Sequence
 from .analyzers import (
     Analyzer,
     ApproxCountDistinct,
+    ApproxQuantile,
     Completeness,
     Compliance,
+    DataType,
     Distinctness,
     Entropy,
     Histogram,
+    KLLSketch,
     Maximum,
     MaxLength,
     Mean,
@@ -35,12 +38,23 @@ from .analyzers import (
     Uniqueness,
     UniqueValueRatio,
 )
-from .metrics import Metric
+from .metrics import Distribution, Metric
 
 
 class ConstraintStatus(enum.Enum):
     SUCCESS = "Success"
     FAILURE = "Failure"
+
+
+class ConstrainableDataTypes(enum.Enum):
+    """(reference `constraints/ConstrainableDataTypes.scala`)."""
+
+    NULL = "Null"
+    FRACTIONAL = "Fractional"
+    INTEGRAL = "Integral"
+    BOOLEAN = "Boolean"
+    STRING = "String"
+    NUMERIC = "Numeric"
 
 
 class Constraint(abc.ABC):
@@ -283,3 +297,53 @@ def approx_count_distinct_constraint(column, assertion, where=None, hint=None) -
     analyzer = ApproxCountDistinct(column, where)
     inner = AnalysisBasedConstraint(analyzer, assertion, hint=hint)
     return NamedConstraint(inner, f"ApproxCountDistinctConstraint({analyzer})")
+
+
+def kll_constraint(column, assertion, kll_parameters=None, hint=None) -> Constraint:
+    analyzer = KLLSketch(column, kll_parameters)
+    inner = AnalysisBasedConstraint(analyzer, assertion, hint=hint)
+    return NamedConstraint(inner, f"kllSketchConstraint({analyzer})")
+
+
+def approx_quantile_constraint(
+    column, quantile, assertion, relative_error=0.01, where=None, hint=None
+) -> Constraint:
+    analyzer = ApproxQuantile(column, quantile, relative_error, where)
+    inner = AnalysisBasedConstraint(analyzer, assertion, hint=hint)
+    return NamedConstraint(inner, f"ApproxQuantileConstraint({analyzer})")
+
+
+def data_type_constraint(column, data_type, assertion, where=None, hint=None) -> Constraint:
+    """Assertion over the ratio of values inferred as ``data_type``
+    (reference `dataTypeConstraint`, `constraints/Constraint.scala:592-624`)."""
+
+    def ratio_types(ignore_unknown: bool, key: str, distribution: Distribution) -> float:
+        absolute = (
+            distribution.values[key].absolute if key in distribution.values else 0
+        )
+        if ignore_unknown:
+            if absolute == 0:
+                return 0.0
+            total = sum(v.absolute for v in distribution.values.values())
+            unknown = (
+                distribution.values["Unknown"].absolute
+                if "Unknown" in distribution.values
+                else 0
+            )
+            denom = total - unknown
+            return absolute / denom if denom > 0 else 0.0
+        total = sum(v.absolute for v in distribution.values.values())
+        return absolute / total if total > 0 else 0.0
+
+    def picker(distribution: Distribution) -> float:
+        if data_type == ConstrainableDataTypes.NULL:
+            return ratio_types(False, "Unknown", distribution)
+        if data_type == ConstrainableDataTypes.NUMERIC:
+            return ratio_types(True, "Fractional", distribution) + ratio_types(
+                True, "Integral", distribution
+            )
+        return ratio_types(True, data_type.value, distribution)
+
+    analyzer = DataType(column, where)
+    inner = AnalysisBasedConstraint(analyzer, assertion, value_picker=picker, hint=hint)
+    return NamedConstraint(inner, f"DataTypeConstraint({analyzer})")

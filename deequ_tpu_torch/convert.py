@@ -4,7 +4,8 @@
 A reference state travels as its class name and its leaves as numpy
 arrays in flax field order — what ``jax.tree_util.tree_leaves(state)``
 gives. The port's states keep the reference's class names and field order,
-so leaf i of one is field i of the other. A run can fold its first batches
+so leaf i of one is field i of the other (a static field, such as a KLL
+sketch's size, is no leaf in either package). A run can fold its first batches
 in the reference, carry the state over with :func:`from_reference`, and
 fold the rest here (or back with :func:`to_reference`); nothing of the
 reference package is imported.
@@ -12,7 +13,6 @@ reference package is imported.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -20,6 +20,7 @@ import torch
 
 from .analyzers import states as S
 from .config import DeviceLike
+from .ops.kll import kll_init
 
 STATE_CLASSES: Dict[str, type] = {
     cls.__name__: cls
@@ -33,14 +34,24 @@ STATE_CLASSES: Dict[str, type] = {
         S.StandardDeviationState,
         S.ApproxCountDistinctState,
         S.FrequencyCountsState,
+        S.DataTypeHistogram,
+        S.KLLSketchState,
     )
 }
 
 
-def _leaf_dtypes(cls) -> Tuple[torch.dtype, ...]:
-    """Leaf dtypes of a state class, in field order (from its identity)."""
-    init = cls.init(0, "cpu") if cls is S.FrequencyCountsState else cls.init("cpu")
-    return tuple(leaf.dtype for leaf in S.leaves(init))
+def _identity(cls, leaves: Sequence[np.ndarray]):
+    """An identity state of ``cls`` shaped like these leaves."""
+    if cls is S.FrequencyCountsState:
+        return cls.init(0, "cpu")
+    if cls is S.KLLSketchState:
+        # the sketch size is static in both packages: it rides the items'
+        # shape, float32[L, 4k]
+        shape = np.shape(leaves[0]) if len(leaves) else ()
+        if len(shape) != 2 or shape[1] % 4:
+            raise ValueError(f"KLLSketchState items must be float32[L, 4k], got shape {shape}")
+        return kll_init(shape[1] // 4, shape[0])
+    return cls.init("cpu")
 
 
 def from_reference(class_name: str, leaves: Sequence[np.ndarray], device: DeviceLike = "cpu"):
@@ -50,7 +61,8 @@ def from_reference(class_name: str, leaves: Sequence[np.ndarray], device: Device
     cls = STATE_CLASSES.get(class_name)
     if cls is None:
         raise NotImplementedError(f"state {class_name} is not carried by this port")
-    dtypes = _leaf_dtypes(cls)
+    identity = _identity(cls, leaves)
+    dtypes = tuple(leaf.dtype for leaf in S.leaves(identity))
     if len(leaves) != len(dtypes):
         raise ValueError(f"{class_name} has {len(dtypes)} leaves, got {len(leaves)}")
     tensors = []
@@ -60,7 +72,7 @@ def from_reference(class_name: str, leaves: Sequence[np.ndarray], device: Device
         if t.dtype != dtype:
             raise TypeError(f"{class_name} leaf {i}: expected {dtype}, got {arr.dtype}")
         tensors.append(t.to(device))
-    return cls(*tensors)
+    return S.with_leaves(identity, tensors)
 
 
 def to_reference(state) -> Tuple[str, List[np.ndarray]]:
@@ -70,6 +82,4 @@ def to_reference(state) -> Tuple[str, List[np.ndarray]]:
     name = type(state).__name__
     if name not in STATE_CLASSES:
         raise NotImplementedError(f"state {name} is not carried by this port")
-    return name, [
-        getattr(state, f.name).detach().cpu().numpy() for f in dataclasses.fields(state)
-    ]
+    return name, [leaf.detach().cpu().numpy() for leaf in S.leaves(state)]

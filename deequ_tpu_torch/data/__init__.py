@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Union
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 
@@ -283,6 +283,9 @@ class Dataset:
         #: decoded dictionaries + derived-artifact caches, one per column,
         #: shared by every batch this dataset yields
         self._dict_aux: Dict[str, dict] = {}
+        #: derived views memoized on their source (the profiler's cast and
+        #: dictionary-encoded tables), so repeated profiles reuse them
+        self.derived_cache: Dict[Any, "Dataset"] = {}
 
     # -- constructors -------------------------------------------------------
 
@@ -355,6 +358,32 @@ class Dataset:
         if col.num_chunks == 0:
             return np.array([], dtype=object)
         return _decode_dictionary(col.chunk(0).dictionary, self._schema[name].kind)
+
+    def with_column_cast_to_f64(self, name: str) -> "Dataset":
+        """Replace a string column by its parsed-float64 version (profiler
+        pass-2 cast, reference `profiles/ColumnProfiler.scala:346-354`).
+        Values the arrow cast rejects (e.g. "- 1.5", which the reference's
+        type-inference regex accepts) fall back to per-value parsing with
+        unparseable values becoming null (Spark cast semantics)."""
+        import pyarrow.compute as pc
+
+        col = self._table[name]
+        idx = self._table.schema.get_field_index(name)
+        try:
+            casted = pc.cast(col, pa.float64(), safe=False)
+        except pa.ArrowInvalid:
+            def parse(v):
+                if v is None:
+                    return None
+                try:
+                    # Spark cast trims outer whitespace only; interior
+                    # spaces make the cast null
+                    return float(str(v).strip())
+                except ValueError:
+                    return None
+
+            casted = pa.array([parse(v) for v in col.to_pylist()], type=pa.float64())
+        return Dataset(self._table.set_column(idx, name, casted), probe_encoding=False)
 
     def with_columns_dictionary_encoded(self, names: Sequence[str]) -> "Dataset":
         """Dictionary-encode the given (plain) columns — works for any

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("scan_reduce", "hll_registers", "dict_code_counts")
+SOURCES = ("scan_reduce", "hll_registers", "dict_code_counts", "kll_sample", "kll_compact")
 
 #: sm_90a: Hopper with its architecture-specific instructions
 NVCC_FLAGS = (

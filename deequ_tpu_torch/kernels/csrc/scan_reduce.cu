@@ -6,7 +6,7 @@
 // analyzers' update functions in deequ_tpu/analyzers/simple.py: Size :127,
 // Completeness :189, Compliance :232, PatternMatch :302, Mean :354, Sum :383,
 // Minimum :415, Maximum :448, MinLength :519, MaxLength :545 and
-// StandardDeviation :572.
+// StandardDeviation :572, and DataType.update :779 (a class-count slot).
 //
 // A slot names up to three byte masks and a value array; the batch row mask
 // is shared by all slots. Per slot the kernel writes
@@ -17,6 +17,10 @@
 //              max with NaN propagation (-inf if none), and the batch's
 //              (mean, M2) about its own mean for StandardDeviation.
 // Counting slots (kind 0) carry no values and leave out_f at identities.
+// A class-count slot (kind 2) reads int32 codes in its value array and also
+// writes out_i[s][2 + c] = sum(rows & where & (code == c)) for the five
+// type classes c of DataType; its matches count the rows with a code in
+// [0, 5). Every other slot leaves those five columns at 0.
 //
 // Bound on the card: bytes. Each distinct input array is read from device
 // memory once (the row mask, each mask and value array: 1 to 8 bytes per
@@ -45,11 +49,15 @@
 
 #define SR_KIND_COUNTS 0
 #define SR_KIND_MOMENTS 1
+#define SR_KIND_CLASSES 2
+#define SR_CLASSES 5
+// int64 columns per slot: matches, count, then the SR_CLASSES class counts
+#define SR_IWIDTH (2 + SR_CLASSES)
 
 // mirrors deequ_tpu_torch/kernels/scan_reduce.py _SlotStruct
 struct SrSlot {
-  int32_t kind;         // SR_KIND_COUNTS or SR_KIND_MOMENTS
-  int32_t vals_i32;     // 1: int32 values (string lengths); 0: float64
+  int32_t kind;         // SR_KIND_COUNTS, SR_KIND_MOMENTS or SR_KIND_CLASSES
+  int32_t vals_i32;     // 1: int32 values (string lengths, class codes); 0: float64
   const void* vals;     // null for counting slots
   const uint8_t* where;  // null: no where-filter
   const uint8_t* sel;    // null: every counted row is selected
@@ -96,6 +104,57 @@ __device__ __forceinline__ SrAcc sr_shfl_down(const SrAcc& a, int offset) {
   return o;
 }
 
+// A class-count slot over the block's chunk: per-thread counters of the
+// five classes and of the counted rows, reduced by warp shuffles and then
+// across the block's warps in a fixed order. Leaves the float partials at
+// their identities.
+__device__ void sr_class_counts(const SrSlot& slot, const uint8_t* __restrict__ rows,
+                                long long n, long long start, int s, int n_slots,
+                                long long (*warp_cls)[SR_CLASSES + 1],
+                                long long* __restrict__ part_i,
+                                double* __restrict__ part_f) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int32_t* codes = (const int32_t*)slot.vals;
+  long long cnt[SR_CLASSES + 1];  // the classes, then the counted rows
+  for (int c = 0; c <= SR_CLASSES; ++c) cnt[c] = 0;
+  for (int k = 0; k < SR_ROWS_PER_THREAD; ++k) {
+    const long long i = start + (long long)k * SR_THREADS + threadIdx.x;
+    if (i >= n) break;
+    if (!rows[i] || (slot.where != nullptr && !slot.where[i])) continue;
+    cnt[SR_CLASSES] += 1;
+    const int32_t code = codes[i];
+    if (code >= 0 && code < SR_CLASSES) cnt[code] += 1;
+  }
+  for (int c = 0; c <= SR_CLASSES; ++c) {
+    for (int off = 16; off > 0; off >>= 1) {
+      cnt[c] += __shfl_down_sync(0xffffffffu, cnt[c], off);
+    }
+    if (lane == 0) warp_cls[warp][c] = cnt[c];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const long long o = (long long)blockIdx.x * n_slots + s;
+    long long matches = 0;
+    for (int c = 0; c < SR_CLASSES; ++c) {
+      long long t = 0;
+      for (int w = 0; w < SR_WARPS; ++w) t += warp_cls[w][c];
+      part_i[o * SR_IWIDTH + 2 + c] = t;
+      matches += t;
+    }
+    long long base = 0;
+    for (int w = 0; w < SR_WARPS; ++w) base += warp_cls[w][SR_CLASSES];
+    part_i[o * SR_IWIDTH + 0] = matches;
+    part_i[o * SR_IWIDTH + 1] = base;
+    part_f[o * 5 + 0] = 0.0;
+    part_f[o * 5 + 1] = CUDART_NAN;
+    part_f[o * 5 + 2] = -CUDART_INF;
+    part_f[o * 5 + 3] = 0.0;
+    part_f[o * 5 + 4] = 0.0;
+  }
+  __syncthreads();  // warp_cls is rewritten by the next class-count slot
+}
+
 __global__ void __launch_bounds__(SR_THREADS)
 scan_reduce_blocks(const SrTable table, int n_slots,
                    const uint8_t* __restrict__ rows, long long n,
@@ -104,12 +163,17 @@ scan_reduce_blocks(const SrTable table, int n_slots,
   __shared__ SrAcc warp_acc[SR_WARPS];
   __shared__ double warp_m2[SR_WARPS];
   __shared__ double block_mean;
+  __shared__ long long warp_cls[SR_WARPS][SR_CLASSES + 1];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long start = (long long)blockIdx.x * SR_CHUNK;
 
   for (int s = 0; s < n_slots; ++s) {
     const SrSlot slot = table.s[s];
+    if (slot.kind == SR_KIND_CLASSES) {
+      sr_class_counts(slot, rows, n, start, s, n_slots, warp_cls, part_i, part_f);
+      continue;
+    }
     const bool moments = slot.kind == SR_KIND_MOMENTS;
     SrAcc acc;
     acc.base = 0;
@@ -179,8 +243,9 @@ scan_reduce_blocks(const SrTable table, int n_slots,
 
     if (threadIdx.x == 0) {
       const long long o = (long long)blockIdx.x * n_slots + s;
-      part_i[o * 2 + 0] = blk.sel;
-      part_i[o * 2 + 1] = blk.base;
+      part_i[o * SR_IWIDTH + 0] = blk.sel;
+      part_i[o * SR_IWIDTH + 1] = blk.base;
+      for (int c = 0; c < SR_CLASSES; ++c) part_i[o * SR_IWIDTH + 2 + c] = 0;
       part_f[o * 5 + 0] = blk.sum;
       part_f[o * 5 + 1] = blk.nonnan > 0 ? blk.mn : CUDART_NAN;
       part_f[o * 5 + 2] = blk.has_nan ? CUDART_NAN : blk.mx;
@@ -201,6 +266,7 @@ __global__ void scan_reduce_fold(int n_blocks, int n_slots,
   if (s >= n_slots) return;
   long long matches = 0;
   long long count = 0;
+  long long cls[SR_CLASSES] = {0, 0, 0, 0, 0};
   double sum = 0.0;
   double mn = CUDART_NAN;
   double mx = -CUDART_INF;
@@ -209,9 +275,10 @@ __global__ void scan_reduce_fold(int n_blocks, int n_slots,
   double m2 = 0.0;
   for (int b = 0; b < n_blocks; ++b) {
     const long long o = (long long)b * n_slots + s;
-    const long long nb = part_i[o * 2 + 0];
+    const long long nb = part_i[o * SR_IWIDTH + 0];
     matches += nb;
-    count += part_i[o * 2 + 1];
+    count += part_i[o * SR_IWIDTH + 1];
+    for (int c = 0; c < SR_CLASSES; ++c) cls[c] += part_i[o * SR_IWIDTH + 2 + c];
     sum += part_f[o * 5 + 0];
     mn = dq_min_nan_largest(mn, part_f[o * 5 + 1]);
     mx = dq_max_nan(mx, part_f[o * 5 + 2]);
@@ -232,8 +299,9 @@ __global__ void scan_reduce_fold(int n_blocks, int n_slots,
       }
     }
   }
-  out_i[s * 2 + 0] = matches;
-  out_i[s * 2 + 1] = count;
+  out_i[s * SR_IWIDTH + 0] = matches;
+  out_i[s * SR_IWIDTH + 1] = count;
+  for (int c = 0; c < SR_CLASSES; ++c) out_i[s * SR_IWIDTH + 2 + c] = cls[c];
   out_f[s * 5 + 0] = sum;
   out_f[s * 5 + 1] = mn;
   out_f[s * 5 + 2] = mx;
@@ -243,13 +311,15 @@ __global__ void scan_reduce_fold(int n_blocks, int n_slots,
 
 extern "C" int scan_reduce_max_slots() { return SR_MAX_SLOTS; }
 
+extern "C" int scan_reduce_int_width() { return SR_IWIDTH; }
+
 extern "C" int scan_reduce_num_blocks(long long n) {
   const long long b = (n + SR_CHUNK - 1) / SR_CHUNK;
   return b < 1 ? 1 : (int)b;
 }
 
-// part_i: int64[num_blocks * n_slots * 2], part_f: float64[num_blocks *
-// n_slots * 5] scratch; out_i: int64[n_slots * 2]; out_f: float64[n_slots * 5]
+// part_i: int64[num_blocks * n_slots * 7], part_f: float64[num_blocks *
+// n_slots * 5] scratch; out_i: int64[n_slots * 7]; out_f: float64[n_slots * 5]
 extern "C" int scan_reduce_launch(const SrSlot* slots, int n_slots,
                                   const uint8_t* rows, long long n,
                                   long long* part_i, double* part_f,

@@ -2,15 +2,17 @@
 
 Replaces the fused per-batch update of the JAX reference
 (``PackedScanProgram.fused_update``, deequ_tpu/runners/engine.py:366, over
-the ``update`` functions of deequ_tpu/analyzers/simple.py). The CUDA source
-is ``csrc/scan_reduce.cu``; :func:`scan_reduce_plain` is the same function
-in plain PyTorch.
+the ``update`` functions of deequ_tpu/analyzers/simple.py, DataType's
+``:779`` included). The CUDA source is ``csrc/scan_reduce.cu``;
+:func:`scan_reduce_plain` is the same function in plain PyTorch.
 
 A :class:`Slot` describes one reduction: the rows counted are ``rows &
 where``, the rows selected are those & ``sel``, and a moments slot also
-reduces ``vals`` over the selected rows. Analyzers that need the same
-reduction (Mean, Sum, Minimum, Maximum and StandardDeviation of one column
-under one filter) share one slot.
+reduces ``vals`` over the selected rows. A class-count slot counts the
+counted rows by their int32 code in ``vals`` (the five type classes of
+DataType). Analyzers that need the same reduction (Mean, Sum, Minimum,
+Maximum and StandardDeviation of one column under one filter) share one
+slot.
 """
 
 from __future__ import annotations
@@ -22,15 +24,20 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..ops.order import masked_max, masked_min
 from . import build, check_status, check_tensor, count_launch, on_cuda, stream_handle
 
 NAME = "scan_reduce"
 KIND_COUNTS = 0
 KIND_MOMENTS = 1
+KIND_CLASSES = 2
 #: slots per launch; equals SR_MAX_SLOTS in csrc/scan_reduce.cu
 MAX_SLOTS = 64
-#: columns of the int64 output
-I_MATCHES, I_COUNT = 0, 1
+#: classes of a class-count slot; equals SR_CLASSES
+NUM_CLASSES = 5
+#: columns of the int64 output: matches, count, then the class counts
+I_MATCHES, I_COUNT, I_CLASS0 = 0, 1, 2
+I_WIDTH = I_CLASS0 + NUM_CLASSES
 #: columns of the float64 output
 F_SUM, F_MIN, F_MAX, F_MEAN, F_M2 = 0, 1, 2, 3, 4
 
@@ -40,7 +47,7 @@ class Slot:
     kind: int
     where: Optional[torch.Tensor] = None  # bool[n] where-filter
     sel: Optional[torch.Tensor] = None    # bool[n] presence / predicate
-    vals: Optional[torch.Tensor] = None   # float64[n] or int32[n]
+    vals: Optional[torch.Tensor] = None   # float64[n] or int32[n] (lengths, codes)
 
 
 class Partials(NamedTuple):
@@ -53,13 +60,14 @@ class Partials(NamedTuple):
     max: torch.Tensor      # float64, NaN propagates (-inf if none)
     mean: torch.Tensor     # float64 batch mean (0 if none)
     m2: torch.Tensor       # float64 sum of squares about the batch mean
+    classes: torch.Tensor  # int64[5]: counted rows by class code (0 unless class slot)
 
 
 def partials(out_i: torch.Tensor, out_f: torch.Tensor, slot: int) -> Partials:
     return Partials(
         out_i[slot, I_MATCHES], out_i[slot, I_COUNT], out_f[slot, F_SUM],
         out_f[slot, F_MIN], out_f[slot, F_MAX], out_f[slot, F_MEAN],
-        out_f[slot, F_M2],
+        out_f[slot, F_M2], out_i[slot, I_CLASS0:I_WIDTH],
     )
 
 
@@ -79,6 +87,8 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_deequ_bound", False):
         lib.scan_reduce_max_slots.restype = ctypes.c_int
         lib.scan_reduce_max_slots.argtypes = []
+        lib.scan_reduce_int_width.restype = ctypes.c_int
+        lib.scan_reduce_int_width.argtypes = []
         lib.scan_reduce_num_blocks.restype = ctypes.c_int
         lib.scan_reduce_num_blocks.argtypes = [ctypes.c_longlong]
         lib.scan_reduce_launch.restype = ctypes.c_int
@@ -87,8 +97,8 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
-        if lib.scan_reduce_max_slots() != MAX_SLOTS:
-            raise RuntimeError("scan_reduce library and wrapper disagree on MAX_SLOTS")
+        if lib.scan_reduce_max_slots() != MAX_SLOTS or lib.scan_reduce_int_width() != I_WIDTH:
+            raise RuntimeError("scan_reduce library and wrapper disagree on the slot layout")
         lib._deequ_bound = True
     return lib
 
@@ -99,7 +109,7 @@ def _validate(slots: Sequence[Slot], rows: torch.Tensor) -> None:
     n = rows.shape[0] if rows.dim() == 1 else -1
     check_tensor(rows, NAME, "rows", torch.bool, n, rows.device)
     for i, slot in enumerate(slots):
-        if slot.kind not in (KIND_COUNTS, KIND_MOMENTS):
+        if slot.kind not in (KIND_COUNTS, KIND_MOMENTS, KIND_CLASSES):
             raise ValueError(f"{NAME}: slot {i} has unknown kind {slot.kind}")
         for what in ("where", "sel"):
             mask = getattr(slot, what)
@@ -110,13 +120,17 @@ def _validate(slots: Sequence[Slot], rows: torch.Tensor) -> None:
                 raise ValueError(f"{NAME}: moments slot {i} has no values")
             dtype = torch.int32 if slot.vals.dtype == torch.int32 else torch.float64
             check_tensor(slot.vals, NAME, f"slot {i} vals", dtype, n, rows.device)
+        if slot.kind == KIND_CLASSES:
+            if slot.vals is None or slot.sel is not None:
+                raise ValueError(f"{NAME}: class-count slot {i} takes codes and no selection")
+            check_tensor(slot.vals, NAME, f"slot {i} codes", torch.int32, n, rows.device)
 
 
 def scan_reduce(slots: Sequence[Slot], rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reduce every slot over one batch. Returns ``(out_i, out_f)``:
-    int64[S, 2] (matches, count) and float64[S, 5] (sum, min, max, mean,
-    m2). CPU tensors take :func:`scan_reduce_plain`; CUDA tensors launch
-    the kernel."""
+    int64[S, 7] (matches, count, five class counts) and float64[S, 5]
+    (sum, min, max, mean, m2). CPU tensors take :func:`scan_reduce_plain`;
+    CUDA tensors launch the kernel."""
     _validate(slots, rows)
     if not on_cuda(rows, NAME):
         return scan_reduce_plain(slots, rows)
@@ -135,9 +149,9 @@ def scan_reduce(slots: Sequence[Slot], rows: torch.Tensor) -> Tuple[torch.Tensor
         for slot in slots
     ])
     blocks = lib.scan_reduce_num_blocks(n)
-    part_i = torch.empty(blocks * s * 2, dtype=torch.int64, device=device)
+    part_i = torch.empty(blocks * s * I_WIDTH, dtype=torch.int64, device=device)
     part_f = torch.empty(blocks * s * 5, dtype=torch.float64, device=device)
-    out_i = torch.empty((s, 2), dtype=torch.int64, device=device)
+    out_i = torch.empty((s, I_WIDTH), dtype=torch.int64, device=device)
     out_f = torch.empty((s, 5), dtype=torch.float64, device=device)
     status = lib.scan_reduce_launch(
         table, s, rows.data_ptr(), n, part_i.data_ptr(), part_f.data_ptr(),
@@ -153,14 +167,20 @@ def scan_reduce_plain(slots: Sequence[Slot], rows: torch.Tensor) -> Tuple[torch.
     time. Counts, min and max agree with the kernel bit for bit; sums, means
     and M2 agree to rounding (the two add in different orders)."""
     device = rows.device
-    out_i = torch.empty((len(slots), 2), dtype=torch.int64, device=device)
+    out_i = torch.zeros((len(slots), I_WIDTH), dtype=torch.int64, device=device)
     out_f = torch.empty((len(slots), 5), dtype=torch.float64, device=device)
     for s, slot in enumerate(slots):
         base = rows if slot.where is None else rows & slot.where
-        sel = base if slot.sel is None else base & slot.sel
-        matches = sel.sum(dtype=torch.int64)
-        out_i[s, I_MATCHES] = matches
         out_i[s, I_COUNT] = base.sum(dtype=torch.int64)
+        if slot.kind == KIND_CLASSES:
+            classes = torch.arange(NUM_CLASSES, dtype=torch.int32, device=device)
+            hits = (slot.vals[:, None] == classes[None, :]) & base[:, None]
+            out_i[s, I_CLASS0:I_WIDTH] = hits.sum(dim=0, dtype=torch.int64)
+            out_i[s, I_MATCHES] = out_i[s, I_CLASS0:I_WIDTH].sum()
+        else:
+            sel = base if slot.sel is None else base & slot.sel
+            matches = sel.sum(dtype=torch.int64)
+            out_i[s, I_MATCHES] = matches
         if slot.kind == KIND_MOMENTS:
             out_f[s] = _moments_plain(slot.vals, sel, matches)
         else:
@@ -178,16 +198,10 @@ def _moments_plain(vals: torch.Tensor, sel: torch.Tensor, n: torch.Tensor) -> to
     if v.numel() == 0:
         return torch.stack([zero, nan, -inf, zero, zero])
     total = torch.where(sel, v, zero).sum()
-    # min: NaN skipped, NaN when nothing is left; -0.0 wins over +0.0
+    # min: NaN skipped, NaN when nothing is left; max: NaN propagates
     nonnan = sel & ~torch.isnan(v)
-    mn = torch.where(nonnan, v, inf).amin()
-    neg_zero = (nonnan & (v == 0) & torch.signbit(v)).any()
-    mn = torch.where(mn == 0, torch.where(neg_zero, -zero, zero), mn)
-    mn = torch.where(nonnan.any(), mn, nan)
-    # max: NaN propagates (amax does), -inf when empty; +0.0 wins over -0.0
-    mx = torch.where(sel, v, -inf).amax()
-    pos_zero = (sel & (v == 0) & ~torch.signbit(v)).any()
-    mx = torch.where(mx == 0, torch.where(pos_zero, zero, -zero), mx)
+    mn = torch.where(nonnan.any(), masked_min(v, nonnan), nan)
+    mx = masked_max(v, sel)
     nf = n.to(torch.float64)
     mean = torch.where(n > 0, total / torch.clamp(nf, min=1.0), zero)
     centered = torch.where(sel, v - mean, zero)

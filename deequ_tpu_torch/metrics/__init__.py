@@ -1,7 +1,7 @@
 """Metric datamodel.
 
 Mirrors the reference datamodel (deequ `metrics/Metric.scala:21-68`,
-`metrics/HistogramMetric.scala:21-61`):
+`metrics/HistogramMetric.scala:21-61`, `metrics/KLLMetric.scala:24-40`):
 a metric is (entity, name, instance, value) where value is a Try-like
 Success/Failure wrapper so that analyzer errors become *data*, not aborts
 (`analyzers/Analyzer.scala:94-103`).
@@ -95,6 +95,20 @@ class DoubleMetric(Metric[float]):
 
 
 @dataclass(frozen=True)
+class KeyedDoubleMetric(Metric[Dict[str, float]]):
+    """Many named doubles under one metric, e.g. ApproxQuantiles
+    (reference `metrics/Metric.scala:54-68`)."""
+
+    def flatten(self) -> Sequence[DoubleMetric]:
+        if self.value.is_success:
+            return tuple(
+                DoubleMetric(self.entity, f"{self.name}-{k}", self.instance, Success(v))
+                for k, v in self.value.get().items()
+            )
+        return (DoubleMetric(self.entity, self.name, self.instance, self.value),)
+
+
+@dataclass(frozen=True)
 class DistributionValue:
     absolute: int
     ratio: float
@@ -144,6 +158,60 @@ class HistogramMetric(Metric[Distribution]):
             out.append(
                 DoubleMetric(
                     self.entity, f"{self.name}.ratio.{key}", self.instance, Success(dv.ratio)
+                )
+            )
+        return tuple(out)
+
+
+@dataclass(frozen=True)
+class BucketValue:
+    low_value: float
+    high_value: float
+    count: int
+
+
+@dataclass(frozen=True)
+class BucketDistribution:
+    """Equi-width bucketed view of a KLL sketch plus the raw sketch parameters
+    and data, so percentiles can be re-derived later
+    (reference `metrics/KLLMetric.scala` / `analyzers/KLLSketch.scala:125-160`)."""
+
+    buckets: List[BucketValue]
+    parameters: List[float]  # [shrinking_factor, sketch_size]
+    data: List[List[float]]  # per-level compactor buffers (weights 2^level)
+
+    def compute_percentiles(self) -> List[float]:
+        """Re-materialize the sketch from raw buffers and query 1..100th
+        percentiles (reference `metrics/KLLMetric.scala:24-40`)."""
+        from ..ops.kll_host import HostKLL
+
+        sketch = HostKLL.from_buffers(self.data, int(self.parameters[1]), self.parameters[0])
+        return [sketch.quantile(p / 100.0) for p in range(1, 101)]
+
+    def argmax(self) -> int:
+        return max(range(len(self.buckets)), key=lambda i: self.buckets[i].count)
+
+
+@dataclass(frozen=True)
+class KLLMetric(Metric[BucketDistribution]):
+    def flatten(self) -> Sequence[DoubleMetric]:
+        if self.value.is_failure:
+            return (
+                DoubleMetric(self.entity, f"{self.name}.buckets", self.instance, self.value),
+            )
+        dist = self.value.get()
+        out: List[DoubleMetric] = [
+            DoubleMetric(
+                self.entity,
+                f"{self.name}.buckets",
+                self.instance,
+                Success(float(len(dist.buckets))),
+            )
+        ]
+        for i, b in enumerate(dist.buckets):
+            out.append(
+                DoubleMetric(
+                    self.entity, f"{self.name}.bucket.{i}.count", self.instance, Success(float(b.count))
                 )
             )
         return tuple(out)

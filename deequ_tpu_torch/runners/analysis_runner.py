@@ -5,11 +5,11 @@ Reference flow (`analyzers/runners/AnalysisRunner.scala:97-203`): dedupe
 -> assemble AnalyzerContext.
 
 This port routes what its slice covers, all in ONE pass on the device:
-the scan-shareable reductions and HLL, and grouping analyzers and
-histograms over a single dictionary-encoded column whose dictionary is
-within ``DEVICE_FREQ_MAX_CARDINALITY`` (counted by the device frequency
-scan). Anything else raises ``NotImplementedError`` naming the analyzer —
-nothing is routed silently to another tier.
+the scan-shareable reductions, DataType, HLL and the KLL sketches, and
+grouping analyzers and histograms over a single dictionary-encoded column
+whose dictionary is within ``DEVICE_FREQ_MAX_CARDINALITY`` (counted by the
+device frequency scan). Anything else raises ``NotImplementedError`` naming
+the analyzer — nothing is routed silently to another tier.
 """
 
 from __future__ import annotations
@@ -77,6 +77,8 @@ class AnalysisRunner:
         for a in unique:
             if not isinstance(a, Analyzer):
                 raise _not_in_slice(a, "it is not an analyzer of this package")
+            if getattr(a, "exact_mode", False):
+                raise a.exact_mode_unsupported()
             exc = Preconditions.find_first_failing(schema, a.preconditions())
             if exc is None:
                 passed.append(a)

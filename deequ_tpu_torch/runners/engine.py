@@ -11,7 +11,6 @@ path are not part of the port, and a device failure raises.
 
 from __future__ import annotations
 
-import dataclasses
 import time
 import warnings
 from dataclasses import dataclass, field
@@ -21,6 +20,7 @@ import numpy as np
 import torch
 
 from ..analyzers.base import ScanShareableAnalyzer, SlotSpec, resolve_slot
+from ..analyzers.states import leaves as state_leaves, with_leaves
 from ..config import DEFAULT_BATCH_SIZE, synchronize
 from ..data import Dataset
 from ..kernels.scan_reduce import MAX_SLOTS, partials, scan_reduce
@@ -120,8 +120,8 @@ def to_device(features: Dict[str, np.ndarray], device: torch.device) -> Dict[str
 def fetch_states(states: Sequence[Any]) -> List[Any]:
     """Bring every state to the host with one copy per leaf dtype: leaves
     are packed into one flat buffer per dtype on the device, copied, and
-    split back."""
-    leaves = [getattr(s, f.name) for s in states for f in dataclasses.fields(s)]
+    split back. Static fields (a sketch's size) stay as they are."""
+    leaves = [leaf for s in states for leaf in state_leaves(s)]
     by_dtype: Dict[torch.dtype, List[int]] = {}
     for i, leaf in enumerate(leaves):
         by_dtype.setdefault(leaf.dtype, []).append(i)
@@ -136,8 +136,8 @@ def fetch_states(states: Sequence[Any]) -> List[Any]:
     out = []
     pos = 0
     for s in states:
-        n = len(dataclasses.fields(s))
-        out.append(type(s)(*host[pos:pos + n]))
+        n = len(state_leaves(s))
+        out.append(with_leaves(s, host[pos:pos + n]))
         pos += n
     return out
 

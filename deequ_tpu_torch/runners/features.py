@@ -34,6 +34,75 @@ def _hll_packed(col) -> np.ndarray:
     return hll_pack_features(hash_column(source, col.mask, col.kind), col.mask)
 
 
+# reference regexes (`analyzers/catalyst/StatefulDataType.scala:36-38`);
+# decision order: null -> fractional -> integral -> boolean -> string
+# (`StatefulDataType.update`, same file). re.ASCII + fullmatch reproduce the
+# Java Matcher semantics (ASCII \d, whole-string match incl. no trailing
+# newline).
+_FRACTIONAL_RE = re.compile(r"(-|\+)? ?\d*\.\d*", re.ASCII)
+_INTEGRAL_RE = re.compile(r"(-|\+)? ?\d*", re.ASCII)
+_BOOLEAN_RE = re.compile(r"true|false")
+
+TYPE_NULL, TYPE_FRACTIONAL, TYPE_INTEGRAL, TYPE_BOOLEAN, TYPE_STRING = range(5)
+
+
+def classify_type_codes(values, mask: np.ndarray, kind: ColumnKind) -> np.ndarray:
+    """Per-value inferred-type codes 0..4 (Unknown/Fractional/Integral/
+    Boolean/String). Non-string columns map directly from their kind, which
+    matches the reference's behavior of casting values to strings first
+    (e.g. 1.5 -> "1.5" matches FRACTIONAL). String values are classified
+    one by one with the reference regexes."""
+    n = len(values)
+    if kind == ColumnKind.STRING:
+        values = as_object_array(values)
+        out = np.full(n, TYPE_NULL, dtype=np.int32)
+        for i in range(n):
+            if not mask[i]:
+                continue
+            v = values[i]
+            if v is None:
+                continue
+            if _FRACTIONAL_RE.fullmatch(v):
+                out[i] = TYPE_FRACTIONAL
+            elif _INTEGRAL_RE.fullmatch(v):
+                out[i] = TYPE_INTEGRAL
+            elif _BOOLEAN_RE.fullmatch(v):
+                out[i] = TYPE_BOOLEAN
+            else:
+                out[i] = TYPE_STRING
+        return out
+    if kind == ColumnKind.FRACTIONAL:
+        code = TYPE_FRACTIONAL
+    elif kind == ColumnKind.INTEGRAL:
+        code = TYPE_INTEGRAL
+    elif kind == ColumnKind.BOOLEAN:
+        code = TYPE_BOOLEAN
+    else:
+        code = TYPE_STRING
+    return np.where(mask, np.int32(code), np.int32(TYPE_NULL)).astype(np.int32)
+
+
+def dict_entry_type_codes(col) -> np.ndarray:
+    """Type codes of each DISTINCT dictionary value, classified once per
+    dataset (cached in col.aux across batches)."""
+    tc = col.aux.get("type_codes")
+    if tc is None:
+        ones = np.ones(col.num_categories, dtype=bool)
+        tc = classify_type_codes(col.dictionary_source, ones, ColumnKind.STRING)
+        col.aux["type_codes"] = tc
+    return tc
+
+
+def dict_type_codes(col) -> np.ndarray:
+    """Per-row type codes for a dictionary STRING column: classify the
+    DISTINCT values once, gather by code. Null/padding rows -> TYPE_NULL."""
+    tc = dict_entry_type_codes(col)
+    num_cats = col.num_categories
+    safe = np.where(col.codes < num_cats, col.codes, 0)
+    out = tc[safe] if num_cats else np.zeros(len(col.codes), dtype=np.int32)
+    return np.where(col.mask, out, TYPE_NULL).astype(np.int32)
+
+
 def string_lengths(values, mask: np.ndarray) -> np.ndarray:
     values = as_object_array(values)
     out = np.zeros(len(values), dtype=np.int32)
@@ -130,7 +199,7 @@ def _is_string_dict(col) -> bool:
 class FeatureBuilder:
     """Computes the union of requested features for each batch. Arrays come
     out in the dtypes the kernels take: bool masks, float64 values, int32
-    lengths and codes, uint16 HLL keys."""
+    lengths, codes and type classes, uint16 HLL keys."""
 
     def __init__(self, specs: Iterable[FeatureSpec]):
         # dedupe by key, keep spec objects (payload needed for predicates)
@@ -174,6 +243,16 @@ class FeatureBuilder:
                 features[key] = column_regex_matches(
                     batch.column(spec.column), spec.payload
                 )
+            elif spec.kind == "type":
+                col = batch.column(spec.column)
+                if _is_string_dict(col):
+                    features[key] = dict_type_codes(col)
+                else:
+                    features[key] = classify_type_codes(
+                        col.string_source if col.kind == ColumnKind.STRING else col.values,
+                        col.mask,
+                        col.kind,
+                    )
             elif spec.kind == "hll":
                 features[key] = _hll_packed(batch.column(spec.column))
             elif spec.kind == "codes":

@@ -1,6 +1,10 @@
 """The CUDA kernels of deequ_tpu_torch against their plain PyTorch versions,
 on the card.
 
+K4 ``kll_sample`` and K5 ``kll_compact`` must match their plain versions
+bit for bit on every output (items, sizes, parities, counters, and the bits
+of min and max), as must the class counts of ``scan_reduce``.
+
 Every test here is marked ``cuda`` and needs a CUDA device and ``nvcc``:
 without a card it skips (the kernels are CUDA C++ with no CPU build). The
 file imports neither JAX nor the reference package, so on a machine
@@ -21,13 +25,22 @@ import torch
 from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
 from deequ_tpu_torch.kernels.dict_code_counts import dict_code_counts, dict_code_counts_plain
 from deequ_tpu_torch.kernels.hll_registers import hll_registers, hll_registers_plain
+from deequ_tpu_torch.kernels.kll_compact import (
+    kll_compact_merge,
+    kll_compact_merge_plain,
+    kll_compact_update,
+    kll_compact_update_plain,
+)
+from deequ_tpu_torch.kernels.kll_sample import kll_sample, kll_sample_plain
 from deequ_tpu_torch.kernels.scan_reduce import (
+    KIND_CLASSES,
     KIND_COUNTS,
     KIND_MOMENTS,
     Slot,
     scan_reduce,
     scan_reduce_plain,
 )
+from deequ_tpu_torch.ops.kll import KLLSketchState, kll_init
 
 RTOL = 1e-12
 
@@ -147,3 +160,104 @@ def test_kernels_count_their_launches(cuda_device):
     scan_reduce(slots, rows)
     scan_reduce_plain(slots, rows)
     assert launch_counts()["scan_reduce"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 4096, 1_000_003])
+def test_class_count_slot_matches_plain(cuda_device, n):
+    rng = np.random.default_rng(n)
+    codes = torch.from_numpy(rng.integers(-1, 6, n).astype(np.int32)).to(cuda_device)
+    rows = torch.from_numpy(rng.random(n) < 0.97).to(cuda_device)
+    where = torch.from_numpy(rng.random(n) < 0.5).to(cuda_device)
+    slots = [Slot(KIND_CLASSES, vals=codes), Slot(KIND_CLASSES, where=where, vals=codes),
+             Slot(KIND_COUNTS, where=where)]
+    ki, kf = scan_reduce(slots, rows)
+    pi, pf = scan_reduce_plain(slots, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    assert _bits_equal(kf.cpu().numpy().ravel(), pf.cpu().numpy().ravel())
+
+
+def _assert_bits(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    assert g.dtype == w.dtype and g.shape == w.shape, what
+    assert g.tobytes() == w.tobytes(), what
+
+
+def _kll_batch(n: int, device, seed: int):
+    """Values with signed zeros, NaN, +-inf and values beyond the float32
+    range, and the three masks of a KLL analyzer's update."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(50.0, 20.0, n)
+    v[rng.random(n) < 0.05] = 0.0
+    v[rng.random(n) < 0.05] = -0.0
+    v[rng.random(n) < 0.01] = np.nan
+    v[rng.random(n) < 0.005] = np.inf
+    v[rng.random(n) < 0.005] = -1e300
+    masks = [torch.from_numpy(rng.random(n) < p).to(device) for p in (0.98, 0.7, 0.9)]
+    return (torch.from_numpy(v).to(device), *masks)
+
+
+def _kll_sizes(k: int):
+    return [0, 1, k, k + 1, 1 << 20]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [400, 2048])
+@pytest.mark.parametrize("which", range(5))
+def test_kll_sample_kernel_matches_plain(cuda_device, k, which):
+    n = _kll_sizes(k)[which]
+    values, rows, where, present = _kll_batch(n, cuda_device, seed=n + k)
+    for ticks, w in ((0, None), (1, where), (12345, where), (2**31 - 1, None)):
+        t = torch.tensor(ticks, dtype=torch.int32, device=cuda_device)
+        got = kll_sample(values, rows, w, present, t, k)
+        want = kll_sample_plain(values, rows, w, present, t, k)
+        torch.cuda.synchronize()
+        for name, g, p in zip(("samples", "meta", "minmax"), got, want):
+            _assert_bits(g, p, name)
+
+
+def _fold_kernel_and_plain(k: int, n: int, batches: int, device, seed: int):
+    """The same batches through K4 + K5 and through their plain versions,
+    compared leaf by leaf after every batch."""
+    kern = plain = kll_init(k, device=device).tensors()
+    for b in range(batches):
+        values, rows, where, present = _kll_batch(n, device, seed + b)
+        ticks = kern[3]
+        kern = kll_compact_update(kern, kll_sample(values, rows, where, present, ticks, k), k)
+        plain = kll_compact_update_plain(
+            plain, kll_sample_plain(values, rows, where, present, plain[3], k), k)
+        torch.cuda.synchronize()
+        for i, (g, p) in enumerate(zip(kern, plain)):
+            _assert_bits(g, p, f"batch {b} leaf {i}")
+    return kern, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [400, 2048, 8192])
+def test_kll_compact_kernel_matches_plain(cuda_device, k):
+    """Cascades several levels deep; k = 8192 sorts its levels in device
+    scratch instead of shared memory. Then a merge of two such sketches."""
+    a, a_plain = _fold_kernel_and_plain(k, 3 * k + 5, 24, cuda_device, seed=k)
+    b, b_plain = _fold_kernel_and_plain(k, 2 * k - 1, 17, cuda_device, seed=7 * k)
+    assert int(torch.nonzero(a[1]).max()) >= 3  # the cascade climbed
+    for x, y in ((a, b), (b, a), (a, kll_init(k, device=cuda_device).tensors())):
+        got = kll_compact_merge(x, y, k)
+        want = kll_compact_merge_plain(x, y, k)
+        torch.cuda.synchronize()
+        for i, (g, p) in enumerate(zip(got, want)):
+            _assert_bits(g, p, f"merge leaf {i}")
+    assert isinstance(KLLSketchState(*a, sketch_size=k).merge(KLLSketchState(*b, sketch_size=k)),
+                      KLLSketchState)
+
+
+@pytest.mark.cuda
+def test_kll_kernels_count_their_launches(cuda_device):
+    values, rows, where, present = _kll_batch(5000, cuda_device, seed=1)
+    state = kll_init(64, device=cuda_device).tensors()
+    reset_launch_counts()
+    sample = kll_sample(values, rows, where, present, state[3], 64)
+    kll_compact_update(state, sample, 64)
+    kll_sample_plain(values, rows, where, present, state[3], 64)
+    counts = launch_counts()
+    assert counts["kll_sample"] == 1 and counts["kll_compact"] == 1

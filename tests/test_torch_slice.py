@@ -402,8 +402,10 @@ def test_convert_rejects_mismatched_leaves():
         from_reference("MeanState", [np.float32(1.0), np.int64(2)])
     with pytest.raises(ValueError):
         from_reference("MinState", [np.float64(1.0)])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         from_reference("KLLSketchState", [])
+    with pytest.raises(NotImplementedError):
+        from_reference("CorrelationState", [])
 
 
 # ---------------------------------------------------------------------------
