@@ -16,7 +16,10 @@ Phases, each of which fails the run when it fails:
    verification path: K1-K3. For the profile path: K1 with its class-count
    slots, K2, K3, and K4 and K5 on every numeric column; K4 again on a batch
    of signed zeros, NaN and values beyond the float32 range, and K5's merge
-   of two sketches;
+   of two sketches. For the grouping path: K6 on the first batch of the
+   bench grouping workload, on lineitem's two-column primary key and on an
+   edge batch; K7 compacting that batch's keys into a full 2^22-slot
+   table, merging two full tables, and compacting the edge batch's keys;
 3. the verification path: one ``VerificationSuite`` over a 10M-row dataset
    (BASELINE config 2's synthetic numeric/categorical table: four nullable
    float64 columns with NaN, an int64 id, dictionary columns of ~1,000 and
@@ -28,7 +31,14 @@ Phases, each of which fails the run when it fails:
    10M rows) on ``device="cuda"``, held against the same profile on
    ``device="cpu"`` and against a numpy oracle (exact counts, histograms,
    type counts, min and max; moments within 1e-9; KLL percentiles within
-   twice the sketch's relative error in rank).
+   twice the sketch's relative error in rank);
+5. the grouping path: Uniqueness, CountDistinct and Entropy over the
+   JAX bench's grouping workload (25M int64 keys, 3,571,428 distinct,
+   seed 1) with a resident frequency table (a), a non-resident one (b) and
+   one that overflows into the host group-by (c), held against (a) on
+   ``device="cpu"`` and a numpy oracle; lineitem's primary key and key
+   checks through ``VerificationSuite`` (d), against the CPU run and
+   pandas value counts; BasicExample (e), against its CPU run.
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
@@ -41,6 +51,7 @@ with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import re
@@ -76,10 +87,24 @@ TPU_KERNELS = {
     "dict_code_counts": "deequ_tpu/analyzers/grouping.py:660",
     "kll_sample": "deequ_tpu/ops/kll.py:233",
     "kll_compact": "deequ_tpu/ops/kll.py:204",
+    "freq_keys": "deequ_tpu/analyzers/grouping.py:911",
+    "freq_compact": "deequ_tpu/ops/__init__.py:33",
 }
 #: the kernels each main path must launch
 VERIFICATION_KERNELS = ("scan_reduce", "hll_registers", "dict_code_counts")
-PROFILE_KERNELS = tuple(TPU_KERNELS)
+PROFILE_KERNELS = ("scan_reduce", "hll_registers", "dict_code_counts", "kll_sample",
+                   "kll_compact")
+FREQ_KERNELS = ("freq_keys", "freq_compact")
+
+#: the bench's grouping workload (bench.py run_grouping_stage,
+#: tools/grouping_sweep.py): 25M int64 keys over rows // 7 distinct values
+GROUPING_ROWS = 25_000_000
+GROUPING_DISTINCT = GROUPING_ROWS // 7
+GROUPING_SEED = 1
+#: the non-resident table: 2^22 slots (the default) and a 2^20-key buffer
+FULL_TABLE_SLOTS = 1 << 22
+#: a table too small for the workload's keys: the overflow run (c)
+OVERFLOW_TABLE_SLOTS = 1 << 20
 
 
 # ---------------------------------------------------------------------------
@@ -505,25 +530,8 @@ def check_kernels(torch, engine, features) -> dict:
 
     rows = features["rows"]
     n = rows.shape[0]
-    results = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
-                      "max_abs_err": 0.0, "bound_by": "bytes"}
-               for name in TPU_KERNELS}
-
-    def add(name, label, err, kernel, plain, nbytes, ops, library=None):
-        r = results[name]
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r["ms"] += kernel["ms"]
-        r["plain_ms"] += plain["ms"]
-        bound, by = _bound_ms(nbytes, ops)
-        r["bound_ms"] += bound
-        r["bound_by"] = by
-        if library is not None:
-            r["library_ms"] = (r["library_ms"] or 0.0) + library["ms"]
-        lib = "None" if library is None else (
-            f"{library['ms']:.4f} (queued ahead {library['ahead']}/{library['reps']})")
-        print(f"[launch {name} {label}] ms={kernel['ms']:.4f} host_ms={kernel['host_ms']:.4f} "
-              f"plain_ms={plain['ms']:.4f} (queued ahead {plain['ahead']}/{plain['reps']}) "
-              f"library_ms={lib} bound_ms={bound:.4f} ({by}) bytes={nbytes}", flush=True)
+    results = _new_results()
+    add = functools.partial(_add, results)
 
     # K1: one launch per bundle of slots
     for bundle in engine.program.bundles:
@@ -591,6 +599,30 @@ def check_kernels(torch, engine, features) -> dict:
     _check_counts(torch, add, codes, rows, rows, ATTRIBUTE_PATH_CATEGORIES,
                   dict_code_counts, dict_code_counts_plain, False)
     return results
+
+
+def _new_results() -> dict:
+    return {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
+                   "max_abs_err": 0.0, "bound_by": "bytes"}
+            for name in TPU_KERNELS}
+
+
+def _add(results, name, label, err, kernel, plain, nbytes, ops, library=None) -> None:
+    """Add one launch's measurements to ``results[name]`` and print them."""
+    r = results[name]
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    r["ms"] += kernel["ms"]
+    r["plain_ms"] += plain["ms"]
+    bound, by = _bound_ms(nbytes, ops)
+    r["bound_ms"] += bound
+    r["bound_by"] = by
+    if library is not None:
+        r["library_ms"] = (r["library_ms"] or 0.0) + library["ms"]
+    lib = "None" if library is None else (
+        f"{library['ms']:.4f} (queued ahead {library['ahead']}/{library['reps']})")
+    print(f"[launch {name} {label}] ms={kernel['ms']:.4f} host_ms={kernel['host_ms']:.4f} "
+          f"plain_ms={plain['ms']:.4f} (queued ahead {plain['ahead']}/{plain['reps']}) "
+          f"library_ms={lib} bound_ms={bound:.4f} ({by}) bytes={nbytes}", flush=True)
 
 
 def _same_bits(got, want) -> bool:
@@ -757,6 +789,411 @@ def _check_counts(torch, add, codes, rows, present, k, kernel, plain, main_path)
 
 
 # ---------------------------------------------------------------------------
+# phase 2 for the grouping path: K6 freq_keys and K7 freq_compact
+# ---------------------------------------------------------------------------
+
+
+def _table_features(torch, dq, table: pa.Table, cols: tuple):
+    """The first 1M-row batch's features of the device frequency table
+    that the runner plans for ``cols`` of ``table``, on the card, and the
+    planned scan."""
+    from deequ_tpu_torch.analyzers.grouping import plan_table_scan
+    from deequ_tpu_torch.runners.engine import ScanEngine, to_device
+
+    data = dq.Dataset.from_arrow(table)
+    scan = plan_table_scan(data.schema, cols, data.num_rows, BATCH_ROWS)
+    engine = ScanEngine([scan], torch.device("cuda"))
+    batch = next(data.batches(BATCH_ROWS, columns=list(cols)))
+    return scan, to_device(engine.builder.build(batch), torch.device("cuda"))
+
+
+def _check_freq_keys(torch, add, label, columns, rows):
+    """K6 on one batch against its plain version (keys and counters bit
+    for bit); returns the kernel's keys."""
+    from deequ_tpu_torch.kernels.freq_keys import freq_keys, freq_keys_plain
+
+    n = rows.shape[0]
+    got_keys = torch.empty(n, dtype=torch.int64, device="cuda")
+    want_keys = torch.empty_like(got_keys)
+    got = freq_keys(columns, rows, got_keys, 0)
+    want = freq_keys_plain(columns, rows, want_keys, 0)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_keys, want_keys) and torch.equal(got, want)):
+        raise AssertionError(f"freq_keys differs from the plain version on {label}")
+    nbytes = n + sum(n + c.values.numel() * c.values.element_size() for c in columns) + 8 * n + 16
+    # SplitMix64 or a load per column and an xxhash64 per chained column:
+    # about 10 and 16 integer operations a row
+    ops = n * (10 * len(columns) + 16 * (len(columns) - 1))
+    add("freq_keys", f"{label}: {n} rows, {len(columns)} columns, sent_rows={int(got[0])}",
+        0.0, _time_kernel_ms(torch, lambda: freq_keys(columns, rows, got_keys, 0)),
+        _time_ms(torch, lambda: freq_keys_plain(columns, rows, want_keys, 0)), nbytes, ops)
+    return got_keys
+
+
+def _full_table(torch, start: int, slots: int):
+    """A full table of ``slots`` sorted keys: the SplitMix64 keys of the
+    integers start .. start + slots - 1, each with a count of 1 to 8."""
+    from deequ_tpu_torch.kernels.freq_compact import freq_compact_plain
+    from deequ_tpu_torch.ops.hashing import splitmix64_torch
+
+    keys = splitmix64_torch(torch.arange(start, start + slots, dtype=torch.int64, device="cuda"))
+    counts = 1 + torch.arange(slots, dtype=torch.int64, device="cuda") % 8
+    return freq_compact_plain(keys, counts, slots)
+
+
+def _check_freq_compact(torch, add, label, a_keys, a_counts, b_keys, b_counts, out_size) -> None:
+    """K7 against the reference's compaction in plain PyTorch on the same
+    pairs: every output bit for bit."""
+    from deequ_tpu_torch.kernels.freq_compact import freq_compact, freq_compact_plain
+    from deequ_tpu_torch.ops.hashing import FREQ_KEY_SENTINEL_I64
+
+    counts_b = b_counts if b_counts is not None else (b_keys != FREQ_KEY_SENTINEL_I64).long()
+    keys = torch.cat([a_keys, b_keys])
+    counts = torch.cat([a_counts, counts_b])
+    got = freq_compact(a_keys, a_counts, b_keys, b_counts, out_size)
+    want = freq_compact_plain(keys, counts, out_size)
+    torch.cuda.synchronize()
+    for field, g, w in zip(got._fields, got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"freq_compact {field} differs from the plain version on {label}")
+    na, nb = a_keys.shape[0], b_keys.shape[0]
+    # pairs read (a buffer's keys alone), the table written, and the scalars
+    nbytes = 16 * na + (8 if b_counts is None else 16) * nb + 16 * out_size + 32
+    add("freq_compact", f"{label}: {na} + {nb} entries into {out_size}, "
+        f"n_unique={int(got.n_unique)} kept={int(got.kept_rows)} total={int(got.total_rows)}",
+        0.0, _time_kernel_ms(torch, lambda: freq_compact(a_keys, a_counts, b_keys, b_counts,
+                                                         out_size)),
+        _time_ms(torch, lambda: freq_compact_plain(keys, counts, out_size)), nbytes, na + nb,
+        _time_ms(torch, lambda: torch.sort(keys)))
+
+
+def check_freq_kernels(torch, dq, grouping: pa.Table, lineitem: pa.Table) -> dict:
+    """K6 and K7 at the grouping path's shapes, each bit-exact against its
+    plain version; returns the measurements of the main path's launches:
+    K6 on the first batch of the bench grouping workload, K7 compacting
+    that batch's keys into a full 2^22-slot table. Also checked and
+    printed: K6 on lineitem's two-column key and on an edge batch, K7
+    merging two full tables and compacting the edge batch's keys."""
+    from deequ_tpu_torch.data import ColumnKind
+    from deequ_tpu_torch.kernels.freq_compact import freq_compact
+    from deequ_tpu_torch.kernels.freq_keys import KIND_HASH, KIND_NUM, KeyColumn
+    from deequ_tpu_torch.ops.hashing import hash_column
+
+    results, others = _new_results(), _new_results()
+    scan, features = _table_features(torch, dq, grouping, ("k",))
+    if scan.resident is not True:
+        raise AssertionError(f"the grouping workload should plan resident, got {scan}")
+    keys = _check_freq_keys(torch, functools.partial(_add, results), "bench grouping batch 1",
+                            scan.key_columns(features), features["rows"])
+    table = _full_table(torch, 0, FULL_TABLE_SLOTS)
+    _check_freq_compact(torch, functools.partial(_add, results), "non-resident compaction",
+                        table.keys, table.counts, keys, None, FULL_TABLE_SLOTS)
+
+    add = functools.partial(_add, others)
+    pk_scan, pk = _table_features(torch, dq, lineitem, ("l_orderkey", "l_linenumber"))
+    _check_freq_keys(torch, add, "lineitem (l_orderkey, l_linenumber)",
+                     pk_scan.key_columns(pk), pk["rows"])
+    other = _full_table(torch, FULL_TABLE_SLOTS // 2, FULL_TABLE_SLOTS)
+    _check_freq_compact(torch, add, "merge of two full tables", table.keys, table.counts,
+                        other.keys, other.counts, FULL_TABLE_SLOTS)
+
+    # the edge batch: the int64 whose SplitMix64 is the sentinel (a real
+    # key counted in sent_rows), negative and narrow integers, booleans,
+    # and NaN, -0.0 and 0.0 as xxhash64 keys
+    n = BATCH_ROWS
+    rng = np.random.default_rng(5)
+    i64 = rng.integers(-50, 50, n)
+    i64[::101] = SENTINEL_PREIMAGE
+    f = rng.integers(-20, 20, n) / 4.0
+    f[rng.random(n) < 0.05] = np.nan
+    f[rng.random(n) < 0.05] = -0.0
+    fmask = rng.random(n) < 0.97
+    cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    edge = [
+        KeyColumn(KIND_NUM, cuda(i64), cuda(rng.random(n) < 0.98)),
+        KeyColumn(KIND_NUM, cuda(rng.integers(-128, 128, n).astype(np.int8)), cuda(np.ones(n, bool))),
+        KeyColumn(KIND_NUM, cuda(rng.integers(-2**31, 2**31, n).astype(np.int32) // 4096),
+                  cuda(np.ones(n, bool))),
+        KeyColumn(KIND_NUM, cuda((rng.random(n) < 0.5).astype(np.float64)), cuda(np.ones(n, bool))),
+        KeyColumn(KIND_HASH, cuda(hash_column(f, fmask, ColumnKind.FRACTIONAL).view(np.int64)),
+                  cuda(fmask)),
+    ]
+    rows = cuda(rng.random(n) < 0.99)
+    for width in (1, 2, 5):
+        edge_keys = _check_freq_keys(torch, add, f"edge batch, {width} columns", edge[:width],
+                                     rows)
+        small = _full_table(torch, 0, 1 << 10)
+        _check_freq_compact(torch, add, f"edge keys of {width} columns", small.keys,
+                            small.counts, edge_keys, None, 1 << 16)
+    trace_kernels(torch, "freq_compact",
+                  lambda: freq_compact(table.keys, table.counts, keys, None, FULL_TABLE_SLOTS))
+    return results
+
+
+#: the int64 whose SplitMix64 mix is all ones, the frequency key sentinel
+SENTINEL_PREIMAGE = -3487469807577879104
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the grouping path
+# ---------------------------------------------------------------------------
+
+
+def build_grouping(rows: int = GROUPING_ROWS, distinct: int = GROUPING_DISTINCT,
+                   seed: int = GROUPING_SEED) -> pa.Table:
+    """The bench's grouping workload: ``rows`` int64 keys drawn uniformly
+    from ``distinct`` values (tools/grouping_sweep.py measure_point)."""
+    rng = np.random.default_rng(seed)
+    return pa.table({"k": rng.integers(0, distinct, rows)})
+
+
+def _count_metrics(counts: np.ndarray, rows: int) -> dict:
+    """Uniqueness, CountDistinct and Entropy of a count multiset."""
+    p = counts / rows
+    return {"Uniqueness": float((counts == 1).sum()) / rows, "CountDistinct": float(len(counts)),
+            "Entropy": float(-(p * np.log(p)).sum())}
+
+
+def _compare_grouping(got: dict, want: dict, rtol: float) -> list:
+    problems = []
+    for name, w in want.items():
+        g = got[name]
+        ok = g == w if name != "Entropy" else abs(g - w) <= rtol * abs(w)
+        if not ok:
+            problems.append(f"{name}: {g!r} != {w!r}")
+    return problems
+
+
+def _timed_run(torch, label: str, run, rows: int, kernels=()) -> tuple:
+    """Run ``run(monitor)`` on the card with the launch counts set to 0
+    just before; prints rows/s, the phases, launches and peak memory, and
+    fails when a kernel of ``kernels`` was not launched."""
+    import deequ_tpu_torch as dq
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    monitor = dq.RunMonitor()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run(monitor)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    phases = {k: round(v, 4) for k, v in monitor.phase_seconds.items()}
+    print(f"[{label}] {rows} rows in {seconds:.3f}s = {rows / seconds:.0f} rows/s; "
+          f"passes={monitor.passes} batches={monitor.batches} "
+          f"device_freq_sets={monitor.device_freq_sets} "
+          f"freq_overflow_fallbacks={monitor.freq_overflow_fallbacks}; launches={launches}; "
+          f"peak device memory {peak / 2**20:.1f} MiB; phases={phases}", flush=True)
+    missing = [name for name in kernels if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"{label} launched no {missing}")
+    return out, monitor, launches
+
+
+def grouping_runs(torch, dq, grouping: pa.Table) -> dict:
+    """Phase 5 (a)-(c): the bench grouping workload resident, with a
+    non-resident 2^22-slot table, and overflowing a 2^20-slot table; each
+    held against (a) on the CPU and a numpy oracle. Returns the launch
+    counts of (a) and (b)."""
+    rows = grouping.num_rows
+    data = dq.Dataset.from_arrow(grouping)
+    battery = [dq.Uniqueness(["k"]), dq.CountDistinct(["k"]), dq.Entropy("k")]
+
+    def run(device, **options):
+        def go(monitor):
+            ctx = (dq.AnalysisRunner.on_data(data, device=device).add_analyzers(battery)
+                   .with_batch_size(BATCH_ROWS).with_monitor(monitor)
+                   .with_frequency_options(**options).run())
+            return {a.name: ctx.metric(a).value.get() for a in battery}
+        return go
+
+    expected_batches = -(-rows // BATCH_ROWS)
+    resident, mon_a, launches_a = _timed_run(torch, "grouping (a) resident", run("cuda"), rows,
+                                             ("freq_keys",))
+    if launches_a["freq_keys"] != expected_batches or launches_a["freq_compact"] != 0:
+        raise AssertionError(f"(a) expected {expected_batches} freq_keys launches and no "
+                             f"freq_compact: {launches_a}")
+    if mon_a.device_freq_sets != 1 or mon_a.passes != 1:
+        raise AssertionError(f"(a) should run one device table in one pass: {mon_a}")
+    t0 = time.perf_counter()
+    cpu = run("cpu")(dq.RunMonitor())
+    print(f"[cpu] grouping (a) on the CPU in {time.perf_counter() - t0:.1f}s", flush=True)
+    _, counts = np.unique(grouping["k"].to_numpy(), return_counts=True)
+    oracle = _count_metrics(counts, rows)
+    problems = _compare_grouping(resident, cpu, 0.0) + _compare_grouping(resident, oracle, 1e-9)
+
+    compacting, mon_b, launches_b = _timed_run(
+        torch, "grouping (b) non-resident", run("cuda", freq_buffer_entries=FULL_TABLE_SLOTS),
+        rows, FREQ_KERNELS)
+    # no fallback pass: the drain found lost_rows == 0
+    if mon_b.freq_overflow_fallbacks != 0 or mon_b.passes != 1:
+        raise AssertionError(f"(b) should keep every group in one pass: {mon_b}")
+    problems += [f"(b) {p}" for p in _compare_grouping(compacting, resident, 0.0)]
+
+    overflowing, mon_c, _ = _timed_run(
+        torch, "grouping (c) overflow", run("cuda", freq_table_slots=OVERFLOW_TABLE_SLOTS,
+                                            freq_buffer_entries=FULL_TABLE_SLOTS),
+        rows, FREQ_KERNELS)
+    if mon_c.freq_overflow_fallbacks != 1 or mon_c.passes != 2:
+        raise AssertionError(f"(c) should overflow and re-run on the host once: {mon_c}")
+    problems += [f"(c) {p}" for p in _compare_grouping(overflowing, resident, 0.0)]
+    if problems:
+        raise AssertionError("grouping metrics disagree:\n" + "\n".join(problems))
+    print(f"[grouping metrics] (a), (b) and (c) agree with the CPU run and the oracle: "
+          f"{resident}", flush=True)
+    return {"resident": launches_a, "compaction": launches_b}
+
+
+def build_lineitem_check(dq, rows: int):
+    """Lineitem's key checks (phase 5 d): its primary key, distinctness
+    and entropy of keys and measures, the comment dictionary, and scan
+    checks beside them."""
+    yes = lambda _: True  # noqa: E731 - the values are compared, not asserted
+    return (
+        dq.Check(dq.CheckLevel.ERROR, "lineitem keys")
+        .has_size(lambda n: n == rows)
+        .is_primary_key("l_orderkey", "l_linenumber")
+        .has_uniqueness(["l_partkey"], yes)
+        .has_entropy("l_suppkey", yes)
+        .has_distinctness(["l_extendedprice"], yes)
+        .has_number_of_distinct_values("l_comment", yes)
+        .has_unique_value_ratio(["l_comment"], yes)
+        .is_complete("l_orderkey")
+        .has_mean("l_quantity", yes)
+        .is_non_negative("l_discount")
+        .has_approx_count_distinct("l_partkey", yes)
+        .is_contained_in("l_returnflag", ["A", "N", "R"])
+    )
+
+
+def lineitem_oracle(table: pa.Table) -> dict:
+    """The lineitem checks' grouping metrics from pandas value counts."""
+    import pandas as pd
+
+    n = table.num_rows
+    df = table.select(["l_orderkey", "l_linenumber", "l_partkey", "l_suppkey",
+                       "l_extendedprice"]).to_pandas()
+    pk = df.groupby(["l_orderkey", "l_linenumber"]).size().to_numpy()
+    part = df["l_partkey"].value_counts().to_numpy()
+    supp = df["l_suppkey"].value_counts().to_numpy()
+    price = df["l_extendedprice"].value_counts(dropna=False).to_numpy()
+    codes = table["l_comment"].combine_chunks().indices.to_numpy()
+    comment = np.bincount(codes)
+    comment = comment[comment > 0]
+    p = supp / n
+    return {
+        ("Uniqueness", "l_orderkey,l_linenumber", None): (pk == 1).sum() / n,
+        ("Uniqueness", "l_partkey", None): (part == 1).sum() / n,
+        ("Entropy", "l_suppkey", None): float(-(p * np.log(p)).sum()),
+        ("Distinctness", "l_extendedprice", None): len(price) / n,
+        ("UniqueValueRatio", "l_comment", None): (comment == 1).sum() / len(comment),
+        ("Size", "*", None): float(n),
+        "comment bins": len(comment),
+    }
+
+
+#: BASELINE config 1: the five items of examples/example_utils.py
+SAMPLE_ITEMS = (
+    (1, "Thingy A", "awesome thing.", "high", 0),
+    (2, "Thingy B", "available at http://thingb.com", None, 0),
+    (3, None, None, "low", 5),
+    (4, "Thingy D", "checkout https://thingd.ca", "low", 10),
+    (5, "Thingy E", None, "high", 12),
+)
+
+
+def basic_example(dq, device: str, monitor=None):
+    """examples/basic_example.py's verification on ``device``."""
+    names = ("id", "productName", "description", "priority", "numViews")
+    types = (pa.int64(), pa.string(), pa.string(), pa.string(), pa.int64())
+    table = pa.table({name: pa.array([item[i] for item in SAMPLE_ITEMS], type=t)
+                      for i, (name, t) in enumerate(zip(names, types))})
+    return (
+        dq.VerificationSuite.on_data(dq.Dataset.from_arrow(table), device=device)
+        .add_check(
+            dq.Check(dq.CheckLevel.ERROR, "integrity checks")
+            .has_size(lambda size: size == 5)
+            .is_complete("id")
+            .is_unique("id")
+            .is_complete("productName")
+            .is_contained_in("priority", ["high", "low"])
+            .is_non_negative("numViews"))
+        .add_check(
+            dq.Check(dq.CheckLevel.WARNING, "distribution checks")
+            .contains_url("description", lambda ratio: ratio >= 0.5)
+            .has_approx_quantile("numViews", 0.5, lambda median: median <= 10))
+        .with_monitor(monitor or dq.RunMonitor())
+        .run()
+    )
+
+
+def _statuses(result) -> list:
+    return [(r.status, [c.status for c in r.constraint_results])
+            for r in result.check_results.values()]
+
+
+def grouping_path(torch, dq, lineitem: pa.Table) -> tuple:
+    """Phase 2 at the grouping path's shapes, then phase 5 (a)-(e).
+    Returns the K6 and K7 measurements and the launch counts of the runs
+    that report them."""
+    t0 = time.perf_counter()
+    grouping = build_grouping()
+    print(f"[grouping data] {grouping.num_rows} rows, {GROUPING_DISTINCT} possible keys in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    measured = check_freq_kernels(torch, dq, grouping, lineitem)
+    _print_kernel_totals(measured, FREQ_KERNELS, "grouping path")
+    launches = grouping_runs(torch, dq, grouping)
+    del grouping
+
+    # (d) lineitem's keys through VerificationSuite
+    rows = lineitem.num_rows
+    data = dq.Dataset.from_arrow(lineitem)
+    check = build_lineitem_check(dq, rows)
+
+    def verify(device):
+        return lambda monitor: (dq.VerificationSuite.on_data(data, device=device)
+                                .add_check(check).with_monitor(monitor).run())
+
+    result, monitor, _ = _timed_run(torch, "grouping (d) lineitem keys", verify("cuda"), rows,
+                                    VERIFICATION_KERNELS + ("freq_keys",))
+    if monitor.device_freq_sets != 4 or monitor.passes != 1:
+        raise AssertionError(f"(d) should run four device tables in one pass: {monitor}")
+    t0 = time.perf_counter()
+    cpu_result = verify("cpu")(dq.RunMonitor())
+    print(f"[cpu] lineitem keys on the CPU in {time.perf_counter() - t0:.1f}s", flush=True)
+    gpu_metrics = metric_values(result)
+    problems = compare_metrics(gpu_metrics, metric_values(cpu_result))
+    want = lineitem_oracle(lineitem)
+    bins = want.pop("comment bins")
+    problems += compare_oracle(gpu_metrics, want)
+    got_bins = gpu_metrics[("Histogram", "l_comment", None)][0]
+    if got_bins != bins:
+        problems.append(f"l_comment histogram: {got_bins} bins, oracle {bins}")
+    if _statuses(result) != _statuses(cpu_result):
+        problems.append(f"check statuses differ: {_statuses(result)}")
+    if problems:
+        raise AssertionError("lineitem metrics disagree:\n" + "\n".join(problems))
+    print(f"[lineitem metrics] {len(gpu_metrics)} metrics agree with the CPU run and the "
+          f"oracle; check status {result.status.value}", flush=True)
+    del data, result, cpu_result
+
+    # (e) BasicExample
+    example, _, _ = _timed_run(torch, "grouping (e) BasicExample",
+                               lambda monitor: basic_example(dq, "cuda", monitor),
+                               len(SAMPLE_ITEMS),
+                               ("freq_keys",))
+    cpu_example = basic_example(dq, "cpu")
+    problems = compare_metrics(metric_values(example), metric_values(cpu_example))
+    if _statuses(example) != _statuses(cpu_example) or problems:
+        raise AssertionError(f"BasicExample differs from its CPU run: {problems}")
+    print(f"[basic example] status {example.status.value}, equal to the CPU run", flush=True)
+    return measured, launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -777,10 +1214,10 @@ def _print_kernel_totals(measured: dict, names, path: str) -> None:
               f"max_abs_err={r['max_abs_err']:.3g}", flush=True)
 
 
-def profile_path(torch, dq, seed: int) -> tuple:
-    """Phase 2 at the profile path's shapes, then phase 4. Returns the
-    kernels' measurements at those shapes and the launch counts of the
-    profile run."""
+def profile_path(torch, dq, table: pa.Table) -> tuple:
+    """Phase 2 at the profile path's shapes, then phase 4, over the
+    lineitem table. Returns the kernels' measurements at those shapes and
+    the launch counts of the profile run."""
     from deequ_tpu_torch.analyzers import Histogram
     from deequ_tpu_torch.analyzers.grouping import DeviceFrequencyScan
     from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -788,10 +1225,6 @@ def profile_path(torch, dq, seed: int) -> tuple:
     from deequ_tpu_torch.runners.engine import ScanEngine, to_device
 
     device = torch.device("cuda")
-    t0 = time.perf_counter()
-    table = build_lineitem(LINEITEM_ROWS, LINEITEM_SEED + seed)
-    print(f"[lineitem] {LINEITEM_ROWS} rows x {table.num_columns} columns in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     # phase 2 at the shapes of the profile's first pass, the one whose
     # battery holds every kernel
@@ -805,7 +1238,7 @@ def profile_path(torch, dq, seed: int) -> tuple:
     measured = check_kernels(torch, engine, features)
     check_kll_edges(torch, features["num:l_extendedprice"], features["rows"])
     del features, probe
-    _print_kernel_totals(measured, TPU_KERNELS, "profile path")
+    _print_kernel_totals(measured, PROFILE_KERNELS, "profile path")
 
     # phase 4: the profile on the card, launch counts set to 0 just before
     data = dq.Dataset.from_arrow(table)
@@ -933,7 +1366,12 @@ def main(argv=None) -> int:
           f"check status {result.status.value}", flush=True)
     del data, result, cpu_result, table
 
-    profile_measured, profile_launches = profile_path(torch, dq, args.seed)
+    t0 = time.perf_counter()
+    lineitem = build_lineitem(LINEITEM_ROWS, LINEITEM_SEED + args.seed)
+    print(f"[lineitem] {LINEITEM_ROWS} rows x {lineitem.num_columns} columns in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    profile_measured, profile_launches = profile_path(torch, dq, lineitem)
+    freq_measured, freq_launches = grouping_path(torch, dq, lineitem)
 
     # K1-K3 as the verification path runs them, K4 and K5 as the profile
     # path does (the verification path runs no sketch); each with the
@@ -956,6 +1394,10 @@ def main(argv=None) -> int:
     kernels = [row(name, measured, launches) for name in VERIFICATION_KERNELS]
     kernels += [row(name, profile_measured, profile_launches)
                 for name in PROFILE_KERNELS if name not in VERIFICATION_KERNELS]
+    # K6 with the launches of the resident grouping run, K7 with those of
+    # the non-resident one
+    kernels.append(row("freq_keys", freq_measured, freq_launches["resident"]))
+    kernels.append(row("freq_compact", freq_measured, freq_launches["compaction"]))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -99,6 +99,20 @@ def regex_feature(column: str, pattern: str) -> FeatureSpec:
     return FeatureSpec("match", column, pattern)
 
 
+def hash_feature(column: str) -> FeatureSpec:
+    """int64 bits of each row's xxhash64 (the group key of a string or
+    fractional column in the device frequency table)."""
+    return FeatureSpec("hash", column)
+
+
+def key_feature(column: str) -> FeatureSpec:
+    """The values an integral or boolean group key derives from: integer
+    columns in their own signed dtype (unsigned ones widened to int64, or
+    viewed as int64 at 64 bits), booleans as float64 0/1. The ``num``
+    feature casts to float64, which would merge integers above 2^53."""
+    return FeatureSpec("key", column)
+
+
 def hll_feature(column: str) -> FeatureSpec:
     """uint16 packed (register index << 6 | rank) keys for HLL++."""
     return FeatureSpec("hll", column)

@@ -72,6 +72,116 @@ class FrequencyCountsState:
 
 
 @dataclass
+class FrequencyTableState:
+    """Frequency table of a grouping set of any cardinality (reference
+    ``FrequencyTableState``, deequ_tpu/analyzers/states.py:59): a sorted
+    table of (key, count) pairs, ``slots`` long and sentinel-padded, plus a
+    buffer of raw per-row 64-bit group keys. Keys are uint64 values held in
+    int64 tensors (PyTorch has few uint64 operations); ``convert.py`` views
+    them as uint64 for the reference.
+
+    Each batch writes its keys into the buffer at ``buf_fill`` (kernel
+    ``freq_keys``, in place: the buffer belongs to the state's lineage, and
+    a pass keeps only the newest state). When a batch would overrun the
+    buffer, the buffer is first compacted into the table (kernel
+    ``freq_compact``); groups beyond ``slots`` are dropped and counted in
+    ``lost_groups`` / ``lost_rows``, and the runner then re-runs the set on
+    the host. ``fill`` mirrors ``buf_fill`` on the host, from the batch
+    lengths appended, so deciding to compact reads nothing back from the
+    device."""
+
+    sorted_keys: torch.Tensor    # int64[slots]: uint64 keys ascending, sentinel-padded
+    sorted_counts: torch.Tensor  # int64[slots]
+    n_table: torch.Tensor        # int64: occupied table entries
+    buf: torch.Tensor            # int64[buffer_entries]: raw per-row keys
+    buf_fill: torch.Tensor       # int64: appended entries (rows incl. masked)
+    sent_rows: torch.Tensor      # int64: valid rows whose key is the sentinel
+    lost_groups: torch.Tensor    # int64: groups dropped at compactions (upper bound)
+    lost_rows: torch.Tensor      # int64: rows in dropped groups (exact)
+    num_rows: torch.Tensor       # int64: ALL rows seen (grouping semantics)
+
+    fill: int = field(default=0, metadata={"static": True})
+
+    #: fields whose int64 bits are uint64 keys in the reference
+    KEY_FIELDS = ("sorted_keys", "buf")
+
+    @staticmethod
+    def init(slots: int, buffer_entries: int, device) -> "FrequencyTableState":
+        from ..ops.hashing import FREQ_KEY_SENTINEL_I64
+
+        return FrequencyTableState(
+            torch.full((slots,), FREQ_KEY_SENTINEL_I64, dtype=COUNT_DTYPE, device=device),
+            torch.zeros(slots, dtype=COUNT_DTYPE, device=device),
+            _i(0, device),
+            torch.zeros(buffer_entries, dtype=COUNT_DTYPE, device=device),
+            *(_i(0, device) for _ in range(5)),
+        )
+
+    @property
+    def slots(self) -> int:
+        return self.sorted_keys.shape[0]
+
+    def _with_table(self, out, buf: torch.Tensor, sent_rows, lost_groups, lost_rows,
+                    num_rows) -> "FrequencyTableState":
+        slots = self.slots
+        return FrequencyTableState(
+            out.keys, out.counts, torch.clamp(out.n_unique, max=slots), buf,
+            torch.zeros_like(self.buf_fill), sent_rows,
+            lost_groups + torch.clamp(out.n_unique - slots, min=0),
+            lost_rows + (out.total_rows - out.kept_rows), num_rows, fill=0,
+        )
+
+    def compacted(self, in_place: bool = False) -> "FrequencyTableState":
+        """The buffer folded into the table (kernel ``freq_compact``), with
+        an empty buffer: a zeroed copy, or with ``in_place`` this state's
+        own buffer zeroed (the pass's in-batch compaction)."""
+        from ..kernels.freq_compact import freq_compact
+
+        out = freq_compact(self.sorted_keys, self.sorted_counts, self.buf[:self.fill], None,
+                           self.slots)
+        buf = self.buf.zero_() if in_place else torch.zeros_like(self.buf)
+        return self._with_table(out, buf, self.sent_rows, self.lost_groups, self.lost_rows,
+                                self.num_rows)
+
+    def append_keys(self, columns, rows: torch.Tensor, assume_fits: bool = False
+                    ) -> "FrequencyTableState":
+        """Fold one batch: compact first when the batch would overrun the
+        buffer (never with ``assume_fits``: the planner proved the buffer
+        holds the run), then write the batch's keys at ``buf_fill`` (kernel
+        ``freq_keys``). ``columns`` are the key's :class:`KeyColumn`\\ s."""
+        from ..kernels.freq_keys import freq_keys
+
+        batch = rows.shape[0]
+        cap = self.buf.shape[0]
+        if batch > cap:
+            raise ValueError(
+                f"frequency-table buffer holds {cap} entries but the batch carries "
+                f"{batch} rows; size buffer_entries >= the padded batch size"
+            )
+        state = self
+        if self.fill + batch > cap:
+            if assume_fits:
+                raise ValueError("a resident frequency table's buffer cannot hold the run")
+            state = self.compacted(in_place=True)
+        counts = freq_keys(columns, rows, state.buf, state.fill)
+        return dataclasses.replace(
+            state, buf_fill=state.buf_fill + batch, sent_rows=state.sent_rows + counts[0],
+            num_rows=state.num_rows + counts[1], fill=state.fill + batch,
+        )
+
+    def merge(self, other: "FrequencyTableState") -> "FrequencyTableState":
+        from ..kernels.freq_compact import freq_compact
+
+        a, b = self.compacted(), other.compacted()
+        out = freq_compact(a.sorted_keys, a.sorted_counts, b.sorted_keys, b.sorted_counts,
+                           a.slots)
+        return a._with_table(
+            out, a.buf, a.sent_rows + b.sent_rows, a.lost_groups + b.lost_groups,
+            a.lost_rows + b.lost_rows, a.num_rows + b.num_rows,
+        )
+
+
+@dataclass
 class NumMatches:
     """Row-count state (reference `analyzers/Size.scala:23-29`)."""
 

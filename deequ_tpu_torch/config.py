@@ -25,9 +25,26 @@ COUNT_DTYPE = torch.int64
 DEFAULT_BATCH_SIZE = 1 << 20
 
 #: dictionary sizes up to this ride the device frequency scan (kernel
-#: ``dict_code_counts``); grouping over larger dictionaries is outside this
-#: port's slice
+#: ``dict_code_counts``) when grouped; larger dictionaries take the device
+#: frequency table
 DEVICE_FREQ_MAX_CARDINALITY = 1 << 16
+
+#: the device frequency table (kernels ``freq_keys`` and ``freq_compact``):
+#: distinct-group capacity per grouping set (rounded up to a power of two,
+#: capped at the row count), and the raw key buffer's cap in entries. Runs
+#: whose padded rows fit the buffer keep every key there ("resident") and
+#: never compact in the pass. ``do_analysis_run`` and the builders take
+#: both as ``freq_table_slots`` and ``freq_buffer_entries``.
+DEFAULT_FREQ_TABLE_SLOTS = 1 << 22
+DEFAULT_FREQ_BUFFER_ENTRIES = 1 << 25
+
+#: the cardinality probe that sends small grouping sets to the host
+#: group-by: the largest product of per-column distinct counts it routes
+#: to the host, the rows of each of its head, middle and tail slices, and
+#: the row count at or below which it never routes to the host
+FREQ_HOST_ROUTE_MAX_DISTINCT = 1 << 15
+FREQ_PROBE_ROWS = 1 << 16
+FREQ_HOST_ROUTE_MIN_ROWS = 1 << 21
 
 DEFAULT_DEVICE = "cuda"
 

@@ -8,11 +8,13 @@ so leaf i of one is field i of the other (a static field, such as a KLL
 sketch's size, is no leaf in either package). A run can fold its first batches
 in the reference, carry the state over with :func:`from_reference`, and
 fold the rest here (or back with :func:`to_reference`); nothing of the
-reference package is imported.
+reference package is imported. Frequency-table keys are uint64 in the
+reference and int64 here: the two are views of the same bits.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -34,6 +36,7 @@ STATE_CLASSES: Dict[str, type] = {
         S.StandardDeviationState,
         S.ApproxCountDistinctState,
         S.FrequencyCountsState,
+        S.FrequencyTableState,
         S.DataTypeHistogram,
         S.KLLSketchState,
     )
@@ -44,6 +47,11 @@ def _identity(cls, leaves: Sequence[np.ndarray]):
     """An identity state of ``cls`` shaped like these leaves."""
     if cls is S.FrequencyCountsState:
         return cls.init(0, "cpu")
+    if cls is S.FrequencyTableState:
+        # table and buffer sizes ride the key leaves' shapes
+        if len(leaves) != 9:
+            raise ValueError(f"FrequencyTableState has 9 leaves, got {len(leaves)}")
+        return cls.init(len(leaves[0]), len(leaves[3]), "cpu")
     if cls is S.KLLSketchState:
         # the sketch size is static in both packages: it rides the items'
         # shape, float32[L, 4k]
@@ -65,14 +73,27 @@ def from_reference(class_name: str, leaves: Sequence[np.ndarray], device: Device
     dtypes = tuple(leaf.dtype for leaf in S.leaves(identity))
     if len(leaves) != len(dtypes):
         raise ValueError(f"{class_name} has {len(dtypes)} leaves, got {len(leaves)}")
+    u64 = _u64_leaves(identity)
     tensors = []
     for i, (leaf, dtype) in enumerate(zip(leaves, dtypes)):
         arr = np.asarray(leaf)
+        if i in u64 and arr.dtype == np.uint64:
+            arr = arr.view(np.int64)  # the same bits
         t = torch.from_numpy(np.array(arr, copy=True))
         if t.dtype != dtype:
             raise TypeError(f"{class_name} leaf {i}: expected {dtype}, got {arr.dtype}")
         tensors.append(t.to(device))
-    return S.with_leaves(identity, tensors)
+    state = S.with_leaves(identity, tensors)
+    if cls is S.FrequencyTableState:
+        state = dataclasses.replace(state, fill=int(tensors[4]))
+    return state
+
+
+def _u64_leaves(state) -> set:
+    """Leaf positions that hold uint64 keys in the reference (int64 bits
+    here)."""
+    names = getattr(type(state), "KEY_FIELDS", ())
+    return {i for i, f in enumerate(S.tensor_fields(state)) if f.name in names}
 
 
 def to_reference(state) -> Tuple[str, List[np.ndarray]]:
@@ -82,4 +103,8 @@ def to_reference(state) -> Tuple[str, List[np.ndarray]]:
     name = type(state).__name__
     if name not in STATE_CLASSES:
         raise NotImplementedError(f"state {name} is not carried by this port")
-    return name, [leaf.detach().cpu().numpy() for leaf in S.leaves(state)]
+    u64 = _u64_leaves(state)
+    return name, [
+        leaf.detach().cpu().numpy().view(np.uint64) if i in u64 else leaf.detach().cpu().numpy()
+        for i, leaf in enumerate(S.leaves(state))
+    ]

@@ -15,7 +15,10 @@ from typing import Dict
 
 import torch
 
-KERNEL_NAMES = ("scan_reduce", "hll_registers", "dict_code_counts", "kll_sample", "kll_compact")
+KERNEL_NAMES = (
+    "scan_reduce", "hll_registers", "dict_code_counts", "kll_sample", "kll_compact",
+    "freq_keys", "freq_compact",
+)
 
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 

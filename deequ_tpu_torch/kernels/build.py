@@ -21,7 +21,10 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("scan_reduce", "hll_registers", "dict_code_counts", "kll_sample", "kll_compact")
+SOURCES = (
+    "scan_reduce", "hll_registers", "dict_code_counts", "kll_sample", "kll_compact",
+    "freq_keys", "freq_compact",
+)
 
 #: sm_90a: Hopper with its architecture-specific instructions
 NVCC_FLAGS = (

@@ -151,3 +151,80 @@ def hash_column(values: np.ndarray, mask: np.ndarray, kind, seed: int = DEFAULT_
     vals[np.isnan(vals)] = np.nan
     vals[~mask] = 0.0
     return xxhash64_u64(vals.view(np.uint64), seed)
+
+
+# ---------------------------------------------------------------------------
+# Frequency keys: the device frequency table's 64-bit group keys (kernel
+# ``freq_keys``). PyTorch has few uint64 operations, so the tensor versions
+# below work on int64 tensors holding the uint64 bit patterns: int64 adds
+# and multiplies wrap modulo 2^64 exactly as uint64 ones do, and a logical
+# right shift is an arithmetic one with the sign-extended bits masked off.
+# ---------------------------------------------------------------------------
+
+#: the key reserved for masked-out and null rows: it sorts after every real
+#: key in unsigned order, so compactions and drains drop it. Real keys equal
+#: to it are counted in the state's ``sent_rows`` instead.
+FREQ_KEY_SENTINEL = 0xFFFFFFFFFFFFFFFF
+#: the same bits as an int64
+FREQ_KEY_SENTINEL_I64 = -1
+
+_SM1 = 0xBF58476D1CE4E5B9
+_SM2 = 0x94D049BB133111EB
+
+
+def _i64(c: int) -> int:
+    """A uint64 constant as the int64 with the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _lsr(x, s: int):
+    """Logical right shift of int64 bit patterns."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _rotl64(x, r: int):
+    return (x << r) | _lsr(x, 64 - r)
+
+
+def splitmix64(v: np.ndarray) -> np.ndarray:
+    """SplitMix64 finalizer over uint64 (a bijection): integral and
+    boolean grouping columns derive their frequency keys through it, so a
+    single-column key never collides."""
+    v = np.ascontiguousarray(v, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        v = v ^ (v >> np.uint64(30))
+        v = v * np.uint64(_SM1)
+        v = v ^ (v >> np.uint64(27))
+        v = v * np.uint64(_SM2)
+        v = v ^ (v >> np.uint64(31))
+    return v
+
+
+def splitmix64_torch(v):
+    """:func:`splitmix64` on an int64 tensor of uint64 bit patterns."""
+    v = v ^ _lsr(v, 30)
+    v = v * _i64(_SM1)
+    v = v ^ _lsr(v, 27)
+    v = v * _i64(_SM2)
+    return v ^ _lsr(v, 31)
+
+
+def xxhash64_u64_torch(values, seed):
+    """:func:`xxhash64_u64` on int64 tensors of uint64 bit patterns.
+    ``seed`` is an int or a per-row tensor: several grouping columns chain
+    their key by seeding each column's hash with the key so far (Spark's
+    ``XxHash64`` over several columns), so a combined key depends on every
+    column and on their order."""
+    p1, p2, p3, p4 = (_i64(int(p)) for p in (_P1, _P2, _P3, _P4))
+    if isinstance(seed, int):
+        h = _i64((seed + int(_P5) + 8) & _MASK)
+    else:
+        h = seed + _i64(int(_P5) + 8)
+    k = _rotl64(values * p2, 31) * p1
+    h = h ^ k
+    h = _rotl64(h, 27) * p1 + p4
+    h = h ^ _lsr(h, 33)
+    h = h * p2
+    h = h ^ _lsr(h, 29)
+    h = h * p3
+    return h ^ _lsr(h, 32)

@@ -4,31 +4,55 @@ Reference flow (`analyzers/runners/AnalysisRunner.scala:97-203`): dedupe
 -> precondition partition -> split {scanning, grouping} -> one fused pass
 -> assemble AnalyzerContext.
 
-This port routes what its slice covers, all in ONE pass on the device:
-the scan-shareable reductions, DataType, HLL and the KLL sketches, and
-grouping analyzers and histograms over a single dictionary-encoded column
-whose dictionary is within ``DEVICE_FREQ_MAX_CARDINALITY`` (counted by the
-device frequency scan). Anything else raises ``NotImplementedError`` naming
-the analyzer — nothing is routed silently to another tier.
+This port routes what its slice covers, all in ONE pass: the
+scan-shareable reductions, DataType, HLL and the KLL sketches on the
+device; histograms over dictionary-encoded columns on the device frequency
+scan; and each grouping set (Uniqueness, Distinctness, UniqueValueRatio,
+CountDistinct, Entropy over one or several columns) on one of three routes,
+as the reference package routes them (deequ_tpu/runners/analysis_runner.py:
+240-460):
+
+1. one dictionary-encoded column of at most ``DEVICE_FREQ_MAX_CARDINALITY``
+   entries: the device frequency scan (kernel ``dict_code_counts``);
+2. a set the cardinality probe finds small, or any set with
+   ``device_freq=False``: the host group-by, folded batch by batch in the
+   same pass;
+3. any other set: the device frequency table (kernels ``freq_keys`` and
+   ``freq_compact``), sized by ``freq_table_slots`` and
+   ``freq_buffer_entries``. A table that dropped groups re-runs its set
+   through the host group-by in one more pass (``freq_overflow_fallbacks``).
+
+Anything else raises ``NotImplementedError`` naming the analyzer — nothing
+is routed silently to another tier.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..analyzers.base import Analyzer, Preconditions, ScanShareableAnalyzer
 from ..analyzers.grouping import (
     DeviceFrequencyScan,
+    DeviceFrequencyTableScan,
+    FrequenciesAndNumRows,
     GroupingAnalyzer,
     Histogram,
     device_counts_to_histogram_frequencies,
+    plan_table_scan,
+    probably_low_cardinality,
 )
-from ..config import DEVICE_FREQ_MAX_CARDINALITY, DeviceLike, resolve_device
+from ..config import (
+    DEFAULT_FREQ_BUFFER_ENTRIES,
+    DEFAULT_FREQ_TABLE_SLOTS,
+    DEVICE_FREQ_MAX_CARDINALITY,
+    DeviceLike,
+    resolve_device,
+)
 from ..data import Dataset
 from ..metrics import Metric
 from .context import AnalyzerContext
-from .engine import RunMonitor, ScanEngine
-
+from .engine import RunMonitor, ScanEngine, effective_batch_size
 
 def collect_required_analyzers(checks, required_analyzers=()) -> List[Analyzer]:
     """Every analyzer a verification run needs: the explicitly required
@@ -62,7 +86,15 @@ class AnalysisRunner:
         batch_size: Optional[int] = None,
         monitor: Optional[RunMonitor] = None,
         device: DeviceLike = None,
+        freq_table_slots: int = DEFAULT_FREQ_TABLE_SLOTS,
+        freq_buffer_entries: int = DEFAULT_FREQ_BUFFER_ENTRIES,
+        device_freq: bool = True,
     ) -> AnalyzerContext:
+        """Compute every analyzer's metric in one pass over ``data``.
+        ``freq_table_slots`` and ``freq_buffer_entries`` size the device
+        frequency tables (see ``config.py``); ``device_freq=False`` sends
+        every grouping set that is not a small dictionary column to the
+        host group-by."""
         dev = resolve_device(device)
         if len(analyzers) == 0:
             return AnalyzerContext.empty()
@@ -91,7 +123,8 @@ class AnalysisRunner:
 
         dry = dry_run_batch(schema)
         scanning: List[ScanShareableAnalyzer] = []
-        grouping_sets: Dict[Tuple[str, ...], List[Analyzer]] = {}
+        grouping_sets: Dict[Tuple[str, ...], List[GroupingAnalyzer]] = {}
+        histograms: List[Histogram] = []
         for a in passed:
             if isinstance(a, ScanShareableAnalyzer):
                 try:
@@ -100,54 +133,109 @@ class AnalysisRunner:
                     failures[a] = a.to_failure_metric(exc)
                     continue
                 scanning.append(a)
-            elif isinstance(a, (GroupingAnalyzer, Histogram)):
-                cols = (a.column,) if isinstance(a, Histogram) else tuple(a.grouping_columns())
-                if len(cols) != 1:
-                    raise _not_in_slice(a, "grouping over several columns")
-                size = data.dictionary_size(cols[0])
-                if size is None:
-                    raise _not_in_slice(a, f"column {cols[0]} is not dictionary-encoded")
-                if size > DEVICE_FREQ_MAX_CARDINALITY:
-                    raise _not_in_slice(
-                        a, f"dictionary of {cols[0]} holds {size} > "
-                        f"{DEVICE_FREQ_MAX_CARDINALITY} entries"
-                    )
-                grouping_sets.setdefault(cols, []).append(a)
+            elif isinstance(a, GroupingAnalyzer):
+                grouping_sets.setdefault(tuple(a.grouping_columns()), []).append(a)
+            elif isinstance(a, Histogram):
+                if data.dictionary_size(a.column) is None:
+                    raise _not_in_slice(a, f"column {a.column} is not dictionary-encoded")
+                histograms.append(a)
             else:
                 raise _not_in_slice(a, "no execution strategy in this package")
 
-        # one device frequency scan per dictionary-encoded grouping column
-        dictionaries = {cols: data.dictionary_values(cols[0]) for cols in grouping_sets}
+        # route 1: the device frequency scan, for grouping sets of one small
+        # dictionary column and for every histogram's column
+        dict_sets = set()
+        for cols in grouping_sets:
+            size = data.dictionary_size(cols[0]) if len(cols) == 1 else None
+            if size is not None and size <= DEVICE_FREQ_MAX_CARDINALITY:
+                dict_sets.add(cols)
+        freq_cols = dict_sets | {(a.column,) for a in histograms}
+        dictionaries = {cols: data.dictionary_values(cols[0]) for cols in freq_cols}
         freq_scans = {
-            cols: DeviceFrequencyScan(cols[0], len(dictionaries[cols]))
-            for cols in grouping_sets
+            cols: DeviceFrequencyScan(cols[0], len(dictionaries[cols])) for cols in freq_cols
         }
-        battery = scanning + list(freq_scans.values())
+        # route 3: the device frequency table; route 2: the host group-by
+        batch_rows = effective_batch_size(batch_size)
+        table_scans: Dict[Tuple[str, ...], DeviceFrequencyTableScan] = {}
+        host_sets: List[Tuple[str, ...]] = []
+        for cols in grouping_sets:
+            if cols in dict_sets:
+                continue
+            scan = None
+            if device_freq and not probably_low_cardinality(data, cols):
+                scan = plan_table_scan(schema, cols, data.num_rows, batch_rows,
+                                       freq_table_slots, freq_buffer_entries)
+            if scan is None:
+                host_sets.append(cols)
+            else:
+                table_scans[cols] = scan
+
+        battery = scanning + list(freq_scans.values()) + list(table_scans.values())
+        run_monitor = monitor if monitor is not None else RunMonitor()
+        run_monitor.device_freq_sets += len(table_scans)
         metrics: Dict[Analyzer, Metric] = {}
-        if battery:
-            run_monitor = monitor if monitor is not None else RunMonitor()
-            engine = ScanEngine(battery, dev, monitor=run_monitor)
-            states = engine.run(
-                data, batch_size=batch_size,
-                columns=_columns_needed(engine, schema),
+        if not battery and not host_sets:
+            return AnalyzerContext(failures)
+        states, shared = _run_pass(data, battery, host_sets, batch_size, dev, run_monitor)
+        by_analyzer = dict(zip(battery, states))
+
+        # drain the device frequency tables; a table that dropped groups
+        # re-runs its set through the host group-by in one more pass
+        fallback: List[Tuple[str, ...]] = []
+        with run_monitor.timed("drain"):
+            for cols, scan in table_scans.items():
+                drained = scan.drain(by_analyzer[scan])
+                if drained is None:
+                    fallback.append(cols)
+                else:
+                    shared[cols] = drained
+        if fallback:
+            losses = "; ".join(
+                f"{cols}: ~{int(by_analyzer[table_scans[cols]].lost_groups)} groups / "
+                f"{int(by_analyzer[table_scans[cols]].lost_rows)} rows dropped"
+                for cols in fallback
             )
-            by_analyzer = dict(zip(battery, states))
-            with run_monitor.timed("metric_derivation"):
-                for a in scanning:
-                    metrics[a] = _metric(a, by_analyzer[a])
-                for cols, members in grouping_sets.items():
-                    scan = freq_scans[cols]
-                    state = by_analyzer[scan]
-                    shared = scan.to_frequencies(state, dictionaries[cols])
-                    for a in members:
-                        if isinstance(a, Histogram):
-                            hist = device_counts_to_histogram_frequencies(
-                                scan, state, dictionaries[cols]
-                            )
-                            metrics[a] = _metric(a, hist)
-                        else:
-                            metrics[a] = _metric(a, shared)
+            logging.getLogger(__name__).warning(
+                "device frequency table overflowed for grouping sets [%s]; re-running "
+                "them through the host group-by", losses,
+            )
+            run_monitor.freq_overflow_fallbacks += len(fallback)
+            shared.update(_run_pass(data, [], fallback, batch_size, dev, run_monitor)[1])
+
+        with run_monitor.timed("metric_derivation"):
+            for a in scanning:
+                metrics[a] = _metric(a, by_analyzer[a])
+            for cols in dict_sets:
+                scan = freq_scans[cols]
+                shared[cols] = scan.to_frequencies(by_analyzer[scan], dictionaries[cols])
+            for cols, members in grouping_sets.items():
+                for a in members:
+                    metrics[a] = _metric(a, shared[cols])
+            for a in histograms:
+                scan = freq_scans[(a.column,)]
+                hist = device_counts_to_histogram_frequencies(
+                    scan, by_analyzer[scan], dictionaries[(a.column,)]
+                )
+                metrics[a] = _metric(a, hist)
         return AnalyzerContext(failures) + AnalyzerContext(metrics)
+
+
+def _run_pass(data: Dataset, battery: Sequence[ScanShareableAnalyzer],
+              host_sets: Sequence[Tuple[str, ...]], batch_size: Optional[int], device,
+              monitor: RunMonitor) -> Tuple[List[Any], Dict[Tuple[str, ...], Any]]:
+    """One pass: ``battery`` on the device and a host group-by per set of
+    ``host_sets``. Returns the battery's states (on the host) and each
+    set's :class:`FrequenciesAndNumRows` by its columns."""
+    engine = ScanEngine(battery, device, monitor=monitor)
+    tables: Dict[Tuple[str, ...], Any] = {
+        cols: FrequenciesAndNumRows.empty(list(cols)) for cols in host_sets
+    }
+    update = {cols: FrequenciesAndNumRows.update for cols in host_sets}
+    states = engine.run(
+        data, batch_size=batch_size, columns=_columns_needed(engine, data.schema, host_sets),
+        host_accumulators=tables, host_update_fns=update,
+    )
+    return states, tables
 
 
 def _metric(analyzer: Analyzer, state: Any) -> Metric:
@@ -157,10 +245,14 @@ def _metric(analyzer: Analyzer, state: Any) -> Metric:
         return analyzer.to_failure_metric(exc)
 
 
-def _columns_needed(engine: ScanEngine, schema) -> Optional[List[str]]:
-    """Restrict batch materialization to columns any analyzer touches; None
-    (= all columns) when a predicate may reference arbitrary columns."""
+def _columns_needed(engine: ScanEngine, schema,
+                    host_sets: Sequence[Tuple[str, ...]] = ()) -> Optional[List[str]]:
+    """Restrict batch materialization to columns any analyzer or host
+    group-by touches; None (= all columns) when a predicate may reference
+    arbitrary columns."""
     if any(spec.kind == "pred" for spec in engine.builder.specs.values()):
         return None
     cols = set(engine.required_columns())
+    for set_cols in host_sets:
+        cols.update(set_cols)
     return [c for c in schema.names if c in cols]

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 from ..analyzers.base import Analyzer
 from ..config import DeviceLike, resolve_device
@@ -18,6 +18,7 @@ class AnalysisRunBuilder:
         self._analyzers: List[Analyzer] = []
         self._batch_size: Optional[int] = None
         self._monitor: Optional[RunMonitor] = None
+        self._freq_options: Dict[str, Any] = {}
 
     def add_analyzer(self, analyzer: Analyzer) -> "AnalysisRunBuilder":
         self._analyzers.append(analyzer)
@@ -35,6 +36,12 @@ class AnalysisRunBuilder:
         self._monitor = monitor
         return self
 
+    def with_frequency_options(self, **options) -> "AnalysisRunBuilder":
+        """``freq_table_slots``, ``freq_buffer_entries`` and ``device_freq``
+        of :meth:`AnalysisRunner.do_analysis_run`."""
+        self._freq_options.update(frequency_options(**options))
+        return self
+
     def run(self) -> AnalyzerContext:
         from .analysis_runner import AnalysisRunner
 
@@ -44,7 +51,17 @@ class AnalysisRunBuilder:
             batch_size=self._batch_size,
             monitor=self._monitor,
             device=self._device,
+            **self._freq_options,
         )
+
+
+def frequency_options(freq_table_slots: Optional[int] = None,
+                      freq_buffer_entries: Optional[int] = None,
+                      device_freq: Optional[bool] = None) -> Dict[str, Any]:
+    """The frequency-table keywords a builder passes on (those not None)."""
+    options = {"freq_table_slots": freq_table_slots,
+               "freq_buffer_entries": freq_buffer_entries, "device_freq": device_freq}
+    return {k: v for k, v in options.items() if v is not None}
 
 
 class Analysis:

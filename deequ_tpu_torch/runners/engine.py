@@ -14,13 +14,13 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..analyzers.base import ScanShareableAnalyzer, SlotSpec, resolve_slot
-from ..analyzers.states import leaves as state_leaves, with_leaves
+from ..analyzers.states import FrequencyTableState, leaves as state_leaves, with_leaves
 from ..config import DEFAULT_BATCH_SIZE, synchronize
 from ..data import Dataset
 from ..kernels.scan_reduce import MAX_SLOTS, partials, scan_reduce
@@ -34,11 +34,18 @@ class RunMonitor:
     tooling. Phases: ``feature_build`` (host features, split by feature
     kind under ``feature_build.<kind>``), ``host_to_device`` (copies),
     ``kernels`` (launches, state folds and the wait for them),
-    ``state_fetch`` (the one device-to-host copy of the states)."""
+    ``host_accumulators`` (the host group-by's batch folds),
+    ``state_fetch`` (the device-to-host copy of the states); the runner
+    adds ``drain`` (device frequency tables to counts) and
+    ``metric_derivation``. ``device_freq_sets`` counts the grouping sets
+    given a device frequency table, ``freq_overflow_fallbacks`` those whose
+    table dropped groups and re-ran on the host."""
 
     passes: int = 0
     batches: int = 0
     device: Optional[str] = None
+    device_freq_sets: int = 0
+    freq_overflow_fallbacks: int = 0
     phase_seconds: Dict[str, float] = field(default_factory=dict)
 
     def add_phase_time(self, phase: str, seconds: float) -> None:
@@ -117,15 +124,33 @@ def to_device(features: Dict[str, np.ndarray], device: torch.device) -> Dict[str
     return out
 
 
+#: leaves of at least this many elements are copied to the host on their
+#: own, not packed (packing copies them once more on the device)
+FETCH_ALONE_ELEMENTS = 1 << 20
+
+
+def _fetch_leaves(state) -> List[torch.Tensor]:
+    leaves = state_leaves(state)
+    if isinstance(state, FrequencyTableState):
+        # only the filled part of the key buffer is ever read (the drain
+        # reads buf[:buf_fill])
+        leaves[3] = leaves[3][:state.fill]
+    return leaves
+
+
 def fetch_states(states: Sequence[Any]) -> List[Any]:
-    """Bring every state to the host with one copy per leaf dtype: leaves
-    are packed into one flat buffer per dtype on the device, copied, and
-    split back. Static fields (a sketch's size) stay as they are."""
-    leaves = [leaf for s in states for leaf in state_leaves(s)]
+    """Bring every state to the host: small leaves with one copy per leaf
+    dtype (packed into one flat buffer per dtype on the device, copied and
+    split back), large ones (a frequency table, its filled key buffer) with
+    a copy each. Static fields (a sketch's size) stay as they are."""
+    leaves = [leaf for s in states for leaf in _fetch_leaves(s)]
+    host: List[Optional[torch.Tensor]] = [None] * len(leaves)
     by_dtype: Dict[torch.dtype, List[int]] = {}
     for i, leaf in enumerate(leaves):
-        by_dtype.setdefault(leaf.dtype, []).append(i)
-    host: List[Optional[torch.Tensor]] = [None] * len(leaves)
+        if leaf.numel() >= FETCH_ALONE_ELEMENTS:
+            host[i] = leaf.cpu()
+        else:
+            by_dtype.setdefault(leaf.dtype, []).append(i)
     for idx in by_dtype.values():
         flat = torch.cat([leaves[i].reshape(-1) for i in idx]).cpu()
         offset = 0
@@ -167,25 +192,43 @@ class ScanEngine:
         data: Dataset,
         batch_size: Optional[int] = None,
         columns: Optional[Sequence[str]] = None,
+        host_accumulators: Optional[Dict[Any, Any]] = None,
+        host_update_fns: Optional[Dict[Any, Callable[[Any, Any], Any]]] = None,
     ) -> List[Any]:
         """Fold every batch into the analyzers' states; returns the states
-        on the host, in analyzer order."""
+        on the host, in analyzer order. ``host_accumulators`` (key -> state)
+        fold each batch on the host in the same pass, through
+        ``host_update_fns[key](state, batch)``; the dict is updated in
+        place."""
         monitor = self.monitor
+        host_states = host_accumulators if host_accumulators is not None else {}
         monitor.passes += 1
         monitor.device = str(self.device)
-        if not self.scan_analyzers:
+        if not self.scan_analyzers and not host_states:
             return []
-        bs = int(batch_size or DEFAULT_BATCH_SIZE)
+        bs = effective_batch_size(batch_size)
         states = self.program.init_states(self.device)
         for batch in data.batches(bs, columns=columns):
-            with monitor.timed("feature_build"):
-                host_features = self.builder.build(batch, monitor.phase_seconds)
-            with monitor.timed("host_to_device"):
-                features = to_device(host_features, self.device)
-                synchronize(self.device)
-            with monitor.timed("kernels"):
-                states = self.program(states, features)
-                synchronize(self.device)
+            if self.scan_analyzers:
+                with monitor.timed("feature_build"):
+                    host_features = self.builder.build(batch, monitor.phase_seconds)
+                with monitor.timed("host_to_device"):
+                    features = to_device(host_features, self.device)
+                    synchronize(self.device)
+                with monitor.timed("kernels"):
+                    states = self.program(states, features)
+                    synchronize(self.device)
+            if host_states:
+                with monitor.timed("host_accumulators"):
+                    for key, fn in host_update_fns.items():
+                        host_states[key] = fn(host_states[key], batch)
             monitor.batches += 1
+        if not self.scan_analyzers:
+            return []
         with monitor.timed("state_fetch"):
             return fetch_states(states)
+
+
+def effective_batch_size(batch_size: Optional[int] = None) -> int:
+    """The rows per batch of a pass (every batch is padded to it)."""
+    return int(batch_size or DEFAULT_BATCH_SIZE)

@@ -188,6 +188,20 @@ def dict_hashes(col) -> np.ndarray:
     return hd[safe]
 
 
+def _key_values(col) -> np.ndarray:
+    """The ``key`` feature: integers pass through in their own signed dtype
+    (masked positions may hold anything), unsigned ones widen to int64 or,
+    at 64 bits, keep their bits as int64; booleans become float64 0/1."""
+    vals = col.values
+    if not (np.issubdtype(vals.dtype, np.integer) and col.kind == ColumnKind.INTEGRAL):
+        return col.numeric_f64()
+    if vals.dtype == np.uint64:
+        return vals.view(np.int64)
+    if vals.dtype in (np.uint16, np.uint32):
+        return vals.astype(np.int64)
+    return vals
+
+
 def _is_string_dict(col) -> bool:
     return (
         col.has_dictionary
@@ -199,7 +213,8 @@ def _is_string_dict(col) -> bool:
 class FeatureBuilder:
     """Computes the union of requested features for each batch. Arrays come
     out in the dtypes the kernels take: bool masks, float64 values, int32
-    lengths, codes and type classes, uint16 HLL keys."""
+    lengths, codes and type classes, uint16 HLL keys, int64 hash bits and
+    integers of their own width for group keys."""
 
     def __init__(self, specs: Iterable[FeatureSpec]):
         # dedupe by key, keep spec objects (payload needed for predicates)
@@ -233,6 +248,18 @@ class FeatureBuilder:
                     features[key] = col.numeric_f64()
             elif spec.kind == "mask":
                 features[key] = batch.column(spec.column).mask
+            elif spec.kind == "key":
+                features[key] = _key_values(batch.column(spec.column))
+            elif spec.kind == "hash":
+                col = batch.column(spec.column)
+                if _is_string_dict(col):
+                    # cached hashes of the DISTINCT values, gathered by code
+                    hashes = dict_hashes(col)
+                elif col.kind == ColumnKind.STRING:
+                    hashes = hash_column(col.string_source, col.mask, col.kind)
+                else:
+                    hashes = hash_column(col.values, col.mask, col.kind)
+                features[key] = hashes.view(np.int64)
             elif spec.kind == "len":
                 col = batch.column(spec.column)
                 if _is_string_dict(col):

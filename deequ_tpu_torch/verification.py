@@ -20,6 +20,7 @@ from .config import DeviceLike, resolve_device
 from .data import Dataset
 from .metrics import Metric
 from .runners.analysis_runner import AnalysisRunner, collect_required_analyzers
+from .runners.builder import frequency_options
 from .runners.context import AnalyzerContext
 from .runners.engine import RunMonitor
 
@@ -92,11 +93,17 @@ class VerificationSuite:
         batch_size: Optional[int] = None,
         monitor: Optional[RunMonitor] = None,
         device: DeviceLike = None,
+        **freq_options,
     ) -> VerificationResult:
+        """One pass computing every metric the checks need, then the
+        verdicts. ``freq_options``: ``freq_table_slots``,
+        ``freq_buffer_entries`` and ``device_freq`` of
+        :meth:`AnalysisRunner.do_analysis_run`."""
         checks = list(checks)  # evaluate() walks them again after the run
         analyzers = collect_required_analyzers(checks, required_analyzers)
         analysis_results = AnalysisRunner.do_analysis_run(
             data, analyzers, batch_size=batch_size, monitor=monitor, device=device,
+            **freq_options,
         )
         return VerificationSuite.evaluate(checks, analysis_results)
 
@@ -124,6 +131,7 @@ class VerificationRunBuilder:
         self.required_analyzers: List[Analyzer] = []
         self._batch_size: Optional[int] = None
         self._monitor: Optional[RunMonitor] = None
+        self._freq_options: Dict = {}
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self.checks.append(check)
@@ -149,6 +157,12 @@ class VerificationRunBuilder:
         self._monitor = monitor
         return self
 
+    def with_frequency_options(self, **options) -> "VerificationRunBuilder":
+        """``freq_table_slots``, ``freq_buffer_entries`` and ``device_freq``
+        of :meth:`AnalysisRunner.do_analysis_run`."""
+        self._freq_options.update(frequency_options(**options))
+        return self
+
     def run(self) -> VerificationResult:
         return VerificationSuite.do_verification_run(
             self.data,
@@ -157,4 +171,5 @@ class VerificationRunBuilder:
             batch_size=self._batch_size,
             monitor=self._monitor,
             device=self.device,
+            **self._freq_options,
         )

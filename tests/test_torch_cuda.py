@@ -261,3 +261,133 @@ def test_kll_kernels_count_their_launches(cuda_device):
     kll_sample_plain(values, rows, where, present, state[3], 64)
     counts = launch_counts()
     assert counts["kll_sample"] == 1 and counts["kll_compact"] == 1
+
+
+# ---------------------------------------------------------------------------
+# K6 freq_keys and K7 freq_compact: keys, counts and table bit-exact
+# ---------------------------------------------------------------------------
+
+
+def _key_columns(n, ncols, device, seed=0):
+    """``ncols`` key columns of every kind the kernel reads: int64 (with
+    the int64 whose SplitMix64 is the sentinel), int8, uint8, int16, int32,
+    float64 0/1 (booleans) and xxhash64 bits; each with its own mask."""
+    from deequ_tpu_torch.kernels.freq_keys import KIND_HASH, KIND_NUM, KeyColumn
+
+    rng = np.random.default_rng(seed)
+    sentinel_preimage = -3487469807577879104  # SplitMix64 of it is all ones
+    makers = [
+        lambda: np.where(rng.random(n) < 0.01, sentinel_preimage,
+                         rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64)),
+        lambda: rng.integers(-128, 128, n).astype(np.int8),
+        lambda: rng.integers(0, 256, n).astype(np.uint8),
+        lambda: rng.integers(-2**15, 2**15, n).astype(np.int16),
+        lambda: rng.integers(-2**31, 2**31, n).astype(np.int32),
+        lambda: (rng.random(n) < 0.5).astype(np.float64),
+        lambda: rng.integers(-(2**63), 2**63 - 1, n, dtype=np.int64),
+        lambda: rng.integers(0, 5, n).astype(np.int64),
+    ]
+    cols = []
+    for c in range(ncols):
+        kind = KIND_HASH if c == 6 else KIND_NUM
+        values = torch.from_numpy(np.ascontiguousarray(makers[c % len(makers)]())).to(device)
+        mask = torch.from_numpy(rng.random(n) < 0.97).to(device)
+        cols.append(KeyColumn(kind, values, mask))
+    rows = torch.from_numpy(rng.random(n) < 0.95).to(device)
+    return cols, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, (1 << 20) + 3])
+@pytest.mark.parametrize("ncols", [1, 2, 3, 8])
+def test_freq_keys_kernel_matches_plain(cuda_device, n, ncols):
+    """Keys at an offset into a larger buffer, and the (sent_rows,
+    num_rows) counters; the one-column case holds sentinel-valued keys."""
+    from deequ_tpu_torch.kernels.freq_keys import freq_keys, freq_keys_plain
+
+    cols, rows = _key_columns(n, ncols, cuda_device, seed=n + ncols)
+    got_buf = torch.zeros(n + 11, dtype=torch.int64, device=cuda_device)
+    want_buf = got_buf.clone()
+    got = freq_keys(cols, rows, got_buf, 7)
+    want = freq_keys_plain(cols, rows, want_buf, 7)
+    torch.cuda.synchronize()
+    assert torch.equal(got_buf, want_buf)
+    assert torch.equal(got, want)
+    if ncols == 1 and n > 1000:
+        assert int(got[0]) > 0
+
+
+def _random_table(slots, distinct, device, seed):
+    from deequ_tpu_torch.kernels.freq_compact import freq_compact_plain
+
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 2**64 - 1, distinct, dtype=np.uint64).view(np.int64)
+    return freq_compact_plain(torch.from_numpy(keys).to(device),
+                              torch.from_numpy(rng.integers(1, 9, distinct)).to(device), slots)
+
+
+def _assert_same_compaction(got, want):
+    torch.cuda.synchronize()
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty buffer", "all sentinel", "overflow", "fits",
+                                  "large"])
+def test_freq_compact_kernel_matches_plain(cuda_device, case):
+    """A sorted table and a raw key buffer: an empty buffer, a buffer of
+    sentinels only, more unique keys than slots (exact loss counts), a
+    buffer that fits, and a 2^18-slot table with a 2^16-key buffer."""
+    from deequ_tpu_torch.kernels.freq_compact import freq_compact
+
+    slots, distinct, nb = {"empty buffer": (1024, 700, 0), "all sentinel": (1024, 700, 5000),
+                           "overflow": (1024, 900, 20_000), "fits": (1 << 16, 900, 20_000),
+                           "large": (1 << 18, 200_000, 1 << 16)}[case]
+    table = _random_table(slots, distinct, cuda_device, seed=slots + nb)
+    rng = np.random.default_rng(nb)
+    buf = rng.integers(0, 2**64 - 1, nb, dtype=np.uint64).view(np.int64)
+    if case == "all sentinel":
+        buf[:] = -1
+    else:
+        buf[::9] = -1
+        known = table.keys.cpu().numpy()[: int(table.n_unique)]
+        buf[1::4] = known[rng.integers(0, len(known), len(buf[1::4]))]
+    buf = torch.from_numpy(buf).to(cuda_device)
+    got = freq_compact(table.keys, table.counts, buf, None, slots)
+    want = freq_compact(table.keys.cpu(), table.counts.cpu(), buf.cpu(), None, slots)
+    _assert_same_compaction(got, [w.to(cuda_device) for w in want])
+    if case == "overflow":
+        assert int(got.n_unique) > slots and int(got.kept_rows) < int(got.total_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_size", [1 << 12, 1 << 16])
+def test_freq_compact_merge_kernel_matches_plain(cuda_device, out_size):
+    """Merge mode: two sorted tables, sharing some keys; the smaller
+    out_size drops groups."""
+    from deequ_tpu_torch.kernels.freq_compact import freq_compact
+
+    a = _random_table(1 << 14, 9000, cuda_device, seed=1)
+    b = _random_table(1 << 14, 9000, cuda_device, seed=1)  # the same keys
+    c = _random_table(1 << 14, 5000, cuda_device, seed=2)
+    for x, y in ((a, b), (a, c), (c, a)):
+        got = freq_compact(x.keys, x.counts, y.keys, y.counts, out_size)
+        want = freq_compact(x.keys.cpu(), x.counts.cpu(), y.keys.cpu(), y.counts.cpu(), out_size)
+        _assert_same_compaction(got, [w.to(cuda_device) for w in want])
+
+
+@pytest.mark.cuda
+def test_freq_kernels_count_their_launches(cuda_device):
+    from deequ_tpu_torch.kernels.freq_compact import freq_compact
+    from deequ_tpu_torch.kernels.freq_keys import freq_keys, freq_keys_plain
+
+    cols, rows = _key_columns(5000, 2, cuda_device)
+    buf = torch.zeros(5000, dtype=torch.int64, device=cuda_device)
+    table = _random_table(64, 50, cuda_device, seed=3)
+    reset_launch_counts()
+    freq_keys(cols, rows, buf, 0)
+    freq_keys_plain(cols, rows, buf, 0)
+    freq_compact(table.keys, table.counts, buf, None, 64)
+    counts = launch_counts()
+    assert counts["freq_keys"] == 1 and counts["freq_compact"] == 1

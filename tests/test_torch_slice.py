@@ -307,8 +307,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("analyzer", [
-    T.Uniqueness("name"),                 # plain (not dictionary-encoded) column
-    T.Uniqueness(["cat", "id"]),          # several grouping columns
+    T.Histogram("y"),                     # plain (not dictionary-encoded) column
+    J.MutualInformation(["cat", "id"]),   # an analyzer the port does not have
     T.Histogram("id"),                    # plain column
     J.Correlation("x", "y"),              # an analyzer of the JAX package
     J.ApproxQuantile("x", 0.5),
@@ -320,13 +320,22 @@ def test_analyzers_outside_the_slice_raise(analyzer):
 
 
 def test_dictionary_over_the_device_limit_raises():
+    """A dictionary above the device frequency scan's 65536 entries no
+    longer raises: its grouping set takes the device frequency table and
+    its histogram counts every code (the name is kept from when it did)."""
     n = 70_000
     table = pa.table({"c": pa.DictionaryArray.from_arrays(
         pa.array(np.arange(n, dtype=np.int32)), pa.array([str(i) for i in range(n)]))})
-    with pytest.raises(NotImplementedError, match="65536"):
-        AnalysisRunner.do_analysis_run(
-            TD.Dataset.from_arrow(table), [T.CountDistinct("c")], device="cpu"
-        )
+    monitor = RunMonitor()
+    ctx = AnalysisRunner.do_analysis_run(
+        TD.Dataset.from_arrow(table), [T.CountDistinct("c")], device="cpu", monitor=monitor,
+    )
+    assert ctx.metric(T.CountDistinct("c")).value.get() == float(n)
+    assert monitor.device_freq_sets == 1
+    ctx = AnalysisRunner.do_analysis_run(
+        TD.Dataset.from_arrow(table), [T.Histogram("c")], device="cpu",
+    )
+    assert ctx.metric(T.Histogram("c")).value.get().number_of_bins == n
 
 
 # ---------------------------------------------------------------------------
