@@ -19,7 +19,12 @@ Phases, each of which fails the run when it fails:
    of two sketches. For the grouping path: K6 on the first batch of the
    bench grouping workload, on lineitem's two-column primary key and on an
    edge batch; K7 compacting that batch's keys into a full 2^22-slot
-   table, merging two full tables, and compacting the edge batch's keys;
+   table, merging two full tables, and compacting the edge batch's keys.
+   For the incremental path (timed inside phase 6, at its shapes): K8 at
+   N = 2 on config 4's partition states and at N = 32 on states of every
+   kind (a month of day partitions), bit for bit, beside ``torch.amax``
+   over the stacked HLL registers; K1 with one co-moment slot over two
+   1M-row float64 columns;
 3. the verification path: one ``VerificationSuite`` over a 10M-row dataset
    (BASELINE config 2's synthetic numeric/categorical table: four nullable
    float64 columns with NaN, an int64 id, dictionary columns of ~1,000 and
@@ -38,7 +43,21 @@ Phases, each of which fails the run when it fails:
    one that overflows into the host group-by (c), held against (a) on
    ``device="cpu"`` and a numpy oracle; lineitem's primary key and key
    checks through ``VerificationSuite`` (d), against the CPU run and
-   pandas value counts; BasicExample (e), against its CPU run.
+   pandas value counts; BasicExample (e), against its CPU run;
+6. the incremental path, BASELINE config 4: two day partitions of 50M rows
+   of the JAX bench's scan table (``build_scan_data``, seed 42), batches
+   of 1M, the bench's battery. (a) each partition with ``save_states_with``
+   (an in-memory provider per partition) and an in-memory metrics
+   repository keyed by day; (b) ``run_on_aggregated_states`` over both
+   providers, timed, Size = 100M; (c) anomaly checks on Size and Mean over
+   the day history: a steady day passes, a quarter-size day does not; (d)
+   the states through ``FileSystemStateProvider`` files, merged again: (b)'s
+   metrics bit for bit; (e) a battery of every other persistable state type
+   (Correlation, StandardDeviation, Minimum, Maximum and Mean with NaN,
+   DataType, a Histogram of a dictionary column, Uniqueness, a second KLL)
+   over the same partitions, merged and held against one full-table run.
+   (b) and (e) are held against numpy over the whole table, and the phase
+   at 2 x 5M rows against the same on ``device="cpu"``.
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
@@ -89,12 +108,15 @@ TPU_KERNELS = {
     "kll_compact": "deequ_tpu/ops/kll.py:204",
     "freq_keys": "deequ_tpu/analyzers/grouping.py:911",
     "freq_compact": "deequ_tpu/ops/__init__.py:33",
+    "state_fold": "deequ_tpu/analyzers/base.py:273",
 }
 #: the kernels each main path must launch
 VERIFICATION_KERNELS = ("scan_reduce", "hll_registers", "dict_code_counts")
 PROFILE_KERNELS = ("scan_reduce", "hll_registers", "dict_code_counts", "kll_sample",
                    "kll_compact")
 FREQ_KERNELS = ("freq_keys", "freq_compact")
+#: the merged-state refresh of the incremental path: K8 and K5's merge
+INCREMENTAL_KERNELS = ("state_fold", "kll_compact")
 
 #: the bench's grouping workload (bench.py run_grouping_stage,
 #: tools/grouping_sweep.py): 25M int64 keys over rows // 7 distinct values
@@ -277,7 +299,7 @@ def metric_values(result) -> dict:
 
 
 #: metrics that are float sums or moments; all others must match exactly
-MOMENT_METRICS = ("Mean", "Sum", "StandardDeviation")
+MOMENT_METRICS = ("Mean", "Sum", "StandardDeviation", "Correlation")
 
 
 def compare_metrics(got: dict, want: dict, rtol: float = 1e-12) -> list:
@@ -444,6 +466,100 @@ def compare_profile_oracle(got: dict, table: pa.Table, rtol: float = 1e-9) -> tu
         if max(errors) > 2 * KLL_RELATIVE_ERROR:
             problems.append(f"{name}: percentile rank error {max(errors)} > {2 * KLL_RELATIVE_ERROR}")
     return problems, worst_rank
+
+
+# ---------------------------------------------------------------------------
+# states of every kind state_fold folds (plain numpy/torch: callable on the CPU)
+# ---------------------------------------------------------------------------
+
+
+def fold_groups(dq, n_states: int, seed: int, device: str = "cpu") -> list:
+    """``(analyzer, [n_states states])`` for every state kind of K8
+    ``state_fold``, random from ``seed``: counts, sums, minima and maxima
+    with NaN and signed zeros among them, moments and co-moments with
+    empty (n = 0) states, DataType counts and HLL registers."""
+    import torch
+
+    from deequ_tpu_torch.analyzers import states as st
+
+    rng = np.random.default_rng(seed)
+
+    def f(x):
+        return torch.tensor(float(x), dtype=torch.float64, device=device)
+
+    def i(x):
+        return torch.tensor(int(x), dtype=torch.int64, device=device)
+
+    def value():
+        r = rng.random()
+        if r < 0.1:
+            return math.nan
+        if r < 0.2:
+            return -0.0 if rng.random() < 0.5 else 0.0
+        return float(rng.normal(5.0, 100.0))
+
+    def n_or_empty():
+        return 0.0 if rng.random() < 0.2 else float(rng.integers(1, 10_000))
+
+    def moments():
+        n = n_or_empty()
+        if n == 0:
+            return st.StandardDeviationState(f(0), f(0), f(0))
+        return st.StandardDeviationState(f(n), f(rng.normal(3.0, 50.0)), f(rng.random() * n * 30))
+
+    def comoments():
+        n = n_or_empty()
+        if n == 0:
+            return st.CorrelationState(*(f(0) for _ in range(6)))
+        x, y = rng.random() * n * 9, rng.random() * n * 4
+        return st.CorrelationState(f(n), f(rng.normal(0, 9)), f(rng.normal(1, 4)),
+                                   f(rng.normal(0, 1) * math.sqrt(x * y)), f(x), f(y))
+
+    def count():
+        return rng.integers(0, 1 << 40)
+
+    makers = [
+        (dq.Size(), lambda: st.NumMatches(i(count()))),
+        (dq.Completeness("x0"), lambda: st.NumMatchesAndCount(i(count()), i(count()))),
+        (dq.Mean("x0"), lambda: st.MeanState(f(value()), i(count()))),
+        (dq.Sum("x1"), lambda: st.SumState(f(value()), i(count()))),
+        (dq.Minimum("x2"), lambda: st.MinState(f(value()), i(count()))),
+        (dq.Maximum("x2"), lambda: st.MaxState(f(value()), i(count()))),
+        (dq.StandardDeviation("x3"), moments),
+        (dq.Correlation("x0", "x1"), comoments),
+        (dq.DataType("x0"), lambda: st.DataTypeHistogram(torch.from_numpy(
+            rng.integers(0, 1 << 30, 5)).to(device))),
+        (dq.ApproxCountDistinct("cat"), lambda: st.ApproxCountDistinctState(torch.from_numpy(
+            rng.integers(0, 40, 512).astype(np.int32)).to(device))),
+    ]
+    return [(a, [make() for _ in range(n_states)]) for a, make in makers]
+
+
+def same_state_bits(got, want) -> bool:
+    """Whether two tensor states hold the same leaves, bit for bit (NaN
+    equal to NaN whatever its payload)."""
+    from deequ_tpu_torch.analyzers.states import leaves
+
+    for g, w in zip(leaves(got), leaves(want)):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        if g.dtype != w.dtype or g.shape != w.shape:
+            return False
+        if g.dtype.kind == "f":
+            nan = np.isnan(g)
+            if not np.array_equal(nan, np.isnan(w)):
+                return False
+            g, w = np.where(nan, 0.0, g), np.where(nan, 0.0, w)
+        if g.tobytes() != w.tobytes():
+            return False
+    return True
+
+
+def sequential_fold(states: list):
+    """The left-to-right fold of the states' own ``merge``."""
+    merged = states[0]
+    for s in states[1:]:
+        merged = merged.merge(s)
+    return merged
 
 
 # ---------------------------------------------------------------------------
@@ -1198,6 +1314,452 @@ def grouping_path(torch, dq, lineitem: pa.Table) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the incremental path, BASELINE config 4
+# ---------------------------------------------------------------------------
+
+#: BASELINE config 4: two day partitions of 50M rows of the JAX bench's
+#: scan table (bench.py build_scan_data, seed 42), batches of 1M
+INCREMENTAL_PARTITION_ROWS = 50_000_000
+INCREMENTAL_PARTITIONS = 2
+#: the CPU comparison runs the same phase at 2 x 5M rows
+INCREMENTAL_CPU_PARTITION_ROWS = 5_000_000
+INCREMENTAL_SEED = 42
+#: months of day partitions: the N of state_fold's every-kind check
+MONTH_OF_DAYS = 32
+
+
+def build_scan_data(rows: int, seed: int = INCREMENTAL_SEED) -> pa.Table:
+    """``bench.py build_scan_data``: x0-x3 normal (mean 100 i, sd 10) with
+    5% nulls and ``cat``, int64 over 100,000 values; plus the second
+    battery's columns: ``grade``, a dictionary of 100 categories
+    (cat // 1000), and ``x3n``, x3 with NaN where cat % 97 == 0."""
+    rng = np.random.default_rng(seed)
+    cols = {}
+    for i in range(4):
+        vals = rng.normal(100 * i, 10, rows)
+        nulls = rng.random(rows) < 0.05
+        cols[f"x{i}"] = pa.array(vals, mask=nulls)
+    cat = rng.integers(0, 100_000, rows)
+    cols["cat"] = pa.array(cat)
+    cols["grade"] = pa.DictionaryArray.from_arrays(
+        pa.array((cat // 1000).astype(np.int32)), pa.array([f"g{i:02d}" for i in range(100)]))
+    x3 = cols["x3"].to_numpy(zero_copy_only=False).copy()
+    x3[cat % 97 == 0] = np.nan
+    cols["x3n"] = pa.array(x3, mask=np.asarray(cols["x3"].is_null()))
+    return pa.table(cols)
+
+
+def incremental_battery(dq) -> list:
+    """The bench's config-4 battery (bench.py run_incremental_stage)."""
+    return [dq.Size(), dq.Completeness("x0"), dq.Mean("x0"), dq.Mean("x1"),
+            dq.ApproxCountDistinct("cat"), dq.KLLSketch("x0")]
+
+
+def every_state_battery(dq) -> list:
+    """(e): every other persistable state type over the same partitions."""
+    return [dq.Correlation("x0", "x1"), dq.StandardDeviation("x2"), dq.Minimum("x3n"),
+            dq.Maximum("x3n"), dq.Mean("x3n"), dq.DataType("x2"), dq.Histogram("grade"),
+            dq.Uniqueness(["cat"]), dq.KLLSketch("x1")]
+
+
+def context_values(context) -> dict:
+    """Metric values of an AnalyzerContext keyed like :func:`oracle`; a
+    histogram as its bins, a KLL sketch as its buckets and items."""
+    out = {}
+    for analyzer, metric in context.metric_map.items():
+        if metric.value.is_failure:
+            out[metric_key(analyzer)] = ("failure", str(metric.value.exception))
+            continue
+        value = metric.value.get()
+        if hasattr(value, "buckets"):
+            value = (tuple((b.low_value, b.high_value, b.count) for b in value.buckets),
+                     tuple(map(tuple, value.data)))
+        elif hasattr(value, "values"):
+            value = (value.number_of_bins, {k: v.absolute for k, v in value.values.items()})
+        out[metric_key(analyzer)] = value
+    return out
+
+
+def kll_percentiles(data) -> list:
+    """The 100 percentiles of a sketch from its compactor items (level l
+    items weigh 2^l): for each q the first item whose cumulative weight
+    reaches q of the total."""
+    items = np.concatenate([np.asarray(level, dtype=np.float64) for level in data])
+    weights = np.concatenate([np.full(len(level), 2.0 ** lvl) for lvl, level in enumerate(data)])
+    order = np.argsort(items, kind="stable")
+    items, cum = items[order], np.cumsum(weights[order])
+    qs = np.arange(1, 101) / 100
+    idx = np.minimum(np.searchsorted(cum, qs * cum[-1], "left"), len(items) - 1)
+    return items[idx].tolist()
+
+
+def incremental_oracle(table: pa.Table) -> tuple:
+    """numpy's exact answers for both batteries over ``table``, keyed like
+    :func:`oracle`, and the sorted float32-rounded valid values of x0 and
+    x1 (the KLL sketches' rank oracle)."""
+    def valid(name):
+        arr = table[name].combine_chunks()
+        return arr.to_numpy(zero_copy_only=False), np.asarray(arr.is_valid())
+
+    n = table.num_rows
+    x0, m0 = valid("x0")
+    x1, m1 = valid("x1")
+    x2, m2 = valid("x2")
+    x3n, m3 = valid("x3n")
+    cat = table["cat"].to_numpy()
+    both = m0 & m1
+    xc, yc = x0[both] - x0[both].mean(), x1[both] - x1[both].mean()
+    v3 = x3n[m3]
+    counts = np.bincount(cat)
+    grade = np.bincount(table["grade"].combine_chunks().indices.to_numpy(), minlength=100)
+    out = {
+        ("Size", "*", None): float(n),
+        ("Completeness", "x0", None): m0.mean(),
+        ("Mean", "x0", None): x0[m0].mean(),
+        ("Mean", "x1", None): x1[m1].mean(),
+        ("Correlation", "x0,x1", None): (xc * yc).sum() / np.sqrt((xc * xc).sum() * (yc * yc).sum()),
+        ("StandardDeviation", "x2", None): x2[m2].std(),
+        ("Minimum", "x3n", None): np.nanmin(v3),
+        ("Maximum", "x3n", None): np.max(v3),  # a NaN value wins the max
+        ("Mean", "x3n", None): v3.mean(),  # NaN
+        ("Uniqueness", "cat", None): (counts == 1).sum() / n,
+    }
+    exact = {
+        ("DataType", "x2", None): (5, {"Unknown": int(n - m2.sum()), "Fractional": int(m2.sum()),
+                                        "Integral": 0, "Boolean": 0, "String": 0}),
+        ("Histogram", "grade", None): (100, {f"g{i:02d}": int(c) for i, c in enumerate(grade)}),
+        "distinct cat": int((counts > 0).sum()),
+    }
+    ranks = {c: np.sort(v[m].astype(np.float32)) for c, v, m in (("x0", x0, m0), ("x1", x1, m1))}
+    return out, exact, ranks
+
+
+def check_incremental_oracle(values: dict, table: pa.Table) -> tuple:
+    """Differences between merged metrics and numpy over the whole table:
+    counts, min, max, histograms, type counts exactly; means, the standard
+    deviation and the correlation within 1e-9; the HLL estimate within
+    three standard errors of the exact distinct count (1.04 / sqrt(512));
+    each KLL percentile within twice the sketch's relative error in rank.
+    Returns (problems, largest rank error)."""
+    out, exact, ranks = incremental_oracle(table)
+    problems = compare_oracle({k: v for k, v in values.items() if k in out}, out)
+    for key, want in exact.items():
+        if key == "distinct cat":
+            got = values[("ApproxCountDistinct", "cat", None)]
+            if abs(got - want) > 3 * 1.04 / math.sqrt(512) * want:
+                problems.append(f"ApproxCountDistinct(cat) {got} vs {want} distinct")
+        elif key in values and values[key] != want:
+            problems.append(f"{key}: {values[key]!r}, oracle {want!r}")
+    worst = 0.0
+    for col in ("x0", "x1"):
+        key = ("KLLSketch", col, None)
+        if key not in values:
+            continue
+        buckets, data = values[key]
+        if sum(b[2] for b in buckets) != len(ranks[col]):
+            problems.append(f"{key}: buckets do not add up to {len(ranks[col])}")
+        errors = [_rank_error(ranks[col], x, (i + 1) / 100)
+                  for i, x in enumerate(kll_percentiles(data))]
+        worst = max(worst, max(errors))
+        if max(errors) > 2 * KLL_RELATIVE_ERROR:
+            problems.append(f"{key}: percentile rank error {max(errors)}")
+    return problems, worst
+
+
+def _state_bytes(providers, analyzers) -> int:
+    from deequ_tpu_torch.analyzers.states import leaves
+
+    total = 0
+    for provider in providers:
+        for a in analyzers:
+            state = provider.load(a)
+            if hasattr(state, "frequencies"):
+                total += int(state.frequencies.memory_usage(index=True, deep=True))
+            elif state is not None:
+                total += sum(t.numel() * t.element_size() for t in leaves(state))
+    return total
+
+
+def partition_runs(torch, dq, table: pa.Table, rows: int, analyzers: list, device: str,
+                   label: str, kernels=()) -> tuple:
+    """Run every day partition with ``save_states_with`` (one in-memory
+    provider per partition) and an in-memory metrics repository keyed by
+    day. On the card each run is timed; returns the providers, the
+    repository and the last run's launches."""
+    from deequ_tpu_torch.analyzers.state_provider import InMemoryStateProvider
+    from deequ_tpu_torch.repository import InMemoryMetricsRepository, ResultKey
+
+    providers, repo, launches = [], InMemoryMetricsRepository(), {}
+    for p in range(table.num_rows // rows):
+        part = dq.Dataset.from_arrow(table.slice(p * rows, rows))
+        sp = InMemoryStateProvider()
+
+        def run(monitor, part=part, sp=sp, p=p):
+            return dq.AnalysisRunner.do_analysis_run(
+                part, analyzers, save_states_with=sp, metrics_repository=repo,
+                save_or_append_results_with_key=ResultKey(p, {"day": str(p)}),
+                batch_size=BATCH_ROWS, device=device, monitor=monitor)
+
+        if device == "cuda":
+            _, _, launches = _timed_run(torch, f"{label} day {p}", run, rows, kernels)
+        else:
+            run(dq.RunMonitor())
+        providers.append(sp)
+    return providers, repo, launches
+
+
+def merged_run(torch, dq, schema, analyzers: list, providers: list, device: str,
+               label: str, kernels=()) -> tuple:
+    """``run_on_aggregated_states`` over ``providers``: on the card timed
+    (with the state bytes merged, the phases, launches and peak memory)."""
+    def run(monitor):
+        return dq.AnalysisRunner.run_on_aggregated_states(schema, analyzers, providers,
+                                                          device=device, monitor=monitor)
+
+    if device != "cuda":
+        return run(dq.RunMonitor()), {}
+    nbytes = _state_bytes(providers, analyzers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    monitor = dq.RunMonitor()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ctx = run(monitor)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    phases = {k: round(v, 6) for k, v in monitor.phase_seconds.items()}
+    print(f"[{label}] merged {len(providers)} partitions' states of {len(analyzers)} "
+          f"analyzers ({nbytes} state bytes) in {seconds * 1e3:.3f} ms; passes={monitor.passes}; "
+          f"launches={launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; phases={phases}", flush=True)
+    missing = [name for name in kernels if launches[name] == 0]
+    if missing or monitor.passes:
+        raise AssertionError(f"{label} launched no {missing} or read data: {monitor}")
+    return ctx, launches
+
+
+def anomaly_days(dq, table: pa.Table, repo, rows: int, device: str) -> tuple:
+    """(c): a steady day and a quarter-size day against the partitions'
+    history, anomaly checks on Size and Mean(x1)."""
+    from deequ_tpu_torch.anomalydetection import RelativeRateOfChangeStrategy
+    from deequ_tpu_torch.repository import ResultKey
+
+    def day(n, key):
+        return (dq.VerificationSuite.on_data(dq.Dataset.from_arrow(table.slice(0, n)),
+                                             device=device)
+                .with_batch_size(BATCH_ROWS).use_repository(repo)
+                .save_or_append_result(ResultKey(key, {"day": str(key)}))
+                .add_anomaly_check(RelativeRateOfChangeStrategy(
+                    max_rate_increase=1.5, max_rate_decrease=0.5), dq.Size())
+                .add_anomaly_check(RelativeRateOfChangeStrategy(
+                    max_rate_increase=1.1, max_rate_decrease=0.9), dq.Mean("x1"))
+                .run())
+
+    days = INCREMENTAL_PARTITIONS
+    steady, quarter = day(rows, days), day(rows // 4, days + 1)
+    if steady.status != dq.CheckStatus.SUCCESS or quarter.status == dq.CheckStatus.SUCCESS:
+        raise AssertionError(f"anomaly checks: steady day {steady.status}, quarter-size day "
+                             f"{quarter.status}")
+    return steady.status.value, quarter.status.value
+
+
+def persisted_merge(dq, schema, analyzers: list, providers: list, device: str) -> dict:
+    """(d): the partitions' states through FileSystemStateProviders in a
+    temporary directory, loaded by fresh providers and merged."""
+    import shutil
+    import tempfile
+
+    from deequ_tpu_torch.analyzers.state_provider import FileSystemStateProvider
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-states-")
+    try:
+        t0 = time.perf_counter()
+        for p, provider in enumerate(providers):
+            store = FileSystemStateProvider(f"{root}/day{p}")
+            for a in analyzers:
+                store.persist(a, provider.load(a))
+        written = time.perf_counter() - t0
+        fresh = [FileSystemStateProvider(f"{root}/day{p}") for p in range(len(providers))]
+        t0 = time.perf_counter()
+        ctx = dq.AnalysisRunner.run_on_aggregated_states(schema, analyzers, fresh, device=device)
+        loaded = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[incremental (d)] persisted {len(providers)} partitions x {len(analyzers)} states "
+          f"in {written:.3f}s; loaded and merged in {loaded:.3f}s", flush=True)
+    return ctx
+
+
+def check_fold_kernels(torch, dq, providers: list, analyzers: list, features) -> dict:
+    """Phase 2 for K8 and K1's co-moment slot: K8 at N = 2 on config 4's
+    partition states and at N = 32 on every state kind, bit for bit
+    against its plain version, beside ``torch.amax`` over the stacked HLL
+    registers; K1 with one co-moment slot over two 1M-row float64 columns
+    against its plain version."""
+    from deequ_tpu_torch.analyzers.base import (
+        fold_layout,
+        pack_states,
+        resolve_slot,
+        unpack_states,
+    )
+    from deequ_tpu_torch.kernels.scan_reduce import scan_reduce, scan_reduce_plain
+    from deequ_tpu_torch.kernels.state_fold import fold_bytes, state_fold, state_fold_plain
+
+    results = _new_results()
+    add = functools.partial(_add, results)
+    layout = fold_layout()
+    config4 = [[p.load(a) for p in providers] for a in analyzers
+               if type(providers[0].load(a)) in layout]
+    month = [states for _, states in fold_groups(dq, MONTH_OF_DAYS, 11)]
+    for label, jobs in (("config 4, N=2", config4), (f"every kind, N={MONTH_OF_DAYS}", month)):
+        mats, slots, places = pack_states(jobs, layout)
+        mats = [m.cuda() for m in mats]
+        got = state_fold(*mats, slots)
+        want = state_fold_plain(*mats, slots)
+        torch.cuda.synchronize()
+        for g, w in zip(unpack_states(jobs, places, got), unpack_states(jobs, places, want)):
+            if not same_state_bits(g, w):
+                raise AssertionError(f"state_fold differs from its plain version ({label})")
+        library = _time_ms(torch, lambda: torch.amax(mats[2], dim=0))
+        ops = sum(m.numel() for m in mats)
+        add("state_fold", label, 0.0, _time_kernel_ms(torch, lambda: state_fold(*mats, slots)),
+            _time_ms(torch, lambda: state_fold_plain(*mats, slots)), fold_bytes(*mats), ops,
+            library)
+        if label.startswith("config 4"):
+            main = dict(results["state_fold"])
+    # the row of the kernels line: config 4's launch
+    results["state_fold"] = main
+
+    rows = features["rows"]
+    spec = dq.Correlation("x0", "x1").scan_slot()
+    slots = [resolve_slot(spec, features)]
+    ki, kf = scan_reduce(slots, rows)
+    pi, pf = scan_reduce_plain(slots, rows)
+    torch.cuda.synchronize()
+    if not torch.equal(ki, pi):
+        raise AssertionError("the co-moment slot's count differs from the plain version")
+    x, y = slots[0].vals, slots[0].vals2
+    xx, yy = float((x * x).sum()), float((y * y).sum())
+    scales = (float(x.abs().max()), float(y.abs().max()), math.sqrt(xx * yy), xx, yy)
+    for col, scale in enumerate(scales):
+        a, b = float(kf[0, col]), float(pf[0, col])
+        if abs(a - b) > 1e-12 * max(scale, 1.0):
+            raise AssertionError(f"co-moment slot column {col}: {a!r} vs {b!r}")
+    n = rows.shape[0]
+    sel = int(pi[0, 0])
+    comoment = _new_results()
+    _add(comoment, "scan_reduce", "co-moment slot", _max_abs_err(kf, pf),
+         _time_kernel_ms(torch, lambda: scan_reduce(slots, rows)),
+         _time_ms(torch, lambda: scan_reduce_plain(slots, rows)),
+         19 * n + 7 * 8, 3 * n + 12 * sel)
+    _print_kernel_totals(comoment, ["scan_reduce"], "co-moment slot")
+    _print_kernel_totals(results, ["state_fold"], "incremental path")
+    return results
+
+
+def incremental_metrics(torch, dq, table: pa.Table, rows: int, device: str) -> dict:
+    """Phase 6 (a), (b) and (e) without timings: the merged metrics of both
+    batteries over ``table`` cut in partitions of ``rows``, on ``device``."""
+    schema = dq.Dataset.from_arrow(table.slice(0, 1)).schema
+    out = {}
+    for analyzers in (incremental_battery(dq), every_state_battery(dq)):
+        providers, _, _ = partition_runs(torch, dq, table, rows, analyzers, device,
+                                         "incremental check")
+        out.update(context_values(merged_run(torch, dq, schema, analyzers, providers,
+                                             device, "incremental check")[0]))
+    return out
+
+
+def incremental_path(torch, dq, seed: int) -> tuple:
+    """Phase 6 (with phase 2's K8 and co-moment checks at its shapes).
+    Returns the K8 measurements and the launches of the merged refresh."""
+    from deequ_tpu_torch.runners.engine import ScanEngine, to_device
+
+    rows = INCREMENTAL_PARTITION_ROWS
+    t0 = time.perf_counter()
+    table = build_scan_data(rows * INCREMENTAL_PARTITIONS, INCREMENTAL_SEED + seed)
+    print(f"[incremental data] {INCREMENTAL_PARTITIONS} x {rows} rows in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    schema = dq.Dataset.from_arrow(table.slice(0, 1)).schema
+    battery = incremental_battery(dq)
+
+    # (a) the day partitions, (b) the merged refresh, twice (the first run
+    # loads the kernel libraries)
+    providers, repo, _ = partition_runs(torch, dq, table, rows, battery, "cuda",
+                                        "incremental (a)",
+                                        ("scan_reduce", "hll_registers", "kll_sample",
+                                         "kll_compact"))
+    merged_run(torch, dq, schema, battery, providers, "cuda", "incremental (b) first",
+               INCREMENTAL_KERNELS)
+    merged, launches = merged_run(torch, dq, schema, battery, providers, "cuda",
+                                  "incremental (b)", INCREMENTAL_KERNELS)
+    values = context_values(merged)
+    if values[("Size", "*", None)] != float(rows * INCREMENTAL_PARTITIONS):
+        raise AssertionError(f"merged Size {values[('Size', '*', None)]}")
+
+    # phase 2 at this path's shapes
+    engine = ScanEngine([dq.Correlation("x0", "x1")], torch.device("cuda"))
+    first = next(dq.Dataset.from_arrow(table.slice(0, BATCH_ROWS)).batches(BATCH_ROWS))
+    features = to_device(engine.builder.build(first), torch.device("cuda"))
+    measured = check_fold_kernels(torch, dq, providers, battery, features)
+    del features
+
+    # (c) anomaly checks over the day history
+    statuses = anomaly_days(dq, table, repo, rows, "cuda")
+    print(f"[incremental (c)] steady day {statuses[0]}, quarter-size day {statuses[1]}",
+          flush=True)
+
+    # (d) through files: the same metrics bit for bit
+    again = context_values(persisted_merge(dq, schema, battery, providers, "cuda"))
+    if repr(again) != repr(values):
+        raise AssertionError("metrics merged from persisted files differ from (b)'s")
+    del providers, repo
+
+    # (e) every persistable state type: partitions, merged, one full pass
+    second = every_state_battery(dq)
+    providers2, _, _ = partition_runs(torch, dq, table, rows, second, "cuda", "incremental (e)",
+                                      ("scan_reduce", "dict_code_counts"))
+    merged2, _ = merged_run(torch, dq, schema, second, providers2, "cuda", "incremental (e)",
+                            ("state_fold", "kll_compact"))
+    del providers2
+    values2 = context_values(merged2)
+    full = {}
+
+    def full_run(monitor):
+        full.update(context_values(dq.AnalysisRunner.do_analysis_run(
+            dq.Dataset.from_arrow(table), second, batch_size=BATCH_ROWS, device="cuda",
+            monitor=monitor)))
+
+    _timed_run(torch, "incremental (e) full table", full_run, rows * INCREMENTAL_PARTITIONS,
+               ("scan_reduce",))
+    exact_keys = [k for k in values2 if k[0] != "KLLSketch"]
+    problems = compare_metrics({k: values2[k] for k in exact_keys},
+                               {k: full[k] for k in exact_keys}, 1e-12)
+    oracle_problems, worst = check_incremental_oracle({**values, **values2}, table)
+    problems += oracle_problems
+    del table
+
+    # the same phase on the CPU, at 2 x 5M rows, against the card
+    small = build_scan_data(INCREMENTAL_CPU_PARTITION_ROWS * INCREMENTAL_PARTITIONS,
+                            INCREMENTAL_SEED + seed)
+    t0 = time.perf_counter()
+    cpu = incremental_metrics(torch, dq, small, INCREMENTAL_CPU_PARTITION_ROWS, "cpu")
+    print(f"[cpu] phase 6 at 2 x {INCREMENTAL_CPU_PARTITION_ROWS} rows on the CPU in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    gpu = incremental_metrics(torch, dq, small, INCREMENTAL_CPU_PARTITION_ROWS, "cuda")
+    problems += [f"cpu vs card: {p}" for p in compare_metrics(gpu, cpu, 1e-12)]
+    if problems:
+        raise AssertionError("incremental metrics disagree:\n" + "\n".join(problems))
+    print(f"[incremental metrics] (b), (d) and (e) agree with the full-table run, the oracle "
+          f"and the CPU run; largest KLL percentile rank error {worst:.6f} (limit "
+          f"{2 * KLL_RELATIVE_ERROR:.6f}); Size {values[('Size', '*', None)]}", flush=True)
+    return measured, launches
+
+
 def _nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1372,6 +1934,8 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     profile_measured, profile_launches = profile_path(torch, dq, lineitem)
     freq_measured, freq_launches = grouping_path(torch, dq, lineitem)
+    del lineitem
+    fold_measured, fold_launches = incremental_path(torch, dq, args.seed)
 
     # K1-K3 as the verification path runs them, K4 and K5 as the profile
     # path does (the verification path runs no sketch); each with the
@@ -1398,6 +1962,8 @@ def main(argv=None) -> int:
     # the non-resident one
     kernels.append(row("freq_keys", freq_measured, freq_launches["resident"]))
     kernels.append(row("freq_compact", freq_measured, freq_launches["compaction"]))
+    # K8 with the launches of the merged refresh (b)
+    kernels.append(row("state_fold", fold_measured, fold_launches))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,17 @@ A port of ``deequ_tpu`` (JAX) to PyTorch with hand-written CUDA kernels for
 Hopper GPUs. One verification run, or one pass of the column profiler,
 reads the data once: per batch the host builds features, and seven kernels
 reduce them on the device — ``scan_reduce`` (all scalar reductions of the
-battery, DataType's class counts included, in one launch),
+battery, DataType's class counts and Correlation's co-moments included, in
+one launch),
 ``hll_registers`` (HLL++ registers), ``dict_code_counts`` (per-code counts
 of dictionary columns), ``kll_sample`` and ``kll_compact`` (the KLL
 quantile sketch's batch pre-collapse and its compaction cascade), and
 ``freq_keys`` and ``freq_compact`` (the frequency table of grouping sets
 of any cardinality: per-row group keys, and their sort-merge into a
-sorted table of counts). Entry
+sorted table of counts). States persist (``analyzers/state_provider.py``,
+in the JAX package's file layout), and metrics refresh from merged states
+with no data pass: an eighth kernel, ``state_fold``, folds the states of
+many partitions in one launch. Entry
 points run on ``device="cuda"`` unless the caller passes ``device="cpu"``,
 which runs the kernels' plain PyTorch versions.
 
@@ -23,6 +27,7 @@ from .analyzers import (
     ApproxQuantiles,
     Completeness,
     Compliance,
+    Correlation,
     CountDistinct,
     DataType,
     Distinctness,
@@ -64,6 +69,7 @@ __all__ = [
     "ColumnProfiles",
     "Completeness",
     "Compliance",
+    "Correlation",
     "ConstrainableDataTypes",
     "ConstraintStatus",
     "CountDistinct",

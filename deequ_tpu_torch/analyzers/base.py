@@ -16,6 +16,8 @@ kernel launch per batch serves all of them (see ``runners/engine.py``).
 from __future__ import annotations
 
 import abc
+import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Generic, List, Optional, Sequence, Tuple, TypeVar
 
@@ -235,18 +237,13 @@ class Analyzer(abc.ABC, Generic[S, M]):
 
 
 #: a slot as an analyzer names it: (kind, where key, sel key, values key),
-#: feature keys or None; equal specs share one slot of a launch
-SlotSpec = Tuple[int, Optional[str], Optional[str], Optional[str]]
+#: feature keys or None, and for a co-moment slot also (second values key,
+#: second sel key); equal specs share one slot of a launch
+SlotSpec = Tuple[Optional[Any], ...]
 
 
 def resolve_slot(spec: SlotSpec, features: Dict[str, torch.Tensor]) -> Slot:
-    kind, where, sel, vals = spec
-    return Slot(
-        kind,
-        None if where is None else features[where],
-        None if sel is None else features[sel],
-        None if vals is None else features[vals],
-    )
+    return Slot(spec[0], *(None if key is None else features[key] for key in spec[1:]))
 
 
 class ScanShareableAnalyzer(Analyzer[S, M]):
@@ -315,3 +312,162 @@ class StandardScanShareableAnalyzer(ScanShareableAnalyzer[S, DoubleMetric]):
     def is_empty(self, state: S) -> bool:
         """Whether the folded state saw no values at all."""
         return False
+
+
+# ---------------------------------------------------------------------------
+# Folding many states of one analyzer (reference `analyzers/base.py:273`)
+# ---------------------------------------------------------------------------
+
+
+def fold_layout() -> Dict[type, Tuple[Tuple[int, Tuple[str, ...]], ...]]:
+    """Per state class, the ``state_fold`` kinds of its tensor fields: the
+    class's ``merge`` written as the kernel's slots."""
+    from ..kernels import state_fold as K
+    from . import states as st
+
+    counted = ("count",)
+    return {
+        st.NumMatches: ((K.ADD_I64, ("num_matches",)),),
+        st.NumMatchesAndCount: ((K.ADD_I64, ("num_matches", "count")),),
+        st.MeanState: ((K.ADD_F64, ("total",)), (K.ADD_I64, counted)),
+        st.SumState: ((K.ADD_F64, ("total",)), (K.ADD_I64, counted)),
+        st.MinState: ((K.MIN, ("min_value",)), (K.ADD_I64, counted)),
+        st.MaxState: ((K.MAX, ("max_value",)), (K.ADD_I64, counted)),
+        st.StandardDeviationState: ((K.MOMENTS, ("n", "avg", "m2")),),
+        st.CorrelationState: ((K.COMOMENTS, ("n", "x_avg", "y_avg", "ck", "x_mk", "y_mk")),),
+        st.DataTypeHistogram: ((K.ADD_I64, ("counts",)),),
+        st.ApproxCountDistinctState: ((K.MAX_I32, ("registers",)),),
+    }
+
+
+def state_to(state: Any, device) -> Any:
+    """A tensor state with every leaf on ``device`` (the state itself when
+    they all are already); other states (frequency tables) as they are."""
+    from .states import leaves, with_leaves
+
+    if not dataclasses.is_dataclass(state):
+        return state
+    tensors = leaves(state)
+    if all(t.device == device for t in tensors):
+        return state
+    return with_leaves(state, [t.to(device) for t in tensors])
+
+
+def _signature(state: Any) -> Tuple:
+    from .states import leaves
+
+    return (type(state),) + tuple((tuple(t.shape), t.dtype) for t in leaves(state))
+
+
+def merge_states_batched(analyzer: Analyzer, states: Sequence[Any], device=None) -> Optional[Any]:
+    """Fold ``states`` left to right with the analyzer's ``merge`` and
+    return exactly what the sequential fold returns (None states are
+    skipped; None when nothing is left). See :func:`merge_states_batched_many`."""
+    return merge_states_batched_many([(analyzer, states)], device)[0]
+
+
+def merge_states_batched_many(
+    groups: Sequence[Tuple[Analyzer, Sequence[Any]]], device=None
+) -> List[Optional[Any]]:
+    """:func:`merge_states_batched` of several analyzers at once, on
+    ``device`` (the card unless the caller names the CPU). States loaded on
+    the host go to the device first.
+
+    - Scalar, DataType, HLL and Correlation states of one shape fold in
+      one ``state_fold`` launch for every such analyzer of the call with the
+      same number of states (kernel K8).
+    - KLL sketches of one shape fold through ``kll_merge`` (kernel K5's
+      merge entry), N-1 launches in order, as the reference's scan body.
+    - Frequency states fold on the host with the analyzer's ``merge``.
+    - States of differing leaf shapes take the sequential ``merge`` fold."""
+    from ..config import resolve_device
+    from .grouping import FrequenciesAndNumRows
+    from .states import FrequencyCountsState
+
+    dev = resolve_device(device)
+    layout = fold_layout()
+    results: List[Optional[Any]] = [None] * len(groups)
+    by_count: Dict[int, List[Tuple[int, List[Any]]]] = {}
+    for i, (analyzer, given) in enumerate(groups):
+        states = [s for s in given if s is not None]
+        if not states:
+            continue
+        # frequency states fold on the host, as the reference folds them
+        host = isinstance(states[0], (FrequenciesAndNumRows, FrequencyCountsState))
+        if (not host and len(states) > 1 and type(states[0]) in layout
+                and len({_signature(s) for s in states}) == 1):
+            # stacked on the host where they lie, then copied once per dtype
+            by_count.setdefault(len(states), []).append((i, states))
+            continue
+        states = [state_to(s, torch.device("cpu") if host else dev) for s in states]
+        merged = states[0]
+        for s in states[1:]:
+            merged = analyzer.merge(merged, s)  # KLL: kll_merge, kernel K5
+        results[i] = merged
+    for jobs in by_count.values():
+        for i, state in zip((i for i, _ in jobs), _fold_launch(jobs, layout, dev)):
+            results[i] = state
+    return results
+
+
+def pack_states(jobs: Sequence[Sequence[Any]], layout=None):
+    """The ``state_fold`` inputs of several analyzers' N states each
+    (``jobs``: one list of states per analyzer, all with N states, each list
+    of one class and shape): the float64, int64 and int32 matrices, stacked
+    on the host, the slot table, and per job where each leaf lies
+    (field name, matrix, offset, shape)."""
+    from ..kernels.state_fold import GROUP_WIDTH, KIND_MATRIX, FoldSlot
+
+    layout = layout if layout is not None else fold_layout()
+    dtypes = (torch.float64, torch.int64, torch.int32)
+    n = len(jobs[0])
+    columns: List[List[torch.Tensor]] = [[], [], []]
+    widths = [0, 0, 0]
+    slots: List[Any] = []
+    places = []
+    for states in jobs:
+        place = []
+        for kind, names in layout[type(states[0])]:
+            m = KIND_MATRIX[kind]
+            start = widths[m]
+            for name in names:
+                leaf = getattr(states[0], name)
+                if leaf.dtype != dtypes[m]:
+                    raise TypeError(f"{type(states[0]).__name__}.{name} is {leaf.dtype}, "
+                                    f"expected {dtypes[m]}")
+                stacked = torch.stack([getattr(s, name).detach().reshape(-1).cpu()
+                                       for s in states])
+                columns[m].append(stacked)
+                place.append((name, m, widths[m], tuple(leaf.shape)))
+                widths[m] += stacked.shape[1]
+            length = 1 if kind in GROUP_WIDTH else widths[m] - start
+            slots.append(FoldSlot(kind, start, length))
+        places.append(place)
+    mats = [torch.cat(cols, dim=1) if cols else torch.empty((n, 0), dtype=dt)
+            for cols, dt in zip(columns, dtypes)]
+    return mats, slots, places
+
+
+def unpack_states(jobs: Sequence[Sequence[Any]], places, outs) -> List[Any]:
+    """One state per job from the folded rows ``outs``; its leaves are views
+    of them."""
+    from .states import tensor_fields, with_leaves
+
+    merged = []
+    for states, place in zip(jobs, places):
+        fields = {name: outs[m][off:off + math.prod(shape)].reshape(shape)
+                  for name, m, off, shape in place}
+        merged.append(with_leaves(states[0], [fields[f.name] for f in tensor_fields(states[0])]))
+    return merged
+
+
+def _fold_launch(jobs: Sequence[Tuple[int, List[Any]]], layout, device) -> List[Any]:
+    """Pack every job's N states (stacked on the host, one copy per dtype to
+    the device), fold them in one ``state_fold`` call and unpack one state
+    per job."""
+    from ..kernels.state_fold import state_fold
+
+    lists = [states for _, states in jobs]
+    mats, slots, places = pack_states(lists, layout)
+    mats = [m.to(device) for m in mats]
+    return unpack_states(lists, places, state_fold(mats[0], mats[1], mats[2], slots))

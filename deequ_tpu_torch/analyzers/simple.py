@@ -19,7 +19,14 @@ import numpy as np
 
 from ..data import Schema
 from ..expr import Predicate
-from ..kernels.scan_reduce import KIND_CLASSES, KIND_COUNTS, KIND_MOMENTS, Partials
+from ..kernels.scan_reduce import (
+    KIND_CLASSES,
+    KIND_COMOMENTS,
+    KIND_COUNTS,
+    KIND_MOMENTS,
+    Partials,
+    comoments,
+)
 from ..metrics import (
     Distribution,
     DistributionValue,
@@ -43,6 +50,7 @@ from .base import (
     typeclass_feature,
 )
 from .states import (
+    CorrelationState,
     DataTypeHistogram,
     MaxState,
     MeanState,
@@ -372,6 +380,66 @@ class StandardDeviation(_NumericColumnAnalyzer):
     def fold_slot(self, state: StandardDeviationState, p: Partials) -> StandardDeviationState:
         batch = StandardDeviationState(p.matches.to(state.n.dtype), p.mean, p.m2)
         return state.merge(batch)
+
+    def is_empty(self, state) -> bool:
+        return float(state.n) == 0
+
+
+@dataclass(frozen=True)
+class Correlation(StandardScanShareableAnalyzer[CorrelationState]):
+    """Pearson correlation of two columns via mergeable co-moments
+    (reference `analyzers/Correlation.scala:26-105`). Its batch update is a
+    co-moment slot of ``scan_reduce`` over the rows where both columns are
+    present."""
+
+    first_column: str = ""
+    second_column: str = ""
+    where: Optional[Predicate] = None
+    name: str = field(default="Correlation", init=False)
+
+    @property
+    def instance(self) -> str:
+        return f"{self.first_column},{self.second_column}"
+
+    @property
+    def entity(self) -> Entity:
+        return Entity.MULTICOLUMN
+
+    def preconditions(self) -> List[Callable[[Schema], None]]:
+        return [
+            Preconditions.has_column(self.first_column),
+            Preconditions.is_numeric(self.first_column),
+            Preconditions.has_column(self.second_column),
+            Preconditions.is_numeric(self.second_column),
+        ]
+
+    def feature_specs(self) -> List[FeatureSpec]:
+        return _with_where([
+            rows_feature(),
+            numeric_feature(self.first_column),
+            mask_feature(self.first_column),
+            numeric_feature(self.second_column),
+            mask_feature(self.second_column),
+        ], self.where)
+
+    def init_state(self, device) -> CorrelationState:
+        return CorrelationState.init(device)
+
+    def scan_slot(self) -> SlotSpec:
+        return (
+            KIND_COMOMENTS, self._where_key(), mask_feature(self.first_column).key,
+            numeric_feature(self.first_column).key, numeric_feature(self.second_column).key,
+            mask_feature(self.second_column).key,
+        )
+
+    def fold_slot(self, state: CorrelationState, p: Partials) -> CorrelationState:
+        return state.merge(CorrelationState(*comoments(p)))
+
+    def merge(self, a, b):
+        return a.merge(b)
+
+    def metric_value(self, state) -> float:
+        return state.metric_value()
 
     def is_empty(self, state) -> bool:
         return float(state.n) == 0

@@ -315,19 +315,77 @@ class StandardDeviationState:
         return StandardDeviationState(_f(0.0, device), _f(0.0, device), _f(0.0, device))
 
     def merge(self, other: "StandardDeviationState") -> "StandardDeviationState":
-        n = self.n + other.n
-        safe_n = torch.where(n == 0, torch.ones_like(n), n)
-        delta = other.avg - self.avg
-        zero = torch.zeros_like(n)
-        avg = torch.where(n == 0, zero, (self.avg * self.n + other.avg * other.n) / safe_n)
-        m2 = self.m2 + other.m2 + delta * delta * self.n * other.n / safe_n
-        return StandardDeviationState(n, avg, torch.where(n == 0, zero, m2))
+        return StandardDeviationState(*merge_moments(leaves(self), leaves(other)))
 
     def metric_value(self) -> float:
         n = float(self.n)
         if n == 0:
             return float("nan")
         return float(np.sqrt(float(self.m2) / n))
+
+
+@dataclass
+class CorrelationState:
+    """Pairwise co-moment accumulators (n, xAvg, yAvg, ck, xMk, yMk)
+    (reference `analyzers/Correlation.scala:26-60`)."""
+
+    n: torch.Tensor
+    x_avg: torch.Tensor
+    y_avg: torch.Tensor
+    ck: torch.Tensor
+    x_mk: torch.Tensor
+    y_mk: torch.Tensor
+
+    @staticmethod
+    def init(device) -> "CorrelationState":
+        return CorrelationState(*(_f(0.0, device) for _ in range(6)))
+
+    def merge(self, other: "CorrelationState") -> "CorrelationState":
+        return CorrelationState(*merge_comoments(leaves(self), leaves(other)))
+
+    def metric_value(self) -> float:
+        if float(self.n) == 0:
+            return float("nan")
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return float(float(self.ck) / np.sqrt(float(self.x_mk) * float(self.y_mk)))
+
+
+def merge_moments(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Chan's rule on (n, avg, m2), in the reference's expression order
+    (deequ_tpu/analyzers/states.py:348-355); both 0 when n is 0. Each
+    operation rounds on its own: the kernels (``common.cuh``
+    ``dq_merge_moments``) compute the same expressions without fused
+    multiply-adds, so the two agree bit for bit."""
+    a_n, a_avg, a_m2 = a
+    b_n, b_avg, b_m2 = b
+    n = a_n + b_n
+    safe_n = torch.where(n == 0, torch.ones_like(n), n)
+    delta = b_avg - a_avg
+    zero = torch.zeros_like(n)
+    avg = torch.where(n == 0, zero, (a_avg * a_n + b_avg * b_n) / safe_n)
+    m2 = a_m2 + b_m2 + delta * delta * a_n * b_n / safe_n
+    return [n, avg, torch.where(n == 0, zero, m2)]
+
+
+def merge_comoments(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Chan's rule on (n, x_avg, y_avg, ck, x_mk, y_mk), in the reference's
+    expression order (deequ_tpu/analyzers/states.py:382); ``common.cuh``
+    ``dq_merge_comoments`` is the kernels' copy."""
+    a_n, a_xa, a_ya, a_ck, a_xmk, a_ymk = a
+    b_n, b_xa, b_ya, b_ck, b_xmk, b_ymk = b
+    n = a_n + b_n
+    safe_n = torch.where(n == 0, torch.ones_like(n), n)
+    dx = b_xa - a_xa
+    dy = b_ya - a_ya
+    frac = a_n * b_n / safe_n
+    zero = torch.zeros_like(n)
+    x_avg = torch.where(n == 0, zero, (a_xa * a_n + b_xa * b_n) / safe_n)
+    y_avg = torch.where(n == 0, zero, (a_ya * a_n + b_ya * b_n) / safe_n)
+    ck = a_ck + b_ck + dx * dy * frac
+    x_mk = a_xmk + b_xmk + dx * dx * frac
+    y_mk = a_ymk + b_ymk + dy * dy * frac
+    return [n, x_avg, y_avg, torch.where(n == 0, zero, ck), torch.where(n == 0, zero, x_mk),
+            torch.where(n == 0, zero, y_mk)]
 
 
 @dataclass

@@ -223,6 +223,13 @@ class Check:
             lambda where: C.approx_count_distinct_constraint(column, assertion, where, hint)
         )
 
+    def has_correlation(
+        self, column_a, column_b, assertion, hint=None
+    ) -> "CheckWithLastConstraintFilterable":
+        return self._add_filterable(
+            lambda where: C.correlation_constraint(column_a, column_b, assertion, where, hint)
+        )
+
     def satisfies(
         self, column_condition, constraint_name, assertion=is_one, hint=None
     ) -> "CheckWithLastConstraintFilterable":
@@ -348,6 +355,34 @@ class Check:
         return self.satisfies(
             predicate, f"{column} between {lower_bound} and {upper_bound}", assertion, hint
         )
+
+    def is_newest_point_non_anomalous(
+        self,
+        metrics_repository,
+        anomaly_detection_strategy,
+        analyzer: Analyzer,
+        with_tag_values=None,
+        after_date=None,
+        before_date=None,
+        hint=None,
+    ) -> "Check":
+        """Anomaly check on the newest metric point given repository history
+        (reference `checks/Check.scala:345-365,998-1055`)."""
+        from .anomalydetection.wiring import is_newest_point_non_anomalous
+
+        def assertion(value: float) -> bool:
+            return is_newest_point_non_anomalous(
+                metrics_repository,
+                anomaly_detection_strategy,
+                analyzer,
+                with_tag_values or {},
+                after_date,
+                before_date,
+                value,
+            )
+
+        return self.add_constraint(C.anomaly_constraint(analyzer, assertion, hint))
+
 
 class CheckWithLastConstraintFilterable(Check):
     """Allows filtering the data for the last added constraint with

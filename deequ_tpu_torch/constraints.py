@@ -21,6 +21,7 @@ from .analyzers import (
     ApproxQuantile,
     Completeness,
     Compliance,
+    Correlation,
     DataType,
     Distinctness,
     Entropy,
@@ -291,6 +292,21 @@ def standard_deviation_constraint(column, assertion, where=None, hint=None) -> C
     analyzer = StandardDeviation(column, where)
     inner = AnalysisBasedConstraint(analyzer, assertion, hint=hint)
     return NamedConstraint(inner, f"StandardDeviationConstraint({analyzer})")
+
+
+def correlation_constraint(column_a, column_b, assertion, where=None, hint=None) -> Constraint:
+    analyzer = Correlation(column_a, column_b, where)
+    inner = AnalysisBasedConstraint(analyzer, assertion, hint=hint)
+    return NamedConstraint(inner, f"CorrelationConstraint({analyzer})")
+
+
+def anomaly_constraint(
+    analyzer: Analyzer, assertion: Callable[[float], bool], hint=None
+) -> Constraint:
+    """Constraint whose assertion encapsulates an anomaly-detection decision
+    over the repository history (reference `anomalyConstraint`)."""
+    inner = AnalysisBasedConstraint(analyzer, assertion, hint=hint)
+    return NamedConstraint(inner, f"AnomalyConstraint({analyzer})")
 
 
 def approx_count_distinct_constraint(column, assertion, where=None, hint=None) -> Constraint:

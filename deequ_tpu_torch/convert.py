@@ -34,6 +34,7 @@ STATE_CLASSES: Dict[str, type] = {
         S.MinState,
         S.MaxState,
         S.StandardDeviationState,
+        S.CorrelationState,
         S.ApproxCountDistinctState,
         S.FrequencyCountsState,
         S.FrequencyTableState,

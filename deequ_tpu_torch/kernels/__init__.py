@@ -17,7 +17,7 @@ import torch
 
 KERNEL_NAMES = (
     "scan_reduce", "hll_registers", "dict_code_counts", "kll_sample", "kll_compact",
-    "freq_keys", "freq_compact",
+    "freq_keys", "freq_compact", "state_fold",
 )
 
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}

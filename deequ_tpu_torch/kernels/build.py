@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = (
     "scan_reduce", "hll_registers", "dict_code_counts", "kll_sample", "kll_compact",
-    "freq_keys", "freq_compact",
+    "freq_keys", "freq_compact", "state_fold",
 )
 
 #: sm_90a: Hopper with its architecture-specific instructions

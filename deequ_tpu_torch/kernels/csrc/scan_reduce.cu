@@ -6,7 +6,8 @@
 // analyzers' update functions in deequ_tpu/analyzers/simple.py: Size :127,
 // Completeness :189, Compliance :232, PatternMatch :302, Mean :354, Sum :383,
 // Minimum :415, Maximum :448, MinLength :519, MaxLength :545 and
-// StandardDeviation :572, and DataType.update :779 (a class-count slot).
+// StandardDeviation :572, DataType.update :779 (a class-count slot) and
+// Correlation.update :661 (a co-moment slot).
 //
 // A slot names up to three byte masks and a value array; the batch row mask
 // is shared by all slots. Per slot the kernel writes
@@ -21,6 +22,13 @@
 // writes out_i[s][2 + c] = sum(rows & where & (code == c)) for the five
 // type classes c of DataType; its matches count the rows with a code in
 // [0, 5). Every other slot leaves those five columns at 0.
+// A co-moment slot (kind 3) reads two float64 arrays (vals, vals2); its
+// selected rows are rows & where & sel & sel2 (both columns present), and
+// it writes out_f[s] = (x_avg, y_avg, ck, x_mk, y_mk): the two means and
+// the centred co-moments of the selected rows, Correlation's batch state
+// (its n is out_i[s][0]). Per block the first pass sums n, x and y, the
+// second the co-moments about the block's own means, as the moments kind
+// does M2.
 //
 // Bound on the card: bytes. Each distinct input array is read from device
 // memory once (the row mask, each mask and value array: 1 to 8 bytes per
@@ -31,10 +39,12 @@
 // moments re-reads the chunk the same way.
 //
 // Determinism: no float atomics. Blocks write per-slot partials; a second
-// one-block launch folds them in block order (counts and sums added, min and
-// max by the rules in common.cuh, moments merged by Chan's rule). Within a
-// block, threads reduce in a fixed shuffle tree. The result is the same on
-// every run.
+// launch, one block per slot, folds them in a fixed order (each thread a
+// stride of blocks in order, then a tree across its threads): counts and
+// sums added, min and max by the rules in common.cuh, moments and
+// co-moments merged by Chan's rule as dq_merge_moments /
+// dq_merge_comoments state it. Within a block, threads reduce in a fixed
+// shuffle tree. The result is the same on every run.
 #include <string.h>
 
 #include <math_constants.h>
@@ -46,10 +56,13 @@
 #define SR_ROWS_PER_THREAD 16
 #define SR_CHUNK (SR_THREADS * SR_ROWS_PER_THREAD)
 #define SR_WARPS (SR_THREADS / 32)
+// threads of the fold launch, one block per slot
+#define SR_FOLD_THREADS 128
 
 #define SR_KIND_COUNTS 0
 #define SR_KIND_MOMENTS 1
 #define SR_KIND_CLASSES 2
+#define SR_KIND_COMOMENTS 3
 #define SR_CLASSES 5
 // int64 columns per slot: matches, count, then the SR_CLASSES class counts
 #define SR_IWIDTH (2 + SR_CLASSES)
@@ -61,6 +74,8 @@ struct SrSlot {
   const void* vals;     // null for counting slots
   const uint8_t* where;  // null: no where-filter
   const uint8_t* sel;    // null: every counted row is selected
+  const double* vals2;   // a co-moment slot's second column; else null
+  const uint8_t* sel2;   // a co-moment slot's second presence mask; else null
 };
 
 struct SrTable {
@@ -155,6 +170,111 @@ __device__ void sr_class_counts(const SrSlot& slot, const uint8_t* __restrict__ 
   __syncthreads();  // warp_cls is rewritten by the next class-count slot
 }
 
+// A co-moment slot over the block's chunk: n, sum x and sum y, then the
+// co-moments about the block's means, each reduced by warp shuffles and
+// then across the warps in a fixed order.
+__device__ void sr_comoments(const SrSlot& slot, const uint8_t* __restrict__ rows,
+                             long long n, long long start, int s, int n_slots,
+                             double (*warp_f)[3], long long (*warp_c)[2],
+                             double* block_means,
+                             long long* __restrict__ part_i,
+                             double* __restrict__ part_f) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const double* x = (const double*)slot.vals;
+  const double* y = slot.vals2;
+  long long base = 0, sel = 0;
+  double sx = 0.0, sy = 0.0;
+  for (int k = 0; k < SR_ROWS_PER_THREAD; ++k) {
+    const long long i = start + (long long)k * SR_THREADS + threadIdx.x;
+    if (i >= n) break;
+    if (!rows[i] || (slot.where != nullptr && !slot.where[i])) continue;
+    base += 1;
+    if ((slot.sel != nullptr && !slot.sel[i]) || (slot.sel2 != nullptr && !slot.sel2[i])) continue;
+    sel += 1;
+    sx += x[i];
+    sy += y[i];
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    base += __shfl_down_sync(0xffffffffu, base, off);
+    sel += __shfl_down_sync(0xffffffffu, sel, off);
+    sx += __shfl_down_sync(0xffffffffu, sx, off);
+    sy += __shfl_down_sync(0xffffffffu, sy, off);
+  }
+  if (lane == 0) {
+    warp_c[warp][0] = base;
+    warp_c[warp][1] = sel;
+    warp_f[warp][0] = sx;
+    warp_f[warp][1] = sy;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long b = 0, m = 0;
+    double tx = 0.0, ty = 0.0;
+    for (int w = 0; w < SR_WARPS; ++w) {
+      b += warp_c[w][0];
+      m += warp_c[w][1];
+      tx += warp_f[w][0];
+      ty += warp_f[w][1];
+    }
+    warp_c[0][0] = b;
+    warp_c[0][1] = m;
+    block_means[0] = m > 0 ? tx / (double)m : 0.0;
+    block_means[1] = m > 0 ? ty / (double)m : 0.0;
+  }
+  __syncthreads();
+  const long long blk_base = warp_c[0][0];
+  const long long blk_sel = warp_c[0][1];
+  const double mx = block_means[0];
+  const double my = block_means[1];
+  __syncthreads();  // warp_c[0] is rewritten below
+  double ck = 0.0, xmk = 0.0, ymk = 0.0;
+  if (blk_sel > 0) {  // uniform across the block
+    for (int k = 0; k < SR_ROWS_PER_THREAD; ++k) {
+      const long long i = start + (long long)k * SR_THREADS + threadIdx.x;
+      if (i >= n) break;
+      if (!rows[i] || (slot.where != nullptr && !slot.where[i])) continue;
+      if ((slot.sel != nullptr && !slot.sel[i]) || (slot.sel2 != nullptr && !slot.sel2[i])) continue;
+      const double dx = x[i] - mx;
+      const double dy = y[i] - my;
+      ck += dx * dy;
+      xmk += dx * dx;
+      ymk += dy * dy;
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      ck += __shfl_down_sync(0xffffffffu, ck, off);
+      xmk += __shfl_down_sync(0xffffffffu, xmk, off);
+      ymk += __shfl_down_sync(0xffffffffu, ymk, off);
+    }
+    if (lane == 0) {
+      warp_f[warp][0] = ck;
+      warp_f[warp][1] = xmk;
+      warp_f[warp][2] = ymk;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      ck = xmk = ymk = 0.0;
+      for (int w = 0; w < SR_WARPS; ++w) {
+        ck += warp_f[w][0];
+        xmk += warp_f[w][1];
+        ymk += warp_f[w][2];
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+    const long long o = (long long)blockIdx.x * n_slots + s;
+    part_i[o * SR_IWIDTH + 0] = blk_sel;
+    part_i[o * SR_IWIDTH + 1] = blk_base;
+    for (int c = 0; c < SR_CLASSES; ++c) part_i[o * SR_IWIDTH + 2 + c] = 0;
+    part_f[o * 5 + 0] = mx;
+    part_f[o * 5 + 1] = my;
+    part_f[o * 5 + 2] = ck;
+    part_f[o * 5 + 3] = xmk;
+    part_f[o * 5 + 4] = ymk;
+  }
+  __syncthreads();  // the shared arrays are rewritten by the next slot
+}
+
 __global__ void __launch_bounds__(SR_THREADS)
 scan_reduce_blocks(const SrTable table, int n_slots,
                    const uint8_t* __restrict__ rows, long long n,
@@ -164,6 +284,9 @@ scan_reduce_blocks(const SrTable table, int n_slots,
   __shared__ double warp_m2[SR_WARPS];
   __shared__ double block_mean;
   __shared__ long long warp_cls[SR_WARPS][SR_CLASSES + 1];
+  __shared__ double warp_co[SR_WARPS][3];
+  __shared__ long long warp_cc[SR_WARPS][2];
+  __shared__ double co_means[2];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long start = (long long)blockIdx.x * SR_CHUNK;
@@ -172,6 +295,11 @@ scan_reduce_blocks(const SrTable table, int n_slots,
     const SrSlot slot = table.s[s];
     if (slot.kind == SR_KIND_CLASSES) {
       sr_class_counts(slot, rows, n, start, s, n_slots, warp_cls, part_i, part_f);
+      continue;
+    }
+    if (slot.kind == SR_KIND_COMOMENTS) {
+      sr_comoments(slot, rows, n, start, s, n_slots, warp_co, warp_cc, co_means, part_i,
+                   part_f);
       continue;
     }
     const bool moments = slot.kind == SR_KIND_MOMENTS;
@@ -256,57 +384,92 @@ scan_reduce_blocks(const SrTable table, int n_slots,
   }
 }
 
-// one thread per slot folds the block partials in block order
-__global__ void scan_reduce_fold(int n_blocks, int n_slots,
-                                 const long long* __restrict__ part_i,
-                                 const double* __restrict__ part_f,
-                                 long long* __restrict__ out_i,
-                                 double* __restrict__ out_f) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_slots) return;
-  long long matches = 0;
-  long long count = 0;
-  long long cls[SR_CLASSES] = {0, 0, 0, 0, 0};
-  double sum = 0.0;
-  double mn = CUDART_NAN;
-  double mx = -CUDART_INF;
-  double n = 0.0;
-  double mean = 0.0;
-  double m2 = 0.0;
-  for (int b = 0; b < n_blocks; ++b) {
+// A slot's partials being folded: the int64 columns, and the float ones
+// of its kind (sum, min, max and the moments, or the co-moments).
+struct SrFold {
+  long long i[SR_IWIDTH];
+  double sum, mn, mx;
+  DqMoments mom;
+  DqComoments co;
+};
+
+__device__ __forceinline__ SrFold sr_fold_identity() {
+  SrFold a;
+  for (int c = 0; c < SR_IWIDTH; ++c) a.i[c] = 0;
+  a.sum = 0.0;
+  a.mn = CUDART_NAN;
+  a.mx = -CUDART_INF;
+  a.mom = {0.0, 0.0, 0.0};
+  a.co = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  return a;
+}
+
+// b merged into a; an empty side (n == 0) leaves the other as it is
+__device__ __forceinline__ void sr_fold_merge(SrFold& a, const SrFold& b, bool comoments) {
+  for (int c = 0; c < SR_IWIDTH; ++c) a.i[c] += b.i[c];
+  if (comoments) {
+    if (b.co.n != 0.0) a.co = a.co.n == 0.0 ? b.co : dq_merge_comoments(a.co, b.co);
+    return;
+  }
+  a.sum += b.sum;
+  a.mn = dq_min_nan_largest(a.mn, b.mn);
+  a.mx = dq_max_nan(a.mx, b.mx);
+  if (b.mom.n != 0.0) a.mom = a.mom.n == 0.0 ? b.mom : dq_merge_moments(a.mom, b.mom);
+}
+
+// One block per slot folds the block partials: each thread folds the
+// blocks t, t + SR_FOLD_THREADS, ... in order, then the threads' folds
+// merge in a fixed tree in shared memory. The same order on every run.
+__global__ void __launch_bounds__(SR_FOLD_THREADS)
+scan_reduce_fold(const SrTable table, int n_blocks, int n_slots,
+                 const long long* __restrict__ part_i,
+                 const double* __restrict__ part_f,
+                 long long* __restrict__ out_i,
+                 double* __restrict__ out_f) {
+  __shared__ SrFold acc[SR_FOLD_THREADS];
+  const int s = blockIdx.x;
+  const bool comoments = table.s[s].kind == SR_KIND_COMOMENTS;
+  SrFold a = sr_fold_identity();
+  for (int b = threadIdx.x; b < n_blocks; b += SR_FOLD_THREADS) {
     const long long o = (long long)b * n_slots + s;
-    const long long nb = part_i[o * SR_IWIDTH + 0];
-    matches += nb;
-    count += part_i[o * SR_IWIDTH + 1];
-    for (int c = 0; c < SR_CLASSES; ++c) cls[c] += part_i[o * SR_IWIDTH + 2 + c];
-    sum += part_f[o * 5 + 0];
-    mn = dq_min_nan_largest(mn, part_f[o * 5 + 1]);
-    mx = dq_max_nan(mx, part_f[o * 5 + 2]);
-    if (nb > 0) {
-      const double nbd = (double)nb;
-      const double mean_b = part_f[o * 5 + 3];
-      const double m2_b = part_f[o * 5 + 4];
-      if (n == 0.0) {
-        mean = mean_b;
-        m2 = m2_b;
-        n = nbd;
+    const double* pf = part_f + o * 5;
+    SrFold p = sr_fold_identity();
+    for (int c = 0; c < SR_IWIDTH; ++c) p.i[c] = part_i[o * SR_IWIDTH + c];
+    const double nb = (double)p.i[0];
+    if (nb != 0.0) {  // an empty block's float partials are identities
+      if (comoments) {
+        p.co = {nb, pf[0], pf[1], pf[2], pf[3], pf[4]};
       } else {
-        const double tot = n + nbd;
-        const double d = mean_b - mean;
-        mean += d * nbd / tot;
-        m2 += m2_b + d * d * n * nbd / tot;
-        n = tot;
+        p.sum = pf[0];
+        p.mn = pf[1];
+        p.mx = pf[2];
+        p.mom = {nb, pf[3], pf[4]};
       }
     }
+    sr_fold_merge(a, p, comoments);
   }
-  out_i[s * SR_IWIDTH + 0] = matches;
-  out_i[s * SR_IWIDTH + 1] = count;
-  for (int c = 0; c < SR_CLASSES; ++c) out_i[s * SR_IWIDTH + 2 + c] = cls[c];
-  out_f[s * 5 + 0] = sum;
-  out_f[s * 5 + 1] = mn;
-  out_f[s * 5 + 2] = mx;
-  out_f[s * 5 + 3] = mean;
-  out_f[s * 5 + 4] = m2;
+  acc[threadIdx.x] = a;
+  __syncthreads();
+  for (int stride = SR_FOLD_THREADS / 2; stride > 0; stride >>= 1) {
+    if (threadIdx.x < stride) sr_fold_merge(acc[threadIdx.x], acc[threadIdx.x + stride], comoments);
+    __syncthreads();
+  }
+  if (threadIdx.x != 0) return;
+  const SrFold& r = acc[0];
+  for (int c = 0; c < SR_IWIDTH; ++c) out_i[s * SR_IWIDTH + c] = r.i[c];
+  if (comoments) {
+    out_f[s * 5 + 0] = r.co.x_avg;
+    out_f[s * 5 + 1] = r.co.y_avg;
+    out_f[s * 5 + 2] = r.co.ck;
+    out_f[s * 5 + 3] = r.co.x_mk;
+    out_f[s * 5 + 4] = r.co.y_mk;
+    return;
+  }
+  out_f[s * 5 + 0] = r.sum;
+  out_f[s * 5 + 1] = r.mn;
+  out_f[s * 5 + 2] = r.mx;
+  out_f[s * 5 + 3] = r.mom.avg;
+  out_f[s * 5 + 4] = r.mom.m2;
 }
 
 extern "C" int scan_reduce_max_slots() { return SR_MAX_SLOTS; }
@@ -337,7 +500,7 @@ extern "C" int scan_reduce_launch(const SrSlot* slots, int n_slots,
                                                 part_i, part_f);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  scan_reduce_fold<<<1, SR_MAX_SLOTS, 0, st>>>(nb, n_slots, part_i, part_f,
-                                               out_i, out_f);
+  scan_reduce_fold<<<n_slots, SR_FOLD_THREADS, 0, st>>>(table, nb, n_slots, part_i, part_f,
+                                                        out_i, out_f);
   return (int)cudaGetLastError();
 }

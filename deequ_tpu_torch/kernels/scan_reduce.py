@@ -10,9 +10,12 @@ A :class:`Slot` describes one reduction: the rows counted are ``rows &
 where``, the rows selected are those & ``sel``, and a moments slot also
 reduces ``vals`` over the selected rows. A class-count slot counts the
 counted rows by their int32 code in ``vals`` (the five type classes of
-DataType). Analyzers that need the same reduction (Mean, Sum, Minimum,
-Maximum and StandardDeviation of one column under one filter) share one
-slot.
+DataType). A co-moment slot reads two float64 value arrays, ``vals`` and
+``vals2``, over the rows ``rows & where & sel & sel2`` (both columns
+present) and gives Correlation's batch state: n, the two means and the
+centred co-moments (deequ_tpu/analyzers/simple.py:661). Analyzers that need
+the same reduction (Mean, Sum, Minimum, Maximum and StandardDeviation of one
+column under one filter) share one slot.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ NAME = "scan_reduce"
 KIND_COUNTS = 0
 KIND_MOMENTS = 1
 KIND_CLASSES = 2
+KIND_COMOMENTS = 3
 #: slots per launch; equals SR_MAX_SLOTS in csrc/scan_reduce.cu
 MAX_SLOTS = 64
 #: classes of a class-count slot; equals SR_CLASSES
@@ -40,6 +44,9 @@ I_MATCHES, I_COUNT, I_CLASS0 = 0, 1, 2
 I_WIDTH = I_CLASS0 + NUM_CLASSES
 #: columns of the float64 output
 F_SUM, F_MIN, F_MAX, F_MEAN, F_M2 = 0, 1, 2, 3, 4
+#: the same five columns of a co-moment slot: the two means and the
+#: co-moments about them (its n is the matches column)
+F_XAVG, F_YAVG, F_CK, F_XMK, F_YMK = 0, 1, 2, 3, 4
 
 
 @dataclass(frozen=True)
@@ -48,6 +55,8 @@ class Slot:
     where: Optional[torch.Tensor] = None  # bool[n] where-filter
     sel: Optional[torch.Tensor] = None    # bool[n] presence / predicate
     vals: Optional[torch.Tensor] = None   # float64[n] or int32[n] (lengths, codes)
+    vals2: Optional[torch.Tensor] = None  # float64[n]: a co-moment slot's second column
+    sel2: Optional[torch.Tensor] = None   # bool[n]: the second column's presence
 
 
 class Partials(NamedTuple):
@@ -71,6 +80,12 @@ def partials(out_i: torch.Tensor, out_f: torch.Tensor, slot: int) -> Partials:
     )
 
 
+def comoments(p: Partials) -> Tuple[torch.Tensor, ...]:
+    """A co-moment slot's batch state (n, x_avg, y_avg, ck, x_mk, y_mk),
+    n as float64, read from its :class:`Partials`."""
+    return (p.matches.to(torch.float64), p.total, p.min, p.max, p.mean, p.m2)
+
+
 class _SlotStruct(ctypes.Structure):
     # mirrors struct SrSlot in csrc/scan_reduce.cu
     _fields_ = [
@@ -79,6 +94,8 @@ class _SlotStruct(ctypes.Structure):
         ("vals", ctypes.c_void_p),
         ("where", ctypes.c_void_p),
         ("sel", ctypes.c_void_p),
+        ("vals2", ctypes.c_void_p),
+        ("sel2", ctypes.c_void_p),
     ]
 
 
@@ -109,9 +126,11 @@ def _validate(slots: Sequence[Slot], rows: torch.Tensor) -> None:
     n = rows.shape[0] if rows.dim() == 1 else -1
     check_tensor(rows, NAME, "rows", torch.bool, n, rows.device)
     for i, slot in enumerate(slots):
-        if slot.kind not in (KIND_COUNTS, KIND_MOMENTS, KIND_CLASSES):
+        if slot.kind not in (KIND_COUNTS, KIND_MOMENTS, KIND_CLASSES, KIND_COMOMENTS):
             raise ValueError(f"{NAME}: slot {i} has unknown kind {slot.kind}")
-        for what in ("where", "sel"):
+        if (slot.vals2 is not None or slot.sel2 is not None) != (slot.kind == KIND_COMOMENTS):
+            raise ValueError(f"{NAME}: only a co-moment slot takes vals2 and sel2 (slot {i})")
+        for what in ("where", "sel", "sel2"):
             mask = getattr(slot, what)
             if mask is not None:
                 check_tensor(mask, NAME, f"slot {i} {what}", torch.bool, n, rows.device)
@@ -124,12 +143,18 @@ def _validate(slots: Sequence[Slot], rows: torch.Tensor) -> None:
             if slot.vals is None or slot.sel is not None:
                 raise ValueError(f"{NAME}: class-count slot {i} takes codes and no selection")
             check_tensor(slot.vals, NAME, f"slot {i} codes", torch.int32, n, rows.device)
+        if slot.kind == KIND_COMOMENTS:
+            if slot.vals is None or slot.vals2 is None:
+                raise ValueError(f"{NAME}: co-moment slot {i} needs two value columns")
+            check_tensor(slot.vals, NAME, f"slot {i} vals", torch.float64, n, rows.device)
+            check_tensor(slot.vals2, NAME, f"slot {i} vals2", torch.float64, n, rows.device)
 
 
 def scan_reduce(slots: Sequence[Slot], rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reduce every slot over one batch. Returns ``(out_i, out_f)``:
     int64[S, 7] (matches, count, five class counts) and float64[S, 5]
-    (sum, min, max, mean, m2). CPU tensors take :func:`scan_reduce_plain`;
+    (sum, min, max, mean, m2; for a co-moment slot x_avg, y_avg, ck, x_mk,
+    y_mk). CPU tensors take :func:`scan_reduce_plain`;
     CUDA tensors launch the kernel."""
     _validate(slots, rows)
     if not on_cuda(rows, NAME):
@@ -145,6 +170,8 @@ def scan_reduce(slots: Sequence[Slot], rows: torch.Tensor) -> Tuple[torch.Tensor
             None if slot.vals is None else slot.vals.data_ptr(),
             None if slot.where is None else slot.where.data_ptr(),
             None if slot.sel is None else slot.sel.data_ptr(),
+            None if slot.vals2 is None else slot.vals2.data_ptr(),
+            None if slot.sel2 is None else slot.sel2.data_ptr(),
         )
         for slot in slots
     ])
@@ -179,10 +206,14 @@ def scan_reduce_plain(slots: Sequence[Slot], rows: torch.Tensor) -> Tuple[torch.
             out_i[s, I_MATCHES] = out_i[s, I_CLASS0:I_WIDTH].sum()
         else:
             sel = base if slot.sel is None else base & slot.sel
+            if slot.sel2 is not None:
+                sel = sel & slot.sel2
             matches = sel.sum(dtype=torch.int64)
             out_i[s, I_MATCHES] = matches
         if slot.kind == KIND_MOMENTS:
             out_f[s] = _moments_plain(slot.vals, sel, matches)
+        elif slot.kind == KIND_COMOMENTS:
+            out_f[s] = _comoments_plain(slot.vals, slot.vals2, sel, matches)
         else:
             out_f[s] = torch.tensor(
                 [0.0, math.nan, -math.inf, 0.0, 0.0], dtype=torch.float64, device=device
@@ -207,3 +238,21 @@ def _moments_plain(vals: torch.Tensor, sel: torch.Tensor, n: torch.Tensor) -> to
     centered = torch.where(sel, v - mean, zero)
     m2 = torch.where(n > 0, (centered * centered).sum(), zero)
     return torch.stack([total, mn, mx, mean, m2])
+
+
+def _comoments_plain(x: torch.Tensor, y: torch.Tensor, sel: torch.Tensor,
+                     n: torch.Tensor) -> torch.Tensor:
+    """(x_avg, y_avg, ck, x_mk, y_mk) of the selected rows, centred on the
+    batch's own means (the reference's ``Correlation.update``); all 0 when
+    no row is selected."""
+    zero = torch.zeros((), dtype=torch.float64, device=x.device)
+    nf = n.to(torch.float64)
+    safe_n = torch.where(n > 0, nf, torch.ones_like(nf))
+    x_avg = torch.where(sel, x, zero).sum() / safe_n
+    y_avg = torch.where(sel, y, zero).sum() / safe_n
+    xc = torch.where(sel, x - x_avg, zero)
+    yc = torch.where(sel, y - y_avg, zero)
+    return torch.stack([
+        torch.where(n > 0, x_avg, zero), torch.where(n > 0, y_avg, zero),
+        (xc * yc).sum(), (xc * xc).sum(), (yc * yc).sum(),
+    ])

@@ -22,6 +22,20 @@ as the reference package routes them (deequ_tpu/runners/analysis_runner.py:
    ``freq_buffer_entries``. A table that dropped groups re-runs its set
    through the host group-by in one more pass (``freq_overflow_fallbacks``).
 
+With ``aggregate_with`` or ``save_states_with``, route 3 is off, as in the
+reference: a persisted or merged grouping state must be a value-keyed
+:class:`FrequenciesAndNumRows`, which hashed device tables never give.
+
+Incremental runs (reference `AnalysisRunner.scala:97-223, 385-460`):
+``aggregate_with`` merges each analyzer's loaded state into the run's before
+its metric, ``save_states_with`` persists the (merged) states, a metrics
+repository can serve results for a key instead of computing them
+(``reuse_existing_results_for_key``) and keeps the run's results
+(``save_or_append_results_with_key``), and :meth:`AnalysisRunner.
+run_on_aggregated_states` computes metrics from merged persisted states with
+no data pass. Merges run on the run's device (``merge_states_batched``:
+kernel ``state_fold`` for the scalar states, ``kll_compact`` for sketches).
+
 Anything else raises ``NotImplementedError`` naming the analyzer — nothing
 is routed silently to another tier.
 """
@@ -31,7 +45,13 @@ from __future__ import annotations
 import logging
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from ..analyzers.base import Analyzer, Preconditions, ScanShareableAnalyzer
+from ..analyzers.base import (
+    Analyzer,
+    Preconditions,
+    ScanShareableAnalyzer,
+    merge_states_batched,
+    merge_states_batched_many,
+)
 from ..analyzers.grouping import (
     DeviceFrequencyScan,
     DeviceFrequencyTableScan,
@@ -48,8 +68,10 @@ from ..config import (
     DEVICE_FREQ_MAX_CARDINALITY,
     DeviceLike,
     resolve_device,
+    synchronize,
 )
-from ..data import Dataset
+from ..data import Dataset, Schema
+from ..exceptions import MetricCalculationException
 from ..metrics import Metric
 from .context import AnalyzerContext
 from .engine import RunMonitor, ScanEngine, effective_batch_size
@@ -89,12 +111,22 @@ class AnalysisRunner:
         freq_table_slots: int = DEFAULT_FREQ_TABLE_SLOTS,
         freq_buffer_entries: int = DEFAULT_FREQ_BUFFER_ENTRIES,
         device_freq: bool = True,
+        aggregate_with: Optional[Any] = None,
+        save_states_with: Optional[Any] = None,
+        metrics_repository: Optional[Any] = None,
+        reuse_existing_results_for_key: Optional[Any] = None,
+        fail_if_results_missing: bool = False,
+        save_or_append_results_with_key: Optional[Any] = None,
     ) -> AnalyzerContext:
         """Compute every analyzer's metric in one pass over ``data``.
         ``freq_table_slots`` and ``freq_buffer_entries`` size the device
         frequency tables (see ``config.py``); ``device_freq=False`` sends
         every grouping set that is not a small dictionary column to the
-        host group-by."""
+        host group-by. ``aggregate_with`` (a StateLoader),
+        ``save_states_with`` (a StatePersister), ``metrics_repository``
+        with ``reuse_existing_results_for_key`` / ``fail_if_results_missing``
+        and ``save_or_append_results_with_key``: as the reference's runner
+        (module docstring)."""
         dev = resolve_device(device)
         if len(analyzers) == 0:
             return AnalyzerContext.empty()
@@ -102,11 +134,29 @@ class AnalysisRunner:
         # dedupe identical analyzers, preserving order
         unique: List[Analyzer] = list(dict.fromkeys(analyzers))
 
+        # reuse existing results from the repository
+        # (reference `AnalysisRunner.scala:115-134`)
+        results_loaded = AnalyzerContext.empty()
+        analyzers_to_run = unique
+        if metrics_repository is not None and reuse_existing_results_for_key is not None:
+            existing = metrics_repository.load_by_key(reuse_existing_results_for_key)
+            if existing is not None:
+                wanted = set(unique)
+                loaded = {a: m for a, m in existing.metric_map.items() if a in wanted}
+                results_loaded = AnalyzerContext(loaded)
+                analyzers_to_run = [a for a in unique if a not in loaded]
+            if fail_if_results_missing and analyzers_to_run:
+                raise MetricCalculationException(
+                    "Could not find all necessary results in the MetricsRepository, "
+                    f"the calculation of the metrics for these analyzers would be needed: "
+                    f"{', '.join(str(a) for a in analyzers_to_run)}"
+                )
+
         # precondition partition (reference `AnalysisRunner.scala:137-145`)
         schema = data.schema
         passed: List[Analyzer] = []
         failures: Dict[Analyzer, Metric] = {}
-        for a in unique:
+        for a in analyzers_to_run:
             if not isinstance(a, Analyzer):
                 raise _not_in_slice(a, "it is not an analyzer of this package")
             if getattr(a, "exact_mode", False):
@@ -154,7 +204,10 @@ class AnalysisRunner:
         freq_scans = {
             cols: DeviceFrequencyScan(cols[0], len(dictionaries[cols])) for cols in freq_cols
         }
-        # route 3: the device frequency table; route 2: the host group-by
+        # route 3: the device frequency table; route 2: the host group-by.
+        # Merged or persisted grouping states must be value-keyed, so a run
+        # that aggregates or saves states keeps route 3 off.
+        slim = aggregate_with is None and save_states_with is None
         batch_rows = effective_batch_size(batch_size)
         table_scans: Dict[Tuple[str, ...], DeviceFrequencyTableScan] = {}
         host_sets: List[Tuple[str, ...]] = []
@@ -162,7 +215,7 @@ class AnalysisRunner:
             if cols in dict_sets:
                 continue
             scan = None
-            if device_freq and not probably_low_cardinality(data, cols):
+            if slim and device_freq and not probably_low_cardinality(data, cols):
                 scan = plan_table_scan(schema, cols, data.num_rows, batch_rows,
                                        freq_table_slots, freq_buffer_entries)
             if scan is None:
@@ -175,7 +228,8 @@ class AnalysisRunner:
         run_monitor.device_freq_sets += len(table_scans)
         metrics: Dict[Analyzer, Metric] = {}
         if not battery and not host_sets:
-            return AnalyzerContext(failures)
+            return _results(results_loaded + AnalyzerContext(failures), metrics_repository,
+                            save_or_append_results_with_key)
         states, shared = _run_pass(data, battery, host_sets, batch_size, dev, run_monitor)
         by_analyzer = dict(zip(battery, states))
 
@@ -202,22 +256,106 @@ class AnalysisRunner:
             run_monitor.freq_overflow_fallbacks += len(fallback)
             shared.update(_run_pass(data, [], fallback, batch_size, dev, run_monitor)[1])
 
+        # load old state -> merge -> persist -> metric (reference
+        # `Analyzer.calculateMetric`, `Analyzer.scala:107-128`)
+        def finalize(a: Analyzer, state: Any) -> Metric:
+            return _finalize(a, state, aggregate_with, save_states_with, dev)
+
         with run_monitor.timed("metric_derivation"):
             for a in scanning:
-                metrics[a] = _metric(a, by_analyzer[a])
+                metrics[a] = finalize(a, by_analyzer[a])
             for cols in dict_sets:
                 scan = freq_scans[cols]
                 shared[cols] = scan.to_frequencies(by_analyzer[scan], dictionaries[cols])
             for cols, members in grouping_sets.items():
                 for a in members:
-                    metrics[a] = _metric(a, shared[cols])
+                    metrics[a] = finalize(a, shared[cols])
             for a in histograms:
                 scan = freq_scans[(a.column,)]
                 hist = device_counts_to_histogram_frequencies(
                     scan, by_analyzer[scan], dictionaries[(a.column,)]
                 )
-                metrics[a] = _metric(a, hist)
-        return AnalyzerContext(failures) + AnalyzerContext(metrics)
+                metrics[a] = finalize(a, hist)
+        context = results_loaded + AnalyzerContext(failures) + AnalyzerContext(metrics)
+        return _results(context, metrics_repository, save_or_append_results_with_key)
+
+    @staticmethod
+    def run_on_aggregated_states(
+        schema: Schema,
+        analyzers: Sequence[Analyzer],
+        state_loaders: Sequence[Any],
+        *,
+        save_states_with: Optional[Any] = None,
+        metrics_repository: Optional[Any] = None,
+        save_or_append_results_with_key: Optional[Any] = None,
+        device: DeviceLike = None,
+        monitor: Optional[RunMonitor] = None,
+    ) -> AnalyzerContext:
+        """Compute metrics purely from merged persisted states, with no data
+        pass (reference `AnalysisRunner.runOnAggregatedStates`,
+        `AnalysisRunner.scala:385-460`). Every analyzer's states fold in one
+        call of ``merge_states_batched_many`` on ``device``: one
+        ``state_fold`` launch for all the scalar, DataType, HLL and
+        Correlation states, ``kll_compact`` merges for the sketches. The
+        monitor's phases: ``state_load`` (the loaders), ``state_merge`` (the
+        merges, ending in a synchronise), ``metric_derivation``."""
+        dev = resolve_device(device)
+        if len(analyzers) == 0 or len(state_loaders) == 0:
+            return AnalyzerContext.empty()
+        run_monitor = monitor if monitor is not None else RunMonitor()
+        passed: List[Analyzer] = []
+        failures: Dict[Analyzer, Metric] = {}
+        for a in dict.fromkeys(analyzers):
+            if not isinstance(a, Analyzer):
+                raise _not_in_slice(a, "it is not an analyzer of this package")
+            exc = Preconditions.find_first_failing(schema, a.preconditions())
+            if exc is None:
+                passed.append(a)
+            else:
+                failures[a] = a.to_failure_metric(exc)
+
+        with run_monitor.timed("state_load"):
+            loaded = [(a, [loader.load(a) for loader in state_loaders]) for a in passed]
+        with run_monitor.timed("state_merge"):
+            merged = merge_states_batched_many(loaded, dev)
+            synchronize(dev)
+        metrics: Dict[Analyzer, Metric] = {}
+        with run_monitor.timed("metric_derivation"):
+            for a, state in zip(passed, merged):
+                if save_states_with is not None and state is not None:
+                    save_states_with.persist(a, state)
+                metrics[a] = _metric(a, state)
+        context = AnalyzerContext(failures) + AnalyzerContext(metrics)
+        return _results(context, metrics_repository, save_or_append_results_with_key)
+
+
+def _finalize(analyzer: Analyzer, state: Any, aggregate_with: Optional[Any],
+              save_states_with: Optional[Any], device) -> Metric:
+    """The analyzer's metric from its run state, merged first with the
+    state ``aggregate_with`` holds for it and persisted afterwards through
+    ``save_states_with`` (reference `analysis_runner.py:583-599`)."""
+    try:
+        if aggregate_with is not None:
+            state = merge_states_batched(analyzer, [aggregate_with.load(analyzer), state], device)
+        if save_states_with is not None and state is not None:
+            save_states_with.persist(analyzer, state)
+        return analyzer.compute_metric_from(state)
+    except Exception as exc:  # noqa: BLE001
+        return analyzer.to_failure_metric(exc)
+
+
+def _results(context: AnalyzerContext, repository: Optional[Any], key: Optional[Any]
+             ) -> AnalyzerContext:
+    if repository is not None and key is not None:
+        _save_or_append(repository, key, context)
+    return context
+
+
+def _save_or_append(repository, key, context: AnalyzerContext) -> None:
+    """Append semantics (reference `AnalysisRunner.scala:205-223`)."""
+    existing = repository.load_by_key(key)
+    combined = (existing or AnalyzerContext.empty()) + context
+    repository.save(key, combined)
 
 
 def _run_pass(data: Dataset, battery: Sequence[ScanShareableAnalyzer],

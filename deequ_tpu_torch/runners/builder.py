@@ -19,6 +19,7 @@ class AnalysisRunBuilder:
         self._batch_size: Optional[int] = None
         self._monitor: Optional[RunMonitor] = None
         self._freq_options: Dict[str, Any] = {}
+        self._state_options: Dict[str, Any] = {}
 
     def add_analyzer(self, analyzer: Analyzer) -> "AnalysisRunBuilder":
         self._analyzers.append(analyzer)
@@ -26,6 +27,29 @@ class AnalysisRunBuilder:
 
     def add_analyzers(self, analyzers: Sequence[Analyzer]) -> "AnalysisRunBuilder":
         self._analyzers.extend(analyzers)
+        return self
+
+    def aggregate_with(self, state_loader) -> "AnalysisRunBuilder":
+        self._state_options["aggregate_with"] = state_loader
+        return self
+
+    def save_states_with(self, state_persister) -> "AnalysisRunBuilder":
+        self._state_options["save_states_with"] = state_persister
+        return self
+
+    def use_repository(self, repository) -> "AnalysisRunBuilder":
+        self._state_options["metrics_repository"] = repository
+        return self
+
+    def reuse_existing_results_for_key(
+        self, key, fail_if_results_missing: bool = False
+    ) -> "AnalysisRunBuilder":
+        self._state_options["reuse_existing_results_for_key"] = key
+        self._state_options["fail_if_results_missing"] = fail_if_results_missing
+        return self
+
+    def save_or_append_result(self, key) -> "AnalysisRunBuilder":
+        self._state_options["save_or_append_results_with_key"] = key
         return self
 
     def with_batch_size(self, batch_size: int) -> "AnalysisRunBuilder":
@@ -52,6 +76,7 @@ class AnalysisRunBuilder:
             monitor=self._monitor,
             device=self._device,
             **self._freq_options,
+            **self._state_options,
         )
 
 

@@ -5,21 +5,29 @@ collects the analyzers every check needs, delegates metric computation to
 the AnalysisRunner (one fused pass on the device), evaluates checks against
 the resulting AnalyzerContext and reports an overall status
 (reference `VerificationSuite.scala:42-315`, `VerificationRunBuilder.scala:
-28-341`, `VerificationResult.scala:33-119`). Repositories, state
-persistence and anomaly checks are not part of this port yet.
+28-341`, `VerificationResult.scala:33-119`). A run can merge loaded states
+(``aggregate_with``), persist its states (``save_states_with``), keep its
+metrics in a repository and check the newest metrics against their history
+(``use_repository(...).add_anomaly_check(...)``); partition-aware
+incremental verification is not part of this port yet.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence
 
 from .analyzers import Analyzer
-from .checks import Check, CheckResult, CheckStatus
+from .checks import Check, CheckLevel, CheckResult, CheckStatus
 from .config import DeviceLike, resolve_device
 from .data import Dataset
 from .metrics import Metric
-from .runners.analysis_runner import AnalysisRunner, collect_required_analyzers
+from .runners.analysis_runner import (
+    AnalysisRunner,
+    _save_or_append,
+    collect_required_analyzers,
+)
 from .runners.builder import frequency_options
 from .runners.context import AnalyzerContext
 from .runners.engine import RunMonitor
@@ -93,19 +101,75 @@ class VerificationSuite:
         batch_size: Optional[int] = None,
         monitor: Optional[RunMonitor] = None,
         device: DeviceLike = None,
+        aggregate_with: Optional[Any] = None,
+        save_states_with: Optional[Any] = None,
+        metrics_repository: Optional[Any] = None,
+        reuse_existing_results_for_key: Optional[Any] = None,
+        fail_if_results_missing: bool = False,
+        save_or_append_results_with_key: Optional[Any] = None,
         **freq_options,
     ) -> VerificationResult:
         """One pass computing every metric the checks need, then the
         verdicts. ``freq_options``: ``freq_table_slots``,
         ``freq_buffer_entries`` and ``device_freq`` of
-        :meth:`AnalysisRunner.do_analysis_run`."""
+        :meth:`AnalysisRunner.do_analysis_run`; the state and repository
+        keywords are its own too, except that the results are saved after
+        the checks are evaluated, so an anomaly check never sees the current
+        point in its own history (reference `VerificationSuite.scala:121-139`)."""
         checks = list(checks)  # evaluate() walks them again after the run
         analyzers = collect_required_analyzers(checks, required_analyzers)
         analysis_results = AnalysisRunner.do_analysis_run(
             data, analyzers, batch_size=batch_size, monitor=monitor, device=device,
+            aggregate_with=aggregate_with, save_states_with=save_states_with,
+            metrics_repository=metrics_repository,
+            reuse_existing_results_for_key=reuse_existing_results_for_key,
+            fail_if_results_missing=fail_if_results_missing,
             **freq_options,
         )
-        return VerificationSuite.evaluate(checks, analysis_results)
+        result = VerificationSuite.evaluate(checks, analysis_results)
+        if metrics_repository is not None and save_or_append_results_with_key is not None:
+            _save_or_append(metrics_repository, save_or_append_results_with_key,
+                            analysis_results)
+        return result
+
+    @staticmethod
+    def run_on_aggregated_states(
+        schema,
+        checks: Sequence[Check],
+        state_loaders: Sequence[Any],
+        *,
+        required_analyzers: Sequence[Analyzer] = (),
+        save_states_with: Optional[Any] = None,
+        metrics_repository: Optional[Any] = None,
+        save_or_append_results_with_key: Optional[Any] = None,
+        device: DeviceLike = None,
+    ) -> VerificationResult:
+        """Verification from merged persisted states, no data pass
+        (reference `VerificationSuite.scala:208-229`)."""
+        checks = list(checks)
+        analyzers = collect_required_analyzers(checks, required_analyzers)
+        context = AnalysisRunner.run_on_aggregated_states(
+            schema, analyzers, state_loaders, save_states_with=save_states_with,
+            metrics_repository=metrics_repository,
+            save_or_append_results_with_key=save_or_append_results_with_key, device=device,
+        )
+        return VerificationSuite.evaluate(checks, context)
+
+    @staticmethod
+    def on_partitions(store, dataset_name: str, partitions, checksums=None):
+        """Partition-aware incremental verification: not ported yet."""
+        raise NotImplementedError(
+            "PartitionedVerificationRunBuilder (VerificationSuite.on_partitions, "
+            "runners/incremental.py) is not supported by deequ_tpu_torch yet"
+        )
+
+    @staticmethod
+    def verify_partitioned(store, dataset_name: str, partitions, checks, *args, **kwargs):
+        """Partition-aware incremental verification: not ported yet."""
+        raise NotImplementedError(
+            "VerificationSuite.verify_partitioned (runners/incremental.py) is not "
+            "supported by deequ_tpu_torch yet"
+        )
 
     @staticmethod
     def evaluate(checks: Sequence[Check], context: AnalyzerContext) -> VerificationResult:
@@ -120,6 +184,17 @@ class VerificationSuite:
         return VerificationResult(status, check_results, dict(context.metric_map))
 
 
+@dataclass(frozen=True)
+class AnomalyCheckConfig:
+    """(reference `VerificationRunBuilder.scala:336`)."""
+
+    level: CheckLevel
+    description: str
+    with_tag_values: Dict[str, str] = field(default_factory=dict)
+    after_date: Optional[int] = None
+    before_date: Optional[int] = None
+
+
 class VerificationRunBuilder:
     """Fluent run configuration (reference `VerificationRunBuilder.scala:
     28-163`)."""
@@ -132,6 +207,7 @@ class VerificationRunBuilder:
         self._batch_size: Optional[int] = None
         self._monitor: Optional[RunMonitor] = None
         self._freq_options: Dict = {}
+        self._state_options: Dict[str, Any] = {}
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self.checks.append(check)
@@ -148,6 +224,17 @@ class VerificationRunBuilder:
     def add_required_analyzers(self, analyzers: Sequence[Analyzer]) -> "VerificationRunBuilder":
         self.required_analyzers.extend(analyzers)
         return self
+
+    def aggregate_with(self, state_loader) -> "VerificationRunBuilder":
+        self._state_options["aggregate_with"] = state_loader
+        return self
+
+    def save_states_with(self, state_persister) -> "VerificationRunBuilder":
+        self._state_options["save_states_with"] = state_persister
+        return self
+
+    def use_repository(self, repository) -> "VerificationRunBuilderWithRepository":
+        return VerificationRunBuilderWithRepository(self, repository)
 
     def with_batch_size(self, batch_size: int) -> "VerificationRunBuilder":
         self._batch_size = batch_size
@@ -172,4 +259,41 @@ class VerificationRunBuilder:
             monitor=self._monitor,
             device=self.device,
             **self._freq_options,
+            **self._state_options,
         )
+
+
+class VerificationRunBuilderWithRepository(VerificationRunBuilder):
+    """(reference `VerificationRunBuilder.scala:196-341`)."""
+
+    def __init__(self, parent: VerificationRunBuilder, repository):
+        self.__dict__.update(parent.__dict__)
+        self._state_options = dict(parent._state_options, metrics_repository=repository)
+
+    def reuse_existing_results_for_key(
+        self, key, fail_if_results_missing: bool = False
+    ) -> "VerificationRunBuilderWithRepository":
+        self._state_options["reuse_existing_results_for_key"] = key
+        self._state_options["fail_if_results_missing"] = fail_if_results_missing
+        return self
+
+    def save_or_append_result(self, key) -> "VerificationRunBuilderWithRepository":
+        self._state_options["save_or_append_results_with_key"] = key
+        return self
+
+    def add_anomaly_check(
+        self, anomaly_detection_strategy, analyzer: Analyzer, anomaly_check_config=None
+    ) -> "VerificationRunBuilderWithRepository":
+        """(reference `VerificationRunBuilder.scala:227-244`)."""
+        description = f"Anomaly check for {analyzer}"
+        config = anomaly_check_config or AnomalyCheckConfig(CheckLevel.WARNING, description)
+        check = Check(config.level, config.description).is_newest_point_non_anomalous(
+            self._state_options["metrics_repository"],
+            anomaly_detection_strategy,
+            analyzer,
+            config.with_tag_values,
+            config.after_date,
+            config.before_date,
+        )
+        self.checks.append(check)
+        return self

@@ -3,7 +3,11 @@ on the card.
 
 K4 ``kll_sample`` and K5 ``kll_compact`` must match their plain versions
 bit for bit on every output (items, sizes, parities, counters, and the bits
-of min and max), as must the class counts of ``scan_reduce``.
+of min and max), as must the class counts of ``scan_reduce``. K8
+``state_fold`` must match its plain version and the sequential fold of the
+states' own ``merge`` bit for bit (NaN equal to NaN), and ``scan_reduce``'s
+co-moment slot its plain version within 1e-12 of the magnitudes that bound
+its rounding.
 
 Every test here is marked ``cuda`` and needs a CUDA device and ``nvcc``:
 without a card it skips (the kernels are CUDA C++ with no CPU build). The
@@ -32,14 +36,24 @@ from deequ_tpu_torch.kernels.kll_compact import (
     kll_compact_update_plain,
 )
 from deequ_tpu_torch.kernels.kll_sample import kll_sample, kll_sample_plain
+import chip_smoke
+import deequ_tpu_torch as dq
+from deequ_tpu_torch.analyzers.base import (
+    merge_states_batched_many,
+    pack_states,
+    unpack_states,
+)
+from deequ_tpu_torch.analyzers.state_provider import InMemoryStateProvider
 from deequ_tpu_torch.kernels.scan_reduce import (
     KIND_CLASSES,
+    KIND_COMOMENTS,
     KIND_COUNTS,
     KIND_MOMENTS,
     Slot,
     scan_reduce,
     scan_reduce_plain,
 )
+from deequ_tpu_torch.kernels.state_fold import state_fold, state_fold_plain
 from deequ_tpu_torch.ops.kll import KLLSketchState, kll_init
 
 RTOL = 1e-12
@@ -391,3 +405,104 @@ def test_freq_kernels_count_their_launches(cuda_device):
     freq_compact(table.keys, table.counts, buf, None, 64)
     counts = launch_counts()
     assert counts["freq_keys"] == 1 and counts["freq_compact"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 33])
+def test_state_fold_kernel_matches_plain(cuda_device, n):
+    groups = chip_smoke.fold_groups(dq, n, seed=n)
+    jobs = [states for _, states in groups]
+    mats, slots, places = pack_states(jobs)
+    mats = [m.to(cuda_device) for m in mats]
+    reset_launch_counts()
+    got = state_fold(*mats, slots)
+    assert launch_counts()["state_fold"] == 1
+    want = state_fold_plain(*mats, slots)
+    torch.cuda.synchronize()
+    for g, w in zip(unpack_states(jobs, places, got), unpack_states(jobs, places, want)):
+        assert chip_smoke.same_state_bits(g, w)
+    # the whole path: host states to the card, one launch, as the
+    # sequential fold of the states' own merge on the CPU
+    merged = merge_states_batched_many(groups, "cuda")
+    for (a, states), m in zip(groups, merged):
+        assert m.__class__ is states[0].__class__
+        assert all(t.device.type == "cuda" for t in m.__dict__.values()
+                   if isinstance(t, torch.Tensor)), a
+        assert chip_smoke.same_state_bits(m, chip_smoke.sequential_fold(states)), a
+
+
+def _comoment_inputs(n, device, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(100.0, 10.0, n)
+    y = 0.5 * x + rng.normal(-3.0, 4.0, n)
+    x[rng.random(n) < 0.0005] = np.nan
+
+    def mask(p):
+        return torch.from_numpy(rng.random(n) < p).to(device)
+
+    const = torch.full((n,), 7.25, dtype=torch.float64, device=device)
+    xs, ys = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    finite = torch.from_numpy(np.nan_to_num(x, nan=1.0)).to(device)
+    slots = [
+        Slot(KIND_COMOMENTS, sel=mask(0.95), vals=xs, vals2=ys, sel2=mask(0.9)),
+        Slot(KIND_COMOMENTS, where=mask(0.5), sel=mask(0.95), vals=finite, vals2=ys,
+             sel2=mask(0.9)),
+        Slot(KIND_COMOMENTS, sel=mask(0.95), vals=const, vals2=ys, sel2=mask(0.9)),
+        Slot(KIND_COMOMENTS, sel=mask(0.0), vals=finite, vals2=ys, sel2=mask(0.9)),
+        Slot(KIND_MOMENTS, sel=mask(0.9), vals=finite),
+    ]
+    return slots, mask(0.98), finite, ys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, (1 << 20) + 3])
+def test_comoment_slot_matches_plain(cuda_device, n):
+    slots, rows, x, y = _comoment_inputs(n, cuda_device, seed=n % 97)
+    ki, kf = scan_reduce(slots, rows)
+    pi, pf = scan_reduce_plain(slots, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi)
+    kf, pf = kf.cpu().numpy(), pf.cpu().numpy()
+    xa = float(x.abs().max()) if n else 1.0
+    ya = float(y.abs().max()) if n else 1.0
+    xx, yy = float((x * x).sum()) if n else 1.0, float((y * y).sum()) if n else 1.0
+    for s in range(4):
+        scales = (xa, ya, (xx * yy) ** 0.5, xx, yy)
+        for col, scale in enumerate(scales):
+            assert _close(kf[s, col], pf[s, col], scale), (s, col, kf[s, col], pf[s, col])
+
+
+@pytest.mark.cuda
+def test_persisted_state_unchanged_after_the_run_goes_on(cuda_device):
+    rng = np.random.default_rng(3)
+    n = 50_000
+    import pyarrow as pa
+
+    table = pa.table({
+        "x0": pa.array(rng.normal(0, 1, n), mask=rng.random(n) < 0.05),
+        "x1": pa.array(rng.normal(5, 2, n)),
+        "cat": pa.array(rng.integers(0, 1000, n)),
+    })
+    analyzers = [dq.Size(), dq.Mean("x0"), dq.Correlation("x0", "x1"),
+                 dq.ApproxCountDistinct("cat"), dq.KLLSketch("x1"), dq.Uniqueness(["cat"])]
+    first = InMemoryStateProvider()
+    data = dq.Dataset.from_arrow(table)
+    dq.AnalysisRunner.do_analysis_run(data, analyzers, save_states_with=first,
+                                      batch_size=8192, device="cuda")
+    kept = {a: first.load(a) for a in analyzers}
+    snapshot = {a: None if isinstance(s, dq.analyzers.FrequenciesAndNumRows) else
+                [t.cpu().numpy().tobytes() for t in s.__dict__.values()
+                 if isinstance(t, torch.Tensor)] for a, s in kept.items()}
+    second = InMemoryStateProvider()
+    for _ in range(2):
+        dq.AnalysisRunner.do_analysis_run(data, analyzers, aggregate_with=first,
+                                          save_states_with=second, batch_size=8192,
+                                          device="cuda")
+        dq.AnalysisRunner.run_on_aggregated_states(data.schema, analyzers, [first, second],
+                                                   device="cuda")
+    torch.cuda.synchronize()
+    for a, s in kept.items():
+        assert first.load(a) is s
+        if snapshot[a] is not None:
+            assert [t.cpu().numpy().tobytes() for t in s.__dict__.values()
+                    if isinstance(t, torch.Tensor)] == snapshot[a], a

@@ -12,6 +12,13 @@ plain PyTorch version. Tolerances:
   bounds their rounding when the adds are reordered: the sum of |v| for a
   sum, max |v| for a mean, the sum of v^2 for M2.
 
+The co-moment slot of K1 goes through ``Correlation.update`` in both
+packages (n bit-exact; means within 1e-12 of max |v|, co-moments within
+1e-12 of the sums of squares that bound them). K8 ``state_fold``'s plain
+version goes through ``merge_states_batched`` in both packages: counts,
+min, max, DataType counts and HLL registers bit-exact, float64 sums,
+moments and co-moments within 1e-12 relative, KLL sketches bit-exact.
+
 The kernels themselves are held against these plain versions on the card
 by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -25,7 +32,14 @@ import pyarrow as pa
 import pytest
 import torch
 
+import dataclasses
+import math
+
+import chip_smoke
 import deequ_tpu.analyzers as J
+import deequ_tpu.analyzers.base as JB
+import deequ_tpu.analyzers.states as JS
+import deequ_tpu.ops.kll as JK
 import deequ_tpu.analyzers.grouping as JG
 import deequ_tpu.data as JD
 import deequ_tpu.runners.features as JF
@@ -33,9 +47,20 @@ import deequ_tpu_torch.analyzers as T
 import deequ_tpu_torch.analyzers.grouping as TG
 import deequ_tpu_torch.data as TD
 import deequ_tpu_torch.runners.features as TF
+import deequ_tpu_torch as dq
+from deequ_tpu_torch.analyzers.base import merge_states_batched
 from deequ_tpu_torch.analyzers.states import leaves as torch_leaves
+from deequ_tpu_torch.convert import to_reference
+from deequ_tpu_torch.kernels.state_fold import ADD_I64, MAX_I32, FoldSlot, state_fold
+from deequ_tpu_torch.ops.kll import kll_init, kll_update
 from deequ_tpu_torch.kernels.dict_code_counts import dict_code_counts
-from deequ_tpu_torch.kernels.scan_reduce import KIND_COUNTS, KIND_MOMENTS, Slot, scan_reduce
+from deequ_tpu_torch.kernels.scan_reduce import (
+    KIND_COMOMENTS,
+    KIND_COUNTS,
+    KIND_MOMENTS,
+    Slot,
+    scan_reduce,
+)
 from deequ_tpu_torch.runners.engine import to_device
 
 CPU = torch.device("cpu")
@@ -282,3 +307,177 @@ def test_dict_code_counts_plain_drops_masked_and_sentinel():
     counts, num_rows = dict_code_counts(codes, rows, present, 3)
     assert counts.tolist() == [1, 2, 0]  # code 3 is the sentinel K
     assert int(num_rows) == 6
+
+
+# ---------------------------------------------------------------------------
+# K1's co-moment slot, through Correlation.update
+# ---------------------------------------------------------------------------
+
+
+def _pair_table(n: int = 3000, seed: int = 13) -> pa.Table:
+    """Two correlated columns with nulls, NaN in one, and constants."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(100.0, 10.0, n)
+    y = 0.3 * x + rng.normal(0.0, 2.0, n)
+    xn = x.copy()
+    xn[rng.random(n) < 0.01] = np.nan
+    return pa.table({
+        "x": pa.array(x, mask=rng.random(n) < 0.05),
+        "y": pa.array(y, mask=rng.random(n) < 0.1),
+        "xn": pa.array(xn),
+        "c": pa.array(np.full(n, 2.5)),
+        "c2": pa.array(np.full(n, -7.0), mask=rng.random(n) < 0.2),
+        "ints": pa.array(rng.integers(-50, 50, n)),
+    })
+
+
+CORRELATION_CASES = {
+    "nulls": lambda m: m.Correlation("x", "y"),
+    "where": lambda m: m.Correlation("x", "y", "ints > 0"),
+    "nan": lambda m: m.Correlation("xn", "y"),
+    "constant": lambda m: m.Correlation("c", "y"),
+    "both_constant": lambda m: m.Correlation("c", "c2"),
+    "integral": lambda m: m.Correlation("ints", "x"),
+    "empty": lambda m: m.Correlation("x", "y", "ints > 1000"),
+}
+
+
+@pytest.mark.parametrize("batch_size", [512, 4096])
+@pytest.mark.parametrize("case", sorted(CORRELATION_CASES))
+def test_comoment_slot_update_matches_jax(case, batch_size):
+    make = CORRELATION_CASES[case]
+    table = _pair_table()
+    jax_a, torch_a = make(J), make(T)
+    jl, tl = _fold(jax_a, torch_a, table, batch_size)
+    assert len(jl) == len(tl) == 6
+    cols = [table[c].to_numpy(zero_copy_only=False).astype(np.float64)
+            for c in (torch_a.first_column, torch_a.second_column)]
+    cols = [v[np.isfinite(v)] for v in cols]
+    xx, yy = (float((v * v).sum()) for v in cols)
+    scales = [0.0, float(np.abs(cols[0]).max()), float(np.abs(cols[1]).max()),
+              math.sqrt(xx * yy), xx, yy]
+    assert _bits_equal(jl[0], tl[0]), (case, jl[0], tl[0])
+    for i in range(1, 6):
+        assert _close(jl[i], tl[i], scales[i]), (case, i, jl[i], tl[i])
+    jm, tm = jax_a.compute_metric_from(
+        type(jax_a.init_state())(*[jnp.asarray(x) for x in jl])), torch_a.compute_metric_from(
+        T.CorrelationState(*[torch.from_numpy(np.asarray(x)) for x in tl]))
+    if jm.value.is_success and not math.isnan(jm.value.get()):
+        assert abs(jm.value.get() - tm.value.get()) <= 1e-9
+    else:
+        assert repr(jm.value)[:12] == repr(tm.value)[:12]
+
+
+def test_comoment_slot_takes_two_columns():
+    rows = torch.ones(10, dtype=torch.bool)
+    x = torch.zeros(10, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        scan_reduce([Slot(KIND_COMOMENTS, vals=x)], rows)
+    with pytest.raises(ValueError):
+        scan_reduce([Slot(KIND_MOMENTS, vals=x, vals2=x)], rows)
+    with pytest.raises(TypeError):
+        scan_reduce([Slot(KIND_COMOMENTS, vals=x, vals2=x.float())], rows)
+    out_i, out_f = scan_reduce([Slot(KIND_COMOMENTS, vals=x, vals2=x + 1)], rows)
+    assert out_i[0, 0] == 10 and out_f[0].tolist() == [0.0, 1.0, 0.0, 0.0, 0.0]
+
+
+# ---------------------------------------------------------------------------
+# K8 state_fold's plain version, through merge_states_batched
+# ---------------------------------------------------------------------------
+
+
+def _jax_analyzer(analyzer):
+    kwargs = {f.name: getattr(analyzer, f.name) for f in dataclasses.fields(analyzer) if f.init}
+    return getattr(J, type(analyzer).__name__)(**kwargs)
+
+
+def _jax_state(state):
+    name, leaves = to_reference(state)
+    cls = JK.KLLSketchState if name == "KLLSketchState" else getattr(JS, name)
+    if name == "KLLSketchState":
+        return cls(*leaves, sketch_size=state.sketch_size)
+    return cls(*leaves)
+
+
+#: float leaves compared within 1e-12 relative (sums and Chan merges)
+_MOMENT_STATES = ("MeanState", "SumState", "StandardDeviationState", "CorrelationState")
+
+
+def _assert_state_matches_jax(torch_state, jax_state):
+    name, tl = to_reference(torch_state)
+    jl = [np.asarray(x) for x in jax.tree_util.tree_leaves(jax_state)]
+    assert len(tl) == len(jl)
+    for i, (a, b) in enumerate(zip(jl, tl)):
+        if name in _MOMENT_STATES and a.dtype == np.float64:
+            scale = float(np.nan_to_num(np.abs(a), posinf=0.0).max()) if a.size else 0.0
+            assert _close(a, b, scale), (name, i, a, b)
+        else:
+            assert _bits_equal(a, b), (name, i, a, b)
+
+
+FOLD_KINDS = [type(a).__name__ for a, _ in chip_smoke.fold_groups(dq, 1, 0)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 32])
+@pytest.mark.parametrize("kind", FOLD_KINDS)
+def test_state_fold_plain_matches_jax_merge_states_batched(kind, n):
+    groups = {type(a).__name__: (a, states) for a, states in chip_smoke.fold_groups(dq, n, n)}
+    analyzer, states = groups[kind]
+    got = merge_states_batched(analyzer, states, "cpu")
+    assert chip_smoke.same_state_bits(got, chip_smoke.sequential_fold(states))
+    want = JB.merge_states_batched(_jax_analyzer(analyzer), [_jax_state(s) for s in states])
+    _assert_state_matches_jax(got, want)
+
+
+def _kll_states(n, k=128, seed=0):
+    rng = np.random.default_rng(seed)
+    states = []
+    for i in range(n):
+        rows = 700 + 97 * i
+        v = torch.from_numpy(rng.normal(i, 3.0, rows))
+        mask = torch.from_numpy(rng.random(rows) < 0.95)
+        states.append(kll_update(kll_init(k, 8), v, mask))
+    return states
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 32])
+def test_kll_fold_matches_jax_merge_states_batched(n):
+    states = _kll_states(n)
+    got = merge_states_batched(T.KLLSketch("x"), states, "cpu")
+    assert chip_smoke.same_state_bits(got, chip_smoke.sequential_fold(states))
+    want = JB.merge_states_batched(J.KLLSketch("x"), [_jax_state(s) for s in states])
+    _assert_state_matches_jax(got, want)
+
+
+def test_merge_states_batched_skips_none_states():
+    (analyzer, states), = [g for g in chip_smoke.fold_groups(dq, 3, 4)
+                           if isinstance(g[0], T.Correlation)]
+    got = merge_states_batched(analyzer, [None, states[0], None, states[1], states[2]], "cpu")
+    assert chip_smoke.same_state_bits(got, chip_smoke.sequential_fold(states))
+    assert merge_states_batched(analyzer, [None, None], "cpu") is None
+    want = JB.merge_states_batched(_jax_analyzer(analyzer),
+                                   [None] + [_jax_state(s) for s in states])
+    _assert_state_matches_jax(got, want)
+
+
+def test_merge_states_batched_differing_kll_widths_take_the_sequential_path():
+    narrow, wide = _kll_states(1, k=64)[0], _kll_states(1, k=128)[0]
+    with pytest.raises(ValueError):
+        merge_states_batched(T.KLLSketch("x"), [narrow, wide], "cpu")
+    with pytest.raises(AssertionError):
+        JB.merge_states_batched(J.KLLSketch("x"), [_jax_state(narrow), _jax_state(wide)])
+
+
+def test_state_fold_rejects_bad_tables():
+    f = torch.zeros((2, 0), dtype=torch.float64)
+    i = torch.zeros((2, 3), dtype=torch.int64)
+    r = torch.zeros((2, 4), dtype=torch.int32)
+    ok = [FoldSlot(ADD_I64, 0, 3), FoldSlot(MAX_I32, 0, 4)]
+    out_f, out_i, out_r = state_fold(f, i, r, ok)
+    assert out_i.tolist() == [0, 0, 0] and out_r.tolist() == [0, 0, 0, 0]
+    with pytest.raises(ValueError):  # a column nobody folds
+        state_fold(f, i, r, [FoldSlot(ADD_I64, 0, 2), FoldSlot(MAX_I32, 0, 4)])
+    with pytest.raises(ValueError):  # two slots on one column
+        state_fold(f, i, r, ok + [FoldSlot(ADD_I64, 2, 1)])
+    with pytest.raises(TypeError):
+        state_fold(f, i.to(torch.int32), r, ok)

@@ -413,8 +413,8 @@ def test_convert_rejects_mismatched_leaves():
         from_reference("MinState", [np.float64(1.0)])
     with pytest.raises(ValueError):
         from_reference("KLLSketchState", [])
-    with pytest.raises(NotImplementedError):
-        from_reference("CorrelationState", [])
+    with pytest.raises(NotImplementedError):  # the exact-quantile mode is not ported
+        from_reference("ExactQuantileState", [])
 
 
 # ---------------------------------------------------------------------------
