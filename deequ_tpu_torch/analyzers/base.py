@@ -21,6 +21,7 @@ import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Generic, List, Optional, Sequence, Tuple, TypeVar
 
+import numpy as np
 import torch
 
 from ..data import ColumnKind, Schema
@@ -246,13 +247,171 @@ def resolve_slot(spec: SlotSpec, features: Dict[str, torch.Tensor]) -> Slot:
     return Slot(spec[0], *(None if key is None else features[key] for key in spec[1:]))
 
 
+class HostBatchContext:
+    """Per-batch helper of the host ingest tier (reference
+    ``HostBatchContext``, deequ_tpu/analyzers/base.py:360): caches predicate
+    masks, so analyzers sharing a ``where`` filter evaluate it once, and the
+    native passes several analyzers share (a column's block statistics, its
+    dictionary code counts, string lengths, type classes).
+
+    ``run_token`` identifies the enclosing pass: host partials whose
+    cross-batch skip caches live in the dataset's ``Column.aux`` key their
+    entries on it, so a second pass over the same dataset never reuses an
+    earlier pass's skip state (which would drop its contribution)."""
+
+    def __init__(self, batch, batch_index: int = 0, run_token=None):
+        self.batch = batch
+        self.batch_index = batch_index
+        self.run_token = run_token
+        self._cache: Dict[Any, Any] = {}
+        self._pred_columns = None
+
+    def pred_mask(self, predicate) -> np.ndarray:
+        key = str(predicate)
+        cached = self._cache.get(key)
+        if cached is None:
+            from ..expr import evaluate_predicate
+            from ..runners.features import _predicate_columns
+
+            if self._pred_columns is None:
+                self._pred_columns = _predicate_columns(self.batch)
+            cached = evaluate_predicate(
+                predicate, self._pred_columns, len(self.batch.row_mask)
+            ) & self.batch.row_mask
+            self._cache[key] = cached
+        return cached
+
+    def row_mask(self, analyzer) -> np.ndarray:
+        """The batch's row mask and the analyzer's where-filter."""
+        where = getattr(analyzer, "where", None)
+        if where is None:
+            return self.batch.row_mask
+        return self.pred_mask(where)
+
+    def row_mask_all(self) -> bool:
+        """Whether every row of the batch is valid (no padding)."""
+        key = ("row_mask_all",)
+        cached = self._cache.get(key)
+        if cached is None:
+            cached = self._cache[key] = bool(self.batch.row_mask.all())
+        return cached
+
+    def dict_code_counts(self, column: str) -> np.ndarray:
+        """int64[num_cats + 1] count of each dictionary code over the valid
+        rows (masked and null rows in the last slot): one native pass per
+        batch and column, shared by DataType, the HLL present-entry fold and
+        the dictionary frequency scan."""
+        key = ("dict_counts", column)
+        cached = self._cache.get(key)
+        if cached is None:
+            from ..native import native_dict_masked_bincount
+
+            col = self.batch.column(column)
+            cached = native_dict_masked_bincount(
+                col.codes, self.batch.row_mask & col.mask, col.num_categories
+            )
+            self._cache[key] = cached
+        return cached
+
+    def column_mask(self, analyzer, column: str) -> np.ndarray:
+        return self.row_mask(analyzer) & self.batch.column(column).mask
+
+    def _stats_key(self, analyzer, column: str):
+        where = getattr(analyzer, "where", None)
+        return ("stats", column, None if where is None else str(where))
+
+    def block_stats(self, analyzer, column: str) -> np.ndarray:
+        """``[count, sum, min, max, m2, nonnan, max_nonnan]`` over the
+        analyzer-masked column: one native pass shared by Mean, Sum,
+        Minimum, Maximum, StandardDeviation and the KLL sampler on the same
+        column and filter. The column is read in its own dtype (float64,
+        float32, int64, int32), so integers above 2^53 keep their value up
+        to the one rounding to float64."""
+        key = self._stats_key(analyzer, column)
+        cached = self._cache.get(key)
+        if cached is None:
+            from ..native import native_block_stats
+
+            col = self.batch.column(column)
+            vals = col.values
+            if not np.issubdtype(vals.dtype, np.number):
+                vals = col.numeric_f64()
+            cached = native_block_stats(vals, self.column_mask(analyzer, column))
+            self._cache[key] = cached
+        return cached
+
+    def peek_block_stats(self, analyzer, column: str) -> Optional[np.ndarray]:
+        """The cached :meth:`block_stats` row, or None if no analyzer has
+        computed it for this column and filter yet: the KLL sampler then
+        skips its counting pass without forcing a stats pass of its own."""
+        return self._cache.get(self._stats_key(analyzer, column))
+
+    def string_lengths(self, column: str) -> np.ndarray:
+        key = ("len", column)
+        cached = self._cache.get(key)
+        if cached is None:
+            from ..runners.features import _is_string_dict, dict_string_lengths, string_lengths
+
+            col = self.batch.column(column)
+            if _is_string_dict(col):
+                cached = dict_string_lengths(col)
+            else:
+                cached = string_lengths(col.string_source, col.mask)
+            self._cache[key] = cached
+        return cached
+
+    def type_codes(self, column: str) -> np.ndarray:
+        key = ("type", column)
+        cached = self._cache.get(key)
+        if cached is None:
+            from ..runners.features import _is_string_dict, classify_type_codes, dict_type_codes
+
+            col = self.batch.column(column)
+            if _is_string_dict(col):
+                cached = dict_type_codes(col)
+            else:
+                source = col.string_source if col.kind == ColumnKind.STRING else col.values
+                cached = classify_type_codes(source, col.mask, col.kind)
+            self._cache[key] = cached
+        return cached
+
+
+def host_count(n) -> torch.Tensor:
+    """A host partial's int64 scalar leaf."""
+    return torch.tensor(int(n), dtype=torch.int64)
+
+
+def host_acc(x) -> torch.Tensor:
+    """A host partial's float64 scalar leaf."""
+    return torch.tensor(float(x), dtype=torch.float64)
+
+
 class ScanShareableAnalyzer(Analyzer[S, M]):
     """Analyzer whose state updates fuse into the shared single-pass scan.
 
     Scalar reductions implement ``scan_slot`` and ``fold_slot``: the engine
     reduces every analyzer's slot in one ``scan_reduce`` launch per batch
     and hands each analyzer its slot's partials. Other analyzers (sketches,
-    frequency counts) implement ``update`` with their own kernel."""
+    frequency counts) implement ``update`` with their own kernel.
+
+    On the host ingest tier an analyzer computes a partial state per batch
+    on the host instead (``host_partial``, from the native library's block
+    passes) and the device folds chunks of them into its state
+    (``ingest_partial``: kernel ``state_fold``'s carry entry for every
+    state but a KLL sketch, ``kll_compact``'s ingest entry for those)."""
+
+    #: whether ``host_partial`` is implemented (a battery with any analyzer
+    #: without it streams to the device whatever the placement)
+    supports_host_partial: bool = False
+
+    def host_partial(self, ctx: HostBatchContext) -> Any:
+        """The batch's partial state, computed on the host (CPU tensors)."""
+        raise NotImplementedError(f"{self!r} has no host partial")
+
+    def ingest_partial(self, state: S, partial: Any) -> S:
+        """Fold one host partial into the state: the merge, except for
+        sketches whose partial is a sample."""
+        return self.merge(state, partial)
 
     @abc.abstractmethod
     def feature_specs(self) -> List[FeatureSpec]:
@@ -337,6 +496,7 @@ def fold_layout() -> Dict[type, Tuple[Tuple[int, Tuple[str, ...]], ...]]:
         st.CorrelationState: ((K.COMOMENTS, ("n", "x_avg", "y_avg", "ck", "x_mk", "y_mk")),),
         st.DataTypeHistogram: ((K.ADD_I64, ("counts",)),),
         st.ApproxCountDistinctState: ((K.MAX_I32, ("registers",)),),
+        st.FrequencyCountsState: ((K.ADD_I64, ("counts", "num_rows")),),
     }
 
 

@@ -33,6 +33,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
+import torch
 
 from ..config import (
     DEFAULT_FREQ_BUFFER_ENTRIES,
@@ -312,6 +313,17 @@ class DeviceFrequencyScan(ScanShareableAnalyzer):
     def merge(self, a, b):
         return a.merge(b)
 
+    supports_host_partial = True
+
+    def host_partial(self, ctx) -> FrequencyCountsState:
+        """The batch's code counts on the host: the native one-pass count
+        that DataType and ApproxCountDistinct share."""
+        counts = ctx.dict_code_counts(self.column)[: self.num_categories]
+        return FrequencyCountsState(
+            torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int64)),
+            torch.tensor(ctx.batch.num_rows, dtype=torch.int64),
+        )
+
     def to_frequencies(self, state, dictionary: np.ndarray) -> FrequenciesAndNumRows:
         counts = state.counts.cpu().numpy()
         nz = counts > 0
@@ -328,8 +340,20 @@ class DeviceFrequencyScan(ScanShareableAnalyzer):
 
 
 def _u64_value_counts(keys: np.ndarray, weights: Optional[np.ndarray]):
-    """Exact (unique key -> summed weight) over uint64 keys: a stable numpy
-    argsort and a segment sum. ``weights=None`` counts each key once."""
+    """Exact (unique key -> summed weight) over uint64 keys, by the native
+    library's cache-partitioned hash aggregation (the reference's drain,
+    grouping.py:740-762), in its partition and probe order. ``weights=None``
+    counts each key once; explicit weights must be positive."""
+    if len(keys) == 0:
+        return keys.astype(np.uint64), np.zeros(0, dtype=np.int64)
+    from ..native import native_u64_value_counts
+
+    return native_u64_value_counts(keys, weights)
+
+
+def _u64_value_counts_plain(keys: np.ndarray, weights: Optional[np.ndarray]):
+    """:func:`_u64_value_counts` in numpy, ordered by key: a stable argsort
+    and a segment sum."""
     if len(keys) == 0:
         return keys.astype(np.uint64), np.zeros(0, dtype=np.int64)
     order = np.argsort(keys, kind="stable")

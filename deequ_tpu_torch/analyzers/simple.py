@@ -8,6 +8,10 @@ names its reduction as a
 into its state (``fold_slot``), so the engine serves a whole battery with
 one kernel launch per batch — the analog of deequ's fused ``data.agg(...)``
 scan (reference `analyzers/runners/AnalysisRunner.scala:303-318`).
+
+On the host ingest tier each analyzer's ``host_partial`` computes the
+batch's partial state on the host from the native library's shared block
+passes (``HostBatchContext``), as the reference's do (simple.py:122-740).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 import numpy as np
+import torch
 
 from ..data import Schema
 from ..expr import Predicate
@@ -37,10 +42,13 @@ from ..metrics import (
 )
 from .base import (
     FeatureSpec,
+    HostBatchContext,
     Preconditions,
     ScanShareableAnalyzer,
     SlotSpec,
     StandardScanShareableAnalyzer,
+    host_acc,
+    host_count,
     length_feature,
     mask_feature,
     numeric_feature,
@@ -89,6 +97,11 @@ class Size(StandardScanShareableAnalyzer[NumMatches]):
     def fold_slot(self, state: NumMatches, p: Partials) -> NumMatches:
         return NumMatches(state.num_matches + p.count)
 
+    supports_host_partial = True
+
+    def host_partial(self, ctx: HostBatchContext) -> NumMatches:
+        return NumMatches(host_count(np.count_nonzero(ctx.row_mask(self))))
+
     def merge(self, a: NumMatches, b: NumMatches) -> NumMatches:
         return a.merge(b)
 
@@ -112,6 +125,18 @@ class _RatioAnalyzer(StandardScanShareableAnalyzer[NumMatchesAndCount]):
 
     def fold_slot(self, state: NumMatchesAndCount, p: Partials) -> NumMatchesAndCount:
         return NumMatchesAndCount(state.num_matches + p.matches, state.count + p.count)
+
+    supports_host_partial = True
+
+    def host_partial(self, ctx: HostBatchContext) -> NumMatchesAndCount:
+        rows = ctx.row_mask(self)
+        return NumMatchesAndCount(
+            host_count(np.count_nonzero(rows & self._host_matches(ctx))),
+            host_count(np.count_nonzero(rows)),
+        )
+
+    def _host_matches(self, ctx: HostBatchContext) -> np.ndarray:
+        raise NotImplementedError
 
     def merge(self, a: NumMatchesAndCount, b: NumMatchesAndCount) -> NumMatchesAndCount:
         return a.merge(b)
@@ -148,6 +173,9 @@ class Completeness(_RatioAnalyzer):
     def _match_key(self) -> str:
         return mask_feature(self.column).key
 
+    def _host_matches(self, ctx: HostBatchContext) -> np.ndarray:
+        return ctx.batch.column(self.column).mask
+
 
 @dataclass(frozen=True)
 class Compliance(_RatioAnalyzer):
@@ -173,6 +201,9 @@ class Compliance(_RatioAnalyzer):
 
     def _match_key(self) -> str:
         return predicate_feature(self.predicate).key
+
+    def _host_matches(self, ctx: HostBatchContext) -> np.ndarray:
+        return ctx.pred_mask(self.predicate)
 
 
 class Patterns:
@@ -225,6 +256,11 @@ class PatternMatch(_RatioAnalyzer):
 
     def _match_key(self) -> str:
         return regex_feature(self.column, self.pattern).key
+
+    def _host_matches(self, ctx: HostBatchContext) -> np.ndarray:
+        from ..runners.features import column_regex_matches
+
+        return column_regex_matches(ctx.batch.column(self.column), self.pattern)
 
 
 @dataclass(frozen=True)
@@ -291,6 +327,12 @@ class Mean(_NumericColumnAnalyzer):
     def fold_slot(self, state: MeanState, p: Partials) -> MeanState:
         return MeanState(state.total + p.total, state.count + p.matches)
 
+    supports_host_partial = True
+
+    def host_partial(self, ctx: HostBatchContext) -> MeanState:
+        count, total = ctx.block_stats(self, self.column)[:2]
+        return MeanState(host_acc(total), host_count(count))
+
 
 @dataclass(frozen=True)
 class Sum(_NumericColumnAnalyzer):
@@ -303,6 +345,12 @@ class Sum(_NumericColumnAnalyzer):
 
     def fold_slot(self, state: SumState, p: Partials) -> SumState:
         return SumState(state.total + p.total, state.count + p.matches)
+
+    supports_host_partial = True
+
+    def host_partial(self, ctx: HostBatchContext) -> SumState:
+        count, total = ctx.block_stats(self, self.column)[:2]
+        return SumState(host_acc(total), host_count(count))
 
 
 @dataclass(frozen=True)
@@ -318,6 +366,14 @@ class Minimum(_NumericColumnAnalyzer):
     def fold_slot(self, state: MinState, p: Partials) -> MinState:
         return MinState(min_nan_largest(state.min_value, p.min), state.count + p.matches)
 
+    supports_host_partial = True
+
+    def host_partial(self, ctx: HostBatchContext) -> MinState:
+        stats = ctx.block_stats(self, self.column)
+        # the native min is NaN when the block holds no non-NaN value: the
+        # identity of MinState
+        return MinState(host_acc(stats[2]), host_count(stats[0]))
+
 
 @dataclass(frozen=True)
 class Maximum(_NumericColumnAnalyzer):
@@ -330,6 +386,13 @@ class Maximum(_NumericColumnAnalyzer):
 
     def fold_slot(self, state: MaxState, p: Partials) -> MaxState:
         return MaxState(max_nan(state.max_value, p.max), state.count + p.matches)
+
+    supports_host_partial = True
+
+    def host_partial(self, ctx: HostBatchContext) -> MaxState:
+        stats = ctx.block_stats(self, self.column)
+        count = stats[0]
+        return MaxState(host_acc(stats[3] if count > 0 else -np.inf), host_count(count))
 
 
 @dataclass(frozen=True)
@@ -353,6 +416,15 @@ class MinLength(_LengthAnalyzer):
     def fold_slot(self, state: MinState, p: Partials) -> MinState:
         return MinState(min_nan_largest(state.min_value, p.min), state.count + p.matches)
 
+    supports_host_partial = True
+
+    def host_partial(self, ctx: HostBatchContext) -> MinState:
+        lengths = ctx.string_lengths(self.column)
+        mask = ctx.column_mask(self, self.column)
+        n = int(np.count_nonzero(mask))
+        mn = float(lengths[mask].min()) if n else np.nan  # NaN: MinState's identity
+        return MinState(host_acc(mn), host_count(n))
+
 
 @dataclass(frozen=True)
 class MaxLength(_LengthAnalyzer):
@@ -365,6 +437,15 @@ class MaxLength(_LengthAnalyzer):
 
     def fold_slot(self, state: MaxState, p: Partials) -> MaxState:
         return MaxState(max_nan(state.max_value, p.max), state.count + p.matches)
+
+    supports_host_partial = True
+
+    def host_partial(self, ctx: HostBatchContext) -> MaxState:
+        lengths = ctx.string_lengths(self.column)
+        mask = ctx.column_mask(self, self.column)
+        n = int(np.count_nonzero(mask))
+        mx = float(lengths[mask].max()) if n else -np.inf
+        return MaxState(host_acc(mx), host_count(n))
 
 
 @dataclass(frozen=True)
@@ -380,6 +461,16 @@ class StandardDeviation(_NumericColumnAnalyzer):
     def fold_slot(self, state: StandardDeviationState, p: Partials) -> StandardDeviationState:
         batch = StandardDeviationState(p.matches.to(state.n.dtype), p.mean, p.m2)
         return state.merge(batch)
+
+    supports_host_partial = True
+
+    def host_partial(self, ctx: HostBatchContext) -> StandardDeviationState:
+        stats = ctx.block_stats(self, self.column)
+        count, total, m2 = stats[0], stats[1], stats[4]
+        avg = total / count if count > 0 else 0.0
+        return StandardDeviationState(
+            host_acc(count), host_acc(avg), host_acc(m2 if count > 0 else 0.0)
+        )
 
     def is_empty(self, state) -> bool:
         return float(state.n) == 0
@@ -435,6 +526,21 @@ class Correlation(StandardScanShareableAnalyzer[CorrelationState]):
     def fold_slot(self, state: CorrelationState, p: Partials) -> CorrelationState:
         return state.merge(CorrelationState(*comoments(p)))
 
+    supports_host_partial = True
+
+    def host_partial(self, ctx: HostBatchContext) -> CorrelationState:
+        from ..native import native_block_comoments
+
+        cx = ctx.batch.column(self.first_column)
+        cy = ctx.batch.column(self.second_column)
+        mask = ctx.row_mask(self) & cx.mask & cy.mask
+        vx = cx.values if np.issubdtype(cx.values.dtype, np.number) else cx.numeric_f64()
+        vy = cy.values if np.issubdtype(cy.values.dtype, np.number) else cy.numeric_f64()
+        n, xs, ys, ck, xmk, ymk = native_block_comoments(vx, vy, mask)
+        xa = xs / n if n > 0 else 0.0
+        ya = ys / n if n > 0 else 0.0
+        return CorrelationState(*(host_acc(v) for v in (n, xa, ya, ck, xmk, ymk)))
+
     def merge(self, a, b):
         return a.merge(b)
 
@@ -484,6 +590,43 @@ class DataType(ScanShareableAnalyzer[DataTypeHistogram, HistogramMetric]):
 
     def fold_slot(self, state: DataTypeHistogram, p: Partials) -> DataTypeHistogram:
         return DataTypeHistogram(state.counts + p.classes)
+
+    supports_host_partial = True
+
+    def host_partial(self, ctx: HostBatchContext) -> DataTypeHistogram:
+        from ..runners.features import TYPE_NULL, _is_string_dict, dict_entry_type_codes
+
+        col = ctx.batch.column(self.column)
+        if _is_string_dict(col) and self.where is None and ctx.row_mask_all():
+            # a dictionary whose distinct values all classify alike (the
+            # common shape of real string columns): the histogram is the
+            # valid and null counts
+            uniform = col.aux.get("tc_uniform")
+            if uniform is None:
+                tc = dict_entry_type_codes(col)
+                uniform = int(tc[0]) if len(tc) and (tc == tc[0]).all() else -1
+                col.aux["tc_uniform"] = uniform
+            if uniform > TYPE_NULL:
+                n = len(col.mask)
+                n_valid = int(np.count_nonzero(col.mask))
+                counts = np.zeros(5, dtype=np.int64)
+                counts[uniform] = n_valid
+                counts[TYPE_NULL] = n - n_valid
+                return DataTypeHistogram(torch.from_numpy(counts))
+            # the shared per-code counts through each entry's class: no
+            # per-row classes at all; the last slot (null values) is
+            # TYPE_NULL
+            by_code = ctx.dict_code_counts(self.column)
+            tc = dict_entry_type_codes(col)
+            counts = np.bincount(
+                tc, weights=by_code[: col.num_categories], minlength=5
+            )[:5].astype(np.int64)
+            counts[TYPE_NULL] += by_code[col.num_categories]
+            return DataTypeHistogram(torch.from_numpy(counts))
+        codes = ctx.type_codes(self.column)
+        mask = ctx.row_mask(self)
+        masked = codes if mask.all() else codes[mask]
+        return DataTypeHistogram(torch.from_numpy(np.bincount(masked, minlength=5)[:5].astype(np.int64)))
 
     def merge(self, a, b):
         return a.merge(b)

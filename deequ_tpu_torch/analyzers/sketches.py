@@ -13,6 +13,7 @@ ranks and quantiles on the host (``ops/kll_host.py``).
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
@@ -42,13 +43,16 @@ from ..ops.kll import (
     DEFAULT_SKETCH_SIZE,
     MAXIMUM_ALLOWED_DETAIL_BINS,
     compactor_buffers,
+    kll_ingest_sampled,
     kll_init,
     kll_merge,
     kll_update,
 )
+from ..ops.hll import M
 from ..ops.kll_host import HostKLL
 from .base import (
     FeatureSpec,
+    HostBatchContext,
     Preconditions,
     ScanShareableAnalyzer,
     StandardScanShareableAnalyzer,
@@ -113,14 +117,147 @@ class ApproxCountDistinct(StandardScanShareableAnalyzer[ApproxCountDistinctState
         # HLL agg buffer always exists (`ApproxCountDistinct.scala:49-56`)
         return state.metric_value()
 
+    supports_host_partial = True
+
+    def host_partial(self, ctx: HostBatchContext) -> ApproxCountDistinctState:
+        """The batch's registers (reference sketches.py:95-240). A
+        dictionary column hashes its distinct values once per dataset
+        (cached in ``col.aux``) and folds only the entries present in the
+        batch; within one pass (``ctx.run_token``) an entry reaches the fold
+        through the first batch that sees it only, since registers fold by
+        max. Other columns hash every valid row natively."""
+        col = ctx.batch.column(self.column)
+        mask = ctx.column_mask(self, self.column)
+        if not (col.has_dictionary and col.codes is not None):
+            return self._host_partial_rows(col, mask)
+        from ..ops.hll import hll_features
+        from ..runners.features import dict_entry_hashes
+
+        aux = col.aux
+        pairs = aux.get("hll_pairs")
+        if pairs is None:
+            pairs = aux["hll_pairs"] = hll_features(dict_entry_hashes(col))
+        num_cats = col.num_categories
+        if not num_cats:
+            return _registers(np.zeros(M, dtype=np.int32))
+        regs_full = aux.get("hll_regs_full")
+        if regs_full is None:
+            # per dataset: the registers of the whole dictionary, and a
+            # register-sorted view of its (idx, pw) pairs for the per-batch
+            # reduceat of _regs_for_target. The registers are published
+            # last: a pool thread that finds them finds the view too
+            idx, pw = pairs[0][:num_cats], pairs[1][:num_cats]
+            regs_full = np.zeros(M, dtype=np.int32)
+            np.maximum.at(regs_full, idx, pw)
+            perm = np.argsort(idx, kind="stable")
+            aux["hll_perm"] = perm
+            aux["hll_pw_sorted"] = pw[perm]
+            aux["hll_starts"] = np.searchsorted(idx[perm], np.arange(M))
+            aux["hll_regs_full"] = regs_full
+        if self.where is None and ctx.run_token is not None:
+            # the pass's seen-set: the lock guards the swap to a new pass;
+            # concurrent batches marking entries can at worst contribute one
+            # twice (max is idempotent), never drop one
+            lock = aux.setdefault("_hll_lock", threading.Lock())
+            with lock:
+                if aux.get("hll_seen_full") is ctx.run_token:
+                    return _registers(np.zeros(M, dtype=np.int32))
+                tok, seen = aux.get("hll_seen", (None, None))
+                if tok is not ctx.run_token:
+                    seen = np.zeros(num_cats + 1, dtype=bool)
+                    seen[num_cats] = True
+                    aux["hll_seen"] = (ctx.run_token, seen)
+            idx, pw = pairs[0][:num_cats], pairs[1][:num_cats]
+            if num_cats > (1 << 16):
+                # a large dictionary: an O(rows) lookup of the seen-set
+                # decides cheaper than an O(rows + cats) presence count
+                codes = np.where(col.codes < num_cats, col.codes, num_cats)
+                unseen = ~seen[codes]
+                n_unseen = int(np.count_nonzero(unseen))
+                if n_unseen == 0:
+                    return _registers(np.zeros(M, dtype=np.int32))
+                if n_unseen <= len(codes) // 64:
+                    new_codes = np.unique(codes[unseen])
+                    seen[new_codes] = True
+                    if seen.all():
+                        aux["hll_seen_full"] = ctx.run_token
+                    regs = np.zeros(M, dtype=np.int32)
+                    np.maximum.at(regs, idx[new_codes], pw[new_codes])
+                    return _registers(regs)
+            counts = ctx.dict_code_counts(self.column) if ctx.row_mask_all() else None
+            if counts is None:
+                safe = np.where(col.codes < num_cats, col.codes, num_cats)
+                counts = np.bincount(safe[mask], minlength=num_cats + 1)
+            present = counts[:num_cats] > 0
+            target = present & ~seen[:num_cats]
+            seen[:num_cats] |= present
+            if seen.all():
+                aux["hll_seen_full"] = ctx.run_token
+            if not target.any():
+                return _registers(np.zeros(M, dtype=np.int32))
+            if target.all():
+                return _registers(regs_full.copy())
+            return _registers(self._regs_for_target(aux, pairs, target, num_cats))
+        if self.where is None:
+            counts = ctx.dict_code_counts(self.column)[:num_cats]
+        else:
+            counts = np.bincount(col.codes[mask], minlength=num_cats + 1)[:num_cats]
+        present = counts > 0
+        if present.all():
+            return _registers(regs_full.copy())
+        return _registers(self._regs_for_target(aux, pairs, present, num_cats))
+
+    def _regs_for_target(self, aux, pairs, target: np.ndarray, num_cats: int) -> np.ndarray:
+        """Registers over the dictionary entries ``target`` selects: a
+        sparse scatter-max for few entries, else a reduceat over the cached
+        register-sorted view."""
+        idx, pw = pairs[0][:num_cats], pairs[1][:num_cats]
+        if int(np.count_nonzero(target)) * 8 < num_cats:
+            ti = np.flatnonzero(target)
+            regs = np.zeros(M, dtype=np.int32)
+            np.maximum.at(regs, idx[ti], pw[ti])
+            return regs
+        perm = aux["hll_perm"]
+        pw_eff = np.where(target[perm], aux["hll_pw_sorted"], -1)
+        starts = aux["hll_starts"]
+        nexts = np.append(starts[1:], num_cats)
+        # a trailing -1 keeps every start (up to num_cats, for empty
+        # trailing registers) a valid reduceat index without clamping
+        seg = np.maximum.reduceat(np.append(pw_eff, np.int32(-1)), starts)
+        seg = np.where(nexts > starts, seg, -1)
+        return np.maximum(seg, 0).astype(np.int32)
+
+    def _host_partial_rows(self, col, mask) -> ApproxCountDistinctState:
+        """Registers of a column without a dictionary: one native pass
+        (hash, leading zeros, max) over its valid rows."""
+        from ..data import ColumnKind
+        from ..native import native_block_hll, native_block_hll_strings
+        from ..ops.hashing import DEFAULT_SEED, hash_column
+        from ..ops.hll import hll_features
+        from ..runners.features import _hll_numeric_values
+
+        if col.kind == ColumnKind.STRING:
+            src = col.string_source
+            if not isinstance(src, np.ndarray) or src.dtype == object:
+                return _registers(native_block_hll_strings(src, mask, DEFAULT_SEED))
+        elif col.kind.is_numeric or col.kind == ColumnKind.BOOLEAN:
+            vals = _hll_numeric_values(col.values)
+            if np.issubdtype(vals.dtype, np.number):
+                return _registers(native_block_hll(vals, mask, DEFAULT_SEED))
+        pairs = hll_features(hash_column(col.values, col.mask, col.kind))
+        regs = np.zeros(M, dtype=np.int32)
+        np.maximum.at(regs, pairs[0][mask], pairs[1][mask])
+        return _registers(regs)
+
+
+def _registers(regs: np.ndarray) -> ApproxCountDistinctState:
+    return ApproxCountDistinctState(torch.from_numpy(np.asarray(regs, dtype=np.int32)))
+
 
 # ---------------------------------------------------------------------------
 # KLL-backed quantile analyzers
 # ---------------------------------------------------------------------------
 
-#: where the parts of the reference's quantile analyzers that this port
-#: does not carry are planned
-_HOST_TIER = "ROADMAP A1c (the native host tier)"
 
 
 @dataclass(frozen=True)
@@ -134,9 +271,9 @@ class KLLParameters:
 
 class _KLLBackedAnalyzer(ScanShareableAnalyzer[KLLSketchState, KLLMetric]):
     """Shared plumbing for analyzers folding a column into a KLL sketch.
-    Subclasses define ``_sketch_size`` and the metric finalization. The
-    update runs on the device only: the reference's host partials (its
-    native host tier) are not part of this port."""
+    Subclasses define ``_sketch_size`` and the metric finalization. On the
+    host ingest tier the batch's sample is taken on the host and folded by
+    ``kll_compact``'s ingest entry."""
 
     @property
     def instance(self) -> str:
@@ -177,10 +314,37 @@ class _KLLBackedAnalyzer(ScanShareableAnalyzer[KLLSketchState, KLLMetric]):
     def merge(self, a, b):
         return kll_merge(a, b)
 
-    def host_partial(self, ctx):
-        raise NotImplementedError(
-            f"{self!r}: host partials of KLL sketches are {_HOST_TIER}"
+    supports_host_partial = True
+
+    def host_partial(self, ctx: HostBatchContext) -> Tuple:
+        """The batch's KLL sample on the host (reference sketches.py:
+        375-420): ``(items f64[4k], m, h, nv, min, max)`` by the native
+        sampler, seeded by the batch index. When a stats analyzer of the
+        same column and filter already counted the block, the sampler only
+        picks."""
+        from ..native import native_block_kll_pick, native_block_kll_sample
+
+        col = ctx.batch.column(self.column)
+        mask = ctx.column_mask(self, self.column)
+        vals = col.values if np.issubdtype(col.values.dtype, np.number) else col.numeric_f64()
+        k = self._sketch_size()
+        stats = ctx.peek_block_stats(self, self.column)
+        if stats is not None:
+            nv = int(stats[5])
+            if nv == 0:
+                items, m, h, mn, mx = np.full(4 * k, np.inf), 0, 0, np.inf, -np.inf
+            else:
+                items, m, h = native_block_kll_pick(vals, mask, k, ctx.batch_index, nv)
+                mn, mx = float(stats[2]), float(stats[6])
+        else:
+            items, m, h, nv, mn, mx = native_block_kll_sample(vals, mask, k, ctx.batch_index)
+        return (
+            items.astype(np.float64), np.int32(m), np.int32(h), np.int64(nv),
+            np.float64(mn), np.float64(mx),
         )
+
+    def ingest_partial(self, state: KLLSketchState, partial: Tuple) -> KLLSketchState:
+        return kll_ingest_sampled(state, *partial)
 
 
 @dataclass(frozen=True)
@@ -310,7 +474,8 @@ class _QuantileMode:
 
     def exact_mode_unsupported(self) -> NotImplementedError:
         return NotImplementedError(
-            f"{self!r}: exact quantile mode (relative_error=0.0) is {_HOST_TIER}"
+            f"{self!r}: exact quantile mode (relative_error=0.0) is queued in "
+            "ROADMAP A1c"
         )
 
 

@@ -7,7 +7,9 @@ tensors on the CPU and launches the kernel for tensors on a CUDA device, on
 PyTorch's current stream; there is no fallback between the two.
 
 Every wrapper adds one to its launch count where it launches its kernel,
-so a run can show that its main path went through the kernels."""
+so a run can show that its main path went through the kernels. The host
+ingest tier's entries of ``state_fold`` and ``kll_compact`` count under
+``state_fold_carry`` and ``kll_compact_ingest``."""
 
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import torch
 KERNEL_NAMES = (
     "scan_reduce", "hll_registers", "dict_code_counts", "kll_sample", "kll_compact",
     "freq_keys", "freq_compact", "state_fold",
+    # the host ingest tier's entries of two of them, counted apart
+    "state_fold_carry", "kll_compact_ingest",
 )
 
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}

@@ -18,6 +18,16 @@
 //  - merge mode: append each level of sketch b to the same level of a, XOR
 //    the parities, then sweep levels 0 .. L-2 once, compacting every level
 //    that holds more than k items; the scalars add, and min / max combine.
+//  - ingest mode (the host ingest tier; kll_ingest_sampled of the
+//    reference, ops/kll.py:284, applied once per host partial in batch
+//    order): S sketches of one shape, stacked, take a chunk of B host
+//    samples each, one block per sketch. For each sample b in order: its
+//    float64 items are clipped to +-FLT_MAX and rounded to float32
+//    (__double2float_rn), m of them are appended at level h (clipped to
+//    the level's free capacity, up to 2k at a time: the host sampler picks
+//    up to two levels denser than fits), the cascade runs up from h, ticks
+//    gains 1, count gains nv, and g_min / g_max take the sample's min and
+//    max. The sketches update in place.
 //
 // Appends drop items past a level's capacity C and do not count them.
 // Compacting a level sorts its n items, promotes every second one from the
@@ -31,9 +41,11 @@
 // Min and max follow the reference's rules on signed zeros (common.cuh).
 //
 // Bound on the card: bytes, and little of them: a compaction reads a level
-// of at most 4k items and writes half of them. The kernel is latency-bound
+// of at most 4k items and writes half of them; an ingest chunk reads its B
+// samples of 4k float64 items once (32 x 64 KiB per sketch at k = 2048). The kernel is latency-bound
 // (one block, a bitonic network of log2(n)^2 / 2 synchronised steps), which
 // suits a function called once per sketch per batch.
+#include <float.h>
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -129,6 +141,23 @@ __device__ void kc_append(float* items, int C, int* s_sizes, int lvl, const floa
   __syncthreads();
 }
 
+// append m float64 items at level lvl, each clipped to the finite float32
+// range and rounded to nearest, dropping what exceeds the capacity
+__device__ void kc_append_f64(float* items, int C, int* s_sizes, int lvl, const double* src,
+                              int m) {
+  const int size = s_sizes[lvl];
+  const int written = max(0, min(m, C - size));
+  float* row = items + (long long)lvl * C;
+  for (int j = threadIdx.x; j < written; j += blockDim.x) {
+    double x = src[j];
+    x = x > (double)FLT_MAX ? (double)FLT_MAX : (x < -(double)FLT_MAX ? -(double)FLT_MAX : x);
+    row[size + j] = __double2float_rn(x);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) s_sizes[lvl] = size + written;
+  __syncthreads();
+}
+
 __device__ void kc_store(const KcState& st, int L, const int* s_sizes, const int* s_parity) {
   for (int l = threadIdx.x; l < L; l += blockDim.x) {
     st.sizes[l] = s_sizes[l];
@@ -196,6 +225,48 @@ kc_merge(KcState st, const float* __restrict__ b_items, const int* __restrict__ 
   }
 }
 
+// block s: sketch s of the stacked state (items [S, L, C], sizes and parity
+// [S, L], the scalars [S]) takes its B samples (items [S, B, C] float64, m,
+// h [S, B] int32, nv [S, B] int64, mn, mx [S, B] float64) in order
+__global__ void __launch_bounds__(KC_THREADS)
+kc_ingest(KcState st, int L, int C, int k, int B, const double* __restrict__ p_items,
+          const int* __restrict__ p_m, const int* __restrict__ p_h,
+          const long long* __restrict__ p_nv, const double* __restrict__ p_min,
+          const double* __restrict__ p_max, unsigned long long* gbuf, long long gbuf_stride) {
+  extern __shared__ unsigned long long smem[];
+  __shared__ int s_sizes[KC_MAX_LEVELS];
+  __shared__ int s_parity[KC_MAX_LEVELS];
+  __shared__ float s_tail;
+  const int s = blockIdx.x;
+  float* items = st.items + (long long)s * L * C;
+  int* sizes = st.sizes + (long long)s * L;
+  int* parity = st.parity + (long long)s * L;
+  unsigned long long* buf = gbuf != nullptr ? gbuf + (long long)s * gbuf_stride : smem;
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    s_sizes[l] = sizes[l];
+    s_parity[l] = parity[l];
+  }
+  __syncthreads();
+  for (int b = 0; b < B; ++b) {
+    const long long at = (long long)s * B + b;
+    const int h = max(0, min(p_h[at], L - 1));
+    kc_append_f64(items, C, s_sizes, h, p_items + at * C, p_m[at]);
+    for (int lvl = h; lvl < L - 1 && s_sizes[lvl] > k; ++lvl) {
+      kc_compact(items, C, s_sizes, s_parity, lvl, buf, &s_tail);
+    }
+    if (threadIdx.x == 0) {
+      st.ticks[s] = (int)((unsigned)st.ticks[s] + 1u);
+      st.count[s] += p_nv[at];
+      st.g_min[s] = dq_min_z(st.g_min[s], p_min[at]);
+      st.g_max[s] = dq_max_z(st.g_max[s], p_max[at]);
+    }
+  }
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    sizes[l] = s_sizes[l];
+    parity[l] = s_parity[l];
+  }
+}
+
 // uint64 entries of device scratch a level sort needs: 0 when it fits in
 // shared memory
 extern "C" long long kll_compact_scratch(int C) {
@@ -251,5 +322,25 @@ extern "C" int kll_compact_merge_launch(float* items, int* sizes, int* parity, i
   kc_merge<<<1, KC_THREADS, smem, (cudaStream_t)stream>>>(
       st, b_items, b_sizes, b_parity, b_ticks, b_count, b_g_min, b_g_max, L, C, k,
       smem > 0 ? nullptr : gbuf);
+  return (int)cudaGetLastError();
+}
+
+// the stacked sketches of kc_ingest; gbuf: uint64[S * kll_compact_scratch(C)]
+// of device scratch, or null when that is 0
+extern "C" int kll_compact_ingest_launch(float* items, int* sizes, int* parity, int* ticks,
+                                         long long* count, double* g_min, double* g_max,
+                                         int S, int L, int C, int k, int B,
+                                         const double* p_items, const int* p_m, const int* p_h,
+                                         const long long* p_nv, const double* p_min,
+                                         const double* p_max, unsigned long long* gbuf,
+                                         void* stream) {
+  if (kc_bad_shape(L, C, k) || S < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  cudaError_t err = kc_prepare((const void*)kc_ingest, C, gbuf, &smem);
+  if (err != cudaSuccess) return (int)err;
+  KcState st = {items, sizes, parity, ticks, count, g_min, g_max};
+  kc_ingest<<<S, KC_THREADS, smem, (cudaStream_t)stream>>>(
+      st, L, C, k, B, p_items, p_m, p_h, p_nv, p_min, p_max, smem > 0 ? nullptr : gbuf,
+      kll_compact_scratch(C));
   return (int)cudaGetLastError();
 }

@@ -3,14 +3,17 @@ compaction cascade, in one thread block per sketch.
 
 Replaces the state algebra of the JAX reference's KLL
 (deequ_tpu/ops/kll.py: ``_append_level`` :111, ``_make_compact_level``
-:147, ``_compact_cascade`` :182, ``_compact_cascade_from`` :204). The CUDA
-source is ``csrc/kll_compact.cu``; :func:`kll_compact_update_plain` and
-:func:`kll_compact_merge_plain` are the same functions in plain PyTorch.
+:147, ``_compact_cascade`` :182, ``_compact_cascade_from`` :204) and the
+host ingest tier's ``kll_ingest_sampled`` (:284). The CUDA source is
+``csrc/kll_compact.cu``; :func:`kll_compact_update_plain`,
+:func:`kll_compact_merge_plain` and :func:`kll_compact_ingest_plain` are
+the same functions in plain PyTorch.
 
 A sketch travels as its seven tensors in the reference's leaf order
-(items, sizes, parity, ticks, count, g_min, g_max). Both entry points
-return new tensors and leave their inputs as they were: the kernel works in
-place on a copy.
+(items, sizes, parity, ticks, count, g_min, g_max). The update and merge
+entries return new tensors and leave their inputs as they were (the kernel
+works in place on a copy); the ingest entry updates a stack of sketches in
+place.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from . import build, check_status, count_launch, on_cuda, stream_handle
 from .kll_sample import Sample, stable_sort
 
 NAME = "kll_compact"
+#: the launch count of the ingest entry
+INGEST_NAME = "kll_compact_ingest"
 #: levels the kernel takes at most; equals KC_MAX_LEVELS
 MAX_LEVELS = 64
 
@@ -45,6 +50,10 @@ def _lib() -> ctypes.CDLL:
         lib.kll_compact_merge_launch.restype = ctypes.c_int
         lib.kll_compact_merge_launch.argtypes = (
             [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        )
+        lib.kll_compact_ingest_launch.restype = ctypes.c_int
+        lib.kll_compact_ingest_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
         )
         lib._deequ_bound = True
     return lib
@@ -128,9 +137,70 @@ def kll_compact_merge(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor], k: i
     return out
 
 
+#: dtypes of a host sample's six fields: items [S, B, C], m, h, nv, min, max
+_SAMPLE_DTYPES = (torch.float64, torch.int32, torch.int32, torch.int64, torch.float64,
+                  torch.float64)
+
+
+def _check_ingest(sketches: Sequence[torch.Tensor], samples: Sequence[torch.Tensor],
+                  k: int) -> None:
+    if len(sketches) != len(_DTYPES) or len(samples) != len(_SAMPLE_DTYPES):
+        raise ValueError(f"{NAME}: ingest takes 7 stacked sketch leaves and 6 sample fields")
+    items = sketches[0]
+    device = items.device
+    for i, (leaf, dtype) in enumerate(zip((*sketches, *samples), (*_DTYPES, *_SAMPLE_DTYPES))):
+        if leaf.dtype != dtype or leaf.device != device or not leaf.is_contiguous():
+            raise TypeError(f"{NAME}: ingest input {i} must be contiguous {dtype} on {device}")
+    if items.dim() != 3 or not 2 <= items.shape[1] <= MAX_LEVELS:
+        raise ValueError(f"{NAME}: stacked items must be [S, L, C] with 2 <= L <= {MAX_LEVELS}")
+    s, levels, c = items.shape
+    if sketches[1].shape != (s, levels) or sketches[2].shape != (s, levels):
+        raise ValueError(f"{NAME}: stacked sizes and parity must have shape ({s}, {levels})")
+    if any(leaf.shape != (s,) for leaf in sketches[3:]):
+        raise ValueError(f"{NAME}: stacked scalars must have shape ({s},)")
+    b = samples[0].shape[1] if samples[0].dim() == 3 else -1
+    if samples[0].shape != (s, b, c) or b < 1:
+        raise ValueError(f"{NAME}: sample items must be [S, B, C] = [{s}, B >= 1, {c}]")
+    if any(f.shape != (s, b) for f in samples[1:]):
+        raise ValueError(f"{NAME}: sample fields must have shape ({s}, {b})")
+    if k < 1:
+        raise ValueError(f"{NAME}: sketch size must be positive, got {k}")
+
+
+def kll_compact_ingest(sketches: Sequence[torch.Tensor], samples: Sequence[torch.Tensor],
+                       k: int) -> None:
+    """Fold B host samples into each of S stacked sketches of size ``k``,
+    in order, in place (the reference's ``kll_ingest_sampled`` once per
+    sample). ``sketches``: the seven leaves with a leading sketch axis
+    (items ``[S, L, C]``, sizes and parity ``[S, L]``, the scalars
+    ``[S]``); ``samples``: items ``[S, B, C]`` float64 (ascending, +inf
+    past ``m``), m and h ``[S, B]`` int32, nv ``[S, B]`` int64, min and
+    max ``[S, B]`` float64. One block per sketch."""
+    _check_ingest(sketches, samples, k)
+    items = sketches[0]
+    if not on_cuda(items, NAME):
+        kll_compact_ingest_plain(sketches, samples, k)
+        return
+    lib = _lib()
+    s, levels, c = items.shape
+    entries = lib.kll_compact_scratch(c)
+    scratch = (torch.empty(s * entries, dtype=torch.int64, device=items.device)
+               if entries else None)
+    status = lib.kll_compact_ingest_launch(
+        *(leaf.data_ptr() for leaf in sketches), s, levels, c, k, samples[0].shape[1],
+        *(f.data_ptr() for f in samples),
+        None if scratch is None else scratch.data_ptr(), stream_handle(items.device),
+    )
+    check_status(NAME, status)
+    count_launch(INGEST_NAME)
+
+
 # ---------------------------------------------------------------------------
 # plain versions: the same layout, level by level on the host's control flow
 # ---------------------------------------------------------------------------
+
+#: float32's largest finite value: host samples clip to it before rounding
+FLT_MAX = float(torch.finfo(torch.float32).max)
 
 
 def _append(items: torch.Tensor, sizes: list, level: int, values: torch.Tensor, m: int) -> None:
@@ -205,3 +275,27 @@ def kll_compact_merge_plain(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]
         torch.full_like(a[3], _wrap_int32(int(a[3]) + int(b[3]))),
         a[4] + b[4], min_nan_largest(a[5], b[5]), max_nan(a[6], b[6]),
     )
+
+
+def kll_compact_ingest_plain(sketches: Sequence[torch.Tensor], samples: Sequence[torch.Tensor],
+                             k: int) -> None:
+    items_all, sizes_all, parity_all, ticks, count, g_min, g_max = sketches
+    s_items, s_m, s_h, s_nv, s_min, s_max = samples
+    levels = items_all.shape[1]
+    for s in range(items_all.shape[0]):
+        items = items_all[s]
+        sizes, parity = sizes_all[s].tolist(), parity_all[s].tolist()
+        for b in range(s_items.shape[1]):
+            h = max(0, min(int(s_h[s, b]), levels - 1))
+            values = s_items[s, b].clamp(-FLT_MAX, FLT_MAX).to(torch.float32)
+            _append(items, sizes, h, values, int(s_m[s, b]))
+            level = h
+            while level < levels - 1 and sizes[level] > k:
+                _compact(items, sizes, parity, level)
+                level += 1
+            ticks[s] = _wrap_int32(int(ticks[s]) + 1)
+            count[s] += s_nv[s, b]
+            g_min[s] = min_nan_largest(g_min[s], s_min[s, b])
+            g_max[s] = max_nan(g_max[s], s_max[s, b])
+        sizes_all[s] = torch.tensor(sizes, dtype=torch.int32)
+        parity_all[s] = torch.tensor(parity, dtype=torch.int32)

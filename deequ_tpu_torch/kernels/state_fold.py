@@ -1,11 +1,19 @@
 """K8 ``state_fold``: fold N same-shape analyzer states left to right with
 each state's merge, for every analyzer of a call, in one launch.
 
-Replaces ``merge_states_batched`` of the JAX reference
-(deequ_tpu/analyzers/base.py:273, a ``lax.scan`` of ``analyzer.merge`` over
-stacked states). The CUDA source is ``csrc/state_fold.cu``;
-:func:`state_fold_plain` is the same function in plain PyTorch, built on the
-merge rules of ``analyzers/states.py`` that the states' own ``merge`` uses.
+Two entry points of one CUDA kernel (``csrc/state_fold.cu``):
+
+- :func:`state_fold` replaces ``merge_states_batched`` of the JAX reference
+  (deequ_tpu/analyzers/base.py:273, a ``lax.scan`` of ``analyzer.merge``
+  over stacked states): the refresh of persisted states.
+- :func:`state_fold_carry` replaces the host ingest tier's fold
+  (``_ingest_program`` / ``make_flagged_ingest_body``,
+  deequ_tpu/runners/engine.py:1760,1787): a chunk of host partials folded
+  into the device-resident carry, in place.
+
+:func:`state_fold_plain` and :func:`state_fold_carry_plain` are the same
+functions in plain PyTorch, built on the merge rules of
+``analyzers/states.py`` that the states' own ``merge`` uses.
 
 The states arrive packed per dtype into row-major matrices, one row a
 state: float64 ``[N, Wf]``, int64 ``[N, Wi]`` and int32 ``[N, Wr]``. A
@@ -18,13 +26,15 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
 from . import build, check_status, count_launch, on_cuda, stream_handle
 
 NAME = "state_fold"
+#: the launch count of the carry entry
+CARRY_NAME = "state_fold_carry"
 #: slots per launch; equals SF_MAX_SLOTS in csrc/state_fold.cu
 MAX_SLOTS = 256
 
@@ -62,13 +72,15 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_deequ_bound", False):
         lib.state_fold_max_slots.restype = ctypes.c_int
         lib.state_fold_max_slots.argtypes = []
-        lib.state_fold_launch.restype = ctypes.c_int
-        lib.state_fold_launch.argtypes = [
+        args = [
             ctypes.POINTER(_SlotStruct), ctypes.c_int, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p,
         ]
+        for entry in (lib.state_fold_launch, lib.state_fold_carry_launch):
+            entry.restype = ctypes.c_int
+            entry.argtypes = args
         if lib.state_fold_max_slots() != MAX_SLOTS:
             raise RuntimeError("state_fold library and wrapper disagree on the slot table")
         lib._deequ_bound = True
@@ -88,18 +100,30 @@ def _validate(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor,
             raise ValueError(f"{NAME}: the matrices hold different numbers of states")
     if f64.shape[0] < 1:
         raise ValueError(f"{NAME}: takes at least one state")
+    _check_slots(mats, slots)
+
+
+def _check_slots(mats: Sequence[torch.Tensor], slots: Sequence[FoldSlot]) -> None:
+    """Every column of the three matrices (their last dimension) belongs
+    to exactly one slot: each matrix's slots, sorted by offset, tile it."""
     if not slots:
         raise ValueError(f"{NAME}: takes at least one slot")
-    covered = [torch.zeros(m.shape[1], dtype=torch.int32) for m in mats]
+    spans: List[List[Tuple[int, int]]] = [[] for _ in mats]
     for slot in slots:
         if slot.kind not in KIND_MATRIX or slot.length < 1:
             raise ValueError(f"{NAME}: bad slot {slot}")
-        cov = covered[KIND_MATRIX[slot.kind]]
-        if slot.offset < 0 or slot.offset + slot.width > cov.shape[0]:
+        width = mats[KIND_MATRIX[slot.kind]].shape[-1]
+        if slot.offset < 0 or slot.offset + slot.width > width:
             raise ValueError(f"{NAME}: slot {slot} runs past its matrix")
-        cov[slot.offset:slot.offset + slot.width] += 1
-    if any(bool((c != 1).any()) for c in covered):
-        raise ValueError(f"{NAME}: every column must belong to exactly one slot")
+        spans[KIND_MATRIX[slot.kind]].append((slot.offset, slot.offset + slot.width))
+    for mat, span in zip(mats, spans):
+        end = 0
+        for lo, hi in sorted(span):
+            if lo != end:
+                raise ValueError(f"{NAME}: every column must belong to exactly one slot")
+            end = hi
+        if end != mat.shape[-1]:
+            raise ValueError(f"{NAME}: every column must belong to exactly one slot")
 
 
 def state_fold(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor,
@@ -131,6 +155,66 @@ def state_fold(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor,
         check_status(NAME, status)
         count_launch(NAME)
     return out_f, out_i, out_r
+
+
+def state_fold_carry(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor],
+                     slots: Sequence[FoldSlot]) -> None:
+    """Fold the B partial rows ``parts`` (float64 ``[B, Wf]``, int64
+    ``[B, Wi]``, int32 ``[B, Wr]``) into the packed ``carry`` (float64
+    ``[Wf]``, int64 ``[Wi]``, int32 ``[Wr]``) in order, in place: the
+    carry becomes the fold of [carry; parts]. CPU tensors take
+    :func:`state_fold_carry_plain`; CUDA tensors launch the kernel, once
+    per ``MAX_SLOTS`` slots."""
+    _validate_carry(carry, parts, slots)
+    if not on_cuda(carry[0], NAME):
+        state_fold_carry_plain(carry, parts, slots)
+        return
+    lib = _lib()
+    device = carry[0].device
+
+    def ptr(t: torch.Tensor):
+        return t.data_ptr() if t.numel() else None
+
+    (cf, ci, cr), (pf, pi, pr) = carry, parts
+    for start in range(0, len(slots), MAX_SLOTS):
+        chunk = slots[start:start + MAX_SLOTS]
+        table = (_SlotStruct * len(chunk))(*[_SlotStruct(s.kind, s.offset, s.length)
+                                              for s in chunk])
+        status = lib.state_fold_carry_launch(
+            table, len(chunk), pf.shape[0], ptr(cf), cf.shape[0], ptr(ci), ci.shape[0],
+            ptr(cr), cr.shape[0], ptr(pf), ptr(pi), ptr(pr), stream_handle(device),
+        )
+        check_status(NAME, status)
+        count_launch(CARRY_NAME)
+
+
+def _validate_carry(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor],
+                    slots: Sequence[FoldSlot]) -> None:
+    if len(carry) != 3 or len(parts) != 3:
+        raise ValueError(f"{NAME}: the carry and the parts are three matrices each")
+    device = carry[0].device
+    for row, mat, dtype in zip(carry, parts, (torch.float64, torch.int64, torch.int32)):
+        if row.dtype != dtype or mat.dtype != dtype or row.dim() != 1 or mat.dim() != 2:
+            raise TypeError(f"{NAME}: expected a {dtype} row and a 2-D {dtype} matrix, got "
+                            f"{row.dtype} {tuple(row.shape)} and {mat.dtype} {tuple(mat.shape)}")
+        if row.device != device or mat.device != device:
+            raise ValueError(f"{NAME}: the carry and the parts must lie on one device")
+        if not (row.is_contiguous() and mat.is_contiguous()):
+            raise ValueError(f"{NAME}: the carry and the parts must be contiguous")
+        if mat.shape[1] != row.shape[0] or mat.shape[0] != parts[0].shape[0]:
+            raise ValueError(f"{NAME}: the parts must be [B, W] beside a carry of W columns")
+    if parts[0].shape[0] < 1:
+        raise ValueError(f"{NAME}: takes at least one partial")
+    _check_slots(carry, slots)
+
+
+def state_fold_carry_plain(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor],
+                           slots: Sequence[FoldSlot]) -> None:
+    """The same function as the carry entry in plain PyTorch: the plain
+    fold of [carry; parts], copied into the carry."""
+    stacked = [torch.cat([row[None], mat]) for row, mat in zip(carry, parts)]
+    for row, out in zip(carry, state_fold_plain(*stacked, slots)):
+        row.copy_(out)
 
 
 def state_fold_plain(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor,

@@ -3,9 +3,11 @@
 uses Spark's XxHash64 with seed 42).
 
 The 8-byte fixed-width path (longs / doubles) is fully vectorized in numpy
-uint64 modular arithmetic; variable-length strings are hashed one value at a
-time in Python (dictionary columns hash each DISTINCT value once per
-dataset, see ``runners/features.dict_entry_hashes``).
+uint64 modular arithmetic; variable-length strings are hashed in one pass
+by the native library (``deequ_tpu_torch/native``), which the tests hold
+to its Python twin :func:`xxhash64_strings_plain`; dictionary columns
+hash each DISTINCT value once per dataset (see
+``runners/features.dict_entry_hashes``).
 """
 
 from __future__ import annotations
@@ -113,9 +115,18 @@ def as_object_array(values) -> np.ndarray:
     return vals if vals.dtype == object else vals.astype(object)
 
 
-def xxhash64_strings(values: np.ndarray, seed: int = DEFAULT_SEED) -> np.ndarray:
-    """xxHash64 of a numpy object array of str/None. Nulls hash to the seed
-    constant (they are masked out downstream anyway)."""
+def xxhash64_strings(values, seed: int = DEFAULT_SEED) -> np.ndarray:
+    """xxHash64 of a numpy object array of str/None or of a pyarrow string
+    array, by the native batch hash (one C++ pass over Arrow buffers).
+    Nulls hash to the seed constant (they are masked out downstream
+    anyway)."""
+    from ..native import native_xxhash64_strings
+
+    return native_xxhash64_strings(values, seed)
+
+
+def xxhash64_strings_plain(values, seed: int = DEFAULT_SEED) -> np.ndarray:
+    """:func:`xxhash64_strings` one value at a time in Python."""
     # arrow input (e.g. a lazily-kept dictionary payload): materialize to
     # python objects first — iterating the arrow array directly yields pa
     # scalars whose nulls fail the `v is None` check and stringify to

@@ -11,8 +11,10 @@ A batch update runs two kernels and reads nothing back to the host:
 ``kll_sample`` (K4) pre-collapses the batch into at most ``k`` items of
 weight ``2^h`` (sort, stride-``2^h`` subsampling), and ``kll_compact`` (K5)
 appends them at level ``h`` and compacts upward while a level overflows.
-A merge is K5's other mode. Both give the reference's state bit for bit,
-items' layout included.
+A merge is K5's second mode; the host ingest tier's sampled blocks (at
+most ``2k`` items each, sampled on the host by the native library) enter
+through its third, :func:`kll_ingest_sampled`. All give the reference's
+state bit for bit, items' layout included.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..config import ACC_DTYPE, COUNT_DTYPE, DeviceLike
-from ..kernels.kll_compact import kll_compact_merge, kll_compact_update
+from ..kernels.kll_compact import kll_compact_ingest, kll_compact_merge, kll_compact_update
 from ..kernels.kll_sample import kll_sample
 
 #: sketch items are float32, as in the reference (whose module docstring
@@ -96,6 +98,29 @@ def kll_update(
     k = state.sketch_size
     sample = kll_sample(values, rows, where, present, state.ticks, k)
     return _state(kll_compact_update(state.tensors(), sample, k), k)
+
+
+def kll_ingest_sampled(
+    state: KLLSketchState, samples, m: int, h: int, nv: int, g_min: float, g_max: float,
+) -> KLLSketchState:
+    """Fold one host-sampled block into the sketch (the reference's
+    ``kll_ingest_sampled``, deequ_tpu/ops/kll.py:284): ``samples`` is an
+    ascending, +inf-padded float64 vector of the sketch's row width holding
+    ``m`` items of weight ``2^h``, covering ``nv`` values whose min and max
+    are ``g_min`` and ``g_max``. Its items are clipped to the finite float32
+    range and rounded to float32. K5's ingest entry on a stack of one
+    sketch and one block; the state passed in is left as it was."""
+    k = state.sketch_size
+    dev = state.items.device
+    sketches = [leaf.clone().reshape(1, *leaf.shape) for leaf in state.tensors()]
+    block = [
+        torch.as_tensor(samples, dtype=ACC_DTYPE).to(dev).reshape(1, 1, -1).contiguous(),
+        *(torch.tensor([[x]], dtype=dtype, device=dev) for x, dtype in (
+            (m, torch.int32), (h, torch.int32), (nv, COUNT_DTYPE), (g_min, ACC_DTYPE),
+            (g_max, ACC_DTYPE))),
+    ]
+    kll_compact_ingest(sketches, block, k)
+    return _state([leaf[0] for leaf in sketches], k)
 
 
 def kll_merge(a: KLLSketchState, b: KLLSketchState) -> KLLSketchState:

@@ -163,10 +163,11 @@ class ColumnProfiler:
         monitor=None,
         sharding=None,
         device: DeviceLike = None,
+        placement: Optional[str] = None,
     ) -> ColumnProfiles:
         """(reference `ColumnProfiler.profile`, `ColumnProfiler.scala:91-208`).
         Every pass runs on ``device`` (``cuda`` unless the caller names
-        another)."""
+        another), on the ingest tier ``placement`` resolves to."""
         _refuse_unported(
             metrics_repository=metrics_repository,
             reuse_existing_results_using_key=reuse_existing_results_using_key,
@@ -184,7 +185,8 @@ class ColumnProfiler:
             for c in schema.columns
             if restrict_to_columns is None or c.name in restrict_to_columns
         ]
-        run_kwargs = dict(batch_size=batch_size, monitor=monitor, device=device)
+        run_kwargs = dict(batch_size=batch_size, monitor=monitor, device=device,
+                          placement=placement)
 
         # ---- PASS 1: generic statistics, the numeric statistics of
         # schema-typed numeric columns, histograms of small dictionaries ----
@@ -549,6 +551,7 @@ class ColumnProfilerRunBuilder:
         self._profiles_path: Optional[str] = None
         self._batch_size: Optional[int] = None
         self._monitor = None
+        self._placement: Optional[str] = None
 
     def restrict_to_columns(self, columns: Sequence[str]):
         self._columns = columns
@@ -591,6 +594,12 @@ class ColumnProfilerRunBuilder:
         self._monitor = monitor
         return self
 
+    def with_placement(self, placement: str):
+        """Every pass's ingest tier: ``"device"``, ``"host"`` or ``"auto"``
+        (reference `profiles/__init__.py:588`)."""
+        self._placement = placement
+        return self
+
     def with_sharding(self, sharding):
         _refuse_unported(sharding=sharding)
 
@@ -605,6 +614,7 @@ class ColumnProfilerRunBuilder:
             batch_size=self._batch_size,
             monitor=self._monitor,
             device=self._device,
+            placement=self._placement,
         )
         if self._profiles_path is not None:
             _write_text_atomic(self._profiles_path, profiles.to_json())

@@ -26,6 +26,14 @@ With ``aggregate_with`` or ``save_states_with``, route 3 is off, as in the
 reference: a persisted or merged grouping state must be a value-keyed
 :class:`FrequenciesAndNumRows`, which hashed device tables never give.
 
+``placement`` picks the pass's ingest tier (``"device"``, ``"host"`` or
+``"auto"``, see ``engine.resolve_scan_placement``). A pass on the host tier
+gets no device frequency table either: its grouping sets go to the host
+group-by, as in the reference (deequ_tpu/runners/analysis_runner.py:
+602-626), since streaming raw keys is what the host tier avoids. A battery
+with any analyzer without a host partial streams to the device whatever
+the placement.
+
 Incremental runs (reference `AnalysisRunner.scala:97-223, 385-460`):
 ``aggregate_with`` merges each analyzer's loaded state into the run's before
 its metric, ``save_states_with`` persists the (merged) states, a metrics
@@ -74,7 +82,15 @@ from ..data import Dataset, Schema
 from ..exceptions import MetricCalculationException
 from ..metrics import Metric
 from .context import AnalyzerContext
-from .engine import RunMonitor, ScanEngine, effective_batch_size
+from .engine import (
+    FEED_BANDWIDTH_THRESHOLD_MBPS,
+    PLACEMENTS,
+    RunMonitor,
+    ScanEngine,
+    effective_batch_size,
+    probe_feed_bandwidth,
+    resolve_scan_placement,
+)
 
 def collect_required_analyzers(checks, required_analyzers=()) -> List[Analyzer]:
     """Every analyzer a verification run needs: the explicitly required
@@ -117,6 +133,7 @@ class AnalysisRunner:
         reuse_existing_results_for_key: Optional[Any] = None,
         fail_if_results_missing: bool = False,
         save_or_append_results_with_key: Optional[Any] = None,
+        placement: Optional[str] = None,
     ) -> AnalyzerContext:
         """Compute every analyzer's metric in one pass over ``data``.
         ``freq_table_slots`` and ``freq_buffer_entries`` size the device
@@ -126,8 +143,11 @@ class AnalysisRunner:
         ``save_states_with`` (a StatePersister), ``metrics_repository``
         with ``reuse_existing_results_for_key`` / ``fail_if_results_missing``
         and ``save_or_append_results_with_key``: as the reference's runner
-        (module docstring)."""
+        (module docstring). ``placement``: the ingest tier, ``"auto"`` when
+        None (module docstring)."""
         dev = resolve_device(device)
+        if placement is not None and placement not in PLACEMENTS:
+            raise ValueError(f"placement must be one of {PLACEMENTS}, got {placement!r}")
         if len(analyzers) == 0:
             return AnalyzerContext.empty()
 
@@ -211,11 +231,13 @@ class AnalysisRunner:
         batch_rows = effective_batch_size(batch_size)
         table_scans: Dict[Tuple[str, ...], DeviceFrequencyTableScan] = {}
         host_sets: List[Tuple[str, ...]] = []
+        tables_ok = (slim and device_freq and any(c not in dict_sets for c in grouping_sets)
+                     and _device_tier_expected(scanning, placement, dev))
         for cols in grouping_sets:
             if cols in dict_sets:
                 continue
             scan = None
-            if slim and device_freq and not probably_low_cardinality(data, cols):
+            if tables_ok and not probably_low_cardinality(data, cols):
                 scan = plan_table_scan(schema, cols, data.num_rows, batch_rows,
                                        freq_table_slots, freq_buffer_entries)
             if scan is None:
@@ -230,7 +252,8 @@ class AnalysisRunner:
         if not battery and not host_sets:
             return _results(results_loaded + AnalyzerContext(failures), metrics_repository,
                             save_or_append_results_with_key)
-        states, shared = _run_pass(data, battery, host_sets, batch_size, dev, run_monitor)
+        states, shared = _run_pass(data, battery, host_sets, batch_size, dev, run_monitor,
+                                   placement)
         by_analyzer = dict(zip(battery, states))
 
         # drain the device frequency tables; a table that dropped groups
@@ -358,13 +381,31 @@ def _save_or_append(repository, key, context: AnalyzerContext) -> None:
     repository.save(key, combined)
 
 
+def _device_tier_expected(scanning: Sequence[ScanShareableAnalyzer], placement: Optional[str],
+                          device) -> bool:
+    """Whether the pass will stream batches to the device: the gate for the
+    device frequency tables (the reference's ``_device_tier_expected``,
+    deequ_tpu/runners/analysis_runner.py:602). It asks the engine's own
+    ``resolve_scan_placement``, so the two never disagree; without a scan
+    battery the tables would create a device pass, which only pays on a
+    fast link or when the caller asked for the device."""
+    if scanning:
+        return resolve_scan_placement(scanning, placement, device) == "device"
+    effective = placement or "auto"
+    if effective != "auto":
+        return effective == "device"
+    return probe_feed_bandwidth(device) >= FEED_BANDWIDTH_THRESHOLD_MBPS
+
+
 def _run_pass(data: Dataset, battery: Sequence[ScanShareableAnalyzer],
               host_sets: Sequence[Tuple[str, ...]], batch_size: Optional[int], device,
-              monitor: RunMonitor) -> Tuple[List[Any], Dict[Tuple[str, ...], Any]]:
-    """One pass: ``battery`` on the device and a host group-by per set of
-    ``host_sets``. Returns the battery's states (on the host) and each
-    set's :class:`FrequenciesAndNumRows` by its columns."""
-    engine = ScanEngine(battery, device, monitor=monitor)
+              monitor: RunMonitor, placement: Optional[str] = None,
+              ) -> Tuple[List[Any], Dict[Tuple[str, ...], Any]]:
+    """One pass: ``battery`` on the ingest tier ``placement`` resolves to
+    and a host group-by per set of ``host_sets``. Returns the battery's
+    states (on the host) and each set's :class:`FrequenciesAndNumRows` by
+    its columns."""
+    engine = ScanEngine(battery, device, monitor=monitor, placement=placement)
     tables: Dict[Tuple[str, ...], Any] = {
         cols: FrequenciesAndNumRows.empty(list(cols)) for cols in host_sets
     }

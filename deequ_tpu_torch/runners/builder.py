@@ -20,6 +20,7 @@ class AnalysisRunBuilder:
         self._monitor: Optional[RunMonitor] = None
         self._freq_options: Dict[str, Any] = {}
         self._state_options: Dict[str, Any] = {}
+        self._placement: Optional[str] = None
 
     def add_analyzer(self, analyzer: Analyzer) -> "AnalysisRunBuilder":
         self._analyzers.append(analyzer)
@@ -60,6 +61,12 @@ class AnalysisRunBuilder:
         self._monitor = monitor
         return self
 
+    def with_placement(self, placement: str) -> "AnalysisRunBuilder":
+        """The pass's ingest tier: ``"device"``, ``"host"`` or ``"auto"``
+        (:meth:`AnalysisRunner.do_analysis_run`)."""
+        self._placement = placement
+        return self
+
     def with_frequency_options(self, **options) -> "AnalysisRunBuilder":
         """``freq_table_slots``, ``freq_buffer_entries`` and ``device_freq``
         of :meth:`AnalysisRunner.do_analysis_run`."""
@@ -75,6 +82,7 @@ class AnalysisRunBuilder:
             batch_size=self._batch_size,
             monitor=self._monitor,
             device=self._device,
+            placement=self._placement,
             **self._freq_options,
             **self._state_options,
         )

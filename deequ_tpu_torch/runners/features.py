@@ -5,9 +5,11 @@ This is the scan-sharing mechanism: deequ shares one Spark scan between N
 analyzers via fused aggregation columns with row offsets (reference
 `analyzers/runners/AnalysisRunner.scala:303-318`); here N analyzers share
 one host pass and one set of device arrays per batch. String-typed work
-(regex, lengths, hashing) happens here on the host, vectorized where numpy
-allows and once per DISTINCT value for dictionary columns, so the kernels
-see only fixed-shape numeric arrays.
+(regex, type classes, lengths, hashing) happens here on the host, in the
+native library's one-pass C++ kernels (``deequ_tpu_torch/native``; the
+``*_plain`` functions are their Python twins, for the tests) and once per
+DISTINCT value for dictionary columns, so the kernels see only fixed-shape
+numeric arrays.
 """
 
 from __future__ import annotations
@@ -21,17 +23,47 @@ import numpy as np
 from ..analyzers.base import FeatureSpec
 from ..data import Batch, ColumnKind
 from ..expr import evaluate_predicate
-from ..ops.hashing import as_object_array, hash_column
+from ..ops.hashing import as_object_array, hash_column, xxhash64_strings_plain
 from ..ops.hll import hll_pack_features
 
 
 def _hll_packed(col) -> np.ndarray:
-    """uint16 HLL ingest feature for one column."""
+    """uint16 HLL ingest feature for one column: one native pass (hash,
+    leading zeros, pack) over the column's own buffers."""
+    from ..native import native_hll_pack_numeric, native_hll_pack_strings
+    from ..ops.hashing import DEFAULT_SEED
+
     if _is_string_dict(col):
         # hash the DISTINCT values once per dataset, gather per row
         return hll_pack_features(dict_hashes(col), col.mask)
+    if col.kind == ColumnKind.STRING:
+        src = col.string_source
+        if not isinstance(src, np.ndarray) or src.dtype == object:
+            return native_hll_pack_strings(src, col.mask, DEFAULT_SEED)
+    elif col.kind == ColumnKind.BOOLEAN or col.kind.is_numeric:
+        vals = _hll_numeric_values(col.values)
+        if np.issubdtype(vals.dtype, np.number):
+            return native_hll_pack_numeric(vals, col.mask, DEFAULT_SEED)
+    return _hll_packed_plain(col)
+
+
+def _hll_numeric_values(vals: np.ndarray) -> np.ndarray:
+    """Booleans and integers narrower than 64 bits hash as int64."""
+    if vals.dtype == np.bool_ or (np.issubdtype(vals.dtype, np.integer) and vals.dtype != np.int64):
+        return vals.astype(np.int64)
+    return vals
+
+
+def _hll_packed_plain(col) -> np.ndarray:
+    """:func:`_hll_packed` in numpy: xxhash64 of each value, then packed."""
+    if _is_string_dict(col):
+        return hll_pack_features(dict_hashes(col), col.mask)
     source = col.string_source if col.kind == ColumnKind.STRING else col.values
-    return hll_pack_features(hash_column(source, col.mask, col.kind), col.mask)
+    if col.kind == ColumnKind.STRING:
+        hashes = xxhash64_strings_plain(source)
+    else:
+        hashes = hash_column(source, col.mask, col.kind)
+    return hll_pack_features(hashes, col.mask)
 
 
 # reference regexes (`analyzers/catalyst/StatefulDataType.scala:36-38`);
@@ -50,8 +82,18 @@ def classify_type_codes(values, mask: np.ndarray, kind: ColumnKind) -> np.ndarra
     """Per-value inferred-type codes 0..4 (Unknown/Fractional/Integral/
     Boolean/String). Non-string columns map directly from their kind, which
     matches the reference's behavior of casting values to strings first
-    (e.g. 1.5 -> "1.5" matches FRACTIONAL). String values are classified
-    one by one with the reference regexes."""
+    (e.g. 1.5 -> "1.5" matches FRACTIONAL). String values are classified in
+    one native pass over their Arrow buffers."""
+    if kind == ColumnKind.STRING:
+        from ..native import native_classify_types
+
+        return native_classify_types(values, mask)
+    return classify_type_codes_plain(values, mask, kind)
+
+
+def classify_type_codes_plain(values, mask: np.ndarray, kind: ColumnKind) -> np.ndarray:
+    """:func:`classify_type_codes` in Python: string values one by one
+    against the reference regexes."""
     n = len(values)
     if kind == ColumnKind.STRING:
         values = as_object_array(values)
@@ -104,6 +146,15 @@ def dict_type_codes(col) -> np.ndarray:
 
 
 def string_lengths(values, mask: np.ndarray) -> np.ndarray:
+    """int32 code-point length of each masked, non-null string (else 0), in
+    one native pass."""
+    from ..native import native_string_lengths
+
+    return native_string_lengths(values, mask)
+
+
+def string_lengths_plain(values, mask: np.ndarray) -> np.ndarray:
+    """:func:`string_lengths` in Python."""
     values = as_object_array(values)
     out = np.zeros(len(values), dtype=np.int32)
     for i in np.flatnonzero(mask):
@@ -117,7 +168,24 @@ def regex_matches(values, mask: np.ndarray, pattern: str) -> np.ndarray:
     """Unanchored regex search per value, nulls -> False (the reference uses
     `regexp_extract(col, pattern, 0) != ""`, `analyzers/PatternMatch.scala:
     46-52` — note a successful empty-string match also counts as False there,
-    which we reproduce)."""
+    which we reproduce). String arrays match in the native library
+    (PCRE2 over the Arrow buffers; Python's ``re`` where PCRE2 is missing or
+    refuses the pattern); a column of other objects matches their ``str``
+    under ``re``."""
+    import pyarrow as pa
+
+    from ..native import native_pattern_match
+
+    if not isinstance(values, np.ndarray) or values.dtype == object:
+        try:
+            return native_pattern_match(values, mask, pattern)
+        except (pa.ArrowInvalid, pa.ArrowTypeError):
+            pass  # objects that are not strings: matched as str below
+    return regex_matches_plain(values, mask, pattern)
+
+
+def regex_matches_plain(values, mask: np.ndarray, pattern: str) -> np.ndarray:
+    """:func:`regex_matches` in Python, value by value."""
     values = as_object_array(values)
     compiled = re.compile(pattern)
     out = np.zeros(len(values), dtype=bool)

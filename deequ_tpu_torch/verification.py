@@ -107,6 +107,7 @@ class VerificationSuite:
         reuse_existing_results_for_key: Optional[Any] = None,
         fail_if_results_missing: bool = False,
         save_or_append_results_with_key: Optional[Any] = None,
+        placement: Optional[str] = None,
         **freq_options,
     ) -> VerificationResult:
         """One pass computing every metric the checks need, then the
@@ -115,7 +116,8 @@ class VerificationSuite:
         :meth:`AnalysisRunner.do_analysis_run`; the state and repository
         keywords are its own too, except that the results are saved after
         the checks are evaluated, so an anomaly check never sees the current
-        point in its own history (reference `VerificationSuite.scala:121-139`)."""
+        point in its own history (reference `VerificationSuite.scala:121-139`).
+        ``placement``: the pass's ingest tier, as ``do_analysis_run``'s."""
         checks = list(checks)  # evaluate() walks them again after the run
         analyzers = collect_required_analyzers(checks, required_analyzers)
         analysis_results = AnalysisRunner.do_analysis_run(
@@ -123,7 +125,7 @@ class VerificationSuite:
             aggregate_with=aggregate_with, save_states_with=save_states_with,
             metrics_repository=metrics_repository,
             reuse_existing_results_for_key=reuse_existing_results_for_key,
-            fail_if_results_missing=fail_if_results_missing,
+            fail_if_results_missing=fail_if_results_missing, placement=placement,
             **freq_options,
         )
         result = VerificationSuite.evaluate(checks, analysis_results)
@@ -208,6 +210,7 @@ class VerificationRunBuilder:
         self._monitor: Optional[RunMonitor] = None
         self._freq_options: Dict = {}
         self._state_options: Dict[str, Any] = {}
+        self._placement: Optional[str] = None
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self.checks.append(check)
@@ -244,6 +247,12 @@ class VerificationRunBuilder:
         self._monitor = monitor
         return self
 
+    def with_placement(self, placement: str) -> "VerificationRunBuilder":
+        """The pass's ingest tier: ``"device"``, ``"host"`` or ``"auto"``
+        (reference `verification.py:351`)."""
+        self._placement = placement
+        return self
+
     def with_frequency_options(self, **options) -> "VerificationRunBuilder":
         """``freq_table_slots``, ``freq_buffer_entries`` and ``device_freq``
         of :meth:`AnalysisRunner.do_analysis_run`."""
@@ -258,6 +267,7 @@ class VerificationRunBuilder:
             batch_size=self._batch_size,
             monitor=self._monitor,
             device=self.device,
+            placement=self._placement,
             **self._freq_options,
             **self._state_options,
         )

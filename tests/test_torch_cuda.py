@@ -506,3 +506,95 @@ def test_persisted_state_unchanged_after_the_run_goes_on(cuda_device):
         if snapshot[a] is not None:
             assert [t.cpu().numpy().tobytes() for t in s.__dict__.values()
                     if isinstance(t, torch.Tensor)] == snapshot[a], a
+
+
+# ---------------------------------------------------------------------------
+# the host ingest tier's entries: K8's carry and K5's ingest
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 7, 32])
+def test_state_fold_carry_kernel_matches_plain(cuda_device, chunk):
+    """Every kind a host partial gives, [carry; chunk] folded in place: the
+    kernel equals its plain version and the states' sequential merge bit
+    for bit."""
+    from deequ_tpu_torch.kernels.state_fold import state_fold_carry, state_fold_carry_plain
+
+    jobs = [states for _, states in chip_smoke.carry_groups(dq, chunk + 1, seed=chunk)]
+    mats, slots, places = pack_states(jobs)
+    carry = [m[0].to(cuda_device) for m in mats]
+    parts = [m[1:].contiguous().to(cuda_device) for m in mats]
+    plain = [c.clone() for c in carry]
+    reset_launch_counts()
+    state_fold_carry(carry, parts, slots)
+    assert launch_counts()["state_fold_carry"] == 1 and launch_counts()["state_fold"] == 0
+    state_fold_carry_plain(plain, parts, slots)
+    torch.cuda.synchronize()
+    for g, w, states in zip(unpack_states(jobs, places, carry),
+                            unpack_states(jobs, places, plain), jobs):
+        assert chip_smoke.same_state_bits(g, w)
+        assert chip_smoke.same_state_bits(g, chip_smoke.sequential_fold(states))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [400, 2048, 8192])
+def test_kll_compact_ingest_kernel_matches_plain(cuda_device, k):
+    """Three stacked sketches take two chunks of 32 edge samples (m from 0
+    to 2k, h from 0 to 6, infinities); at k = 8192 a level's sort takes
+    device scratch."""
+    from deequ_tpu_torch.kernels.kll_compact import kll_compact_ingest, kll_compact_ingest_plain
+    from deequ_tpu_torch.runners.engine import stack_samples
+
+    n_sketch = 3
+    stacked = [torch.stack(list(col)).contiguous().to(cuda_device)
+               for col in zip(*(kll_init(k, 16).tensors() for _ in range(n_sketch)))]
+    plain = [t.clone() for t in stacked]
+    reset_launch_counts()
+    for c in range(2):
+        samples = [chip_smoke.edge_samples(k, 32, seed=10 * c + s) for s in range(n_sketch)]
+        fields = stack_samples(samples, 4 * k, lambda t: t.to(cuda_device))
+        kll_compact_ingest(stacked, fields, k)
+        kll_compact_ingest_plain(plain, fields, k)
+        torch.cuda.synchronize()
+        for g, w in zip(stacked, plain):
+            assert g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes()
+    assert launch_counts()["kll_compact_ingest"] == 2 and launch_counts()["kll_compact"] == 0
+    assert int(stacked[1].cpu().count_nonzero(dim=1).min()) >= 2  # several levels hold items
+
+
+@pytest.mark.cuda
+def test_host_tier_run_on_the_card_launches_both_entries(cuda_device):
+    """A host-tier run on the card launches the carry and ingest entries,
+    and equals the same run on the CPU (the plain versions) bit for bit."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(4)
+    n = 70_000
+    table = pa.table({
+        "x": pa.array(rng.normal(0, 1, n), mask=rng.random(n) < 0.05),
+        "y": pa.array(rng.normal(5, 2, n)),
+        "cat": pa.array(rng.integers(0, 3000, n)),
+        "s": pa.array([f"s{v}" for v in rng.integers(0, 40, n)]),
+    })
+    analyzers = [dq.Size(), dq.Mean("x"), dq.StandardDeviation("y"), dq.Correlation("x", "y"),
+                 dq.Minimum("x"), dq.Maximum("y"), dq.ApproxCountDistinct("cat"),
+                 dq.DataType("s"), dq.PatternMatch("s", r"s1\d"), dq.KLLSketch("x"),
+                 dq.ApproxQuantile("y", 0.25), dq.Histogram("s")]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        monitor = dq.RunMonitor()
+        reset_launch_counts()
+        ctx = dq.AnalysisRunner.do_analysis_run(
+            dq.Dataset.from_arrow(table), analyzers, batch_size=1024, placement="host",
+            device=device, monitor=monitor)
+        runs[device] = (ctx, launch_counts(), monitor)
+    ctx, counts, monitor = runs["cuda"]
+    assert monitor.placement == "host" and monitor.ingest_folds == 3
+    # one ingest launch per chunk for each sketch size: KLLSketch's and
+    # ApproxQuantile's
+    assert counts["state_fold_carry"] == 3 and counts["kll_compact_ingest"] == 3 * 2
+    assert counts["scan_reduce"] == 0 and counts["kll_sample"] == 0
+    for a in analyzers:
+        got, want = ctx.metric(a).value.get(), runs["cpu"][0].metric(a).value.get()
+        assert repr(got) == repr(want), a

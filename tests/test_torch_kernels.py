@@ -481,3 +481,144 @@ def test_state_fold_rejects_bad_tables():
         state_fold(f, i, r, ok + [FoldSlot(ADD_I64, 2, 1)])
     with pytest.raises(TypeError):
         state_fold(f, i.to(torch.int32), r, ok)
+
+
+# ---------------------------------------------------------------------------
+# K8's carry entry (the host tier's fold) and K5's ingest entry, plain
+# ---------------------------------------------------------------------------
+
+CARRY_KINDS = [type(a).__name__ for a, _ in chip_smoke.carry_groups(dq, 1, 0)]
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 32])
+@pytest.mark.parametrize("kind", CARRY_KINDS)
+def test_state_fold_carry_plain_matches_the_sequential_merge(kind, chunk):
+    """The carry after a chunk equals the left fold of [carry; partials]
+    with the states' own merge, bit for bit (the reference's ingest scan
+    without padding steps)."""
+    from deequ_tpu_torch.analyzers.base import fold_layout, pack_states, unpack_states
+    from deequ_tpu_torch.kernels.state_fold import state_fold_carry
+
+    groups = {type(a).__name__: states for a, states in chip_smoke.carry_groups(dq, chunk + 1, 5)}
+    states = groups[kind]
+    mats, slots, places = pack_states([states], fold_layout())
+    carry = [m[0].clone() for m in mats]
+    parts = [m[1:].contiguous() for m in mats]
+    state_fold_carry(carry, parts, slots)
+    (got,) = unpack_states([states], places, carry)
+    assert chip_smoke.same_state_bits(got, chip_smoke.sequential_fold(states))
+
+
+def test_state_fold_carry_folds_several_analyzers_in_order():
+    from deequ_tpu_torch.analyzers.base import fold_layout, pack_states, unpack_states
+    from deequ_tpu_torch.kernels.state_fold import state_fold_carry
+
+    jobs = [states for _, states in chip_smoke.carry_groups(dq, 33, 6)]
+    mats, slots, places = pack_states(jobs, fold_layout())
+    carry = [m[0].clone() for m in mats]
+    # two chunks, 32 then the rest: the same fold as one
+    state_fold_carry(carry, [m[1:17].contiguous() for m in mats], slots)
+    state_fold_carry(carry, [m[17:].contiguous() for m in mats], slots)
+    for got, states in zip(unpack_states(jobs, places, carry), jobs):
+        assert chip_smoke.same_state_bits(got, chip_smoke.sequential_fold(states))
+
+
+def test_state_fold_carry_rejects_bad_inputs():
+    from deequ_tpu_torch.kernels.state_fold import state_fold_carry
+
+    carry = [torch.zeros(0, dtype=torch.float64), torch.zeros(3, dtype=torch.int64),
+             torch.zeros(0, dtype=torch.int32)]
+    parts = [torch.zeros((2, 0), dtype=torch.float64), torch.ones((2, 3), dtype=torch.int64),
+             torch.zeros((2, 0), dtype=torch.int32)]
+    slots = [FoldSlot(ADD_I64, 0, 3)]
+    state_fold_carry(carry, parts, slots)
+    assert carry[1].tolist() == [2, 2, 2]
+    with pytest.raises(ValueError):  # no partials
+        state_fold_carry(carry, [p[:0] for p in parts], slots)
+    with pytest.raises(ValueError):  # widths differ
+        state_fold_carry(carry, [parts[0], parts[1][:, :2].contiguous(), parts[2]], slots)
+    with pytest.raises(TypeError):
+        state_fold_carry(carry, [parts[0], parts[1].int(), parts[2]], slots)
+
+
+_jit_ingest = jax.jit(JK.kll_ingest_sampled)
+
+
+def _ingest_chunks(k: int, n_blocks: int, seed: int):
+    """Host samples as the native sampler gives them: m in [0, 2k] items
+    ascending at h in [0, 6] (an empty block now and then, items beyond the
+    float32 range, infinities), in a 4k-wide +inf-padded row."""
+    rng = np.random.default_rng(seed)
+    blocks = []
+    for b in range(n_blocks):
+        m = int(rng.integers(0, 2 * k + 1)) if b % 9 else (0 if b % 2 else 2 * k)
+        items = np.full(4 * k, np.inf)
+        vals = np.sort(rng.normal(b % 5, 10.0, m))
+        if m > 3 and b % 4 == 0:
+            vals[0], vals[-1] = -np.inf, 3e40
+            vals = np.sort(vals)
+        items[:m] = vals
+        h = int(rng.integers(0, 7))
+        nv = 0 if m == 0 else m << h
+        mn, mx = (np.inf, -np.inf) if m == 0 else (float(vals[0]), float(vals[-1]))
+        blocks.append((items, m, h, nv, mn, mx))
+    return blocks
+
+
+@pytest.mark.parametrize("k", [4, 16])
+def test_kll_ingest_sampled_matches_jax(k):
+    """Per block, the port's kll_ingest_sampled (K5's ingest entry, plain)
+    equals the reference's on all seven leaves, through states that cross
+    several compaction levels."""
+    from deequ_tpu_torch.ops.kll import kll_ingest_sampled
+
+    js, ts = JK.kll_init(k, 12), kll_init(k, 12)
+    for items, m, h, nv, mn, mx in _ingest_chunks(k, 80, k):
+        js = _jit_ingest(js, items, np.int32(m), np.int32(h), np.int64(nv), mn, mx)
+        ts = kll_ingest_sampled(ts, items, m, h, nv, mn, mx)
+        _assert_state_matches_jax(ts, js)
+    assert int(np.count_nonzero(np.asarray(js.sizes))) >= 4
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 32])
+def test_kll_compact_ingest_chunks_of_stacked_sketches(chunk):
+    """One ingest call folds B blocks into each of S stacked sketches in
+    order: the same sketches as the reference's sequential ingest."""
+    from deequ_tpu_torch.kernels.kll_compact import kll_compact_ingest
+
+    k, n_sketch = 8, 3
+    blocks = [_ingest_chunks(k, 2 * chunk, 30 + s) for s in range(n_sketch)]
+    stacked = [torch.stack(list(col)).contiguous()
+               for col in zip(*(kll_init(k, 10).tensors() for _ in range(n_sketch)))]
+    for start in range(0, 2 * chunk, chunk):
+        fields = [np.stack([[blk[start + b][f] for b in range(chunk)] for blk in blocks])
+                  for f in range(6)]
+        samples = [torch.from_numpy(np.ascontiguousarray(a, dtype=d)) for a, d in zip(
+            fields, (np.float64, np.int32, np.int32, np.int64, np.float64, np.float64))]
+        kll_compact_ingest(stacked, samples, k)
+    for s in range(n_sketch):
+        js = JK.kll_init(k, 10)
+        for items, m, h, nv, mn, mx in blocks[s]:
+            js = _jit_ingest(js, items, np.int32(m), np.int32(h), np.int64(nv), mn, mx)
+        got = T.KLLSketch("x").init_state(CPU)
+        got = type(got)(*(leaf[s] for leaf in stacked), sketch_size=k)
+        _assert_state_matches_jax(got, js)
+
+
+def test_kll_compact_ingest_rejects_bad_inputs():
+    from deequ_tpu_torch.kernels.kll_compact import kll_compact_ingest
+
+    k = 4
+    stacked = [t.reshape(1, *t.shape).clone() for t in kll_init(k, 6).tensors()]
+    good = [torch.full((1, 2, 4 * k), float("inf"), dtype=torch.float64),
+            torch.zeros((1, 2), dtype=torch.int32), torch.zeros((1, 2), dtype=torch.int32),
+            torch.zeros((1, 2), dtype=torch.int64), torch.zeros((1, 2), dtype=torch.float64),
+            torch.zeros((1, 2), dtype=torch.float64)]
+    kll_compact_ingest(stacked, good, k)
+    assert int(stacked[3][0]) == 2
+    with pytest.raises(TypeError):
+        kll_compact_ingest(stacked, [good[0].float(), *good[1:]], k)
+    with pytest.raises(ValueError):
+        kll_compact_ingest(stacked, [good[0][:, :, :k].contiguous(), *good[1:]], k)
+    with pytest.raises(ValueError):
+        kll_compact_ingest(stacked, [g[:, :0].contiguous() for g in good], k)

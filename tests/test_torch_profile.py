@@ -331,8 +331,23 @@ def test_exact_quantile_mode_raises(analyzer):
 
 
 def test_host_partials_of_sketches_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A1c"):
+    """A sketch's host partial raises without a batch context, as the
+    reference's does; with one it is the reference's host sample of the
+    batch, bit for bit."""
+    from deequ_tpu.analyzers.base import HostBatchContext as JaxContext
+    from deequ_tpu_torch.analyzers.base import HostBatchContext
+
+    with pytest.raises(AttributeError):
         T.KLLSketch("x").host_partial(None)
+    with pytest.raises(AttributeError):
+        J.KLLSketch("x").host_partial(None)
+    table = _quantile_table(3_000)
+    batch = next(TD.Dataset.from_arrow(table).batches(3_000, pad_to_batch_size=False))
+    ref = next(JD.Dataset.from_arrow(table).batches(3_000, pad_to_batch_size=False))
+    got = T.KLLSketch("x").host_partial(HostBatchContext(batch, 5))
+    want = J.KLLSketch("x").host_partial(JaxContext(ref, 5))
+    assert np.asarray(got[0]).tobytes() == np.asarray(want[0]).tobytes()
+    assert [float(v) for v in got[1:]] == [float(v) for v in want[1:]]
 
 
 def test_profiler_runs_on_cuda_unless_asked(monkeypatch):
