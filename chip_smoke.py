@@ -80,7 +80,18 @@ Phases, each of which fails the run when it fails:
    entry and K5's ingest entry and prints how its pattern matches ran
    (PCRE2 or Python's ``re``). Sketches filled on the host tier hold a
    looser rank limit (``HOST_KLL_RANK_LIMIT``), which phase 2 shows a
-   biased sample exceeds.
+   biased sample exceeds;
+8. the streaming verification service (the reference's streaming knee,
+   ``tools/streaming_knee.py``): (a) K1's and K2's stacked entries at a
+   coalesced group's shape (16 sessions x 4,096 rows, and x 65,536),
+   against their stacked plain versions and 16 one-session launches bit
+   for bit, with times and bounds; (b) 1,000 sessions x 2 micro-batches x
+   4,096 rows through ``VerificationService(workers=8,
+   max_queue_depth=256)`` with every fold coalesced on the device, (c) the
+   same with serial folds, every session's metrics equal to (b)'s bit for
+   bit; (d) 100 sessions x 2 x 65,536 rows, coalesced and serial, held
+   likewise; (e) 16 of (b)'s sessions on ``device="cpu"`` and against
+   numpy. Each run fails on a shed or a failed fold.
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
@@ -137,10 +148,15 @@ TPU_KERNELS = {
     # the host ingest tier's entries of K8 and K5
     "state_fold_carry": "deequ_tpu/runners/engine.py:1760",
     "kll_compact_ingest": "deequ_tpu/ops/kll.py:284",
+    # the streaming service's coalesced fold: K1's and K2's stacked entries
+    # (call_with_slots_stacked, the vmapped fused update)
+    "scan_reduce_stacked": "deequ_tpu/runners/engine.py:501",
+    "hll_registers_stacked": "deequ_tpu/runners/engine.py:501",
 }
 #: the CUDA source of each kernel (an entry's is its kernel's)
 KERNEL_SOURCES = {name: name for name in TPU_KERNELS} | {
-    "state_fold_carry": "state_fold", "kll_compact_ingest": "kll_compact"}
+    "state_fold_carry": "state_fold", "kll_compact_ingest": "kll_compact",
+    "scan_reduce_stacked": "scan_reduce", "hll_registers_stacked": "hll_registers"}
 #: the kernels each main path must launch
 VERIFICATION_KERNELS = ("scan_reduce", "hll_registers", "dict_code_counts")
 PROFILE_KERNELS = ("scan_reduce", "hll_registers", "dict_code_counts", "kll_sample",
@@ -2204,6 +2220,377 @@ def host_tier_profile(torch, dq, table: pa.Table, sketches: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the streaming verification service
+# ---------------------------------------------------------------------------
+
+#: the reference's streaming knee point (tools/streaming_knee.py over
+#: tools/ingest_soak.py): sessions x micro-batches x rows, 8 workers, a
+#: queue of 256, 32 feeder threads that park up to 30 s for queue space
+STREAM_SESSIONS = 1000
+STREAM_BATCHES = 2
+STREAM_ROWS = 4096
+#: (d): larger micro-batches
+STREAM_LARGE_SESSIONS = 100
+STREAM_LARGE_ROWS = 65536
+STREAM_WORKERS = 8
+STREAM_QUEUE = 256
+STREAM_FEEDERS = 32
+STREAM_BLOCK_S = 30.0
+#: sessions per coalesced launch: the service's default width
+STREAM_WIDTH = 16
+#: (e): this many of (b)'s sessions re-run on the CPU
+STREAM_CPU_SESSIONS = 16
+STREAM_SEED = 7
+#: the checks' ApproxQuantile keeps its default relative error of 0.01 (a
+#: sketch of 4 / 0.01 = 400 items): its median within twice that in rank
+STREAM_KLL_RANK_LIMIT = 2 * 0.01
+#: bound on every wait of phase 8
+STREAM_WAIT_S = 300
+STACKED_KERNELS = ("scan_reduce_stacked", "hll_registers_stacked")
+#: what a coalesced run must launch: the stacked entries, K4 and K5 once
+#: per session, and K8 merging each group's states into the persisted ones
+STREAM_KERNELS = STACKED_KERNELS + ("kll_sample", "kll_compact", "state_fold")
+
+
+def build_stream_table(sessions: int, batches: int, rows: int, seed: int) -> pa.Table:
+    """The soak's table (tools/ingest_soak.py ``_build_table``: x, y, k,
+    v), one distinct slice per session and micro-batch: session i's batch b
+    is :func:`stream_slice` (i, b)."""
+    rng = np.random.default_rng(seed)
+    n = sessions * batches * rows
+    return pa.table({
+        "x": rng.normal(size=n),
+        "y": rng.normal(10.0, 2.0, size=n),
+        "k": rng.integers(0, 1000, size=n),
+        "v": rng.uniform(0, 1, size=n),
+    })
+
+
+def stream_slice(table: pa.Table, i: int, b: int, rows: int) -> pa.Table:
+    return table.slice((i * STREAM_BATCHES + b) * rows, rows)
+
+
+def stream_check(m):
+    """The soak's battery (tools/ingest_soak.py:40-49: Size, ``is_complete
+    ("x")``, ``has_mean("y")``) with the moments, co-moments, HLL and KLL
+    constraints that put every kernel of the coalesced fold on the path.
+    ``m`` is a package exporting ``Check`` and ``CheckLevel``."""
+    def yes(_):
+        return True
+
+    return (
+        m.Check(m.CheckLevel.ERROR, "ingest battery")
+        .has_size(lambda n: n > 0)
+        .is_complete("x")
+        .has_mean("y", lambda v: -100.0 < v < 100.0)
+        .has_standard_deviation("y", yes)
+        .has_min("v", yes).has_max("v", yes).has_sum("v", yes)
+        .has_approx_count_distinct("k", yes)
+        .has_approx_quantile("v", 0.5, yes)
+        .has_correlation("x", "y", yes)
+    )
+
+
+def stream_run(torch, dq, table: pa.Table, sessions: int, rows: int, coalesce: bool,
+               device: str = "cuda", label: str = "", kernels=()) -> tuple:
+    """``sessions`` streaming sessions x ``STREAM_BATCHES`` micro-batches
+    of ``rows`` through ``VerificationService(workers=8,
+    max_queue_depth=256, background_warm=False)`` on ``device``, fed by 32
+    threads as the soak feeds them, with ``DEEQU_TPU_COALESCE`` on or off,
+    ``DEEQU_TPU_FAST_PATH_MAX_ROWS=0`` (every fold takes the device) and
+    ``DEEQU_TPU_PLACEMENT=device``. One warm session's fold runs first;
+    the launch counts are set to 0 just before the feed. Returns each
+    session's cumulative metric values (its last fold's result), the
+    run's summary and its launches; fails on a shed or a failed fold, or
+    when a kernel of ``kernels`` was not launched."""
+    import os
+    import threading
+
+    import deequ_tpu_torch.service as service
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.service.metrics import histogram_quantile
+
+    knobs = {"DEEQU_TPU_COALESCE": "1" if coalesce else "0",
+             "DEEQU_TPU_FAST_PATH_MAX_ROWS": "0", "DEEQU_TPU_PLACEMENT": "device"}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    on_card = device == "cuda"
+    try:
+        with service.VerificationService(STREAM_WORKERS, STREAM_QUEUE, device=device,
+                                         background_warm=False) as svc:
+            checks = [stream_check(dq)]
+            sess = [svc.session(f"s{i}", "stream", checks, admission_block_s=STREAM_BLOCK_S)
+                    for i in range(sessions)]
+            svc.session("warm", "stream", checks).ingest(
+                stream_slice(table, 0, 0, rows), timeout=STREAM_WAIT_S)
+            shed0 = svc.metrics.counter_value("deequ_service_jobs_shed_total")
+            errors, handles, lock = [], [], threading.Lock()
+
+            def feed(lo: int, hi: int) -> None:
+                mine = []
+                for i in range(lo, hi):
+                    for b in range(STREAM_BATCHES):
+                        try:
+                            mine.append(sess[i].ingest(stream_slice(table, i, b, rows),
+                                                       wait=False))
+                        except service.ServiceError as exc:
+                            with lock:
+                                errors.append(type(exc).__name__)
+                with lock:
+                    handles.extend(mine)
+
+            feeders = max(1, min(STREAM_FEEDERS, sessions))
+            per = -(-sessions // feeders)
+            threads = [threading.Thread(target=feed, args=(f * per, min((f + 1) * per, sessions)),
+                                        daemon=True) for f in range(feeders)]
+            if on_card:
+                torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(STREAM_WAIT_S)
+            failed = 0
+            for h in handles:
+                try:
+                    h.result(STREAM_WAIT_S)
+                except Exception:  # noqa: BLE001 - counted: the phase fails on any
+                    failed += 1
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            counters = svc.json_snapshot()["counters"]
+            done = sum(1 for s in sess if s.batches_ingested == STREAM_BATCHES)
+            summary = {
+                "sessions": sessions, "rows": rows, "coalesce": coalesce, "device": device,
+                "wall_s": wall, "sessions_per_s": done / wall,
+                "folds_per_s": len(handles) / wall,
+                "shed": svc.metrics.counter_value("deequ_service_jobs_shed_total") - shed0,
+                "feeder_errors": len(errors), "failed_folds": failed,
+                "widths": counters.get("deequ_service_coalesce_width_total", {}),
+                "width_sum": counters.get("deequ_service_coalesce_width_sum", 0.0),
+                "phases": {k.split("=", 1)[1]: round(v, 4) for k, v in counters.get(
+                    "deequ_service_phase_seconds_total", {}).items()},
+                # the service's own fold-latency histogram (power-of-two
+                # buckets: a quantile reads as its bucket's upper edge)
+                "fold_latency_s": {f"p{int(q * 100)}": histogram_quantile(
+                    svc.metrics.histogram_merged("deequ_service_fold_latency_seconds"), q)
+                    for q in (0.5, 0.99)},
+            }
+            values = [metric_values(s.latest) if s.latest is not None else {} for s in sess]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"[{label}] {sessions} sessions x {STREAM_BATCHES} x {rows} rows, coalesce="
+          f"{int(coalesce)} on {device}: {summary['sessions_per_s']:.1f} sessions/s "
+          f"({summary['folds_per_s']:.1f} folds/s, {wall:.3f}s); widths={summary['widths']} "
+          f"width_sum={summary['width_sum']}; fold latency {summary['fold_latency_s']}; "
+          f"shed={summary['shed']} feeder_errors="
+          f"{len(errors)} failed_folds={failed}; launches={launches}; "
+          f"phases={summary['phases']}", flush=True)
+    if summary["shed"] or errors or failed or done != sessions:
+        raise AssertionError(f"{label}: {done}/{sessions} sessions completed, "
+                             f"{summary['shed']} shed, {failed} failed folds, errors {errors}")
+    missing = [name for name in kernels if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"{label} launched no {missing}")
+    return values, summary, launches
+
+
+def _session_features(dq, table: pa.Table, width: int, rows: int):
+    """The battery program of phase 8's checks and the host features of
+    its first ``width`` sessions' first micro-batches (one bucket)."""
+    from deequ_tpu_torch.runners.analysis_runner import collect_required_analyzers
+    from deequ_tpu_torch.service.coalesce import build_fold_plan
+
+    analyzers = collect_required_analyzers([stream_check(dq)])
+    plan = build_fold_plan(analyzers, dq.Dataset.from_arrow(table.slice(0, 1)).schema)
+    feats = [plan.builder().build(next(dq.Dataset.from_arrow(
+        stream_slice(table, w, 0, rows)).batches(rows))) for w in range(width)]
+    return plan.program(), feats
+
+
+def check_stacked_kernels(torch, dq, table: pa.Table, rows: int) -> dict:
+    """Phase 8 (a): K1's and K2's stacked entries at a coalesced group's
+    shape (``STREAM_WIDTH`` sessions x ``rows``), each against its stacked
+    plain version and against ``STREAM_WIDTH`` one-session launches bit for
+    bit, with times and bounds (K2 beside one ``scatter_reduce`` amax over
+    the W x 512 registers). Returns the measurements."""
+    from deequ_tpu_torch.analyzers.base import resolve_slot
+    from deequ_tpu_torch.analyzers.sketches import ApproxCountDistinct
+    from deequ_tpu_torch.kernels.hll_registers import (
+        hll_registers, hll_registers_stacked, hll_registers_stacked_plain)
+    from deequ_tpu_torch.kernels.scan_reduce import (
+        KIND_COMOMENTS, KIND_MOMENTS, Slot, scan_reduce, scan_reduce_stacked,
+        scan_reduce_stacked_plain)
+    from deequ_tpu_torch.runners.engine import _stack_to_device
+
+    device = torch.device("cuda")
+    width = STREAM_WIDTH
+    program, feats = _session_features(dq, table, width, rows)
+    stacked = {key: _stack_to_device([f[key] for f in feats], device)
+               for key in program.feature_keys}
+    torch.cuda.synchronize()
+    rows_t = stacked["rows"]
+    results = _new_results()
+    add = functools.partial(_add, results)
+    label = f"{width} x {rows}"
+    for bundle in program.bundles:
+        slots = [resolve_slot(spec, stacked) for spec in bundle]
+        ki, kf = scan_reduce_stacked(slots, rows_t)
+        pi, pf = scan_reduce_stacked_plain(slots, rows_t)
+        torch.cuda.synchronize()
+        if not torch.equal(ki, pi):
+            raise AssertionError("scan_reduce_stacked counts differ from the plain version")
+        kf_h, pf_h = kf.cpu().numpy(), pf.cpu().numpy()
+        for w in range(width):
+            one = [Slot(sl.kind, *(None if t is None else t[w] for t in (
+                sl.where, sl.sel, sl.vals, sl.vals2, sl.sel2))) for sl in slots]
+            oi, of = scan_reduce(one, rows_t[w])
+            if not (torch.equal(oi, ki[w]) and _same_bits([of], [kf[w]])):
+                raise AssertionError(f"scan_reduce_stacked session {w} differs from a "
+                                     "one-session launch")
+            for s, slot in enumerate(slots):
+                a, b = kf_h[w, s], pf_h[w, s]
+                # min and max bit for bit; a co-moment slot has none (its
+                # five columns are sums)
+                exact = () if slot.kind == KIND_COMOMENTS else (1, 2)
+                for col in exact:
+                    if not ((np.isnan(a[col]) and np.isnan(b[col])) or (
+                            a[col] == b[col] and np.signbit(a[col]) == np.signbit(b[col]))):
+                        raise AssertionError(f"scan_reduce_stacked min/max of slot {s} differ")
+                if slot.vals is None:
+                    continue
+                vals = [slot.vals[w].double()] + ([slot.vals2[w]] if slot.vals2 is not None
+                                                  else [])
+                scale = max(max(float(v.abs().sum()), float((v * v).sum())) for v in vals)
+                for col in sorted(set(range(5)) - set(exact)):
+                    if not ((np.isnan(a[col]) and np.isnan(b[col]))
+                            or abs(a[col] - b[col]) <= 1e-12 * max(scale, 1.0)):
+                        raise AssertionError(f"scan_reduce_stacked slot {s} column {col}: "
+                                             f"{a[col]!r} vs {b[col]!r}")
+        arrays = {id(t): t for slot in slots
+                  for t in (slot.where, slot.sel, slot.vals, slot.vals2, slot.sel2)
+                  if t is not None}
+        arrays[id(rows_t)] = rows_t
+        nbytes = (sum(t.numel() * t.element_size() for t in arrays.values())
+                  + width * len(slots) * (7 + 5) * 8)
+        sel = pi[:, :, 0].sum(dim=0).cpu().numpy()
+        ops = sum(2 * width * rows + (7 * int(sel[s]) if slot.kind == KIND_MOMENTS else 0)
+                  for s, slot in enumerate(slots))
+        add("scan_reduce_stacked", f"{label}, {len(slots)} slots", _max_abs_err(kf, pf),
+            _time_kernel_ms(torch, lambda: scan_reduce_stacked(slots, rows_t)),
+            _time_ms(torch, lambda: scan_reduce_stacked_plain(slots, rows_t)), nbytes, ops)
+    for a in program.analyzers:
+        if not isinstance(a, ApproxCountDistinct):
+            continue
+        key = a._where_key()
+        args = (stacked[f"hll:{a.column}"], rows_t,
+                None if key is None else stacked[key], stacked[f"mask:{a.column}"])
+        got, want = hll_registers_stacked(*args), hll_registers_stacked_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("hll_registers_stacked differs from the plain version")
+        for w in range(width):
+            one = hll_registers(*(None if t is None else t[w] for t in args))
+            if not torch.equal(one, got[w]):
+                raise AssertionError(f"hll_registers_stacked session {w} differs from a "
+                                     "one-session launch")
+        valid = args[1] & args[3]
+        k = torch.where(valid, args[0].to(torch.int32), 0)
+        regs = (torch.arange(width, device=device)[:, None] * 512 + (k >> 6).long()).reshape(-1)
+        ranks = (k & 63).reshape(-1)
+        library = _time_ms(torch, lambda: torch.zeros(width * 512, dtype=torch.int32,
+                                                      device=device)
+                           .scatter_reduce_(0, regs, ranks, "amax"))
+        nbytes = sum(t.numel() * t.element_size() for t in args if t is not None) \
+            + width * 512 * 4
+        add("hll_registers_stacked", f"{label}, {a.column}", _max_abs_err(got, want),
+            _time_kernel_ms(torch, lambda: hll_registers_stacked(*args)),
+            _time_ms(torch, lambda: hll_registers_stacked_plain(*args)),
+            nbytes, 2 * width * rows, library)
+    _print_kernel_totals(results, STACKED_KERNELS, f"coalesced group {label}")
+    return results
+
+
+def _stream_oracle(table: pa.Table, i: int, rows: int) -> dict:
+    """numpy's exact metrics of session i's micro-batches, keyed like
+    :func:`metric_values` (``Mean``, ``Sum``, ``StandardDeviation`` and
+    ``Correlation`` within 1e-9; the rest exactly)."""
+    cols = {c: np.concatenate([stream_slice(table, i, b, rows).column(c).to_numpy()
+                               for b in range(STREAM_BATCHES)]) for c in ("x", "y", "v")}
+    x, y, v = cols["x"], cols["y"], cols["v"]
+    return {
+        ("Size", "*", None): float(len(x)),
+        ("Completeness", "x", None): 1.0,
+        ("Mean", "y", None): float(np.mean(y)),
+        ("StandardDeviation", "y", None): float(np.std(y)),
+        ("Minimum", "v", None): float(v.min()),
+        ("Maximum", "v", None): float(v.max()),
+        ("Sum", "v", None): float(v.sum()),
+        ("Correlation", "x,y", None): float(np.corrcoef(x, y)[0, 1]),
+    }
+
+
+def streaming_service(torch, dq, seed: int) -> tuple:
+    """Phase 8: (a) the stacked kernels at two group shapes; (b) the
+    coalesced run of 1,000 sessions x 2 x 4,096 rows and (c) the same run
+    with serial folds, every session's metrics bit for bit; (d) 100
+    sessions x 2 x 65,536 rows, coalesced and serial, held likewise; (e)
+    16 of (b)'s sessions re-run on the CPU (counts, HLL and KLL bit for
+    bit, moments within 1e-12), and numpy's exact metrics and KLL ranks.
+    Returns the stacked kernels' measurements at (b)'s group shape and
+    (b)'s launches."""
+    t0 = time.perf_counter()
+    table = build_stream_table(STREAM_SESSIONS, STREAM_BATCHES, STREAM_ROWS, STREAM_SEED + seed)
+    large = build_stream_table(STREAM_LARGE_SESSIONS, STREAM_BATCHES, STREAM_LARGE_ROWS,
+                               STREAM_SEED + 1 + seed)
+    print(f"[stream data] {table.num_rows} + {large.num_rows} rows in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    measured = check_stacked_kernels(torch, dq, table, STREAM_ROWS)
+    check_stacked_kernels(torch, dq, large, STREAM_LARGE_ROWS)
+
+    coalesced, _, launches = stream_run(torch, dq, table, STREAM_SESSIONS, STREAM_ROWS, True,
+                                        label="stream (b) coalesced", kernels=STREAM_KERNELS)
+    serial, _, _ = stream_run(torch, dq, table, STREAM_SESSIONS, STREAM_ROWS, False,
+                              label="stream (c) serial", kernels=("scan_reduce", "state_fold"))
+    problems = [f"(c) session {i}: {p}" for i, (g, w) in enumerate(zip(coalesced, serial))
+                for p in compare_metrics(g, w, 0.0)]
+    big_c, _, _ = stream_run(torch, dq, large, STREAM_LARGE_SESSIONS, STREAM_LARGE_ROWS, True,
+                             label="stream (d) coalesced", kernels=STREAM_KERNELS)
+    big_s, _, _ = stream_run(torch, dq, large, STREAM_LARGE_SESSIONS, STREAM_LARGE_ROWS, False,
+                             label="stream (d) serial", kernels=("scan_reduce", "state_fold"))
+    problems += [f"(d) session {i}: {p}" for i, (g, w) in enumerate(zip(big_c, big_s))
+                 for p in compare_metrics(g, w, 0.0)]
+    cpu, _, _ = stream_run(torch, dq, table, STREAM_CPU_SESSIONS, STREAM_ROWS, True,
+                           device="cpu", label="stream (e) on the CPU")
+    problems += [f"(e) session {i}: {p}" for i, (g, w) in enumerate(zip(coalesced, cpu))
+                 for p in compare_metrics(g, w)]
+    worst = 0.0
+    for i in range(STREAM_CPU_SESSIONS):
+        problems += [f"(e) session {i} oracle: {p}"
+                     for p in compare_oracle(coalesced[i], _stream_oracle(table, i, STREAM_ROWS))]
+        v = np.concatenate([stream_slice(table, i, b, STREAM_ROWS).column("v").to_numpy()
+                            for b in range(STREAM_BATCHES)])
+        items = np.sort(v.astype(np.float32))
+        worst = max(worst, _rank_error(items, coalesced[i][("ApproxQuantile-0.5", "v", None)], 0.5))
+    if worst > STREAM_KLL_RANK_LIMIT:
+        problems.append(f"(e) KLL median rank error {worst} above {STREAM_KLL_RANK_LIMIT}")
+    if problems:
+        raise AssertionError("phase 8 disagrees:\n" + "\n".join(problems[:40]))
+    print(f"[stream metrics] (b) = (c) for {STREAM_SESSIONS} sessions and (d) coalesced = "
+          f"serial for {STREAM_LARGE_SESSIONS}, bit for bit; {STREAM_CPU_SESSIONS} sessions "
+          f"equal their CPU run and the oracle; largest KLL median rank error {worst:.6f} "
+          f"(limit {STREAM_KLL_RANK_LIMIT})", flush=True)
+    return measured, launches
+
+
 def _nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2392,6 +2779,8 @@ def main(argv=None) -> int:
     ingest_launches = host_tier_profile(torch, dq, lineitem, ingest_sketches)
     del lineitem
     fold_measured, fold_launches = incremental_path(torch, dq, args.seed)
+    # phase 8: the streaming service
+    stacked_measured, stream_launches = streaming_service(torch, dq, args.seed)
 
     # K1-K3 as the verification path runs them, K4 and K5 as the profile
     # path does (the verification path runs no sketch); each with the
@@ -2423,6 +2812,8 @@ def main(argv=None) -> int:
     kernels.append(row("state_fold", fold_measured, fold_launches))
     kernels.append(row("state_fold_carry", carry_measured, host_launches))
     kernels.append(row("kll_compact_ingest", ingest_measured, ingest_launches))
+    # the stacked entries at (b)'s group shape, with (b)'s launches
+    kernels += [row(name, stacked_measured, stream_launches) for name in STACKED_KERNELS]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -439,6 +439,19 @@ class ScanShareableAnalyzer(Analyzer[S, M]):
         out_i, out_f = scan_reduce([resolve_slot(spec, features)], features["rows"])
         return self.fold_slot(state, partials(out_i, out_f, 0))
 
+    def update_stacked(self, features: Dict[str, torch.Tensor], width: int,
+                       device) -> List[S]:
+        """W sessions' batch states of an analyzer with a kernel of its own,
+        from ``[W, n]`` features (the streaming service's coalesced fold):
+        by default its one-batch ``update`` of a fresh state, once per
+        session, on that session's row of each feature. Analyzers with a
+        stacked kernel launch it once instead."""
+        keys = [spec.key for spec in self.feature_specs()]
+        return [
+            self.update(self.init_state(device), {k: features[k][w] for k in keys})
+            for w in range(width)
+        ]
+
     def _where_key(self) -> Optional[str]:
         """Feature key of this analyzer's where-filter (the
         `conditionalSelection` analog, reference `analyzers/Analyzer.scala:

@@ -822,10 +822,14 @@ MAXIMUM_ALLOWED_DETAIL_BINS = 1000  # reference `analyzers/Histogram.scala:109`
 class Histogram(Analyzer[FrequenciesAndNumRows, HistogramMetric]):
     """Exact value histogram of one dictionary-encoded column: values cast
     to string, nulls replaced by "NullValue", top-K detail bins by count
-    (reference `analyzers/Histogram.scala:41-116`, without its binning
-    function). Its counts come from the device frequency scan."""
+    (reference `analyzers/Histogram.scala:41-116`). Its counts come from the
+    device frequency scan. The fields are the JAX reference's, in its order
+    (so reprs, equality and persisted state keys agree); a ``binning_func``
+    is the reference's non-dictionary path, which the runner does not run
+    yet (it raises, naming ROADMAP A1c)."""
 
     column: str = ""
+    binning_func: Optional[Callable] = None
     max_detail_bins: int = MAXIMUM_ALLOWED_DETAIL_BINS
     name: str = field(default="Histogram", init=False)
 

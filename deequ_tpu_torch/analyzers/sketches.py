@@ -27,7 +27,7 @@ from ..exceptions import (
     wrap_if_necessary,
 )
 from ..expr import Predicate
-from ..kernels.hll_registers import hll_registers
+from ..kernels.hll_registers import hll_registers, hll_registers_stacked
 from ..metrics import (
     BucketDistribution,
     BucketValue,
@@ -108,6 +108,19 @@ class ApproxCountDistinct(StandardScanShareableAnalyzer[ApproxCountDistinctState
             features[mask_feature(self.column).key],
         )
         return ApproxCountDistinctState(torch.maximum(state.registers, batch_regs))
+
+    def update_stacked(self, features, width: int, device) -> List[ApproxCountDistinctState]:
+        """W sessions' registers in one ``hll_registers_stacked`` launch;
+        each row is what :meth:`update` gives a fresh state (the registers
+        are non-negative, so the max with the empty state is the row)."""
+        key = self._where_key()
+        regs = hll_registers_stacked(
+            features[hll_feature(self.column).key],
+            features["rows"],
+            None if key is None else features[key],
+            features[mask_feature(self.column).key],
+        )
+        return [ApproxCountDistinctState(regs[w]) for w in range(width)]
 
     def merge(self, a, b):
         return a.merge(b)

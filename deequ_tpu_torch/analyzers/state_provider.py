@@ -41,7 +41,7 @@ from ..convert import STATE_CLASSES, from_reference, to_reference
 from ..exceptions import CorruptStateError, UnsupportedFormatVersionError
 from ..integrity import checksum_bytes, verify_checksum, warn_once_unchecksummed
 from .base import Analyzer
-from .grouping import FrequenciesAndNumRows, Histogram
+from .grouping import FrequenciesAndNumRows
 from .states import leaves as state_leaves, tensor_fields, with_leaves
 
 #: version of the persisted layout; the loader refuses newer versions
@@ -128,16 +128,6 @@ def _sanitize_namespace_part(part: str) -> str:
     return safe
 
 
-def state_key_repr(analyzer: Analyzer) -> str:
-    """The analyzer's identity as the reference spells it, from which both
-    packages derive a state's file name. Only Histogram differs: the port
-    has no binning function, whose ``None`` the reference's repr shows."""
-    if isinstance(analyzer, Histogram):
-        return (f"Histogram(column={analyzer.column!r}, binning_func=None, "
-                f"max_detail_bins={analyzer.max_detail_bins!r}, name={analyzer.name!r})")
-    return repr(analyzer)
-
-
 def copy_state(state: Any) -> Any:
     """A copy that shares no buffer with ``state``: kernels write some
     state buffers in place (a frequency table's key buffer), so a kept
@@ -208,7 +198,9 @@ class FileSystemStateProvider(StateLoader, StatePersister):
         dio.makedirs(path)
 
     def _key(self, analyzer: Analyzer) -> str:
-        digest = hashlib.sha1(state_key_repr(analyzer).encode("utf-8")).hexdigest()[:16]
+        # the repr is the reference's (same classes, fields and order), so
+        # both packages name a state's file alike
+        digest = hashlib.sha1(repr(analyzer).encode("utf-8")).hexdigest()[:16]
         return f"{analyzer.name}-{digest}"
 
     def persist(self, analyzer: Analyzer, state: Any) -> None:

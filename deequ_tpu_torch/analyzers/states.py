@@ -426,3 +426,61 @@ class ApproxCountDistinctState:
         from ..ops.hll import estimate_cardinality
 
         return estimate_cardinality(self.registers.cpu().numpy())
+
+
+#: State classes whose merge with the IDENTITY state is bit-transparent:
+#: ``merge(init(), s) == s`` leaf for leaf, by construction of the merge
+#: (the reference's set, deequ_tpu/analyzers/states.py:477):
+#:
+#: - integer adds against 0 (NumMatches, NumMatchesAndCount,
+#:   DataTypeHistogram, FrequencyCountsState) are exact;
+#: - float adds against +0.0 (MeanState, SumState totals) return the other
+#:   operand's bits;
+#: - ``min_nan_largest(NaN, x) == x`` and ``max_nan(-inf, x) == x``
+#:   (MinState, MaxState);
+#: - an elementwise max against 0 returns the non-negative HLL registers.
+#:
+#: The streaming fast path (service.coalesce) relies on this: a
+#: micro-batch's host partial IS the batch's folded state, so merging it
+#: into the session's persisted states reproduces the serial fold bit for
+#: bit. StandardDeviationState and CorrelationState are absent: their
+#: merges recompute ``avg = (avg * n) / n`` against the identity, which
+#: rounds, so they fold through the device path.
+IDENTITY_TRANSPARENT_STATES = frozenset({
+    NumMatches,
+    NumMatchesAndCount,
+    MeanState,
+    SumState,
+    MinState,
+    MaxState,
+    DataTypeHistogram,
+    ApproxCountDistinctState,
+    FrequencyCountsState,
+})
+
+
+def identity_merge_transparent(state_cls: type) -> bool:
+    """Whether ``merge(init(), s)`` returns ``s``'s exact bits for this
+    state class (see :data:`IDENTITY_TRANSPARENT_STATES`)."""
+    return state_cls in IDENTITY_TRANSPARENT_STATES
+
+
+def host_merge(a, b):
+    """The semigroup merge of two identity-transparent states on the host:
+    both are brought to the CPU and merged with the class's own ``merge``
+    (elementwise IEEE operations, so the bits are those of the merge on any
+    device and of ``state_fold``). The streaming fast path merges with it,
+    launching nothing. Raises ``TypeError`` for other classes, whose
+    merges fold through ``merge_states_batched``."""
+    cls = type(a)
+    if cls is not type(b):
+        raise TypeError(f"cannot host-merge {cls.__name__} with {type(b).__name__}")
+    if cls not in IDENTITY_TRANSPARENT_STATES:
+        raise TypeError(
+            f"{cls.__name__} is not identity-merge transparent; merge it "
+            "through merge_states_batched"
+        )
+    cpu = torch.device("cpu")
+    a_cpu = with_leaves(a, [t.to(cpu) for t in leaves(a)])
+    b_cpu = with_leaves(b, [t.to(cpu) for t in leaves(b)])
+    return a_cpu.merge(b_cpu)

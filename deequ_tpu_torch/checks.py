@@ -149,14 +149,18 @@ class Check:
             columns = [columns]
         return self.add_constraint(C.unique_value_ratio_constraint(columns, assertion, hint))
 
-    def has_number_of_distinct_values(self, column, assertion, max_bins=None, hint=None) -> "Check":
+    def has_number_of_distinct_values(
+        self, column, assertion, binning_func=None, max_bins=None, hint=None
+    ) -> "Check":
         return self.add_constraint(
-            C.histogram_bin_constraint(column, assertion, max_bins, hint=hint)
+            C.histogram_bin_constraint(column, assertion, binning_func, max_bins, hint=hint)
         )
 
-    def has_histogram_values(self, column, assertion, max_bins=None, hint=None) -> "Check":
+    def has_histogram_values(
+        self, column, assertion, binning_func=None, max_bins=None, hint=None
+    ) -> "Check":
         return self.add_constraint(
-            C.histogram_constraint(column, assertion, max_bins, hint=hint)
+            C.histogram_constraint(column, assertion, binning_func, max_bins, hint=hint)
         )
 
     def kll_sketch_satisfies(self, column, assertion, kll_parameters=None, hint=None) -> "Check":

@@ -234,18 +234,20 @@ def entropy_constraint(column, assertion, hint=None) -> Constraint:
     return NamedConstraint(inner, f"EntropyConstraint({analyzer})")
 
 
-def histogram_constraint(column, assertion, max_bins=None, hint=None) -> Constraint:
+def histogram_constraint(column, assertion, binning_func=None, max_bins=None,
+                         hint=None) -> Constraint:
     kwargs = {} if max_bins is None else {"max_detail_bins": max_bins}
-    analyzer = Histogram(column, **kwargs)
+    analyzer = Histogram(column, binning_func, **kwargs)
     inner = AnalysisBasedConstraint(analyzer, assertion, hint=hint)
     return NamedConstraint(inner, f"HistogramConstraint({analyzer})")
 
 
-def histogram_bin_constraint(column, assertion, max_bins=None, hint=None) -> Constraint:
+def histogram_bin_constraint(column, assertion, binning_func=None, max_bins=None,
+                             hint=None) -> Constraint:
     """Assertion over the number of distinct bins
     (reference `histogramBinConstraint`)."""
     kwargs = {} if max_bins is None else {"max_detail_bins": max_bins}
-    analyzer = Histogram(column, **kwargs)
+    analyzer = Histogram(column, binning_func, **kwargs)
     inner = AnalysisBasedConstraint(
         analyzer, assertion, value_picker=lambda d: float(d.number_of_bins), hint=hint
     )

@@ -41,6 +41,60 @@ class EmptyStateException(MetricCalculationRuntimeException):
     """All input values were null/filtered — no state to finalize."""
 
 
+class DeviceFailureException(MetricCalculationRuntimeException):
+    """The device tier failed for infrastructure reasons (a CUDA error, a
+    lost device) rather than anything about the data or the analyzer."""
+
+
+class DeviceOOMException(DeviceFailureException):
+    """The device ran out of memory executing a pass."""
+
+
+class PoisonedBatchException(MetricCalculationRuntimeException):
+    """A specific input batch cannot be processed. Carries the batch index
+    so operators can quarantine the slice."""
+
+    def __init__(self, batch_index: int, message: str = ""):
+        self.batch_index = batch_index
+        super().__init__(
+            f"batch {batch_index} is poisoned{': ' + message if message else ''}"
+        )
+
+
+class AnalyzerFaultException(MetricCalculationRuntimeException):
+    """A fault attributable to ONE analyzer inside a fused battery."""
+
+
+class SchemaDriftError(MetricCalculationRuntimeException):
+    """A streaming micro-batch's schema drifted from the session's
+    :class:`~deequ_tpu_torch.service.drift.SchemaContract` (column added,
+    dropped or retyped beyond a compatible widening). Raised BEFORE the
+    batch folds, so persisted states are never contaminated by
+    mixed-schema merges. Carries the structured drift list."""
+
+    def __init__(self, session: str, drifts):
+        self.session = session
+        self.drifts = list(drifts)
+        super().__init__(
+            f"schema drift in session {session}: " + "; ".join(self.drifts)
+        )
+
+
+class ScanStallError(DeviceFailureException):
+    """A pass exceeded its watchdog deadline without finishing or failing.
+    The port has no watchdog yet (ROADMAP A6); the service's scheduler
+    retries this type, as the reference's does."""
+
+    def __init__(self, site: str, deadline_s: float, waited_s: float):
+        self.site = site
+        self.deadline_s = deadline_s
+        self.waited_s = waited_s
+        super().__init__(
+            f"scan watchdog: {site} pass exceeded its {deadline_s:.1f}s "
+            f"deadline (waited {waited_s:.1f}s)"
+        )
+
+
 def wrap_if_necessary(exception: BaseException) -> MetricCalculationException:
     """Wrap arbitrary errors into the taxonomy
     (reference `MetricCalculationException.scala:70-78`)."""

@@ -9,11 +9,16 @@ PyTorch's current stream; there is no fallback between the two.
 Every wrapper adds one to its launch count where it launches its kernel,
 so a run can show that its main path went through the kernels. The host
 ingest tier's entries of ``state_fold`` and ``kll_compact`` count under
-``state_fold_carry`` and ``kll_compact_ingest``."""
+``state_fold_carry`` and ``kll_compact_ingest``, and the streaming
+service's stacked entries of ``scan_reduce`` and ``hll_registers`` (one
+launch for a group of sessions) under ``scan_reduce_stacked`` and
+``hll_registers_stacked``. The counts are safe to bump from the service's
+worker threads."""
 
 from __future__ import annotations
 
-from typing import Dict
+import threading
+from typing import Dict, Tuple, Union
 
 import torch
 
@@ -22,23 +27,29 @@ KERNEL_NAMES = (
     "freq_keys", "freq_compact", "state_fold",
     # the host ingest tier's entries of two of them, counted apart
     "state_fold_carry", "kll_compact_ingest",
+    # the streaming service's stacked (coalesced) entries, counted apart
+    "scan_reduce_stacked", "hll_registers_stacked",
 )
 
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return dict(_LAUNCHES)
+    with _LAUNCHES_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
 
 
 def count_launch(name: str) -> None:
-    _LAUNCHES[name] += 1
+    with _LAUNCHES_LOCK:
+        _LAUNCHES[name] += 1
 
 
 def check_status(name: str, status: int) -> None:
@@ -59,13 +70,14 @@ def on_cuda(t: torch.Tensor, name: str) -> bool:
 
 
 def check_tensor(t: torch.Tensor, name: str, what: str, dtype: torch.dtype,
-                 n: int, device: torch.device) -> None:
-    """Validate a 1-D input of ``n`` elements before its pointer goes to a
-    kernel."""
+                 n: Union[int, Tuple[int, ...]], device: torch.device) -> None:
+    """Validate an input of ``n`` elements (or of shape ``n``, a tuple)
+    before its pointer goes to a kernel."""
+    shape = n if isinstance(n, tuple) else (n,)
     if t.dtype != dtype:
         raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
-    if t.dim() != 1 or t.shape[0] != n:
-        raise ValueError(f"{name}: {what} must have shape ({n},), got {tuple(t.shape)}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: {what} must have shape {shape}, got {tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name}: {what} is on {t.device}, expected {device}")
     if not t.is_contiguous():

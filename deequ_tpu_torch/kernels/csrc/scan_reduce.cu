@@ -38,6 +38,18 @@
 // chunk from L1/L2, not from device memory. The second pass of the two-pass
 // moments re-reads the chunk the same way.
 //
+// Sessions (the stacked entry, replacing the coalesced fold of the JAX
+// reference: PackedScanProgram.init_carry_stacked :490,
+// call_with_slots_stacked :501 and unpack_stacked_final :514, a jax.vmap of
+// fused_update over a leading session axis, driven by
+// fold_sessions_coalesced :818): one launch reduces W sessions' batches of
+// n rows each. Every array of the slot table and the row mask is a [W, n]
+// row-major tensor; blockIdx.y is the session, whose rows start at w * n.
+// The block partition of a session's rows and the fold order of its
+// partials are those of a launch over that session alone (W = 1 is the
+// single-batch launch), so each session's outputs equal a one-session
+// launch over its batch bit for bit.
+//
 // Determinism: no float atomics. Blocks write per-slot partials; a second
 // launch, one block per slot, folds them in a fixed order (each thread a
 // stride of blocks in order, then a tree across its threads): counts and
@@ -81,6 +93,25 @@ struct SrSlot {
 struct SrTable {
   SrSlot s[SR_MAX_SLOTS];
 };
+
+// the slot as it reads session w's rows: every array advanced by w * n
+// elements of its own width
+__device__ __forceinline__ SrSlot sr_session_slot(SrSlot s, long long off) {
+  if (s.vals != nullptr) {
+    s.vals = (const char*)s.vals + off * (s.vals_i32 ? 4 : 8);
+  }
+  if (s.where != nullptr) s.where += off;
+  if (s.sel != nullptr) s.sel += off;
+  if (s.vals2 != nullptr) s.vals2 += off;
+  if (s.sel2 != nullptr) s.sel2 += off;
+  return s;
+}
+
+// index of this block's partials of slot s: the session's blocks, then
+// the block, then the slot
+__device__ __forceinline__ long long sr_part(int s, int n_slots) {
+  return ((long long)blockIdx.y * gridDim.x + blockIdx.x) * n_slots + s;
+}
 
 struct SrAcc {
   long long base;    // rows & where
@@ -149,7 +180,7 @@ __device__ void sr_class_counts(const SrSlot& slot, const uint8_t* __restrict__ 
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    const long long o = (long long)blockIdx.x * n_slots + s;
+    const long long o = sr_part(s, n_slots);
     long long matches = 0;
     for (int c = 0; c < SR_CLASSES; ++c) {
       long long t = 0;
@@ -262,7 +293,7 @@ __device__ void sr_comoments(const SrSlot& slot, const uint8_t* __restrict__ row
     }
   }
   if (threadIdx.x == 0) {
-    const long long o = (long long)blockIdx.x * n_slots + s;
+    const long long o = sr_part(s, n_slots);
     part_i[o * SR_IWIDTH + 0] = blk_sel;
     part_i[o * SR_IWIDTH + 1] = blk_base;
     for (int c = 0; c < SR_CLASSES; ++c) part_i[o * SR_IWIDTH + 2 + c] = 0;
@@ -290,9 +321,11 @@ scan_reduce_blocks(const SrTable table, int n_slots,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long start = (long long)blockIdx.x * SR_CHUNK;
+  const long long off = (long long)blockIdx.y * n;  // the session's rows
+  rows += off;
 
   for (int s = 0; s < n_slots; ++s) {
-    const SrSlot slot = table.s[s];
+    const SrSlot slot = sr_session_slot(table.s[s], off);
     if (slot.kind == SR_KIND_CLASSES) {
       sr_class_counts(slot, rows, n, start, s, n_slots, warp_cls, part_i, part_f);
       continue;
@@ -370,7 +403,7 @@ scan_reduce_blocks(const SrTable table, int n_slots,
     }
 
     if (threadIdx.x == 0) {
-      const long long o = (long long)blockIdx.x * n_slots + s;
+      const long long o = sr_part(s, n_slots);
       part_i[o * SR_IWIDTH + 0] = blk.sel;
       part_i[o * SR_IWIDTH + 1] = blk.base;
       for (int c = 0; c < SR_CLASSES; ++c) part_i[o * SR_IWIDTH + 2 + c] = 0;
@@ -417,7 +450,8 @@ __device__ __forceinline__ void sr_fold_merge(SrFold& a, const SrFold& b, bool c
   if (b.mom.n != 0.0) a.mom = a.mom.n == 0.0 ? b.mom : dq_merge_moments(a.mom, b.mom);
 }
 
-// One block per slot folds the block partials: each thread folds the
+// One block per slot and session (blockIdx.x the slot, blockIdx.y the
+// session) folds the session's block partials: each thread folds the
 // blocks t, t + SR_FOLD_THREADS, ... in order, then the threads' folds
 // merge in a fixed tree in shared memory. The same order on every run.
 __global__ void __launch_bounds__(SR_FOLD_THREADS)
@@ -428,10 +462,11 @@ scan_reduce_fold(const SrTable table, int n_blocks, int n_slots,
                  double* __restrict__ out_f) {
   __shared__ SrFold acc[SR_FOLD_THREADS];
   const int s = blockIdx.x;
+  const long long w = blockIdx.y;
   const bool comoments = table.s[s].kind == SR_KIND_COMOMENTS;
   SrFold a = sr_fold_identity();
   for (int b = threadIdx.x; b < n_blocks; b += SR_FOLD_THREADS) {
-    const long long o = (long long)b * n_slots + s;
+    const long long o = (w * n_blocks + b) * n_slots + s;
     const double* pf = part_f + o * 5;
     SrFold p = sr_fold_identity();
     for (int c = 0; c < SR_IWIDTH; ++c) p.i[c] = part_i[o * SR_IWIDTH + c];
@@ -456,6 +491,8 @@ scan_reduce_fold(const SrTable table, int n_blocks, int n_slots,
   }
   if (threadIdx.x != 0) return;
   const SrFold& r = acc[0];
+  out_i += w * n_slots * SR_IWIDTH;
+  out_f += w * n_slots * 5;
   for (int c = 0; c < SR_IWIDTH; ++c) out_i[s * SR_IWIDTH + c] = r.i[c];
   if (comoments) {
     out_f[s * 5 + 0] = r.co.x_avg;
@@ -481,14 +518,16 @@ extern "C" int scan_reduce_num_blocks(long long n) {
   return b < 1 ? 1 : (int)b;
 }
 
-// part_i: int64[num_blocks * n_slots * 7], part_f: float64[num_blocks *
-// n_slots * 5] scratch; out_i: int64[n_slots * 7]; out_f: float64[n_slots * 5]
-extern "C" int scan_reduce_launch(const SrSlot* slots, int n_slots,
-                                  const uint8_t* rows, long long n,
-                                  long long* part_i, double* part_f,
-                                  long long* out_i, double* out_f,
-                                  void* stream) {
-  if (n_slots < 1 || n_slots > SR_MAX_SLOTS || n < 0) {
+// W sessions of n rows each (W = 1: one batch). part_i:
+// int64[W * num_blocks * n_slots * 7], part_f: float64[W * num_blocks *
+// n_slots * 5] scratch; out_i: int64[W, n_slots, 7]; out_f:
+// float64[W, n_slots, 5]
+extern "C" int scan_reduce_stacked_launch(const SrSlot* slots, int n_slots,
+                                          const uint8_t* rows, long long n,
+                                          int width, long long* part_i,
+                                          double* part_f, long long* out_i,
+                                          double* out_f, void* stream) {
+  if (n_slots < 1 || n_slots > SR_MAX_SLOTS || n < 0 || width < 1 || width > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   SrTable table;
@@ -496,11 +535,11 @@ extern "C" int scan_reduce_launch(const SrSlot* slots, int n_slots,
   memcpy(table.s, slots, sizeof(SrSlot) * (size_t)n_slots);
   const int nb = scan_reduce_num_blocks(n);
   cudaStream_t st = (cudaStream_t)stream;
-  scan_reduce_blocks<<<nb, SR_THREADS, 0, st>>>(table, n_slots, rows, n,
-                                                part_i, part_f);
+  scan_reduce_blocks<<<dim3(nb, width), SR_THREADS, 0, st>>>(table, n_slots, rows, n,
+                                                             part_i, part_f);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  scan_reduce_fold<<<n_slots, SR_FOLD_THREADS, 0, st>>>(table, nb, n_slots, part_i, part_f,
-                                                        out_i, out_f);
+  scan_reduce_fold<<<dim3(n_slots, width), SR_FOLD_THREADS, 0, st>>>(
+      table, nb, n_slots, part_i, part_f, out_i, out_f);
   return (int)cudaGetLastError();
 }

@@ -30,18 +30,20 @@ def max_nan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def masked_min(v: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """Min of ``v[keep]``, which holds no NaN; +inf when nothing is kept."""
-    inf = torch.full((), float("inf"), dtype=v.dtype, device=v.device)
-    mn = torch.where(keep, v, inf).amin() if v.numel() else inf
-    neg_zero = (keep & (v == 0) & torch.signbit(v)).any()
+    """Min of ``v[keep]`` over the last axis, which holds no NaN; +inf
+    where nothing is kept."""
+    inf = torch.full(v.shape[:-1], float("inf"), dtype=v.dtype, device=v.device)
+    mn = torch.where(keep, v, float("inf")).amin(dim=-1) if v.shape[-1] else inf
+    neg_zero = (keep & (v == 0) & torch.signbit(v)).any(dim=-1)
     zero = torch.zeros_like(mn)
     return torch.where(mn == 0, torch.where(neg_zero, -zero, zero), mn)
 
 
 def masked_max(v: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """Max of ``v[keep]``, NaN if it holds one; -inf when nothing is kept."""
-    inf = torch.full((), float("inf"), dtype=v.dtype, device=v.device)
-    mx = torch.where(keep, v, -inf).amax() if v.numel() else -inf
-    pos_zero = (keep & (v == 0) & ~torch.signbit(v)).any()
+    """Max of ``v[keep]`` over the last axis, NaN if it holds one; -inf
+    where nothing is kept."""
+    inf = torch.full(v.shape[:-1], float("inf"), dtype=v.dtype, device=v.device)
+    mx = torch.where(keep, v, -float("inf")).amax(dim=-1) if v.shape[-1] else -inf
+    pos_zero = (keep & (v == 0) & ~torch.signbit(v)).any(dim=-1)
     zero = torch.zeros_like(mx)
     return torch.where(mx == 0, torch.where(pos_zero, zero, -zero), mx)

@@ -127,6 +127,8 @@ def serialize_analyzer(analyzer: Analyzer) -> Dict[str, Any]:
                                CountDistinct, Entropy)):
         d["columns"] = list(analyzer.columns)
     elif isinstance(analyzer, Histogram):
+        if analyzer.binning_func is not None:
+            raise SerializationError("Histogram with binning function is not serializable")
         d["column"] = analyzer.column
         d["maxDetailBins"] = analyzer.max_detail_bins
     else:
@@ -175,7 +177,7 @@ def deserialize_analyzer(d: Dict[str, Any]) -> Analyzer:
         }[name]
         return cls(tuple(d["columns"]))
     if name == "Histogram":
-        return Histogram(d["column"], d["maxDetailBins"])
+        return Histogram(d["column"], None, d["maxDetailBins"])
     raise SerializationError(f"Unable to deserialize analyzer {name}")
 
 

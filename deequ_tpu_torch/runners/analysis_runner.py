@@ -87,6 +87,7 @@ from .engine import (
     PLACEMENTS,
     RunMonitor,
     ScanEngine,
+    default_placement,
     effective_batch_size,
     probe_feed_bandwidth,
     resolve_scan_placement,
@@ -206,6 +207,8 @@ class AnalysisRunner:
             elif isinstance(a, GroupingAnalyzer):
                 grouping_sets.setdefault(tuple(a.grouping_columns()), []).append(a)
             elif isinstance(a, Histogram):
+                if a.binning_func is not None:
+                    raise _not_in_slice(a, "a binning function is queued in ROADMAP A1c")
                 if data.dictionary_size(a.column) is None:
                     raise _not_in_slice(a, f"column {a.column} is not dictionary-encoded")
                 histograms.append(a)
@@ -391,7 +394,7 @@ def _device_tier_expected(scanning: Sequence[ScanShareableAnalyzer], placement: 
     fast link or when the caller asked for the device."""
     if scanning:
         return resolve_scan_placement(scanning, placement, device) == "device"
-    effective = placement or "auto"
+    effective = default_placement(placement)
     if effective != "auto":
         return effective == "device"
     return probe_feed_bandwidth(device) >= FEED_BANDWIDTH_THRESHOLD_MBPS

@@ -15,9 +15,11 @@ reference's ``ScanEngine`` does (deequ_tpu/runners/engine.py:1893, 2223):
 - ``"auto"`` (the default) probes the host-to-device link once per process
   and takes the host tier below 500 MB/s.
 
-Per pass the states come to the host once. The reliability wrapper, the
-watchdog, checkpoints, the mesh, the elastic fold and the coalesced path
-are not part of the port, and a device failure raises.
+Per pass the states come to the host once. The streaming service's
+coalesced fold (:func:`fold_sessions_coalesced`) folds W sessions'
+single batches with one stacked launch per kernel. The reliability
+wrapper, the watchdog, checkpoints, the mesh and the elastic fold are not
+part of the port, and a device failure raises.
 """
 
 from __future__ import annotations
@@ -44,12 +46,13 @@ from ..analyzers.base import (
     unpack_states,
 )
 from ..analyzers.states import FrequencyTableState, leaves as state_leaves, with_leaves
-from ..config import DEFAULT_BATCH_SIZE, synchronize
+from ..config import DEFAULT_BATCH_SIZE, DeviceLike, synchronize
 from ..data import Dataset
 from ..kernels.kll_compact import kll_compact_ingest
-from ..kernels.scan_reduce import MAX_SLOTS, partials, scan_reduce
+from ..kernels.scan_reduce import MAX_SLOTS, partials, scan_reduce, scan_reduce_stacked
 from ..kernels.state_fold import state_fold_carry
 from ..ops.kll import KLLSketchState
+from ..utils import BoundedLRU
 from .features import FeatureBuilder
 
 
@@ -71,10 +74,21 @@ class RunMonitor:
     is the tier of the last pass, ``feed_bandwidth_mbps`` the link probe's
     reading where ``"auto"`` probed, ``ingest_folds`` the host tier's chunk
     folds and ``pattern_routes`` how the pass's pattern matches ran
-    (``"pcre2"`` or Python's ``"re"``)."""
+    (``"pcre2"`` or Python's ``"re"``).
+
+    The streaming service reads the rest: ``device_updates`` (batches the
+    device tier folded), ``fast_path_folds`` and ``coalesced_folds`` (its
+    two coalescing routes), ``cost_by_analyzer`` (seconds by analyzer
+    repr, exported per tenant), and the reliability counters its scheduler
+    harvests (``device_failovers``, ``batch_bisections``,
+    ``isolation_reruns``, ``stalls``, ``device_stalls``, ``degraded``),
+    which stay 0 and empty: the port has no reliability wrapper."""
 
     passes: int = 0
     batches: int = 0
+    device_updates: int = 0
+    fast_path_folds: int = 0
+    coalesced_folds: int = 0
     device: Optional[str] = None
     device_freq_sets: int = 0
     freq_overflow_fallbacks: int = 0
@@ -83,11 +97,50 @@ class RunMonitor:
     ingest_folds: int = 0
     pattern_routes: Dict[str, int] = field(default_factory=dict)
     phase_seconds: Dict[str, float] = field(default_factory=dict)
+    cost_by_analyzer: Dict[str, float] = field(default_factory=dict)
+    device_failovers: int = 0
+    batch_bisections: int = 0
+    isolation_reruns: int = 0
+    stalls: int = 0
+    device_stalls: int = 0
+    degraded: List[str] = field(default_factory=list)
     _lock: Any = field(default_factory=threading.Lock, repr=False, compare=False)
+
+    #: the counters :meth:`merge_from` adds up
+    _COUNTERS = (
+        "passes", "batches", "device_updates", "fast_path_folds", "coalesced_folds",
+        "device_freq_sets", "freq_overflow_fallbacks", "ingest_folds",
+        "device_failovers", "batch_bisections", "isolation_reruns", "stalls",
+        "device_stalls",
+    )
 
     def add_phase_time(self, phase: str, seconds: float) -> None:
         with self._lock:
             self.phase_seconds[phase] = self.phase_seconds.get(phase, 0.0) + seconds
+
+    def bump(self, field_name: str, by: int = 1) -> None:
+        """Locked counter increment (``+=`` on a dataclass int is not
+        atomic across the service's worker threads)."""
+        with self._lock:
+            setattr(self, field_name, getattr(self, field_name) + by)
+
+    def merge_from(self, other: "RunMonitor") -> None:
+        """Absorb another monitor's counters and phase times: the service
+        records a fold's costs into a fold-local monitor while the fold
+        runs inside another job's launch, and the fold's own job absorbs
+        them here once."""
+        with self._lock:
+            for name in self._COUNTERS:
+                setattr(self, name, getattr(self, name) + getattr(other, name))
+            for phase, seconds in other.phase_seconds.items():
+                self.phase_seconds[phase] = self.phase_seconds.get(phase, 0.0) + seconds
+            for key, seconds in other.cost_by_analyzer.items():
+                self.cost_by_analyzer[key] = self.cost_by_analyzer.get(key, 0.0) + seconds
+            self.degraded.extend(other.degraded)
+            if other.placement is not None:
+                self.placement = other.placement
+            if other.device is not None:
+                self.device = other.device
 
     def timed(self, phase: str) -> "_PhaseTimer":
         return _PhaseTimer(self, phase)
@@ -112,10 +165,22 @@ class BundledScanProgram:
     scalar reduction share ``scan_reduce`` launches: their slots are
     deduplicated and cut into bundles of at most ``MAX_SLOTS``, one launch
     per bundle per batch (for the usual battery, one launch in all). The
-    other analyzers (HLL, dictionary counts) launch their own kernel."""
+    other analyzers (HLL, dictionary counts) launch their own kernel.
+
+    ``feature_keys`` lists the feature arrays the battery reads, ``rows``
+    first, in order of first use, and ``layout`` is the battery's launch
+    structure written over their positions: the slot table of each
+    bundle, each analyzer's slot, and the positions each kernel-of-its-own
+    analyzer reads. Two batteries with equal layouts (and equal analyzer
+    signatures) stack position by position into one coalesced launch
+    (:func:`fold_sessions_coalesced`); equal per-analyzer signatures alone
+    do not suffice, since slots deduplicate (Mean("a") and Sum("a") share
+    one, Mean("a") and Sum("b") do not). ``executed`` turns True once the
+    battery has launched in this process: the service's warmth."""
 
     def __init__(self, analyzers: Sequence[ScanShareableAnalyzer]):
         self.analyzers = tuple(analyzers)
+        self.executed = False
         slot_index: Dict[SlotSpec, int] = {}
         #: per analyzer: its slot's index, or None for a kernel of its own
         self.slot_of: List[Optional[int]] = []
@@ -129,6 +194,19 @@ class BundledScanProgram:
         self.bundles: List[List[SlotSpec]] = [
             specs[i:i + MAX_SLOTS] for i in range(0, len(specs), MAX_SLOTS)
         ]
+        position: Dict[str, int] = {"rows": 0}
+
+        def at(key: Optional[str]) -> Optional[int]:
+            return None if key is None else position.setdefault(key, len(position))
+
+        self.layout = (
+            tuple(tuple((spec[0],) + tuple(at(k) for k in spec[1:]) for spec in bundle)
+                  for bundle in self.bundles),
+            tuple(self.slot_of),
+            tuple(None if slot is not None else tuple(at(f.key) for f in a.feature_specs())
+                  for a, slot in zip(self.analyzers, self.slot_of)),
+        )
+        self.feature_keys: List[str] = list(position)
 
     def init_states(self, device) -> List[Any]:
         return [a.init_state(device) for a in self.analyzers]
@@ -176,26 +254,33 @@ def _fetch_leaves(state) -> List[torch.Tensor]:
     return leaves
 
 
-def fetch_states(states: Sequence[Any]) -> List[Any]:
-    """Bring every state to the host: small leaves with one copy per leaf
-    dtype (packed into one flat buffer per dtype on the device, copied and
-    split back), large ones (a frequency table, its filled key buffer) with
-    a copy each. Static fields (a sketch's size) stay as they are."""
-    leaves = [leaf for s in states for leaf in _fetch_leaves(s)]
-    host: List[Optional[torch.Tensor]] = [None] * len(leaves)
+def fetch_tensors(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Bring tensors to the host: small ones with one copy per dtype
+    (packed into one flat buffer per dtype on the device, copied and split
+    back), large ones with a copy each. The copies wait for the stream
+    that wrote the tensors."""
+    host: List[Optional[torch.Tensor]] = [None] * len(tensors)
     by_dtype: Dict[torch.dtype, List[int]] = {}
-    for i, leaf in enumerate(leaves):
-        if leaf.numel() >= FETCH_ALONE_ELEMENTS:
-            host[i] = leaf.cpu()
+    for i, t in enumerate(tensors):
+        if t.numel() >= FETCH_ALONE_ELEMENTS:
+            host[i] = t.cpu()
         else:
-            by_dtype.setdefault(leaf.dtype, []).append(i)
+            by_dtype.setdefault(t.dtype, []).append(i)
     for idx in by_dtype.values():
-        flat = torch.cat([leaves[i].reshape(-1) for i in idx]).cpu()
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx]).cpu()
         offset = 0
         for i in idx:
-            numel = leaves[i].numel()
-            host[i] = flat[offset:offset + numel].reshape(leaves[i].shape)
+            numel = tensors[i].numel()
+            host[i] = flat[offset:offset + numel].reshape(tensors[i].shape)
             offset += numel
+    return host
+
+
+def fetch_states(states: Sequence[Any]) -> List[Any]:
+    """Bring every state to the host with :func:`fetch_tensors` (a
+    frequency table's filled key buffer only). Static fields (a sketch's
+    size) stay as they are."""
+    host = fetch_tensors([leaf for s in states for leaf in _fetch_leaves(s)])
     out = []
     pos = 0
     for s in states:
@@ -209,6 +294,9 @@ def fetch_states(states: Sequence[Any]) -> List[Any]:
 #: streaming the batches' features to the device (the reference's
 #: threshold, deequ_tpu/runners/engine.py:1474)
 FEED_BANDWIDTH_THRESHOLD_MBPS = 500.0
+#: env var naming the default ingest tier when a caller passes none (the
+#: reference's knob; "auto" when unset)
+PLACEMENT_ENV = "DEEQU_TPU_PLACEMENT"
 #: host partials folded per device launch (the reference's _INGEST_CHUNK)
 INGEST_CHUNK = 32
 PLACEMENTS = ("auto", "host", "device")
@@ -268,10 +356,11 @@ def resolve_scan_placement(scan_analyzers: Sequence[ScanShareableAnalyzer],
     - a battery with any analyzer without a host partial streams to the
       device whatever the placement;
     - ``"host"`` and ``"device"`` are honoured otherwise;
-    - ``"auto"`` (or None) probes the link: below
-      ``FEED_BANDWIDTH_THRESHOLD_MBPS`` the host tier wins. On the CPU there
-      is no link, and the pass streams to the "device"."""
-    effective = placement or "auto"
+    - ``"auto"`` probes the link: below ``FEED_BANDWIDTH_THRESHOLD_MBPS``
+      the host tier wins. On the CPU there is no link, and the pass streams
+      to the "device";
+    - None reads ``DEEQU_TPU_PLACEMENT``, else ``"auto"``."""
+    effective = default_placement(placement)
     if effective not in PLACEMENTS:
         raise ValueError(f"placement must be one of {PLACEMENTS}, got {placement!r}")
     if not scan_analyzers or not all(a.supports_host_partial for a in scan_analyzers):
@@ -285,6 +374,13 @@ def resolve_scan_placement(scan_analyzers: Sequence[ScanShareableAnalyzer],
         if bw < FEED_BANDWIDTH_THRESHOLD_MBPS:
             return "host"
     return "device"
+
+
+def default_placement(placement: Optional[str]) -> str:
+    """``placement``, or ``DEEQU_TPU_PLACEMENT`` when None, else "auto"."""
+    from ..utils import env_str
+
+    return placement or env_str(PLACEMENT_ENV, "auto")
 
 
 def stack_samples(samples: Sequence[Sequence[Tuple]], width: int,
@@ -409,7 +505,7 @@ class ScanEngine:
         self.builder = FeatureBuilder(
             [s for a in self.scan_analyzers for s in a.feature_specs()]
         )
-        self.program = BundledScanProgram(self.scan_analyzers)
+        self.program = _fused_program(tuple(self.scan_analyzers))
 
     def required_columns(self) -> List[str]:
         return self.builder.required_columns
@@ -463,6 +559,8 @@ class ScanEngine:
                 with monitor.timed("kernels"):
                     states = self.program(states, features)
                     synchronize(self.device)
+                monitor.bump("device_updates")
+                self.program.executed = True
             if host_states:
                 with monitor.timed("host_accumulators"):
                     for key, fn in host_update_fns.items():
@@ -537,3 +635,188 @@ class ScanEngine:
 def effective_batch_size(batch_size: Optional[int] = None) -> int:
     """The rows per batch of a pass (every batch is padded to it)."""
     return int(batch_size or DEFAULT_BATCH_SIZE)
+
+
+# ---------------------------------------------------------------------------
+# The streaming service's hooks: battery programs, warmth, the coalesced fold
+# ---------------------------------------------------------------------------
+
+#: battery -> its BundledScanProgram (analyzers are frozen dataclasses, so
+#: equal batteries share one program and its ``executed`` warmth flag);
+#: LRU-bounded so a service cycling through many batteries does not grow
+_PROGRAM_CACHE = BoundedLRU(256)
+_PROGRAM_CACHE_LOCK = threading.Lock()
+_SCAN_SIG_CACHE = BoundedLRU(4096)
+
+
+def _fused_program(battery: Tuple[ScanShareableAnalyzer, ...]) -> BundledScanProgram:
+    """The cached program of this exact battery (built under a lock, so one
+    instance per battery carries its warmth)."""
+    with _PROGRAM_CACHE_LOCK:
+        program = _PROGRAM_CACHE.get(battery)
+        if program is None:
+            program = BundledScanProgram(battery)
+            _PROGRAM_CACHE[battery] = program
+        return program
+
+
+def _deduped_battery(analyzers) -> Tuple[ScanShareableAnalyzer, ...]:
+    """The scan-shareable subset, deduplicated in first-encounter order
+    (the runner's own normalization), so warmth keys match real runs."""
+    return tuple(dict.fromkeys(a for a in analyzers if isinstance(a, ScanShareableAnalyzer)))
+
+
+def _scan_signature(a: ScanShareableAnalyzer) -> Tuple:
+    """What an analyzer's device update is, independent of its columns:
+    its class, its state's class and leaf shapes and dtypes (a sketch's
+    size), the kinds of its features and the pattern in which its feature
+    keys repeat (a where-filter equal to a predicate collapses positions).
+    Sessions whose batteries agree on every analyzer's signature, and on
+    the battery's layout, can fold in one stacked launch."""
+    sig = _SCAN_SIG_CACHE.get(a)
+    if sig is None:
+        state = a.init_state(torch.device("cpu"))
+        keys = [spec.key for spec in a.feature_specs()]
+        sig = (
+            type(a), type(state),
+            tuple((tuple(t.shape), t.dtype) for t in state_leaves(state)),
+            tuple(spec.kind for spec in a.feature_specs()),
+            tuple(keys.index(k) for k in keys),
+        )
+        _SCAN_SIG_CACHE[a] = sig
+    return sig
+
+
+def fused_program_is_cached(analyzers: Sequence[ScanShareableAnalyzer]) -> bool:
+    """Whether this battery's program has launched in this process (its
+    kernels are then built and loaded): the service's warmth."""
+    program = _PROGRAM_CACHE.get(_deduped_battery(analyzers))
+    return program is not None and program.executed
+
+
+def detached_warm_sample(data: Dataset) -> Dataset:
+    """A 1-row deep copy of the dataset for a background warm: a zero-copy
+    slice would keep the parent table's buffers alive while the warm sits
+    queued. The IPC round trip copies the row and each dictionary
+    column's dictionary."""
+    import pyarrow as pa
+
+    head = data.arrow.slice(0, 1)
+    sink = pa.BufferOutputStream()
+    with pa.ipc.new_stream(sink, head.schema) as writer:
+        writer.write_table(head)
+    table = pa.ipc.open_stream(sink.getvalue()).read_all()
+    return Dataset(table, probe_encoding=False)
+
+
+def warm_fused_program(
+    analyzers: Sequence[Any],
+    data: Dataset,
+    batch_size: Optional[int] = None,
+    device: DeviceLike = None,
+) -> None:
+    """Make a battery warm ahead of its first production run: run the real
+    device-tier pipeline over the first row of ``data`` on ``device``,
+    building the kernels (``nvcc`` compiles them at first use) and
+    launching each once."""
+    from .analysis_runner import AnalysisRunner
+
+    sample = Dataset(data.arrow.slice(0, 1), probe_encoding=False)
+    AnalysisRunner.do_analysis_run(
+        sample, list(analyzers), batch_size=batch_size or DEFAULT_BATCH_SIZE,
+        placement="device", device=device,
+    )
+
+
+def _stack_to_device(arrays: Sequence[np.ndarray], device: torch.device) -> torch.Tensor:
+    """W sessions' arrays of one feature as one ``[W, n]`` tensor on
+    ``device``: written row by row into one pinned host buffer and copied
+    once."""
+    if device.type == "cpu":
+        return torch.from_numpy(np.stack(arrays))
+    first = torch.from_numpy(np.ascontiguousarray(arrays[0]))
+    buf = torch.empty((len(arrays), first.shape[0]), dtype=first.dtype, pin_memory=True)
+    buf[0].copy_(first)
+    for w in range(1, len(arrays)):
+        buf[w].copy_(torch.from_numpy(np.ascontiguousarray(arrays[w])))
+    return buf.to(device, non_blocking=True)
+
+
+def fold_sessions_coalesced(
+    programs: Sequence[BundledScanProgram],
+    features_list: Sequence[Dict[str, np.ndarray]],
+    device: torch.device,
+    monitor: Optional[RunMonitor] = None,
+) -> List[List[Any]]:
+    """Fold W sessions' single padded batches with one stacked launch per
+    kernel: the streaming service's coalesced device fold (the reference's
+    ``fold_sessions_coalesced``, deequ_tpu/runners/engine.py:818, over
+    ``init_carry_stacked`` :490, ``call_with_slots_stacked`` :501 and
+    ``unpack_stacked_final`` :514).
+
+    ``programs[w]`` is session w's battery program and ``features_list[w]``
+    its host features; every program has the first one's layout and
+    analyzer signatures (the coalesce key guarantees it), so the features
+    stack by position: each array of the layout becomes one ``[W, n]``
+    tensor, copied to ``device`` once through pinned memory. Then, per
+    slot bundle, one ``scan_reduce_stacked`` launch; per HLL analyzer one
+    ``hll_registers_stacked`` launch; per KLL analyzer one ``kll_sample``
+    and one ``kll_compact`` launch per session, on its row (stacking them
+    is later work). Each slot analyzer folds its slot's ``[W]`` partials
+    into a fresh state on ``device`` with its ``fold_slot`` (elementwise,
+    so each session's leaves are the serial fold's bit for bit), and every
+    state comes back in one fetch (one copy per dtype), split per session
+    on the host: session w's states equal a one-batch device-tier pass
+    over its batch bit for bit. W is launched as it is, not padded (a CUDA
+    launch takes any grid).
+
+    Returns per session its host states in battery order. ``monitor``
+    records the group's ``host_to_device``, ``kernels`` and
+    ``state_fetch`` seconds."""
+    template = programs[0]
+    width = len(features_list)
+    mon = monitor if monitor is not None else RunMonitor()
+    with mon.timed("host_to_device"):
+        stacked = {
+            key: _stack_to_device(
+                [feats[prog.feature_keys[p]] for prog, feats in zip(programs, features_list)],
+                device)
+            for p, key in enumerate(template.feature_keys)
+        }
+    with mon.timed("kernels"):
+        rows = stacked["rows"]
+        outs = [
+            scan_reduce_stacked([resolve_slot(spec, stacked) for spec in bundle], rows)
+            for bundle in template.bundles
+        ]
+        # per analyzer, its W sessions' states: a list of W states (a
+        # kernel of its own) or one state whose leaves carry the session
+        # axis in front (a slot)
+        folded: List[Any] = []
+        for a, slot in zip(template.analyzers, template.slot_of):
+            if slot is None:
+                folded.append(a.update_stacked(stacked, width, device))
+            else:
+                out_i, out_f = outs[slot // MAX_SLOTS]
+                folded.append(a.fold_slot(a.init_state(device),
+                                          partials(out_i, out_f, slot % MAX_SLOTS)))
+        synchronize(device)
+    with mon.timed("state_fetch"):
+        leaves = [[leaf for st in f for leaf in state_leaves(st)] if isinstance(f, list)
+                  else state_leaves(f) for f in folded]
+        host = fetch_tensors([leaf for ls in leaves for leaf in ls])
+    per_analyzer: List[List[Any]] = []
+    pos = 0
+    for f, ls in zip(folded, leaves):
+        got = host[pos:pos + len(ls)]
+        pos += len(ls)
+        if isinstance(f, list):
+            n = len(ls) // width
+            per_analyzer.append([with_leaves(st, got[w * n:(w + 1) * n])
+                                 for w, st in enumerate(f)])
+        else:
+            per_analyzer.append([with_leaves(f, [leaf[w] for leaf in got])
+                                 for w in range(width)])
+    for program in programs:
+        program.executed = True
+    return [[states[w] for states in per_analyzer] for w in range(width)]

@@ -28,7 +28,12 @@ import torch
 
 from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
 from deequ_tpu_torch.kernels.dict_code_counts import dict_code_counts, dict_code_counts_plain
-from deequ_tpu_torch.kernels.hll_registers import hll_registers, hll_registers_plain
+from deequ_tpu_torch.kernels.hll_registers import (
+    hll_registers,
+    hll_registers_plain,
+    hll_registers_stacked,
+    hll_registers_stacked_plain,
+)
 from deequ_tpu_torch.kernels.kll_compact import (
     kll_compact_merge,
     kll_compact_merge_plain,
@@ -52,6 +57,8 @@ from deequ_tpu_torch.kernels.scan_reduce import (
     Slot,
     scan_reduce,
     scan_reduce_plain,
+    scan_reduce_stacked,
+    scan_reduce_stacked_plain,
 )
 from deequ_tpu_torch.kernels.state_fold import state_fold, state_fold_plain
 from deequ_tpu_torch.ops.kll import KLLSketchState, kll_init
@@ -598,3 +605,83 @@ def test_host_tier_run_on_the_card_launches_both_entries(cuda_device):
     for a in analyzers:
         got, want = ctx.metric(a).value.get(), runs["cpu"][0].metric(a).value.get()
         assert repr(got) == repr(want), a
+
+
+def _stacked_random_slots(width, n, device):
+    """W sessions' slots of every kind but the co-moments, stacked ``[W, n]``."""
+    per = [_random_slots(n, device, seed=5 + w) for w in range(width)]
+    fields = ("where", "sel", "vals", "vals2", "sel2")
+    slots = []
+    for column in zip(*(p[0] for p in per)):  # one slot of every session
+        slots.append(Slot(column[0].kind, **{
+            f: None if getattr(column[0], f) is None
+            else torch.stack([getattr(slot, f) for slot in column]) for f in fields}))
+    return slots, torch.stack([p[1] for p in per])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,n", [(1, 4097), (3, 1), (16, 4096), (5, 65_536)])
+def test_scan_reduce_stacked_kernel_matches_plain_and_single_launches(cuda_device, width, n):
+    """The stacked entry against its stacked plain version (counts, min and
+    max bit for bit, sums within 1e-12) and each session against a
+    one-session launch over its arrays, bit for bit."""
+    slots, rows = _stacked_random_slots(width, n, cuda_device)
+    reset_launch_counts()
+    ki, kf = scan_reduce_stacked(slots, rows)
+    pi, pf = scan_reduce_stacked_plain(slots, rows)
+    torch.cuda.synchronize()
+    assert launch_counts()["scan_reduce_stacked"] == 1 and launch_counts()["scan_reduce"] == 0
+    assert torch.equal(ki, pi)
+    kf_h, pf_h = kf.cpu().numpy(), pf.cpu().numpy()
+    for w in range(width):
+        one = [Slot(s.kind, *(None if t is None else t[w] for t in (
+            s.where, s.sel, s.vals, s.vals2, s.sel2))) for s in slots]
+        oi, of = scan_reduce(one, rows[w])
+        assert torch.equal(oi, ki[w])
+        assert of.cpu().numpy().tobytes() == kf_h[w].tobytes()
+        for col in (1, 2):
+            assert _bits_equal(kf_h[w, :, col], pf_h[w, :, col]), (w, col)
+        for s, slot in enumerate(slots):
+            if slot.vals is None:
+                continue
+            v = slot.vals[w].double().cpu().numpy()
+            v = v[np.isfinite(v)]
+            if v.size == 0:
+                continue
+            scales = (np.abs(v).sum(), np.abs(v).max(), (v * v).sum())
+            for col, scale in zip((0, 3, 4), scales):
+                assert _close(kf_h[w, s, col], pf_h[w, s, col], float(scale)), (w, s, col)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,n", [(1, 1), (16, 4096), (7, 100_003)])
+def test_hll_registers_stacked_kernel_matches_plain_and_single_launches(cuda_device, width, n):
+    rng = np.random.default_rng(width)
+    shape = (width, n)
+    keys = torch.from_numpy(rng.integers(0, 1 << 15, shape).astype(np.uint16)).to(cuda_device)
+    rows = torch.from_numpy(rng.random(shape) < 0.97).to(cuda_device)
+    where = torch.from_numpy(rng.random(shape) < 0.6).to(cuda_device)
+    present = torch.from_numpy(rng.random(shape) < 0.9).to(cuda_device)
+    for w_mask in (None, where):
+        got = hll_registers_stacked(keys, rows, w_mask, present)
+        assert torch.equal(got, hll_registers_stacked_plain(keys, rows, w_mask, present))
+        for w in range(width):
+            one = hll_registers(keys[w], rows[w], None if w_mask is None else w_mask[w],
+                                present[w])
+            assert torch.equal(one, got[w])
+
+
+@pytest.mark.cuda
+def test_coalesced_service_run_on_the_card(cuda_device):
+    """A short streaming run on the card: coalesced folds launch the stacked
+    entries, and every session's metrics equal the serial run's bit for
+    bit (chip_smoke phase 8 at 40 sessions x 2 x 2,048 rows)."""
+    table = chip_smoke.build_stream_table(40, chip_smoke.STREAM_BATCHES, 2048, seed=3)
+    coalesced, summary, launches = chip_smoke.stream_run(
+        torch, dq, table, 40, 2048, True, label="cuda test coalesced",
+        kernels=chip_smoke.STREAM_KERNELS)
+    serial, _, _ = chip_smoke.stream_run(torch, dq, table, 40, 2048, False,
+                                         label="cuda test serial", kernels=("scan_reduce", "state_fold"))
+    assert summary["width_sum"] >= 80
+    for got, want in zip(coalesced, serial):
+        assert chip_smoke.compare_metrics(got, want, 0.0) == []

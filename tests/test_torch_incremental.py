@@ -119,9 +119,8 @@ def _assert_metrics(want: dict, got: dict, rtol: float) -> None:
 
 
 def _ident(analyzer) -> str:
-    """The analyzer's repr without the reference Histogram's binning
-    function, which the port's Histogram lacks."""
-    return repr(analyzer).replace("binning_func=None, ", "")
+    """The analyzer's repr, which both packages spell alike."""
+    return repr(analyzer)
 
 
 def _by_repr(context) -> dict:
