@@ -91,7 +91,26 @@ Phases, each of which fails the run when it fails:
    same with serial folds, every session's metrics equal to (b)'s bit for
    bit; (d) 100 sessions x 2 x 65,536 rows, coalesced and serial, held
    likewise; (e) 16 of (b)'s sessions on ``device="cpu"`` and against
-   numpy. Each run fails on a shed or a failed fold.
+   numpy. Each run fails on a shed or a failed fold;
+9. more than one device, after phase 7 (a) over its table and checks
+   (with the ApproxQuantile): (a) the mesh's entries against their plain
+   versions bit for bit with times and bounds: K8's butterfly over the
+   host partials of 2^20-row batches as 8 shards x 1, 4 x 2 and 3 x 1
+   (the gather route), K8's stacked-carry entry at 8 shards x 4 partials
+   (equal to 8 carry launches), K5's stacked merge of 8 pairs (equal to 8
+   one-pair merges); (b) the host tier over ``make_mesh(8,
+   device="cuda")``, against 7 (a)'s unsharded run in the same batches,
+   the oracle, and the same mesh on the CPU at 1M rows bit for bit; (c)
+   the device tier over the mesh, against phase 3's metrics, the oracle
+   and its CPU run; (d) a mesh of 3 at 1M rows against the unsharded host
+   tier and its CPU run; (e) a shard lost at the second chunk fold
+   (``FaultSpec("sharded_fold", "mesh_loss", at=2, shard=5)``, 2M rows in
+   2^15-row batches): 1 loss, 1 re-shard 8->4, 7 salvaged states, the
+   fault-free metrics; (f) 4 processes on the card joined over gloo and a
+   ``FileStore``, each folding a quarter of (b)'s partials and merging
+   with ``parallel.dcn.merge_host_states``, every rank equal to one
+   process's mesh of 4 bit for bit; then an NCCL group of as many ranks
+   as cards are visible (1 on one card).
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
@@ -152,11 +171,17 @@ TPU_KERNELS = {
     # (call_with_slots_stacked, the vmapped fused update)
     "scan_reduce_stacked": "deequ_tpu/runners/engine.py:501",
     "hll_registers_stacked": "deequ_tpu/runners/engine.py:501",
+    # the mesh (B11): the collective merge and the sharded host-tier fold
+    "state_fold_butterfly": "deequ_tpu/parallel/__init__.py:266",
+    "state_fold_carry_stacked": "deequ_tpu/parallel/__init__.py:171",
+    "kll_compact_merge_stacked": "deequ_tpu/parallel/__init__.py:266",
 }
 #: the CUDA source of each kernel (an entry's is its kernel's)
 KERNEL_SOURCES = {name: name for name in TPU_KERNELS} | {
     "state_fold_carry": "state_fold", "kll_compact_ingest": "kll_compact",
-    "scan_reduce_stacked": "scan_reduce", "hll_registers_stacked": "hll_registers"}
+    "scan_reduce_stacked": "scan_reduce", "hll_registers_stacked": "hll_registers",
+    "state_fold_butterfly": "state_fold", "state_fold_carry_stacked": "state_fold",
+    "kll_compact_merge_stacked": "kll_compact"}
 #: the kernels each main path must launch
 VERIFICATION_KERNELS = ("scan_reduce", "hll_registers", "dict_code_counts")
 PROFILE_KERNELS = ("scan_reduce", "hll_registers", "dict_code_counts", "kll_sample",
@@ -166,6 +191,24 @@ FREQ_KERNELS = ("freq_keys", "freq_compact")
 INCREMENTAL_KERNELS = ("state_fold", "kll_compact")
 #: the host ingest tier: K8's carry entry and K5's ingest entry
 HOST_KERNELS = ("state_fold_carry", "kll_compact_ingest")
+#: phase 9: the mesh's entries of K8 and K5, and what each mesh path must
+#: launch (the host tier's collective merge; the device tier's stacked
+#: entries with the shard as the stacked axis and the fold of the shards'
+#: partial states)
+MESH_KERNELS = ("state_fold_butterfly", "state_fold_carry_stacked", "kll_compact_merge_stacked")
+MESH_HOST_KERNELS = ("state_fold_carry_stacked", "kll_compact_ingest", "state_fold_butterfly",
+                     "kll_compact_merge_stacked")
+MESH_DEVICE_KERNELS = ("scan_reduce_stacked", "hll_registers_stacked", "state_fold",
+                       "dict_code_counts", "kll_sample", "kll_compact")
+MESH_SHARDS = 8
+#: phase 9's cuts: the runs held against the CPU, and the shard-loss drill
+#: (more than one chunk fold, so the loss at the second fold replays)
+MESH_CUT_ROWS = 1_000_000
+MESH_LOSS_ROWS = 2_000_000
+MESH_LOSS_BATCH_ROWS = 1 << 15
+#: phase 9 (f): processes on the one card, and each one's deadline
+DCN_WORLD = 4
+DCN_JOIN_S = 240
 #: rows per batch of phase 7 (a): 40 batches, a full chunk of 32 and a tail
 HOST_BATCH_ROWS = 1 << 18
 #: host partials of one chunk (the engine's INGEST_CHUNK)
@@ -870,6 +913,17 @@ def _compact_bytes(sizes: list, level: int, m: int, k: int, width: int) -> int:
     return nbytes
 
 
+def _merge_bytes(a_sizes, b_sizes, out_sizes) -> int:
+    """Bytes K5's merges of stacked sketch pairs must move, from the level
+    sizes ``[M, L]`` of both inputs and of the output: each input's live
+    items read once and the output's written once, each sketch's sizes
+    and parity read from both inputs and written, and its scalars (ticks
+    int32, count int64, min and max float64) likewise."""
+    items = sum(int(t.sum()) for t in (a_sizes, b_sizes, out_sizes))
+    pairs, levels = a_sizes.shape
+    return 4 * items + pairs * 3 * (2 * 4 * levels + 4 + 8 + 8 + 8)
+
+
 def _check_kll(torch, add, label, k, values, rows, where, present) -> None:
     """K4 on one batch of a column, then K5 appending a second sample of it
     to a sketch that already holds the first: the append overflows level h
@@ -1402,7 +1456,7 @@ def grouping_path(torch, dq, lineitem: pa.Table) -> tuple:
         raise AssertionError("lineitem metrics disagree:\n" + "\n".join(problems))
     print(f"[lineitem metrics] {len(gpu_metrics)} metrics agree with the CPU run and the "
           f"oracle; check status {result.status.value}", flush=True)
-    del data, result, cpu_result
+    del result, cpu_result
 
     # (e) BasicExample
     example, _, _ = _timed_run(torch, "grouping (e) BasicExample",
@@ -2106,7 +2160,9 @@ def host_tier_verification(torch, dq, table: pa.Table, rows: int, device_metrics
     ``device="cpu"`` bit for bit, and against the numpy oracle (the
     quantile within ``HOST_KLL_RANK_LIMIT`` in rank). Then once more in
     phase 3's batches of 2^20 rows, timed beside phase 3 like for like and
-    held against its metrics. Returns the first run's launches."""
+    held against its metrics. Returns the first run's launches and the
+    second run's metrics and check statuses (phase 9 holds its mesh runs
+    against them)."""
     quantile = dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR)
 
     def run(monitor, device="cuda", batch_rows=HOST_BATCH_ROWS):
@@ -2146,7 +2202,7 @@ def host_tier_verification(torch, dq, table: pa.Table, rows: int, device_metrics
           f"device tier and the oracle; median rank error {error:.6f} (limit "
           f"{HOST_KLL_RANK_LIMIT}); in 2^20-row batches equal to phase 3's device tier",
           flush=True)
-    return launches
+    return launches, metric_values(same), _statuses(same)
 
 
 def host_tier_partitions(torch, dq, table: pa.Table, rows: int, device_providers: list) -> list:
@@ -2218,6 +2274,381 @@ def host_tier_profile(torch, dq, table: pa.Table, sketches: dict) -> dict:
           f"oracle; largest percentile rank error {worst:.6f} (limit {HOST_KLL_RANK_LIMIT})",
           flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: more than one device (a mesh of shards on the card, and processes)
+# ---------------------------------------------------------------------------
+
+
+def check_mesh_kernels(torch, dq, data, battery: list) -> dict:
+    """Phase 9 (a): the mesh's three entries against their plain versions
+    bit for bit, at the host tier's shapes over config 2's battery and its
+    ApproxQuantile (28 slots in K8's carry, one KLL sketch):
+
+    - ``state_fold_butterfly`` on the packed host partials of 2^20-row
+      batches as the shards' states: 8 shards x 1 (the kernels line's
+      numbers: (b)'s merge), 4 shards x 2, 3 shards (the gather route);
+    - ``state_fold_carry_stacked``: 8 identity carries, each folding 4 of
+      32 partials of 2^18-row batches, equal to 8 launches of the carry
+      entry;
+    - ``kll_compact_merge_stacked``: 8 pairs of the quantile's sketches,
+      each filled with two host samples, equal to 8 one-pair merges.
+
+    Each timed beside ``torch.amax`` of the stacked registers plus
+    ``torch.sum`` of the stacked counts (K8's entries) or ``torch.sort`` of
+    one 4,096-item level (K5's), with bounds of bytes read once and written
+    once at 3.35 TB/s (K5's: the live items, :func:`_merge_bytes`)."""
+    from deequ_tpu_torch.kernels.kll_compact import (
+        kll_compact_ingest,
+        kll_compact_merge,
+        kll_compact_merge_stacked,
+        kll_compact_merge_stacked_plain,
+    )
+    from deequ_tpu_torch.kernels.state_fold import (
+        state_fold_butterfly,
+        state_fold_butterfly_plain,
+        state_fold_carry,
+        state_fold_carry_stacked,
+        state_fold_carry_stacked_plain,
+    )
+    from deequ_tpu_torch.ops.kll import kll_init
+    from deequ_tpu_torch.runners.engine import stack_samples
+
+    results = _new_results()
+    ingest, packed = host_partial_rows(dq, battery, data, BATCH_ROWS, 10)
+    slots = ingest.slots
+    rows = [torch.stack([r[d] for r, _ in packed]).cuda() for d in range(3)]
+
+    def yardstick(mats):
+        return _time_ms(torch, lambda: (torch.amax(mats[2], dim=0), torch.sum(mats[1], dim=0)))
+
+    for n_dev, k in ((8, 1), (4, 2), (3, 1)):
+        mats = [m[:n_dev * k].contiguous() for m in rows]
+        got = state_fold_butterfly(*mats, slots, n_dev)
+        want = state_fold_butterfly_plain(*mats, slots, n_dev)
+        torch.cuda.synchronize()
+        if not _same_bits(got, want):
+            raise AssertionError(f"state_fold_butterfly differs from its plain version at "
+                                 f"{n_dev} shards x {k}")
+        nbytes = sum(m.numel() * m.element_size() + n_dev * m.shape[1] * m.element_size()
+                     for m in mats)
+        _add(results if n_dev == MESH_SHARDS else _new_results(), "state_fold_butterfly",
+             f"config 2's battery, {len(slots)} slots, {n_dev} shards x {k}", 0.0,
+             _time_kernel_ms(torch, lambda: state_fold_butterfly(*mats, slots, n_dev)),
+             _time_ms(torch, lambda: state_fold_butterfly_plain(*mats, slots, n_dev), reps=5,
+                      warmup=1),
+             nbytes, sum(m.numel() for m in mats), yardstick(mats))
+
+    ingest, packed = host_partial_rows(dq, battery, data, HOST_BATCH_ROWS, CHUNK)
+    parts = [torch.stack([r[d] for r, _ in packed]).cuda() for d in range(3)]
+    local = CHUNK // MESH_SHARDS
+    carry = [c[None].expand(MESH_SHARDS, -1).contiguous() for c in ingest.carry]
+    got, want = [c.clone() for c in carry], [c.clone() for c in carry]
+    state_fold_carry_stacked(got, parts, slots)
+    state_fold_carry_stacked_plain(want, parts, slots)
+    single = []
+    for s in range(MESH_SHARDS):
+        row = [c.clone() for c in ingest.carry]
+        state_fold_carry(row, [p[s * local:(s + 1) * local].contiguous() for p in parts], slots)
+        single.append(row)
+    torch.cuda.synchronize()
+    if not _same_bits(got, want) or not all(
+            _same_bits([g[s] for g in got], single[s]) for s in range(MESH_SHARDS)):
+        raise AssertionError("state_fold_carry_stacked differs from its plain version or from "
+                             "one carry launch per shard")
+    scratch = [c.clone() for c in carry]
+    nbytes = sum(p.numel() * p.element_size() + 2 * c.numel() * c.element_size()
+                 for p, c in zip(parts, carry))
+    _add(results, "state_fold_carry_stacked",
+         f"config 2's battery, {len(slots)} slots, {MESH_SHARDS} shards x {local} partials", 0.0,
+         _time_kernel_ms(torch, lambda: state_fold_carry_stacked(scratch, parts, slots)),
+         _time_ms(torch, lambda: state_fold_carry_stacked_plain(scratch, parts, slots)),
+         nbytes, sum(p.numel() for p in parts), yardstick(parts))
+
+    sketch = [j for j, a in enumerate(battery) if isinstance(a, dq.ApproxQuantile)][0]
+    size = battery[sketch]._sketch_size()
+    samples = [kll for _, kll in packed]
+    at = [j for j, kll in enumerate(ingest.sketch_of) if kll].index(sketch)
+    stacked = [torch.stack(list(col)).contiguous()
+               for col in zip(*(kll_init(size, device="cuda").tensors() for _ in range(16)))]
+    kll_compact_ingest(stacked, stack_samples(
+        [[samples[2 * i][at], samples[2 * i + 1][at]] for i in range(16)], 4 * size,
+        lambda t: t.cuda()), size)
+    a, b = [t[:8] for t in stacked], [t[8:] for t in stacked]
+    got = kll_compact_merge_stacked(a, b, size)
+    want = kll_compact_merge_stacked_plain(a, b, size)
+    pairs = [kll_compact_merge([t[i] for t in a], [t[i] for t in b], size) for i in range(8)]
+    torch.cuda.synchronize()
+    if not _same_bits(got, want) or not all(
+            _same_bits([g[i] for g in got], pairs[i]) for i in range(8)):
+        raise AssertionError("kll_compact_merge_stacked differs from its plain version or from "
+                             "eight one-pair merges")
+    nbytes = _merge_bytes(a[1], b[1], got[1])
+    level = torch.from_numpy(np.tile(samples[0][at][0][:2 * size], 2)).float().cuda()
+    _add(results, "kll_compact_merge_stacked", f"8 pairs of k = {size} sketches", 0.0,
+         _time_kernel_ms(torch, lambda: kll_compact_merge_stacked(a, b, size)),
+         _time_ms(torch, lambda: kll_compact_merge_stacked_plain(a, b, size), reps=5, warmup=1),
+         nbytes, sum(int(t.sum()) for t in (a[1], b[1])), _time_ms(torch, lambda: torch.sort(level)))
+    _print_kernel_totals(results, MESH_KERNELS, "mesh, config 2")
+    return results
+
+
+def _mesh_run(dq, table: pa.Table, quantile, monitor, device: str = "cuda",
+              shards: int = MESH_SHARDS, placement: str = "host", batch_rows: int = BATCH_ROWS):
+    """Phase 3's checks and 7 (a)'s required analyzers over ``table``,
+    sharded over a mesh of ``shards`` on ``device`` (no mesh at 0)."""
+    from deequ_tpu_torch.parallel import make_mesh
+
+    builder = (dq.VerificationSuite.on_data(dq.Dataset.from_arrow(table), device=device)
+               .add_check(build_check(dq, table.num_rows))
+               .add_required_analyzers([dq.CountDistinct("cat_large"), quantile])
+               .with_batch_size(batch_rows).with_placement(placement).with_monitor(monitor))
+    if shards:
+        builder = builder.with_sharding(make_mesh(shards, device=device))
+    return builder.run()
+
+
+def _quantile_error(table: pa.Table, value: float) -> float:
+    a = table["a"].combine_chunks()
+    ranked = np.sort(a.to_numpy(zero_copy_only=False)[np.asarray(a.is_valid())]
+                     .astype(np.float32))
+    return _rank_error(ranked, value, 0.5)
+
+
+def _without(metrics: dict, key) -> dict:
+    return {k: v for k, v in metrics.items() if k != key}
+
+
+def _degraded(label: str, *monitors) -> list:
+    """A fault-free mesh run must lose no shard and keep its mesh: a run
+    that degraded (re-sharded, or folded on the host) would pass its
+    metric checks with another path's timing."""
+    return [f"{label}: shard_losses={m.shard_losses} mesh_reshards={m.mesh_reshards} "
+            f"degraded={m.degraded}" for m in monitors
+            if m.shard_losses or m.mesh_reshards or m.degraded]
+
+
+def mesh_runs(torch, dq, table: pa.Table, host_metrics: dict, host_statuses: list,
+              device_metrics: dict) -> dict:
+    """Phase 9 (b)-(e) over config 2's table: (b) the host tier on a mesh
+    of 8 shards on the card, against 7 (a)'s unsharded host tier in the
+    same 2^20-row batches (counts, min, max, HLL, DataType and statuses
+    exact, moments within 1e-12, the quantile within
+    ``HOST_KLL_RANK_LIMIT``), the oracle, and, at ``MESH_CUT_ROWS``, the
+    same mesh run on the CPU bit for bit; (c) the device tier on the mesh,
+    against phase 3's metrics and the oracle (the quantile within twice
+    the sketch's error), and its CPU run at the cut (moments within
+    1e-12, the rest, the sketch included, exact); (d) a mesh of 3 at the
+    cut (the gather route) against the unsharded host tier and its CPU
+    run; (e) a shard lost at the second chunk fold of a host-tier run:
+    the counters and the fault-free metrics. Every run of (b)-(d) must
+    lose no shard and keep its mesh. Returns (b)'s launches."""
+    from deequ_tpu_torch.reliability import FaultSpec, inject
+
+    quantile = dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR)
+    qkey = metric_key(quantile)
+    rows = table.num_rows
+    truth = oracle(table)
+    cut = table.slice(0, MESH_CUT_ROWS)
+    problems = []
+
+    # (b) the host tier on a mesh of 8
+    result, monitor, launches = _timed_run(
+        torch, f"mesh (b) host tier, {MESH_SHARDS} shards", lambda m: _mesh_run(
+            dq, table, quantile, m), rows, MESH_HOST_KERNELS)
+    _host_tier_report("mesh (b)", monitor)
+    problems += _degraded("(b)", monitor)
+    gpu = metric_values(result)
+    problems += [f"(b) against 7 (a): {p}" for p in compare_metrics(
+        _without(gpu, qkey), _without(host_metrics, qkey))]
+    if _statuses(result) != host_statuses:
+        problems.append(f"(b) check statuses differ from 7 (a)'s: {_statuses(result)}")
+    problems += [f"(b) oracle: {p}" for p in compare_oracle(gpu, truth)]
+    worst = _quantile_error(table, gpu[qkey])
+    if worst > HOST_KLL_RANK_LIMIT:
+        problems.append(f"(b) ApproxQuantile rank error {worst}")
+    t0 = time.perf_counter()
+    monitors = [dq.RunMonitor(), dq.RunMonitor()]
+    on_card = metric_values(_mesh_run(dq, cut, quantile, monitors[0]))
+    on_cpu = metric_values(_mesh_run(dq, cut, quantile, monitors[1], device="cpu"))
+    problems += _degraded("(b) at the cut", *monitors)
+    print(f"[cpu] mesh (b) at {MESH_CUT_ROWS} rows on the card and the CPU in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    problems += [f"(b) cpu: {p}" for p in compare_metrics(on_card, on_cpu, 0.0)]
+
+    # (c) the device tier on a mesh of 8
+    result, monitor, _ = _timed_run(
+        torch, f"mesh (c) device tier, {MESH_SHARDS} shards", lambda m: _mesh_run(
+            dq, table, quantile, m, placement="device"), rows, MESH_DEVICE_KERNELS)
+    if monitor.placement != "device":
+        raise AssertionError(f"mesh (c) did not run on the device tier: {monitor}")
+    problems += _degraded("(c)", monitor)
+    gpu = metric_values(result)
+    problems += [f"(c) against phase 3: {p}" for p in compare_metrics(
+        {k: v for k, v in gpu.items() if k in device_metrics}, device_metrics)]
+    problems += [f"(c) oracle: {p}" for p in compare_oracle(gpu, truth)]
+    device_error = _quantile_error(table, gpu[qkey])
+    if device_error > 2 * KLL_RELATIVE_ERROR:
+        problems.append(f"(c) ApproxQuantile rank error {device_error}")
+    t0 = time.perf_counter()
+    monitors = [dq.RunMonitor(), dq.RunMonitor()]
+    on_card = metric_values(_mesh_run(dq, cut, quantile, monitors[0], placement="device"))
+    on_cpu = metric_values(_mesh_run(dq, cut, quantile, monitors[1], device="cpu",
+                                     placement="device"))
+    problems += _degraded("(c) at the cut", *monitors)
+    print(f"[cpu] mesh (c) at {MESH_CUT_ROWS} rows on the card and the CPU in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    problems += [f"(c) cpu: {p}" for p in compare_metrics(on_card, on_cpu)]
+
+    # (d) a mesh of 3: the gather route
+    three, monitor, _ = _timed_run(torch, "mesh (d) host tier, 3 shards", lambda m: _mesh_run(
+        dq, cut, quantile, m, shards=3), MESH_CUT_ROWS, MESH_HOST_KERNELS)
+    problems += _degraded("(d)", monitor)
+    unsharded = _mesh_run(dq, cut, quantile, dq.RunMonitor(), shards=0)
+    got, want = metric_values(three), metric_values(unsharded)
+    problems += [f"(d) against the unsharded host tier: {p}" for p in compare_metrics(
+        _without(got, qkey), _without(want, qkey))]
+    if _statuses(three) != _statuses(unsharded):
+        problems.append("(d) check statuses differ from the unsharded run's")
+    if _quantile_error(cut, got[qkey]) > HOST_KLL_RANK_LIMIT:
+        problems.append(f"(d) ApproxQuantile rank error {_quantile_error(cut, got[qkey])}")
+    monitor = dq.RunMonitor()
+    on_cpu = metric_values(_mesh_run(dq, cut, quantile, monitor, device="cpu", shards=3))
+    problems += _degraded("(d) on the CPU", monitor)
+    problems += [f"(d) cpu: {p}" for p in compare_metrics(got, on_cpu, 0.0)]
+
+    # (e) shard loss at the second chunk fold
+    small = table.slice(0, MESH_LOSS_ROWS)
+    clean = metric_values(_mesh_run(dq, small, quantile, dq.RunMonitor(),
+                                    batch_rows=MESH_LOSS_BATCH_ROWS))
+
+    def lossy(monitor):
+        with inject(FaultSpec("sharded_fold", "mesh_loss", at=2, shard=5)) as inj:
+            out = _mesh_run(dq, small, quantile, monitor, batch_rows=MESH_LOSS_BATCH_ROWS)
+        if not inj.fired:
+            raise AssertionError("mesh (e): the injected shard loss did not fire")
+        return out
+
+    result, monitor, _ = _timed_run(torch, "mesh (e) shard loss", lossy, MESH_LOSS_ROWS,
+                                    MESH_HOST_KERNELS)
+    print(f"[mesh (e) recovery] shard_losses={monitor.shard_losses} "
+          f"mesh_reshards={monitor.mesh_reshards} salvaged_states={monitor.salvaged_states} "
+          f"degraded={monitor.degraded}", flush=True)
+    if (monitor.shard_losses, monitor.mesh_reshards, monitor.salvaged_states) != (1, 1, 7) or \
+            "mesh:8->4" not in monitor.degraded:
+        problems.append(f"(e) recovery counters: {monitor}")
+    got = metric_values(result)
+    problems += [f"(e) against the fault-free run: {p}" for p in compare_metrics(
+        _without(got, qkey), _without(clean, qkey), 1e-9)]
+    if _quantile_error(small, got[qkey]) > HOST_KLL_RANK_LIMIT:
+        problems.append(f"(e) ApproxQuantile rank error {_quantile_error(small, got[qkey])}")
+    if problems:
+        raise AssertionError("phase 9 disagrees:\n" + "\n".join(problems[:40]))
+    print(f"[mesh metrics] (b) equals 7 (a)'s unsharded host tier (moments within 1e-12) and "
+          f"the oracle, its CPU run bit for bit; (c) phase 3's metrics and the oracle, its CPU "
+          f"run; (d) the gather route the unsharded run and its CPU run; (e) the fault-free "
+          f"run; quantile rank errors (b) {worst:.6f} (limit {HOST_KLL_RANK_LIMIT}), (c) "
+          f"{device_error:.6f} (limit {2 * KLL_RELATIVE_ERROR:.6f})", flush=True)
+    return launches
+
+
+def _spawn_world(world: int, store: str, job: dict, workdir: str) -> list:
+    """Spawn ``world`` processes of ``dcn.worker_main``; each must finish
+    within ``DCN_JOIN_S`` with code 0. Returns their outputs."""
+    import os
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from deequ_tpu_torch.parallel import dcn
+
+    job_path = os.path.join(workdir, "job.pt")
+    torch.save(job, job_path)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dcn.worker_main,
+                         args=(r, world, store, job_path, os.path.join(workdir, f"out{r}.pt")))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    failed = []
+    for r, p in enumerate(procs):
+        p.join(DCN_JOIN_S)
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+            failed.append((r, "hung"))
+        elif p.exitcode != 0:
+            failed.append((r, p.exitcode))
+    if failed:
+        raise AssertionError(f"cross-process world of {world}: processes failed {failed}")
+    return [torch.load(os.path.join(workdir, f"out{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def cross_process(torch, dq, data, battery: list) -> None:
+    """Phase 9 (f): 4 processes on the one card join a gloo group over a
+    ``FileStore``; each folds its quarter of (b)'s host partials (the
+    2^20-row batches, contiguous shares) on the card with
+    ``dcn.fold_partials`` and merges with ``dcn.merge_host_states``. Every
+    rank must return the same states, equal bit for bit to one process's
+    mesh of 4 over the same shares (``sharded_ingest_fold`` and
+    ``collective_merge_states`` on the card). Then an NCCL group of as
+    many ranks as cards are visible, up to 4."""
+    import os
+    import shutil
+    import tempfile
+
+    from deequ_tpu_torch.parallel import (
+        collective_merge_states,
+        dcn,
+        make_mesh,
+        sharded_ingest_fold,
+        stack_identity_states,
+    )
+
+    t0 = time.perf_counter()
+    partials = dcn.host_partials(battery, data, BATCH_ROWS)
+    local = -(-len(partials) // DCN_WORLD)
+    shares = [list(range(r * local, min(len(partials), (r + 1) * local)))
+              for r in range(DCN_WORLD)]
+    chunk, flags = [], []
+    for share in shares:
+        chunk += [partials[j] for j in share] + [partials[0]] * (local - len(share))
+        flags += [True] * len(share) + [False] * (local - len(share))
+    mesh = make_mesh(DCN_WORLD, device="cuda")
+    states = sharded_ingest_fold(battery, mesh, stack_identity_states(battery, DCN_WORLD, "cuda"),
+                                 dcn.stack_partials(battery, chunk), np.array(flags))
+    want = collective_merge_states(battery, mesh, states)
+    workdir = tempfile.mkdtemp(prefix="deequ-dcn-")
+    try:
+        job = {"analyzers": battery, "partials": [[partials[j] for j in s] for s in shares],
+               "device": "cuda", "backend": "gloo", "deadline_s": 120.0}
+        outs = _spawn_world(DCN_WORLD, os.path.join(workdir, "store"), job, workdir)
+        seconds = time.perf_counter() - t0
+        bad = [(out["rank"], a) for out in outs for a, g, w in zip(battery, out["states"], want)
+               if out["salvaged"] or not same_state_bits(g, w)]
+        if bad:
+            raise AssertionError(f"cross-process merge differs from the one-process mesh: {bad}")
+        print(f"[mesh (f) gloo] {DCN_WORLD} processes on the card, shares "
+              f"{[len(s) for s in shares]} of {len(partials)} partials: every rank's merge equals "
+              f"the one-process mesh of {DCN_WORLD} bit for bit; {seconds:.1f}s with the "
+              f"processes' start", flush=True)
+        world = min(DCN_WORLD, torch.cuda.device_count())
+        nccl_dir = os.path.join(workdir, "nccl")
+        os.makedirs(nccl_dir)
+        shares = [list(range(r, len(partials), world)) for r in range(world)]
+        job = {"analyzers": battery, "partials": [[partials[j] for j in s] for s in shares],
+               "device": "cuda", "backend": "nccl", "deadline_s": 120.0}
+        t0 = time.perf_counter()
+        outs = _spawn_world(world, os.path.join(nccl_dir, "store"), job, nccl_dir)
+        first = outs[0]["states"]
+        if any(not all(same_state_bits(g, w) for g, w in zip(o["states"], first)) for o in outs):
+            raise AssertionError("the NCCL ranks returned different states")
+        print(f"[mesh (f) nccl] world of {world} (cards visible: "
+              f"{torch.cuda.device_count()}) in {time.perf_counter() - t0:.1f}s", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2762,11 +3193,17 @@ def main(argv=None) -> int:
         raise AssertionError("metrics disagree:\n" + "\n".join(problems))
     print(f"[metrics] {len(gpu_metrics)} metrics agree with the CPU run and the oracle; "
           f"check status {result.status.value}", flush=True)
-    del data, result, cpu_result
+    del result, cpu_result
 
     # phase 7 (a): the same table and checks on the host tier
-    host_launches = host_tier_verification(torch, dq, table, ROWS, gpu_metrics)
-    del table
+    host_launches, host_metrics, host_statuses = host_tier_verification(
+        torch, dq, table, ROWS, gpu_metrics)
+    # phase 9: the same table and checks over a mesh
+    mesh_battery = battery + [dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR)]
+    mesh_measured = check_mesh_kernels(torch, dq, data, mesh_battery)
+    mesh_launches = mesh_runs(torch, dq, table, host_metrics, host_statuses, gpu_metrics)
+    cross_process(torch, dq, data, mesh_battery)
+    del table, data
 
     t0 = time.perf_counter()
     lineitem = build_lineitem(LINEITEM_ROWS, LINEITEM_SEED + args.seed)
@@ -2814,6 +3251,8 @@ def main(argv=None) -> int:
     kernels.append(row("kll_compact_ingest", ingest_measured, ingest_launches))
     # the stacked entries at (b)'s group shape, with (b)'s launches
     kernels += [row(name, stacked_measured, stream_launches) for name in STACKED_KERNELS]
+    # the mesh's entries at phase 9 (b)'s shapes, with (b)'s launches
+    kernels += [row(name, mesh_measured, mesh_launches) for name in MESH_KERNELS]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

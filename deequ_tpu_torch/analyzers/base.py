@@ -583,40 +583,71 @@ def merge_states_batched_many(
     return results
 
 
+def stack_states(states: Sequence[Any], device=None) -> Any:
+    """One state whose leaves stack ``states``' leaves along a new leading
+    axis, on ``device`` (the first state's device when None)."""
+    from .states import leaves, with_leaves
+
+    first = leaves(states[0])
+    dev = device if device is not None else (first[0].device if first else None)
+    return with_leaves(states[0], [
+        torch.stack([leaf.detach().to(dev) for leaf in column])
+        for column in zip(*(leaves(s) for s in states))
+    ])
+
+
 def pack_states(jobs: Sequence[Sequence[Any]], layout=None):
     """The ``state_fold`` inputs of several analyzers' N states each
     (``jobs``: one list of states per analyzer, all with N states, each list
     of one class and shape): the float64, int64 and int32 matrices, stacked
-    on the host, the slot table, and per job where each leaf lies
-    (field name, matrix, offset, shape)."""
+    where the first state lies, the slot table, and per job where each leaf
+    lies (field name, matrix, offset, shape)."""
+    first = [leaf for states in jobs for leaf in _leaves(states[0])]
+    device = first[0].device if first else torch.device("cpu")
+    return pack_stacked([stack_states(states, device) for states in jobs], layout)
+
+
+def _leaves(state) -> List[torch.Tensor]:
+    from .states import leaves
+
+    return leaves(state)
+
+
+def pack_stacked(stacked: Sequence[Any], layout=None):
+    """:func:`pack_states` of states already stacked: each of ``stacked``
+    is one analyzer's N states as one state whose leaves carry a leading
+    axis of N (all on one device). Returns the three ``[N, W]`` matrices,
+    the slot table and the places (field name, matrix, offset, shape of
+    one state's leaf)."""
     from ..kernels.state_fold import GROUP_WIDTH, KIND_MATRIX, FoldSlot
 
     layout = layout if layout is not None else fold_layout()
     dtypes = (torch.float64, torch.int64, torch.int32)
-    n = len(jobs[0])
+    first = [leaf for st in stacked for leaf in _leaves(st)]
+    n = int(first[0].shape[0]) if first else 0
+    device = first[0].device if first else torch.device("cpu")
     columns: List[List[torch.Tensor]] = [[], [], []]
     widths = [0, 0, 0]
     slots: List[Any] = []
     places = []
-    for states in jobs:
+    for state in stacked:
         place = []
-        for kind, names in layout[type(states[0])]:
+        for kind, names in layout[type(state)]:
             m = KIND_MATRIX[kind]
             start = widths[m]
             for name in names:
-                leaf = getattr(states[0], name)
+                leaf = getattr(state, name)
                 if leaf.dtype != dtypes[m]:
-                    raise TypeError(f"{type(states[0]).__name__}.{name} is {leaf.dtype}, "
+                    raise TypeError(f"{type(state).__name__}.{name} is {leaf.dtype}, "
                                     f"expected {dtypes[m]}")
-                stacked = torch.stack([getattr(s, name).detach().reshape(-1).cpu()
-                                       for s in states])
-                columns[m].append(stacked)
-                place.append((name, m, widths[m], tuple(leaf.shape)))
-                widths[m] += stacked.shape[1]
+                flat = leaf.detach().reshape(n, -1)
+                columns[m].append(flat)
+                place.append((name, m, widths[m], tuple(leaf.shape[1:])))
+                widths[m] += flat.shape[1]
             length = 1 if kind in GROUP_WIDTH else widths[m] - start
             slots.append(FoldSlot(kind, start, length))
         places.append(place)
-    mats = [torch.cat(cols, dim=1) if cols else torch.empty((n, 0), dtype=dt)
+    mats = [torch.cat(cols, dim=1) if cols else torch.empty((n, 0), dtype=dt, device=device)
             for cols, dt in zip(columns, dtypes)]
     return mats, slots, places
 
@@ -624,13 +655,23 @@ def pack_states(jobs: Sequence[Sequence[Any]], layout=None):
 def unpack_states(jobs: Sequence[Sequence[Any]], places, outs) -> List[Any]:
     """One state per job from the folded rows ``outs``; its leaves are views
     of them."""
+    return unpack_stacked([states[0] for states in jobs], places, outs)
+
+
+def unpack_stacked(templates: Sequence[Any], places, outs) -> List[Any]:
+    """One state per template (its class and static fields) from the
+    packed ``outs``: rows ``[W]`` give plain states, matrices ``[N, W]``
+    states whose leaves carry the leading axis of N. Leaves are views."""
     from .states import tensor_fields, with_leaves
 
     merged = []
-    for states, place in zip(jobs, places):
-        fields = {name: outs[m][off:off + math.prod(shape)].reshape(shape)
-                  for name, m, off, shape in place}
-        merged.append(with_leaves(states[0], [fields[f.name] for f in tensor_fields(states[0])]))
+    for template, place in zip(templates, places):
+        fields = {}
+        for name, m, off, shape in place:
+            mat = outs[m]
+            lead = tuple(mat.shape[:-1])
+            fields[name] = mat[..., off:off + math.prod(shape)].reshape(lead + tuple(shape))
+        merged.append(with_leaves(template, [fields[f.name] for f in tensor_fields(template)]))
     return merged
 
 

@@ -564,7 +564,7 @@ def probably_low_cardinality(data, columns: Sequence[str],
 def plan_table_scan(schema, columns: Sequence[str], num_rows: int, batch_rows: int,
                     freq_table_slots: int = DEFAULT_FREQ_TABLE_SLOTS,
                     freq_buffer_entries: int = DEFAULT_FREQ_BUFFER_ENTRIES,
-                    ) -> Optional[DeviceFrequencyTableScan]:
+                    sharded: bool = False) -> Optional[DeviceFrequencyTableScan]:
     """Size a :class:`DeviceFrequencyTableScan` for one grouping set, or
     None when a column's kind derives no 64-bit key or the set has more
     columns than one ``freq_keys`` launch takes; the reference's planner
@@ -573,7 +573,13 @@ def plan_table_scan(schema, columns: Sequence[str], num_rows: int, batch_rows: i
     rounded up to a power of two), the scan is resident with a minimal
     8-slot table that it never uses; otherwise the table has
     ``freq_table_slots`` slots (capped at the row count: it can then never
-    overflow) and the buffer covers at least one padded batch."""
+    overflow) and the buffer covers at least one padded batch.
+
+    ``sharded`` (a run over a mesh) gives the same plan: the reference
+    keeps a table per shard and compacts the resident ones into full-size
+    tables at the collective merge, where the port keeps one table per
+    set, fed the whole batch on the mesh's first device, which never
+    compacts when resident (per-shard tables are ROADMAP A5b)."""
     if len(columns) > MAX_KEY_COLUMNS:
         return None
     kinds: List[str] = []

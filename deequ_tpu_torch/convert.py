@@ -109,3 +109,26 @@ def to_reference(state) -> Tuple[str, List[np.ndarray]]:
         leaf.detach().cpu().numpy().view(np.uint64) if i in u64 else leaf.detach().cpu().numpy()
         for i, leaf in enumerate(S.leaves(state))
     ]
+
+
+def from_reference_stacked(class_name: str, leaves: Sequence[np.ndarray],
+                           device: DeviceLike = "cpu"):
+    """The port's stacked per-shard state equal to the reference's stacked
+    state (every leaf with a leading shard axis, as the reference's mesh
+    functions take and return them): shard by shard :func:`from_reference`,
+    stacked on ``device``."""
+    arrays = [np.asarray(leaf) for leaf in leaves]
+    shards = int(arrays[0].shape[0]) if arrays else 0
+    per_shard = [from_reference(class_name, [a[j] for a in arrays], device)
+                 for j in range(shards)]
+    return S.with_leaves(per_shard[0], [torch.stack(column) for column in
+                                        zip(*(S.leaves(st) for st in per_shard))])
+
+
+def to_reference_stacked(state) -> Tuple[str, List[np.ndarray]]:
+    """``(class_name, leaves)`` of a stacked per-shard port state: each
+    leaf a host numpy array with the leading shard axis."""
+    shards = int(S.leaves(state)[0].shape[0])
+    per_shard = [to_reference(S.with_leaves(state, [leaf[j] for leaf in S.leaves(state)]))[1]
+                 for j in range(shards)]
+    return type(state).__name__, [np.stack(column) for column in zip(*per_shard)]

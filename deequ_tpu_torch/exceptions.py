@@ -95,6 +95,39 @@ class ScanStallError(DeviceFailureException):
         )
 
 
+class ShardLossError(DeviceFailureException):
+    """A shard of a device mesh was lost mid-pass: a dead device, a dead
+    process of a cross-process group, or a heartbeat-declared stall. The
+    surviving shards' states are mergeable by construction, so the elastic
+    layer (:mod:`deequ_tpu_torch.parallel.elastic`) salvages them, rebuilds
+    the mesh over the survivors one ladder rung down and resumes the fold.
+
+    ``lost`` holds the mesh positions (indices into ``mesh.devices``)
+    declared dead; ``survivors`` optionally carries the surviving devices."""
+
+    def __init__(self, lost, site: str = "", survivors=None, detail: str = ""):
+        self.lost = tuple(int(i) for i in lost)
+        self.site = site
+        self.survivors = None if survivors is None else list(survivors)
+        super().__init__(
+            f"mesh shard loss at {site or '<mesh>'}: shard(s) "
+            f"{list(self.lost)} lost"
+            + (f": {detail}" if detail else "")
+        )
+
+
+class ShardStallError(ShardLossError):
+    """A shard stopped making progress (its heartbeat probe exceeded
+    ``DEEQU_TPU_SHARD_HEARTBEAT_S``) without raising: declared lost after
+    the probe deadline and handled exactly like a thrown shard loss."""
+
+
+class MeshExhaustedError(RuntimeError):
+    """No rung of the re-shard ladder fits the surviving devices. The
+    elastic fold then drops to host mode, unless every shard of the mesh
+    lay on one card: there this escapes it and the run fails."""
+
+
 def wrap_if_necessary(exception: BaseException) -> MetricCalculationException:
     """Wrap arbitrary errors into the taxonomy
     (reference `MetricCalculationException.scala:70-78`)."""

@@ -12,8 +12,11 @@ ingest tier's entries of ``state_fold`` and ``kll_compact`` count under
 ``state_fold_carry`` and ``kll_compact_ingest``, and the streaming
 service's stacked entries of ``scan_reduce`` and ``hll_registers`` (one
 launch for a group of sessions) under ``scan_reduce_stacked`` and
-``hll_registers_stacked``. The counts are safe to bump from the service's
-worker threads."""
+``hll_registers_stacked``, and the mesh's entries of ``state_fold`` and
+``kll_compact`` (the collective merge, the sharded host-tier fold) under
+``state_fold_butterfly``, ``state_fold_carry_stacked`` and
+``kll_compact_merge_stacked``. The counts are safe to bump from the
+service's worker threads."""
 
 from __future__ import annotations
 
@@ -29,6 +32,9 @@ KERNEL_NAMES = (
     "state_fold_carry", "kll_compact_ingest",
     # the streaming service's stacked (coalesced) entries, counted apart
     "scan_reduce_stacked", "hll_registers_stacked",
+    # the mesh's entries of K8 and K5 (the collective merge, the sharded
+    # host-tier fold), counted apart
+    "state_fold_butterfly", "state_fold_carry_stacked", "kll_compact_merge_stacked",
 )
 
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}

@@ -18,6 +18,10 @@
 //  - merge mode: append each level of sketch b to the same level of a, XOR
 //    the parities, then sweep levels 0 .. L-2 once, compacting every level
 //    that holds more than k items; the scalars add, and min / max combine.
+//    The stacked merge (the collective merge of the reference's B11,
+//    deequ_tpu/parallel/__init__.py:266: a round of the butterfly, a step
+//    of every shard's local fold) merges M pairs (a[i], b[i]) in one
+//    launch, one block a pair; the one-pair merge is its M = 1 case.
 //  - ingest mode (the host ingest tier; kll_ingest_sampled of the
 //    reference, ops/kll.py:284, applied once per host partial in batch
 //    order): S sketches of one shape, stacked, take a chunk of B host
@@ -194,34 +198,47 @@ kc_update(KcState st, int L, int C, int k, const float* __restrict__ samples,
   }
 }
 
+// block i: pair i of the stacked sketches a (updated in place; items
+// [M, L, C], sizes and parity [M, L], the scalars [M]) and b (the same
+// shapes, read only): sketch a[i] becomes the merge of a[i] and b[i]
 __global__ void __launch_bounds__(KC_THREADS)
 kc_merge(KcState st, const float* __restrict__ b_items, const int* __restrict__ b_sizes,
          const int* __restrict__ b_parity, const int* __restrict__ b_ticks,
          const long long* __restrict__ b_count, const double* __restrict__ b_g_min,
          const double* __restrict__ b_g_max, int L, int C, int k,
-         unsigned long long* gbuf) {
+         unsigned long long* gbuf, long long gbuf_stride) {
   extern __shared__ unsigned long long smem[];
   __shared__ int s_sizes[KC_MAX_LEVELS];
   __shared__ int s_parity[KC_MAX_LEVELS];
   __shared__ float s_tail;
-  unsigned long long* buf = gbuf != nullptr ? gbuf : smem;
+  const long long i = blockIdx.x;
+  float* items = st.items + i * L * C;
+  int* sizes = st.sizes + i * L;
+  int* parity = st.parity + i * L;
+  b_items += i * L * C;
+  b_sizes += i * L;
+  b_parity += i * L;
+  unsigned long long* buf = gbuf != nullptr ? gbuf + i * gbuf_stride : smem;
   for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    s_sizes[l] = st.sizes[l];
-    s_parity[l] = st.parity[l] ^ b_parity[l];
+    s_sizes[l] = sizes[l];
+    s_parity[l] = parity[l] ^ b_parity[l];
   }
   __syncthreads();
   for (int lvl = 0; lvl < L; ++lvl) {
-    kc_append(st.items, C, s_sizes, lvl, b_items + (long long)lvl * C, b_sizes[lvl]);
+    kc_append(items, C, s_sizes, lvl, b_items + (long long)lvl * C, b_sizes[lvl]);
   }
   for (int lvl = 0; lvl < L - 1; ++lvl) {
-    if (s_sizes[lvl] > k) kc_compact(st.items, C, s_sizes, s_parity, lvl, buf, &s_tail);
+    if (s_sizes[lvl] > k) kc_compact(items, C, s_sizes, s_parity, lvl, buf, &s_tail);
   }
-  kc_store(st, L, s_sizes, s_parity);
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    sizes[l] = s_sizes[l];
+    parity[l] = s_parity[l];
+  }
   if (threadIdx.x == 0) {
-    *st.ticks = (int)((unsigned)*st.ticks + (unsigned)*b_ticks);
-    *st.count += *b_count;
-    *st.g_min = dq_min_z(*st.g_min, *b_g_min);
-    *st.g_max = dq_max_z(*st.g_max, *b_g_max);
+    st.ticks[i] = (int)((unsigned)st.ticks[i] + (unsigned)b_ticks[i]);
+    st.count[i] += b_count[i];
+    st.g_min[i] = dq_min_z(st.g_min[i], b_g_min[i]);
+    st.g_max[i] = dq_max_z(st.g_max[i], b_g_max[i]);
   }
 }
 
@@ -307,6 +324,25 @@ extern "C" int kll_compact_update_launch(float* items, int* sizes, int* parity, 
   return (int)cudaGetLastError();
 }
 
+// the stacked merge: M pairs, one block each; gbuf: uint64[M *
+// kll_compact_scratch(C)] of device scratch, or null when that is 0
+extern "C" int kll_compact_merge_stacked_launch(
+    float* items, int* sizes, int* parity, int* ticks, long long* count, double* g_min,
+    double* g_max, const float* b_items, const int* b_sizes, const int* b_parity,
+    const int* b_ticks, const long long* b_count, const double* b_g_min, const double* b_g_max,
+    int M, int L, int C, int k, unsigned long long* gbuf, void* stream) {
+  if (kc_bad_shape(L, C, k) || M < 1) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  cudaError_t err = kc_prepare((const void*)kc_merge, C, gbuf, &smem);
+  if (err != cudaSuccess) return (int)err;
+  KcState st = {items, sizes, parity, ticks, count, g_min, g_max};
+  kc_merge<<<M, KC_THREADS, smem, (cudaStream_t)stream>>>(
+      st, b_items, b_sizes, b_parity, b_ticks, b_count, b_g_min, b_g_max, L, C, k,
+      smem > 0 ? nullptr : gbuf, kll_compact_scratch(C));
+  return (int)cudaGetLastError();
+}
+
+// the merge of one pair: the stacked merge with M = 1
 extern "C" int kll_compact_merge_launch(float* items, int* sizes, int* parity, int* ticks,
                                         long long* count, double* g_min, double* g_max,
                                         const float* b_items, const int* b_sizes,
@@ -314,15 +350,9 @@ extern "C" int kll_compact_merge_launch(float* items, int* sizes, int* parity, i
                                         const long long* b_count, const double* b_g_min,
                                         const double* b_g_max, int L, int C, int k,
                                         unsigned long long* gbuf, void* stream) {
-  if (kc_bad_shape(L, C, k)) return (int)cudaErrorInvalidValue;
-  size_t smem = 0;
-  cudaError_t err = kc_prepare((const void*)kc_merge, C, gbuf, &smem);
-  if (err != cudaSuccess) return (int)err;
-  KcState st = {items, sizes, parity, ticks, count, g_min, g_max};
-  kc_merge<<<1, KC_THREADS, smem, (cudaStream_t)stream>>>(
-      st, b_items, b_sizes, b_parity, b_ticks, b_count, b_g_min, b_g_max, L, C, k,
-      smem > 0 ? nullptr : gbuf);
-  return (int)cudaGetLastError();
+  return kll_compact_merge_stacked_launch(items, sizes, parity, ticks, count, g_min, g_max,
+                                          b_items, b_sizes, b_parity, b_ticks, b_count, b_g_min,
+                                          b_g_max, 1, L, C, k, gbuf, stream);
 }
 
 // the stacked sketches of kc_ingest; gbuf: uint64[S * kll_compact_scratch(C)]

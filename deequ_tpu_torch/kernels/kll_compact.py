@@ -4,10 +4,10 @@ compaction cascade, in one thread block per sketch.
 Replaces the state algebra of the JAX reference's KLL
 (deequ_tpu/ops/kll.py: ``_append_level`` :111, ``_make_compact_level``
 :147, ``_compact_cascade`` :182, ``_compact_cascade_from`` :204) and the
-host ingest tier's ``kll_ingest_sampled`` (:284). The CUDA source is
-``csrc/kll_compact.cu``; :func:`kll_compact_update_plain`,
-:func:`kll_compact_merge_plain` and :func:`kll_compact_ingest_plain` are
-the same functions in plain PyTorch.
+host ingest tier's ``kll_ingest_sampled`` (:284), and its stacked merge
+serves the collective merge of the mesh (deequ_tpu/parallel/__init__.py:
+266). The CUDA source is ``csrc/kll_compact.cu``; the ``*_plain``
+functions are the same functions in plain PyTorch.
 
 A sketch travels as its seven tensors in the reference's leaf order
 (items, sizes, parity, ticks, count, g_min, g_max). The update and merge
@@ -28,8 +28,9 @@ from . import build, check_status, count_launch, on_cuda, stream_handle
 from .kll_sample import Sample, stable_sort
 
 NAME = "kll_compact"
-#: the launch count of the ingest entry
+#: the launch counts of the ingest entry and of the stacked merge
 INGEST_NAME = "kll_compact_ingest"
+MERGE_STACKED_NAME = "kll_compact_merge_stacked"
 #: levels the kernel takes at most; equals KC_MAX_LEVELS
 MAX_LEVELS = 64
 
@@ -50,6 +51,10 @@ def _lib() -> ctypes.CDLL:
         lib.kll_compact_merge_launch.restype = ctypes.c_int
         lib.kll_compact_merge_launch.argtypes = (
             [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        )
+        lib.kll_compact_merge_stacked_launch.restype = ctypes.c_int
+        lib.kll_compact_merge_stacked_launch.argtypes = (
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
         )
         lib.kll_compact_ingest_launch.restype = ctypes.c_int
         lib.kll_compact_ingest_launch.argtypes = (
@@ -134,6 +139,57 @@ def kll_compact_merge(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor], k: i
     )
     check_status(NAME, status)
     count_launch(NAME)
+    return out
+
+
+def _check_stacked(state: Sequence[torch.Tensor], k: int, what: str) -> None:
+    if len(state) != len(_DTYPES):
+        raise ValueError(f"{NAME}: {what} has {len(state)} leaves, expected 7")
+    items = state[0]
+    for i, (leaf, dtype) in enumerate(zip(state, _DTYPES)):
+        if leaf.dtype != dtype or leaf.device != items.device or not leaf.is_contiguous():
+            raise TypeError(f"{NAME}: {what} leaf {i} must be contiguous {dtype} on "
+                            f"{items.device}")
+    if items.dim() != 3 or items.shape[0] < 1 or not 2 <= items.shape[1] <= MAX_LEVELS:
+        raise ValueError(f"{NAME}: {what} items must be [M >= 1, L, C] with "
+                         f"2 <= L <= {MAX_LEVELS}")
+    m, levels = items.shape[:2]
+    if state[1].shape != (m, levels) or state[2].shape != (m, levels):
+        raise ValueError(f"{NAME}: {what} sizes and parity must have shape ({m}, {levels})")
+    if any(leaf.shape != (m,) for leaf in state[3:]):
+        raise ValueError(f"{NAME}: {what} scalars must have shape ({m},)")
+    if k < 1:
+        raise ValueError(f"{NAME}: sketch size must be positive, got {k}")
+
+
+def kll_compact_merge_stacked(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor],
+                              k: int) -> Leaves:
+    """M merges in one launch: ``a`` and ``b`` are M sketches each, stacked
+    (items ``[M, L, C]``, sizes and parity ``[M, L]``, the scalars
+    ``[M]``); returns the M sketches ``merge(a[i], b[i])``, stacked, each
+    equal to :func:`kll_compact_merge` of the pair. One block a pair; the
+    inputs stay as they were."""
+    _check_stacked(a, k, "a")
+    _check_stacked(b, k, "b")
+    if a[0].shape != b[0].shape or a[0].device != b[0].device:
+        raise ValueError(f"{NAME}: cannot merge stacked sketches of shapes "
+                         f"{tuple(a[0].shape)} and {tuple(b[0].shape)}")
+    items = a[0]
+    if not on_cuda(items, NAME):
+        return kll_compact_merge_stacked_plain(a, b, k)
+    lib = _lib()
+    out = _copy(a)
+    m, levels, c = items.shape
+    entries = lib.kll_compact_scratch(c)
+    scratch = (torch.empty(m * entries, dtype=torch.int64, device=items.device)
+               if entries else None)
+    status = lib.kll_compact_merge_stacked_launch(
+        *(leaf.data_ptr() for leaf in out), *(leaf.data_ptr() for leaf in b),
+        m, levels, c, k, None if scratch is None else scratch.data_ptr(),
+        stream_handle(items.device),
+    )
+    check_status(MERGE_STACKED_NAME, status)
+    count_launch(MERGE_STACKED_NAME)
     return out
 
 
@@ -275,6 +331,13 @@ def kll_compact_merge_plain(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]
         torch.full_like(a[3], _wrap_int32(int(a[3]) + int(b[3]))),
         a[4] + b[4], min_nan_largest(a[5], b[5]), max_nan(a[6], b[6]),
     )
+
+
+def kll_compact_merge_stacked_plain(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor],
+                                    k: int) -> Leaves:
+    merged = [kll_compact_merge_plain([leaf[i] for leaf in a], [leaf[i] for leaf in b], k)
+              for i in range(a[0].shape[0])]
+    return tuple(torch.stack(col) for col in zip(*merged))
 
 
 def kll_compact_ingest_plain(sketches: Sequence[torch.Tensor], samples: Sequence[torch.Tensor],

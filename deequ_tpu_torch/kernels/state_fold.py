@@ -1,7 +1,7 @@
 """K8 ``state_fold``: fold N same-shape analyzer states left to right with
 each state's merge, for every analyzer of a call, in one launch.
 
-Two entry points of one CUDA kernel (``csrc/state_fold.cu``):
+Four entry points of one set of merge rules (``csrc/state_fold.cu``):
 
 - :func:`state_fold` replaces ``merge_states_batched`` of the JAX reference
   (deequ_tpu/analyzers/base.py:273, a ``lax.scan`` of ``analyzer.merge``
@@ -10,10 +10,17 @@ Two entry points of one CUDA kernel (``csrc/state_fold.cu``):
   (``_ingest_program`` / ``make_flagged_ingest_body``,
   deequ_tpu/runners/engine.py:1760,1787): a chunk of host partials folded
   into the device-resident carry, in place.
+- :func:`state_fold_carry_stacked` replaces ``sharded_ingest_fold``
+  (deequ_tpu/parallel/__init__.py:171): n_dev carries, each folding its
+  own slice of a chunk's partials under the chunk's flags; the carry entry
+  is its one-shard case, the same kernel body.
+- :func:`state_fold_butterfly` replaces ``collective_merge_states``
+  (deequ_tpu/parallel/__init__.py:266) on one device: every shard's local
+  fold, then the XOR rounds (or the ordered gather fold), in one launch.
 
-:func:`state_fold_plain` and :func:`state_fold_carry_plain` are the same
-functions in plain PyTorch, built on the merge rules of
-``analyzers/states.py`` that the states' own ``merge`` uses.
+The ``*_plain`` functions are the same functions in plain PyTorch, built
+on the merge rules of ``analyzers/states.py`` that the states' own
+``merge`` uses.
 
 The states arrive packed per dtype into row-major matrices, one row a
 state: float64 ``[N, Wf]``, int64 ``[N, Wi]`` and int32 ``[N, Wr]``. A
@@ -26,17 +33,21 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from . import build, check_status, count_launch, on_cuda, stream_handle
 
 NAME = "state_fold"
-#: the launch count of the carry entry
+#: the launch counts of the carry entry and the mesh's two entries
 CARRY_NAME = "state_fold_carry"
+CARRY_STACKED_NAME = "state_fold_carry_stacked"
+BUTTERFLY_NAME = "state_fold_butterfly"
 #: slots per launch; equals SF_MAX_SLOTS in csrc/state_fold.cu
 MAX_SLOTS = 256
+#: shards a butterfly launch takes; equals SF_MAX_SHARDS
+MAX_SHARDS = 1024
 
 #: merge kinds (csrc/state_fold.cu); the elementwise ones fold ``length``
 #: columns, the moment kinds a fixed group of float64 columns
@@ -70,8 +81,9 @@ class _SlotStruct(ctypes.Structure):
 def _lib() -> ctypes.CDLL:
     lib = build.load(NAME)
     if not getattr(lib, "_deequ_bound", False):
-        lib.state_fold_max_slots.restype = ctypes.c_int
-        lib.state_fold_max_slots.argtypes = []
+        for query in (lib.state_fold_max_slots, lib.state_fold_max_shards):
+            query.restype = ctypes.c_int
+            query.argtypes = []
         args = [
             ctypes.POINTER(_SlotStruct), ctypes.c_int, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -81,8 +93,22 @@ def _lib() -> ctypes.CDLL:
         for entry in (lib.state_fold_launch, lib.state_fold_carry_launch):
             entry.restype = ctypes.c_int
             entry.argtypes = args
-        if lib.state_fold_max_slots() != MAX_SLOTS:
-            raise RuntimeError("state_fold library and wrapper disagree on the slot table")
+        lib.state_fold_carry_stacked_launch.restype = ctypes.c_int
+        lib.state_fold_carry_stacked_launch.argtypes = [
+            ctypes.POINTER(_SlotStruct), ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.state_fold_butterfly_launch.restype = ctypes.c_int
+        lib.state_fold_butterfly_launch.argtypes = [
+            ctypes.POINTER(_SlotStruct), ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int,
+        ] + [ctypes.c_void_p] * 7
+        if (lib.state_fold_max_slots() != MAX_SLOTS
+                or lib.state_fold_max_shards() != MAX_SHARDS):
+            raise RuntimeError("state_fold library and wrapper disagree on its limits")
         lib._deequ_bound = True
     return lib
 
@@ -215,6 +241,149 @@ def state_fold_carry_plain(carry: Sequence[torch.Tensor], parts: Sequence[torch.
     stacked = [torch.cat([row[None], mat]) for row, mat in zip(carry, parts)]
     for row, out in zip(carry, state_fold_plain(*stacked, slots)):
         row.copy_(out)
+
+
+def _ptr(t: torch.Tensor):
+    return t.data_ptr() if t.numel() else None
+
+
+def _tables(slots: Sequence[FoldSlot]):
+    """The slot table of each launch: ``MAX_SLOTS`` slots at most."""
+    for start in range(0, len(slots), MAX_SLOTS):
+        chunk = slots[start:start + MAX_SLOTS]
+        yield len(chunk), (_SlotStruct * len(chunk))(
+            *[_SlotStruct(s.kind, s.offset, s.length) for s in chunk])
+
+
+def state_fold_carry_stacked(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor],
+                             slots: Sequence[FoldSlot],
+                             flags: Optional[torch.Tensor] = None) -> None:
+    """Fold a chunk into n shards' carries in place: ``carry`` holds one
+    packed row per shard (float64 ``[n, Wf]``, int64 ``[n, Wi]``, int32
+    ``[n, Wr]``), ``parts`` the chunk's ``n * B`` partial rows, shard s
+    owning rows ``s*B .. s*B+B-1``; each shard's carry becomes the fold of
+    [carry; its rows whose ``flags`` entry (bool ``[n * B]``) is set, all
+    of them when None], in order. CPU tensors take
+    :func:`state_fold_carry_stacked_plain`; CUDA tensors launch the kernel
+    (``blockIdx.y`` the shard), once per ``MAX_SLOTS`` slots."""
+    _validate_carry_stacked(carry, parts, slots, flags)
+    if not on_cuda(carry[0], NAME):
+        state_fold_carry_stacked_plain(carry, parts, slots, flags)
+        return
+    lib = _lib()
+    device = carry[0].device
+    n = carry[0].shape[0]
+    fl = None if flags is None else flags.to(torch.uint8)
+    (cf, ci, cr), (pf, pi, pr) = carry, parts
+    for n_slots, table in _tables(slots):
+        status = lib.state_fold_carry_stacked_launch(
+            table, n_slots, n, pf.shape[0] // n, _ptr(cf), cf.shape[1], _ptr(ci), ci.shape[1],
+            _ptr(cr), cr.shape[1], _ptr(pf), _ptr(pi), _ptr(pr),
+            None if fl is None else fl.data_ptr(), stream_handle(device),
+        )
+        check_status(CARRY_STACKED_NAME, status)
+        count_launch(CARRY_STACKED_NAME)
+
+
+def _validate_carry_stacked(carry, parts, slots, flags) -> None:
+    if len(carry) != 3 or len(parts) != 3:
+        raise ValueError(f"{NAME}: the carries and the parts are three matrices each")
+    device = carry[0].device
+    n = carry[0].shape[0] if carry[0].dim() == 2 else 0
+    for rows, mat, dtype in zip(carry, parts, (torch.float64, torch.int64, torch.int32)):
+        if rows.dtype != dtype or mat.dtype != dtype or rows.dim() != 2 or mat.dim() != 2:
+            raise TypeError(f"{NAME}: expected 2-D {dtype} carries and parts, got "
+                            f"{rows.dtype} {tuple(rows.shape)} and {mat.dtype} "
+                            f"{tuple(mat.shape)}")
+        if rows.device != device or mat.device != device:
+            raise ValueError(f"{NAME}: the carries and the parts must lie on one device")
+        if not (rows.is_contiguous() and mat.is_contiguous()):
+            raise ValueError(f"{NAME}: the carries and the parts must be contiguous")
+        if rows.shape[0] != n or mat.shape[1] != rows.shape[1] or mat.shape[0] != parts[0].shape[0]:
+            raise ValueError(f"{NAME}: the parts must be [n * B, W] beside carries [n, W]")
+    if n < 1 or parts[0].shape[0] < n or parts[0].shape[0] % n:
+        raise ValueError(f"{NAME}: every shard takes the same number (>= 1) of partials")
+    if n > 65535:
+        raise ValueError(f"{NAME}: at most 65535 shards a launch")
+    if flags is not None and (flags.dtype != torch.bool or flags.shape != (parts[0].shape[0],)
+                              or flags.device != device or not flags.is_contiguous()):
+        raise ValueError(f"{NAME}: flags must be a contiguous bool [n * B] on {device}")
+    _check_slots(carry, slots)
+
+
+def state_fold_carry_stacked_plain(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor],
+                                   slots: Sequence[FoldSlot],
+                                   flags: Optional[torch.Tensor] = None) -> None:
+    """The same function as the stacked carry entry in plain PyTorch: per
+    shard, the carry entry's plain version over its flagged rows."""
+    n = carry[0].shape[0]
+    b = parts[0].shape[0] // n
+    for s in range(n):
+        keep = slice(s * b, (s + 1) * b)
+        rows = [p[keep] for p in parts]
+        if flags is not None:
+            mask = flags[keep]
+            if not bool(mask.any()):
+                continue
+            rows = [r[mask] for r in rows]
+        state_fold_carry_plain([c[s] for c in carry], rows, slots)
+
+
+def state_fold_butterfly(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor,
+                         slots: Sequence[FoldSlot], n_dev: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The collective merge of ``n_dev * k`` packed states on one device:
+    shard s owns rows ``s*k .. s*k+k-1`` and folds them first; then, for a
+    power-of-two ``n_dev``, log2(n_dev) rounds of ``acc[s] = merge(acc[s],
+    acc[s ^ shift])``, else every shard folds all accumulators in shard
+    order. Returns every shard's final row (float64 ``[n_dev, Wf]``, int64
+    ``[n_dev, Wi]``, int32 ``[n_dev, Wr]``); row 0 is the merge. CPU tensors
+    take :func:`state_fold_butterfly_plain`; CUDA tensors launch the kernel
+    once per ``MAX_SLOTS`` slots."""
+    _validate(f64, i64, i32, slots)
+    n_dev = int(n_dev)
+    if not 1 <= n_dev <= MAX_SHARDS or f64.shape[0] % n_dev:
+        raise ValueError(f"{NAME}: {f64.shape[0]} states do not split over {n_dev} shards "
+                         f"(1 <= n_dev <= {MAX_SHARDS})")
+    if not on_cuda(f64, NAME):
+        return state_fold_butterfly_plain(f64, i64, i32, slots, n_dev)
+    lib = _lib()
+    device = f64.device
+    k = f64.shape[0] // n_dev
+    outs = [torch.empty((n_dev, m.shape[1]), dtype=m.dtype, device=device)
+            for m in (f64, i64, i32)]
+    tmps = [torch.empty_like(o) for o in outs]
+    for n_slots, table in _tables(slots):
+        status = lib.state_fold_butterfly_launch(
+            table, n_slots, n_dev, k, _ptr(f64), f64.shape[1], _ptr(i64), i64.shape[1],
+            _ptr(i32), i32.shape[1], *(_ptr(t) for t in outs), *(_ptr(t) for t in tmps),
+            stream_handle(device),
+        )
+        check_status(BUTTERFLY_NAME, status)
+        count_launch(BUTTERFLY_NAME)
+    return outs[0], outs[1], outs[2]
+
+
+def state_fold_butterfly_plain(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor,
+                               slots: Sequence[FoldSlot], n_dev: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The same function as the butterfly entry in plain PyTorch: the
+    schedule spelled out with :func:`state_fold_plain` (the local folds,
+    then one two-row fold per shard and round, or one ordered fold)."""
+    k = f64.shape[0] // n_dev
+    mats = (f64, i64, i32)
+    acc = [state_fold_plain(*(m[s * k:(s + 1) * k] for m in mats), slots) for s in range(n_dev)]
+    if n_dev > 1 and n_dev & (n_dev - 1) == 0:
+        shift = 1
+        while shift < n_dev:
+            acc = [state_fold_plain(*(torch.stack([a, b]) for a, b in
+                                      zip(acc[s], acc[s ^ shift])), slots)
+                   for s in range(n_dev)]
+            shift <<= 1
+    elif n_dev > 1:
+        acc = [state_fold_plain(*(torch.stack(col) for col in zip(*acc)), slots)] * n_dev
+    out = [torch.stack(col) for col in zip(*acc)]
+    return out[0], out[1], out[2]
 
 
 def state_fold_plain(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor,

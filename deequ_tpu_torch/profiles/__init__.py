@@ -14,8 +14,7 @@ columns, dictionary-encoded first). Histograms of string columns the cast
 changed run in a pass of their own over the original data.
 
 Not carried by this port (each raises ``NotImplementedError``): a metrics
-repository and its reuse and save keys (ROADMAP A3) and sharding over
-several devices (ROADMAP A5).
+repository and its reuse and save keys (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -167,12 +166,12 @@ class ColumnProfiler:
     ) -> ColumnProfiles:
         """(reference `ColumnProfiler.profile`, `ColumnProfiler.scala:91-208`).
         Every pass runs on ``device`` (``cuda`` unless the caller names
-        another), on the ingest tier ``placement`` resolves to."""
+        another), on the ingest tier ``placement`` resolves to, its rows
+        sharded over the mesh ``sharding`` when one is given."""
         _refuse_unported(
             metrics_repository=metrics_repository,
             reuse_existing_results_using_key=reuse_existing_results_using_key,
             save_in_metrics_repository_using_key=save_in_metrics_repository_using_key,
-            sharding=sharding,
         )
         predefined_types = dict(predefined_types or {})
         schema = data.schema
@@ -186,7 +185,7 @@ class ColumnProfiler:
             if restrict_to_columns is None or c.name in restrict_to_columns
         ]
         run_kwargs = dict(batch_size=batch_size, monitor=monitor, device=device,
-                          placement=placement)
+                          placement=placement, sharding=sharding)
 
         # ---- PASS 1: generic statistics, the numeric statistics of
         # schema-typed numeric columns, histograms of small dictionaries ----
@@ -283,7 +282,6 @@ _UNPORTED = {
     "metrics_repository": "ROADMAP A3 (state persistence and repositories)",
     "reuse_existing_results_using_key": "ROADMAP A3 (state persistence and repositories)",
     "save_in_metrics_repository_using_key": "ROADMAP A3 (state persistence and repositories)",
-    "sharding": "ROADMAP A5 (more than one GPU)",
 }
 
 
@@ -552,6 +550,7 @@ class ColumnProfilerRunBuilder:
         self._batch_size: Optional[int] = None
         self._monitor = None
         self._placement: Optional[str] = None
+        self._sharding = None
 
     def restrict_to_columns(self, columns: Sequence[str]):
         self._columns = columns
@@ -601,7 +600,10 @@ class ColumnProfilerRunBuilder:
         return self
 
     def with_sharding(self, sharding):
-        _refuse_unported(sharding=sharding)
+        """Shard every pass's rows over a mesh (reference
+        `profiles/__init__.py:603`)."""
+        self._sharding = sharding
+        return self
 
     def run(self) -> ColumnProfiles:
         profiles = ColumnProfiler.profile(
@@ -615,6 +617,7 @@ class ColumnProfilerRunBuilder:
             monitor=self._monitor,
             device=self._device,
             placement=self._placement,
+            sharding=self._sharding,
         )
         if self._profiles_path is not None:
             _write_text_atomic(self._profiles_path, profiles.to_json())

@@ -22,11 +22,22 @@ site                 fires
 ``stream_fold``      before a streaming session's fold mutates state
 ``coalesced_fold``   before a coalesced fast/device fold executes a claimed
                      group, tag = session key
+``sharded_fold``     before a mesh ingest fold dispatch
+``collective_merge`` before a collective state merge dispatch
+``shard_probe``      per mesh shard in the heartbeat health probe, tag = shard
 ===================  ========================================================
 
-The engine's sites (device dispatch, compile, host partials, state fetch),
-the mesh, ingest and cluster kinds belong to the reliability wrapper, the
-watchdog and the planes the port has not taken yet (ROADMAP A3, A5, A6).
+The mesh kinds: ``mesh_loss`` (a typed ``ShardLossError`` whose ``lost``
+list carries the spec's ``shard``, default 0) stands in for a device or
+process dying mid-pass: injected at ``sharded_fold`` or
+``collective_merge`` it exercises the elastic salvage and re-shard path,
+at ``shard_probe`` it makes the heartbeat declare that shard dead;
+``shard_stall`` (a typed ``ShardStallError``, the same payload) stands in
+for a shard that wedged without raising.
+
+The engine's other sites (device dispatch, compile, host partials, state
+fetch), the ingest and cluster kinds belong to the reliability wrapper,
+the watchdog and the planes the port has not taken yet (ROADMAP A3, A6).
 """
 
 from __future__ import annotations
@@ -45,6 +56,8 @@ from ..exceptions import (
     DeviceOOMException,
     PoisonedBatchException,
     SchemaDriftError,
+    ShardLossError,
+    ShardStallError,
 )
 
 #: env vars arming a process-wide plan (JSON spec list / int seed)
@@ -67,7 +80,7 @@ class WorkerCrash(RuntimeError):
 
 
 #: fault kind -> exception factory (tag-aware where the type carries one)
-def _make_error(kind: str, site: str, tag: str) -> BaseException:
+def _make_error(kind: str, site: str, tag: str, shard: Optional[int] = None) -> BaseException:
     note = f"injected fault at site={site!r} tag={tag!r}"
     if kind == "device":
         return DeviceFailureException(note)
@@ -89,12 +102,16 @@ def _make_error(kind: str, site: str, tag: str) -> BaseException:
         return CorruptStateError("injected payload", site, note)
     if kind == "drift":
         return SchemaDriftError(site, [note])
+    if kind == "mesh_loss":
+        return ShardLossError([0 if shard is None else shard], site, detail=note)
+    if kind == "shard_stall":
+        return ShardStallError([0 if shard is None else shard], site, detail=note)
     raise ValueError(f"unknown fault kind {kind!r}")
 
 
 FAULT_KINDS = (
     "device", "oom", "poison", "analyzer", "interrupt", "worker_death",
-    "stall", "corrupt", "drift",
+    "stall", "corrupt", "drift", "mesh_loss", "shard_stall",
 )
 
 #: The fault-site REGISTRY: every ``fault_point(site, ...)`` planted in the
@@ -104,6 +121,9 @@ KNOWN_FAULT_SITES = frozenset({
     "worker",
     "stream_fold",
     "coalesced_fold",
+    "sharded_fold",
+    "collective_merge",
+    "shard_probe",
 })
 
 
@@ -124,6 +144,7 @@ class FaultSpec:
     count: Optional[int] = 1
     match: Optional[str] = None
     delay_s: float = 0.0
+    shard: Optional[int] = None
 
     def __post_init__(self):
         if self.kind not in FAULT_KINDS:
@@ -199,7 +220,7 @@ class FaultInjector:
                 # drags before wedging — by sleeping, then raising)
                 delay = spec.delay_s
                 if spec.kind != "stall":
-                    error = _make_error(spec.kind, site, tag)
+                    error = _make_error(spec.kind, site, tag, shard=spec.shard)
                 break
         if delay:
             time.sleep(delay)

@@ -135,6 +135,7 @@ class AnalysisRunner:
         fail_if_results_missing: bool = False,
         save_or_append_results_with_key: Optional[Any] = None,
         placement: Optional[str] = None,
+        sharding: Optional[Any] = None,
     ) -> AnalyzerContext:
         """Compute every analyzer's metric in one pass over ``data``.
         ``freq_table_slots`` and ``freq_buffer_entries`` size the device
@@ -145,8 +146,12 @@ class AnalysisRunner:
         with ``reuse_existing_results_for_key`` / ``fail_if_results_missing``
         and ``save_or_append_results_with_key``: as the reference's runner
         (module docstring). ``placement``: the ingest tier, ``"auto"`` when
-        None (module docstring)."""
-        dev = resolve_device(device)
+        None (module docstring). ``sharding``: a
+        :class:`~deequ_tpu_torch.parallel.Mesh` to shard the pass's rows
+        over (either tier; the batch size rounds up to
+        ``mesh_batch_quantum``); the run then lies on the mesh's first
+        device, and ``device``, when given, must be of its type."""
+        dev = _run_device(device, sharding)
         if placement is not None and placement not in PLACEMENTS:
             raise ValueError(f"placement must be one of {PLACEMENTS}, got {placement!r}")
         if len(analyzers) == 0:
@@ -231,7 +236,7 @@ class AnalysisRunner:
         # Merged or persisted grouping states must be value-keyed, so a run
         # that aggregates or saves states keeps route 3 off.
         slim = aggregate_with is None and save_states_with is None
-        batch_rows = effective_batch_size(batch_size)
+        batch_rows = effective_batch_size(batch_size, sharding)
         table_scans: Dict[Tuple[str, ...], DeviceFrequencyTableScan] = {}
         host_sets: List[Tuple[str, ...]] = []
         tables_ok = (slim and device_freq and any(c not in dict_sets for c in grouping_sets)
@@ -242,7 +247,8 @@ class AnalysisRunner:
             scan = None
             if tables_ok and not probably_low_cardinality(data, cols):
                 scan = plan_table_scan(schema, cols, data.num_rows, batch_rows,
-                                       freq_table_slots, freq_buffer_entries)
+                                       freq_table_slots, freq_buffer_entries,
+                                       sharded=sharding is not None)
             if scan is None:
                 host_sets.append(cols)
             else:
@@ -256,7 +262,7 @@ class AnalysisRunner:
             return _results(results_loaded + AnalyzerContext(failures), metrics_repository,
                             save_or_append_results_with_key)
         states, shared = _run_pass(data, battery, host_sets, batch_size, dev, run_monitor,
-                                   placement)
+                                   placement, sharding)
         by_analyzer = dict(zip(battery, states))
 
         # drain the device frequency tables; a table that dropped groups
@@ -280,7 +286,8 @@ class AnalysisRunner:
                 "them through the host group-by", losses,
             )
             run_monitor.freq_overflow_fallbacks += len(fallback)
-            shared.update(_run_pass(data, [], fallback, batch_size, dev, run_monitor)[1])
+            shared.update(_run_pass(data, [], fallback, batch_size, dev, run_monitor,
+                                    sharding=sharding)[1])
 
         # load old state -> merge -> persist -> metric (reference
         # `Analyzer.calculateMetric`, `Analyzer.scala:107-128`)
@@ -400,15 +407,27 @@ def _device_tier_expected(scanning: Sequence[ScanShareableAnalyzer], placement: 
     return probe_feed_bandwidth(device) >= FEED_BANDWIDTH_THRESHOLD_MBPS
 
 
+def _run_device(device, sharding):
+    """The device of a run: the mesh's first device under ``sharding``
+    (``device``, when given, must be of its type), else ``device``
+    resolved."""
+    if sharding is None:
+        return resolve_device(device)
+    if device is not None and resolve_device(device).type != sharding.home.type:
+        raise ValueError(f"device={device!r} does not match the mesh {sharding}")
+    return sharding.home
+
+
 def _run_pass(data: Dataset, battery: Sequence[ScanShareableAnalyzer],
               host_sets: Sequence[Tuple[str, ...]], batch_size: Optional[int], device,
-              monitor: RunMonitor, placement: Optional[str] = None,
+              monitor: RunMonitor, placement: Optional[str] = None, sharding=None,
               ) -> Tuple[List[Any], Dict[Tuple[str, ...], Any]]:
     """One pass: ``battery`` on the ingest tier ``placement`` resolves to
-    and a host group-by per set of ``host_sets``. Returns the battery's
-    states (on the host) and each set's :class:`FrequenciesAndNumRows` by
-    its columns."""
-    engine = ScanEngine(battery, device, monitor=monitor, placement=placement)
+    (row-sharded over the mesh ``sharding``) and a host group-by per set
+    of ``host_sets``. Returns the battery's states (on the host) and each
+    set's :class:`FrequenciesAndNumRows` by its columns."""
+    engine = ScanEngine(battery, device, monitor=monitor, placement=placement,
+                        sharding=sharding)
     tables: Dict[Tuple[str, ...], Any] = {
         cols: FrequenciesAndNumRows.empty(list(cols)) for cols in host_sets
     }

@@ -21,6 +21,7 @@ class AnalysisRunBuilder:
         self._freq_options: Dict[str, Any] = {}
         self._state_options: Dict[str, Any] = {}
         self._placement: Optional[str] = None
+        self._sharding: Optional[Any] = None
 
     def add_analyzer(self, analyzer: Analyzer) -> "AnalysisRunBuilder":
         self._analyzers.append(analyzer)
@@ -67,6 +68,12 @@ class AnalysisRunBuilder:
         self._placement = placement
         return self
 
+    def with_sharding(self, sharding) -> "AnalysisRunBuilder":
+        """Shard the pass's rows over a mesh
+        (:meth:`AnalysisRunner.do_analysis_run`'s ``sharding``)."""
+        self._sharding = sharding
+        return self
+
     def with_frequency_options(self, **options) -> "AnalysisRunBuilder":
         """``freq_table_slots``, ``freq_buffer_entries`` and ``device_freq``
         of :meth:`AnalysisRunner.do_analysis_run`."""
@@ -83,6 +90,7 @@ class AnalysisRunBuilder:
             monitor=self._monitor,
             device=self._device,
             placement=self._placement,
+            sharding=self._sharding,
             **self._freq_options,
             **self._state_options,
         )

@@ -17,9 +17,18 @@ reference's ``ScanEngine`` does (deequ_tpu/runners/engine.py:1893, 2223):
 
 Per pass the states come to the host once. The streaming service's
 coalesced fold (:func:`fold_sessions_coalesced`) folds W sessions'
-single batches with one stacked launch per kernel. The reliability
-wrapper, the watchdog, checkpoints, the mesh and the elastic fold are not
-part of the port, and a device failure raises.
+single batches with one stacked launch per kernel.
+
+``sharding`` (a :class:`~deequ_tpu_torch.parallel.Mesh`) runs the pass
+row-sharded over the mesh's shards on either tier (the reference's
+``ScanEngine(sharding=mesh)``): the batch size rounds up to
+``mesh_batch_quantum``; on the device tier each batch splits into the
+shards' contiguous slices (:meth:`BundledScanProgram.call_sharded`); on
+the host tier each shard folds its slice of every chunk of partials into
+its own states through the elastic fold (``parallel.elastic``), which
+survives the loss of shards, and the pass ends in the collective merge.
+The reliability wrapper, the watchdog and checkpoints are not part of the
+port; any other device failure raises.
 """
 
 from __future__ import annotations
@@ -82,7 +91,9 @@ class RunMonitor:
     repr, exported per tenant), and the reliability counters its scheduler
     harvests (``device_failovers``, ``batch_bisections``,
     ``isolation_reruns``, ``stalls``, ``device_stalls``, ``degraded``),
-    which stay 0 and empty: the port has no reliability wrapper."""
+    which stay 0 and empty: the port has no reliability wrapper. A run
+    over a mesh counts ``shard_losses``, ``mesh_reshards`` and
+    ``salvaged_states`` and notes its re-shards in ``degraded``."""
 
     passes: int = 0
     batches: int = 0
@@ -104,6 +115,12 @@ class RunMonitor:
     stalls: int = 0
     device_stalls: int = 0
     degraded: List[str] = field(default_factory=list)
+    #: mesh shards declared lost mid-pass, the re-shards one ladder rung
+    #: down (the drop to host mode counts too), and the surviving shards'
+    #: states salvaged into a canonical merge (``parallel.elastic``)
+    shard_losses: int = 0
+    mesh_reshards: int = 0
+    salvaged_states: int = 0
     _lock: Any = field(default_factory=threading.Lock, repr=False, compare=False)
 
     #: the counters :meth:`merge_from` adds up
@@ -111,7 +128,7 @@ class RunMonitor:
         "passes", "batches", "device_updates", "fast_path_folds", "coalesced_folds",
         "device_freq_sets", "freq_overflow_fallbacks", "ingest_folds",
         "device_failovers", "batch_bisections", "isolation_reruns", "stalls",
-        "device_stalls",
+        "device_stalls", "shard_losses", "mesh_reshards", "salvaged_states",
     )
 
     def add_phase_time(self, phase: str, seconds: float) -> None:
@@ -123,6 +140,12 @@ class RunMonitor:
         atomic across the service's worker threads)."""
         with self._lock:
             setattr(self, field_name, getattr(self, field_name) + by)
+
+    def note_degraded(self, tag: str) -> None:
+        """Record a degradation (``"mesh:8->4"``, ``"mesh:host"``) once."""
+        with self._lock:
+            if tag not in self.degraded:
+                self.degraded.append(tag)
 
     def merge_from(self, other: "RunMonitor") -> None:
         """Absorb another monitor's counters and phase times: the service
@@ -224,6 +247,66 @@ class BundledScanProgram:
             else:
                 out_i, out_f = outs[slot // MAX_SLOTS]
                 new_states.append(a.fold_slot(state, partials(out_i, out_f, slot % MAX_SLOTS)))
+        return new_states
+
+    def call_sharded(self, states: Sequence[Any], features: Dict[str, torch.Tensor],
+                     mesh) -> List[Any]:
+        """:meth:`__call__` over a mesh (the reference's GSPMD
+        ``sharded_update``, deequ_tpu/parallel/__init__.py:146): the
+        batch's rows split into ``mesh.size`` contiguous slices; per card,
+        one ``scan_reduce_stacked`` launch per bundle and one stacked launch
+        per HLL analyzer, the shard the stacked axis; each such analyzer's
+        shard states fold into its state in shard order, on ``mesh.home``
+        (one ``state_fold`` launch for all). The other analyzers (KLL,
+        dictionary counts, frequency tables) update on the whole batch, as
+        the reference's program reads them as global arrays, so they equal
+        the unsharded run's. ``states`` and ``features`` lie on
+        ``mesh.home``."""
+        from ..analyzers.base import _fold_launch
+        from ..parallel import _is_stacked_kernel, shard_features
+
+        n = mesh.size
+        home = mesh.home
+        sharded = shard_features(features, mesh)
+        # per analyzer on the shard route: its n shard states, in order
+        shards: List[Optional[List[Any]]] = [None] * len(self.analyzers)
+        routed = [slot is not None or _is_stacked_kernel(a)
+                  for a, slot in zip(self.analyzers, self.slot_of)]
+        for device, positions in mesh.groups():
+            if len(positions) == n and device == home:
+                sub = sharded
+            else:
+                idx = torch.tensor(positions, device=home)
+                sub = {k: v.index_select(0, idx).to(device) for k, v in sharded.items()
+                       if v.dim() == 2}
+            width = len(positions)
+            outs = [scan_reduce_stacked([resolve_slot(spec, sub) for spec in bundle],
+                                        sub["rows"])
+                    for bundle in self.bundles]
+            for i, (a, slot) in enumerate(zip(self.analyzers, self.slot_of)):
+                if not routed[i]:
+                    continue
+                if slot is None:
+                    got = a.update_stacked(sub, width, device)
+                else:
+                    out_i, out_f = outs[slot // MAX_SLOTS]
+                    stacked = a.fold_slot(a.init_state(device),
+                                          partials(out_i, out_f, slot % MAX_SLOTS))
+                    got = [with_leaves(stacked, [leaf[w] for leaf in state_leaves(stacked)])
+                           for w in range(width)]
+                if shards[i] is None:
+                    shards[i] = [None] * n
+                for pos, st in zip(positions, got):
+                    shards[i][pos] = st if device == home else with_leaves(
+                        st, [leaf.to(home) for leaf in state_leaves(st)])
+        jobs = [(i, [states[i]] + shards[i]) for i in range(len(self.analyzers)) if routed[i]]
+        new_states = list(states)
+        if jobs:
+            for (i, _), st in zip(jobs, _fold_launch(jobs, fold_layout(), home)):
+                new_states[i] = st
+        for i, (a, state) in enumerate(zip(self.analyzers, states)):
+            if not routed[i]:
+                new_states[i] = a.update(state, features)
         return new_states
 
 
@@ -489,7 +572,8 @@ class HostIngest:
 
 class ScanEngine:
     """One shared pass of the scan analyzers over a dataset on ``device``,
-    on the ingest tier ``placement`` resolves to."""
+    on the ingest tier ``placement`` resolves to; with ``sharding`` (a
+    mesh) row-sharded over its shards, on ``sharding.home``."""
 
     def __init__(
         self,
@@ -497,9 +581,11 @@ class ScanEngine:
         device: torch.device,
         monitor: Optional[RunMonitor] = None,
         placement: Optional[str] = None,
+        sharding: Optional[Any] = None,
     ):
         self.scan_analyzers = list(scan_analyzers)
-        self.device = device
+        self.mesh = sharding
+        self.device = device if sharding is None else sharding.home
         self.monitor = monitor or RunMonitor()
         self.placement = placement
         self.builder = FeatureBuilder(
@@ -531,11 +617,14 @@ class ScanEngine:
         monitor.device = str(self.device)
         if not self.scan_analyzers and not host_states:
             return []
-        bs = effective_batch_size(batch_size)
+        bs = effective_batch_size(batch_size, self.mesh)
         tier = resolve_scan_placement(self.scan_analyzers, self.placement, self.device, monitor)
         monitor.placement = tier
         routes = pattern_routes()
         try:
+            if tier == "host" and self.mesh is not None:
+                return self._run_host_tier_mesh(data, bs, columns, host_states,
+                                                host_update_fns)
             if tier == "host":
                 return self._run_host_tier(data, bs, columns, host_states, host_update_fns)
             return self._run_device_tier(data, bs, columns, host_states, host_update_fns)
@@ -557,7 +646,10 @@ class ScanEngine:
                     features = to_device(host_features, self.device)
                     synchronize(self.device)
                 with monitor.timed("kernels"):
-                    states = self.program(states, features)
+                    if self.mesh is None:
+                        states = self.program(states, features)
+                    else:
+                        states = self.program.call_sharded(states, features, self.mesh)
                     synchronize(self.device)
                 monitor.bump("device_updates")
                 self.program.executed = True
@@ -571,45 +663,29 @@ class ScanEngine:
         with monitor.timed("state_fetch"):
             return fetch_states(states)
 
-    def _run_host_tier(self, data: Dataset, bs: int, columns, host_states,
-                       host_update_fns) -> List[Any]:
-        """The host ingest tier (the reference's ``_run_host_tier``,
-        deequ_tpu/runners/engine.py:2223, on one device): a pool of
-        ``os.cpu_count()`` threads computes each batch's partials, at most
-        ``workers + 32`` batches in flight; the partials fold in submission
-        order (the KLL sampler's offset keys on the batch index) in chunks
-        of 32, the last chunk holding what is left. Host accumulators fold
-        each batch on the submitting thread meanwhile."""
+    def _host_pipeline(self, data: Dataset, bs: int, columns, host_states, host_update_fns,
+                       chunk: int, compute_partial, fold) -> None:
+        """The host tier's pipeline (the reference's ``_run_host_tier``,
+        deequ_tpu/runners/engine.py:2223): a pool of ``os.cpu_count()``
+        threads computes each batch's partial (``compute_partial(index,
+        batch)``), at most ``workers + chunk`` batches in flight; the
+        partials fold in submission order (the KLL sampler's offset keys on
+        the batch index) through ``fold(partials, first_index)`` in chunks
+        of ``chunk``, the last chunk holding what is left. Host accumulators
+        fold each batch on the submitting thread meanwhile."""
         monitor = self.monitor
-        analyzers = self.scan_analyzers
-        ingest = HostIngest(analyzers, self.device)
-        # one token per pass: host partials may skip what an earlier batch
-        # of the SAME pass contributed (the HLL dictionary memo), never
-        # across passes
-        run_token = object()
-
-        def compute_partial(index: int, batch) -> Tuple[List[torch.Tensor], List[Any]]:
-            t0 = time.perf_counter()
-            ctx = HostBatchContext(batch, batch_index=index, run_token=run_token)
-            packed = ingest.pack([a.host_partial(ctx) for a in analyzers])
-            monitor.add_phase_time("host_partials", time.perf_counter() - t0)
-            return packed
-
-        def fold(chunk) -> None:
-            with monitor.timed("ingest_fold"):
-                ingest.fold(chunk)
-                synchronize(self.device)
-            monitor.ingest_folds += 1
-
         workers = os.cpu_count() or 1
-        window = workers + INGEST_CHUNK
+        window = workers + chunk
         pending: deque = deque()
         buffer: List[Any] = []
+        folded = 0
 
         def drain_one() -> None:
+            nonlocal folded
             buffer.append(pending.popleft().result())
-            if len(buffer) == INGEST_CHUNK:
-                fold(buffer)
+            if len(buffer) == chunk:
+                fold(list(buffer), folded)
+                folded += chunk
                 buffer.clear()
 
         with ThreadPoolExecutor(max_workers=workers) as pool:
@@ -627,14 +703,134 @@ class ScanEngine:
             while pending:
                 drain_one()
         if buffer:
-            fold(buffer)
+            fold(list(buffer), folded)
+
+    def _run_host_tier(self, data: Dataset, bs: int, columns, host_states,
+                       host_update_fns) -> List[Any]:
+        """The host ingest tier on one device: :meth:`_host_pipeline` in
+        chunks of 32, each chunk one fold into the carry."""
+        monitor = self.monitor
+        analyzers = self.scan_analyzers
+        ingest = HostIngest(analyzers, self.device)
+        # one token per pass: host partials may skip what an earlier batch
+        # of the SAME pass contributed (the HLL dictionary memo), never
+        # across passes
+        run_token = object()
+
+        def compute_partial(index: int, batch) -> Tuple[List[torch.Tensor], List[Any]]:
+            t0 = time.perf_counter()
+            ctx = HostBatchContext(batch, batch_index=index, run_token=run_token)
+            packed = ingest.pack([a.host_partial(ctx) for a in analyzers])
+            monitor.add_phase_time("host_partials", time.perf_counter() - t0)
+            return packed
+
+        def fold(chunk, first: int) -> None:
+            with monitor.timed("ingest_fold"):
+                ingest.fold(chunk)
+                synchronize(self.device)
+            monitor.ingest_folds += 1
+
+        self._host_pipeline(data, bs, columns, host_states, host_update_fns, INGEST_CHUNK,
+                            compute_partial, fold)
         with monitor.timed("state_fetch"):
             return fetch_states(ingest.states())
 
+    def _run_host_tier_mesh(self, data: Dataset, bs: int, columns, host_states,
+                            host_update_fns) -> List[Any]:
+        """The host tier over a mesh (the reference's ``_run_host_tier`` with a
+        mesh, deequ_tpu/runners/engine.py:2248-2264, 2480-2550):
+        :meth:`_host_pipeline` computes each batch's partials as on one
+        device; a chunk holds
+        ``local_chunk = max(1, 32 // n)`` partials per shard, shard s folding
+        the chunk's slice ``[s * local_chunk, (s + 1) * local_chunk)`` into
+        its own states (``ElasticMeshFold.fold``: ``state_fold_carry_stacked``,
+        ``kll_compact_ingest`` over every shard's sketches); the last chunk is
+        padded with flagged-off partials. Batches lost with dead shards are
+        recomputed (with a fresh memo token) and re-folded, then the pass ends
+        in the collective merge (``ElasticMeshFold.finish``)."""
+        from ..observability import trace as _trace
+        from ..parallel import ElasticMeshFold
+        from ..parallel.dcn import stack_partials
 
-def effective_batch_size(batch_size: Optional[int] = None) -> int:
-    """The rows per batch of a pass (every batch is padded to it)."""
-    return int(batch_size or DEFAULT_BATCH_SIZE)
+        monitor = self.monitor
+        analyzers = self.scan_analyzers
+        mesh = self.mesh
+        local_chunk = max(1, INGEST_CHUNK // mesh.size)
+        chunk = local_chunk * mesh.size
+        elastic = ElasticMeshFold(analyzers, mesh, monitor=monitor)
+        run_token = object()
+
+        def compute_partial(index: int, batch, token=None) -> Tuple:
+            t0 = time.perf_counter()
+            ctx = HostBatchContext(batch, batch_index=index,
+                                   run_token=run_token if token is None else token)
+            partial = tuple(a.host_partial(ctx) for a in analyzers)
+            monitor.add_phase_time("host_partials", time.perf_counter() - t0)
+            return partial
+
+        def fold(group: List[Tuple], indices: List[int]) -> None:
+            n_real = len(group)
+            group = group + [group[0]] * (chunk - n_real)
+            flags = np.zeros(chunk, dtype=bool)
+            flags[:n_real] = True
+            with monitor.timed("ingest_fold"):
+                elastic.fold(stack_partials(analyzers, group), flags, indices)
+                synchronize(elastic.mesh.home if not elastic.host_mode else None)
+            monitor.ingest_folds += 1
+
+        self._host_pipeline(
+            data, bs, columns, host_states, host_update_fns, chunk, compute_partial,
+            lambda group, first: fold(group, list(range(first, first + len(group)))))
+
+        def replay_pending() -> None:
+            # a fresh memo token per round: the pass token's cross-batch skip
+            # (the HLL dictionary memo) may have credited an entry to a batch
+            # the dead shard owned
+            todo = set(elastic.take_lost_batches())
+            _trace.add_event("mesh_replay", batches=len(todo))
+            token = object()
+            group: List[Tuple] = []
+            indices: List[int] = []
+            last = max(todo)
+            for index, batch in enumerate(
+                data.batches(bs, columns=columns, pad_to_batch_size=False)
+            ):
+                if index > last:
+                    break
+                if index not in todo:
+                    continue
+                group.append(compute_partial(index, batch, token))
+                indices.append(index)
+                if len(group) == chunk:
+                    fold(group, indices)
+                    group, indices = [], []
+            if group:
+                fold(group, indices)
+
+        while True:
+            while elastic.pending_replay:
+                replay_pending()
+            with monitor.timed("collective_merge"):
+                states = elastic.finish()
+                synchronize(None if elastic.host_mode else elastic.mesh.home)
+            if not elastic.pending_replay:
+                break
+        with monitor.timed("state_fetch"):
+            return fetch_states(states)
+
+
+def effective_batch_size(batch_size: Optional[int] = None, mesh=None) -> int:
+    """The rows per batch of a pass (every batch of the device tier is
+    padded to it); over a mesh, rounded up to ``mesh_batch_quantum``, so
+    every batch splits evenly over the shards and keeps its boundaries
+    when the mesh shrinks a rung (deequ_tpu/runners/engine.py:2021)."""
+    bs = int(batch_size or DEFAULT_BATCH_SIZE)
+    if mesh is not None:
+        from ..parallel import mesh_batch_quantum
+
+        q = mesh_batch_quantum(mesh.size)
+        bs = -(-bs // q) * q
+    return bs
 
 
 # ---------------------------------------------------------------------------

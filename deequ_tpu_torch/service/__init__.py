@@ -35,7 +35,7 @@ Usage::
     print(service.prometheus_text())
     service.close()
 
-Not ported: the mesh and the fleet scheduler (ROADMAP A5), the tenant
+Not ported: the mesh and the fleet scheduler (ROADMAP A5b), the tenant
 catalog, the fleet watch and the tuning controller (A6), partition stores
 and partitioned verification (A3); each raises naming its item.
 """
@@ -103,9 +103,9 @@ class VerificationService:
         catalog=None,
     ):
         if mesh is not None:
-            raise _not_ported("a device mesh", "A5")
+            raise _not_ported("a device mesh", "A5b")
         if fleet:
-            raise _not_ported("the fleet scheduler", "A5")
+            raise _not_ported("the fleet scheduler", "A5b")
         if partition_store is not None:
             raise _not_ported("a partition store", "A3")
         if catalog is not None:

@@ -108,6 +108,7 @@ class VerificationSuite:
         fail_if_results_missing: bool = False,
         save_or_append_results_with_key: Optional[Any] = None,
         placement: Optional[str] = None,
+        sharding: Optional[Any] = None,
         **freq_options,
     ) -> VerificationResult:
         """One pass computing every metric the checks need, then the
@@ -117,7 +118,8 @@ class VerificationSuite:
         keywords are its own too, except that the results are saved after
         the checks are evaluated, so an anomaly check never sees the current
         point in its own history (reference `VerificationSuite.scala:121-139`).
-        ``placement``: the pass's ingest tier, as ``do_analysis_run``'s."""
+        ``placement``: the pass's ingest tier, and ``sharding``: the mesh its
+        rows shard over, as ``do_analysis_run``'s."""
         checks = list(checks)  # evaluate() walks them again after the run
         analyzers = collect_required_analyzers(checks, required_analyzers)
         analysis_results = AnalysisRunner.do_analysis_run(
@@ -126,7 +128,7 @@ class VerificationSuite:
             metrics_repository=metrics_repository,
             reuse_existing_results_for_key=reuse_existing_results_for_key,
             fail_if_results_missing=fail_if_results_missing, placement=placement,
-            **freq_options,
+            sharding=sharding, **freq_options,
         )
         result = VerificationSuite.evaluate(checks, analysis_results)
         if metrics_repository is not None and save_or_append_results_with_key is not None:
@@ -211,6 +213,7 @@ class VerificationRunBuilder:
         self._freq_options: Dict = {}
         self._state_options: Dict[str, Any] = {}
         self._placement: Optional[str] = None
+        self._sharding: Optional[Any] = None
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self.checks.append(check)
@@ -253,6 +256,13 @@ class VerificationRunBuilder:
         self._placement = placement
         return self
 
+    def with_sharding(self, sharding) -> "VerificationRunBuilder":
+        """Shard the pass's rows over a mesh
+        (:func:`deequ_tpu_torch.parallel.make_mesh`; reference
+        `verification.py:347`)."""
+        self._sharding = sharding
+        return self
+
     def with_frequency_options(self, **options) -> "VerificationRunBuilder":
         """``freq_table_slots``, ``freq_buffer_entries`` and ``device_freq``
         of :meth:`AnalysisRunner.do_analysis_run`."""
@@ -268,6 +278,7 @@ class VerificationRunBuilder:
             monitor=self._monitor,
             device=self.device,
             placement=self._placement,
+            sharding=self._sharding,
             **self._freq_options,
             **self._state_options,
         )

@@ -685,3 +685,169 @@ def test_coalesced_service_run_on_the_card(cuda_device):
     assert summary["width_sum"] >= 80
     for got, want in zip(coalesced, serial):
         assert chip_smoke.compare_metrics(got, want, 0.0) == []
+
+
+# ---------------------------------------------------------------------------
+# the mesh's entries: K8's butterfly and stacked carry, K5's stacked merge
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dev,k", [(8, 1), (4, 2), (3, 1), (1, 4), (64, 1)])
+def test_state_fold_butterfly_kernel_matches_plain(cuda_device, n_dev, k):
+    """Every shard's final row of the collective merge, bit for bit the
+    plain version, in one launch; with the wide dictionary slot of
+    ``carry_groups`` spanning several blocks."""
+    from deequ_tpu_torch.kernels.state_fold import state_fold_butterfly, state_fold_butterfly_plain
+
+    jobs = [states for _, states in chip_smoke.carry_groups(dq, n_dev * k, seed=n_dev + k)]
+    mats, slots, _ = pack_states(jobs)
+    mats = [m.to(cuda_device) for m in mats]
+    reset_launch_counts()
+    got = state_fold_butterfly(*mats, slots, n_dev)
+    assert launch_counts()["state_fold_butterfly"] == 1
+    want = state_fold_butterfly_plain(*mats, slots, n_dev)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape[0] == n_dev
+        if g.dtype == torch.float64:
+            assert _bits_equal(g.cpu().numpy(), w.cpu().numpy())
+        else:
+            assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dev,local", [(8, 4), (3, 2), (1, 32)])
+def test_state_fold_carry_stacked_kernel_matches_plain(cuda_device, n_dev, local):
+    from deequ_tpu_torch.kernels.state_fold import (
+        state_fold_carry_stacked,
+        state_fold_carry_stacked_plain,
+    )
+
+    rng = np.random.default_rng(n_dev)
+    jobs = [states for _, states in chip_smoke.carry_groups(dq, n_dev * (local + 1), seed=7)]
+    mats, slots, _ = pack_states(jobs)
+    carry = [m[:n_dev].contiguous().to(cuda_device) for m in mats]
+    parts = [m[n_dev:].contiguous().to(cuda_device) for m in mats]
+    flags = torch.from_numpy(rng.random(n_dev * local) < 0.75).to(cuda_device)
+    plain = [c.clone() for c in carry]
+    reset_launch_counts()
+    state_fold_carry_stacked(carry, parts, slots, flags)
+    assert launch_counts()["state_fold_carry_stacked"] == 1
+    state_fold_carry_stacked_plain(plain, parts, slots, flags)
+    torch.cuda.synchronize()
+    for g, w in zip(carry, plain):
+        if g.dtype == torch.float64:
+            assert _bits_equal(g.cpu().numpy(), w.cpu().numpy())
+        else:
+            assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 2048, 8192])
+def test_kll_compact_merge_stacked_kernel_matches_plain(cuda_device, k):
+    from deequ_tpu_torch.kernels.kll_compact import (
+        kll_compact_ingest_plain,
+        kll_compact_merge_stacked,
+        kll_compact_merge_stacked_plain,
+    )
+    from deequ_tpu_torch.runners.engine import stack_samples
+
+    m = 8
+    sides = []
+    for side in range(2):
+        stacked = [torch.stack(list(col)).contiguous()
+                   for col in zip(*(kll_init(k, 16).tensors() for _ in range(m)))]
+        samples = [chip_smoke.edge_samples(k, 6, seed=20 * side + s) for s in range(m)]
+        kll_compact_ingest_plain(stacked, stack_samples(samples, 4 * k, lambda t: t), k)
+        sides.append([t.to(cuda_device) for t in stacked])
+    reset_launch_counts()
+    got = kll_compact_merge_stacked(sides[0], sides[1], k)
+    assert launch_counts()["kll_compact_merge_stacked"] == 1
+    want = kll_compact_merge_stacked_plain(sides[0], sides[1], k)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.cpu().numpy().tobytes() == w.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["host", "device"])
+def test_mesh_run_on_the_card_equals_the_cpu_mesh_run(cuda_device, placement):
+    """A run over ``make_mesh(8)`` on the card launches the mesh's entries
+    and equals the same run over a mesh of 8 on the CPU."""
+    import pyarrow as pa
+
+    from deequ_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(9)
+    n = 90_000
+    table = pa.table({
+        "x": pa.array(rng.normal(0, 1, n), mask=rng.random(n) < 0.05),
+        "y": pa.array(rng.normal(5, 2, n)),
+        "cat": pa.array(rng.integers(0, 3000, n)),
+    })
+    analyzers = [dq.Size(), dq.Mean("x"), dq.StandardDeviation("y"), dq.Correlation("x", "y"),
+                 dq.Minimum("x"), dq.Maximum("y"), dq.ApproxCountDistinct("cat"),
+                 dq.KLLSketch("x")]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        reset_launch_counts()
+        ctx = dq.AnalysisRunner.do_analysis_run(
+            dq.Dataset.from_arrow(table), analyzers, batch_size=1024, placement=placement,
+            sharding=make_mesh(8, device=device))
+        runs[device] = (ctx, launch_counts())
+    counts = runs["cuda"][1]
+    if placement == "host":
+        assert counts["state_fold_carry_stacked"] > 0 and counts["state_fold_butterfly"] > 0
+        assert counts["kll_compact_merge_stacked"] > 0 and counts["kll_compact_ingest"] > 0
+    else:
+        assert counts["scan_reduce_stacked"] > 0 and counts["hll_registers_stacked"] > 0
+        assert counts["state_fold"] > 0
+    for a in analyzers:
+        got, want = runs["cuda"][0].metric(a).value.get(), runs["cpu"][0].metric(a).value.get()
+        if placement == "device" and isinstance(got, float):
+            assert _close(got, want, abs(want)), a  # K1's reordered sums
+        else:
+            assert repr(got) == repr(want), a
+
+
+@pytest.mark.cuda
+def test_a_shard_lost_on_the_card_salvages_on_the_card(cuda_device, monkeypatch):
+    """Shard 5 of eight on the card lost at the second fold: the seven
+    survivors merge on the card (``state_fold``), the mesh re-shards to 4
+    and the metrics equal the same loss on a CPU mesh; with a ladder of 8
+    alone no rung fits, and a mesh on one card fails the run with
+    ``MeshExhaustedError`` instead of finishing on the host."""
+    import pyarrow as pa
+
+    from deequ_tpu_torch.exceptions import MeshExhaustedError
+    from deequ_tpu_torch.parallel import elastic, make_mesh
+    from deequ_tpu_torch.reliability import FaultSpec, inject
+
+    rng = np.random.default_rng(12)
+    n = 64 * 1024
+    table = pa.table({"x": pa.array(rng.normal(0, 1, n), mask=rng.random(n) < 0.05),
+                      "cat": pa.array(rng.integers(0, 3000, n))})
+    analyzers = [dq.Size(), dq.Mean("x"), dq.StandardDeviation("x"), dq.Minimum("x"),
+                 dq.ApproxCountDistinct("cat"), dq.KLLSketch("x")]
+
+    def run(device):
+        monitor = dq.RunMonitor()
+        with inject(FaultSpec("sharded_fold", "mesh_loss", at=2, shard=5)) as inj:
+            ctx = dq.AnalysisRunner.do_analysis_run(
+                dq.Dataset.from_arrow(table), analyzers, batch_size=1024, placement="host",
+                sharding=make_mesh(8, device=device), monitor=monitor)
+        assert inj.fired
+        return ctx, monitor
+
+    reset_launch_counts()
+    on_card, monitor = run("cuda")
+    assert launch_counts()["state_fold"] > 0
+    assert (monitor.shard_losses, monitor.mesh_reshards, monitor.salvaged_states) == (1, 1, 7)
+    assert "mesh:8->4" in monitor.degraded
+    on_cpu, _ = run("cpu")
+    for a in analyzers:
+        assert repr(on_card.metric(a).value.get()) == repr(on_cpu.metric(a).value.get()), a
+    monkeypatch.setenv(elastic.MESH_LADDER_ENV, "8")
+    with pytest.raises(MeshExhaustedError):
+        run("cuda")

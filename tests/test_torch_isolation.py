@@ -31,6 +31,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import deequ_tpu_torch.service, deequ_tpu_torch.service.coalesce\n"
         "import deequ_tpu_torch.observability, deequ_tpu_torch.reliability\n"
         "import deequ_tpu_torch.tuning, deequ_tpu_torch.ingest, deequ_tpu_torch.utils\n"
+        "import deequ_tpu_torch.parallel, deequ_tpu_torch.parallel.dcn\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"

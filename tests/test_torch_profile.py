@@ -309,14 +309,14 @@ def _dataset():
 
 
 @pytest.mark.parametrize("option", ["metrics_repository", "reuse_existing_results_using_key",
-                                    "save_in_metrics_repository_using_key", "sharding"])
+                                    "save_in_metrics_repository_using_key"])
 def test_profiler_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP A[35]"):
         dq.ColumnProfiler.profile(_dataset(), device="cpu", **{option: object()})
 
 
 @pytest.mark.parametrize("method", ["use_repository", "reuse_existing_results_for_key",
-                                    "save_or_append_result", "with_sharding"])
+                                    "save_or_append_result"])
 def test_profiler_builder_options_outside_the_slice_raise(method):
     builder = dq.ColumnProfilerRunner.on_data(_dataset(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A[35]"):
