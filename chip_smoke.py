@@ -16,7 +16,12 @@ Phases, each of which fails the run when it fails:
    verification path: K1-K3. For the profile path: K1 with its class-count
    slots, K2, K3, and K4 and K5 on every numeric column; K4 again on a batch
    of signed zeros, NaN and values beyond the float32 range, and K5's merge
-   of two sketches. For the grouping path: K6 on the first batch of the
+   of two sketches; K4 on a constant column of 1M rows, timed, and on six
+   kinds of column (edges, a constant, one binade, signed zeros only, all
+   NaN, all masked) at 0, 1, k - 1, k, k + 1, 2^20 and 2^22 rows; K5's four
+   entries on levels of one, two and 70 sorted runs, an unsorted level,
+   one key and interleaved signed zeros, brought to k, k + 1 and 4k items,
+   at k = 2048 and at k = 8192 (device scratch). For the grouping path: K6 on the first batch of the
    bench grouping workload, on lineitem's two-column primary key and on an
    edge batch; K7 compacting that batch's keys into a full 2^22-slot
    table, merging two full tables, and compacting the edge batch's keys.
@@ -684,6 +689,143 @@ def edge_samples(k: int, n: int, seed: int) -> list:
     return out
 
 
+#: the level patterns K5's compaction is held on (phase 2 and the cuda
+#: tests): sorted runs, an unsorted level, one key, interleaved signed zeros
+KLL_RUN_CASES = ("one run", "two runs", "70 runs", "unsorted", "equal keys", "signed zeros")
+#: the level sizes the run cases reach, as multiples of k plus a remainder:
+#: k (no compaction), k + 1 (an odd compaction), 4k (full: appends drop)
+KLL_RUN_TARGETS = ((1, 0), (1, 1), (4, 0))
+
+
+def run_items(case: str, n: int, rng) -> np.ndarray:
+    """``n`` float32 items in the pattern ``case`` of :data:`KLL_RUN_CASES`
+    (the signed zeros in three runs, each keeping its zeros' input order)."""
+    if case == "equal keys":
+        x = np.full(n, 2.5)
+    elif case == "signed zeros":
+        x = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+        some = rng.random(n) < 0.2
+        x[some] = rng.normal(0.0, 1.0, int(some.sum()))
+    else:
+        x = rng.normal(0.0, 10.0, n)
+    runs = {"one run": 1, "two runs": 2, "70 runs": 70, "equal keys": 1,
+            "signed zeros": 3}.get(case)
+    if runs is not None and n:
+        cuts = np.linspace(0, n, runs + 1).astype(int)
+        # a stable sort on keys in which -0.0 equals +0.0
+        x = np.concatenate([x[a:b][np.argsort(x[a:b] + 0.0, kind="stable")]
+                            for a, b in zip(cuts[:-1], cuts[1:])])
+    return x.astype(np.float32)
+
+
+def run_state(k: int, case: str, size: int, level: int, levels: int, rng) -> tuple:
+    """A sketch's seven CPU tensors: ``size`` items of pattern ``case`` at
+    ``level``, k // 2 + 1 sorted items one level up (the promotion lands
+    on them), random parities."""
+    items = np.full((levels, 4 * k), np.inf, dtype=np.float32)
+    sizes = np.zeros(levels, dtype=np.int32)
+    items[level, :size] = run_items(case, size, rng)
+    up = k // 2 + 1
+    items[level + 1, :up] = np.sort(rng.normal(0.0, 10.0, up)).astype(np.float32)
+    sizes[level], sizes[level + 1] = size, up
+    parity = rng.integers(0, 2, levels).astype(np.int32)
+    return (torch_tensor(items), torch_tensor(sizes), torch_tensor(parity),
+            torch_tensor(np.array(int(rng.integers(0, 9)), dtype=np.int32)),
+            torch_tensor(np.array(size + up, dtype=np.int64)),
+            torch_tensor(np.array(-30.0)), torch_tensor(np.array(30.0)))
+
+
+#: the columns K4 is held on beside the main path's (phase 2, cuda tests)
+KLL_COLUMNS = ("edges", "constant", "one binade", "signed zeros", "all NaN", "all masked")
+
+
+def kll_column(case: str, n: int, seed: int) -> tuple:
+    """A KLL batch of ``n`` rows (values, rows, present; numpy) in the
+    pattern ``case`` of :data:`KLL_COLUMNS`: normal values with signed
+    zeros, NaN, infinities and values beyond the float32 range; one
+    value; values of one binade, [1, 2), none masked, whose keys share
+    their top byte (K4's last pass moves nothing); only -0.0 and +0.0;
+    only NaN; every row masked."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(50.0, 20.0, n)
+    if case == "edges":
+        for value, p in ((0.0, 0.05), (-0.0, 0.05), (np.nan, 0.01), (np.inf, 0.005),
+                         (-1e300, 0.005)):
+            v[rng.random(n) < p] = value
+    elif case == "constant":
+        v[:] = 7.25
+    elif case == "one binade":
+        v = 1.0 + rng.random(n)
+    elif case == "signed zeros":
+        v = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    elif case == "all NaN":
+        v[:] = np.nan
+    rows = rng.random(n) < (0.0 if case == "all masked" else 0.98)
+    present = rng.random(n) < 0.9
+    if case == "one binade":  # no row masked: a masked row's +inf has another top byte
+        rows[:] = present[:] = True
+    return v, rows, present
+
+
+def torch_tensor(x: np.ndarray):
+    import torch
+
+    return torch.from_numpy(np.array(x))
+
+
+def _run_sizes(k: int, target: tuple, parts: int) -> list:
+    """Sizes of ``parts`` pieces summing to the target level size; at 4k the
+    pieces add up to 5k, so an append drops k items."""
+    mult, extra = target
+    total = mult * k + extra + (k if mult == 4 else 0)
+    first = total - (parts - 1) * (total // parts)
+    return [first] + [total // parts] * (parts - 1)
+
+
+def run_update_case(k: int, case: str, target: tuple, seed: int, levels: int = 8) -> tuple:
+    """A sketch and a K4-shaped sample ``(samples, meta, minmax)`` (CPU
+    tensors) whose append at level 1 brings it to the target size."""
+    rng = np.random.default_rng(seed)
+    mult, extra = target
+    m = k if mult == 4 else (mult * k + extra) // 2
+    size = 4 * k - m // 2 if mult == 4 else mult * k + extra - m
+    state = run_state(k, case, size, 1, levels, rng)
+    samples = np.full(k, np.inf, dtype=np.float32)
+    samples[:m] = run_items(case, m, rng)
+    meta = np.array([m, 1, m << 1], dtype=np.int32)
+    minmax = np.array([float(samples[:m].min()), float(samples[:m].max())])
+    return state, (torch_tensor(samples), torch_tensor(meta), torch_tensor(minmax))
+
+
+def run_merge_case(k: int, case: str, target: tuple, seed: int, levels: int = 8) -> tuple:
+    """Two sketches whose level 1 together reach the target size."""
+    rng = np.random.default_rng(seed)
+    sa, sb = _run_sizes(k, target, 2)
+    return run_state(k, case, sa, 1, levels, rng), run_state(k, case, sb, 1, levels, rng)
+
+
+def run_ingest_case(k: int, case: str, target: tuple, seed: int, levels: int = 8) -> tuple:
+    """Two sketches (their leaves stacked) and three host samples each
+    (``[S][B]`` of ``(items f64[4k], m, h, nv, min, max)``): the first
+    brings level 1 to the target size, then h rises to 2 and falls to 0;
+    the items in the pattern ``case``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sketches, chunk = [], []
+    for _ in range(2):
+        size, m = _run_sizes(k, target, 2)
+        sketches.append(run_state(k, case, size, 1, levels, rng))
+        row = []
+        for h, count in ((1, m), (2, k), (0, 2 * k)):
+            vals = run_items(case, count, rng).astype(np.float64)
+            items = np.full(4 * k, np.inf)
+            items[:count] = vals
+            row.append((items, count, h, count << h, float(vals.min()), float(vals.max())))
+        chunk.append(row)
+    return [torch.stack(list(col)).contiguous() for col in zip(*sketches)], chunk
+
+
 def same_state_bits(got, want) -> bool:
     """Whether two tensor states hold the same leaves, bit for bit (NaN
     equal to NaN whatever its payload)."""
@@ -1015,6 +1157,91 @@ def check_kll_edges(torch, values, rows, k: int = KLL_SKETCH_SIZE) -> None:
     sample = kll_sample(values, rows, None, None, one.ticks, k)
     trace_kernels(torch, "kll_sample", lambda: kll_sample(values, rows, None, None, one.ticks, k))
     trace_kernels(torch, "kll_compact", lambda: kll_compact_update(one.tensors(), sample, k))
+
+
+def check_kll_cases(torch, k: int = KLL_SKETCH_SIZE) -> None:
+    """Phase 2's adversarial inputs for K4 and K5, each bit for bit against
+    the plain version on the card:
+
+    - K4 on the :data:`KLL_COLUMNS` at n in {0, 1, k - 1, k, k + 1, 2^20,
+      2^22} rows (2^22: many windows of look-back), two update counters each;
+      the constant column at 2^20 rows timed beside the main path's;
+    - K5's update, merge (both orders), stacked merge (two pairs) and
+      ingest entries on levels of :data:`KLL_RUN_CASES` brought to k,
+      k + 1 and 4k items (:func:`run_update_case` and its siblings), at
+      k and at k = 8192, whose levels sort in device scratch."""
+    from deequ_tpu_torch.kernels.kll_compact import (
+        kll_compact_ingest,
+        kll_compact_ingest_plain,
+        kll_compact_merge,
+        kll_compact_merge_plain,
+        kll_compact_merge_stacked,
+        kll_compact_merge_stacked_plain,
+        kll_compact_update,
+        kll_compact_update_plain,
+    )
+    from deequ_tpu_torch.kernels.kll_sample import Sample, kll_sample, kll_sample_plain
+    from deequ_tpu_torch.runners.engine import stack_samples
+
+    def cuda(leaves):
+        return tuple(t.cuda() for t in leaves)
+
+    checked = 0
+    for n in (0, 1, k - 1, k, k + 1, 1 << 20, 1 << 22):
+        for case in KLL_COLUMNS:
+            v, rows, present = (torch.from_numpy(x).cuda() for x in kll_column(case, n, n + 3))
+            for ticks in (0, 2**31 - 1):
+                t = torch.tensor(ticks, dtype=torch.int32, device="cuda")
+                got = kll_sample(v, rows, None, present, t, k)
+                want = kll_sample_plain(v, rows, None, present, t, k)
+                torch.cuda.synchronize()
+                if not _same_bits(got, want):
+                    raise AssertionError(f"kll_sample differs from its plain version on the "
+                                         f"{case} column of {n} rows")
+                checked += 1
+            if case == "constant" and n == 1 << 20:
+                items = torch.full((n,), 7.25, dtype=torch.float32, device="cuda")
+                _add(_new_results(), "kll_sample", f"constant column, {n} rows", 0.0,
+                     _time_kernel_ms(torch, lambda: kll_sample(v, rows, None, present, t, k)),
+                     _time_ms(torch, lambda: kll_sample_plain(v, rows, None, present, t, k)),
+                     8 * n + 2 * n + 4 * k + 12 + 16, n,
+                     _time_ms(torch, lambda: torch.sort(items)))
+    print(f"[kll columns] kll_sample bit-exact on {checked} calls: {', '.join(KLL_COLUMNS)} "
+          f"at n = 0, 1, k - 1, k, k + 1, 2^20 and 2^22", flush=True)
+
+    checked = 0
+    for size in (k, 8192):
+        for c, case in enumerate(KLL_RUN_CASES):
+            for target in KLL_RUN_TARGETS:
+                seed = 100 * c + 10 * target[0] + target[1]
+                state, sample = run_update_case(size, case, target, seed)
+                state, sample = cuda(state), Sample(*cuda(sample))
+                pairs = [(kll_compact_update(state, sample, size),
+                          kll_compact_update_plain(state, sample, size))]
+                a, b = (cuda(s) for s in run_merge_case(size, case, target, seed))
+                pairs += [(kll_compact_merge(x, y, size), kll_compact_merge_plain(x, y, size))
+                          for x, y in ((a, b), (b, a))]
+                sa = [torch.stack([x, y]) for x, y in zip(a, b)]
+                sb = [torch.stack([y, x]) for x, y in zip(a, b)]
+                pairs.append((kll_compact_merge_stacked(sa, sb, size),
+                              kll_compact_merge_stacked_plain(sa, sb, size)))
+                sketches, chunk = run_ingest_case(size, case, target, seed)
+                fields = stack_samples(chunk, 4 * size, lambda t: t.cuda())
+                got, want = list(cuda(sketches)), list(cuda(sketches))
+                kll_compact_ingest(got, fields, size)
+                kll_compact_ingest_plain(want, fields, size)
+                pairs.append((got, want))
+                torch.cuda.synchronize()
+                for entry, (g, w) in zip(("update", "merge", "merge (b, a)", "stacked merge",
+                                          "ingest"), pairs):
+                    if not _same_bits(g, w):
+                        raise AssertionError(f"kll_compact's {entry} entry differs from its "
+                                             f"plain version on {case} at k = {size}, level "
+                                             f"size {target[0]}k + {target[1]}")
+                    checked += 1
+    print(f"[kll runs] kll_compact bit-exact on {checked} calls of its four entries: "
+          f"{', '.join(KLL_RUN_CASES)}; levels of k, k + 1 and 4k items; k = {k} and 8192 "
+          f"(device scratch)", flush=True)
 
 
 def trace_kernels(torch, label: str, fn, calls: int = 10) -> None:
@@ -3062,6 +3289,7 @@ def profile_path(torch, dq, table: pa.Table) -> tuple:
     measured = check_kernels(torch, engine, features)
     check_kll_edges(torch, features["num:l_extendedprice"], features["rows"])
     del features
+    check_kll_cases(torch)
     _print_kernel_totals(measured, PROFILE_KERNELS, "profile path")
     ingest_measured, ingest_sketches = check_ingest_kernels(torch, dq, probe, table, first_pass)
     del probe

@@ -1,5 +1,5 @@
 """K5 ``kll_compact``: append to a KLL sketch's levels and run the
-compaction cascade, in one thread block per sketch.
+compaction cascade, one thread block working each sketch.
 
 Replaces the state algebra of the JAX reference's KLL
 (deequ_tpu/ops/kll.py: ``_append_level`` :111, ``_make_compact_level``
@@ -12,8 +12,9 @@ functions are the same functions in plain PyTorch.
 A sketch travels as its seven tensors in the reference's leaf order
 (items, sizes, parity, ticks, count, g_min, g_max). The update and merge
 entries return new tensors and leave their inputs as they were (the kernel
-works in place on a copy); the ingest entry updates a stack of sketches in
-place.
+writes the new state whole: the rows the cascade touches from its working
+block, the others copied by the launch's other blocks); the ingest entry
+updates a stack of sketches in place.
 """
 
 from __future__ import annotations
@@ -46,15 +47,15 @@ def _lib() -> ctypes.CDLL:
         lib.kll_compact_scratch.argtypes = [ctypes.c_int]
         lib.kll_compact_update_launch.restype = ctypes.c_int
         lib.kll_compact_update_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
         )
         lib.kll_compact_merge_launch.restype = ctypes.c_int
         lib.kll_compact_merge_launch.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+            [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
         )
         lib.kll_compact_merge_stacked_launch.restype = ctypes.c_int
         lib.kll_compact_merge_stacked_launch.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+            [ctypes.c_void_p] * 21 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
         )
         lib.kll_compact_ingest_launch.restype = ctypes.c_int
         lib.kll_compact_ingest_launch.argtypes = (
@@ -83,8 +84,9 @@ def _check_state(state: Sequence[torch.Tensor], k: int, what: str) -> None:
         raise ValueError(f"{NAME}: sketch size must be positive, got {k}")
 
 
-def _copy(state: Sequence[torch.Tensor]) -> Leaves:
-    return tuple(leaf.clone() for leaf in state)
+def _empty_like(state: Sequence[torch.Tensor]) -> Leaves:
+    """The new state's leaves, which the kernel writes whole."""
+    return tuple(torch.empty_like(leaf) for leaf in state)
 
 
 def _scratch(lib, items: torch.Tensor) -> torch.Tensor:
@@ -106,10 +108,11 @@ def kll_compact_update(state: Sequence[torch.Tensor], sample: Sample, k: int) ->
     if not on_cuda(items, NAME):
         return kll_compact_update_plain(state, sample, k)
     lib = _lib()
-    out = _copy(state)
+    out = _empty_like(state)
     scratch = _scratch(lib, items)
     status = lib.kll_compact_update_launch(
-        *(leaf.data_ptr() for leaf in out), items.shape[0], items.shape[1], k,
+        *(leaf.data_ptr() for leaf in state), *(leaf.data_ptr() for leaf in out),
+        items.shape[0], items.shape[1], k,
         samples.data_ptr(), meta.data_ptr(), minmax.data_ptr(),
         None if scratch is None else scratch.data_ptr(), stream_handle(device),
     )
@@ -130,11 +133,11 @@ def kll_compact_merge(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor], k: i
     if not on_cuda(items, NAME):
         return kll_compact_merge_plain(a, b, k)
     lib = _lib()
-    out = _copy(a)
+    out = _empty_like(a)
     scratch = _scratch(lib, items)
     status = lib.kll_compact_merge_launch(
-        *(leaf.data_ptr() for leaf in out), *(leaf.data_ptr() for leaf in b),
-        items.shape[0], items.shape[1], k,
+        *(leaf.data_ptr() for leaf in a), *(leaf.data_ptr() for leaf in b),
+        *(leaf.data_ptr() for leaf in out), items.shape[0], items.shape[1], k,
         None if scratch is None else scratch.data_ptr(), stream_handle(items.device),
     )
     check_status(NAME, status)
@@ -167,8 +170,8 @@ def kll_compact_merge_stacked(a: Sequence[torch.Tensor], b: Sequence[torch.Tenso
     """M merges in one launch: ``a`` and ``b`` are M sketches each, stacked
     (items ``[M, L, C]``, sizes and parity ``[M, L]``, the scalars
     ``[M]``); returns the M sketches ``merge(a[i], b[i])``, stacked, each
-    equal to :func:`kll_compact_merge` of the pair. One block a pair; the
-    inputs stay as they were."""
+    equal to :func:`kll_compact_merge` of the pair. One working block a
+    pair; the inputs stay as they were."""
     _check_stacked(a, k, "a")
     _check_stacked(b, k, "b")
     if a[0].shape != b[0].shape or a[0].device != b[0].device:
@@ -178,15 +181,15 @@ def kll_compact_merge_stacked(a: Sequence[torch.Tensor], b: Sequence[torch.Tenso
     if not on_cuda(items, NAME):
         return kll_compact_merge_stacked_plain(a, b, k)
     lib = _lib()
-    out = _copy(a)
+    out = _empty_like(a)
     m, levels, c = items.shape
     entries = lib.kll_compact_scratch(c)
     scratch = (torch.empty(m * entries, dtype=torch.int64, device=items.device)
                if entries else None)
     status = lib.kll_compact_merge_stacked_launch(
-        *(leaf.data_ptr() for leaf in out), *(leaf.data_ptr() for leaf in b),
-        m, levels, c, k, None if scratch is None else scratch.data_ptr(),
-        stream_handle(items.device),
+        *(leaf.data_ptr() for leaf in a), *(leaf.data_ptr() for leaf in b),
+        *(leaf.data_ptr() for leaf in out), m, levels, c, k,
+        None if scratch is None else scratch.data_ptr(), stream_handle(items.device),
     )
     check_status(MERGE_STACKED_NAME, status)
     count_launch(MERGE_STACKED_NAME)

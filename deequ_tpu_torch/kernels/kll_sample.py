@@ -17,9 +17,6 @@ from ..ops.order import masked_max, masked_min
 from . import build, check_status, check_tensor, count_launch, on_cuda, stream_handle
 
 NAME = "kll_sample"
-#: items per block of a radix pass; equals KS_TILE in csrc/kll_sample.cu
-TILE = 4096
-RADIX = 256
 #: the largest finite float32, the bound the values are clipped to
 F32_MAX = float(torch.finfo(torch.float32).max)
 #: multiplier of the update counter in the sample offset (Knuth's hash)
@@ -37,17 +34,14 @@ class Sample(NamedTuple):
 def _lib() -> ctypes.CDLL:
     lib = build.load(NAME)
     if not getattr(lib, "_deequ_bound", False):
-        lib.kll_sample_tile.restype = ctypes.c_int
-        lib.kll_sample_tile.argtypes = []
+        lib.kll_sample_scratch_bytes.restype = ctypes.c_longlong
+        lib.kll_sample_scratch_bytes.argtypes = [ctypes.c_longlong]
         lib.kll_sample_launch.restype = ctypes.c_int
         lib.kll_sample_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
-        if lib.kll_sample_tile() != TILE:
-            raise RuntimeError("kll_sample library and wrapper disagree on TILE")
         lib._deequ_bound = True
     return lib
 
@@ -80,11 +74,9 @@ def kll_sample(
     if not on_cuda(values, NAME):
         return kll_sample_plain(values, rows, where, present, ticks, k)
     lib = _lib()
-    tiles = -(-n // TILE)
-    scratch = torch.empty(4 * n, dtype=torch.int32, device=device)
-    hist = torch.empty(max(RADIX * tiles, 1), dtype=torch.int32, device=device)
-    count = torch.empty(1, dtype=torch.int32, device=device)
-    order_mm = torch.empty(2, dtype=torch.int64, device=device)
+    # the kernel's counters, look-back status words and two bits buffers;
+    # the library sizes its tiles itself
+    scratch = torch.empty(lib.kll_sample_scratch_bytes(n), dtype=torch.uint8, device=device)
     out = Sample(
         torch.empty(k, dtype=torch.float32, device=device),
         torch.empty(3, dtype=torch.int32, device=device),
@@ -94,8 +86,7 @@ def kll_sample(
         values.data_ptr(), rows.data_ptr(),
         None if where is None else where.data_ptr(),
         None if present is None else present.data_ptr(),
-        n, k, ticks.data_ptr(), scratch.data_ptr(), hist.data_ptr(),
-        count.data_ptr(), order_mm.data_ptr(), out.samples.data_ptr(),
+        n, k, ticks.data_ptr(), scratch.data_ptr(), out.samples.data_ptr(),
         out.meta.data_ptr(), out.minmax.data_ptr(), stream_handle(device),
     )
     check_status(NAME, status)

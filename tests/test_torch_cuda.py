@@ -285,6 +285,100 @@ def test_kll_kernels_count_their_launches(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# K4 and K5 on the inputs their designs are most sensitive to: K4's tiles
+# and look-back, K5's runs (chip_smoke.py builds the inputs; its phase 2
+# runs the same cases)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049, 1 << 20, 1 << 22])
+@pytest.mark.parametrize("column", chip_smoke.KLL_COLUMNS)
+def test_kll_sample_kernel_matches_plain_on_special_columns(cuda_device, column, n):
+    """k = 2048; 2^22 rows are 512 tiles of look-back."""
+    k = 2048
+    v, rows, present = (torch.from_numpy(x).to(cuda_device)
+                        for x in chip_smoke.kll_column(column, n, n + 3))
+    for ticks in (0, 7, 2**31 - 1):
+        t = torch.tensor(ticks, dtype=torch.int32, device=cuda_device)
+        got = kll_sample(v, rows, None, present, t, k)
+        want = kll_sample_plain(v, rows, None, present, t, k)
+        torch.cuda.synchronize()
+        for name, g, p in zip(("samples", "meta", "minmax"), got, want):
+            _assert_bits(g, p, f"{name} at ticks {ticks}")
+
+
+def _on(leaves, device):
+    return tuple(t.to(device) for t in leaves)
+
+
+def _assert_leaves(got, want, what: str) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_bits(g, w, f"{what} leaf {i}")
+
+
+RUN_TARGET_IDS = ["k", "k+1", "4k"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2048, 8192])
+@pytest.mark.parametrize("target", chip_smoke.KLL_RUN_TARGETS, ids=RUN_TARGET_IDS)
+@pytest.mark.parametrize("case", chip_smoke.KLL_RUN_CASES)
+def test_kll_compact_update_kernel_matches_plain_on_runs(cuda_device, case, target, k):
+    """Level 1 of k, k + 1 or 4k items in runs (k = 8192 sorts in device
+    scratch)."""
+    from deequ_tpu_torch.kernels.kll_sample import Sample
+
+    state, sample = chip_smoke.run_update_case(k, case, target, seed=3)
+    state, sample = _on(state, cuda_device), Sample(*_on(sample, cuda_device))
+    got = kll_compact_update(state, sample, k)
+    want = kll_compact_update_plain(state, sample, k)
+    torch.cuda.synchronize()
+    _assert_leaves(got, want, "update")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2048, 8192])
+@pytest.mark.parametrize("target", chip_smoke.KLL_RUN_TARGETS, ids=RUN_TARGET_IDS)
+@pytest.mark.parametrize("case", chip_smoke.KLL_RUN_CASES)
+def test_kll_compact_merges_match_plain_on_runs(cuda_device, case, target, k):
+    """Both orders of a merge, and the stacked merge of the two pairs."""
+    from deequ_tpu_torch.kernels.kll_compact import (
+        kll_compact_merge_stacked,
+        kll_compact_merge_stacked_plain,
+    )
+
+    a, b = (_on(s, cuda_device) for s in chip_smoke.run_merge_case(k, case, target, seed=4))
+    for x, y in ((a, b), (b, a)):
+        _assert_leaves(kll_compact_merge(x, y, k), kll_compact_merge_plain(x, y, k), "merge")
+    sa = [torch.stack([x, y]) for x, y in zip(a, b)]
+    sb = [torch.stack([y, x]) for x, y in zip(a, b)]
+    got = kll_compact_merge_stacked(sa, sb, k)
+    want = kll_compact_merge_stacked_plain(sa, sb, k)
+    torch.cuda.synchronize()
+    _assert_leaves(got, want, "stacked merge")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2048, 8192])
+@pytest.mark.parametrize("target", chip_smoke.KLL_RUN_TARGETS, ids=RUN_TARGET_IDS)
+@pytest.mark.parametrize("case", chip_smoke.KLL_RUN_CASES)
+def test_kll_compact_ingest_kernel_matches_plain_on_runs(cuda_device, case, target, k):
+    """Two sketches, three samples each (h 1, 2, 0), the items in the
+    case's pattern (the unsorted case's samples unsorted too)."""
+    from deequ_tpu_torch.kernels.kll_compact import kll_compact_ingest, kll_compact_ingest_plain
+    from deequ_tpu_torch.runners.engine import stack_samples
+
+    sketches, chunk = chip_smoke.run_ingest_case(k, case, target, seed=5)
+    fields = stack_samples(chunk, 4 * k, lambda t: t.to(cuda_device))
+    got, want = list(_on(sketches, cuda_device)), list(_on(sketches, cuda_device))
+    kll_compact_ingest(got, fields, k)
+    kll_compact_ingest_plain(want, fields, k)
+    torch.cuda.synchronize()
+    _assert_leaves(got, want, "ingest")
+
+
+# ---------------------------------------------------------------------------
 # K6 freq_keys and K7 freq_compact: keys, counts and table bit-exact
 # ---------------------------------------------------------------------------
 
