@@ -24,11 +24,14 @@ Phases, each of which fails the run when it fails:
    at k = 2048 and at k = 8192 (device scratch). For the grouping path: K6 on the first batch of the
    bench grouping workload, on lineitem's two-column primary key and on an
    edge batch; K7 compacting that batch's keys into a full 2^22-slot
-   table, merging two full tables, and compacting the edge batch's keys.
+   table, merging two full tables, compacting the edge batch's keys, and
+   on ``FREQ_EDGE_CASES`` (keys that differ in their lowest byte, on both
+   sides of 2^63, a buffer half sentinels, an empty table, out_size below
+   n_unique, runs longer than a tile, two overlapping tables).
    For the incremental path (timed inside phase 6, at its shapes): K8 at
    N = 2 on config 4's partition states and at N = 32 on states of every
    kind (a month of day partitions), bit for bit, beside ``torch.amax``
-   over the stacked HLL registers; K1 with one co-moment slot over two
+   over the stacked HLL registers, and at N = 1 and 64; K1 with one co-moment slot over two
    1M-row float64 columns. For the host tier: K8's carry entry on config
    2's battery at the chunk shape (the carry and the host partials of 32
    batches of 2^18 rows), beside ``torch.amax`` plus ``torch.sum`` of the
@@ -101,7 +104,8 @@ Phases, each of which fails the run when it fails:
    (with the ApproxQuantile): (a) the mesh's entries against their plain
    versions bit for bit with times and bounds: K8's butterfly over the
    host partials of 2^20-row batches as 8 shards x 1, 4 x 2 and 3 x 1
-   (the gather route), K8's stacked-carry entry at 8 shards x 4 partials
+   (the gather route), on states of every kind at ``BUTTERFLY_SIZES``
+   (1-64 shards x 1 and 3), K8's stacked-carry entry at 8 shards x 4 partials
    (equal to 8 carry launches), K5's stacked merge of 8 pairs (equal to 8
    one-pair merges); (b) the host tier over ``make_mesh(8,
    device="cuda")``, against 7 (a)'s unsharded run in the same batches,
@@ -689,6 +693,71 @@ def edge_samples(k: int, n: int, seed: int) -> list:
     return out
 
 
+#: the K7 cases held against the reference (CPU tests) and the kernel
+#: against its plain version (the cuda tests, phase 2)
+FREQ_EDGE_CASES = ("lowest byte", "both sides of 2^63", "half sentinels", "empty table",
+                   "out_size below n_unique", "runs longer than a tile",
+                   "merge of overlapping tables")
+U64_SENTINEL = np.uint64(2**64 - 1)
+
+
+def freq_edge_case(case: str, seed: int = 0) -> tuple:
+    """``(a_keys, a_counts, b_keys, b_counts, out_size)`` of one K7 edge
+    case, as numpy arrays (keys uint64): a sorted table A and a raw key
+    buffer B (``b_counts`` None), or a second table (merge mode). The
+    tables come from the reference's function in plain numpy, so the case
+    needs neither package."""
+    rng = np.random.default_rng(seed)
+
+    def table(keys, counts, size):
+        uniq, inv = np.unique(keys[keys != U64_SENTINEL], return_inverse=True)
+        sums = np.bincount(inv, weights=counts[keys != U64_SENTINEL]).astype(np.int64)
+        out_k = np.full(size, U64_SENTINEL, np.uint64)
+        out_c = np.zeros(size, np.int64)
+        out_k[:min(size, uniq.size)] = uniq[:size]
+        out_c[:min(size, uniq.size)] = sums[:size]
+        return out_k, out_c
+
+    def with_sentinels(keys, share):
+        keys = keys.copy()
+        keys[rng.random(keys.size) < share] = U64_SENTINEL
+        return keys
+
+    def around(base, spread, n):
+        return (np.uint64(base) + rng.integers(0, spread, n).astype(np.uint64)).astype(np.uint64)
+
+    if case == "lowest byte":
+        base = 0x0123456789ab0000
+        a = table(around(base, 256, 3000), rng.integers(1, 9, 3000), 1 << 12)
+        return a + (with_sentinels(around(base, 256, 1 << 14), 0.05), None, 1 << 12)
+    if case == "both sides of 2^63":
+        base = 2**63 - 100
+        a = table(around(base, 200, 3000), rng.integers(1, 9, 3000), 1 << 12)
+        return a + (with_sentinels(around(base, 200, 1 << 14), 0.05), None, 1 << 12)
+    if case == "half sentinels":
+        pool = rng.integers(0, 2**64 - 1, 5000, dtype=np.uint64)
+        a = table(pool[:2000], rng.integers(1, 9, 2000), 1 << 13)
+        return a + (with_sentinels(pool[rng.integers(0, 5000, 1 << 14)], 0.5), None, 1 << 13)
+    if case == "empty table":
+        keys = rng.integers(0, 2**64 - 1, 1 << 13, dtype=np.uint64)
+        return (np.zeros(0, np.uint64), np.zeros(0, np.int64), with_sentinels(keys, 0.1), None,
+                1 << 13)
+    if case == "out_size below n_unique":
+        pool = rng.integers(0, 2**64 - 1, 40000, dtype=np.uint64)
+        a = table(pool[:4096], rng.integers(1, 9, 4096), 1 << 12)
+        return a + (with_sentinels(pool[rng.integers(0, 40000, 1 << 15)], 0.1), None, 1 << 10)
+    if case == "runs longer than a tile":
+        # three keys, each about 20,000 times in the buffer: runs longer than
+        # a merge tile (2,048 entries) and a sort tile (8,192 keys)
+        a = table(np.array([5, 9, 1 << 40], np.uint64), np.array([3, 1, 2]), 1 << 10)
+        return a + (with_sentinels(around(5, 3, 1 << 16), 0.05), None, 1 << 10)
+    if case == "merge of overlapping tables":
+        a = table(around(0, 1 << 13, 1 << 14), rng.integers(1, 9, 1 << 14), 1 << 13)
+        b = table(around(0, 1 << 13, 1 << 14), rng.integers(1, 9, 1 << 14), 1 << 13)
+        return a + b + (1 << 13,)
+    raise ValueError(f"unknown K7 edge case {case!r}")
+
+
 #: the level patterns K5's compaction is held on (phase 2 and the cuda
 #: tests): sorted runs, an unsorted level, one key, interleaved signed zeros
 KLL_RUN_CASES = ("one run", "two runs", "70 runs", "unsorted", "equal keys", "signed zeros")
@@ -833,7 +902,13 @@ def same_state_bits(got, want) -> bool:
 
     if type(got) is not type(want) or len(leaves(got)) != len(leaves(want)):
         return False
-    for g, w in zip(leaves(got), leaves(want)):
+    return same_tensor_bits(leaves(got), leaves(want))
+
+
+def same_tensor_bits(got, want) -> bool:
+    """Whether two sequences of tensors are equal bit for bit (NaN equal
+    to NaN whatever its payload)."""
+    for g, w in zip(got, want):
         g, w = g.cpu().numpy(), w.cpu().numpy()
         if g.dtype != w.dtype or g.shape != w.shape:
             return False
@@ -1430,9 +1505,33 @@ def check_freq_kernels(torch, dq, grouping: pa.Table, lineitem: pa.Table) -> dic
         small = _full_table(torch, 0, 1 << 10)
         _check_freq_compact(torch, add, f"edge keys of {width} columns", small.keys,
                             small.counts, edge_keys, None, 1 << 16)
+    for case in FREQ_EDGE_CASES:
+        check_freq_edge_case(torch, case)
     trace_kernels(torch, "freq_compact",
                   lambda: freq_compact(table.keys, table.counts, keys, None, FULL_TABLE_SLOTS))
     return results
+
+
+def check_freq_edge_case(torch, case: str) -> None:
+    """K7 on one of :data:`FREQ_EDGE_CASES` against its plain version on
+    the card, every output and meta word bit for bit."""
+    from deequ_tpu_torch.kernels.freq_compact import freq_compact, freq_compact_plain
+
+    *arrays, out_size = freq_edge_case(case)
+    a_keys, a_counts, b_keys, b_counts = [
+        None if x is None else torch.from_numpy(x.view(np.int64)).cuda() for x in arrays]
+    counts_b = b_counts if b_counts is not None else (b_keys != -1).long()
+    got = freq_compact(a_keys, a_counts, b_keys, b_counts, out_size)
+    want = freq_compact_plain(torch.cat([a_keys, b_keys]), torch.cat([a_counts, counts_b]),
+                              out_size)
+    torch.cuda.synchronize()
+    for field, g, w in zip(got._fields, got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"freq_compact {field} differs from the plain version on "
+                                 f"the edge case {case!r}")
+    print(f"[check freq_compact {case}] {a_keys.shape[0]} + {b_keys.shape[0]} entries into "
+          f"{out_size}: n_unique={int(got.n_unique)} kept={int(got.kept_rows)} "
+          f"total={int(got.total_rows)}, bit for bit", flush=True)
 
 
 #: the int64 whose SplitMix64 mix is all ones, the frequency key sentinel
@@ -2028,6 +2127,15 @@ def check_fold_kernels(torch, dq, providers: list, analyzers: list, features) ->
             main = dict(results["state_fold"])
     # the row of the kernels line: config 4's launch
     results["state_fold"] = main
+    for n in (1, 2 * MONTH_OF_DAYS):
+        jobs = [states for _, states in fold_groups(dq, n, 13 + n)]
+        mats, slots, _ = pack_states(jobs, layout)
+        mats = [m.cuda() for m in mats]
+        got, want = state_fold(*mats, slots), state_fold_plain(*mats, slots)
+        torch.cuda.synchronize()
+        if not same_tensor_bits(got, want):
+            raise AssertionError(f"state_fold differs from its plain version at N={n}")
+        print(f"[check state_fold every kind, N={n}] bit for bit", flush=True)
 
     rows = features["rows"]
     spec = dq.Correlation("x0", "x1").scan_slot()
@@ -2567,6 +2675,7 @@ def check_mesh_kernels(torch, dq, data, battery: list) -> dict:
                       warmup=1),
              nbytes, sum(m.numel() for m in mats), yardstick(mats))
 
+    check_butterfly_sizes(torch, dq)
     ingest, packed = host_partial_rows(dq, battery, data, HOST_BATCH_ROWS, CHUNK)
     parts = [torch.stack([r[d] for r, _ in packed]).cuda() for d in range(3)]
     local = CHUNK // MESH_SHARDS
@@ -2619,6 +2728,32 @@ def check_mesh_kernels(torch, dq, data, battery: list) -> dict:
          nbytes, sum(int(t.sum()) for t in (a[1], b[1])), _time_ms(torch, lambda: torch.sort(level)))
     _print_kernel_totals(results, MESH_KERNELS, "mesh, config 2")
     return results
+
+
+#: the meshes the butterfly is held on beside the main path's: the sizes
+#: the CPU tests hold against the reference (1-16), a warp's width and past
+#: it (32, 64), each at k = 1 and 3
+BUTTERFLY_SIZES = tuple((n, k) for n in (1, 2, 3, 4, 8, 16, 32, 64) for k in (1, 3))
+
+
+def check_butterfly_sizes(torch, dq) -> None:
+    """K8's butterfly against its plain version bit for bit at every
+    :data:`BUTTERFLY_SIZES` mesh, on states of every kind (``fold_groups``)."""
+    from deequ_tpu_torch.analyzers.base import pack_states
+    from deequ_tpu_torch.kernels.state_fold import state_fold_butterfly, state_fold_butterfly_plain
+
+    for n_dev, k in BUTTERFLY_SIZES:
+        jobs = [states for _, states in fold_groups(dq, n_dev * k, 3 * n_dev + k)]
+        mats, slots, _ = pack_states(jobs)
+        mats = [m.cuda() for m in mats]
+        got = state_fold_butterfly(*mats, slots, n_dev)
+        want = state_fold_butterfly_plain(*mats, slots, n_dev)
+        torch.cuda.synchronize()
+        if not same_tensor_bits(got, want):
+            raise AssertionError(f"state_fold_butterfly differs from its plain version at "
+                                 f"{n_dev} shards x {k}")
+    print(f"[check state_fold_butterfly] every kind at {len(BUTTERFLY_SIZES)} meshes "
+          f"({', '.join(f'{n}x{k}' for n, k in BUTTERFLY_SIZES)}), bit for bit", flush=True)
 
 
 def _mesh_run(dq, table: pa.Table, quantile, monitor, device: str = "cuda",

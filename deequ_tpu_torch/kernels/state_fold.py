@@ -32,8 +32,10 @@ each matrix: the fold of its N rows, starting from row 0.
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,8 +46,9 @@ NAME = "state_fold"
 CARRY_NAME = "state_fold_carry"
 CARRY_STACKED_NAME = "state_fold_carry_stacked"
 BUTTERFLY_NAME = "state_fold_butterfly"
-#: slots per launch; equals SF_MAX_SLOTS in csrc/state_fold.cu
-MAX_SLOTS = 256
+#: columns of an elementwise work item of the fold; equals SF_SPAN in
+#: csrc/state_fold.cu
+SPAN = 256
 #: shards a butterfly launch takes; equals SF_MAX_SHARDS
 MAX_SHARDS = 1024
 
@@ -69,52 +72,99 @@ class FoldSlot:
         return GROUP_WIDTH.get(self.kind, self.length)
 
 
-class _SlotStruct(ctypes.Structure):
-    # mirrors struct SfSlot in csrc/state_fold.cu
-    _fields_ = [
-        ("kind", ctypes.c_int32),
-        ("offset", ctypes.c_int32),
-        ("length", ctypes.c_int32),
-    ]
+def butterfly_span(n_dev: int) -> int:
+    """Columns of a butterfly work item over ``n_dev`` shards: a block's
+    ``n_dev * span`` accumulators fit its 256 threads twice over (four
+    times at 1,024 shards). Equals ``state_fold_butterfly_span``."""
+    return max(1, min(SPAN, 512 // max(1, n_dev)))
 
 
+class FoldPlan:
+    """The kernel's work list for one slot layout: items ``(kind, offset,
+    cols)``, each an elementwise slot's span of at most ``span`` columns or
+    one moments / co-moments group (``cols`` 1). Built once per layout
+    (:func:`fold_plan`); the items go to each device once per span."""
+
+    def __init__(self, slots: Tuple[FoldSlot, ...]):
+        self.slots = slots
+        self._items: Dict[int, List[Tuple[int, int, int]]] = {}
+        self._on_device: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+    def items(self, span: int = SPAN) -> List[Tuple[int, int, int]]:
+        got = self._items.get(span)
+        if got is None:
+            got = []
+            for s in self.slots:
+                if s.kind in GROUP_WIDTH:
+                    got.append((s.kind, s.offset, 1))
+                    continue
+                for lo in range(0, s.length, span):
+                    got.append((s.kind, s.offset + lo, min(span, s.length - lo)))
+            self._items[span] = got
+        return got
+
+    def device_items(self, device: torch.device, span: int = SPAN) -> torch.Tensor:
+        """The items as an int32 ``[n, 3]`` tensor on ``device``."""
+        key = (device, span)
+        got = self._on_device.get(key)
+        if got is None:
+            got = torch.tensor(self.items(span), dtype=torch.int32).to(device)
+            self._on_device[key] = got
+        return got
+
+
+_PLANS: Dict[Tuple, FoldPlan] = {}
+_PLANS_LOCK = threading.Lock()
+#: layouts kept at most; the oldest goes first
+_MAX_PLANS = 256
+
+
+def fold_plan(slots: Sequence[FoldSlot], widths: Tuple[int, int, int]) -> FoldPlan:
+    """The plan of ``slots`` over matrices of ``widths`` (float64, int64,
+    int32 columns): checked and built at the first call with this layout
+    (every column belongs to exactly one slot, else ``ValueError``), the
+    same object at every later call."""
+    key = (tuple(slots), tuple(widths))
+    plan = _PLANS.get(key)
+    if plan is None:
+        _check_slots(key[1], key[0])
+        plan = FoldPlan(key[0])
+        with _PLANS_LOCK:
+            if len(_PLANS) >= _MAX_PLANS:
+                _PLANS.pop(next(iter(_PLANS)))
+            plan = _PLANS.setdefault(key, plan)
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load(NAME)
-    if not getattr(lib, "_deequ_bound", False):
-        for query in (lib.state_fold_max_slots, lib.state_fold_max_shards):
-            query.restype = ctypes.c_int
-            query.argtypes = []
-        args = [
-            ctypes.POINTER(_SlotStruct), ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        for entry in (lib.state_fold_launch, lib.state_fold_carry_launch):
-            entry.restype = ctypes.c_int
-            entry.argtypes = args
-        lib.state_fold_carry_stacked_launch.restype = ctypes.c_int
-        lib.state_fold_carry_stacked_launch.argtypes = [
-            ctypes.POINTER(_SlotStruct), ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.state_fold_butterfly_launch.restype = ctypes.c_int
-        lib.state_fold_butterfly_launch.argtypes = [
-            ctypes.POINTER(_SlotStruct), ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_int,
-        ] + [ctypes.c_void_p] * 7
-        if (lib.state_fold_max_slots() != MAX_SLOTS
-                or lib.state_fold_max_shards() != MAX_SHARDS):
-            raise RuntimeError("state_fold library and wrapper disagree on its limits")
-        lib._deequ_bound = True
+    for query in (lib.state_fold_span, lib.state_fold_max_shards):
+        query.restype = ctypes.c_int
+        query.argtypes = []
+    lib.state_fold_butterfly_span.restype = ctypes.c_int
+    lib.state_fold_butterfly_span.argtypes = [ctypes.c_int]
+    p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for entry in (lib.state_fold_launch, lib.state_fold_carry_launch):
+        entry.restype = ctypes.c_int
+        entry.argtypes = [p, i, n, p, i, p, i, p, i, p, p, p, p]
+    lib.state_fold_carry_stacked_launch.restype = ctypes.c_int
+    lib.state_fold_carry_stacked_launch.argtypes = [p, i, i, n, p, i, p, i, p, i, p, p, p, p, p]
+    lib.state_fold_butterfly_launch.restype = ctypes.c_int
+    lib.state_fold_butterfly_launch.argtypes = [p, i, i, i, p, i, p, i, p, i, p, p, p, p]
+    if (lib.state_fold_span() != SPAN or lib.state_fold_max_shards() != MAX_SHARDS
+            or any(lib.state_fold_butterfly_span(n) != butterfly_span(n)
+                   for n in (1, 2, 3, 8, 100, 513, MAX_SHARDS))):
+        raise RuntimeError("state_fold library and wrapper disagree on its limits")
     return lib
 
 
+def _ptr(t: torch.Tensor):
+    return t.data_ptr() if t.numel() else None
+
+
 def _validate(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor,
-              slots: Sequence[FoldSlot]) -> None:
+              slots: Sequence[FoldSlot]) -> FoldPlan:
     mats = (f64, i64, i32)
     for mat, dtype in zip(mats, (torch.float64, torch.int64, torch.int32)):
         if mat.dtype != dtype or mat.dim() != 2:
@@ -126,29 +176,29 @@ def _validate(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor,
             raise ValueError(f"{NAME}: the matrices hold different numbers of states")
     if f64.shape[0] < 1:
         raise ValueError(f"{NAME}: takes at least one state")
-    _check_slots(mats, slots)
+    return fold_plan(slots, (f64.shape[1], i64.shape[1], i32.shape[1]))
 
 
-def _check_slots(mats: Sequence[torch.Tensor], slots: Sequence[FoldSlot]) -> None:
-    """Every column of the three matrices (their last dimension) belongs
+def _check_slots(widths: Sequence[int], slots: Sequence[FoldSlot]) -> None:
+    """Every column of the three matrices (``widths`` columns each) belongs
     to exactly one slot: each matrix's slots, sorted by offset, tile it."""
     if not slots:
         raise ValueError(f"{NAME}: takes at least one slot")
-    spans: List[List[Tuple[int, int]]] = [[] for _ in mats]
+    spans: List[List[Tuple[int, int]]] = [[] for _ in widths]
     for slot in slots:
         if slot.kind not in KIND_MATRIX or slot.length < 1:
             raise ValueError(f"{NAME}: bad slot {slot}")
-        width = mats[KIND_MATRIX[slot.kind]].shape[-1]
+        width = widths[KIND_MATRIX[slot.kind]]
         if slot.offset < 0 or slot.offset + slot.width > width:
             raise ValueError(f"{NAME}: slot {slot} runs past its matrix")
         spans[KIND_MATRIX[slot.kind]].append((slot.offset, slot.offset + slot.width))
-    for mat, span in zip(mats, spans):
+    for width, span in zip(widths, spans):
         end = 0
         for lo, hi in sorted(span):
             if lo != end:
                 raise ValueError(f"{NAME}: every column must belong to exactly one slot")
             end = hi
-        if end != mat.shape[-1]:
+        if end != width:
             raise ValueError(f"{NAME}: every column must belong to exactly one slot")
 
 
@@ -156,30 +206,22 @@ def state_fold(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor,
                slots: Sequence[FoldSlot]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fold of the N packed states: float64 ``[Wf]``, int64 ``[Wi]`` and
     int32 ``[Wr]``. CPU tensors take :func:`state_fold_plain`; CUDA tensors
-    launch the kernel, once per ``MAX_SLOTS`` slots."""
-    _validate(f64, i64, i32, slots)
+    launch the kernel once."""
+    plan = _validate(f64, i64, i32, slots)
     if not on_cuda(f64, NAME):
         return state_fold_plain(f64, i64, i32, slots)
-    lib = _lib()
     device = f64.device
-    n = f64.shape[0]
+    items = plan.device_items(device)
     out_f = torch.empty(f64.shape[1], dtype=torch.float64, device=device)
     out_i = torch.empty(i64.shape[1], dtype=torch.int64, device=device)
     out_r = torch.empty(i32.shape[1], dtype=torch.int32, device=device)
-
-    def ptr(t: torch.Tensor):
-        return t.data_ptr() if t.numel() else None
-
-    for start in range(0, len(slots), MAX_SLOTS):
-        chunk = slots[start:start + MAX_SLOTS]
-        table = (_SlotStruct * len(chunk))(*[_SlotStruct(s.kind, s.offset, s.length)
-                                              for s in chunk])
-        status = lib.state_fold_launch(
-            table, len(chunk), n, ptr(f64), f64.shape[1], ptr(i64), i64.shape[1],
-            ptr(i32), i32.shape[1], ptr(out_f), ptr(out_i), ptr(out_r), stream_handle(device),
-        )
-        check_status(NAME, status)
-        count_launch(NAME)
+    status = _lib().state_fold_launch(
+        items.data_ptr(), items.shape[0], f64.shape[0], _ptr(f64), f64.shape[1], _ptr(i64),
+        i64.shape[1], _ptr(i32), i32.shape[1], _ptr(out_f), _ptr(out_i), _ptr(out_r),
+        stream_handle(device),
+    )
+    check_status(NAME, status)
+    count_launch(NAME)
     return out_f, out_i, out_r
 
 
@@ -189,33 +231,24 @@ def state_fold_carry(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor
     ``[B, Wi]``, int32 ``[B, Wr]``) into the packed ``carry`` (float64
     ``[Wf]``, int64 ``[Wi]``, int32 ``[Wr]``) in order, in place: the
     carry becomes the fold of [carry; parts]. CPU tensors take
-    :func:`state_fold_carry_plain`; CUDA tensors launch the kernel, once
-    per ``MAX_SLOTS`` slots."""
-    _validate_carry(carry, parts, slots)
+    :func:`state_fold_carry_plain`; CUDA tensors launch the kernel once."""
+    plan = _validate_carry(carry, parts, slots)
     if not on_cuda(carry[0], NAME):
         state_fold_carry_plain(carry, parts, slots)
         return
-    lib = _lib()
     device = carry[0].device
-
-    def ptr(t: torch.Tensor):
-        return t.data_ptr() if t.numel() else None
-
+    items = plan.device_items(device)
     (cf, ci, cr), (pf, pi, pr) = carry, parts
-    for start in range(0, len(slots), MAX_SLOTS):
-        chunk = slots[start:start + MAX_SLOTS]
-        table = (_SlotStruct * len(chunk))(*[_SlotStruct(s.kind, s.offset, s.length)
-                                              for s in chunk])
-        status = lib.state_fold_carry_launch(
-            table, len(chunk), pf.shape[0], ptr(cf), cf.shape[0], ptr(ci), ci.shape[0],
-            ptr(cr), cr.shape[0], ptr(pf), ptr(pi), ptr(pr), stream_handle(device),
-        )
-        check_status(NAME, status)
-        count_launch(CARRY_NAME)
+    status = _lib().state_fold_carry_launch(
+        items.data_ptr(), items.shape[0], pf.shape[0], _ptr(cf), cf.shape[0], _ptr(ci),
+        ci.shape[0], _ptr(cr), cr.shape[0], _ptr(pf), _ptr(pi), _ptr(pr), stream_handle(device),
+    )
+    check_status(NAME, status)
+    count_launch(CARRY_NAME)
 
 
 def _validate_carry(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor],
-                    slots: Sequence[FoldSlot]) -> None:
+                    slots: Sequence[FoldSlot]) -> FoldPlan:
     if len(carry) != 3 or len(parts) != 3:
         raise ValueError(f"{NAME}: the carry and the parts are three matrices each")
     device = carry[0].device
@@ -231,7 +264,7 @@ def _validate_carry(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor]
             raise ValueError(f"{NAME}: the parts must be [B, W] beside a carry of W columns")
     if parts[0].shape[0] < 1:
         raise ValueError(f"{NAME}: takes at least one partial")
-    _check_slots(carry, slots)
+    return fold_plan(slots, tuple(row.shape[0] for row in carry))
 
 
 def state_fold_carry_plain(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor],
@@ -241,18 +274,6 @@ def state_fold_carry_plain(carry: Sequence[torch.Tensor], parts: Sequence[torch.
     stacked = [torch.cat([row[None], mat]) for row, mat in zip(carry, parts)]
     for row, out in zip(carry, state_fold_plain(*stacked, slots)):
         row.copy_(out)
-
-
-def _ptr(t: torch.Tensor):
-    return t.data_ptr() if t.numel() else None
-
-
-def _tables(slots: Sequence[FoldSlot]):
-    """The slot table of each launch: ``MAX_SLOTS`` slots at most."""
-    for start in range(0, len(slots), MAX_SLOTS):
-        chunk = slots[start:start + MAX_SLOTS]
-        yield len(chunk), (_SlotStruct * len(chunk))(
-            *[_SlotStruct(s.kind, s.offset, s.length) for s in chunk])
 
 
 def state_fold_carry_stacked(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor],
@@ -265,27 +286,25 @@ def state_fold_carry_stacked(carry: Sequence[torch.Tensor], parts: Sequence[torc
     [carry; its rows whose ``flags`` entry (bool ``[n * B]``) is set, all
     of them when None], in order. CPU tensors take
     :func:`state_fold_carry_stacked_plain`; CUDA tensors launch the kernel
-    (``blockIdx.y`` the shard), once per ``MAX_SLOTS`` slots."""
-    _validate_carry_stacked(carry, parts, slots, flags)
+    once (``blockIdx.y`` the shard)."""
+    plan = _validate_carry_stacked(carry, parts, slots, flags)
     if not on_cuda(carry[0], NAME):
         state_fold_carry_stacked_plain(carry, parts, slots, flags)
         return
-    lib = _lib()
     device = carry[0].device
+    items = plan.device_items(device)
     n = carry[0].shape[0]
-    fl = None if flags is None else flags.to(torch.uint8)
     (cf, ci, cr), (pf, pi, pr) = carry, parts
-    for n_slots, table in _tables(slots):
-        status = lib.state_fold_carry_stacked_launch(
-            table, n_slots, n, pf.shape[0] // n, _ptr(cf), cf.shape[1], _ptr(ci), ci.shape[1],
-            _ptr(cr), cr.shape[1], _ptr(pf), _ptr(pi), _ptr(pr),
-            None if fl is None else fl.data_ptr(), stream_handle(device),
-        )
-        check_status(CARRY_STACKED_NAME, status)
-        count_launch(CARRY_STACKED_NAME)
+    status = _lib().state_fold_carry_stacked_launch(
+        items.data_ptr(), items.shape[0], n, pf.shape[0] // n, _ptr(cf), cf.shape[1], _ptr(ci),
+        ci.shape[1], _ptr(cr), cr.shape[1], _ptr(pf), _ptr(pi), _ptr(pr),
+        None if flags is None else flags.view(torch.uint8).data_ptr(), stream_handle(device),
+    )
+    check_status(CARRY_STACKED_NAME, status)
+    count_launch(CARRY_STACKED_NAME)
 
 
-def _validate_carry_stacked(carry, parts, slots, flags) -> None:
+def _validate_carry_stacked(carry, parts, slots, flags) -> FoldPlan:
     if len(carry) != 3 or len(parts) != 3:
         raise ValueError(f"{NAME}: the carries and the parts are three matrices each")
     device = carry[0].device
@@ -308,7 +327,7 @@ def _validate_carry_stacked(carry, parts, slots, flags) -> None:
     if flags is not None and (flags.dtype != torch.bool or flags.shape != (parts[0].shape[0],)
                               or flags.device != device or not flags.is_contiguous()):
         raise ValueError(f"{NAME}: flags must be a contiguous bool [n * B] on {device}")
-    _check_slots(carry, slots)
+    return fold_plan(slots, tuple(rows.shape[1] for rows in carry))
 
 
 def state_fold_carry_stacked_plain(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor],
@@ -339,28 +358,25 @@ def state_fold_butterfly(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor
     order. Returns every shard's final row (float64 ``[n_dev, Wf]``, int64
     ``[n_dev, Wi]``, int32 ``[n_dev, Wr]``); row 0 is the merge. CPU tensors
     take :func:`state_fold_butterfly_plain`; CUDA tensors launch the kernel
-    once per ``MAX_SLOTS`` slots."""
-    _validate(f64, i64, i32, slots)
+    once."""
+    plan = _validate(f64, i64, i32, slots)
     n_dev = int(n_dev)
     if not 1 <= n_dev <= MAX_SHARDS or f64.shape[0] % n_dev:
         raise ValueError(f"{NAME}: {f64.shape[0]} states do not split over {n_dev} shards "
                          f"(1 <= n_dev <= {MAX_SHARDS})")
     if not on_cuda(f64, NAME):
         return state_fold_butterfly_plain(f64, i64, i32, slots, n_dev)
-    lib = _lib()
     device = f64.device
+    items = plan.device_items(device, butterfly_span(n_dev))
     k = f64.shape[0] // n_dev
     outs = [torch.empty((n_dev, m.shape[1]), dtype=m.dtype, device=device)
             for m in (f64, i64, i32)]
-    tmps = [torch.empty_like(o) for o in outs]
-    for n_slots, table in _tables(slots):
-        status = lib.state_fold_butterfly_launch(
-            table, n_slots, n_dev, k, _ptr(f64), f64.shape[1], _ptr(i64), i64.shape[1],
-            _ptr(i32), i32.shape[1], *(_ptr(t) for t in outs), *(_ptr(t) for t in tmps),
-            stream_handle(device),
-        )
-        check_status(BUTTERFLY_NAME, status)
-        count_launch(BUTTERFLY_NAME)
+    status = _lib().state_fold_butterfly_launch(
+        items.data_ptr(), items.shape[0], n_dev, k, _ptr(f64), f64.shape[1], _ptr(i64),
+        i64.shape[1], _ptr(i32), i32.shape[1], *(_ptr(t) for t in outs), stream_handle(device),
+    )
+    check_status(BUTTERFLY_NAME, status)
+    count_launch(BUTTERFLY_NAME)
     return outs[0], outs[1], outs[2]
 
 

@@ -493,6 +493,21 @@ def test_freq_compact_merge_kernel_matches_plain(cuda_device, out_size):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.FREQ_EDGE_CASES)
+def test_freq_compact_kernel_matches_plain_on_edge_cases(cuda_device, case):
+    """The edge cases the CPU tests hold the plain version to against the
+    reference (tests/test_torch_freq.py): the kernel equals the plain
+    version bit for bit, every output and meta word."""
+    from deequ_tpu_torch.kernels.freq_compact import freq_compact
+
+    *arrays, out_size = chip_smoke.freq_edge_case(case)
+    cpu = [None if x is None else torch.from_numpy(x.view(np.int64)) for x in arrays]
+    got = freq_compact(*(None if x is None else x.to(cuda_device) for x in cpu), out_size)
+    want = freq_compact(*cpu, out_size)
+    _assert_same_compaction(got, [w.to(cuda_device) for w in want])
+
+
+@pytest.mark.cuda
 def test_freq_kernels_count_their_launches(cuda_device):
     from deequ_tpu_torch.kernels.freq_compact import freq_compact
     from deequ_tpu_torch.kernels.freq_keys import freq_keys, freq_keys_plain
@@ -509,7 +524,7 @@ def test_freq_kernels_count_their_launches(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 2, 3, 33])
+@pytest.mark.parametrize("n", [1, 2, 3, 33, 64])
 def test_state_fold_kernel_matches_plain(cuda_device, n):
     groups = chip_smoke.fold_groups(dq, n, seed=n)
     jobs = [states for _, states in groups]
@@ -810,8 +825,66 @@ def test_state_fold_butterfly_kernel_matches_plain(cuda_device, n_dev, k):
             assert torch.equal(g.cpu(), w.cpu())
 
 
+def _assert_rows(got, want):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if g.dtype == torch.float64:
+            assert _bits_equal(g.cpu().numpy(), w.cpu().numpy())
+        else:
+            assert torch.equal(g.cpu(), w.cpu())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_dev,local", [(8, 4), (3, 2), (1, 32)])
+@pytest.mark.parametrize("n_dev,k", [(n, k) for n in (1, 2, 3, 4, 8, 16, 32, 64) for k in (1, 3)]
+                         + [(1000, 1), (1024, 1)])
+def test_state_fold_butterfly_kernel_matches_plain_at_every_mesh_size(cuda_device, n_dev, k):
+    """The butterfly's XOR rounds at the sizes the CPU tests hold against
+    the reference (1-16), at a warp's width and past it (32, 64), the
+    gather route (3, 1000) and the largest mesh (1024, k = 1); every
+    state kind (fold_groups), bit for bit."""
+    from deequ_tpu_torch.kernels.state_fold import state_fold_butterfly, state_fold_butterfly_plain
+
+    jobs = [states for _, states in chip_smoke.fold_groups(dq, n_dev * k, seed=n_dev * 3 + k)]
+    mats, slots, _ = pack_states(jobs)
+    mats = [m.to(cuda_device) for m in mats]
+    reset_launch_counts()
+    got = state_fold_butterfly(*mats, slots, n_dev)
+    assert launch_counts()["state_fold_butterfly"] == 1
+    _assert_rows(got, state_fold_butterfly_plain(*mats, slots, n_dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 33])
+def test_state_fold_kernel_matches_plain_on_a_65536_column_slot(cuda_device, n):
+    """One dictionary column's 2^16 code counts beside every other kind:
+    the wide slot spreads over 256 work items; the fold and the carry entry
+    bit for bit their plain versions."""
+    from deequ_tpu_torch.kernels.state_fold import (
+        ADD_I64,
+        FoldSlot,
+        state_fold_carry,
+        state_fold_carry_plain,
+    )
+
+    jobs = [states for _, states in chip_smoke.fold_groups(dq, n, seed=n)]
+    mats, slots, _ = pack_states(jobs)
+    rng = np.random.default_rng(n)
+    wide = torch.from_numpy(rng.integers(0, 1 << 40, (n, 1 << 16)))
+    mats[1] = torch.cat([mats[1], wide], dim=1).contiguous()
+    slots = list(slots) + [FoldSlot(ADD_I64, mats[1].shape[1] - (1 << 16), 1 << 16)]
+    mats = [m.to(cuda_device) for m in mats]
+    _assert_rows(state_fold(*mats, slots), state_fold_plain(*mats, slots))
+    if n > 1:
+        carry = [m[0].clone() for m in mats]
+        plain = [m[0].clone() for m in mats]
+        parts = [m[1:].contiguous() for m in mats]
+        state_fold_carry(carry, parts, slots)
+        state_fold_carry_plain(plain, parts, slots)
+        _assert_rows(carry, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_dev,local", [(8, 4), (3, 2), (1, 32), (5, 300), (64, 1)])
 def test_state_fold_carry_stacked_kernel_matches_plain(cuda_device, n_dev, local):
     from deequ_tpu_torch.kernels.state_fold import (
         state_fold_carry_stacked,

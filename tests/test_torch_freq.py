@@ -26,6 +26,7 @@ import pyarrow as pa
 import pytest
 import torch
 
+import chip_smoke
 import deequ_tpu.analyzers as J
 import deequ_tpu.analyzers.grouping as JG
 import deequ_tpu.data as JD
@@ -156,6 +157,23 @@ def test_freq_compact_buffer_and_merge_modes_match_reference(out_size):
     want = _compact_reference(
         np.concatenate([_u64(table.keys), _u64(other.keys)]),
         np.concatenate([table.counts.numpy(), other.counts.numpy()]), out_size)
+    _assert_compacted(got, want)
+
+
+@pytest.mark.parametrize("case", chip_smoke.FREQ_EDGE_CASES)
+def test_freq_compact_edge_cases_match_reference(case):
+    """The K7 cases the kernel is held on (keys that differ only in their
+    lowest byte, on both sides of 2^63, a buffer half sentinels, an empty
+    table, out_size below n_unique, runs longer than a tile, two
+    overlapping tables): the wrapper's result on the CPU equals the
+    reference's compaction of the concatenated pairs exactly."""
+    a_keys, a_counts, b_keys, b_counts, out_size = chip_smoke.freq_edge_case(case)
+    counts_b = b_counts if b_counts is not None else (b_keys != SENT).astype(np.int64)
+    got = freq_compact(torch.from_numpy(a_keys.view(np.int64)), torch.from_numpy(a_counts),
+                       torch.from_numpy(b_keys.view(np.int64)),
+                       None if b_counts is None else torch.from_numpy(b_counts), out_size)
+    want = _compact_reference(np.concatenate([a_keys, b_keys]),
+                              np.concatenate([a_counts, counts_b]), out_size)
     _assert_compacted(got, want)
 
 

@@ -23,6 +23,7 @@ import pyarrow as pa
 import pytest
 import torch
 
+import chip_smoke
 import deequ_tpu.analyzers as J
 import deequ_tpu.data as JD
 import deequ_tpu.parallel as JP
@@ -129,6 +130,100 @@ def test_collective_merge_matches_the_reference(shard_states, n_dev, shards):
         assert name == type(j).__name__
         for a, b in zip(leaves, jax.tree_util.tree_leaves(j)):
             assert a.shape == np.shape(b) and a.tobytes() == np.asarray(b).tobytes()
+
+
+def _butterfly_inputs(n_dev: int, k: int):
+    """Every state kind the butterfly folds, ``n_dev * k`` random states
+    each (chip_smoke.fold_groups), stacked: the reference's analyzers, its
+    stacked states, and the port's."""
+    from deequ_tpu.analyzers import states as JS
+    from deequ_tpu_torch.analyzers.base import stack_states
+
+    groups = chip_smoke.fold_groups(T, n_dev * k, seed=100 * n_dev + k)
+    analyzers = [a for a, _ in chip_smoke.fold_groups(J, 1, 0)]
+    stacked_t = [stack_states(states, CPU) for _, states in groups]
+    stacked_j = []
+    for st in stacked_t:
+        name, leaves = to_reference_stacked(st)
+        stacked_j.append(getattr(JS, name)(*leaves))
+    return analyzers, stacked_j, stacked_t
+
+
+def _butterfly_plain_merge(stacked_t, n_dev: int):
+    """Shard 0's row of ``state_fold_butterfly_plain``, unpacked."""
+    from deequ_tpu_torch.analyzers.base import pack_stacked, unpack_stacked
+    from deequ_tpu_torch.kernels.state_fold import state_fold_butterfly_plain
+
+    mats, slots, places = pack_stacked(stacked_t)
+    rows = state_fold_butterfly_plain(*mats, slots, n_dev)
+    assert all(r.shape[0] == n_dev for r in rows)
+    return unpack_stacked(stacked_t, places, [r[0] for r in rows])
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("n_dev", [1, 2, 3, 4, 8])
+def test_butterfly_plain_matches_the_reference_collective_merge(n_dev, k):
+    """K8's butterfly in plain PyTorch against the reference's collective
+    merge on its CPU mesh of n_dev devices, over every state kind it folds:
+    the XOR rounds (2, 4, 8), the gather route (3) and one device."""
+    analyzers, stacked_j, stacked_t = _butterfly_inputs(n_dev, k)
+    merged_j = JP.collective_merge_states(analyzers, JP.make_mesh(n_dev), tuple(stacked_j))
+    for t, j in zip(_butterfly_plain_merge(stacked_t, n_dev), merged_j):
+        _assert_state(t, jax.tree_util.tree_map(np.asarray, j))
+
+
+_SIXTEEN_DEVICES = """
+import os, sys
+os.environ["JAX_PLATFORMS"] = "cpu"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=16"
+import jax
+jax.config.update("jax_platforms", "cpu")
+import numpy as np
+import chip_smoke
+import deequ_tpu.analyzers as J
+import deequ_tpu.parallel as JP
+from deequ_tpu.analyzers import states as JS
+
+data = np.load(sys.argv[1], allow_pickle=False)
+names = [str(x) for x in data["names"]]
+stacked = [getattr(JS, name)(*[data[f"{i}_{j}"] for j in range(int(data[f"{i}_n"]))])
+           for i, name in enumerate(names)]
+analyzers = [a for a, _ in chip_smoke.fold_groups(J, 1, 0)]
+merged = JP.collective_merge_states(analyzers, JP.make_mesh(16), tuple(stacked))
+out = {}
+for i, state in enumerate(merged):
+    for j, leaf in enumerate(jax.tree_util.tree_leaves(state)):
+        out[f"{i}_{j}"] = np.asarray(leaf)
+np.savez(sys.argv[2], **out)
+"""
+
+
+def test_butterfly_plain_matches_the_reference_collective_merge_on_16_devices(tmp_path):
+    """n_dev 16, k 1 and 3: the reference's mesh of 16 CPU devices runs in a
+    process of its own (this one has 8)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    for k in (1, 3):
+        _, stacked_j, stacked_t = _butterfly_inputs(16, k)
+        arrays = {"names": np.array([type(st).__name__ for st in stacked_j])}
+        for i, st in enumerate(stacked_j):
+            leaves = jax.tree_util.tree_leaves(st)
+            arrays[f"{i}_n"] = np.array(len(leaves))
+            arrays.update({f"{i}_{j}": np.asarray(leaf) for j, leaf in enumerate(leaves)})
+        given, got = tmp_path / f"in{k}.npz", tmp_path / f"out{k}.npz"
+        np.savez(given, **arrays)
+        env = dict(os.environ, PYTHONPATH=str(root))
+        env.pop("XLA_FLAGS", None)
+        subprocess.run([sys.executable, "-c", _SIXTEEN_DEVICES, str(given), str(got)],
+                       cwd=root, env=env, check=True, timeout=600)
+        merged = np.load(got)
+        for i, t in enumerate(_butterfly_plain_merge(stacked_t, 16)):
+            n_leaves = len([key for key in merged.files if key.startswith(f"{i}_")])
+            _assert_state(t, [merged[f"{i}_{j}"] for j in range(n_leaves)])
 
 
 def test_merge_of_more_shards_than_devices_folds_all():
