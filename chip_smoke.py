@@ -1085,6 +1085,37 @@ def check_kernels(torch, engine, features) -> dict:
     return results
 
 
+def check_count_paths(torch, rows) -> None:
+    """K3 on what the main path's dictionaries do not reach: every valid row
+    one code (each warp step one group), K just above one block's shared
+    memory (the two-block cluster) and 65,536 + 1 codes (adds into device
+    memory), each bit for bit against its plain version, with its time."""
+    from deequ_tpu_torch.kernels.dict_code_counts import (
+        CLUSTER_MAX_K,
+        dict_code_counts,
+        dict_code_counts_plain,
+        plan_path,
+        shared_limit,
+        shared_max_k,
+    )
+
+    n = rows.shape[0]
+    limit = shared_limit(rows.device)
+    rng = np.random.default_rng(1)
+    cases = [("one hot code", SMALL_CATEGORIES, torch.full((n,), 417, dtype=torch.int32,
+                                                          device=rows.device))]
+    for k in (shared_max_k(limit) + 1, CLUSTER_MAX_K + 1):
+        # k is the sentinel of a null
+        codes = torch.from_numpy(rng.integers(0, k + 1, n).astype(np.int32)).to(rows.device)
+        cases.append((f"K={k}", k, codes))
+    for label, k, codes in cases:
+        _check_counts(torch, None, codes, rows, rows, k, dict_code_counts, dict_code_counts_plain,
+                      False)
+        t = _time_kernel_ms(torch, lambda: dict_code_counts(codes, rows, rows, k))
+        print(f"[launch dict_code_counts {label} path={plan_path(k, limit)}] bit for bit; "
+              f"ms={t['ms']:.4f}", flush=True)
+
+
 def _new_results() -> dict:
     return {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
                    "max_abs_err": 0.0, "bound_by": "bytes"}
@@ -3512,6 +3543,7 @@ def main(argv=None) -> int:
     first = next(data.batches(BATCH_ROWS))
     features = to_device(engine.builder.build(first), device)
     measured = check_kernels(torch, engine, features)
+    check_count_paths(torch, features["rows"])
     del features
     _print_kernel_totals(measured, VERIFICATION_KERNELS, "verification path")
     carry_measured = check_carry_kernel(torch, dq, data, battery)

@@ -26,17 +26,33 @@
 // selected rows are rows & where & sel & sel2 (both columns present), and
 // it writes out_f[s] = (x_avg, y_avg, ck, x_mk, y_mk): the two means and
 // the centred co-moments of the selected rows, Correlation's batch state
-// (its n is out_i[s][0]). Per block the first pass sums n, x and y, the
-// second the co-moments about the block's own means, as the moments kind
-// does M2.
+// (its n is out_i[s][0]).
 //
 // Bound on the card: bytes. Each distinct input array is read from device
 // memory once (the row mask, each mask and value array: 1 to 8 bytes per
 // row); the arithmetic is a few adds and compares per selected value, far
-// below the H100's rate. Design: each block owns a chunk of 4096 rows and
-// walks the slot table over it; slots that share an array re-read the
-// chunk from L1/L2, not from device memory. The second pass of the two-pass
-// moments re-reads the chunk the same way.
+// below the H100's rate. The design keeps many loads in flight and reads
+// each array once:
+//   - The wrapper hands the kernel the table's DISTINCT arrays (the row
+//     mask first) and, per slot, indices into that list: a where-filter,
+//     mask or column under several slots is one array.
+//   - A block owns a chunk of CHUNK rows (128, 256 or 512, chosen by the
+//     wrapper from n and the table's bytes a row, never from the number of
+//     sessions) and first stages every distinct array's rows of the chunk
+//     into shared memory with cp.async: all of the chunk's loads are issued
+//     before any is waited on. Small chunks keep several blocks' stages in
+//     flight on each SM.
+//   - Each warp takes every fourth slot and reduces it over the whole
+//     chunk from shared memory, with no block barrier: a lane holds 4
+//     consecutive rows a step (one 32-bit word of each mask, a double2 pair
+//     or an int4 of values), selects with predicates, and the warp reduces
+//     with redux (counts, and min/max as 64-bit order keys in two 32-bit
+//     halves) and xor shuffles (sums). A moments or co-moment slot's second
+//     pass, about the chunk's own means, re-reads the staged chunk, never
+//     device memory.
+// Each warp writes its slot's chunk partial: the counts as int32, the sum,
+// min, max, the chunk's mean and M2 about it (co-moments: the two sums,
+// the two means and the three co-moments about them), column by column.
 //
 // Sessions (the stacked entry, replacing the coalesced fold of the JAX
 // reference: PackedScanProgram.init_carry_stacked :490,
@@ -44,502 +60,720 @@
 // fused_update over a leading session axis, driven by
 // fold_sessions_coalesced :818): one launch reduces W sessions' batches of
 // n rows each. Every array of the slot table and the row mask is a [W, n]
-// row-major tensor; blockIdx.y is the session, whose rows start at w * n.
-// The block partition of a session's rows and the fold order of its
-// partials are those of a launch over that session alone (W = 1 is the
-// single-batch launch), so each session's outputs equal a one-session
-// launch over its batch bit for bit.
+// row-major tensor; session w's rows start at w * n, and its chunks are
+// blocks w * n_chunks .. (w + 1) * n_chunks - 1. The chunks of
+// a session and the fold of its partials are those of a launch over that
+// session alone (W = 1 is the single-batch launch), so
+// each session's outputs equal a one-session launch over its batch bit for
+// bit.
 //
-// Determinism: no float atomics. Blocks write per-slot partials; a second
-// launch, one block per slot, folds them in a fixed order (each thread a
-// stride of blocks in order, then a tree across its threads): counts and
-// sums added, min and max by the rules in common.cuh, moments and
-// co-moments merged by Chan's rule as dq_merge_moments /
-// dq_merge_comoments state it. Within a block, threads reduce in a fixed
-// shuffle tree. The result is the same on every run.
-#include <string.h>
+// The fold: a second launch, one 512-thread block per slot and session,
+// in two passes over the session's chunk partials: first the counts, sums,
+// min and max (each thread a stride of chunks in order, then a fixed tree
+// across the threads), which give the batch's means; then M2 (and the
+// co-moments) as the sum over chunks of the chunk's own M2 plus n_c times
+// the squared distance of its mean from the batch's, in the same order.
+// One division per slot, no chain of pairwise merges. No float atomics:
+// the same order on every run, so the result is the same bits every run.
+#include <stdint.h>
 
 #include <math_constants.h>
 
 #include "common.cuh"
 
 #define SR_MAX_SLOTS 64
-#define SR_THREADS 256
-#define SR_ROWS_PER_THREAD 16
-#define SR_CHUNK (SR_THREADS * SR_ROWS_PER_THREAD)
+// the row mask and at most five arrays a slot
+#define SR_MAX_ARRAYS (1 + 5 * SR_MAX_SLOTS)
+#define SR_NONE 0xFFFF
+#define SR_THREADS 128
 #define SR_WARPS (SR_THREADS / 32)
-// threads of the fold launch, one block per slot
-#define SR_FOLD_THREADS 128
+// rows a warp covers in one step: 32 lanes x 4 consecutive rows
+#define SR_STEP 128
+// threads of the fold launch, one block per slot and session
+#define SR_FOLD_THREADS 512
+#define SR_FOLD_WARPS (SR_FOLD_THREADS / 32)
 
 #define SR_KIND_COUNTS 0
 #define SR_KIND_MOMENTS 1
 #define SR_KIND_CLASSES 2
 #define SR_KIND_COMOMENTS 3
 #define SR_CLASSES 5
-// int64 columns per slot: matches, count, then the SR_CLASSES class counts
+// int64 columns per slot of the output: matches, count, the class counts
 #define SR_IWIDTH (2 + SR_CLASSES)
+// columns of a chunk partial, int32 (matches, count, class counts) and
+// float64 alike (moments: sum, min, max, mean, m2; co-moments: sum x,
+// sum y, x mean, y mean, ck, x_mk, y_mk)
+#define SR_PWIDTH 7
 
-// mirrors deequ_tpu_torch/kernels/scan_reduce.py _SlotStruct
+// a slot as six uint16 words of deequ_tpu_torch/kernels/scan_reduce.py _Table.slot
 struct SrSlot {
-  int32_t kind;         // SR_KIND_COUNTS, SR_KIND_MOMENTS or SR_KIND_CLASSES
-  int32_t vals_i32;     // 1: int32 values (string lengths, class codes); 0: float64
-  const void* vals;     // null for counting slots
-  const uint8_t* where;  // null: no where-filter
-  const uint8_t* sel;    // null: every counted row is selected
-  const double* vals2;   // a co-moment slot's second column; else null
-  const uint8_t* sel2;   // a co-moment slot's second presence mask; else null
+  uint8_t kind;      // SR_KIND_*
+  uint8_t vals_i32;  // 1: int32 values (string lengths, class codes); 0: float64
+  uint16_t where, sel, vals, vals2, sel2;  // indices into SrTable.ptr; SR_NONE: absent
 };
 
+// mirrors deequ_tpu_torch/kernels/scan_reduce.py _Table; passed by value
+// (under the 4 KB of a launch's parameters)
 struct SrTable {
-  SrSlot s[SR_MAX_SLOTS];
+  const void* ptr[SR_MAX_ARRAYS];  // the distinct [W, n] arrays; ptr[0] is the row mask
+  uint16_t at[SR_MAX_ARRAYS + 1];  // bytes a row of arrays [0, a): array a's
+                                   // rows of a staged chunk start at chunk * at[a]
+  SrSlot slot[SR_MAX_SLOTS];
+  int32_t n_arrays;
+  int32_t n_slots;
 };
 
-// the slot as it reads session w's rows: every array advanced by w * n
-// elements of its own width
-__device__ __forceinline__ SrSlot sr_session_slot(SrSlot s, long long off) {
-  if (s.vals != nullptr) {
-    s.vals = (const char*)s.vals + off * (s.vals_i32 ? 4 : 8);
+__device__ __forceinline__ void sr_cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// A float64's place in the order min and max use on non-NaN values: -inf
+// lowest, -0.0 below +0.0 (common.cuh's rules), as an unsigned key.
+__device__ __forceinline__ unsigned long long sr_key(double v) {
+  const unsigned long long b = (unsigned long long)__double_as_longlong(v);
+  return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
+}
+
+__device__ __forceinline__ double sr_unkey(unsigned long long k) {
+  return __longlong_as_double((long long)((k >> 63) ? (k & 0x7fffffffffffffffull) : ~k));
+}
+
+__device__ __forceinline__ unsigned long long sr_warp_min_key(unsigned long long k) {
+  const unsigned hi = __reduce_min_sync(0xffffffffu, (unsigned)(k >> 32));
+  const unsigned lo = __reduce_min_sync(
+      0xffffffffu, (unsigned)(k >> 32) == hi ? (unsigned)k : 0xffffffffu);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+__device__ __forceinline__ unsigned long long sr_warp_max_key(unsigned long long k) {
+  const unsigned hi = __reduce_max_sync(0xffffffffu, (unsigned)(k >> 32));
+  const unsigned lo = __reduce_max_sync(0xffffffffu, (unsigned)(k >> 32) == hi ? (unsigned)k : 0u);
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+// the same sum in every lane: xor shuffles add each pair in both orders,
+// and a + b == b + a
+__device__ __forceinline__ double sr_warp_sum(double v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// A warp's view of one staged chunk: the rows a lane holds at step k are
+// 128 k + 4 lane + j (j < 4); their row-mask bytes, one per row, ANDed
+// with the chunk's tail.
+template <int K>
+struct SrChunk {
+  const unsigned char* stage;
+  int m;  // rows of the chunk that exist
+  int lane;
+  long long w;    // the session
+  int c;          // the chunk within the session
+  int n_chunks;   // chunks a session
+
+  // where slot s's partials go: column col of chunk c of session w
+  __device__ __forceinline__ long long part(int s, int n_slots, int col) const {
+    return (((w * n_slots + s) * SR_PWIDTH) + col) * (long long)n_chunks + c;
   }
-  if (s.where != nullptr) s.where += off;
-  if (s.sel != nullptr) s.sel += off;
-  if (s.vals2 != nullptr) s.vals2 += off;
-  if (s.sel2 != nullptr) s.sel2 += off;
-  return s;
-}
 
-// index of this block's partials of slot s: the session's blocks, then
-// the block, then the slot
-__device__ __forceinline__ long long sr_part(int s, int n_slots) {
-  return ((long long)blockIdx.y * gridDim.x + blockIdx.x) * n_slots + s;
-}
-
-struct SrAcc {
-  long long base;    // rows & where
-  long long sel;     // rows & where & sel
-  long long nonnan;  // selected values that are not NaN
-  double sum;
-  double mn;         // min over non-NaN selected values, +inf if none
-  double mx;         // max over non-NaN selected values, -inf if none
-  int has_nan;       // a selected value was NaN
-};
-
-__device__ __forceinline__ double sr_value(const SrSlot& s, long long i) {
-  return s.vals_i32 ? (double)((const int32_t*)s.vals)[i]
-                    : ((const double*)s.vals)[i];
-}
-
-__device__ __forceinline__ void sr_combine(SrAcc& a, const SrAcc& b) {
-  a.base += b.base;
-  a.sel += b.sel;
-  a.nonnan += b.nonnan;
-  a.sum += b.sum;
-  a.mn = dq_min_z(a.mn, b.mn);
-  a.mx = dq_max_z(a.mx, b.mx);
-  a.has_nan |= b.has_nan;
-}
-
-__device__ __forceinline__ SrAcc sr_shfl_down(const SrAcc& a, int offset) {
-  SrAcc o;
-  o.base = __shfl_down_sync(0xffffffffu, a.base, offset);
-  o.sel = __shfl_down_sync(0xffffffffu, a.sel, offset);
-  o.nonnan = __shfl_down_sync(0xffffffffu, a.nonnan, offset);
-  o.sum = __shfl_down_sync(0xffffffffu, a.sum, offset);
-  o.mn = __shfl_down_sync(0xffffffffu, a.mn, offset);
-  o.mx = __shfl_down_sync(0xffffffffu, a.mx, offset);
-  o.has_nan = __shfl_down_sync(0xffffffffu, a.has_nan, offset);
-  return o;
-}
-
-// A class-count slot over the block's chunk: per-thread counters of the
-// five classes and of the counted rows, reduced by warp shuffles and then
-// across the block's warps in a fixed order. Leaves the float partials at
-// their identities.
-__device__ void sr_class_counts(const SrSlot& slot, const uint8_t* __restrict__ rows,
-                                long long n, long long start, int s, int n_slots,
-                                long long (*warp_cls)[SR_CLASSES + 1],
-                                long long* __restrict__ part_i,
-                                double* __restrict__ part_f) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int32_t* codes = (const int32_t*)slot.vals;
-  long long cnt[SR_CLASSES + 1];  // the classes, then the counted rows
-  for (int c = 0; c <= SR_CLASSES; ++c) cnt[c] = 0;
-  for (int k = 0; k < SR_ROWS_PER_THREAD; ++k) {
-    const long long i = start + (long long)k * SR_THREADS + threadIdx.x;
-    if (i >= n) break;
-    if (!rows[i] || (slot.where != nullptr && !slot.where[i])) continue;
-    cnt[SR_CLASSES] += 1;
-    const int32_t code = codes[i];
-    if (code >= 0 && code < SR_CLASSES) cnt[code] += 1;
+  __device__ __forceinline__ const unsigned char* array(const SrTable& t, int a) const {
+    return stage + (size_t)(SR_STEP * K) * t.at[a];
   }
-  for (int c = 0; c <= SR_CLASSES; ++c) {
-    for (int off = 16; off > 0; off >>= 1) {
-      cnt[c] += __shfl_down_sync(0xffffffffu, cnt[c], off);
+
+  __device__ __forceinline__ uint32_t word(const unsigned char* a, int k) const {
+    return reinterpret_cast<const uint32_t*>(a)[32 * k + lane];
+  }
+
+  // the row mask and the where mask of step k, 0 or 1 in each byte
+  __device__ __forceinline__ uint32_t base(const SrTable& t, const SrSlot& s, int k) const {
+    const int left = m - (SR_STEP * k + 4 * lane);
+    uint32_t w = left >= 4 ? 0x01010101u : (left <= 0 ? 0u : 0x01010101u >> (8 * (4 - left)));
+    w &= word(array(t, 0), k);
+    if (s.where != SR_NONE) w &= word(array(t, s.where), k);
+    return w;
+  }
+
+  __device__ __forceinline__ uint32_t selected(const SrTable& t, const SrSlot& s,
+                                               uint32_t base_word, int k) const {
+    uint32_t w = base_word;
+    if (s.sel != SR_NONE) w &= word(array(t, s.sel), k);
+    if (s.sel2 != SR_NONE) w &= word(array(t, s.sel2), k);
+    return w;
+  }
+
+  // the four values of step k as float64
+  __device__ __forceinline__ void values(const SrTable& t, uint16_t a, bool i32, int k,
+                                         double v[4]) const {
+    const unsigned char* p = array(t, a);
+    if (i32) {
+      const int4 q = reinterpret_cast<const int4*>(p)[32 * k + lane];
+      v[0] = (double)q.x;
+      v[1] = (double)q.y;
+      v[2] = (double)q.z;
+      v[3] = (double)q.w;
+    } else {
+      const double2* d = reinterpret_cast<const double2*>(p) + 64 * k + 2 * lane;
+      const double2 a0 = d[0];
+      const double2 a1 = d[1];
+      v[0] = a0.x;
+      v[1] = a0.y;
+      v[2] = a1.x;
+      v[3] = a1.y;
     }
-    if (lane == 0) warp_cls[warp][c] = cnt[c];
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const long long o = sr_part(s, n_slots);
-    long long matches = 0;
+};
+
+template <int K>
+__device__ void sr_counts(const SrTable& t, const SrSlot& sl, const SrChunk<K>& ch, int s,
+                          int* __restrict__ part_i) {
+  // PHASE pass1
+  unsigned base = 0, sel = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const uint32_t b = ch.base(t, sl, k);
+    base += __popc(b);
+    sel += __popc(ch.selected(t, sl, b, k));
+  }
+  // PHASE reduce1
+  const unsigned both = __reduce_add_sync(0xffffffffu, base | (sel << 16));
+  // PHASE pass2
+  // PHASE write
+  if (ch.lane == 0) {
+    part_i[ch.part(s, t.n_slots, 0)] = (int)(both >> 16);
+    part_i[ch.part(s, t.n_slots, 1)] = (int)(both & 0xffffu);
+  }
+  // PHASE done
+}
+
+template <int K>
+__device__ void sr_classes(const SrTable& t, const SrSlot& sl, const SrChunk<K>& ch, int s,
+                           int* __restrict__ part_i) {
+  // PHASE pass1
+  // class counts two to a word (a warp counts at most a chunk's 512 rows)
+  unsigned c01 = 0, c23 = 0, c4b = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const uint32_t b = ch.base(t, sl, k);
+    const int4 q = reinterpret_cast<const int4*>(ch.array(t, sl.vals))[32 * k + ch.lane];
+    const int code[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned f = (b >> (8 * j)) & 1u;
+      const int c = code[j];
+      c01 += (f & (c == 0)) | ((f & (c == 1)) << 16);
+      c23 += (f & (c == 2)) | ((f & (c == 3)) << 16);
+      c4b += (f & (c == 4)) | (f << 16);
+    }
+  }
+  // PHASE reduce1
+  c01 = __reduce_add_sync(0xffffffffu, c01);
+  c23 = __reduce_add_sync(0xffffffffu, c23);
+  c4b = __reduce_add_sync(0xffffffffu, c4b);
+  // PHASE pass2
+  // PHASE write
+  if (ch.lane == 0) {
+    const int cls[SR_CLASSES] = {(int)(c01 & 0xffffu), (int)(c01 >> 16), (int)(c23 & 0xffffu),
+                                 (int)(c23 >> 16), (int)(c4b & 0xffffu)};
+    int matches = 0;
+#pragma unroll
     for (int c = 0; c < SR_CLASSES; ++c) {
-      long long t = 0;
-      for (int w = 0; w < SR_WARPS; ++w) t += warp_cls[w][c];
-      part_i[o * SR_IWIDTH + 2 + c] = t;
-      matches += t;
+      part_i[ch.part(s, t.n_slots, 2 + c)] = cls[c];
+      matches += cls[c];
     }
-    long long base = 0;
-    for (int w = 0; w < SR_WARPS; ++w) base += warp_cls[w][SR_CLASSES];
-    part_i[o * SR_IWIDTH + 0] = matches;
-    part_i[o * SR_IWIDTH + 1] = base;
-    part_f[o * 5 + 0] = 0.0;
-    part_f[o * 5 + 1] = CUDART_NAN;
-    part_f[o * 5 + 2] = -CUDART_INF;
-    part_f[o * 5 + 3] = 0.0;
-    part_f[o * 5 + 4] = 0.0;
+    part_i[ch.part(s, t.n_slots, 0)] = matches;
+    part_i[ch.part(s, t.n_slots, 1)] = (int)(c4b >> 16);
   }
-  __syncthreads();  // warp_cls is rewritten by the next class-count slot
+  // PHASE done
 }
 
-// A co-moment slot over the block's chunk: n, sum x and sum y, then the
-// co-moments about the block's means, each reduced by warp shuffles and
-// then across the warps in a fixed order.
-__device__ void sr_comoments(const SrSlot& slot, const uint8_t* __restrict__ rows,
-                             long long n, long long start, int s, int n_slots,
-                             double (*warp_f)[3], long long (*warp_c)[2],
-                             double* block_means,
-                             long long* __restrict__ part_i,
-                             double* __restrict__ part_f) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const double* x = (const double*)slot.vals;
-  const double* y = slot.vals2;
-  long long base = 0, sel = 0;
-  double sx = 0.0, sy = 0.0;
-  for (int k = 0; k < SR_ROWS_PER_THREAD; ++k) {
-    const long long i = start + (long long)k * SR_THREADS + threadIdx.x;
-    if (i >= n) break;
-    if (!rows[i] || (slot.where != nullptr && !slot.where[i])) continue;
-    base += 1;
-    if ((slot.sel != nullptr && !slot.sel[i]) || (slot.sel2 != nullptr && !slot.sel2[i])) continue;
-    sel += 1;
-    sx += x[i];
-    sy += y[i];
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    base += __shfl_down_sync(0xffffffffu, base, off);
-    sel += __shfl_down_sync(0xffffffffu, sel, off);
-    sx += __shfl_down_sync(0xffffffffu, sx, off);
-    sy += __shfl_down_sync(0xffffffffu, sy, off);
-  }
-  if (lane == 0) {
-    warp_c[warp][0] = base;
-    warp_c[warp][1] = sel;
-    warp_f[warp][0] = sx;
-    warp_f[warp][1] = sy;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    long long b = 0, m = 0;
-    double tx = 0.0, ty = 0.0;
-    for (int w = 0; w < SR_WARPS; ++w) {
-      b += warp_c[w][0];
-      m += warp_c[w][1];
-      tx += warp_f[w][0];
-      ty += warp_f[w][1];
+template <int K>
+__device__ void sr_moments(const SrTable& t, const SrSlot& sl, const SrChunk<K>& ch, int s,
+                           int* __restrict__ part_i, double* __restrict__ part_f) {
+  // PHASE pass1
+  unsigned base = 0, sel = 0, nonnan = 0, has_nan = 0;
+  double sum = 0.0;
+  unsigned long long kmin = sr_key(CUDART_INF), kmax = sr_key(-CUDART_INF);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const uint32_t b = ch.base(t, sl, k);
+    const uint32_t m = ch.selected(t, sl, b, k);
+    double v[4];
+    ch.values(t, sl.vals, sl.vals_i32, k, v);
+    base += __popc(b);
+    sel += __popc(m);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool f = (m >> (8 * j)) & 1u;
+      const bool nan = isnan(v[j]);
+      sum += f ? v[j] : 0.0;
+      has_nan |= (unsigned)(f && nan);
+      const bool ok = f && !nan;
+      nonnan += ok;
+      const unsigned long long key = sr_key(v[j]);
+      kmin = ok && key < kmin ? key : kmin;
+      kmax = ok && key > kmax ? key : kmax;
     }
-    warp_c[0][0] = b;
-    warp_c[0][1] = m;
-    block_means[0] = m > 0 ? tx / (double)m : 0.0;
-    block_means[1] = m > 0 ? ty / (double)m : 0.0;
   }
-  __syncthreads();
-  const long long blk_base = warp_c[0][0];
-  const long long blk_sel = warp_c[0][1];
-  const double mx = block_means[0];
-  const double my = block_means[1];
-  __syncthreads();  // warp_c[0] is rewritten below
-  double ck = 0.0, xmk = 0.0, ymk = 0.0;
-  if (blk_sel > 0) {  // uniform across the block
-    for (int k = 0; k < SR_ROWS_PER_THREAD; ++k) {
-      const long long i = start + (long long)k * SR_THREADS + threadIdx.x;
-      if (i >= n) break;
-      if (!rows[i] || (slot.where != nullptr && !slot.where[i])) continue;
-      if ((slot.sel != nullptr && !slot.sel[i]) || (slot.sel2 != nullptr && !slot.sel2[i])) continue;
-      const double dx = x[i] - mx;
-      const double dy = y[i] - my;
-      ck += dx * dy;
-      xmk += dx * dx;
-      ymk += dy * dy;
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      ck += __shfl_down_sync(0xffffffffu, ck, off);
-      xmk += __shfl_down_sync(0xffffffffu, xmk, off);
-      ymk += __shfl_down_sync(0xffffffffu, ymk, off);
-    }
-    if (lane == 0) {
-      warp_f[warp][0] = ck;
-      warp_f[warp][1] = xmk;
-      warp_f[warp][2] = ymk;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      ck = xmk = ymk = 0.0;
-      for (int w = 0; w < SR_WARPS; ++w) {
-        ck += warp_f[w][0];
-        xmk += warp_f[w][1];
-        ymk += warp_f[w][2];
+  // PHASE reduce1
+  const unsigned counts = __reduce_add_sync(0xffffffffu, base | (sel << 16));
+  const unsigned nans = __reduce_add_sync(0xffffffffu, nonnan | (has_nan << 16));
+  kmin = sr_warp_min_key(kmin);
+  kmax = sr_warp_max_key(kmax);
+  sum = sr_warp_sum(sum);
+  const unsigned n = counts >> 16;
+  const double mean = n > 0 ? sum / (double)n : 0.0;
+  // PHASE pass2
+  double m2 = 0.0;
+  if (n > 0) {  // uniform across the warp
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const uint32_t m = ch.selected(t, sl, ch.base(t, sl, k), k);
+      double v[4];
+      ch.values(t, sl.vals, sl.vals_i32, k, v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const double d = v[j] - mean;
+        m2 += ((m >> (8 * j)) & 1u) ? d * d : 0.0;
       }
     }
+    m2 = sr_warp_sum(m2);
   }
-  if (threadIdx.x == 0) {
-    const long long o = sr_part(s, n_slots);
-    part_i[o * SR_IWIDTH + 0] = blk_sel;
-    part_i[o * SR_IWIDTH + 1] = blk_base;
-    for (int c = 0; c < SR_CLASSES; ++c) part_i[o * SR_IWIDTH + 2 + c] = 0;
-    part_f[o * 5 + 0] = mx;
-    part_f[o * 5 + 1] = my;
-    part_f[o * 5 + 2] = ck;
-    part_f[o * 5 + 3] = xmk;
-    part_f[o * 5 + 4] = ymk;
+  // PHASE write
+  if (ch.lane == 0) {
+    part_i[ch.part(s, t.n_slots, 0)] = (int)n;
+    part_i[ch.part(s, t.n_slots, 1)] = (int)(counts & 0xffffu);
+    part_f[ch.part(s, t.n_slots, 0)] = sum;
+    part_f[ch.part(s, t.n_slots, 1)] = (nans & 0xffffu) ? sr_unkey(kmin) : CUDART_NAN;
+    part_f[ch.part(s, t.n_slots, 2)] = (nans >> 16) ? CUDART_NAN : sr_unkey(kmax);
+    part_f[ch.part(s, t.n_slots, 3)] = mean;
+    part_f[ch.part(s, t.n_slots, 4)] = m2;
   }
-  __syncthreads();  // the shared arrays are rewritten by the next slot
+  // PHASE done
 }
 
-__global__ void __launch_bounds__(SR_THREADS)
-scan_reduce_blocks(const SrTable table, int n_slots,
-                   const uint8_t* __restrict__ rows, long long n,
-                   long long* __restrict__ part_i,
-                   double* __restrict__ part_f) {
-  __shared__ SrAcc warp_acc[SR_WARPS];
-  __shared__ double warp_m2[SR_WARPS];
-  __shared__ double block_mean;
-  __shared__ long long warp_cls[SR_WARPS][SR_CLASSES + 1];
-  __shared__ double warp_co[SR_WARPS][3];
-  __shared__ long long warp_cc[SR_WARPS][2];
-  __shared__ double co_means[2];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long start = (long long)blockIdx.x * SR_CHUNK;
-  const long long off = (long long)blockIdx.y * n;  // the session's rows
-  rows += off;
+template <int K>
+__device__ void sr_comoments(const SrTable& t, const SrSlot& sl, const SrChunk<K>& ch, int s,
+                             int* __restrict__ part_i, double* __restrict__ part_f) {
+  // PHASE pass1
+  unsigned base = 0, sel = 0;
+  double sx = 0.0, sy = 0.0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const uint32_t b = ch.base(t, sl, k);
+    const uint32_t m = ch.selected(t, sl, b, k);
+    double x[4], y[4];
+    ch.values(t, sl.vals, false, k, x);
+    ch.values(t, sl.vals2, false, k, y);
+    base += __popc(b);
+    sel += __popc(m);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool f = (m >> (8 * j)) & 1u;
+      sx += f ? x[j] : 0.0;
+      sy += f ? y[j] : 0.0;
+    }
+  }
+  // PHASE reduce1
+  const unsigned counts = __reduce_add_sync(0xffffffffu, base | (sel << 16));
+  sx = sr_warp_sum(sx);
+  sy = sr_warp_sum(sy);
+  const unsigned n = counts >> 16;
+  const double mx = n > 0 ? sx / (double)n : 0.0;
+  const double my = n > 0 ? sy / (double)n : 0.0;
+  // PHASE pass2
+  double ck = 0.0, xmk = 0.0, ymk = 0.0;
+  if (n > 0) {  // uniform across the warp
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const uint32_t m = ch.selected(t, sl, ch.base(t, sl, k), k);
+      double x[4], y[4];
+      ch.values(t, sl.vals, false, k, x);
+      ch.values(t, sl.vals2, false, k, y);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool f = (m >> (8 * j)) & 1u;
+        const double dx = x[j] - mx;
+        const double dy = y[j] - my;
+        ck += f ? dx * dy : 0.0;
+        xmk += f ? dx * dx : 0.0;
+        ymk += f ? dy * dy : 0.0;
+      }
+    }
+    ck = sr_warp_sum(ck);
+    xmk = sr_warp_sum(xmk);
+    ymk = sr_warp_sum(ymk);
+  }
+  // PHASE write
+  if (ch.lane == 0) {
+    part_i[ch.part(s, t.n_slots, 0)] = (int)n;
+    part_i[ch.part(s, t.n_slots, 1)] = (int)(counts & 0xffffu);
+    const double f[SR_PWIDTH] = {sx, sy, mx, my, ck, xmk, ymk};
+#pragma unroll
+    for (int c = 0; c < SR_PWIDTH; ++c) part_f[ch.part(s, t.n_slots, c)] = f[c];
+  }
+  // PHASE done
+}
 
-  for (int s = 0; s < n_slots; ++s) {
-    const SrSlot slot = sr_session_slot(table.s[s], off);
-    if (slot.kind == SR_KIND_CLASSES) {
-      sr_class_counts(slot, rows, n, start, s, n_slots, warp_cls, part_i, part_f);
-      continue;
-    }
-    if (slot.kind == SR_KIND_COMOMENTS) {
-      sr_comoments(slot, rows, n, start, s, n_slots, warp_co, warp_cc, co_means, part_i,
-                   part_f);
-      continue;
-    }
-    const bool moments = slot.kind == SR_KIND_MOMENTS;
-    SrAcc acc;
-    acc.base = 0;
-    acc.sel = 0;
-    acc.nonnan = 0;
-    acc.sum = 0.0;
-    acc.mn = CUDART_INF;
-    acc.mx = -CUDART_INF;
-    acc.has_nan = 0;
-    for (int k = 0; k < SR_ROWS_PER_THREAD; ++k) {
-      const long long i = start + (long long)k * SR_THREADS + threadIdx.x;
-      if (i >= n) break;
-      if (!rows[i] || (slot.where != nullptr && !slot.where[i])) continue;
-      acc.base += 1;
-      if (slot.sel != nullptr && !slot.sel[i]) continue;
-      acc.sel += 1;
-      if (moments) {
-        const double v = sr_value(slot, i);
-        acc.sum += v;
-        if (isnan(v)) {
-          acc.has_nan = 1;
+// Stage chunk t (of the W x n_chunks chunks, session-major) of every
+// distinct array into `buf`: 16-byte cp.async copies, issued together and
+// committed as one group; an array view that starts off 16 bytes (a
+// session of odd length) is copied by element loads instead.
+template <int K>
+__device__ __forceinline__ void sr_stage_chunk(const SrTable& table, long long n, int n_chunks,
+                                               long long t, unsigned char* buf) {
+  constexpr int CHUNK = SR_STEP * K;
+  const long long w = t / n_chunks;
+  const long long r0 = (t - w * n_chunks) * CHUNK;
+  const long long left = n - r0;
+  const int m = left <= 0 ? 0 : (left < CHUNK ? (int)left : CHUNK);
+  const long long first = w * n + r0;  // in every [W, n] array
+  for (int a = 0; a < table.n_arrays; ++a) {
+    const int es = table.at[a + 1] - table.at[a];
+    unsigned char* dst = buf + (size_t)CHUNK * table.at[a];
+    const unsigned char* src = (const unsigned char*)table.ptr[a] + first * es;
+    const int bytes = m * es;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      for (int o = 16 * threadIdx.x; o < bytes; o += 16 * SR_THREADS) {
+        sr_cp_async16(dst + o, src + o, bytes - o < 16 ? bytes - o : 16);
+      }
+    } else {
+      for (int o = es * threadIdx.x; o < bytes; o += es * SR_THREADS) {
+        if (es == 8) {
+          *reinterpret_cast<unsigned long long*>(dst + o) =
+              __ldg(reinterpret_cast<const unsigned long long*>(src + o));
+        } else if (es == 4) {
+          *reinterpret_cast<unsigned*>(dst + o) = __ldg(reinterpret_cast<const unsigned*>(src + o));
         } else {
-          acc.nonnan += 1;
-          acc.mn = dq_min_z(acc.mn, v);
-          acc.mx = dq_max_z(acc.mx, v);
+          dst[o] = __ldg(src + o);
         }
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const SrAcc o = sr_shfl_down(acc, off);
-      sr_combine(acc, o);
-    }
-    if (lane == 0) warp_acc[warp] = acc;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      SrAcc b = warp_acc[0];
-      for (int w = 1; w < SR_WARPS; ++w) sr_combine(b, warp_acc[w]);
-      warp_acc[0] = b;
-      block_mean = b.sel > 0 ? b.sum / (double)b.sel : 0.0;
-    }
-    __syncthreads();
-    const SrAcc blk = warp_acc[0];
-    const double mean = block_mean;
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-    // second pass: M2 about the block's own mean (the chunk is in cache)
-    double m2 = 0.0;
-    if (moments && blk.sel > 0) {  // uniform across the block
-      for (int k = 0; k < SR_ROWS_PER_THREAD; ++k) {
-        const long long i = start + (long long)k * SR_THREADS + threadIdx.x;
-        if (i >= n) break;
-        if (!rows[i] || (slot.where != nullptr && !slot.where[i])) continue;
-        if (slot.sel != nullptr && !slot.sel[i]) continue;
-        const double d = sr_value(slot, i) - mean;
-        m2 += d * d;
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        m2 += __shfl_down_sync(0xffffffffu, m2, off);
-      }
-      if (lane == 0) warp_m2[warp] = m2;
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        double t = warp_m2[0];
-        for (int w = 1; w < SR_WARPS; ++w) t += warp_m2[w];
-        m2 = t;
-      }
+// One block per chunk of CHUNK = 128 K rows, blockIdx.x the chunk t of
+// the W x n_chunks chunks (session-major): stage the chunk's distinct
+// arrays, then each warp reduces its slots over it. A chunk's partials
+// depend on its rows alone.
+template <int K>
+__global__ void __launch_bounds__(SR_THREADS)
+scan_reduce_chunks(const __grid_constant__ SrTable table, long long n, int n_chunks,
+                   int* __restrict__ part_i, double* __restrict__ part_f) {
+  extern __shared__ __align__(16) unsigned char sr_stage[];
+  constexpr int CHUNK = SR_STEP * K;
+  const long long t = blockIdx.x;
+  // PHASE stage0
+  sr_stage_chunk<K>(table, n, n_chunks, t, sr_stage);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  // PHASE stage1
+  SrChunk<K> ch;
+  ch.stage = sr_stage;
+  ch.lane = threadIdx.x & 31;
+  ch.n_chunks = n_chunks;
+  ch.w = t / n_chunks;
+  ch.c = (int)(t - ch.w * n_chunks);
+  const long long left = n - (long long)ch.c * CHUNK;
+  ch.m = left <= 0 ? 0 : (left < CHUNK ? (int)left : CHUNK);
+  for (int s = threadIdx.x >> 5; s < table.n_slots; s += SR_WARPS) {
+    const SrSlot sl = table.slot[s];
+    switch (sl.kind) {
+      case SR_KIND_MOMENTS:
+        sr_moments<K>(table, sl, ch, s, part_i, part_f);
+        break;
+      case SR_KIND_CLASSES:
+        sr_classes<K>(table, sl, ch, s, part_i);
+        break;
+      case SR_KIND_COMOMENTS:
+        sr_comoments<K>(table, sl, ch, s, part_i, part_f);
+        break;
+      default:
+        sr_counts<K>(table, sl, ch, s, part_i);
+        break;
     }
-
-    if (threadIdx.x == 0) {
-      const long long o = sr_part(s, n_slots);
-      part_i[o * SR_IWIDTH + 0] = blk.sel;
-      part_i[o * SR_IWIDTH + 1] = blk.base;
-      for (int c = 0; c < SR_CLASSES; ++c) part_i[o * SR_IWIDTH + 2 + c] = 0;
-      part_f[o * 5 + 0] = blk.sum;
-      part_f[o * 5 + 1] = blk.nonnan > 0 ? blk.mn : CUDART_NAN;
-      part_f[o * 5 + 2] = blk.has_nan ? CUDART_NAN : blk.mx;
-      part_f[o * 5 + 3] = mean;
-      part_f[o * 5 + 4] = blk.sel > 0 ? m2 : 0.0;
-    }
-    __syncthreads();  // warp_acc and block_mean are rewritten by the next slot
   }
 }
 
-// A slot's partials being folded: the int64 columns, and the float ones
-// of its kind (sum, min, max and the moments, or the co-moments).
+// The fold of one slot: pass 1 adds the counts and sums and takes min and
+// max, pass 2 the second moments; in each, thread t takes chunks t, t +
+// SR_FOLD_THREADS, ... in order, loading SR_FOLD_BATCH of them before it
+// adds any, and then the block reduces in a fixed tree (each warp by down
+// shuffles, then thread 0 adds the warps in order).
+#define SR_FOLD_BATCH 8
+
 struct SrFold {
   long long i[SR_IWIDTH];
-  double sum, mn, mx;
-  DqMoments mom;
-  DqComoments co;
+  double a, b;    // moments: sum; co-moments: sum x, sum y
+  double mn, mx;  // moments: min, max
 };
 
-__device__ __forceinline__ SrFold sr_fold_identity() {
-  SrFold a;
-  for (int c = 0; c < SR_IWIDTH; ++c) a.i[c] = 0;
-  a.sum = 0.0;
-  a.mn = CUDART_NAN;
-  a.mx = -CUDART_INF;
-  a.mom = {0.0, 0.0, 0.0};
-  a.co = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  return a;
-}
-
-// b merged into a; an empty side (n == 0) leaves the other as it is
-__device__ __forceinline__ void sr_fold_merge(SrFold& a, const SrFold& b, bool comoments) {
-  for (int c = 0; c < SR_IWIDTH; ++c) a.i[c] += b.i[c];
-  if (comoments) {
-    if (b.co.n != 0.0) a.co = a.co.n == 0.0 ? b.co : dq_merge_comoments(a.co, b.co);
-    return;
+template <int KIND>
+__device__ __forceinline__ void sr_fold_add(SrFold& x, const SrFold& y) {
+  constexpr int icols = KIND == SR_KIND_CLASSES ? SR_IWIDTH : 2;
+#pragma unroll
+  for (int c = 0; c < icols; ++c) x.i[c] += y.i[c];
+  if (KIND == SR_KIND_MOMENTS) {
+    x.a += y.a;
+    x.mn = dq_min_nan_largest(x.mn, y.mn);
+    x.mx = dq_max_nan(x.mx, y.mx);
+  } else if (KIND == SR_KIND_COMOMENTS) {
+    x.a += y.a;
+    x.b += y.b;
   }
-  a.sum += b.sum;
-  a.mn = dq_min_nan_largest(a.mn, b.mn);
-  a.mx = dq_max_nan(a.mx, b.mx);
-  if (b.mom.n != 0.0) a.mom = a.mom.n == 0.0 ? b.mom : dq_merge_moments(a.mom, b.mom);
 }
 
-// One block per slot and session (blockIdx.x the slot, blockIdx.y the
-// session) folds the session's block partials: each thread folds the
-// blocks t, t + SR_FOLD_THREADS, ... in order, then the threads' folds
-// merge in a fixed tree in shared memory. The same order on every run.
-__global__ void __launch_bounds__(SR_FOLD_THREADS)
-scan_reduce_fold(const SrTable table, int n_blocks, int n_slots,
-                 const long long* __restrict__ part_i,
-                 const double* __restrict__ part_f,
-                 long long* __restrict__ out_i,
-                 double* __restrict__ out_f) {
-  __shared__ SrFold acc[SR_FOLD_THREADS];
-  const int s = blockIdx.x;
-  const long long w = blockIdx.y;
-  const bool comoments = table.s[s].kind == SR_KIND_COMOMENTS;
-  SrFold a = sr_fold_identity();
-  for (int b = threadIdx.x; b < n_blocks; b += SR_FOLD_THREADS) {
-    const long long o = (w * n_blocks + b) * n_slots + s;
-    const double* pf = part_f + o * 5;
-    SrFold p = sr_fold_identity();
-    for (int c = 0; c < SR_IWIDTH; ++c) p.i[c] = part_i[o * SR_IWIDTH + c];
-    const double nb = (double)p.i[0];
-    if (nb != 0.0) {  // an empty block's float partials are identities
-      if (comoments) {
-        p.co = {nb, pf[0], pf[1], pf[2], pf[3], pf[4]};
-      } else {
-        p.sum = pf[0];
-        p.mn = pf[1];
-        p.mx = pf[2];
-        p.mom = {nb, pf[3], pf[4]};
+template <int KIND>
+__device__ __forceinline__ SrFold sr_fold_shfl(const SrFold& x, int off) {
+  SrFold y = x;
+  constexpr int icols = KIND == SR_KIND_CLASSES ? SR_IWIDTH : 2;
+#pragma unroll
+  for (int c = 0; c < icols; ++c) y.i[c] = __shfl_down_sync(0xffffffffu, x.i[c], off);
+  y.a = __shfl_down_sync(0xffffffffu, x.a, off);
+  y.b = __shfl_down_sync(0xffffffffu, x.b, off);
+  y.mn = __shfl_down_sync(0xffffffffu, x.mn, off);
+  y.mx = __shfl_down_sync(0xffffffffu, x.mx, off);
+  return y;
+}
+
+// the sum of three float64s over the fold block, in a fixed order; thread
+// 0 gets it
+__device__ __forceinline__ void sr_block_sum3(double& x, double& y, double& z,
+                                              double (*scratch)[3]) {
+  for (int off = 16; off > 0; off >>= 1) {
+    x += __shfl_down_sync(0xffffffffu, x, off);
+    y += __shfl_down_sync(0xffffffffu, y, off);
+    z += __shfl_down_sync(0xffffffffu, z, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    scratch[threadIdx.x >> 5][0] = x;
+    scratch[threadIdx.x >> 5][1] = y;
+    scratch[threadIdx.x >> 5][2] = z;
+  }
+  __syncthreads();
+  x = scratch[0][0];
+  y = scratch[0][1];
+  z = scratch[0][2];
+  for (int w = 1; w < SR_FOLD_WARPS; ++w) {
+    x += scratch[w][0];
+    y += scratch[w][1];
+    z += scratch[w][2];
+  }
+}
+
+// slot s of session w: pi / pf its partials' columns (column c at c * C),
+// oi / of its outputs
+template <int KIND>
+__device__ void sr_fold_slot(const int* __restrict__ pi, const double* __restrict__ pf, int C,
+                             long long* __restrict__ oi, double* __restrict__ of) {
+  constexpr int icols = KIND == SR_KIND_CLASSES ? SR_IWIDTH : 2;
+  constexpr bool moments = KIND == SR_KIND_MOMENTS;
+  constexpr bool comoments = KIND == SR_KIND_COMOMENTS;
+  constexpr int T = SR_FOLD_THREADS;
+  __shared__ SrFold warps[SR_FOLD_WARPS];
+  __shared__ double sums[SR_FOLD_WARPS][3];
+  SrFold f;
+#pragma unroll
+  for (int c = 0; c < SR_IWIDTH; ++c) f.i[c] = 0;
+  f.a = 0.0;
+  f.b = 0.0;
+  f.mn = CUDART_NAN;
+  f.mx = -CUDART_INF;
+  // pass 1
+  for (int c0 = threadIdx.x; c0 < C; c0 += SR_FOLD_BATCH * T) {
+    int iv[SR_FOLD_BATCH][icols];
+    double a[SR_FOLD_BATCH], b[SR_FOLD_BATCH], mn[SR_FOLD_BATCH], mx[SR_FOLD_BATCH];
+#pragma unroll
+    for (int u = 0; u < SR_FOLD_BATCH; ++u) {
+      const int c = c0 + u * T;
+      const bool in = c < C;
+#pragma unroll
+      for (int col = 0; col < icols; ++col) iv[u][col] = in ? pi[(long long)col * C + c] : 0;
+      a[u] = in && (moments || comoments) ? pf[c] : 0.0;
+      b[u] = in && comoments ? pf[(long long)C + c] : 0.0;
+      mn[u] = in && moments ? pf[(long long)C + c] : CUDART_NAN;
+      mx[u] = in && moments ? pf[2LL * C + c] : -CUDART_INF;
+    }
+#pragma unroll
+    for (int u = 0; u < SR_FOLD_BATCH; ++u) {
+      if (c0 + u * T >= C) break;
+#pragma unroll
+      for (int col = 0; col < icols; ++col) f.i[col] += iv[u][col];
+      if (moments) {
+        f.a += a[u];
+        f.mn = dq_min_nan_largest(f.mn, mn[u]);
+        f.mx = dq_max_nan(f.mx, mx[u]);
+      } else if (comoments) {
+        f.a += a[u];
+        f.b += b[u];
       }
     }
-    sr_fold_merge(a, p, comoments);
   }
-  acc[threadIdx.x] = a;
+  for (int off = 16; off > 0; off >>= 1) sr_fold_add<KIND>(f, sr_fold_shfl<KIND>(f, off));
+  if ((threadIdx.x & 31) == 0) warps[threadIdx.x >> 5] = f;
   __syncthreads();
-  for (int stride = SR_FOLD_THREADS / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) sr_fold_merge(acc[threadIdx.x], acc[threadIdx.x + stride], comoments);
-    __syncthreads();
+  f = warps[0];
+  for (int k = 1; k < SR_FOLD_WARPS; ++k) sr_fold_add<KIND>(f, warps[k]);
+  const long long n = f.i[0];
+  const double nd = (double)n;
+  const double xa = n > 0 ? f.a / nd : 0.0;  // the mean (co-moments: of x)
+  const double ya = n > 0 ? f.b / nd : 0.0;
+  // pass 2: each chunk's own M2 (co-moments) plus n_c times its mean's
+  // squared distance from the batch's
+  double p = 0.0, q = 0.0, r = 0.0;
+  if ((moments || comoments) && n > 0) {  // uniform across the block
+    for (int c0 = threadIdx.x; c0 < C; c0 += SR_FOLD_BATCH * T) {
+      double nc[SR_FOLD_BATCH], mx_[SR_FOLD_BATCH], my_[SR_FOLD_BATCH];
+      double m0[SR_FOLD_BATCH], m1[SR_FOLD_BATCH], m2[SR_FOLD_BATCH];
+#pragma unroll
+      for (int u = 0; u < SR_FOLD_BATCH; ++u) {
+        const int c = c0 + u * T;
+        const bool in = c < C;
+        nc[u] = in ? (double)pi[c] : 0.0;
+        mx_[u] = in ? pf[(moments ? 3LL : 2LL) * C + c] : 0.0;
+        my_[u] = in && comoments ? pf[3LL * C + c] : 0.0;
+        m0[u] = in ? pf[4LL * C + c] : 0.0;
+        m1[u] = in && comoments ? pf[5LL * C + c] : 0.0;
+        m2[u] = in && comoments ? pf[6LL * C + c] : 0.0;
+      }
+#pragma unroll
+      for (int u = 0; u < SR_FOLD_BATCH; ++u) {
+        if (nc[u] == 0.0) continue;  // an empty chunk (or none): nothing
+        const double dx = mx_[u] - xa;
+        if (moments) {
+          p += m0[u] + nc[u] * (dx * dx);
+        } else {
+          const double dy = my_[u] - ya;
+          p += m0[u] + nc[u] * (dx * dy);
+          q += m1[u] + nc[u] * (dx * dx);
+          r += m2[u] + nc[u] * (dy * dy);
+        }
+      }
+    }
+    sr_block_sum3(p, q, r, sums);
   }
   if (threadIdx.x != 0) return;
-  const SrFold& r = acc[0];
-  out_i += w * n_slots * SR_IWIDTH;
-  out_f += w * n_slots * 5;
-  for (int c = 0; c < SR_IWIDTH; ++c) out_i[s * SR_IWIDTH + c] = r.i[c];
+  for (int c = 0; c < SR_IWIDTH; ++c) oi[c] = c < icols ? f.i[c] : 0;
   if (comoments) {
-    out_f[s * 5 + 0] = r.co.x_avg;
-    out_f[s * 5 + 1] = r.co.y_avg;
-    out_f[s * 5 + 2] = r.co.ck;
-    out_f[s * 5 + 3] = r.co.x_mk;
-    out_f[s * 5 + 4] = r.co.y_mk;
-    return;
+    of[0] = xa;
+    of[1] = ya;
+    of[2] = p;
+    of[3] = q;
+    of[4] = r;
+  } else if (moments) {
+    of[0] = f.a;
+    of[1] = f.mn;
+    of[2] = f.mx;
+    of[3] = xa;
+    of[4] = p;
+  } else {
+    of[0] = 0.0;
+    of[1] = CUDART_NAN;
+    of[2] = -CUDART_INF;
+    of[3] = 0.0;
+    of[4] = 0.0;
   }
-  out_f[s * 5 + 0] = r.sum;
-  out_f[s * 5 + 1] = r.mn;
-  out_f[s * 5 + 2] = r.mx;
-  out_f[s * 5 + 3] = r.mom.avg;
-  out_f[s * 5 + 4] = r.mom.m2;
+}
+
+// One block per slot (blockIdx.x) and session (blockIdx.y) folds the
+// session's n_chunks chunk partials (see the head of the file). The same
+// order on every run.
+__global__ void __launch_bounds__(SR_FOLD_THREADS)
+scan_reduce_fold(const __grid_constant__ SrTable table, int n_chunks,
+                 const int* __restrict__ part_i, const double* __restrict__ part_f,
+                 long long* __restrict__ out_i, double* __restrict__ out_f) {
+  const int s = blockIdx.x;
+  const long long o = (long long)blockIdx.y * table.n_slots + s;
+  // PHASE fold0
+  const int* pi = part_i + o * SR_PWIDTH * (long long)n_chunks;
+  const double* pf = part_f + o * SR_PWIDTH * (long long)n_chunks;
+  long long* oi = out_i + o * SR_IWIDTH;
+  double* of = out_f + o * 5;
+  switch (table.slot[s].kind) {
+    case SR_KIND_MOMENTS:
+      sr_fold_slot<SR_KIND_MOMENTS>(pi, pf, n_chunks, oi, of);
+      break;
+    case SR_KIND_CLASSES:
+      sr_fold_slot<SR_KIND_CLASSES>(pi, pf, n_chunks, oi, of);
+      break;
+    case SR_KIND_COMOMENTS:
+      sr_fold_slot<SR_KIND_COMOMENTS>(pi, pf, n_chunks, oi, of);
+      break;
+    default:
+      sr_fold_slot<SR_KIND_COUNTS>(pi, pf, n_chunks, oi, of);
+      break;
+  }
+  // PHASE fold1
 }
 
 extern "C" int scan_reduce_max_slots() { return SR_MAX_SLOTS; }
 
+extern "C" int scan_reduce_max_arrays() { return SR_MAX_ARRAYS; }
+
 extern "C" int scan_reduce_int_width() { return SR_IWIDTH; }
 
-extern "C" int scan_reduce_num_blocks(long long n) {
-  const long long b = (n + SR_CHUNK - 1) / SR_CHUNK;
-  return b < 1 ? 1 : (int)b;
+extern "C" int scan_reduce_table_bytes() { return (int)sizeof(SrTable); }
+
+extern "C" int scan_reduce_partial_width() { return SR_PWIDTH; }
+
+template <int K>
+static int sr_launch_chunks(const SrTable& table, long long n, int n_chunks, int width,
+                            int* part_i, double* part_f, cudaStream_t st) {
+  // the dynamic shared memory this instance may use, by device
+  static int opted[64];
+  const int smem = SR_STEP * K * table.at[table.n_arrays];
+  if (smem > 48 * 1024) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return (int)err;
+    if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+    if (smem > opted[device]) {
+      err = cudaFuncSetAttribute(scan_reduce_chunks<K>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      opted[device] = smem;
+    }
+  }
+  const long long blocks = (long long)n_chunks * width;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  scan_reduce_chunks<K><<<(int)blocks, SR_THREADS, smem, st>>>(table, n, n_chunks, part_i,
+                                                               part_f);
+  return (int)cudaGetLastError();
 }
 
-// W sessions of n rows each (W = 1: one batch). part_i:
-// int64[W * num_blocks * n_slots * 7], part_f: float64[W * num_blocks *
-// n_slots * 5] scratch; out_i: int64[W, n_slots, 7]; out_f:
-// float64[W, n_slots, 5]
-extern "C" int scan_reduce_stacked_launch(const SrSlot* slots, int n_slots,
-                                          const uint8_t* rows, long long n,
-                                          int width, long long* part_i,
-                                          double* part_f, long long* out_i,
-                                          double* out_f, void* stream) {
-  if (n_slots < 1 || n_slots > SR_MAX_SLOTS || n < 0 || width < 1 || width > 65535) {
+// W sessions of n rows each (W = 1: one batch), in chunks of `chunk` rows
+// (128, 256 or 512). part_i: int32[W * n_slots * 7 * n_chunks] and
+// part_f: float64[W * n_slots * 7 * n_chunks] scratch, n_chunks =
+// max(1, ceil(n / chunk)); out_i: int64[W, n_slots, 7]; out_f:
+// float64[W, n_slots, 5].
+extern "C" int scan_reduce_launch(const SrTable* table, long long n, int width, int chunk,
+                                  int* part_i, double* part_f, long long* out_i, double* out_f,
+                                  void* stream) {
+  if (table->n_slots < 1 || table->n_slots > SR_MAX_SLOTS || table->n_arrays < 1 ||
+      table->n_arrays > SR_MAX_ARRAYS || n < 0 || width < 1 || width > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  SrTable table;
-  memset(&table, 0, sizeof(table));
-  memcpy(table.s, slots, sizeof(SrSlot) * (size_t)n_slots);
-  const int nb = scan_reduce_num_blocks(n);
+  const long long chunks = n == 0 ? 1 : (n + chunk - 1) / chunk;
+  if (chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int n_chunks = (int)chunks;
   cudaStream_t st = (cudaStream_t)stream;
-  scan_reduce_blocks<<<dim3(nb, width), SR_THREADS, 0, st>>>(table, n_slots, rows, n,
-                                                             part_i, part_f);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scan_reduce_fold<<<dim3(n_slots, width), SR_FOLD_THREADS, 0, st>>>(
-      table, nb, n_slots, part_i, part_f, out_i, out_f);
+  int status;
+  switch (chunk) {
+    case 128:
+      status = sr_launch_chunks<1>(*table, n, n_chunks, width, part_i, part_f, st);
+      break;
+    case 256:
+      status = sr_launch_chunks<2>(*table, n, n_chunks, width, part_i, part_f, st);
+      break;
+    case 512:
+      status = sr_launch_chunks<4>(*table, n, n_chunks, width, part_i, part_f, st);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (status != 0) return status;
+  scan_reduce_fold<<<dim3(table->n_slots, width), SR_FOLD_THREADS, 0, st>>>(
+      *table, n_chunks, part_i, part_f, out_i, out_f);
   return (int)cudaGetLastError();
 }

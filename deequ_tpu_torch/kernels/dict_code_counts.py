@@ -4,38 +4,91 @@ Replaces ``DeviceFrequencyScan.update`` of the JAX reference
 (deequ_tpu/analyzers/grouping.py:660). The CUDA source is
 ``csrc/dict_code_counts.cu``; :func:`dict_code_counts_plain` is the same
 function in plain PyTorch.
+
+The kernel counts in one of three ways, which :func:`plan_path` picks from
+the dictionary's size and the shared memory one block of the card may opt
+in to: one histogram a block in shared memory (``"shared"``), half the
+bins in each block of a two-block cluster (``"cluster"``, up to
+:data:`CLUSTER_MAX_K` codes), or adds into device memory (``"global"``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import threading
+from typing import Dict, Tuple
 
 import torch
 
 from . import build, check_status, check_tensor, count_launch, on_cuda, stream_handle
 
 NAME = "dict_code_counts"
-#: dictionaries up to this size count in shared memory; equals
-#: DCC_SHARED_MAX_K in csrc/dict_code_counts.cu
-SHARED_MAX_K = 32768
+PATHS = ("shared", "cluster", "global")
+#: the cluster path's largest dictionary; equals DCC_CLUSTER_MAX_K
+CLUSTER_MAX_K = 1 << 16
+#: blocks of a cluster, each holding a share of the bins; equals DCC_CLUSTER
+CLUSTER_SIZE = 2
+#: shared memory a block keeps beside its histogram (its row count), bytes
+STATIC_SHARED_BYTES = 64
+
+_LIMITS: Dict[int, int] = {}
+_LIMITS_LOCK = threading.Lock()
+
+
+def _bins(k: int) -> int:
+    """uint32 bins a histogram of ``k`` codes takes (a multiple of 4)."""
+    return (k + 3) & ~3
+
+
+def shared_max_k(limit_bytes: int) -> int:
+    """The largest dictionary one block counts in shared memory, given the
+    bytes a block may opt in to (``cudaDevAttrMaxSharedMemoryPerBlockOptin``)."""
+    return max(0, (limit_bytes - STATIC_SHARED_BYTES) // 16 * 4)
+
+
+def plan_path(k: int, limit_bytes: int) -> str:
+    """The kernel's path for ``k`` codes on a card whose blocks may opt in
+    to ``limit_bytes`` of shared memory."""
+    if k <= shared_max_k(limit_bytes):
+        return "shared"
+    half = _bins(-(-k // CLUSTER_SIZE))
+    if k <= CLUSTER_MAX_K and 4 * half <= limit_bytes - STATIC_SHARED_BYTES:
+        return "cluster"
+    return "global"
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load(NAME)
     if not getattr(lib, "_deequ_bound", False):
-        lib.dict_code_counts_shared_max_k.restype = ctypes.c_int
-        lib.dict_code_counts_shared_max_k.argtypes = []
+        lib.dict_code_counts_shared_limit.restype = ctypes.c_int
+        lib.dict_code_counts_shared_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        for fn in ("dict_code_counts_cluster_max_k", "dict_code_counts_cluster_size"):
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = []
         lib.dict_code_counts_launch.restype = ctypes.c_int
         lib.dict_code_counts_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ]
-        if lib.dict_code_counts_shared_max_k() != SHARED_MAX_K:
-            raise RuntimeError("dict_code_counts library and wrapper disagree on SHARED_MAX_K")
+        if (lib.dict_code_counts_cluster_max_k() != CLUSTER_MAX_K
+                or lib.dict_code_counts_cluster_size() != CLUSTER_SIZE):
+            raise RuntimeError("dict_code_counts library and wrapper disagree on the cluster path")
         lib._deequ_bound = True
     return lib
+
+
+def shared_limit(device: torch.device) -> int:
+    """The shared memory one block may opt in to on ``device``, bytes (read
+    from the card once per device)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    with _LIMITS_LOCK:
+        limit = _LIMITS.get(index)
+        if limit is None:
+            value = ctypes.c_int(0)
+            with torch.cuda.device(index):
+                check_status(NAME, _lib().dict_code_counts_shared_limit(ctypes.byref(value)))
+            limit = _LIMITS[index] = value.value
+        return limit
 
 
 def dict_code_counts(
@@ -54,15 +107,16 @@ def dict_code_counts(
     if not on_cuda(codes, NAME):
         return dict_code_counts_plain(codes, rows, present, k)
     lib = _lib()
-    counts = torch.zeros(k, dtype=torch.int64, device=device)
-    num_rows = torch.zeros(1, dtype=torch.int64, device=device)
+    path = PATHS.index(plan_path(k, shared_limit(device)))
+    # the counts and num_rows in one buffer, zeroed by the launch
+    out = torch.empty(k + 1, dtype=torch.int64, device=device)
     status = lib.dict_code_counts_launch(
-        codes.data_ptr(), rows.data_ptr(), present.data_ptr(), n, k,
-        counts.data_ptr(), num_rows.data_ptr(), stream_handle(device),
+        codes.data_ptr(), rows.data_ptr(), present.data_ptr(), n, k, path, out.data_ptr(),
+        stream_handle(device),
     )
     check_status(NAME, status)
     count_launch(NAME)
-    return counts, num_rows[0]
+    return out[:k], out[k]
 
 
 def dict_code_counts_plain(

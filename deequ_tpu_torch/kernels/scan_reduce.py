@@ -22,15 +22,23 @@ in one launch (the streaming service's coalesced fold; it replaces the
 reference's ``PackedScanProgram.call_with_slots_stacked``,
 deequ_tpu/runners/engine.py:501): every array is ``[W, n]`` and session
 w's outputs equal a one-batch launch over its batch bit for bit.
+
+The wrapper hands the kernel the slot table's distinct arrays
+(:func:`stage_plan`: a mask or column several slots share is read once)
+and the rows of a block's chunk (:func:`chunk_rows`: from the batch's
+rows and the table's bytes a row, never from the number of sessions).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import threading
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.order import masked_max, masked_min
@@ -97,35 +105,158 @@ def comoments(p: Partials) -> Tuple[torch.Tensor, ...]:
     return (p.matches.to(torch.float64), p.total, p.min, p.max, p.mean, p.m2)
 
 
-class _SlotStruct(ctypes.Structure):
-    # mirrors struct SrSlot in csrc/scan_reduce.cu
+#: distinct arrays a launch stages (the row mask and five a slot); equals
+#: SR_MAX_ARRAYS in csrc/scan_reduce.cu
+MAX_ARRAYS = 1 + 5 * MAX_SLOTS
+#: rows of a block's chunk, largest first: the kernel's instances
+CHUNK_ROWS = (512, 256, 128)
+#: shared memory a block's staged chunk may take before a smaller chunk is
+#: chosen (six or seven blocks an SM at the largest)
+STAGE_BYTES = 32 * 1024
+#: a batch with the rows for it spreads over at least this many chunks
+MIN_CHUNKS = 8
+#: int32 and float64 columns of a chunk partial; equals SR_PWIDTH
+PARTIAL_WIDTH = 7
+#: a slot's absent array; equals SR_NONE
+NONE = 0xFFFF
+
+
+class StagePlan(NamedTuple):
+    """A slot table as the kernel reads it: the table's distinct arrays
+    (the row mask first, then each array where a slot first names it, in
+    slot order and ``where, sel, vals, vals2, sel2`` order within a slot),
+    and per slot ``(kind, vals_i32, where, sel, vals, vals2, sel2)`` with
+    each array as its index in that list (:data:`NONE`: absent)."""
+
+    arrays: Tuple[torch.Tensor, ...]
+    slots: Tuple[Tuple[int, ...], ...]
+    sizes: Tuple[int, ...]  # each array's bytes a row
+
+    @property
+    def row_bytes(self) -> int:
+        """Bytes a row of the distinct arrays (a staged row)."""
+        return sum(self.sizes)
+
+
+def stage_plan(slots: Sequence[Slot], rows: torch.Tensor) -> StagePlan:
+    """The distinct arrays of ``slots`` over ``rows`` and each slot's
+    indices into them. Two slot arrays are one when they are the same
+    memory (data pointer and dtype; the wrapper has checked that every
+    array is a contiguous tensor of the rows' shape)."""
+    by_object = {id(rows): 0}
+    by_memory = {(rows.data_ptr(), rows.dtype): 0}
+    arrays = [rows]
+    table = []
+    for slot in slots:
+        entry = [slot.kind, 0]
+        for t in (slot.where, slot.sel, slot.vals, slot.vals2, slot.sel2):
+            if t is None:
+                entry.append(NONE)
+                continue
+            i = by_object.get(id(t))
+            if i is None:
+                key = (t.data_ptr(), t.dtype)
+                i = by_memory.get(key)
+                if i is None:
+                    i = by_memory[key] = len(arrays)
+                    arrays.append(t)
+                by_object[id(t)] = i
+            entry.append(i)
+        if slot.vals is not None and slot.vals.dtype == torch.int32:
+            entry[1] = 1
+        table.append(tuple(entry))
+    return StagePlan(tuple(arrays), tuple(table), tuple(t.element_size() for t in arrays))
+
+
+def chunk_rows(n: int, row_bytes: int) -> int:
+    """Rows of a block's chunk for batches of ``n`` rows whose distinct
+    arrays take ``row_bytes`` a row: the largest of :data:`CHUNK_ROWS`
+    whose staged chunk fits :data:`STAGE_BYTES` and that still leaves
+    :data:`MIN_CHUNKS` chunks to a batch of ``n`` rows (the smallest
+    chunk else). It depends on the batch and the table, never on the
+    number of sessions of a stacked launch: each session is cut and folded
+    as a launch over it alone."""
+    for chunk in CHUNK_ROWS:
+        if chunk * row_bytes <= STAGE_BYTES and MIN_CHUNKS * chunk <= n:
+            return chunk
+    fits = [c for c in CHUNK_ROWS if c * row_bytes <= STAGE_BYTES]
+    return fits[-1] if fits else CHUNK_ROWS[-1]
+
+
+def blocks_per_session(n: int, row_bytes: int) -> int:
+    """Blocks (chunks) a session of ``n`` rows spreads over."""
+    return max(1, -(-n // chunk_rows(n, row_bytes)))
+
+
+class _Table(ctypes.Structure):
+    # mirrors struct SrTable in csrc/scan_reduce.cu; a slot is six uint16
+    # words: kind | vals_i32 << 8, then the five array indices
     _fields_ = [
-        ("kind", ctypes.c_int32),
-        ("vals_i32", ctypes.c_int32),
-        ("vals", ctypes.c_void_p),
-        ("where", ctypes.c_void_p),
-        ("sel", ctypes.c_void_p),
-        ("vals2", ctypes.c_void_p),
-        ("sel2", ctypes.c_void_p),
+        ("ptr", ctypes.c_uint64 * MAX_ARRAYS),
+        ("at", ctypes.c_uint16 * (MAX_ARRAYS + 1)),
+        ("slot", ctypes.c_uint16 * (6 * MAX_SLOTS)),
+        ("n_arrays", ctypes.c_int32),
+        ("n_slots", ctypes.c_int32),
     ]
+
+
+class _TableBuffer(threading.local):
+    """One reused table a thread fills for its launches (a launch copies
+    the table into its parameters): the arrays' pointers every launch, the
+    rest only when the layout differs from the last launch's."""
+
+    def __init__(self):
+        self.table = _Table()
+        self.ptr = np.frombuffer(self.table, np.uint64, MAX_ARRAYS, _Table.ptr.offset)
+        self.layout = None
+
+    def fill(self, plan: StagePlan) -> None:
+        self.ptr[:len(plan.arrays)] = [t.data_ptr() for t in plan.arrays]
+        key = (plan.slots, plan.sizes)
+        if key != self.layout:
+            ctypes.memmove(ctypes.addressof(self.table) + _Table.at.offset, _packed(key),
+                           ctypes.sizeof(_Table) - _Table.at.offset)
+            self.layout = key
+
+
+@functools.lru_cache(maxsize=256)
+def _packed(layout) -> bytes:
+    """The table's fields after the pointers for a layout (``(slots,
+    sizes)`` of a :class:`StagePlan`), as the kernel reads them."""
+    slots, sizes = layout
+    table = _Table()
+    at = np.frombuffer(table, np.uint16, MAX_ARRAYS + 1, _Table.at.offset)
+    at[:len(sizes) + 1] = np.cumsum((0,) + sizes)
+    words = np.frombuffer(table, np.uint16, 6 * MAX_SLOTS, _Table.slot.offset).reshape(-1, 6)
+    entries = np.array(slots, dtype=np.uint16).reshape(-1, 7)
+    words[:len(slots), 0] = entries[:, 0] | (entries[:, 1] << 8)
+    words[:len(slots), 1:] = entries[:, 2:]
+    table.n_arrays, table.n_slots = len(sizes), len(slots)
+    return ctypes.string_at(ctypes.addressof(table) + _Table.at.offset,
+                            ctypes.sizeof(_Table) - _Table.at.offset)
+
+
+_TABLES = _TableBuffer()
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load(NAME)
     if not getattr(lib, "_deequ_bound", False):
-        lib.scan_reduce_max_slots.restype = ctypes.c_int
-        lib.scan_reduce_max_slots.argtypes = []
-        lib.scan_reduce_int_width.restype = ctypes.c_int
-        lib.scan_reduce_int_width.argtypes = []
-        lib.scan_reduce_num_blocks.restype = ctypes.c_int
-        lib.scan_reduce_num_blocks.argtypes = [ctypes.c_longlong]
-        lib.scan_reduce_stacked_launch.restype = ctypes.c_int
-        lib.scan_reduce_stacked_launch.argtypes = [
-            ctypes.POINTER(_SlotStruct), ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        for fn in ("scan_reduce_max_slots", "scan_reduce_max_arrays", "scan_reduce_int_width",
+                   "scan_reduce_table_bytes", "scan_reduce_partial_width"):
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = []
+        lib.scan_reduce_launch.restype = ctypes.c_int
+        lib.scan_reduce_launch.argtypes = [
+            ctypes.POINTER(_Table), ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
-        if lib.scan_reduce_max_slots() != MAX_SLOTS or lib.scan_reduce_int_width() != I_WIDTH:
+        if (lib.scan_reduce_max_slots() != MAX_SLOTS
+                or lib.scan_reduce_max_arrays() != MAX_ARRAYS
+                or lib.scan_reduce_int_width() != I_WIDTH
+                or lib.scan_reduce_table_bytes() != ctypes.sizeof(_Table)
+                or lib.scan_reduce_partial_width() != PARTIAL_WIDTH):
             raise RuntimeError("scan_reduce library and wrapper disagree on the slot layout")
         lib._deequ_bound = True
     return lib
@@ -134,68 +265,77 @@ def _lib() -> ctypes.CDLL:
 def _validate(slots: Sequence[Slot], rows: torch.Tensor, name: str, dims: int) -> None:
     """Check the slot table against ``rows``: ``dims`` is 1 for one batch
     (every array ``[n]``) and 2 for stacked sessions (every array
-    ``[W, n]``)."""
+    ``[W, n]``). An array several slots share is checked once for each
+    dtype it is used as."""
     if not slots or len(slots) > MAX_SLOTS:
         raise ValueError(f"{name}: takes 1 to {MAX_SLOTS} slots, got {len(slots)}")
     if rows.dim() != dims or (dims == 2 and rows.shape[0] < 1):
         raise ValueError(f"{name}: rows must have {dims} dimension(s), got {tuple(rows.shape)}")
-    shape = tuple(rows.shape)
-    check_tensor(rows, name, "rows", torch.bool, shape, rows.device)
+    shape = rows.shape
+    device = rows.device
+    checked = set()
+
+    def check(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:
+        key = (id(t), dtype)
+        if key in checked:
+            return
+        if not (t.dtype == dtype and t.shape == shape and t.device == device
+                and t.is_contiguous()):
+            check_tensor(t, name, what, dtype, tuple(shape), device)
+        checked.add(key)
+
+    check(rows, "rows", torch.bool)
     for i, slot in enumerate(slots):
-        if slot.kind not in (KIND_COUNTS, KIND_MOMENTS, KIND_CLASSES, KIND_COMOMENTS):
-            raise ValueError(f"{name}: slot {i} has unknown kind {slot.kind}")
-        if (slot.vals2 is not None or slot.sel2 is not None) != (slot.kind == KIND_COMOMENTS):
+        kind = slot.kind
+        if kind not in (KIND_COUNTS, KIND_MOMENTS, KIND_CLASSES, KIND_COMOMENTS):
+            raise ValueError(f"{name}: slot {i} has unknown kind {kind}")
+        if (slot.vals2 is not None or slot.sel2 is not None) != (kind == KIND_COMOMENTS):
             raise ValueError(f"{name}: only a co-moment slot takes vals2 and sel2 (slot {i})")
         for what in ("where", "sel", "sel2"):
             mask = getattr(slot, what)
             if mask is not None:
-                check_tensor(mask, name, f"slot {i} {what}", torch.bool, shape, rows.device)
-        if slot.kind == KIND_MOMENTS:
+                check(mask, f"slot {i} {what}", torch.bool)
+        if kind == KIND_MOMENTS:
             if slot.vals is None:
                 raise ValueError(f"{name}: moments slot {i} has no values")
             dtype = torch.int32 if slot.vals.dtype == torch.int32 else torch.float64
-            check_tensor(slot.vals, name, f"slot {i} vals", dtype, shape, rows.device)
-        if slot.kind == KIND_CLASSES:
+            check(slot.vals, f"slot {i} vals", dtype)
+        elif kind == KIND_CLASSES:
             if slot.vals is None or slot.sel is not None:
                 raise ValueError(f"{name}: class-count slot {i} takes codes and no selection")
-            check_tensor(slot.vals, name, f"slot {i} codes", torch.int32, shape, rows.device)
-        if slot.kind == KIND_COMOMENTS:
+            check(slot.vals, f"slot {i} codes", torch.int32)
+        elif kind == KIND_COMOMENTS:
             if slot.vals is None or slot.vals2 is None:
                 raise ValueError(f"{name}: co-moment slot {i} needs two value columns")
-            check_tensor(slot.vals, name, f"slot {i} vals", torch.float64, shape, rows.device)
-            check_tensor(slot.vals2, name, f"slot {i} vals2", torch.float64, shape, rows.device)
+            check(slot.vals, f"slot {i} vals", torch.float64)
+            check(slot.vals2, f"slot {i} vals2", torch.float64)
 
 
-def _launch(slots: Sequence[Slot], rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch over ``rows`` ``[W, n]`` and a table of ``[W, n]``
-    arrays; outputs ``[W, S, 7]`` and ``[W, S, 5]``."""
+def _launch(slots: Sequence[Slot], rows: torch.Tensor, width: int, n: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch over ``width`` sessions of ``n`` rows (``rows`` and every
+    array ``[width, n]``, or ``[n]`` when ``width`` is 1); outputs
+    ``[width, S, 7]`` and ``[width, S, 5]``."""
     lib = _lib()
-    device = rows.device
-    width, n = rows.shape
+    plan = stage_plan(slots, rows)
     s = len(slots)
-    table = (_SlotStruct * s)(*[
-        _SlotStruct(
-            slot.kind,
-            int(slot.vals is not None and slot.vals.dtype == torch.int32),
-            None if slot.vals is None else slot.vals.data_ptr(),
-            None if slot.where is None else slot.where.data_ptr(),
-            None if slot.sel is None else slot.sel.data_ptr(),
-            None if slot.vals2 is None else slot.vals2.data_ptr(),
-            None if slot.sel2 is None else slot.sel2.data_ptr(),
-        )
-        for slot in slots
-    ])
-    blocks = lib.scan_reduce_num_blocks(n)
-    part_i = torch.empty(width * blocks * s * I_WIDTH, dtype=torch.int64, device=device)
-    part_f = torch.empty(width * blocks * s * 5, dtype=torch.float64, device=device)
-    out_i = torch.empty((width, s, I_WIDTH), dtype=torch.int64, device=device)
-    out_f = torch.empty((width, s, 5), dtype=torch.float64, device=device)
-    status = lib.scan_reduce_stacked_launch(
-        table, s, rows.data_ptr(), n, width, part_i.data_ptr(), part_f.data_ptr(),
-        out_i.data_ptr(), out_f.data_ptr(), stream_handle(device),
+    buf = _TABLES
+    buf.fill(plan)
+    chunk = chunk_rows(n, plan.row_bytes)
+    parts = width * s * PARTIAL_WIDTH * blocks_per_session(n, plan.row_bytes)
+    # one allocation: the outputs (int64, float64), then the partials'
+    # float64 and int32 columns
+    out = torch.empty(width * s * (I_WIDTH + 5) + parts + (parts + 1) // 2,
+                      dtype=torch.int64, device=rows.device)
+    out_i = out[:width * s * I_WIDTH].view(width, s, I_WIDTH)
+    out_f = out[width * s * I_WIDTH:width * s * (I_WIDTH + 5)].view(torch.float64)
+    part_f = out.data_ptr() + 8 * width * s * (I_WIDTH + 5)
+    status = lib.scan_reduce_launch(
+        buf.table, n, width, chunk, part_f + 8 * parts, part_f, out_i.data_ptr(),
+        out_f.data_ptr(), stream_handle(rows.device),
     )
     check_status(NAME, status)
-    return out_i, out_f
+    return out_i, out_f.view(width, s, 5)
 
 
 def scan_reduce(slots: Sequence[Slot], rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -207,7 +347,7 @@ def scan_reduce(slots: Sequence[Slot], rows: torch.Tensor) -> Tuple[torch.Tensor
     _validate(slots, rows, NAME, 1)
     if not on_cuda(rows, NAME):
         return scan_reduce_plain(slots, rows)
-    out_i, out_f = _launch([_one_session(slot) for slot in slots], rows[None])
+    out_i, out_f = _launch(slots, rows, 1, rows.shape[0])
     count_launch(NAME)
     return out_i[0], out_f[0]
 
@@ -218,13 +358,13 @@ def scan_reduce_stacked(slots: Sequence[Slot], rows: torch.Tensor
     ``rows`` and every array of the slot table are ``[W, n]``, session w's
     batch in row w. Returns int64[W, S, 7] and float64[W, S, 5]; row w
     equals :func:`scan_reduce` over session w's batch bit for bit (the
-    kernel partitions and folds each session as a launch over it alone).
+    kernel cuts and folds each session as a launch over it alone).
     CPU tensors take :func:`scan_reduce_stacked_plain`; CUDA tensors launch
     the kernel."""
     _validate(slots, rows, NAME_STACKED, 2)
     if not on_cuda(rows, NAME_STACKED):
         return scan_reduce_stacked_plain(slots, rows)
-    out = _launch(slots, rows)
+    out = _launch(slots, rows, rows.shape[0], rows.shape[1])
     count_launch(NAME_STACKED)
     return out
 

@@ -3,7 +3,10 @@ on the card.
 
 K4 ``kll_sample`` and K5 ``kll_compact`` must match their plain versions
 bit for bit on every output (items, sizes, parities, counters, and the bits
-of min and max), as must the class counts of ``scan_reduce``. K8
+of min and max), as must the class counts of ``scan_reduce``, and K3
+``dict_code_counts`` on each of its three paths. Each session of a
+stacked ``scan_reduce`` launch must equal a launch over its batch alone
+bit for bit, at batch sizes on either side of its chunk. K8
 ``state_fold`` must match its plain version and the sequential fold of the
 states' own ``merge`` bit for bit (NaN equal to NaN), and ``scan_reduce``'s
 co-moment slot its plain version within 1e-12 of the magnitudes that bound
@@ -1018,3 +1021,214 @@ def test_a_shard_lost_on_the_card_salvages_on_the_card(cuda_device, monkeypatch)
     monkeypatch.setenv(elastic.MESH_LADDER_ENV, "8")
     with pytest.raises(MeshExhaustedError):
         run("cuda")
+
+
+# ---------------------------------------------------------------------------
+# K1 and K3 as staged for the H100: chunk edges, shared arrays, signed zeros
+# and NaN, every session of a stacked launch, and every path of K3
+# ---------------------------------------------------------------------------
+
+import deequ_tpu_torch.kernels.dict_code_counts as K3
+import deequ_tpu_torch.kernels.scan_reduce as K1
+
+
+def _scan_matches_plain(slots, ki, kf, pi, pf) -> None:
+    """Counts, class counts, min and max bit for bit; sums, means and M2
+    within 1e-12 of their magnitudes (co-moments: of theirs)."""
+    assert torch.equal(ki, pi)
+    kf, pf = kf.cpu().numpy(), pf.cpu().numpy()
+    for s, slot in enumerate(slots):
+        if slot.kind == KIND_COMOMENTS:
+            x = slot.vals.double().cpu().numpy()
+            y = slot.vals2.double().cpu().numpy()
+            xx, yy = float(np.nansum(x * x)), float(np.nansum(y * y))
+            scales = (np.nanmax(np.abs(x), initial=1.0), np.nanmax(np.abs(y), initial=1.0),
+                      (xx * yy) ** 0.5, xx, yy)
+            for col, scale in enumerate(scales):
+                assert _close(kf[s, col], pf[s, col], float(scale)), (s, col)
+            continue
+        assert _bits_equal(kf[s, 1:3], pf[s, 1:3]), (s, kf[s], pf[s])
+        if slot.vals is None:
+            assert _bits_equal(kf[s], pf[s]), s
+            continue
+        v = slot.vals.double().cpu().numpy()
+        v = v[np.isfinite(v)]
+        scales = (np.abs(v).sum(), np.abs(v).max(initial=0.0), (v * v).sum())
+        for col, scale in zip((0, 3, 4), scales):
+            assert _close(kf[s, col], pf[s, col], float(scale)), (s, col, kf[s], pf[s])
+
+
+def _shared_array_slots(n, device, seed=11):
+    """A table whose slots share their row filter, masks and columns, with
+    columns of signed zeros, NaN only, infinities only and int32 lengths,
+    a class-count slot and two co-moment slots."""
+    rng = np.random.default_rng(seed)
+
+    def mask(p):
+        return torch.from_numpy(rng.random(n) < p).to(device)
+
+    def col(v):
+        return torch.from_numpy(np.asarray(v, dtype=np.float64)).to(device)
+
+    x = rng.normal(5.0, 3.0, n)
+    x[rng.random(n) < 0.002] = np.nan
+    zeros = col(np.where(rng.random(n) < 0.5, -0.0, 0.0))
+    negzero = col(np.full(n, -0.0))
+    nans = col(np.full(n, np.nan))
+    infs = col(np.where(rng.random(n) < 0.5, -np.inf, np.inf))
+    xs, ys = col(x), col(0.25 * np.nan_to_num(x) + rng.normal(0, 1, n))
+    lens = torch.from_numpy(rng.integers(0, 40, n).astype(np.int32)).to(device)
+    codes = torch.from_numpy(rng.integers(-1, 7, n).astype(np.int32)).to(device)
+    where, present, other = mask(0.6), mask(0.9), mask(0.8)
+    slots = [
+        Slot(KIND_COUNTS),
+        Slot(KIND_COUNTS, where=where),
+        Slot(KIND_COUNTS, where=where, sel=present),
+        Slot(KIND_MOMENTS, sel=present, vals=xs),
+        Slot(KIND_MOMENTS, where=where, sel=present, vals=xs),
+        Slot(KIND_MOMENTS, sel=other, vals=zeros),
+        Slot(KIND_MOMENTS, sel=present, vals=negzero),
+        Slot(KIND_MOMENTS, sel=present, vals=nans),
+        Slot(KIND_MOMENTS, where=where, sel=other, vals=infs),
+        Slot(KIND_MOMENTS, sel=present, vals=lens),
+        Slot(KIND_CLASSES, where=where, vals=codes),
+        Slot(KIND_COMOMENTS, sel=present, vals=xs, vals2=ys, sel2=other),
+        Slot(KIND_COMOMENTS, where=where, sel=other, vals=ys, vals2=zeros, sel2=present),
+    ]
+    return slots, mask(0.97)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 129, 511, 512, 513, 1023, 1024, 1025, 4095, 4096,
+                               4097, 8191, 8192, 8193, 65_537, 1_000_003])
+def test_scan_reduce_at_either_side_of_its_chunk(cuda_device, n):
+    """Batches of one row under, at and over a chunk and over the sizes at
+    which the chunk grows, on a table that shares arrays between slots."""
+    slots, rows = _shared_array_slots(n, cuda_device)
+    plan = K1.stage_plan(slots, rows)
+    assert len(plan.arrays) < sum(
+        1 + sum(getattr(s, f) is not None for f in ("where", "sel", "vals", "vals2", "sel2"))
+        for s in slots)
+    ki, kf = scan_reduce(slots, rows)
+    pi, pf = scan_reduce_plain(slots, rows)
+    torch.cuda.synchronize()
+    _scan_matches_plain(slots, ki, kf, pi, pf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 1_000_003])
+def test_scan_reduce_min_max_of_signed_zeros_and_nan_columns(cuda_device, n):
+    """min and max of columns of -0.0 and +0.0, of NaN only, of infinities
+    only: the bits of the plain version (-0.0 wins min, +0.0 wins max,
+    NaN min when no value is left, NaN max when any is NaN)."""
+    slots, rows = _shared_array_slots(n, cuda_device, seed=n)
+    ki, kf = scan_reduce(slots, rows)
+    pi, pf = scan_reduce_plain(slots, rows)
+    torch.cuda.synchronize()
+    kf_h, pf_h = kf.cpu().numpy(), pf.cpu().numpy()
+    for s in (5, 6, 7, 8):
+        assert _bits_equal(kf_h[s, 1:3], pf_h[s, 1:3]), (s, kf_h[s], pf_h[s])
+    assert np.isnan(kf_h[7, 1]) and np.isnan(kf_h[7, 2])  # NaN only
+    if int(pi[6, 0]) > 0:
+        assert np.signbit(kf_h[6, 1]) and np.signbit(kf_h[6, 2])  # -0.0 only
+
+
+def _stacked_shared_slots(width, n, device):
+    per = [_shared_array_slots(n, device, seed=17 + w) for w in range(width)]
+    fields = ("where", "sel", "vals", "vals2", "sel2")
+    stacked = {}
+
+    def stack(ts):
+        # one [W, n] tensor per array the sessions share, as a battery's
+        # features are one stacked tensor per key
+        key = tuple(id(t) for t in ts)
+        if key not in stacked:
+            stacked[key] = torch.stack(ts)
+        return stacked[key]
+
+    slots = [Slot(column[0].kind, **{
+        f: None if getattr(column[0], f) is None else stack([getattr(s, f) for s in column])
+        for f in fields}) for column in zip(*(p[0] for p in per))]
+    return slots, torch.stack([p[1] for p in per])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4095, 4097, 65_536])
+@pytest.mark.parametrize("width", [1, 3, 16])
+def test_scan_reduce_stacked_sessions_equal_one_session_launches(cuda_device, width, n):
+    """Every session of a stacked launch, co-moment slots included, equals a
+    launch over its batch alone bit for bit, and the plain version."""
+    slots, rows = _stacked_shared_slots(width, n, cuda_device)
+    assert K1.chunk_rows(n, K1.stage_plan(slots, rows).row_bytes) == K1.chunk_rows(
+        n, K1.stage_plan([Slot(s.kind, *(None if t is None else t[0] for t in (
+            s.where, s.sel, s.vals, s.vals2, s.sel2))) for s in slots], rows[0]).row_bytes)
+    reset_launch_counts()
+    ki, kf = scan_reduce_stacked(slots, rows)
+    pi, pf = scan_reduce_stacked_plain(slots, rows)
+    torch.cuda.synchronize()
+    assert launch_counts()["scan_reduce_stacked"] == 1
+    assert torch.equal(ki, pi)
+    for w in range(width):
+        one = [Slot(s.kind, *(None if t is None else t[w] for t in (
+            s.where, s.sel, s.vals, s.vals2, s.sel2))) for s in slots]
+        oi, of = scan_reduce(one, rows[w])
+        assert torch.equal(oi, ki[w]), w
+        assert of.cpu().numpy().tobytes() == kf[w].cpu().numpy().tobytes(), w
+        _scan_matches_plain(one, ki[w], kf[w], pi[w], pf[w])
+
+
+def _zipf_codes(n, k, rng):
+    """build_table's dictionary codes: Zipf(1.3), clipped, spread by 7919."""
+    codes = np.minimum(rng.zipf(1.3, n) - 1, k - 1)
+    return ((codes * 7919) % k).astype(np.int32)
+
+
+def _counts_match_plain(codes, rows, present, k) -> None:
+    counts, num_rows = dict_code_counts(codes, rows, present, k)
+    want_counts, want_rows = dict_code_counts_plain(codes, rows, present, k)
+    torch.cuda.synchronize()
+    assert counts.shape == (k,)
+    assert torch.equal(counts, want_counts)
+    assert int(num_rows) == int(want_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zipf 50000", "one hot code", "shared limit",
+                                  "shared limit + 1", "65536", "70000", "zipf 1000"])
+def test_dict_code_counts_every_path_matches_plain(cuda_device, case):
+    limit = K3.shared_limit(cuda_device)
+    top = K3.shared_max_k(limit)
+    k = {"zipf 50000": 50_000, "one hot code": 1000, "shared limit": top,
+         "shared limit + 1": top + 1, "65536": 65_536, "70000": 70_000,
+         "zipf 1000": 1000}[case]
+    path = {"shared limit + 1": "cluster", "65536": "cluster", "70000": "global"}.get(case, "shared")
+    assert K3.plan_path(k, limit) == path
+    n = 1_000_003
+    rng = np.random.default_rng(k)
+    if case.startswith("zipf"):
+        codes = _zipf_codes(n, k, rng)
+    elif case == "one hot code":
+        codes = np.full(n, 417, dtype=np.int32)
+    else:
+        codes = rng.integers(0, k + 1, n).astype(np.int32)  # k is the sentinel
+    codes_t = torch.from_numpy(codes).to(cuda_device)
+    rows = torch.from_numpy(rng.random(n) < 0.97).to(cuda_device)
+    present = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
+    reset_launch_counts()
+    _counts_match_plain(codes_t, rows, present, k)
+    assert launch_counts()["dict_code_counts"] == 1
+    # views that start off their vector width take the one-row-a-step loop
+    _counts_match_plain(codes_t[1:], rows[1:], present[1:], k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 4097])
+@pytest.mark.parametrize("k", [1, 60_000, 65_537])
+def test_dict_code_counts_short_batches(cuda_device, n, k):
+    """Batches shorter than a warp's step, and a tail after the last whole
+    step, on each path."""
+    rng = np.random.default_rng(n + k)
+    codes = torch.from_numpy(rng.integers(-2, k + 2, n).astype(np.int32)).to(cuda_device)
+    rows = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
+    present = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
+    _counts_match_plain(codes, rows, present, k)
