@@ -167,6 +167,8 @@ ATTRIBUTE_PATH_CATEGORIES = 20_000
 TPU_KERNELS = {
     "scan_reduce": "deequ_tpu/runners/engine.py:366",
     "hll_registers": "deequ_tpu/analyzers/sketches.py:277",
+    # K2's battery entry: every HLL update of the reference's fused update
+    "hll_registers_columns": "deequ_tpu/analyzers/sketches.py:277",
     "dict_code_counts": "deequ_tpu/analyzers/grouping.py:660",
     "kll_sample": "deequ_tpu/ops/kll.py:233",
     "kll_compact": "deequ_tpu/ops/kll.py:204",
@@ -189,11 +191,12 @@ TPU_KERNELS = {
 KERNEL_SOURCES = {name: name for name in TPU_KERNELS} | {
     "state_fold_carry": "state_fold", "kll_compact_ingest": "kll_compact",
     "scan_reduce_stacked": "scan_reduce", "hll_registers_stacked": "hll_registers",
+    "hll_registers_columns": "hll_registers",
     "state_fold_butterfly": "state_fold", "state_fold_carry_stacked": "state_fold",
     "kll_compact_merge_stacked": "kll_compact"}
 #: the kernels each main path must launch
-VERIFICATION_KERNELS = ("scan_reduce", "hll_registers", "dict_code_counts")
-PROFILE_KERNELS = ("scan_reduce", "hll_registers", "dict_code_counts", "kll_sample",
+VERIFICATION_KERNELS = ("scan_reduce", "hll_registers_columns", "dict_code_counts")
+PROFILE_KERNELS = ("scan_reduce", "hll_registers_columns", "dict_code_counts", "kll_sample",
                    "kll_compact")
 FREQ_KERNELS = ("freq_keys", "freq_compact")
 #: the merged-state refresh of the incremental path: K8 and K5's merge
@@ -1001,6 +1004,122 @@ def _max_abs_err(got, want) -> float:
     return float(diff.max()) if diff.size else 0.0
 
 
+#: K2's edge cases, each (keys, rows, where, present) of one batch
+HLL_EDGE_CASES = ("n = 0", "n = 1", "n = 17", "all rows masked", "one register", "odd offset",
+                  "every key")
+
+
+def hll_edge_inputs(torch, case: str, device, n: int = 100_003, seed: int = 0) -> tuple:
+    """One of :data:`HLL_EDGE_CASES` on ``device``: random packed keys and
+    masks of ``n`` rows, or ``case``'s; "odd offset" gives ``[1:]`` views
+    (every array one element off its allocation), "every key" each of the
+    2^15 packed keys in turn (ranks 0 to 63 of every register)."""
+    rng = np.random.default_rng(seed)
+    size = {"n = 0": 0, "n = 1": 1, "n = 17": 17}.get(case, n)
+    skip = 1 if case == "odd offset" else 0
+    m = size + skip
+    keys = rng.integers(0, 1 << 15, m)
+    if case == "one register":
+        keys = (417 << 6) | rng.integers(0, 64, m)
+    elif case == "every key":
+        keys = np.arange(m) % (1 << 15)
+    rows = rng.random(m) < 0.97
+    if case == "all rows masked":
+        rows[:] = False
+    arrays = (keys.astype(np.uint16), rows, rng.random(m) < 0.6, rng.random(m) < 0.9)
+    return tuple(torch.from_numpy(a).to(device)[skip:] for a in arrays)
+
+
+def hll_stacked_inputs(torch, width: int, n: int, device, skip: int = 0, seed: int = 0) -> tuple:
+    """(keys, rows, where, present) of ``width`` sessions x ``n`` rows, each
+    ``[W, n]`` and contiguous, starting ``skip`` elements into its
+    allocation."""
+    rng = np.random.default_rng(seed)
+    m = width * n + skip
+    arrays = (rng.integers(0, 1 << 15, m).astype(np.uint16), rng.random(m) < 0.97,
+              rng.random(m) < 0.6, rng.random(m) < 0.9)
+    return tuple(torch.from_numpy(a).to(device)[skip:].view(width, n) for a in arrays)
+
+
+def hll_battery_inputs(torch, ncols: int, n: int, device, seed: int = 0) -> tuple:
+    """(columns, rows) for the battery entry: ``ncols`` columns of ``n``
+    rows, every second one with a where-filter, every third one's keys a
+    ``[1:]`` view (its arrays then share no tile: one-by-one loads), each
+    with nonzero previous registers."""
+    from deequ_tpu_torch.kernels.hll_registers import REGISTERS, HllColumn
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    rows = t(rng.random(n) < 0.97)
+    columns = []
+    for c in range(ncols):
+        skip = 1 if c % 3 == 2 else 0
+        keys = t(rng.integers(0, 1 << 15, n + skip).astype(np.uint16))[skip:]
+        where = t(rng.random(n) < 0.6) if c % 2 else None
+        prev = t(rng.integers(0, 21, REGISTERS).astype(np.int32))
+        columns.append(HllColumn(keys, t(rng.random(n) < 0.9), where, prev))
+    return columns, rows
+
+
+def check_hll_edges(torch) -> None:
+    """K2's entries on what the main path's batches do not reach, each bit
+    for bit against its plain version on the card: :data:`HLL_EDGE_CASES`
+    with and without a where-filter; W = 1 and 16 sessions of odd n (at
+    aligned and odd starts), each session equal to its one-session launch;
+    the battery entry over 1, 2, 16 and 33 columns (two launches) of
+    nonzero previous registers, with filters and one-by-one columns; and
+    the same launch twice (the workspace left zeroed)."""
+    from deequ_tpu_torch.kernels.hll_registers import (
+        hll_registers, hll_registers_columns, hll_registers_columns_plain, hll_registers_plain,
+        hll_registers_stacked, hll_registers_stacked_plain)
+
+    device = torch.device("cuda")
+    for case in HLL_EDGE_CASES:
+        keys, rows, where, present = hll_edge_inputs(torch, case, device)
+        for w in (None, where):
+            got = hll_registers(keys, rows, w, present)
+            if not torch.equal(got, hll_registers_plain(keys, rows, w, present)):
+                raise AssertionError(f"hll_registers differs from the plain version on {case}")
+        print(f"[check hll_registers {case}] {keys.shape[0]} rows, bit for bit", flush=True)
+    for width, n, skip in ((1, 4097, 0), (16, 4097, 1), (16, 65_537, 0), (16, 65_537, 1)):
+        args = hll_stacked_inputs(torch, width, n, device, skip)
+        for where in (None, args[2]):
+            a = (args[0], args[1], where, args[3])
+            got = hll_registers_stacked(*a)
+            if not torch.equal(got, hll_registers_stacked_plain(*a)):
+                raise AssertionError(f"hll_registers_stacked differs on {width} x {n}")
+            for s in range(width):
+                one = hll_registers(*(None if x is None else x[s] for x in a))
+                if not torch.equal(one, got[s]):
+                    raise AssertionError(f"hll_registers_stacked session {s} of {width} x {n} "
+                                         "differs from a one-session launch")
+        print(f"[check hll_registers_stacked {width} x {n}, start {skip}] bit for bit, each "
+              "session its one-session launch", flush=True)
+    for ncols, n in ((1, 100_003), (2, 1 << 20), (16, 100_003), (33, 4097)):
+        columns, rows = hll_battery_inputs(torch, ncols, n, device)
+        want = hll_registers_columns_plain(columns, rows)
+        for _ in range(2):
+            if not torch.equal(hll_registers_columns(columns, rows), want):
+                raise AssertionError(f"hll_registers_columns differs on {ncols} columns")
+        print(f"[check hll_registers_columns {ncols} columns x {n} rows] nonzero previous "
+              "registers, twice, bit for bit", flush=True)
+
+
+def _registers_amax(torch, keys, valid, prev=None):
+    """One ``scatter_reduce`` amax computing K2's registers of ``[C, n]``
+    packed keys (``valid`` masks them) into C x 512 registers, zero or
+    ``prev``'s: the library call K2 is timed beside; returns a
+    zero-argument call."""
+    width = keys.shape[0]
+    k = torch.where(valid, keys.to(torch.int32), 0)
+    index = (torch.arange(width, device=keys.device)[:, None] * 512
+             + (k >> 6).long()).reshape(-1)
+    ranks = (k & 63).reshape(-1)
+    base = (torch.zeros(width * 512, dtype=torch.int32, device=keys.device) if prev is None
+            else prev.reshape(-1).contiguous())
+    return lambda: base.scatter_reduce(0, index, ranks, "amax")
+
+
 def check_kernels(torch, engine, features) -> dict:
     """Hold every kernel launch the main path makes on one batch against
     its plain version, printing each launch's times; returns per kernel the
@@ -1009,7 +1128,8 @@ def check_kernels(torch, engine, features) -> dict:
     from deequ_tpu_torch.analyzers.grouping import DeviceFrequencyScan
     from deequ_tpu_torch.analyzers.sketches import ApproxCountDistinct, KLLSketch
     from deequ_tpu_torch.kernels.dict_code_counts import dict_code_counts, dict_code_counts_plain
-    from deequ_tpu_torch.kernels.hll_registers import hll_registers, hll_registers_plain
+    from deequ_tpu_torch.kernels.hll_registers import (
+        hll_registers, hll_registers_columns, hll_registers_columns_plain, hll_registers_plain)
     from deequ_tpu_torch.kernels.scan_reduce import KIND_MOMENTS, scan_reduce, scan_reduce_plain
 
     rows = features["rows"]
@@ -1051,25 +1171,52 @@ def check_kernels(torch, engine, features) -> dict:
             _time_kernel_ms(torch, lambda: scan_reduce(slots, rows)),
             _time_ms(torch, lambda: scan_reduce_plain(slots, rows)), nbytes, ops)
 
-    for a in engine.scan_analyzers:
-        if isinstance(a, ApproxCountDistinct):
-            key = a._where_key()
-            args = (features[f"hll:{a.column}"], rows,
-                    None if key is None else features[key], features[f"mask:{a.column}"])
-            got, want = hll_registers(*args), hll_registers_plain(*args)
+    # K2: the battery's HLL columns in one launch, as the program makes it,
+    # each with nonzero previous registers (the state after one batch)
+    hlls = [a for a in engine.scan_analyzers if isinstance(a, ApproxCountDistinct)]
+    if hlls:
+        empty = [a.init_state(rows.device) for a in hlls]
+        states = ApproxCountDistinct.update_columns(hlls, empty, features)
+        columns = [a.hll_column(st, features) for a, st in zip(hlls, states)]
+        got = hll_registers_columns(columns, rows)
+        want = hll_registers_columns_plain(columns, rows)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError("hll_registers_columns differs from the plain version")
+        if not torch.equal(got, torch.stack([st.registers for st in states])):
+            raise AssertionError("registers changed when the same batch folded in again")
+        keys = torch.stack([c.keys for c in columns])
+        valid = torch.stack([rows & c.present & (rows if c.where is None else c.where)
+                             for c in columns])
+        prev = torch.stack([c.prev for c in columns])
+        arrays = {t.data_ptr(): t for c in columns for t in (c.keys, c.present, c.where)
+                  if t is not None}
+        arrays[rows.data_ptr()] = rows
+        nbytes = sum(t.numel() * t.element_size() for t in arrays.values()) \
+            + 2 * len(columns) * 512 * 4
+        add("hll_registers_columns", f"{len(columns)} columns, previous registers",
+            _max_abs_err(got, want),
+            _time_kernel_ms(torch, lambda: hll_registers_columns(columns, rows)),
+            _time_ms(torch, lambda: hll_registers_columns_plain(columns, rows)),
+            nbytes, 2 * n * len(columns), _time_ms(torch, _registers_amax(torch, keys, valid,
+                                                                          prev)))
+        # the one-column entry on the first column, with and without a filter
+        a = columns[0]
+        where = torch.from_numpy(np.random.default_rng(3).random(n) < 0.6).to(rows.device)
+        for label, w in (("", None), (", where", where)):
+            args = (a.keys, rows, w, a.present)
+            one, plain = hll_registers(*args), hll_registers_plain(*args)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"hll_registers differs from the plain version on {a.column}")
-            valid = args[1] & args[3]
-            k = torch.where(valid, args[0].to(torch.int32), 0)
-            idx, rank = (k >> 6).long(), k & 63
-            library = _time_ms(torch, lambda: torch.zeros(512, dtype=torch.int32, device="cuda")
-                               .scatter_reduce_(0, idx, rank, "amax"))
-            add("hll_registers", a.column, _max_abs_err(got, want),
+            if not torch.equal(one, plain):
+                raise AssertionError(f"hll_registers differs from the plain version{label}")
+            mask = rows & a.present & (rows if w is None else w)
+            nbytes = sum(t.numel() * t.element_size() for t in args if t is not None) + 512 * 4
+            add("hll_registers", f"{hlls[0].column}{label}", _max_abs_err(one, plain),
                 _time_kernel_ms(torch, lambda: hll_registers(*args)),
-                _time_ms(torch, lambda: hll_registers_plain(*args)),
-                4 * n + 512 * 4, 2 * n, library)
-        elif isinstance(a, DeviceFrequencyScan):
+                _time_ms(torch, lambda: hll_registers_plain(*args)), nbytes, 2 * n,
+                _time_ms(torch, _registers_amax(torch, a.keys[None], mask[None])))
+    for a in engine.scan_analyzers:
+        if isinstance(a, DeviceFrequencyScan):
             _check_counts(torch, add, features[f"codes:{a.column}"], rows,
                           features[f"mask:{a.column}"], a.num_categories,
                           dict_code_counts, dict_code_counts_plain, True)
@@ -1485,10 +1632,7 @@ def check_freq_kernels(torch, dq, grouping: pa.Table, lineitem: pa.Table) -> dic
     that batch's keys into a full 2^22-slot table. Also checked and
     printed: K6 on lineitem's two-column key and on an edge batch, K7
     merging two full tables and compacting the edge batch's keys."""
-    from deequ_tpu_torch.data import ColumnKind
     from deequ_tpu_torch.kernels.freq_compact import freq_compact
-    from deequ_tpu_torch.kernels.freq_keys import KIND_HASH, KIND_NUM, KeyColumn
-    from deequ_tpu_torch.ops.hashing import hash_column
 
     results, others = _new_results(), _new_results()
     scan, features = _table_features(torch, dq, grouping, ("k",))
@@ -1508,11 +1652,31 @@ def check_freq_kernels(torch, dq, grouping: pa.Table, lineitem: pa.Table) -> dic
     _check_freq_compact(torch, add, "merge of two full tables", table.keys, table.counts,
                         other.keys, other.counts, FULL_TABLE_SLOTS)
 
-    # the edge batch: the int64 whose SplitMix64 is the sentinel (a real
-    # key counted in sent_rows), negative and narrow integers, booleans,
-    # and NaN, -0.0 and 0.0 as xxhash64 keys
-    n = BATCH_ROWS
-    rng = np.random.default_rng(5)
+    edge, rows = freq_edge_columns(torch, BATCH_ROWS)
+    for width in (1, 2, 5):
+        edge_keys = _check_freq_keys(torch, add, f"edge batch, {width} columns", edge[:width],
+                                     rows)
+        small = _full_table(torch, 0, 1 << 10)
+        _check_freq_compact(torch, add, f"edge keys of {width} columns", small.keys,
+                            small.counts, edge_keys, None, 1 << 16)
+    for case in FREQ_EDGE_CASES:
+        check_freq_edge_case(torch, case)
+    check_freq_key_edges(torch)
+    trace_kernels(torch, "freq_compact",
+                  lambda: freq_compact(table.keys, table.counts, keys, None, FULL_TABLE_SLOTS))
+    return results
+
+
+def freq_edge_columns(torch, n: int, seed: int = 5) -> tuple:
+    """K6's edge batch of ``n`` rows on the card: the int64 whose
+    SplitMix64 is the sentinel (a real key counted in sent_rows), negative
+    and narrow integers, booleans, and NaN, -0.0 and 0.0 as xxhash64 keys;
+    five key columns and the row mask."""
+    from deequ_tpu_torch.data import ColumnKind
+    from deequ_tpu_torch.kernels.freq_keys import KIND_HASH, KIND_NUM, KeyColumn
+    from deequ_tpu_torch.ops.hashing import hash_column
+
+    rng = np.random.default_rng(seed)
     i64 = rng.integers(-50, 50, n)
     i64[::101] = SENTINEL_PREIMAGE
     f = rng.integers(-20, 20, n) / 4.0
@@ -1529,18 +1693,80 @@ def check_freq_kernels(torch, dq, grouping: pa.Table, lineitem: pa.Table) -> dic
         KeyColumn(KIND_HASH, cuda(hash_column(f, fmask, ColumnKind.FRACTIONAL).view(np.int64)),
                   cuda(fmask)),
     ]
-    rows = cuda(rng.random(n) < 0.99)
-    for width in (1, 2, 5):
-        edge_keys = _check_freq_keys(torch, add, f"edge batch, {width} columns", edge[:width],
-                                     rows)
-        small = _full_table(torch, 0, 1 << 10)
-        _check_freq_compact(torch, add, f"edge keys of {width} columns", small.keys,
-                            small.counts, edge_keys, None, 1 << 16)
-    for case in FREQ_EDGE_CASES:
-        check_freq_edge_case(torch, case)
-    trace_kernels(torch, "freq_compact",
-                  lambda: freq_compact(table.keys, table.counts, keys, None, FULL_TABLE_SLOTS))
-    return results
+    return edge, cuda(rng.random(n) < 0.99)
+
+
+#: K6's edge cases, each (columns, rows, out, offset)
+FREQ_KEY_EDGE_CASES = ("n = 0", "n = 1", "n = 13", "all rows masked", "odd views", "odd offset",
+                       "one-by-one loads", "sentinel row", "i8", "u8", "i16", "i32", "i64",
+                       "f64 booleans", "hash")
+
+
+def freq_key_edge_inputs(torch, case: str, device, n: int = 100_003, seed: int = 0) -> tuple:
+    """One of :data:`FREQ_KEY_EDGE_CASES` on ``device``: two key columns
+    (int64 with the sentinel's preimage, then int16) of ``n`` rows written
+    at offset 0, or ``case``'s: a dtype's one column; "sentinel row" the
+    int64 column alone, every seventh valid row keyed as the sentinel; "odd views" every
+    input a ``[1:]`` view; "odd offset" the keys at offset 7 of a longer
+    buffer (8-byte stores); "one-by-one loads" an int64 column one element
+    off its mask (no row aligns every input)."""
+    from deequ_tpu_torch.kernels.freq_keys import KIND_HASH, KIND_NUM, KeyColumn
+
+    rng = np.random.default_rng(seed)
+    size = {"n = 0": 0, "n = 1": 1, "n = 13": 13}.get(case, n)
+    skip = 1 if case == "odd views" else 0
+    m = size + skip
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)[skip:]  # noqa: E731
+    makers = {
+        "i8": lambda: rng.integers(-128, 128, m).astype(np.int8),
+        "u8": lambda: rng.integers(0, 256, m).astype(np.uint8),
+        "i16": lambda: rng.integers(-2**15, 2**15, m).astype(np.int16),
+        "i32": lambda: rng.integers(-2**31, 2**31, m).astype(np.int32),
+        "i64": lambda: rng.integers(-(2**63), 2**63 - 1, m, dtype=np.int64),
+        "f64 booleans": lambda: (rng.random(m) < 0.5).astype(np.float64),
+        "hash": lambda: rng.integers(-(2**63), 2**63 - 1, m, dtype=np.int64),
+    }
+    if case in makers:
+        kind = KIND_HASH if case == "hash" else KIND_NUM
+        columns = [KeyColumn(kind, t(makers[case]()), t(rng.random(m) < 0.97))]
+    else:
+        first = rng.integers(-50, 50, m)
+        first[:: 7 if case == "sentinel row" else 101] = SENTINEL_PREIMAGE
+        values = t(first)
+        if case == "one-by-one loads":
+            values = torch.from_numpy(np.concatenate([[0], first])).to(device)[1:]
+        columns = [KeyColumn(KIND_NUM, values, t(rng.random(m) < 0.98)),
+                   KeyColumn(KIND_NUM, t(rng.integers(-300, 300, m).astype(np.int16)),
+                             t(rng.random(m) < 0.97))]
+        if case == "sentinel row":
+            # one column: the preimage's key is the sentinel itself
+            columns = columns[:1]
+    rows = t(rng.random(m) < 0.99)
+    if case == "all rows masked":
+        rows = torch.zeros_like(rows)
+    offset = 7 if case == "odd offset" else 0
+    out = torch.full((size + offset + 3,), 5, dtype=torch.int64, device=device)
+    return columns, rows, out, offset
+
+
+def check_freq_key_edges(torch) -> None:
+    """K6 on each of :data:`FREQ_KEY_EDGE_CASES` against its plain version
+    on the card: the whole buffer (keys, and the entries around them
+    untouched) and both counters bit for bit, twice (the workspace left
+    zeroed)."""
+    from deequ_tpu_torch.kernels.freq_keys import freq_keys, freq_keys_plain
+
+    device = torch.device("cuda")
+    for case in FREQ_KEY_EDGE_CASES:
+        columns, rows, out, offset = freq_key_edge_inputs(torch, case, device)
+        want_out = out.clone()
+        want = freq_keys_plain(columns, rows, want_out, offset)
+        for _ in range(2):
+            got = freq_keys(columns, rows, out, offset)
+            if not (torch.equal(out, want_out) and torch.equal(got, want)):
+                raise AssertionError(f"freq_keys differs from the plain version on {case}")
+        print(f"[check freq_keys {case}] {rows.shape[0]} rows, sent_rows={int(got[0])}, "
+              f"num_rows={int(got[1])}, bit for bit", flush=True)
 
 
 def check_freq_edge_case(torch, case: str) -> None:
@@ -2225,7 +2451,7 @@ def incremental_path(torch, dq, seed: int) -> tuple:
     # loads the kernel libraries)
     providers, repo, _ = partition_runs(torch, dq, table, rows, battery, "cuda",
                                         "incremental (a)",
-                                        ("scan_reduce", "hll_registers", "kll_sample",
+                                        ("scan_reduce", "hll_registers_columns", "kll_sample",
                                          "kll_compact"))
     merged_run(torch, dq, schema, battery, providers, "cuda", "incremental (b) first",
                INCREMENTAL_KERNELS)
@@ -3480,6 +3706,9 @@ def profile_path(torch, dq, table: pa.Table) -> tuple:
     missing = [name for name in PROFILE_KERNELS if launches[name] == 0]
     if missing:
         raise AssertionError(f"the profile launched no {missing}")
+    # the first pass's 16 HLL columns: one launch a batch
+    if launches["hll_registers_columns"] != -(-LINEITEM_ROWS // BATCH_ROWS):
+        raise AssertionError(f"expected one K2 launch a first-pass batch, got {launches}")
 
     gpu = profile_values(profiles)
     t0 = time.perf_counter()
@@ -3544,6 +3773,7 @@ def main(argv=None) -> int:
     features = to_device(engine.builder.build(first), device)
     measured = check_kernels(torch, engine, features)
     check_count_paths(torch, features["rows"])
+    check_hll_edges(torch)
     del features
     _print_kernel_totals(measured, VERIFICATION_KERNELS, "verification path")
     carry_measured = check_carry_kernel(torch, dq, data, battery)
@@ -3573,6 +3803,9 @@ def main(argv=None) -> int:
     expected_batches = -(-ROWS // BATCH_ROWS)
     if monitor.batches != expected_batches or monitor.passes != 1:
         raise AssertionError(f"expected 1 pass of {expected_batches} batches, got {monitor}")
+    if launches["hll_registers_columns"] != expected_batches or launches["hll_registers"]:
+        raise AssertionError(f"expected one K2 launch a batch for the battery's HLL columns, "
+                             f"got {launches}")
 
     gpu_metrics = metric_values(result)
     t0 = time.perf_counter()

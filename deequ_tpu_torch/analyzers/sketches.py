@@ -12,6 +12,7 @@ ranks and quantiles on the host (``ops/kll_host.py``).
 
 from __future__ import annotations
 
+import functools
 import math
 import threading
 from dataclasses import dataclass, field
@@ -27,7 +28,7 @@ from ..exceptions import (
     wrap_if_necessary,
 )
 from ..expr import Predicate
-from ..kernels.hll_registers import hll_registers, hll_registers_stacked
+from ..kernels.hll_registers import HllColumn, hll_registers_columns, hll_registers_stacked
 from ..metrics import (
     BucketDistribution,
     BucketValue,
@@ -98,16 +99,32 @@ class ApproxCountDistinct(StandardScanShareableAnalyzer[ApproxCountDistinctState
         return ApproxCountDistinctState.init(device)
 
     def update(self, state: ApproxCountDistinctState, features) -> ApproxCountDistinctState:
-        # wire format: uint16 (idx << 6) | pw, 2 bytes/row; nulls arrive
-        # packed as 0, which never wins a register max
-        key = self._where_key()
-        batch_regs = hll_registers(
-            features[hll_feature(self.column).key],
-            features["rows"],
-            None if key is None else features[key],
-            features[mask_feature(self.column).key],
-        )
-        return ApproxCountDistinctState(torch.maximum(state.registers, batch_regs))
+        return ApproxCountDistinct.update_columns([self], [state], features)[0]
+
+    @functools.cached_property
+    def _hll_keys(self) -> Tuple[str, str, Optional[str]]:
+        """The feature keys of its packed keys, presence mask and filter
+        (computed once: a battery's update reads them every batch)."""
+        return hll_feature(self.column).key, mask_feature(self.column).key, self._where_key()
+
+    def hll_column(self, state: ApproxCountDistinctState, features) -> HllColumn:
+        """This analyzer's column of a battery's ``hll_registers_columns``
+        launch: its packed keys (uint16 ``(idx << 6) | pw``, 2 bytes a row;
+        nulls arrive packed as 0, which never wins a register max), masks
+        and the state's registers."""
+        keys, mask, where = self._hll_keys
+        return HllColumn(features[keys], features[mask],
+                         None if where is None else features[where], state.registers)
+
+    @staticmethod
+    def update_columns(analyzers, states, features) -> List[ApproxCountDistinctState]:
+        """Fold one batch into several HLL analyzers' states with one
+        ``hll_registers_columns`` launch (the reference's fused update holds
+        every HLL update of a battery, deequ_tpu/runners/engine.py:366);
+        each new state's registers are a row of the launch's new output."""
+        regs = hll_registers_columns(
+            [a.hll_column(s, features) for a, s in zip(analyzers, states)], features["rows"])
+        return [ApproxCountDistinctState(regs[c]) for c in range(len(analyzers))]
 
     def update_stacked(self, features, width: int, device) -> List[ApproxCountDistinctState]:
         """W sessions' registers in one ``hll_registers_stacked`` launch;

@@ -12,7 +12,9 @@ ingest tier's entries of ``state_fold`` and ``kll_compact`` count under
 ``state_fold_carry`` and ``kll_compact_ingest``, and the streaming
 service's stacked entries of ``scan_reduce`` and ``hll_registers`` (one
 launch for a group of sessions) under ``scan_reduce_stacked`` and
-``hll_registers_stacked``, and the mesh's entries of ``state_fold`` and
+``hll_registers_stacked``, K2's battery entry (every HLL column of a
+battery's batch in one launch) under ``hll_registers_columns``, and the
+mesh's entries of ``state_fold`` and
 ``kll_compact`` (the collective merge, the sharded host-tier fold) under
 ``state_fold_butterfly``, ``state_fold_carry_stacked`` and
 ``kll_compact_merge_stacked``. The counts are safe to bump from the
@@ -21,7 +23,7 @@ service's worker threads."""
 from __future__ import annotations
 
 import threading
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -32,6 +34,8 @@ KERNEL_NAMES = (
     "state_fold_carry", "kll_compact_ingest",
     # the streaming service's stacked (coalesced) entries, counted apart
     "scan_reduce_stacked", "hll_registers_stacked",
+    # K2's battery entry (every HLL column of a battery in one launch)
+    "hll_registers_columns",
     # the mesh's entries of K8 and K5 (the collective merge, the sharded
     # host-tier fold), counted apart
     "state_fold_butterfly", "state_fold_carry_stacked", "kll_compact_merge_stacked",
@@ -92,3 +96,36 @@ def check_tensor(t: torch.Tensor, name: str, what: str, dtype: torch.dtype,
 
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_SM_COUNTS: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of ``device``'s card (read once a card), for
+    sizing a launch to one wave."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms = _SM_COUNTS.get(index)
+    if sms is None:
+        sms = _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms
+
+
+#: per (kernel, device, stream): a kernel's scratch, zero between launches
+_WORKSPACES: Dict[Tuple[str, Optional[int], int], torch.Tensor] = {}
+_WORKSPACES_LOCK = threading.Lock()
+
+
+def stream_workspace(name: str, device: torch.device, stream: int, numel: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Kernel ``name``'s scratch on one stream, at least ``numel`` elements,
+    zeroed when made. The kernels that take one leave it zeroed at the end
+    of every launch, and launches on one stream run in order, so it is
+    never zeroed again: no launch needs a memset. Streams get their own,
+    so launches on two streams never share one."""
+    key = (name, device.index, stream)
+    with _WORKSPACES_LOCK:
+        ws = _WORKSPACES.get(key)
+        if ws is None or ws.numel() < numel:
+            ws = _WORKSPACES[key] = torch.zeros(numel, dtype=dtype, device=device)
+        return ws

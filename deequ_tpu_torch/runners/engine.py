@@ -54,6 +54,7 @@ from ..analyzers.base import (
     resolve_slot,
     unpack_states,
 )
+from ..analyzers.sketches import ApproxCountDistinct
 from ..analyzers.states import FrequencyTableState, leaves as state_leaves, with_leaves
 from ..config import DEFAULT_BATCH_SIZE, DeviceLike, synchronize
 from ..data import Dataset
@@ -188,7 +189,9 @@ class BundledScanProgram:
     scalar reduction share ``scan_reduce`` launches: their slots are
     deduplicated and cut into bundles of at most ``MAX_SLOTS``, one launch
     per bundle per batch (for the usual battery, one launch in all). The
-    other analyzers (HLL, dictionary counts) launch their own kernel.
+    HLL analyzers share one ``hll_registers_columns`` launch a batch, with
+    their states folded in. The other analyzers (dictionary counts, KLL
+    sketches, frequency tables) launch their own kernels.
 
     ``feature_keys`` lists the feature arrays the battery reads, ``rows``
     first, in order of first use, and ``layout`` is the battery's launch
@@ -217,6 +220,9 @@ class BundledScanProgram:
         self.bundles: List[List[SlotSpec]] = [
             specs[i:i + MAX_SLOTS] for i in range(0, len(specs), MAX_SLOTS)
         ]
+        #: positions of the HLL analyzers, which update in one launch
+        self.hll_of: List[int] = [i for i, a in enumerate(self.analyzers)
+                                  if isinstance(a, ApproxCountDistinct)]
         position: Dict[str, int] = {"rows": 0}
 
         def at(key: Optional[str]) -> Optional[int]:
@@ -240,9 +246,14 @@ class BundledScanProgram:
             scan_reduce([resolve_slot(spec, features) for spec in bundle], rows)
             for bundle in self.bundles
         ]
+        hll = dict(zip(self.hll_of, ApproxCountDistinct.update_columns(
+            [self.analyzers[i] for i in self.hll_of], [states[i] for i in self.hll_of],
+            features))) if self.hll_of else {}
         new_states = []
-        for a, state, slot in zip(self.analyzers, states, self.slot_of):
-            if slot is None:
+        for i, (a, state, slot) in enumerate(zip(self.analyzers, states, self.slot_of)):
+            if i in hll:
+                new_states.append(hll[i])
+            elif slot is None:
                 new_states.append(a.update(state, features))
             else:
                 out_i, out_f = outs[slot // MAX_SLOTS]

@@ -1232,3 +1232,131 @@ def test_dict_code_counts_short_batches(cuda_device, n, k):
     rows = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
     present = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
     _counts_match_plain(codes, rows, present, k)
+
+
+# ---------------------------------------------------------------------------
+# K2 hll_registers and K6 freq_keys on the edge cases of chip_smoke's phase 2
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.HLL_EDGE_CASES)
+def test_hll_registers_kernel_matches_plain_on_edge_cases(cuda_device, case):
+    """n = 0, 1 and 17, every row masked, every valid row on one register,
+    ``[1:]`` views and every packed key: bit for bit, with and without a
+    where-filter."""
+    keys, rows, where, present = chip_smoke.hll_edge_inputs(torch, case, cuda_device)
+    for w in (None, where):
+        got = hll_registers(keys, rows, w, present)
+        assert torch.equal(got, hll_registers_plain(keys, rows, w, present))
+    if case == "all rows masked":
+        assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,n,skip", [(1, 4097, 0), (1, 4097, 1), (16, 4097, 1),
+                                          (16, 65_537, 0), (16, 65_537, 1), (3, 1, 0),
+                                          (2, 0, 0)])
+def test_hll_registers_stacked_sessions_at_odd_sizes_and_starts(cuda_device, width, n, skip):
+    """W = 1 and 16 sessions of odd n, the stacked tensors starting at an
+    aligned and at an odd element: each session equals its one-session
+    launch and the plain version bit for bit."""
+    keys, rows, where, present = chip_smoke.hll_stacked_inputs(torch, width, n, cuda_device, skip)
+    for w_mask in (None, where):
+        reset_launch_counts()
+        got = hll_registers_stacked(keys, rows, w_mask, present)
+        assert launch_counts()["hll_registers_stacked"] == 1
+        assert torch.equal(got, hll_registers_stacked_plain(keys, rows, w_mask, present))
+        for w in range(width):
+            one = hll_registers(keys[w], rows[w], None if w_mask is None else w_mask[w],
+                                present[w])
+            assert torch.equal(one, got[w]), w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncols,n", [(1, 100_003), (2, 1 << 20), (16, 100_003), (16, 1 << 20),
+                                     (33, 4097), (2, 0), (3, 1)])
+def test_hll_registers_columns_matches_plain_with_previous_registers(cuda_device, ncols, n):
+    """The battery entry over columns with nonzero previous registers, some
+    with where-filters and some one element off their masks: bit for bit,
+    one launch a 32 columns, the inputs untouched, and the same call twice
+    (the workspace is left zeroed)."""
+    from deequ_tpu_torch.kernels.hll_registers import (
+        MAX_COLUMNS, hll_registers_columns, hll_registers_columns_plain)
+
+    columns, rows = chip_smoke.hll_battery_inputs(torch, ncols, n, cuda_device)
+    prev = [c.prev.clone() for c in columns]
+    want = hll_registers_columns_plain(columns, rows)
+    reset_launch_counts()
+    for _ in range(2):
+        assert torch.equal(hll_registers_columns(columns, rows), want)
+    assert launch_counts()["hll_registers_columns"] == 2 * -(-ncols // MAX_COLUMNS)
+    assert all(torch.equal(c.prev, p) for c, p in zip(columns, prev))
+
+
+@pytest.mark.cuda
+def test_hll_registers_on_two_streams(cuda_device):
+    """Launches of several blocks a group on two streams at once each meet
+    in their own stream's workspace."""
+    from deequ_tpu_torch.kernels.hll_registers import (
+        hll_registers_columns, hll_registers_columns_plain)
+
+    side = torch.cuda.Stream()
+    a = chip_smoke.hll_battery_inputs(torch, 4, 1 << 20, cuda_device, seed=1)
+    b = chip_smoke.hll_battery_inputs(torch, 4, 1 << 20, cuda_device, seed=2)
+    torch.cuda.synchronize()
+    got = []
+    for i in range(4):
+        stream = side if i % 2 else torch.cuda.current_stream()
+        with torch.cuda.stream(stream):
+            got.append(hll_registers_columns(*(b if i % 2 else a)))
+    torch.cuda.synchronize()
+    for i, regs in enumerate(got):
+        assert torch.equal(regs, hll_registers_columns_plain(*(b if i % 2 else a))), i
+
+
+@pytest.mark.cuda
+def test_a_battery_folds_its_hll_columns_in_one_launch_a_batch(cuda_device):
+    """Three ApproxCountDistinct analyzers (one with a where-filter) over
+    five batches: one ``hll_registers_columns`` launch a batch, none of
+    the one-column entry, and the registers of the CPU run bit for bit."""
+    rng = np.random.default_rng(4)
+    n = 50_000
+    table = {"a": rng.integers(0, 5000, n), "b": rng.normal(size=n),
+             "c": np.where(rng.random(n) < 0.1, None, rng.integers(0, 90, n).astype(str))}
+    import pyarrow as pa
+
+    data = dq.Dataset.from_arrow(pa.table(table))
+    analyzers = [dq.ApproxCountDistinct("a"), dq.ApproxCountDistinct("b", "a > 100"),
+                 dq.ApproxCountDistinct("c")]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        reset_launch_counts()
+        ctx = dq.AnalysisRunner.do_analysis_run(data, analyzers, batch_size=10_000,
+                                                device=device)
+        runs[device] = (ctx, launch_counts())
+    counts = runs["cuda"][1]
+    assert counts["hll_registers_columns"] == 5 and counts["hll_registers"] == 0
+    for a in analyzers:
+        assert runs["cuda"][0].metric(a).value.get() == runs["cpu"][0].metric(a).value.get()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", chip_smoke.FREQ_KEY_EDGE_CASES)
+def test_freq_keys_kernel_matches_plain_on_edge_cases(cuda_device, case):
+    """n = 0, 1 and 13, every row masked, ``[1:]`` views, an odd offset into
+    the buffer, inputs that share no aligned row, a valid row keyed as the
+    sentinel and a key column of each dtype: the buffer (around the keys
+    too) and both counters bit for bit, twice."""
+    from deequ_tpu_torch.kernels.freq_keys import freq_keys, freq_keys_plain
+
+    columns, rows, out, offset = chip_smoke.freq_key_edge_inputs(torch, case, cuda_device)
+    want_out = out.clone()
+    want = freq_keys_plain(columns, rows, want_out, offset)
+    for _ in range(2):
+        got = freq_keys(columns, rows, out, offset)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want_out)
+        assert torch.equal(got, want)
+    if case == "sentinel row":
+        assert int(got[0]) > 0

@@ -492,3 +492,47 @@ def test_mismatched_device_and_mesh_raise():
     mesh = TP.Mesh([torch.device("cuda", 0)])
     with pytest.raises(ValueError, match="does not match"):
         AnalysisRunner.do_analysis_run(data, [T.Size()], device="cpu", sharding=mesh)
+
+
+def _nan_column() -> np.ndarray:
+    x = np.arange(1000, dtype=np.float64)
+    x[::3] = np.nan
+    x[1::7] = np.inf
+    return x
+
+
+@pytest.mark.parametrize("batch", [4, 333])
+@pytest.mark.parametrize("n_dev", [8, 3])
+@pytest.mark.parametrize("placement", ["device", "host"])
+def test_max_and_min_of_a_nan_column_over_a_mesh_equal_the_unsharded_runs(placement, n_dev,
+                                                                          batch):
+    """A column with NaN and +inf: Maximum is NaN (NaN propagates) and
+    Minimum 2.0 (NaN never wins a min) over a mesh of 8 and of 3 shards on
+    both tiers, as in the port's unsharded run and the reference's. The
+    reference's sharded device tier gives inf or -inf here (its GSPMD
+    ``sharded_update`` drops NaN in the cross-device max): a fault of the
+    reference, which the port is not held to."""
+    x = _nan_column()
+    ja, ta = [J.Maximum("x"), J.Minimum("x")], [T.Maximum("x"), T.Minimum("x")]
+    runs = {
+        "port sharded": AnalysisRunner.do_analysis_run(
+            dq.Dataset.from_dict({"x": x}), ta, batch_size=batch, device="cpu",
+            placement=placement, sharding=TP.make_mesh(n_dev, device="cpu")),
+        "port": AnalysisRunner.do_analysis_run(dq.Dataset.from_dict({"x": x}), ta,
+                                               batch_size=batch, device="cpu",
+                                               placement=placement),
+    }
+    reference = JaxRunner.do_analysis_run(JD.Dataset.from_dict({"x": x}), ja, batch_size=batch,
+                                          placement=placement)
+    reference_sharded = JaxRunner.do_analysis_run(JD.Dataset.from_dict({"x": x}), ja,
+                                                  batch_size=batch, placement=placement,
+                                                  sharding=JP.make_mesh(n_dev))
+    for label, ctx in runs.items():
+        assert np.isnan(ctx.metric(ta[0]).value.get()), label
+        assert ctx.metric(ta[1]).value.get() == 2.0, label
+    assert np.isnan(reference.metric(ja[0]).value.get())
+    assert reference.metric(ja[1]).value.get() == 2.0
+    if placement == "device":
+        assert not np.isnan(reference_sharded.metric(ja[0]).value.get())
+    else:
+        assert np.isnan(reference_sharded.metric(ja[0]).value.get())
