@@ -96,8 +96,8 @@ Phases, each of which fails the run when it fails:
    for bit, with times and bounds; (b) 1,000 sessions x 2 micro-batches x
    4,096 rows through ``VerificationService(workers=8,
    max_queue_depth=256)`` with every fold coalesced on the device, (c) the
-   same with serial folds, every session's metrics equal to (b)'s bit for
-   bit; (d) 100 sessions x 2 x 65,536 rows, coalesced and serial, held
+   first 250 of them with serial folds, every session's metrics equal to
+   (b)'s bit for bit; (d) 100 sessions x 2 x 65,536 rows, coalesced and serial, held
    likewise; (e) 16 of (b)'s sessions on ``device="cpu"`` and against
    numpy. Each run fails on a shed or a failed fold;
 9. more than one device, after phase 7 (a) over its table and checks
@@ -119,7 +119,26 @@ Phases, each of which fails the run when it fails:
    ``FileStore``, each folding a quarter of (b)'s partials and merging
    with ``parallel.dcn.merge_host_states``, every rank equal to one
    process's mesh of 4 bit for bit; then an NCCL group of as many ranks
-   as cards are visible (1 on one card).
+   as cards are visible (1 on one card);
+10. constraint suggestion, BASELINE config 5 (the JAX bench's
+   ``run_suggestion_stage``), last: the bench's wide table
+   (``build_wide_data``: 30 numeric, 10 string and 10 categorical columns,
+   seed 7) cut from 1B rows to 10M in batches of 2^20;
+   ``ConstraintSuggestionRunner`` with the default rules and a quarter of
+   the rows held out (seed 0), run twice on ``device="cuda"`` (cold and
+   warm), with K1's and K2's launches a batch (50 columns take two
+   launches of each a batch of the first profile pass: over 64 slots,
+   over 32 HLL columns); the suggestions and their statuses on the test
+   split equal the same run on ``device="cpu"`` character for character,
+   and a numpy oracle holds the training split's row count,
+   completeness, minima and category counts and every status on the test
+   split; (f) the same table's first 1M rows with
+   ``UniqueIfApproximatelyUniqueRule`` added, whose ``is_unique``
+   constraints launch K6, held likewise. Phase 2 holds K1 (every bundle)
+   and K2's battery entry at the first batch of the training split's first
+   profile pass. ``python3 -c "import torch, chip_smoke, deequ_tpu_torch
+   as dq; chip_smoke.suggestion_path(torch, dq)"`` runs this phase alone
+   (the kernels build at first use), printing no result lines.
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
@@ -312,6 +331,155 @@ def build_lineitem(rows: int, seed: int = LINEITEM_SEED, comment_pool: int = COM
     codes = pa.array(rng.integers(0, len(pool), rows).astype(np.int32))
     cols["l_comment"] = pa.DictionaryArray.from_arrays(codes, pa.array(pool))
     return pa.table(cols)
+
+
+#: BASELINE config 5's table (bench.py build_wide_data, run_suggestion_stage):
+#: 30 numeric, 10 string and 10 categorical columns, seed 7, cut from 1B
+#: rows to 10M in 2^20-row batches; a quarter of the rows is the test split
+WIDE_ROWS = 10_000_000
+WIDE_NUMERIC, WIDE_STRING, WIDE_CATEGORICAL = 30, 10, 10
+WIDE_SEED = 7
+WIDE_TESTSET_RATIO = 0.25
+WIDE_SPLIT_SEED = 0
+#: phase 10 (f): the uniqueness rule's run, over the table's first rows
+WIDE_UNIQUE_ROWS = 1_000_000
+
+
+def build_wide(rows: int, n_numeric: int = WIDE_NUMERIC, n_string: int = WIDE_STRING,
+               n_cat: int = WIDE_CATEGORICAL, seed: int = WIDE_SEED) -> pa.Table:
+    """The wide mixed table (BASELINE config 5): numeric columns ``n<i>``
+    drawn from normal(10 i, 1 + i), every third with ~2% nulls; string
+    columns ``s<i>`` drawn from 100,000 ids; categorical columns ``c<i>``
+    of 20 (i + 1) categories. With ``seed`` 7 this is ``bench.py``'s
+    ``build_wide_data``, draw for draw (the strings are gathered by Arrow,
+    with the same values)."""
+    import pyarrow.compute as pc
+
+    rng = np.random.default_rng(seed)
+    cols = {}
+    for i in range(n_numeric):
+        vals = rng.normal(10 * i, 1 + i, rows)
+        if i % 3 == 0:
+            cols[f"n{i}"] = pa.array(vals, mask=rng.random(rows) < 0.02)
+        else:
+            cols[f"n{i}"] = pa.array(vals)
+    base = pa.array([f"id_{i:07d}" for i in range(100_000)])
+    for i in range(n_string):
+        cols[f"s{i}"] = pc.take(base, pa.array(rng.integers(0, len(base), rows)))
+    for i in range(n_cat):
+        card = 20 * (i + 1)
+        cats = pa.array([f"c{j}" for j in range(card)])
+        cols[f"c{i}"] = pc.take(cats, pa.array(rng.integers(0, card, rows)))
+    return pa.table(cols)
+
+
+def split_rows(table: pa.Table, testset_ratio: float = WIDE_TESTSET_RATIO,
+               seed: int = WIDE_SPLIT_SEED) -> tuple:
+    """(training, test) tables: row i trains when its draw of
+    ``numpy.random.default_rng(seed).random(rows)`` is below 1 - ratio
+    (the suggestion runner's split, drawn here on its own)."""
+    picks = np.random.default_rng(seed).random(table.num_rows) < 1.0 - testset_ratio
+    idx = np.arange(table.num_rows)
+    return table.take(pa.array(idx[picks])), table.take(pa.array(idx[~picks]))
+
+
+def suggestion_values(result) -> tuple:
+    """What the runner's result says: ``to_json()``, and each generated
+    constraint's status on the test split, in suggestion order."""
+    statuses = [] if result.verification_result is None else [
+        c.status.value for r in result.verification_result.check_results.values()
+        for c in r.constraint_results]
+    return result.to_json(), statuses
+
+
+def _oracle_column(table: pa.Table, name: str) -> tuple:
+    """(validity, values, codes, dictionary) of a column: a string column
+    dictionary-encoded by Arrow (values None), any other column as numpy
+    values (codes and dictionary None)."""
+    import pyarrow.compute as pc
+
+    col = table.column(name).combine_chunks()
+    valid = np.asarray(col.is_valid())
+    if pa.types.is_string(col.type):
+        col = pc.dictionary_encode(col)
+    if pa.types.is_dictionary(col.type):
+        codes = col.indices.fill_null(0).to_numpy(zero_copy_only=False)
+        return valid, None, codes, col.dictionary.to_numpy(zero_copy_only=False)
+    return valid, col.to_numpy(zero_copy_only=False), None, None
+
+
+def _expected_status(code: str, test: pa.Table) -> str:
+    """The status a generated constraint must have on ``test``, from the
+    constraint's own code string (the seven rules' forms)."""
+    import ast
+
+    call = ast.parse(code.lstrip(".")).body[0].value
+    method = call.func.id
+    args = [ast.literal_eval(a) for a in call.args if not isinstance(a, ast.Lambda)]
+    bound = None
+    for a in call.args:
+        if isinstance(a, ast.Lambda):  # lambda v: v >= <bound>
+            bound = ast.literal_eval(a.body.comparators[0])
+    valid, values, codes, dictionary = _oracle_column(test, args[0])
+    n = len(valid)
+    if method == "is_complete":
+        ok = bool(valid.all())
+    elif method == "has_completeness":
+        ok = valid.sum() / n >= bound
+    elif method == "is_non_negative":
+        # the rule's predicate "col >= 0": a null row does not comply
+        ok = bool((valid & (np.where(valid, values, 0) >= 0)).all())
+    elif method == "is_contained_in":
+        allowed = list(args[1])
+        member = (np.isin(dictionary, allowed)[codes] if codes is not None
+                  else np.isin(values, allowed))
+        ratio = (~valid | member).sum() / n
+        ok = ratio == 1.0 if bound is None else ratio >= bound
+    elif method == "is_unique":
+        present = values if codes is None else codes
+        ok = bool(valid.all()) and len(np.unique(present)) == n
+    else:
+        raise AssertionError(f"the oracle has no form for {code}")
+    return "Success" if ok else "Failure"
+
+
+def suggestion_oracle(result, statuses: list, train: pa.Table, test: pa.Table) -> list:
+    """Differences between a suggestion run and numpy over its splits: the
+    training split's row count, every column's completeness, the numeric
+    columns' minima and the histograms' category counts; and each
+    generated constraint's status on the test split."""
+    problems = []
+    if result.num_records != train.num_rows:
+        problems.append(f"records: {result.num_records} != {train.num_rows}")
+    for name, profile in result.column_profiles.items():
+        valid, values, codes, dictionary = _oracle_column(train, name)
+        completeness = valid.sum() / len(valid)
+        if profile.completeness != completeness:
+            problems.append(f"{name} completeness {profile.completeness} != {completeness}")
+        minimum = getattr(profile, "minimum", None)
+        if minimum is not None and minimum != values[valid].min():
+            problems.append(f"{name} minimum {minimum} != {values[valid].min()}")
+        if profile.histogram is not None:
+            if codes is not None:
+                counts = np.bincount(codes[valid], minlength=len(dictionary))
+                keys = dictionary[counts > 0].astype(str)
+                counts = counts[counts > 0]
+            else:
+                keys, counts = np.unique(values[valid].astype(str), return_counts=True)
+            want = dict(zip(keys.tolist(), counts.tolist()))
+            if (~valid).any():
+                want["NullValue"] = int((~valid).sum())
+            got = {k: v.absolute for k, v in profile.histogram.values.items()}
+            if got != want:
+                problems.append(f"{name} histogram {str(got)[:200]} != {str(want)[:200]}")
+    suggestions = result.all_suggestions
+    if len(statuses) != len(suggestions):
+        problems.append(f"{len(statuses)} statuses for {len(suggestions)} suggestions")
+    for s, status in zip(suggestions, statuses):
+        want = _expected_status(s.code_for_constraint, test)
+        if status != want:
+            problems.append(f"{s.code_for_constraint}: {status} on the test split, numpy {want}")
+    return problems
 
 
 def build_check(dq, rows: int):
@@ -3280,6 +3448,10 @@ def cross_process(torch, dq, data, battery: list) -> None:
 STREAM_SESSIONS = 1000
 STREAM_BATCHES = 2
 STREAM_ROWS = 4096
+#: (c): the serial run takes the first this many of (b)'s sessions (cut
+#: from 1,000, where it took 100 s of the script, to keep the script
+#: within half its time limit with phase 10)
+STREAM_SERIAL_SESSIONS = 250
 #: (d): larger micro-batches
 STREAM_LARGE_SESSIONS = 100
 STREAM_LARGE_ROWS = 65536
@@ -3590,8 +3762,8 @@ def _stream_oracle(table: pa.Table, i: int, rows: int) -> dict:
 
 def streaming_service(torch, dq, seed: int) -> tuple:
     """Phase 8: (a) the stacked kernels at two group shapes; (b) the
-    coalesced run of 1,000 sessions x 2 x 4,096 rows and (c) the same run
-    with serial folds, every session's metrics bit for bit; (d) 100
+    coalesced run of 1,000 sessions x 2 x 4,096 rows and (c) its first 250
+    sessions with serial folds, every session's metrics bit for bit; (d) 100
     sessions x 2 x 65,536 rows, coalesced and serial, held likewise; (e)
     16 of (b)'s sessions re-run on the CPU (counts, HLL and KLL bit for
     bit, moments within 1e-12), and numpy's exact metrics and KLL ranks.
@@ -3608,7 +3780,7 @@ def streaming_service(torch, dq, seed: int) -> tuple:
 
     coalesced, _, launches = stream_run(torch, dq, table, STREAM_SESSIONS, STREAM_ROWS, True,
                                         label="stream (b) coalesced", kernels=STREAM_KERNELS)
-    serial, _, _ = stream_run(torch, dq, table, STREAM_SESSIONS, STREAM_ROWS, False,
+    serial, _, _ = stream_run(torch, dq, table, STREAM_SERIAL_SESSIONS, STREAM_ROWS, False,
                               label="stream (c) serial", kernels=("scan_reduce", "state_fold"))
     problems = [f"(c) session {i}: {p}" for i, (g, w) in enumerate(zip(coalesced, serial))
                 for p in compare_metrics(g, w, 0.0)]
@@ -3634,7 +3806,7 @@ def streaming_service(torch, dq, seed: int) -> tuple:
         problems.append(f"(e) KLL median rank error {worst} above {STREAM_KLL_RANK_LIMIT}")
     if problems:
         raise AssertionError("phase 8 disagrees:\n" + "\n".join(problems[:40]))
-    print(f"[stream metrics] (b) = (c) for {STREAM_SESSIONS} sessions and (d) coalesced = "
+    print(f"[stream metrics] (b) = (c) for {STREAM_SERIAL_SESSIONS} sessions and (d) coalesced = "
           f"serial for {STREAM_LARGE_SESSIONS}, bit for bit; {STREAM_CPU_SESSIONS} sessions "
           f"equal their CPU run and the oracle; largest KLL median rank error {worst:.6f} "
           f"(limit {STREAM_KLL_RANK_LIMIT})", flush=True)
@@ -3723,6 +3895,151 @@ def profile_path(torch, dq, table: pa.Table) -> tuple:
           f"oracle; {numeric} KLL sketches, largest percentile rank error {worst_rank:.6f} "
           f"(limit {2 * KLL_RELATIVE_ERROR:.6f})", flush=True)
     return measured, launches, ingest_measured, ingest_sketches
+
+
+def _suggestion_run(dq, data, device: str, rules, monitor=None):
+    """The JAX bench's suggestion run (bench.py run_suggestion_stage) on
+    ``device``: ``rules``, a quarter of the rows held out with seed 0."""
+    from deequ_tpu_torch.suggestions import ConstraintSuggestionRunner
+
+    builder = (ConstraintSuggestionRunner.on_data(data, device=device)
+               .add_constraint_rules(rules)
+               .use_train_test_split_with_testset_ratio(WIDE_TESTSET_RATIO,
+                                                        testset_split_random_seed=WIDE_SPLIT_SEED))
+    if monitor is not None:
+        builder = builder.with_monitor(monitor)
+    return builder.run()
+
+
+def suggestion_path(torch, dq) -> tuple:
+    """Phase 2 at the suggestion path's shapes, then phase 10 (BASELINE
+    config 5): the cut table, K1 and K2 on the first batch of the training
+    split's first profile pass (every K1 bundle, the K2 battery of 50
+    columns), the suggestion run twice on the card with the launch counts
+    of each, held against the same run on the CPU and a numpy oracle, and
+    the uniqueness rule's run. Returns the kernels' measurements at those
+    shapes and the launch counts of the first run."""
+    from deequ_tpu_torch.analyzers import ApproxCountDistinct, ScanShareableAnalyzer
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.profiles import first_pass_analyzers
+    from deequ_tpu_torch.runners.engine import ScanEngine, to_device
+    from deequ_tpu_torch.suggestions import Rules, UniqueIfApproximatelyUniqueRule
+
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    table = build_wide(WIDE_ROWS)
+    data = dq.Dataset.from_arrow(table)
+    print(f"[wide] {WIDE_ROWS} rows x {table.num_columns} columns in "
+          f"{time.perf_counter() - t0:.1f}s; {table.nbytes / 2**30:.2f} GiB of Arrow", flush=True)
+
+    # phase 2 at the shapes of the training split's first profile pass:
+    # K1's bundles and K2's battery (the other kernels' shapes are phase 4's)
+    t0 = time.perf_counter()
+    train, _ = data.random_split(1.0 - WIDE_TESTSET_RATIO, seed=WIDE_SPLIT_SEED)
+    print(f"[suggest split] random_split of {WIDE_ROWS} rows in {time.perf_counter() - t0:.3f}s",
+          flush=True)
+    first_pass = first_pass_analyzers(train, train.schema.names, {})
+    battery = [a for a in first_pass if isinstance(a, ApproxCountDistinct) or (
+        isinstance(a, ScanShareableAnalyzer) and a.scan_slot() is not None)]
+    engine = ScanEngine(battery, device)
+    features = to_device(engine.builder.build(next(train.batches(BATCH_ROWS))), device)
+    print(f"[suggestion battery] {len(battery)} analyzers of the first pass: "
+          f"{[len(b) for b in engine.program.bundles]} K1 slots a bundle, "
+          f"{len(engine.program.hll_of)} HLL columns", flush=True)
+    measured = check_kernels(torch, engine, features)
+    del features, train, engine
+    _print_kernel_totals(measured, ("scan_reduce", "hll_registers_columns"), "suggestion path")
+
+    # phase 10 (c): the bench's run, cold then warm, launch counts set to
+    # 0 just before each
+    runs = []
+    for label in ("cold", "warm"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        monitor = dq.RunMonitor()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = _suggestion_run(dq, data, "cuda", Rules.DEFAULT, monitor)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        phases = {k: round(v, 4) for k, v in monitor.phase_seconds.items()}
+        print(f"[suggest {label}] {WIDE_ROWS} rows x {table.num_columns} columns in "
+              f"{seconds:.3f}s = {WIDE_ROWS / seconds:.0f} rows/s; "
+              f"{len(result.all_suggestions)} suggestions; passes={monitor.passes} "
+              f"batches={monitor.batches}; launches={launches}; peak device memory "
+              f"{peak / 2**20:.1f} MiB; phases={phases}", flush=True)
+        runs.append((result, launches, monitor))
+    result, launches, monitor = runs[0]
+
+    # (e) every kernel of the profile ran; K1 and K2 each more than once a
+    # batch of the first profile pass (50 columns: over 64 slots, over 32
+    # HLL columns)
+    missing = [name for name in PROFILE_KERNELS if launches[name] == 0]
+    if missing:
+        raise AssertionError(f"the suggestion path launched no {missing}")
+    train_batches = -(-result.num_records // BATCH_ROWS)
+    per_batch = {name: launches[name] / monitor.batches for name in ("scan_reduce",)}
+    per_batch["hll_registers_columns"] = launches["hll_registers_columns"] / train_batches
+    print(f"[suggest launches] {monitor.batches} batches in {monitor.passes} passes, "
+          f"{train_batches} in the first profile pass; a batch: {per_batch}", flush=True)
+    if launches["hll_registers_columns"] != 2 * train_batches:
+        raise AssertionError(f"expected two K2 launches a first-pass batch (50 HLL columns), "
+                             f"got {launches['hll_registers_columns']}")
+    if launches["scan_reduce"] < 2 * train_batches:
+        raise AssertionError(f"expected at least two K1 launches a first-pass batch, got "
+                             f"{launches['scan_reduce']}")
+
+    # (d) the same run on the CPU, character for character, and numpy
+    got = suggestion_values(result)
+    if got != suggestion_values(runs[1][0]):
+        raise AssertionError("the cold and warm runs disagree")
+    t0 = time.perf_counter()
+    want = suggestion_values(_suggestion_run(dq, data, "cpu", Rules.DEFAULT))
+    print(f"[cpu] the same suggestion run on the CPU in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    problems = [] if got == want else ["the card's suggestions or statuses differ from the CPU's"]
+    t0 = time.perf_counter()
+    train, test = split_rows(table)
+    problems += suggestion_oracle(result, got[1], train, test)
+    if problems:
+        raise AssertionError("suggestions disagree:\n" + "\n".join(problems))
+    print(f"[suggest metrics] {len(result.all_suggestions)} suggestions and their statuses on "
+          f"the test split ({got[1].count('Success')} Success) equal the CPU run; the "
+          f"oracle holds {len(result.column_profiles)} profiles and every status "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    del runs, result, train, test, data
+
+    # (f) the uniqueness rule at 1M rows: its is_unique constraints run on
+    # the device frequency table of the test split
+    small = table.slice(0, WIDE_UNIQUE_ROWS)
+    del table
+    rules = tuple(Rules.DEFAULT) + (UniqueIfApproximatelyUniqueRule(),)
+    data = dq.Dataset.from_arrow(small)
+    monitor = dq.RunMonitor()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    unique = _suggestion_run(dq, data, "cuda", rules, monitor)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    unique_launches = launch_counts()
+    n_unique = sum(1 for s in unique.all_suggestions
+                   if s.code_for_constraint.startswith(".is_unique"))
+    print(f"[suggest (f) uniqueness rule] {WIDE_UNIQUE_ROWS} rows in {seconds:.3f}s; "
+          f"{n_unique} is_unique; device_freq_sets={monitor.device_freq_sets}; "
+          f"launches={unique_launches}", flush=True)
+    if unique_launches["freq_keys"] == 0:
+        raise AssertionError("the uniqueness rule's run launched no freq_keys")
+    got = suggestion_values(unique)
+    want = suggestion_values(_suggestion_run(dq, data, "cpu", rules))
+    train, test = split_rows(small)
+    problems = [] if got == want else ["the card's suggestions or statuses differ from the CPU's"]
+    problems += suggestion_oracle(unique, got[1], train, test)
+    if problems:
+        raise AssertionError("uniqueness-rule suggestions disagree:\n" + "\n".join(problems))
+    print("[suggest (f) metrics] equal to the CPU run and the oracle", flush=True)
+    return measured, launches
 
 
 def main(argv=None) -> int:
@@ -3846,6 +4163,8 @@ def main(argv=None) -> int:
     fold_measured, fold_launches = incremental_path(torch, dq, args.seed)
     # phase 8: the streaming service
     stacked_measured, stream_launches = streaming_service(torch, dq, args.seed)
+    # phase 10: constraint suggestion, BASELINE config 5
+    suggestion_path(torch, dq)
 
     # K1-K3 as the verification path runs them, K4 and K5 as the profile
     # path does (the verification path runs no sketch); each with the

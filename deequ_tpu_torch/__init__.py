@@ -14,7 +14,9 @@ of any cardinality: per-row group keys, and their sort-merge into a
 sorted table of counts). States persist (``analyzers/state_provider.py``,
 in the JAX package's file layout), and metrics refresh from merged states
 with no data pass: an eighth kernel, ``state_fold``, folds the states of
-many partitions in one launch. Entry
+many partitions in one launch. Constraint suggestion
+(``deequ_tpu_torch.suggestions``) profiles a training split and verifies
+the suggested check on the rest through the same passes. Entry
 points run on ``device="cuda"`` unless the caller passes ``device="cpu"``,
 which runs the kernels' plain PyTorch versions.
 
@@ -40,6 +42,7 @@ from .analyzers import (
     Mean,
     Minimum,
     MinLength,
+    MutualInformation,
     PatternMatch,
     Patterns,
     Size,
@@ -85,6 +88,7 @@ __all__ = [
     "Mean",
     "MinLength",
     "Minimum",
+    "MutualInformation",
     "PatternMatch",
     "Patterns",
     "RunMonitor",

@@ -29,6 +29,7 @@ from ..exceptions import (
     MetricCalculationException,
     NoColumnsSpecifiedException,
     NoSuchColumnException,
+    NumberOfSpecifiedColumnsException,
     WrongColumnTypeException,
     wrap_if_necessary,
 )
@@ -184,6 +185,17 @@ class Preconditions:
         def check(schema: Schema) -> None:
             if len(columns) == 0:
                 raise NoColumnsSpecifiedException("At least one column needs to be specified!")
+
+        return check
+
+    @staticmethod
+    def exactly_n_columns(columns: Sequence[str], n: int) -> Callable[[Schema], None]:
+        def check(schema: Schema) -> None:
+            if len(columns) != n:
+                raise NumberOfSpecifiedColumnsException(
+                    f"{n} columns have to be specified! Currently, columns contains only "
+                    f"{len(columns)} column(s): {','.join(columns)}!"
+                )
 
         return check
 
@@ -515,12 +527,15 @@ def fold_layout() -> Dict[type, Tuple[Tuple[int, Tuple[str, ...]], ...]]:
 
 def state_to(state: Any, device) -> Any:
     """A tensor state with every leaf on ``device`` (the state itself when
-    they all are already); other states (frequency tables) as they are."""
+    they all are already); other states (frequency tables, exact-quantile
+    values) as they are."""
     from .states import leaves, with_leaves
 
     if not dataclasses.is_dataclass(state):
         return state
     tensors = leaves(state)
+    if not all(isinstance(t, torch.Tensor) for t in tensors):
+        return state
     if all(t.device == device for t in tensors):
         return state
     return with_leaves(state, [t.to(device) for t in tensors])
@@ -551,10 +566,12 @@ def merge_states_batched_many(
       same number of states (kernel K8).
     - KLL sketches of one shape fold through ``kll_merge`` (kernel K5's
       merge entry), N-1 launches in order, as the reference's scan body.
-    - Frequency states fold on the host with the analyzer's ``merge``.
+    - Frequency states and exact-quantile values fold on the host with the
+      analyzer's ``merge``.
     - States of differing leaf shapes take the sequential ``merge`` fold."""
     from ..config import resolve_device
     from .grouping import FrequenciesAndNumRows
+    from .sketches import ExactQuantileState
     from .states import FrequencyCountsState
 
     dev = resolve_device(device)
@@ -565,8 +582,10 @@ def merge_states_batched_many(
         states = [s for s in given if s is not None]
         if not states:
             continue
-        # frequency states fold on the host, as the reference folds them
-        host = isinstance(states[0], (FrequenciesAndNumRows, FrequencyCountsState))
+        # frequency states and exact-quantile values fold on the host, as
+        # the reference folds them
+        host = isinstance(states[0], (FrequenciesAndNumRows, FrequencyCountsState,
+                                      ExactQuantileState))
         if (not host and len(states) > 1 and type(states[0]) in layout
                 and len({_signature(s) for s in states}) == 1):
             # stacked on the host where they lie, then copied once per dtype

@@ -17,6 +17,12 @@ routes (chosen in ``runners/analysis_runner.py``):
   :class:`HashedFrequencies`. A table that drops groups re-runs its set
   through the host group-by in one more pass.
 
+A set with a member that reads the table's keys (MutualInformation) takes
+the host group-by, and a Histogram the device frequency scan cannot take
+(a plain column, a binning function) folds its own host table
+(:meth:`Histogram.host_update`). Host tables spill to
+disk above ``DEEQU_TPU_MAX_FREQUENCY_ENTRIES`` entries (:class:`_SpillStore`).
+
 State semantics (verified against the reference):
 - frequencies exclude rows where the grouping column is null;
 - ``num_rows`` counts ALL rows (`FrequencyBasedAnalyzer.computeFrequencies`,
@@ -29,7 +35,7 @@ from __future__ import annotations
 import abc
 import math
 from dataclasses import dataclass, field
-from typing import Callable, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
@@ -77,6 +83,133 @@ from .states import FrequencyCountsState, FrequencyTableState
 #: the entries appended
 MIN_FLUSH_ENTRIES = 1 << 17
 
+#: optional cap on a frequency table's resident entries (0 = none): above
+#: it the table spills to disk, or with spilling off the run fails with
+#: :class:`FrequencyBudgetExceeded` (a failure metric, not an OOM). The
+#: reference package's names, read the same way.
+FREQ_BUDGET_ENV = "DEEQU_TPU_MAX_FREQUENCY_ENTRIES"
+#: "0" turns spilling off and restores the hard budget failure
+FREQ_SPILL_ENV = "DEEQU_TPU_FREQUENCY_SPILL"
+#: the number of hash partitions a spilled table is scattered over
+FREQ_SPILL_PARTITIONS_ENV = "DEEQU_TPU_FREQUENCY_SPILL_PARTITIONS"
+_DEFAULT_SPILL_PARTITIONS = 64
+
+
+class FrequencyBudgetExceeded(RuntimeError):
+    """A table's distinct groups crossed ``DEEQU_TPU_MAX_FREQUENCY_ENTRIES``
+    with spilling off, or a spilled table was asked for all of itself."""
+
+
+class _SpillStore:
+    """Hash-partitioned spill files of an over-budget frequency table (the
+    reference package's ``_SpillStore``, deequ_tpu/analyzers/grouping.py:75;
+    the analog of Spark's shuffle spill, `GroupingAnalyzers.scala:53-80`).
+
+    Every spill scatters the resident table over P partitions by a stable
+    hash of its keys and appends one parquet run file per non-empty
+    partition. A key lives in one partition, so a partition's runs summed
+    give the final counts of its keys, with ~1/P of the table in memory."""
+
+    #: column names inside the spill files (user columns may be named
+    #: anything, "count" included)
+    _COUNT = "__deequ_count__"
+
+    def __init__(self, group_columns: Sequence[str]):
+        import shutil
+        import tempfile
+        import weakref
+
+        from ..utils import env_number
+
+        self.group_columns = list(group_columns)
+        self._key_cols = [f"__deequ_key{i}__" for i in range(len(self.group_columns))]
+        self.partitions = env_number(
+            FREQ_SPILL_PARTITIONS_ENV, _DEFAULT_SPILL_PARTITIONS, int, minimum=1
+        )
+        self.dir = tempfile.mkdtemp(prefix="deequ-tpu-freq-spill-")
+        self._runs = 0
+        self.entries_spilled = 0
+        self._finalizer = weakref.finalize(self, shutil.rmtree, self.dir, True)
+
+    def close(self) -> None:
+        """Remove the spill directory now (idempotent); the GC finalizer is
+        the backstop."""
+        self._finalizer()
+
+    def _partition_of(self, frame: pd.DataFrame) -> np.ndarray:
+        """Each row's partition, from a stable hash of its key columns."""
+        codes = pd.util.hash_pandas_object(frame[self._key_cols], index=False).to_numpy()
+        return (codes % np.uint64(self.partitions)).astype(np.int64)
+
+    def _to_frame(self, counts: pd.Series) -> pd.DataFrame:
+        return counts.rename(self._COUNT).rename_axis(self._key_cols).reset_index()
+
+    def _check_open(self) -> None:
+        if not self._finalizer.alive:
+            raise RuntimeError(
+                "frequency spill store was closed; its partition files are "
+                "gone — serving from it would silently drop counts"
+            )
+
+    def append(self, counts: pd.Series) -> None:
+        """Scatter one resident table over the hash partitions."""
+        import os
+
+        self._check_open()
+        if len(counts) == 0:
+            return
+        frame = self._to_frame(counts)
+        part_of = self._partition_of(frame)
+        run = self._runs
+        self._runs += 1
+        for p in np.unique(part_of):
+            sub = frame.iloc[np.flatnonzero(part_of == p)]
+            pdir = os.path.join(self.dir, f"part{p:05d}")
+            os.makedirs(pdir, exist_ok=True)
+            sub.to_parquet(os.path.join(pdir, f"run{run:05d}.parquet"), index=False)
+        self.entries_spilled += len(counts)
+
+    def iter_partition_counts(self, extra: Optional[pd.Series] = None) -> Iterator[pd.Series]:
+        """One final count Series per partition (every key exactly once
+        over all of them); ``extra`` is a resident table not yet spilled,
+        hashed the same way."""
+        import os
+
+        self._check_open()
+        extra_parts: Dict[int, pd.Series] = {}
+        if extra is not None and len(extra):
+            part_of = self._partition_of(self._to_frame(extra))
+            for p in np.unique(part_of):
+                extra_parts[int(p)] = extra.iloc[np.flatnonzero(part_of == p)]
+        for p in range(self.partitions):
+            pdir = os.path.join(self.dir, f"part{p:05d}")
+            pieces: List[pd.Series] = []
+            if os.path.isdir(pdir):
+                for name in sorted(os.listdir(pdir)):
+                    frame = pd.read_parquet(os.path.join(pdir, name))
+                    series = frame.set_index(self._key_cols)[self._COUNT]
+                    if len(self._key_cols) == 1 and isinstance(series.index, pd.MultiIndex):
+                        series.index = series.index.get_level_values(0)
+                    # the user's level names, for the consumers that read
+                    # keys (Histogram, MutualInformation's marginals)
+                    series = series.rename_axis(
+                        self.group_columns if len(self.group_columns) > 1
+                        else self.group_columns[0]
+                    )
+                    pieces.append(series)
+            if p in extra_parts:
+                pieces.append(extra_parts[p])
+            if not pieces:
+                continue
+            if len(pieces) == 1:
+                yield pieces[0].astype(np.int64)
+                continue
+            cat = pd.concat(pieces)
+            levels = (
+                list(range(cat.index.nlevels)) if isinstance(cat.index, pd.MultiIndex) else 0
+            )
+            yield cat.groupby(level=levels, sort=False, dropna=False).sum().astype(np.int64)
+
 
 class FrequenciesAndNumRows:
     """Host state: group -> count plus total row count
@@ -85,45 +218,101 @@ class FrequenciesAndNumRows:
     Built once from the device dictionary counts, or batch by batch by the
     host group-by (:meth:`update`), whose per-batch count runs buffer in a
     list and merge with one concat + groupby once they outweigh the merged
-    table. The table stays in memory (the reference package's spill to disk
-    is not ported)."""
+    table. Under a ``DEEQU_TPU_MAX_FREQUENCY_ENTRIES`` budget a table that
+    outgrows it spills to hash-partitioned files (:class:`_SpillStore`) and
+    serves its reductions by streaming them (:meth:`iter_merged_chunks`),
+    as the reference package's accumulator does."""
 
     def __init__(self, frequencies: pd.Series, num_rows: int, group_columns: Sequence[str]):
         self._merged = frequencies  # index = group keys (tuples for several columns)
         self._runs: List[pd.Series] = []
         self._buffered = 0
+        self._spill: Optional[_SpillStore] = None
         self._summary: Optional[Tuple[int, int, int, float]] = None
         self.num_rows = int(num_rows)
         self.group_columns = list(group_columns)
 
     @property
+    def spilled(self) -> bool:
+        """True once the table crossed the budget and lives (partly) in
+        spill files."""
+        return self._spill is not None
+
+    @property
     def frequencies(self) -> pd.Series:
-        """The merged frequency table (flushes buffered runs)."""
+        """The merged frequency table (flushes buffered runs). A spilled
+        table refuses to materialize: the consumers that need all of it at
+        once (persistence, the incremental merge) fail with
+        :class:`FrequencyBudgetExceeded`."""
         self._flush()
+        if self._spill is not None:
+            raise FrequencyBudgetExceeded(
+                f"frequency table for {self.group_columns} spilled "
+                f"{self._spill.entries_spilled} entries to disk under the "
+                f"{FREQ_BUDGET_ENV} budget; full-table materialization is "
+                "not available (set a larger budget, or use a streaming "
+                "consumer)"
+            )
         return self._merged
 
     def iter_merged_chunks(self) -> Iterator[pd.Series]:
-        """Yield the count table (one chunk; the protocol of the
-        reference's spilling accumulator)."""
-        if len(self.frequencies):
-            yield self.frequencies
+        """Final count chunks, each group in exactly one: the table itself
+        when it did not spill, else one chunk per hash partition."""
+        self._flush()
+        if self._spill is None:
+            if len(self._merged):
+                yield self._merged
+            return
+        yield from self._spill.iter_partition_counts(
+            self._merged if len(self._merged) else None
+        )
 
     def num_distinct(self) -> int:
-        return len(self.frequencies)
+        self._flush()  # may spill
+        if self._spill is None:
+            return len(self._merged)
+        return self.stream_summary()[0]
 
     def stream_summary(self) -> Tuple[int, int, int, float]:
         """(num_distinct, singleton_count, sum(count), sum(count*ln(count))),
-        cached — every scalar frequency reduction (Uniqueness,
-        Distinctness, UniqueValueRatio, CountDistinct, Entropy) reads these."""
+        in one streaming pass over the chunks and cached — every scalar
+        frequency reduction (Uniqueness, Distinctness, UniqueValueRatio,
+        CountDistinct, Entropy) reads these. The count-of-counts histogram
+        is gathered chunk by chunk and reduced as :func:`_sum_c_ln_c`
+        reduces it, so every chunking gives the same Entropy bit for bit."""
         if self._summary is None:
-            c = self.frequencies.to_numpy(dtype=np.int64)
-            self._summary = (
-                len(c), int((c == 1).sum()), int(c.sum()), _sum_c_ln_c(c)
-            )
+            nd = singles = total = 0
+            hist: Dict[int, int] = {}
+            for chunk in self.iter_merged_chunks():
+                c = chunk.to_numpy(dtype=np.int64)
+                nd += len(c)
+                singles += int((c == 1).sum())
+                total += int(c.sum())
+                uc, mult = np.unique(c[c > 0], return_counts=True)
+                for v, m in zip(uc.tolist(), mult.tolist()):
+                    hist[v] = hist.get(v, 0) + int(m)
+            uc = np.fromiter(sorted(hist), np.int64, count=len(hist))
+            mult = np.array([hist[int(v)] for v in uc], dtype=np.int64)
+            self._summary = (nd, singles, total, _reduce_count_histogram(uc, mult))
         return self._summary
 
     def is_empty(self) -> bool:
-        return len(self.frequencies) == 0
+        self._flush()  # may spill
+        if self._spill is not None:
+            return False  # a spilled table crossed the budget
+        return len(self._merged) == 0
+
+    @staticmethod
+    def _budget() -> int:
+        from ..utils import env_number
+
+        return env_number(FREQ_BUDGET_ENV, 0, int, minimum=0)
+
+    @staticmethod
+    def _spill_enabled() -> bool:
+        from ..utils import env_flag
+
+        return env_flag(FREQ_SPILL_ENV, True)
 
     def _flush(self) -> None:
         if not self._runs:
@@ -145,6 +334,18 @@ class FrequenciesAndNumRows:
                 .sum()
                 .astype(np.int64)
             )
+        budget = self._budget()
+        if budget and len(merged) > budget:
+            if not self._spill_enabled():
+                raise FrequencyBudgetExceeded(
+                    f"frequency table for {self.group_columns} holds {len(merged)} "
+                    f"distinct groups, over the {FREQ_BUDGET_ENV}={budget} budget"
+                )
+            # over budget: scatter the resident table to the spill files
+            if self._spill is None:
+                self._spill = _SpillStore(self.group_columns)
+            self._spill.append(merged)
+            merged = pd.Series([], dtype=np.int64)
         self._merged = merged
         self._runs = []
         self._buffered = 0
@@ -157,6 +358,12 @@ class FrequenciesAndNumRows:
         self._buffered += len(counts)
         if self._buffered >= max(len(self._merged), MIN_FLUSH_ENTRIES):
             self._flush()
+
+    def close(self) -> None:
+        """Remove the spill directory now (idempotent; nothing to do when
+        nothing spilled). A closed spilled table refuses to serve."""
+        if self._spill is not None:
+            self._spill.close()
 
     def sum(self, other: "FrequenciesAndNumRows") -> "FrequenciesAndNumRows":
         if not isinstance(other, FrequenciesAndNumRows):
@@ -261,6 +468,12 @@ def _sum_c_ln_c(counts: np.ndarray) -> float:
     same way, so the two agree bit for bit)."""
     counts = np.asarray(counts, dtype=np.int64)
     uc, mult = np.unique(counts[counts > 0], return_counts=True)
+    return _reduce_count_histogram(uc, mult)
+
+
+def _reduce_count_histogram(uc: np.ndarray, mult: np.ndarray) -> float:
+    """The canonical reduction: ``uc`` the ascending count values, ``mult``
+    their multiplicities."""
     pos = uc.astype(np.float64)
     return float((mult.astype(np.float64) * (pos * np.log(pos))).sum())
 
@@ -748,6 +961,66 @@ class Entropy(ScanShareableFrequencyBasedAnalyzer):
         return float(math.log(n) * total / n - c_ln_c / n)
 
 
+@dataclass(frozen=True)
+class MutualInformation(GroupingAnalyzer):
+    """Mutual information of two columns from their joint frequency table
+    (reference `analyzers/MutualInformation.scala:35-103`; the JAX
+    package's deequ_tpu/analyzers/grouping.py:1298). It reads the table's
+    keys, so its set never takes the hashed device frequency table.
+
+    The marginals keep NaN keys and are looked up by position, so a NaN
+    or boolean column has its mutual information; the JAX package's
+    label lookups fail on both (a NaN key is dropped from its marginal, a
+    boolean key array indexes as a mask)."""
+
+    columns: Tuple[str, ...] = ()
+    name: str = field(default="MutualInformation", init=False)
+
+    def __init__(self, columns):
+        object.__setattr__(self, "columns", _as_tuple(columns))
+
+    @property
+    def entity(self) -> Entity:
+        return Entity.MULTICOLUMN
+
+    def preconditions(self) -> List[Callable[[Schema], None]]:
+        return [Preconditions.exactly_n_columns(self.columns, 2)] + super().preconditions()
+
+    def compute_metric_from(self, state: Optional[FrequenciesAndNumRows]) -> DoubleMetric:
+        if state is None or state.is_empty():
+            return metric_from_empty(self.name, self.instance, self.entity)
+        try:
+            total = state.num_rows
+            # two streaming passes over the joint table: the marginals, then
+            # the sum (a spilled joint table completes while its marginals
+            # fit in memory)
+            px: Optional[pd.Series] = None
+            py: Optional[pd.Series] = None
+            for joint in state.iter_merged_chunks():
+                cx = joint.groupby(level=0, dropna=False).sum()
+                cy = joint.groupby(level=1, dropna=False).sum()
+                px = cx if px is None else px.add(cx, fill_value=0)
+                py = cy if py is None else py.add(cy, fill_value=0)
+            value = 0.0
+            for joint in state.iter_merged_chunks():
+                pxy = joint.to_numpy(dtype=np.float64) / total
+                px_row = _marginal_at(px, joint.index.get_level_values(0)) / total
+                py_row = _marginal_at(py, joint.index.get_level_values(1)) / total
+                value += float((pxy * np.log(pxy / (px_row * py_row))).sum())
+        except Exception as exc:  # noqa: BLE001
+            return metric_from_failure(wrap_if_necessary(exc), self.name, self.instance,
+                                       self.entity)
+        return metric_from_value(value, self.name, self.instance, self.entity)
+
+
+def _marginal_at(marginal: pd.Series, keys) -> np.ndarray:
+    """The marginal counts of ``keys``, by position (NaN keys included)."""
+    at = marginal.index.get_indexer(keys)
+    if (at < 0).any():
+        raise KeyError(f"{int((at < 0).sum())} joint keys missing from a marginal")
+    return marginal.to_numpy(dtype=np.float64)[at]
+
+
 def _as_tuple(columns) -> Tuple[str, ...]:
     if isinstance(columns, str):
         return (columns,)
@@ -826,13 +1099,19 @@ MAXIMUM_ALLOWED_DETAIL_BINS = 1000  # reference `analyzers/Histogram.scala:109`
 
 @dataclass(frozen=True)
 class Histogram(Analyzer[FrequenciesAndNumRows, HistogramMetric]):
-    """Exact value histogram of one dictionary-encoded column: values cast
-    to string, nulls replaced by "NullValue", top-K detail bins by count
-    (reference `analyzers/Histogram.scala:41-116`). Its counts come from the
-    device frequency scan. The fields are the JAX reference's, in its order
-    (so reprs, equality and persisted state keys agree); a ``binning_func``
-    is the reference's non-dictionary path, which the runner does not run
-    yet (it raises, naming ROADMAP A1c)."""
+    """Exact value histogram of one column: values cast to string, nulls
+    replaced by "NullValue", an optional binning function, top-K detail
+    bins by count (reference `analyzers/Histogram.scala:41-116`). The fields
+    are the JAX reference's, in its order (so reprs, equality and persisted
+    state keys agree). A dictionary column without a binning function is
+    counted by the device frequency scan; every other histogram folds its
+    batches on the host (:meth:`host_update`, the reference package's
+    deequ_tpu/analyzers/grouping.py:1464-1570).
+
+    ``binning_func`` must be a pure ``value -> bin`` mapping: it is applied
+    once per distinct value, not once per row (the reference's binning UDF,
+    `analyzers/Histogram.scala:63-66`, makes the same assumption).
+    Returning ``None`` puts the value in the "NullValue" bin."""
 
     column: str = ""
     binning_func: Optional[Callable] = None
@@ -857,6 +1136,48 @@ class Histogram(Analyzer[FrequenciesAndNumRows, HistogramMetric]):
 
         return [param_check, Preconditions.has_column(self.column)]
 
+    # the host accumulation, folded batch by batch in the runner's pass
+
+    def host_init(self) -> FrequenciesAndNumRows:
+        return FrequenciesAndNumRows.empty([self.column])
+
+    def host_update(self, state: FrequenciesAndNumRows, batch: Batch) -> FrequenciesAndNumRows:
+        """Fold one batch (a dictionary column without a binning function
+        takes the device frequency scan instead, so it never arrives here)."""
+        col = batch.column(self.column)
+        mask = batch.row_mask
+        if self.binning_func is None and col.arrow is not None and mask.all():
+            # Arrow-backed strings: Arrow's value counts; a string key is
+            # its own string cast
+            counts = _arrow_value_counts(col.arrow)
+            if counts is not None:
+                state._append_run(_with_null_bin(counts, int(col.arrow.null_count)))
+                state.num_rows += batch.num_rows
+                return state
+        values = col.values[mask]
+        present = col.mask[mask]
+        # count the present values first and cast (or bin) each distinct
+        # value once; nullness comes from the validity mask, never from the
+        # value (a float NaN keys as 'NaN', a null as NullValue)
+        present_values = values[present]
+        if present_values.dtype == object:
+            vc = pd.Series(present_values).value_counts(sort=False, dropna=False)
+            distinct, cnts = list(vc.index), vc.to_numpy()
+        else:
+            distinct, cnts = np.unique(present_values, return_counts=True)
+        if self.binning_func is None:
+            keys = [_spark_string_cast(k) for k in distinct]
+        else:
+            keys = []
+            for v in distinct:
+                b = self.binning_func(v)
+                keys.append(_spark_string_cast(b) if b is not None else NULL_FIELD_REPLACEMENT)
+        counts = pd.Series(cnts, index=keys, dtype=np.int64).groupby(level=0, sort=False).sum()
+        counts = _with_null_bin(counts, int(len(values) - present.sum()))
+        state._append_run(counts.astype(np.int64))
+        state.num_rows += batch.num_rows
+        return state
+
     def merge(self, a: FrequenciesAndNumRows, b: FrequenciesAndNumRows) -> FrequenciesAndNumRows:
         return a.sum(b)
 
@@ -870,12 +1191,22 @@ class Histogram(Analyzer[FrequenciesAndNumRows, HistogramMetric]):
                 self.column,
             )
         try:
-            top = state.frequencies.nlargest(self.max_detail_bins)
+            # top bins over the streamed chunks (one chunk unless spilled)
+            bin_count = 0
+            top: Optional[pd.Series] = None
+            for chunk in state.iter_merged_chunks():
+                bin_count += len(chunk)
+                cand = chunk.nlargest(self.max_detail_bins)
+                top = cand if top is None else pd.concat([top, cand]).nlargest(
+                    self.max_detail_bins
+                )
+            if top is None:
+                top = pd.Series([], dtype=np.int64)
             values = {
                 str(k): DistributionValue(int(v), int(v) / state.num_rows)
                 for k, v in top.items()
             }
-            dist = Distribution(values, number_of_bins=state.num_distinct())
+            dist = Distribution(values, number_of_bins=bin_count)
             return HistogramMetric(self.entity, self.name, self.instance, Success(dist), self.column)
         except Exception as exc:  # noqa: BLE001
             return HistogramMetric(

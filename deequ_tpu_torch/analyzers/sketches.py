@@ -484,10 +484,10 @@ def _check_quantile(q: float) -> None:
 
 def _check_relative_error(relative_error: float) -> None:
     """The reference admits relativeError=0 as 'exact' mode
-    (`ApproxQuantiles.scala:30`), which the JAX package serves from a host
-    full-sort accumulator; this port does not carry that mode (the runner
-    raises for it). Errors in (0, 1] are KLL-backed, with 1e-4 as the
-    smallest honored error."""
+    (`ApproxQuantiles.scala:30`): ``relative_error=0.0`` routes the analyzer
+    to a host full-sort accumulator (:class:`ExactQuantileState`) whose
+    result is ``numpy.quantile``'s. Errors in (0, 1] are KLL-backed, with
+    1e-4 as the smallest honored error."""
     if not 0.0 <= relative_error <= 1.0:
         raise IllegalAnalyzerParameterException(
             "Relative error parameter must be in the interval [0, 1]. "
@@ -495,24 +495,74 @@ def _check_relative_error(relative_error: float) -> None:
         )
 
 
-class _QuantileMode:
-    """``relative_error == 0.0`` asks for the reference's exact mode."""
+@dataclass(frozen=True)
+class ExactQuantileState:
+    """Host accumulator of the exact mode (``relative_error=0.0``, the
+    reference's exact GK mode, `ApproxQuantiles.scala:30`; the JAX
+    package's class of the same name, deequ_tpu/analyzers/sketches.py:587):
+    the column's non-null, non-NaN values in chunks, concatenated and
+    sorted at metric time, so the result is ``numpy.quantile``'s (linear
+    interpolation). Memory is O(values kept); the merge concatenates the
+    chunk lists. Not persistable, as in the reference: a persister given
+    one fails that analyzer's metric."""
+
+    chunks: Tuple[np.ndarray, ...] = ()
+
+    def add(self, values: np.ndarray) -> "ExactQuantileState":
+        return ExactQuantileState(self.chunks + (np.asarray(values, dtype=np.float64),))
+
+    def merge(self, other: "ExactQuantileState") -> "ExactQuantileState":
+        return ExactQuantileState(self.chunks + other.chunks)
 
     @property
-    def exact_mode(self) -> bool:
+    def count(self) -> int:
+        return int(sum(c.size for c in self.chunks))
+
+    def values(self) -> np.ndarray:
+        if not self.chunks:
+            return np.empty(0, dtype=np.float64)
+        return np.concatenate(self.chunks)
+
+
+class _ExactQuantileMode:
+    """The exact mode of ApproxQuantile(s): with ``relative_error == 0.0``
+    the analyzer leaves the device scan (``host_exclusive``) and the runner
+    folds its batches on the host in the same pass."""
+
+    @property
+    def host_exclusive(self) -> bool:
         return self.relative_error == 0.0
 
-    def exact_mode_unsupported(self) -> NotImplementedError:
-        return NotImplementedError(
-            f"{self!r}: exact quantile mode (relative_error=0.0) is queued in "
-            "ROADMAP A1c"
-        )
+    def host_init(self) -> ExactQuantileState:
+        return ExactQuantileState()
+
+    def host_update(self, state: ExactQuantileState, batch) -> ExactQuantileState:
+        col = batch.column(self.column)
+        mask = batch.row_mask & col.mask
+        if self.where is not None:
+            from ..expr import evaluate_predicate
+            from ..runners.features import _predicate_columns
+
+            mask = mask & evaluate_predicate(
+                self.where, _predicate_columns(batch), len(batch.row_mask)
+            )
+        vals = col.values if np.issubdtype(col.values.dtype, np.number) else col.numeric_f64()
+        v = np.asarray(vals, dtype=np.float64)[mask]
+        v = v[~np.isnan(v)]
+        return state.add(v) if v.size else state
+
+    def merge(self, a, b):
+        if isinstance(a, ExactQuantileState) or isinstance(b, ExactQuantileState):
+            return a.merge(b)
+        return kll_merge(a, b)
 
 
 @dataclass(frozen=True)
-class ApproxQuantile(_QuantileMode, _KLLBackedAnalyzer, StandardScanShareableAnalyzer[KLLSketchState]):
+class ApproxQuantile(_ExactQuantileMode, _KLLBackedAnalyzer,
+                     StandardScanShareableAnalyzer[KLLSketchState]):
     """Approximate single quantile (reference `analyzers/ApproxQuantile.scala:
-    28-103`, default relativeError 0.01 at `:49`), KLL-backed."""
+    28-103`, default relativeError 0.01 at `:49`), KLL-backed;
+    ``relative_error=0.0`` selects the exact host full-sort mode."""
 
     column: str = ""
     quantile: float = 0.5
@@ -536,6 +586,8 @@ class ApproxQuantile(_QuantileMode, _KLLBackedAnalyzer, StandardScanShareableAna
         return [param_checks] + super().preconditions()
 
     def metric_value(self, state) -> float:
+        if isinstance(state, ExactQuantileState):
+            return float(np.quantile(state.values(), self.quantile))
         return HostKLL.from_state(state).quantile(self.quantile)
 
     def is_empty(self, state) -> bool:
@@ -543,9 +595,10 @@ class ApproxQuantile(_QuantileMode, _KLLBackedAnalyzer, StandardScanShareableAna
 
 
 @dataclass(frozen=True)
-class ApproxQuantiles(_QuantileMode, _KLLBackedAnalyzer):
+class ApproxQuantiles(_ExactQuantileMode, _KLLBackedAnalyzer):
     """Several quantiles from one sketch -> KeyedDoubleMetric
-    (reference `analyzers/ApproxQuantiles.scala:39-101`)."""
+    (reference `analyzers/ApproxQuantiles.scala:39-101`);
+    ``relative_error=0.0`` selects the exact host full-sort mode."""
 
     column: str = ""
     quantiles: Tuple[float, ...] = ()
@@ -573,6 +626,10 @@ class ApproxQuantiles(_QuantileMode, _KLLBackedAnalyzer):
             empty = metric_from_empty(self.name, self.column, Entity.COLUMN)
             return KeyedDoubleMetric(Entity.COLUMN, self.name, self.column, empty.value)
         try:
+            if isinstance(state, ExactQuantileState):
+                vals = state.values()
+                values = {str(q): float(np.quantile(vals, q)) for q in self.quantiles}
+                return KeyedDoubleMetric(Entity.COLUMN, self.name, self.column, Success(values))
             sketch = HostKLL.from_state(state)
             values = {str(q): sketch.quantile(q) for q in self.quantiles}
             return KeyedDoubleMetric(Entity.COLUMN, self.name, self.column, Success(values))

@@ -42,6 +42,7 @@ from ..exceptions import CorruptStateError, UnsupportedFormatVersionError
 from ..integrity import checksum_bytes, verify_checksum, warn_once_unchecksummed
 from .base import Analyzer
 from .grouping import FrequenciesAndNumRows
+from .sketches import ExactQuantileState
 from .states import leaves as state_leaves, tensor_fields, with_leaves
 
 #: version of the persisted layout; the loader refuses newer versions
@@ -131,10 +132,17 @@ def _sanitize_namespace_part(part: str) -> str:
 def copy_state(state: Any) -> Any:
     """A copy that shares no buffer with ``state``: kernels write some
     state buffers in place (a frequency table's key buffer), so a kept
-    state must not alias one a later launch writes."""
+    state must not alias one a later launch writes. A spilled frequency
+    table (its counts in spill files, which it alone reads) and an
+    exact-quantile state (host arrays nothing writes) are kept as they are,
+    as the reference's provider keeps every state."""
     if isinstance(state, FrequenciesAndNumRows):
+        if state.spilled:
+            return state
         return FrequenciesAndNumRows(state.frequencies.copy(), state.num_rows,
                                      state.group_columns)
+    if isinstance(state, ExactQuantileState):
+        return state
     return with_leaves(state, [t.detach().clone() for t in state_leaves(state)])
 
 

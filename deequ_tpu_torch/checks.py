@@ -183,6 +183,11 @@ class Check:
     def has_entropy(self, column, assertion, hint=None) -> "Check":
         return self.add_constraint(C.entropy_constraint(column, assertion, hint))
 
+    def has_mutual_information(self, column_a, column_b, assertion, hint=None) -> "Check":
+        return self.add_constraint(
+            C.mutual_information_constraint(column_a, column_b, assertion, hint)
+        )
+
     def has_min_length(self, column, assertion, hint=None) -> "CheckWithLastConstraintFilterable":
         return self._add_filterable(
             lambda where: C.min_length_constraint(column, assertion, where, hint)

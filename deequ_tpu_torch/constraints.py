@@ -32,6 +32,7 @@ from .analyzers import (
     Mean,
     Minimum,
     MinLength,
+    MutualInformation,
     PatternMatch,
     Size,
     StandardDeviation,
@@ -232,6 +233,12 @@ def entropy_constraint(column, assertion, hint=None) -> Constraint:
     analyzer = Entropy(column)
     inner = AnalysisBasedConstraint(analyzer, assertion, hint=hint)
     return NamedConstraint(inner, f"EntropyConstraint({analyzer})")
+
+
+def mutual_information_constraint(column_a, column_b, assertion, hint=None) -> Constraint:
+    analyzer = MutualInformation((column_a, column_b))
+    inner = AnalysisBasedConstraint(analyzer, assertion, hint=hint)
+    return NamedConstraint(inner, f"MutualInformationConstraint({analyzer})")
 
 
 def histogram_constraint(column, assertion, binning_func=None, max_bins=None,

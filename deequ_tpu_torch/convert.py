@@ -9,7 +9,10 @@ sketch's size, is no leaf in either package). A run can fold its first batches
 in the reference, carry the state over with :func:`from_reference`, and
 fold the rest here (or back with :func:`to_reference`); nothing of the
 reference package is imported. Frequency-table keys are uint64 in the
-reference and int64 here: the two are views of the same bits.
+reference and int64 here: the two are views of the same bits. The exact
+quantile mode's :class:`ExactQuantileState` is a host state in both
+packages, not a pytree: its leaves are its float64 value chunks, as
+``ExactQuantileState(tuple(leaves))`` takes them back.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from .analyzers import states as S
+from .analyzers.sketches import ExactQuantileState
 from .config import DeviceLike
 from .ops.kll import kll_init
 
@@ -67,6 +71,8 @@ def from_reference(class_name: str, leaves: Sequence[np.ndarray], device: Device
     """The port's state equal to the reference state ``class_name`` with
     these leaves. Values are copied bit for bit; a leaf whose dtype does
     not match the field's raises (no silent casts)."""
+    if class_name == "ExactQuantileState":
+        return _exact_from_reference(leaves)
     cls = STATE_CLASSES.get(class_name)
     if cls is None:
         raise NotImplementedError(f"state {class_name} is not carried by this port")
@@ -90,6 +96,18 @@ def from_reference(class_name: str, leaves: Sequence[np.ndarray], device: Device
     return state
 
 
+def _exact_from_reference(chunks: Sequence[np.ndarray]) -> ExactQuantileState:
+    """The port's exact-quantile state holding copies of these chunks."""
+    copied = []
+    for i, chunk in enumerate(chunks):
+        arr = np.asarray(chunk)
+        if arr.dtype != np.float64 or arr.ndim != 1:
+            raise TypeError(f"ExactQuantileState chunk {i}: expected float64[n], got "
+                            f"{arr.dtype}{list(arr.shape)}")
+        copied.append(arr.copy())
+    return ExactQuantileState(tuple(copied))
+
+
 def _u64_leaves(state) -> set:
     """Leaf positions that hold uint64 keys in the reference (int64 bits
     here)."""
@@ -102,6 +120,8 @@ def to_reference(state) -> Tuple[str, List[np.ndarray]]:
     arrays in field order — what the reference's state class takes back
     as ``cls(*leaves)``."""
     name = type(state).__name__
+    if isinstance(state, ExactQuantileState):
+        return name, [chunk.copy() for chunk in state.chunks]
     if name not in STATE_CLASSES:
         raise NotImplementedError(f"state {name} is not carried by this port")
     u64 = _u64_leaves(state)

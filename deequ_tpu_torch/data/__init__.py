@@ -408,6 +408,20 @@ class Dataset:
             return self
         return Dataset(table, probe_encoding=False)
 
+    def random_split(self, train_fraction: float, seed: int = 0) -> ("Dataset", "Dataset"):
+        """(training, test): each row goes to the training split when its
+        draw of ``numpy.random.default_rng(seed).random(num_rows)`` is below
+        ``train_fraction``, so a seed picks the rows the reference package
+        picks (deequ_tpu/data/__init__.py:432)."""
+        rng = np.random.default_rng(seed)
+        n = self._table.num_rows
+        picks = rng.random(n) < train_fraction
+        idx = np.arange(n)
+        return (
+            Dataset(self._table.take(pa.array(idx[picks])), probe_encoding=False),
+            Dataset(self._table.take(pa.array(idx[~picks])), probe_encoding=False),
+        )
+
     # -- batching ------------------------------------------------------------
 
     def _materialize_column(self, name: str, chunk: "pa.ChunkedArray") -> Column:

@@ -33,6 +33,10 @@ class NoColumnsSpecifiedException(MetricCalculationPreconditionException):
     pass
 
 
+class NumberOfSpecifiedColumnsException(MetricCalculationPreconditionException):
+    pass
+
+
 class IllegalAnalyzerParameterException(MetricCalculationPreconditionException):
     pass
 

@@ -11,10 +11,9 @@ stats, DataType on string columns, the numeric stats and KLL sketches of
 schema-typed numeric columns, histograms of small dictionaries) and pass 2
 (numeric stats on the casted view + histograms of the other low-cardinality
 columns, dictionary-encoded first). Histograms of string columns the cast
-changed run in a pass of their own over the original data.
-
-Not carried by this port (each raises ``NotImplementedError``): a metrics
-repository and its reuse and save keys (ROADMAP A3).
+changed run in a pass of their own over the original data. With a metrics
+repository every pass can reuse the results stored under a key and append
+its own under another, as the reference package's passes do.
 """
 
 from __future__ import annotations
@@ -167,12 +166,11 @@ class ColumnProfiler:
         """(reference `ColumnProfiler.profile`, `ColumnProfiler.scala:91-208`).
         Every pass runs on ``device`` (``cuda`` unless the caller names
         another), on the ingest tier ``placement`` resolves to, its rows
-        sharded over the mesh ``sharding`` when one is given."""
-        _refuse_unported(
-            metrics_repository=metrics_repository,
-            reuse_existing_results_using_key=reuse_existing_results_using_key,
-            save_in_metrics_repository_using_key=save_in_metrics_repository_using_key,
-        )
+        sharded over the mesh ``sharding`` when one is given. With
+        ``metrics_repository``, each pass reuses the results stored under
+        ``reuse_existing_results_using_key`` (raising when some are missing
+        and ``fail_if_results_for_reusing_missing``) and appends its own
+        under ``save_in_metrics_repository_using_key``."""
         predefined_types = dict(predefined_types or {})
         schema = data.schema
         if restrict_to_columns is not None:
@@ -184,8 +182,14 @@ class ColumnProfiler:
             for c in schema.columns
             if restrict_to_columns is None or c.name in restrict_to_columns
         ]
-        run_kwargs = dict(batch_size=batch_size, monitor=monitor, device=device,
-                          placement=placement, sharding=sharding)
+        run_kwargs = dict(
+            metrics_repository=metrics_repository,
+            reuse_existing_results_for_key=reuse_existing_results_using_key,
+            fail_if_results_missing=fail_if_results_for_reusing_missing,
+            save_or_append_results_with_key=save_in_metrics_repository_using_key,
+            batch_size=batch_size, monitor=monitor, device=device, placement=placement,
+            sharding=sharding,
+        )
 
         # ---- PASS 1: generic statistics, the numeric statistics of
         # schema-typed numeric columns, histograms of small dictionaries ----
@@ -275,23 +279,6 @@ def _encoded(data: Dataset, view: Dataset, casted_names, columns) -> Dataset:
         encoded = view.with_columns_dictionary_encoded(encodable)
         data.derived_cache[key] = encoded
     return encoded
-
-
-#: where the profiler's options that this port does not carry are planned
-_UNPORTED = {
-    "metrics_repository": "ROADMAP A3 (state persistence and repositories)",
-    "reuse_existing_results_using_key": "ROADMAP A3 (state persistence and repositories)",
-    "save_in_metrics_repository_using_key": "ROADMAP A3 (state persistence and repositories)",
-}
-
-
-def _refuse_unported(**options) -> None:
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"ColumnProfiler option {name} is not supported by deequ_tpu_torch yet: "
-                f"{_UNPORTED[name]}"
-            )
 
 
 def first_pass_analyzers(
@@ -546,6 +533,10 @@ class ColumnProfilerRunBuilder:
         self._cardinality_threshold = DEFAULT_CARDINALITY_THRESHOLD
         self._kll_parameters: Optional[KLLParameters] = None
         self._predefined_types: Dict[str, str] = {}
+        self._repository = None
+        self._reuse_key = None
+        self._fail_if_missing = False
+        self._save_key = None
         self._profiles_path: Optional[str] = None
         self._batch_size: Optional[int] = None
         self._monitor = None
@@ -573,13 +564,17 @@ class ColumnProfilerRunBuilder:
         return self
 
     def use_repository(self, repository):
-        _refuse_unported(metrics_repository=repository)
+        self._repository = repository
+        return self
 
     def reuse_existing_results_for_key(self, key, fail_if_results_missing: bool = False):
-        _refuse_unported(reuse_existing_results_using_key=key)
+        self._reuse_key = key
+        self._fail_if_missing = fail_if_results_missing
+        return self
 
     def save_or_append_result(self, key):
-        _refuse_unported(save_in_metrics_repository_using_key=key)
+        self._save_key = key
+        return self
 
     def save_column_profiles_json_to_path(self, path: str):
         self._profiles_path = path
@@ -611,6 +606,10 @@ class ColumnProfilerRunBuilder:
             restrict_to_columns=self._columns,
             print_status_updates=self._print_status_updates,
             low_cardinality_histogram_threshold=self._cardinality_threshold,
+            metrics_repository=self._repository,
+            reuse_existing_results_using_key=self._reuse_key,
+            fail_if_results_for_reusing_missing=self._fail_if_missing,
+            save_in_metrics_repository_using_key=self._save_key,
             kll_parameters=self._kll_parameters,
             predefined_types=self._predefined_types,
             batch_size=self._batch_size,

@@ -6,9 +6,7 @@ Only string predicates serialize; callable predicates are rejected (the
 reference's predicates are always SQL strings).
 
 A copy of the JAX package's serde, so a history written by either package
-reads in the other. An analyzer this port lacks (MutualInformation) is an
-unknown name here: its entry fails to deserialize as the reference's
-unknown names do (``SerializationError``, surfaced as a corrupt entry).
+reads in the other.
 """
 
 from __future__ import annotations
@@ -36,6 +34,7 @@ from ..analyzers import (
     Mean,
     Minimum,
     MinLength,
+    MutualInformation,
     PatternMatch,
     Size,
     StandardDeviation,
@@ -124,7 +123,7 @@ def serialize_analyzer(analyzer: Analyzer) -> Dict[str, Any]:
             }
         )
     elif isinstance(analyzer, (Uniqueness, Distinctness, UniqueValueRatio,
-                               CountDistinct, Entropy)):
+                               CountDistinct, MutualInformation, Entropy)):
         d["columns"] = list(analyzer.columns)
     elif isinstance(analyzer, Histogram):
         if analyzer.binning_func is not None:
@@ -169,11 +168,12 @@ def deserialize_analyzer(d: Dict[str, Any]) -> Analyzer:
             else KLLParameters(p["sketchSize"], p["shrinkingFactor"], p["numberOfBuckets"])
         )
         return KLLSketch(d["column"], params, where)
-    if name in ("Uniqueness", "Distinctness", "UniqueValueRatio", "CountDistinct", "Entropy"):
+    if name in ("Uniqueness", "Distinctness", "UniqueValueRatio", "CountDistinct",
+                "MutualInformation", "Entropy"):
         cls = {
             "Uniqueness": Uniqueness, "Distinctness": Distinctness,
             "UniqueValueRatio": UniqueValueRatio, "CountDistinct": CountDistinct,
-            "Entropy": Entropy,
+            "MutualInformation": MutualInformation, "Entropy": Entropy,
         }[name]
         return cls(tuple(d["columns"]))
     if name == "Histogram":

@@ -4,23 +4,34 @@ Reference flow (`analyzers/runners/AnalysisRunner.scala:97-203`): dedupe
 -> precondition partition -> split {scanning, grouping} -> one fused pass
 -> assemble AnalyzerContext.
 
-This port routes what its slice covers, all in ONE pass: the
+This port routes every analyzer of the package, all in ONE pass: the
 scan-shareable reductions, DataType, HLL and the KLL sketches on the
 device; histograms over dictionary-encoded columns on the device frequency
 scan; and each grouping set (Uniqueness, Distinctness, UniqueValueRatio,
-CountDistinct, Entropy over one or several columns) on one of three routes,
-as the reference package routes them (deequ_tpu/runners/analysis_runner.py:
-240-460):
+CountDistinct, Entropy, MutualInformation over one or several columns) on
+one of three routes, as the reference package routes them
+(deequ_tpu/runners/analysis_runner.py:186-460):
 
 1. one dictionary-encoded column of at most ``DEVICE_FREQ_MAX_CARDINALITY``
    entries: the device frequency scan (kernel ``dict_code_counts``);
-2. a set the cardinality probe finds small, or any set with
+2. a set the cardinality probe finds small, a set with a member that reads
+   the table's keys (MutualInformation), or any set with
    ``device_freq=False``: the host group-by, folded batch by batch in the
    same pass;
 3. any other set: the device frequency table (kernels ``freq_keys`` and
    ``freq_compact``), sized by ``freq_table_slots`` and
    ``freq_buffer_entries``. A table that dropped groups re-runs its set
    through the host group-by in one more pass (``freq_overflow_fallbacks``).
+
+The host accumulators fold their batches in the same pass too: the exact
+quantile mode (``relative_error=0.0``, a full sort of the column's values)
+and every histogram the device frequency scan cannot take (a column that
+is not dictionary-encoded, a ``binning_func``; the reference also sends a
+dictionary over 2^16 entries to the host, which kernel
+``dict_code_counts`` counts here). An accumulator that raises fails its
+own metrics and no other. A host frequency table over the
+``DEEQU_TPU_MAX_FREQUENCY_ENTRIES`` budget spills to disk; a run that saves
+no states removes the spill files once the metrics are derived.
 
 With ``aggregate_with`` or ``save_states_with``, route 3 is off, as in the
 reference: a persisted or merged grouping state must be a value-keyed
@@ -44,8 +55,8 @@ run_on_aggregated_states` computes metrics from merged persisted states with
 no data pass. Merges run on the run's device (``merge_states_batched``:
 kernel ``state_fold`` for the scalar states, ``kll_compact`` for sketches).
 
-Anything else raises ``NotImplementedError`` naming the analyzer — nothing
-is routed silently to another tier.
+An object that is not an analyzer of this package raises
+``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -66,6 +77,7 @@ from ..analyzers.grouping import (
     FrequenciesAndNumRows,
     GroupingAnalyzer,
     Histogram,
+    ScanShareableFrequencyBasedAnalyzer,
     device_counts_to_histogram_frequencies,
     plan_table_scan,
     probably_low_cardinality,
@@ -185,8 +197,6 @@ class AnalysisRunner:
         for a in analyzers_to_run:
             if not isinstance(a, Analyzer):
                 raise _not_in_slice(a, "it is not an analyzer of this package")
-            if getattr(a, "exact_mode", False):
-                raise a.exact_mode_unsupported()
             exc = Preconditions.find_first_failing(schema, a.preconditions())
             if exc is None:
                 passed.append(a)
@@ -201,8 +211,12 @@ class AnalysisRunner:
         scanning: List[ScanShareableAnalyzer] = []
         grouping_sets: Dict[Tuple[str, ...], List[GroupingAnalyzer]] = {}
         histograms: List[Histogram] = []
+        host_accum: List[Analyzer] = []
         for a in passed:
-            if isinstance(a, ScanShareableAnalyzer):
+            if getattr(a, "host_exclusive", False):
+                # the exact quantile mode: a host full sort, no device fold
+                host_accum.append(a)
+            elif isinstance(a, ScanShareableAnalyzer):
                 try:
                     FeatureBuilder(a.feature_specs()).build(dry)
                 except Exception as exc:  # noqa: BLE001
@@ -212,11 +226,13 @@ class AnalysisRunner:
             elif isinstance(a, GroupingAnalyzer):
                 grouping_sets.setdefault(tuple(a.grouping_columns()), []).append(a)
             elif isinstance(a, Histogram):
-                if a.binning_func is not None:
-                    raise _not_in_slice(a, "a binning function is queued in ROADMAP A1c")
-                if data.dictionary_size(a.column) is None:
-                    raise _not_in_slice(a, f"column {a.column} is not dictionary-encoded")
-                histograms.append(a)
+                # kernel dict_code_counts counts a dictionary of any size
+                # (past 2^16 codes in device memory), so only a plain column
+                # or a binning function takes the host
+                if a.binning_func is None and data.dictionary_size(a.column) is not None:
+                    histograms.append(a)
+                else:
+                    host_accum.append(a)
             else:
                 raise _not_in_slice(a, "no execution strategy in this package")
 
@@ -241,11 +257,15 @@ class AnalysisRunner:
         host_sets: List[Tuple[str, ...]] = []
         tables_ok = (slim and device_freq and any(c not in dict_sets for c in grouping_sets)
                      and _device_tier_expected(scanning, placement, dev))
-        for cols in grouping_sets:
+        for cols, members in grouping_sets.items():
             if cols in dict_sets:
                 continue
             scan = None
-            if tables_ok and not probably_low_cardinality(data, cols):
+            # a member that reads the table's keys (MutualInformation) needs
+            # the value-keyed host table, never a hashed one
+            counts_only = all(isinstance(a, ScanShareableFrequencyBasedAnalyzer)
+                              for a in members)
+            if tables_ok and counts_only and not probably_low_cardinality(data, cols):
                 scan = plan_table_scan(schema, cols, data.num_rows, batch_rows,
                                        freq_table_slots, freq_buffer_entries,
                                        sharded=sharding is not None)
@@ -258,11 +278,11 @@ class AnalysisRunner:
         run_monitor = monitor if monitor is not None else RunMonitor()
         run_monitor.device_freq_sets += len(table_scans)
         metrics: Dict[Analyzer, Metric] = {}
-        if not battery and not host_sets:
+        if not battery and not host_sets and not host_accum:
             return _results(results_loaded + AnalyzerContext(failures), metrics_repository,
                             save_or_append_results_with_key)
-        states, shared = _run_pass(data, battery, host_sets, batch_size, dev, run_monitor,
-                                   placement, sharding)
+        states, shared, host_errors = _run_pass(data, battery, host_sets, batch_size, dev,
+                                                run_monitor, placement, sharding, host_accum)
         by_analyzer = dict(zip(battery, states))
 
         # drain the device frequency tables; a table that dropped groups
@@ -286,8 +306,10 @@ class AnalysisRunner:
                 "them through the host group-by", losses,
             )
             run_monitor.freq_overflow_fallbacks += len(fallback)
-            shared.update(_run_pass(data, [], fallback, batch_size, dev, run_monitor,
-                                    sharding=sharding)[1])
+            _, refolded, refold_errors = _run_pass(data, [], fallback, batch_size, dev,
+                                                   run_monitor, sharding=sharding)
+            shared.update(refolded)
+            host_errors.update(refold_errors)
 
         # load old state -> merge -> persist -> metric (reference
         # `Analyzer.calculateMetric`, `Analyzer.scala:107-128`)
@@ -302,13 +324,28 @@ class AnalysisRunner:
                 shared[cols] = scan.to_frequencies(by_analyzer[scan], dictionaries[cols])
             for cols, members in grouping_sets.items():
                 for a in members:
-                    metrics[a] = finalize(a, shared[cols])
+                    if cols in host_errors:
+                        metrics[a] = a.to_failure_metric(host_errors[cols])
+                    else:
+                        metrics[a] = finalize(a, shared[cols])
             for a in histograms:
                 scan = freq_scans[(a.column,)]
                 hist = device_counts_to_histogram_frequencies(
                     scan, by_analyzer[scan], dictionaries[(a.column,)]
                 )
                 metrics[a] = finalize(a, hist)
+            for a in host_accum:
+                if a in host_errors:
+                    metrics[a] = a.to_failure_metric(host_errors[a])
+                else:
+                    metrics[a] = finalize(a, shared[a])
+        if slim:
+            # the pass's host tables are dead once their metrics are
+            # derived: remove any spill directory now (a run that persisted
+            # or merged states may have handed the table on)
+            for state in shared.values():
+                if isinstance(state, FrequenciesAndNumRows):
+                    state.close()
         context = results_loaded + AnalyzerContext(failures) + AnalyzerContext(metrics)
         return _results(context, metrics_repository, save_or_append_results_with_key)
 
@@ -421,22 +458,51 @@ def _run_device(device, sharding):
 def _run_pass(data: Dataset, battery: Sequence[ScanShareableAnalyzer],
               host_sets: Sequence[Tuple[str, ...]], batch_size: Optional[int], device,
               monitor: RunMonitor, placement: Optional[str] = None, sharding=None,
-              ) -> Tuple[List[Any], Dict[Tuple[str, ...], Any]]:
+              host_accum: Sequence[Analyzer] = (),
+              ) -> Tuple[List[Any], Dict[Any, Any], Dict[Any, BaseException]]:
     """One pass: ``battery`` on the ingest tier ``placement`` resolves to
-    (row-sharded over the mesh ``sharding``) and a host group-by per set
-    of ``host_sets``. Returns the battery's states (on the host) and each
-    set's :class:`FrequenciesAndNumRows` by its columns."""
+    (row-sharded over the mesh ``sharding``), a host group-by per set of
+    ``host_sets`` and each analyzer of ``host_accum`` folding its own host
+    state. Returns the battery's states (on the host), the host states (a
+    set's :class:`FrequenciesAndNumRows` by its columns, an accumulator's by
+    the analyzer) and the errors of the host folds that raised, by the same
+    keys: such a fold stops, and its state is dropped (the reference's
+    guarded host updates, deequ_tpu/reliability/isolation.py:116)."""
     engine = ScanEngine(battery, device, monitor=monitor, placement=placement,
                         sharding=sharding)
-    tables: Dict[Tuple[str, ...], Any] = {
+    states: Dict[Any, Any] = {
         cols: FrequenciesAndNumRows.empty(list(cols)) for cols in host_sets
     }
-    update = {cols: FrequenciesAndNumRows.update for cols in host_sets}
-    states = engine.run(
-        data, batch_size=batch_size, columns=_columns_needed(engine, data.schema, host_sets),
-        host_accumulators=tables, host_update_fns=update,
+    update: Dict[Any, Any] = {cols: FrequenciesAndNumRows.update for cols in host_sets}
+    for a in host_accum:
+        states[a] = a.host_init()
+        update[a] = a.host_update
+    errors: Dict[Any, BaseException] = {}
+
+    def guarded(key, fn):
+        def fold(state, batch):
+            if key in errors:
+                return state
+            try:
+                return fn(state, batch)
+            except Exception as exc:  # noqa: BLE001 - fails this key's metrics only
+                errors[key] = exc
+                monitor.note_degraded(f"host:{key}")
+                logging.getLogger(__name__).warning(
+                    "host accumulator %s knocked out: %s", key, exc)
+                return state
+
+        return fold
+
+    battery_states = engine.run(
+        data, batch_size=batch_size,
+        columns=_columns_needed(engine, data.schema, host_sets, host_accum),
+        host_accumulators=states,
+        host_update_fns={key: guarded(key, fn) for key, fn in update.items()},
     )
-    return states, tables
+    for key in errors:
+        states.pop(key, None)
+    return battery_states, states, errors
 
 
 def _metric(analyzer: Analyzer, state: Any) -> Metric:
@@ -446,14 +512,19 @@ def _metric(analyzer: Analyzer, state: Any) -> Metric:
         return analyzer.to_failure_metric(exc)
 
 
-def _columns_needed(engine: ScanEngine, schema,
-                    host_sets: Sequence[Tuple[str, ...]] = ()) -> Optional[List[str]]:
-    """Restrict batch materialization to columns any analyzer or host
-    group-by touches; None (= all columns) when a predicate may reference
-    arbitrary columns."""
+def _columns_needed(engine: ScanEngine, schema, host_sets: Sequence[Tuple[str, ...]] = (),
+                    host_accum: Sequence[Analyzer] = ()) -> Optional[List[str]]:
+    """Restrict batch materialization to columns any analyzer, host
+    group-by or host accumulator touches; None (= all columns) when a
+    predicate may reference arbitrary columns."""
     if any(spec.kind == "pred" for spec in engine.builder.specs.values()):
         return None
     cols = set(engine.required_columns())
     for set_cols in host_sets:
         cols.update(set_cols)
+    for a in host_accum:
+        if getattr(a, "where", None) is not None:
+            # the accumulator evaluates its predicate over the raw batch
+            return None
+        cols.add(a.column)
     return [c for c in schema.names if c in cols]

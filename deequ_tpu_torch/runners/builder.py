@@ -22,6 +22,8 @@ class AnalysisRunBuilder:
         self._state_options: Dict[str, Any] = {}
         self._placement: Optional[str] = None
         self._sharding: Optional[Any] = None
+        self._json_path: Optional[str] = None
+        self._overwrite = False
 
     def add_analyzer(self, analyzer: Analyzer) -> "AnalysisRunBuilder":
         self._analyzers.append(analyzer)
@@ -80,10 +82,21 @@ class AnalysisRunBuilder:
         self._freq_options.update(frequency_options(**options))
         return self
 
+    def save_success_metrics_json_to_path(
+        self, path: str, overwrite: bool = False
+    ) -> "AnalysisRunBuilder":
+        """Write ``success_metrics_as_json()`` to ``path`` after the run,
+        unless the file exists and ``overwrite`` is False."""
+        self._json_path = path
+        self._overwrite = overwrite
+        return self
+
     def run(self) -> AnalyzerContext:
+        import os
+
         from .analysis_runner import AnalysisRunner
 
-        return AnalysisRunner.do_analysis_run(
+        context = AnalysisRunner.do_analysis_run(
             self._data,
             self._analyzers,
             batch_size=self._batch_size,
@@ -94,6 +107,10 @@ class AnalysisRunBuilder:
             **self._freq_options,
             **self._state_options,
         )
+        if self._json_path and (self._overwrite or not os.path.exists(self._json_path)):
+            with open(self._json_path, "w", encoding="utf-8") as fh:
+                fh.write(context.success_metrics_as_json())
+        return context
 
 
 def frequency_options(freq_table_slots: Optional[int] = None,

@@ -73,7 +73,8 @@ class RunMonitor:
     tooling. Phases: ``feature_build`` (host features, split by feature
     kind under ``feature_build.<kind>``), ``host_to_device`` (copies),
     ``kernels`` (launches, state folds and the wait for them),
-    ``host_accumulators`` (the host group-by's batch folds),
+    ``host_accumulators`` (the host group-by's and the other host
+    accumulators' batch folds),
     ``state_fetch`` (the device-to-host copy of the states); on the host
     tier ``host_partials`` (the pool's partial states, summed over its
     threads) and ``ingest_fold`` (stacking, copies and fold launches, ending
@@ -89,7 +90,11 @@ class RunMonitor:
     The streaming service reads the rest: ``device_updates`` (batches the
     device tier folded), ``fast_path_folds`` and ``coalesced_folds`` (its
     two coalescing routes), ``cost_by_analyzer`` (seconds by analyzer
-    repr, exported per tenant), and the reliability counters its scheduler
+    repr: each batch's ``kernels`` time on the device tier and each
+    chunk's ``ingest_fold`` time on the host tier, split evenly over the
+    pass's battery, as the reference splits a bundle's dispatch time over
+    its slots; exported per tenant, and a verification result's
+    ``cost_by_analyzer``), and the reliability counters its scheduler
     harvests (``device_failovers``, ``batch_bisections``,
     ``isolation_reruns``, ``stalls``, ``device_stalls``, ``degraded``),
     which stay 0 and empty: the port has no reliability wrapper. A run
@@ -142,6 +147,15 @@ class RunMonitor:
         with self._lock:
             setattr(self, field_name, getattr(self, field_name) + by)
 
+    def attribute(self, keys: Sequence[str], seconds: float) -> None:
+        """Split ``seconds`` evenly over ``keys`` in ``cost_by_analyzer``."""
+        if not keys:
+            return
+        share = seconds / len(keys)
+        with self._lock:
+            for key in keys:
+                self.cost_by_analyzer[key] = self.cost_by_analyzer.get(key, 0.0) + share
+
     def note_degraded(self, tag: str) -> None:
         """Record a degradation (``"mesh:8->4"``, ``"mesh:host"``) once."""
         with self._lock:
@@ -180,7 +194,8 @@ class _PhaseTimer:
         return self
 
     def __exit__(self, *exc):
-        self.monitor.add_phase_time(self.phase, time.perf_counter() - self.t0)
+        self.seconds = time.perf_counter() - self.t0
+        self.monitor.add_phase_time(self.phase, self.seconds)
         return False
 
 
@@ -603,6 +618,8 @@ class ScanEngine:
             [s for a in self.scan_analyzers for s in a.feature_specs()]
         )
         self.program = _fused_program(tuple(self.scan_analyzers))
+        #: the battery's keys in ``RunMonitor.cost_by_analyzer``
+        self.cost_keys = [repr(a) for a in self.scan_analyzers]
 
     def required_columns(self) -> List[str]:
         return self.builder.required_columns
@@ -656,12 +673,13 @@ class ScanEngine:
                 with monitor.timed("host_to_device"):
                     features = to_device(host_features, self.device)
                     synchronize(self.device)
-                with monitor.timed("kernels"):
+                with monitor.timed("kernels") as timer:
                     if self.mesh is None:
                         states = self.program(states, features)
                     else:
                         states = self.program.call_sharded(states, features, self.mesh)
                     synchronize(self.device)
+                monitor.attribute(self.cost_keys, timer.seconds)
                 monitor.bump("device_updates")
                 self.program.executed = True
             if host_states:
@@ -736,9 +754,10 @@ class ScanEngine:
             return packed
 
         def fold(chunk, first: int) -> None:
-            with monitor.timed("ingest_fold"):
+            with monitor.timed("ingest_fold") as timer:
                 ingest.fold(chunk)
                 synchronize(self.device)
+            monitor.attribute(self.cost_keys, timer.seconds)
             monitor.ingest_folds += 1
 
         self._host_pipeline(data, bs, columns, host_states, host_update_fns, INGEST_CHUNK,
@@ -784,9 +803,10 @@ class ScanEngine:
             group = group + [group[0]] * (chunk - n_real)
             flags = np.zeros(chunk, dtype=bool)
             flags[:n_real] = True
-            with monitor.timed("ingest_fold"):
+            with monitor.timed("ingest_fold") as timer:
                 elastic.fold(stack_partials(analyzers, group), flags, indices)
                 synchronize(elastic.mesh.home if not elastic.host_mode else None)
+            monitor.attribute(self.cost_keys, timer.seconds)
             monitor.ingest_folds += 1
 
         self._host_pipeline(

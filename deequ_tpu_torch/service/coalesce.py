@@ -267,7 +267,7 @@ def build_fold_plan(analyzers, schema) -> Optional[FoldPlan]:
             return None
         if isinstance(a, GroupingAnalyzer):
             return None
-        if getattr(a, "exact_mode", False):
+        if getattr(a, "host_exclusive", False):
             return None
         if Preconditions.find_first_failing(schema, a.preconditions()):
             return None

@@ -41,10 +41,21 @@ class VerificationResult:
         status: CheckStatus,
         check_results: Dict[Check, CheckResult],
         metrics: Dict[Analyzer, Metric],
+        cost_by_analyzer: Optional[Dict[str, float]] = None,
     ):
         self.status = status
         self.check_results = check_results
         self.metrics = metrics
+        #: seconds by repr(analyzer), from the run's
+        #: ``RunMonitor.cost_by_analyzer``; empty for a run from persisted
+        #: states and for checks evaluated against a given context
+        self.cost_by_analyzer: Dict[str, float] = dict(cost_by_analyzer or {})
+
+    def cost_by_analyzer_as_json(self) -> str:
+        """``[{"analyzer": ..., "seconds": ...}, ...]``, most expensive
+        first (the reference package's form, deequ_tpu/verification.py:46)."""
+        rows = sorted(self.cost_by_analyzer.items(), key=lambda kv: -kv[1])
+        return json.dumps([{"analyzer": k, "seconds": v} for k, v in rows])
 
     def success_metrics_as_data_frame(self, for_analyzers: Sequence[Analyzer] = ()):
         return AnalyzerContext(self.metrics).success_metrics_as_dataframe(for_analyzers)
@@ -122,6 +133,8 @@ class VerificationSuite:
         rows shard over, as ``do_analysis_run``'s."""
         checks = list(checks)  # evaluate() walks them again after the run
         analyzers = collect_required_analyzers(checks, required_analyzers)
+        # a monitor always, so the result carries the run's cost by analyzer
+        monitor = monitor if monitor is not None else RunMonitor()
         analysis_results = AnalysisRunner.do_analysis_run(
             data, analyzers, batch_size=batch_size, monitor=monitor, device=device,
             aggregate_with=aggregate_with, save_states_with=save_states_with,
@@ -131,6 +144,7 @@ class VerificationSuite:
             sharding=sharding, **freq_options,
         )
         result = VerificationSuite.evaluate(checks, analysis_results)
+        result.cost_by_analyzer = dict(monitor.cost_by_analyzer)
         if metrics_repository is not None and save_or_append_results_with_key is not None:
             _save_or_append(metrics_repository, save_or_append_results_with_key,
                             analysis_results)
@@ -214,6 +228,8 @@ class VerificationRunBuilder:
         self._state_options: Dict[str, Any] = {}
         self._placement: Optional[str] = None
         self._sharding: Optional[Any] = None
+        self._check_results_path: Optional[str] = None
+        self._success_metrics_path: Optional[str] = None
 
     def add_check(self, check: Check) -> "VerificationRunBuilder":
         self.checks.append(check)
@@ -269,8 +285,18 @@ class VerificationRunBuilder:
         self._freq_options.update(frequency_options(**options))
         return self
 
+    def save_check_results_json_to_path(self, path: str) -> "VerificationRunBuilder":
+        """Write ``check_results_as_json()`` to ``path`` after the run."""
+        self._check_results_path = path
+        return self
+
+    def save_success_metrics_json_to_path(self, path: str) -> "VerificationRunBuilder":
+        """Write ``success_metrics_as_json()`` to ``path`` after the run."""
+        self._success_metrics_path = path
+        return self
+
     def run(self) -> VerificationResult:
-        return VerificationSuite.do_verification_run(
+        result = VerificationSuite.do_verification_run(
             self.data,
             self.checks,
             self.required_analyzers,
@@ -282,6 +308,15 @@ class VerificationRunBuilder:
             **self._freq_options,
             **self._state_options,
         )
+        # written atomically, local paths and URIs alike (reference
+        # `VerificationSuite.scala:146-172`)
+        from . import io as dio
+
+        if self._check_results_path is not None:
+            dio.write_text_atomic(self._check_results_path, result.check_results_as_json())
+        if self._success_metrics_path is not None:
+            dio.write_text_atomic(self._success_metrics_path, result.success_metrics_as_json())
+        return result
 
 
 class VerificationRunBuilderWithRepository(VerificationRunBuilder):

@@ -556,14 +556,38 @@ def test_low_cardinality_set_takes_the_host_group_by(monkeypatch):
     assert tm.device_freq_sets == jm.device_freq_sets == 0
 
 
+def _histogram_values(metric) -> tuple:
+    dist = metric.value.get()
+    return dist.number_of_bins, {k: (v.absolute, v.ratio) for k, v in dist.values.items()}
+
+
 @pytest.mark.parametrize("analyzer", [T.Histogram("f"), T.Histogram("s")])
 def test_histogram_over_a_plain_column_still_raises(analyzer):
-    with pytest.raises(NotImplementedError, match="not dictionary-encoded"):
-        AnalysisRunner.do_analysis_run(TD.Dataset.from_arrow(_run_table(500)), [analyzer],
-                                       device="cpu")
+    """A Histogram over a column that is not dictionary-encoded (it raised
+    before the port had the host path; the name is kept) folds on the
+    host and gives the reference's metric: every bin, NaN, -0.0 and the
+    NullValue bin included."""
+    table = _run_table(500)
+    got = AnalysisRunner.do_analysis_run(TD.Dataset.from_arrow(table), [analyzer],
+                                         device="cpu", batch_size=128).metric(analyzer)
+    ref = J.Histogram(analyzer.column)
+    want = JaxRunner.do_analysis_run(JD.Dataset.from_arrow(table), [ref],
+                                     batch_size=128).metric(ref)
+    assert _histogram_values(got) == _histogram_values(want)
+    assert "NullValue" in got.value.get().values
 
 
 def test_mutual_information_is_not_in_the_port():
-    with pytest.raises(NotImplementedError, match="not supported by deequ_tpu_torch"):
-        AnalysisRunner.do_analysis_run(TD.Dataset.from_arrow(_run_table(500)),
-                                       [J.MutualInformation(["i8", "b"])], device="cpu")
+    """MutualInformation (absent from the port before; the name is kept)
+    gives the reference's metric within 1e-12 over an int8 and a string
+    column, its set on the host group-by in both packages."""
+    table = _run_table(500)
+    tm = RunMonitor()
+    got = AnalysisRunner.do_analysis_run(
+        TD.Dataset.from_arrow(table), [T.MutualInformation(["i8", "s"])], device="cpu",
+        monitor=tm).metric(T.MutualInformation(["i8", "s"])).value.get()
+    want = JaxRunner.do_analysis_run(
+        JD.Dataset.from_arrow(table), [J.MutualInformation(["i8", "s"])]
+    ).metric(J.MutualInformation(["i8", "s"])).value.get()
+    assert math.isclose(got, want, rel_tol=1e-12, abs_tol=0.0), (got, want)
+    assert tm.device_freq_sets == 0

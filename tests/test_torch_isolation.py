@@ -32,6 +32,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import deequ_tpu_torch.observability, deequ_tpu_torch.reliability\n"
         "import deequ_tpu_torch.tuning, deequ_tpu_torch.ingest, deequ_tpu_torch.utils\n"
         "import deequ_tpu_torch.parallel, deequ_tpu_torch.parallel.dcn\n"
+        "import deequ_tpu_torch.suggestions, deequ_tpu_torch.suggestions.rules\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"

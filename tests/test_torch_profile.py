@@ -308,26 +308,140 @@ def _dataset():
     return TD.Dataset.from_arrow(_quantile_table(200))
 
 
+#: the profiler's repository keys: the day a profile is saved under
+PROFILE_KEY = {"day": "2024-01-02"}
+
+
+def _repository_values(repository_module, path, key) -> dict:
+    """{repr(analyzer): value} of the context a repository file holds
+    under ``key``, read through ``repository_module``'s own classes."""
+    repo = repository_module.FileSystemMetricsRepository(str(path))
+    context = repo.load_by_key(repository_module.ResultKey(1, PROFILE_KEY))
+    return {} if context is None else {
+        repr(a): _metric_value(m) for a, m in context.metric_map.items()}
+
+
+def _assert_repository_values_match(got: dict, want: dict) -> None:
+    assert set(got) == set(want)
+    for key, w in want.items():
+        g = got[key]
+        if isinstance(w, float) and key.split("(")[0] in ("Mean", "Sum", "StandardDeviation"):
+            assert _close(g, w), (key, g, w)
+        else:
+            assert g == w, (key, g, w)
+
+
+def _repository_profiles(tmp_path, option: str, run_port, run_reference) -> None:
+    """One repository key through both packages (``option`` names it): a
+    repository alone stays empty, a save key leaves equal contexts in
+    both packages' files, and a reuse key serves the port's whole profile
+    from a file the reference saved (no pass runs), equal to the
+    reference's profile."""
+    import deequ_tpu.repository as JR
+    import deequ_tpu_torch.repository as TR
+
+    jpath, tpath = tmp_path / "reference.json", tmp_path / "port.json"
+    jkey, tkey = JR.ResultKey(1, PROFILE_KEY), TR.ResultKey(1, PROFILE_KEY)
+    if option == "reuse":
+        want = run_reference(JR.FileSystemMetricsRepository(str(jpath)), None, jkey)
+        monitor = RunMonitor()
+        got = run_port(TR.FileSystemMetricsRepository(str(jpath)), tkey, None, monitor)
+        assert monitor.passes == 0
+    else:
+        save = option == "save"
+        want = run_reference(JR.FileSystemMetricsRepository(str(jpath)), None,
+                             jkey if save else None)
+        got = run_port(TR.FileSystemMetricsRepository(str(tpath)), None,
+                       tkey if save else None, None)
+        want_values = _repository_values(JR, jpath, jkey)
+        for module in (JR, TR):  # each file read by either package
+            _assert_repository_values_match(_repository_values(module, tpath, tkey),
+                                            want_values)
+        assert bool(want_values) == save
+    _assert_profiles_match(want, got)
+
+
+def _reference_profile(table):
+    def run(repository, reuse_key, save_key):
+        from deequ_tpu.profiles import ColumnProfiler as JaxProfiler
+
+        return JaxProfiler.profile(
+            JD.Dataset.from_arrow(table), metrics_repository=repository,
+            reuse_existing_results_using_key=reuse_key,
+            fail_if_results_for_reusing_missing=reuse_key is not None,
+            save_in_metrics_repository_using_key=save_key, batch_size=256,
+            placement="device")
+
+    return run
+
+
 @pytest.mark.parametrize("option", ["metrics_repository", "reuse_existing_results_using_key",
                                     "save_in_metrics_repository_using_key"])
-def test_profiler_options_outside_the_slice_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP A[35]"):
-        dq.ColumnProfiler.profile(_dataset(), device="cpu", **{option: object()})
+def test_profiler_options_outside_the_slice_raise(option, tmp_path):
+    """``ColumnProfiler.profile``'s repository keys (they raised before
+    the port had them; the name is kept) give the reference's profile and
+    repository contents."""
+    table = _numeric_strings(900)
+
+    def run_port(repository, reuse_key, save_key, monitor):
+        return dq.ColumnProfiler.profile(
+            TD.Dataset.from_arrow(table), device="cpu", metrics_repository=repository,
+            reuse_existing_results_using_key=reuse_key,
+            fail_if_results_for_reusing_missing=reuse_key is not None,
+            save_in_metrics_repository_using_key=save_key, batch_size=256, monitor=monitor)
+
+    scenario = {"metrics_repository": "alone", "reuse_existing_results_using_key": "reuse",
+                "save_in_metrics_repository_using_key": "save"}[option]
+    _repository_profiles(tmp_path, scenario, run_port, _reference_profile(table))
 
 
 @pytest.mark.parametrize("method", ["use_repository", "reuse_existing_results_for_key",
                                     "save_or_append_result"])
-def test_profiler_builder_options_outside_the_slice_raise(method):
-    builder = dq.ColumnProfilerRunner.on_data(_dataset(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A[35]"):
-        getattr(builder, method)(object())
+def test_profiler_builder_options_outside_the_slice_raise(method, tmp_path):
+    """The builder's ``use_repository``, ``reuse_existing_results_for_key``
+    and ``save_or_append_result`` (they raised before; the name is kept),
+    through the same scenarios as ``ColumnProfiler.profile``'s keys."""
+    table = _numeric_strings(900)
+
+    def run_port(repository, reuse_key, save_key, monitor):
+        builder = (dq.ColumnProfilerRunner.on_data(TD.Dataset.from_arrow(table), device="cpu")
+                   .use_repository(repository).with_batch_size(256))
+        if reuse_key is not None:
+            builder = builder.reuse_existing_results_for_key(reuse_key, True)
+        if save_key is not None:
+            builder = builder.save_or_append_result(save_key)
+        if monitor is not None:
+            builder = builder.with_monitor(monitor)
+        return builder.run()
+
+    scenario = {"use_repository": "alone", "reuse_existing_results_for_key": "reuse",
+                "save_or_append_result": "save"}[method]
+    _repository_profiles(tmp_path, scenario, run_port, _reference_profile(table))
 
 
 @pytest.mark.parametrize("analyzer", [T.ApproxQuantile("x", 0.5, 0.0),
-                                      T.ApproxQuantiles("x", (0.5,), 0.0)])
+                                      T.ApproxQuantiles("x", (0.1, 0.5, 0.9), 0.0)])
 def test_exact_quantile_mode_raises(analyzer):
-    with pytest.raises(NotImplementedError, match="exact quantile mode"):
-        AnalysisRunner.do_analysis_run(_dataset(), [T.Size(), analyzer], device="cpu")
+    """The exact mode (``relative_error=0.0``; it raised before the port
+    had it, the name is kept) equals the reference's exact metric and
+    numpy's quantile of the column's present, non-NaN values, at batch
+    sizes that cut the column differently in the two packages."""
+    table = _quantile_table(200)
+    got = AnalysisRunner.do_analysis_run(
+        TD.Dataset.from_arrow(table), [T.Size(), analyzer], device="cpu", batch_size=37
+    ).metric(analyzer)
+    ref = (J.ApproxQuantile("x", 0.5, 0.0) if isinstance(analyzer, T.ApproxQuantile)
+           else J.ApproxQuantiles("x", (0.1, 0.5, 0.9), 0.0))
+    want = JaxRunner.do_analysis_run(JD.Dataset.from_arrow(table), [J.Size(), ref],
+                                     batch_size=64).metric(ref)
+    assert got.value.get() == want.value.get()
+    x = table.column("x").to_numpy(zero_copy_only=False).astype(np.float64)
+    present = np.asarray(table.column("x").is_valid()) & ~np.isnan(x)
+    exact = {q: float(np.quantile(x[present], q)) for q in (0.1, 0.5, 0.9)}
+    if isinstance(analyzer, T.ApproxQuantile):
+        assert got.value.get() == exact[0.5]
+    else:
+        assert got.value.get() == {str(q): v for q, v in exact.items()}
 
 
 def test_host_partials_of_sketches_raise():

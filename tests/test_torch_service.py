@@ -439,10 +439,10 @@ def _dictionary_table():
 
 def test_histogram_takes_the_reference_field_order():
     """``Histogram(column, binning_func, max_detail_bins)``: a positional
-    binning function binds to ``binning_func`` (and runs on the reference's
-    non-dictionary path, which the port still owes: it raises, naming
-    ROADMAP A1c), the repr and equality are the reference's, and
-    ``Histogram("c", None, 7)`` gives the reference's metric."""
+    binning function binds to ``binning_func`` and runs on the host path,
+    with the reference's metric; the repr and equality are the
+    reference's, and ``Histogram("c", None, 7)`` gives the reference's
+    metric."""
     def fn(v):
         return v
 
@@ -451,8 +451,14 @@ def test_histogram_takes_the_reference_field_order():
     assert repr(T.Histogram("c", None, 7)) == repr(J.Histogram("c", None, 7))
     assert T.Histogram("c", None, 7) == T.Histogram("c", max_detail_bins=7)
     data = _dictionary_table()
-    with pytest.raises(NotImplementedError, match="A1c"):
-        dq.AnalysisRunner.do_analysis_run(dq.Dataset.from_arrow(data), [h], device="cpu")
+    binned = dq.AnalysisRunner.do_analysis_run(
+        dq.Dataset.from_arrow(data), [h], device="cpu").metric(h).value.get()
+    jh = J.Histogram("c", fn)
+    want_binned = JaxRunner.do_analysis_run(
+        JD.Dataset.from_arrow(data), [jh]).metric(jh).value.get()
+    assert binned.number_of_bins == want_binned.number_of_bins == 13
+    assert ({k: (v.absolute, v.ratio) for k, v in binned.values.items()}
+            == {k: (v.absolute, v.ratio) for k, v in want_binned.values.items()})
     got = dq.AnalysisRunner.do_analysis_run(
         dq.Dataset.from_arrow(data), [T.Histogram("c", None, 7)], device="cpu"
     ).metric(T.Histogram("c", None, 7)).value.get()

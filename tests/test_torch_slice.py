@@ -308,13 +308,27 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("analyzer", [
     T.Histogram("y"),                     # plain (not dictionary-encoded) column
-    J.MutualInformation(["cat", "id"]),   # an analyzer the port does not have
+    J.MutualInformation(["cat", "id"]),   # an analyzer of the JAX package
     T.Histogram("id"),                    # plain column
     J.Correlation("x", "y"),              # an analyzer of the JAX package
     J.ApproxQuantile("x", 0.5),
 ])
 def test_analyzers_outside_the_slice_raise(analyzer):
-    ds = TD.Dataset.from_arrow(_synthetic(100))
+    """An analyzer of the JAX package raises in the port's runner. The
+    port's Histograms over plain columns (which raised before the port had
+    the host path) give the reference's metric."""
+    table = _synthetic(100)
+    ds = TD.Dataset.from_arrow(table)
+    if isinstance(analyzer, T.Histogram):
+        got = AnalysisRunner.do_analysis_run(ds, [T.Size(), analyzer],
+                                             device="cpu").metric(analyzer).value.get()
+        ref = J.Histogram(analyzer.column)
+        want = JaxRunner.do_analysis_run(JD.Dataset.from_arrow(table),
+                                         [J.Size(), ref]).metric(ref).value.get()
+        assert got.number_of_bins == want.number_of_bins
+        assert ({k: (v.absolute, v.ratio) for k, v in got.values.items()}
+                == {k: (v.absolute, v.ratio) for k, v in want.values.items()})
+        return
     with pytest.raises(NotImplementedError, match="not supported by deequ_tpu_torch"):
         AnalysisRunner.do_analysis_run(ds, [T.Size(), analyzer], device="cpu")
 
@@ -413,8 +427,16 @@ def test_convert_rejects_mismatched_leaves():
         from_reference("MinState", [np.float64(1.0)])
     with pytest.raises(ValueError):
         from_reference("KLLSketchState", [])
-    with pytest.raises(NotImplementedError):  # the exact-quantile mode is not ported
-        from_reference("ExactQuantileState", [])
+    # the exact-quantile state converts: its leaves are its value chunks
+    # (it did not before the port had the exact mode)
+    chunks = [np.array([3.0, -1.5]), np.array([], dtype=np.float64), np.array([7.25])]
+    state = from_reference("ExactQuantileState", chunks)
+    assert np.array_equal(state.values(), np.concatenate(chunks)) and state.count == 3
+    name, back = to_reference(state)
+    assert name == "ExactQuantileState"
+    assert all(np.array_equal(a, b) for a, b in zip(back, chunks)) and len(back) == 3
+    with pytest.raises(TypeError):
+        from_reference("ExactQuantileState", [np.array([1, 2], dtype=np.int64)])
 
 
 # ---------------------------------------------------------------------------
