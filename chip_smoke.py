@@ -73,7 +73,20 @@ Phases, each of which fails the run when it fails:
    DataType, a Histogram of a dictionary column, Uniqueness, a second KLL)
    over the same partitions, merged and held against one full-table run.
    (b) and (e) are held against numpy over the whole table, and the phase
-   at 2 x 5M rows against the same on ``device="cpu"``;
+   at 2 x 5M rows against the same on ``device="cpu"``. (f) the same two
+   days through ``VerificationSuite.on_partitions`` and a
+   ``PartitionStateStore`` in a temporary directory, with version tokens
+   (no partition is hashed): cold (both days scanned, (b)'s metrics bit for
+   bit), warm (no payload read, the cold metrics bit for bit), growth by a
+   1M-row third day (1M rows scanned, two partitions from the rollup,
+   numpy over the three days), day2's token changed (day2 alone
+   re-scanned, the growth metrics bit for bit) and day1 dropped and
+   deleted (numpy over day2 and day3); each step prints its seconds, rows
+   scanned and launches, and the sequence runs again at 2 x 5M + 100k rows
+   on the CPU and the card, every step equal; (g) ``profile_partitioned``
+   and ``suggest_partitioned`` twice each over two 1M-row days, the second
+   call reading no payload and equal to the first, against the same calls
+   on ``device="cpu"``;
 7. the host ingest tier (``placement="host"``), each run where its data
    lives: (a) after phase 3, its table and checks plus an ApproxQuantile,
    in batches of 2^18 rows, against phase 3's metrics, the same run on
@@ -99,7 +112,11 @@ Phases, each of which fails the run when it fails:
    first 250 of them with serial folds, every session's metrics equal to
    (b)'s bit for bit; (d) 100 sessions x 2 x 65,536 rows, coalesced and serial, held
    likewise; (e) 16 of (b)'s sessions on ``device="cpu"`` and against
-   numpy. Each run fails on a shed or a failed fold;
+   numpy; (f) 16 sessions of (b)'s shape on a service with a partition
+   store, flushed as partitions when they close and verified through
+   ``svc.verify_partitioned`` with no payload read, equal to the merge of
+   the sessions' own states bit for bit. Each run fails on a shed or a
+   failed fold;
 9. more than one device, after phase 7 (a) over its table and checks
    (with the ApproxQuantile): (a) the mesh's entries against their plain
    versions bit for bit with times and bounds: K8's butterfly over the
@@ -138,7 +155,19 @@ Phases, each of which fails the run when it fails:
    and K2's battery entry at the first batch of the training split's first
    profile pass. ``python3 -c "import torch, chip_smoke, deequ_tpu_torch
    as dq; chip_smoke.suggestion_path(torch, dq)"`` runs this phase alone
-   (the kernels build at first use), printing no result lines.
+   (the kernels build at first use), printing no result lines;
+11. resumable ingest, each part where its data lives, each with an
+   ``IngestCheckpointer`` over a ``FileSystemStateProvider`` in a temporary
+   directory and an injected interrupt: (a) after phase 3, its run with a
+   checkpoint every 4 batches, interrupted before the 7th, resumed at
+   batch 4 (6 batches folded), phase 3's metrics bit for bit; (b) inside
+   7 (a), its run with a checkpoint every 8 batches, interrupted at batch
+   38's host partial, resumed at the chunk boundary 32, 7 (a)'s metrics bit
+   for bit; (c) after phase 9, the host tier over ``make_mesh(8,
+   device="cuda")`` on 1M rows in 2^14-row batches, interrupted at the
+   second chunk fold, its checkpoint resumed on ``make_mesh(4)`` and on
+   the plain host tier, each equal to the uninterrupted mesh run (moments
+   within 1e-12, the quantile within the host rank limit).
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
@@ -153,6 +182,7 @@ with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -2350,16 +2380,17 @@ def incremental_oracle(table: pa.Table) -> tuple:
 
 def check_incremental_oracle(values: dict, table: pa.Table,
                              rank_limit: float = 2 * KLL_RELATIVE_ERROR,
-                             battery_only: bool = False) -> tuple:
+                             battery_only: bool = False, truth=None) -> tuple:
     """Differences between merged metrics and numpy over the whole table:
     counts, min, max, histograms, type counts exactly; means, the standard
     deviation and the correlation within 1e-9; the HLL estimate within
     three standard errors of the exact distinct count (1.04 / sqrt(512));
     each KLL percentile within ``rank_limit`` in rank (twice the sketch's
     relative error). ``values`` holds both batteries' metrics, or with
-    ``battery_only`` the first battery's alone. Returns (problems, largest
-    rank error)."""
-    out, exact, ranks = incremental_oracle(table)
+    ``battery_only`` the first battery's alone; ``truth`` is
+    :func:`incremental_oracle`'s answer when the caller has it. Returns
+    (problems, largest rank error)."""
+    out, exact, ranks = incremental_oracle(table) if truth is None else truth
     if battery_only:
         out = {k: v for k, v in out.items() if k in values}
     problems = compare_oracle({k: v for k, v in values.items() if k in out}, out)
@@ -2673,9 +2704,14 @@ def incremental_path(torch, dq, seed: int) -> tuple:
     exact_keys = [k for k in values2 if k[0] != "KLLSketch"]
     problems = compare_metrics({k: values2[k] for k in exact_keys},
                                {k: full[k] for k in exact_keys}, 1e-12)
-    oracle_problems, worst = check_incremental_oracle({**values, **values2}, table)
+    truth = incremental_oracle(table)
+    oracle_problems, worst = check_incremental_oracle({**values, **values2}, table, truth=truth)
     problems += oracle_problems
-    del table
+
+    # (f) the same two days through the partition store and the delta planner
+    with part_seconds("phase 6 (f)"):
+        partitioned_path(torch, dq, table, rows, values, truth[2]["x0"], seed)
+    del table, truth
 
     # the same phase on the CPU, at 2 x 5M rows, against the card
     small = build_scan_data(INCREMENTAL_CPU_PARTITION_ROWS * INCREMENTAL_PARTITIONS,
@@ -2688,10 +2724,346 @@ def incremental_path(torch, dq, seed: int) -> tuple:
     problems += [f"cpu vs card: {p}" for p in compare_metrics(gpu, cpu, 1e-12)]
     if problems:
         raise AssertionError("incremental metrics disagree:\n" + "\n".join(problems))
+    # (f) at this size on the CPU and the card; (g) the profiler and the
+    # suggestions on stored states
+    with part_seconds("phase 6 (f) cpu vs card"):
+        partitioned_small(torch, dq, small, INCREMENTAL_CPU_PARTITION_ROWS, seed)
+    with part_seconds("phase 6 (g)"):
+        stored_profiles_path(torch, dq, small)
     print(f"[incremental metrics] (b), (d) and (e) agree with the full-table run, the oracle "
           f"and the CPU run; largest KLL percentile rank error {worst:.6f} (limit "
           f"{2 * KLL_RELATIVE_ERROR:.6f}); Size {values[('Size', '*', None)]}", flush=True)
     return measured, launches
+
+
+@contextlib.contextmanager
+def part_seconds(label: str):
+    """Print the wall seconds of one part of a phase (the parts this
+    script added after its first slices, so their cost stays visible)."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[seconds] {label}: {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6 (f) and (g): partition-aware incremental verification and the
+# profiler and suggestions on stored states
+# ---------------------------------------------------------------------------
+
+#: phase 6 (f): the day the table grows by, on the card and in the CPU
+#: comparison (whose days are INCREMENTAL_CPU_PARTITION_ROWS)
+GROWTH_DAY_ROWS = 1_000_000
+CPU_GROWTH_DAY_ROWS = 100_000
+#: phase 6 (g): the two days the profiler and the suggestions read
+PROFILE_DAY_ROWS = 1_000_000
+#: the scan kernels of a config-4 partition (the merge adds state_fold)
+PARTITION_SCAN_KERNELS = ("scan_reduce", "hll_registers_columns", "kll_sample", "kll_compact")
+#: phase 6 (f)'s steps: (step, incoming partitions, their version tokens,
+#: the partitions it must scan, whether dropped partitions are deleted)
+PARTITION_STEPS = (
+    ("cold", ("day1", "day2"), {"day1": "v1", "day2": "v1"}, ["day1", "day2"], False),
+    ("warm", ("day1", "day2"), {"day1": "v1", "day2": "v1"}, [], False),
+    ("growth", ("day1", "day2", "day3"), {"day1": "v1", "day2": "v1", "day3": "v1"},
+     ["day3"], False),
+    ("changed token", ("day1", "day2", "day3"), {"day1": "v1", "day2": "v2", "day3": "v1"},
+     ["day2"], False),
+    ("dropped", ("day2", "day3"), {"day2": "v2", "day3": "v1"}, [], True),
+)
+
+
+def partitioned_check(dq):
+    """Phase 6 (f)'s check over the config-4 battery."""
+    return (dq.Check(dq.CheckLevel.ERROR, "config 4 partitions")
+            .has_size(lambda n: n > 0)
+            .has_completeness("x0", lambda c: c > 0.9)
+            .has_mean("x0", lambda v: abs(v) < 1.0)
+            .has_mean("x1", lambda v: 90.0 < v < 110.0)
+            .has_approx_count_distinct("cat", lambda c: c > 1_000))
+
+
+def _unread(name: str):
+    """A payload that fails when it is read: a reused partition's data is
+    never touched."""
+    def payload():
+        raise AssertionError(f"partition {name}'s payload was read, but its states were stored")
+
+    return payload
+
+
+def partition_sequence(torch, dq, days: dict, device: str, label: str) -> list:
+    """Phase 6 (f)'s five steps over ``days`` (three day tables) through
+    ``VerificationSuite.on_partitions`` with a ``PartitionStateStore`` in a
+    temporary directory, on ``device``: cold, warm (same tokens), growth
+    (a third day), a changed token (day2) and a dropped partition (day1,
+    deleted). Checks each step's plan, rows scanned and, on the card, its
+    launches; prints its seconds, rows scanned and launches. Returns per
+    step its metric values, seconds and rows scanned."""
+    import shutil
+    import tempfile
+
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.repository import PartitionStateStore
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-partitions-")
+    store = PartitionStateStore(root)
+    battery = incremental_battery(dq)
+    on_card = device == "cuda"
+    out = {}
+    try:
+        for step, names, tokens, scans, drop in PARTITION_STEPS:
+            payloads = {n: dq.Dataset.from_arrow(days[n]) if n in scans else _unread(n)
+                        for n in names}
+            monitor = dq.RunMonitor()
+            builder = (dq.VerificationSuite.on_partitions(store, "events", payloads,
+                                                          checksums=tokens, device=device)
+                       .add_check(partitioned_check(dq)).add_required_analyzers(battery)
+                       .with_batch_size(BATCH_ROWS).with_monitor(monitor))
+            if drop:
+                builder = builder.delete_dropped_partitions()
+            if on_card:
+                torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            result = builder.run()
+            if on_card:
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k: v for k, v in launch_counts().items() if v}
+            report, plan = result.incremental, result.incremental.plan
+            print(f"[{label} {step}] {seconds:.3f}s; {report.rows_scanned} of "
+                  f"{report.rows_total} rows scanned; scan={plan.scan} reuse={plan.reuse} "
+                  f"invalidated={plan.invalidated} dropped={plan.dropped} rolled_up="
+                  f"{monitor.partitions_rolled_up}; status {result.status.value}; "
+                  f"launches={launches}", flush=True)
+            problems = []
+            if plan.scan != list(scans) or report.rows_scanned != sum(days[n].num_rows
+                                                                      for n in scans):
+                problems.append(f"scanned {plan.scan} ({report.rows_scanned} rows)")
+            if result.status != dq.CheckStatus.SUCCESS:
+                problems.append(f"status {result.status.value}")
+            if step == "growth" and monitor.partitions_rolled_up != 2:
+                problems.append(f"{monitor.partitions_rolled_up} partitions rolled up, not 2")
+            if step == "changed token" and plan.reasons.get("day2") != "content-changed":
+                problems.append(f"day2 re-scanned for {plan.reasons.get('day2')!r}")
+            if step == "dropped" and (plan.dropped != ["day1"]
+                                      or store.list_partitions("events") != ["day2", "day3"]):
+                problems.append(f"dropped {plan.dropped}; the store lists "
+                                f"{store.list_partitions('events')}")
+            if on_card and scans:
+                missing = [k for k in PARTITION_SCAN_KERNELS + ("state_fold",)
+                           if not launches.get(k)]
+                if missing:
+                    problems.append(f"launched no {missing}")
+            if on_card and not scans and launches.get("scan_reduce"):
+                problems.append("a step without scans launched scan_reduce")
+            if problems:
+                raise AssertionError(f"{label} {step}: " + "; ".join(problems))
+            out[step] = (context_values(dq.AnalyzerContext(result.metrics)), seconds,
+                         report.rows_scanned)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def battery_parts(table: pa.Table, x0_sorted=None) -> dict:
+    """Additive pieces of numpy's answers for the config-4 battery over
+    ``table``: rows, valid counts and sums of x0 and x1, the counts of each
+    ``cat`` value and the sorted float32-rounded valid x0 (``x0_sorted``
+    when the caller has it)."""
+    def valid(name):
+        arr = table[name].combine_chunks()
+        mask = np.asarray(arr.is_valid())
+        return arr.to_numpy(zero_copy_only=False)[mask]
+
+    x0, x1 = valid("x0"), valid("x1")
+    return {
+        "rows": table.num_rows, "n0": len(x0), "s0": float(x0.sum()), "n1": len(x1),
+        "s1": float(x1.sum()), "cat": np.bincount(table["cat"].to_numpy(), minlength=100_000),
+        "x0": np.sort(x0.astype(np.float32)) if x0_sorted is None else x0_sorted,
+    }
+
+
+def check_battery_oracle(values: dict, parts: list,
+                         rank_limit: float = 2 * KLL_RELATIVE_ERROR) -> list:
+    """Differences between the config-4 battery's metrics and numpy over
+    the tables ``parts`` describe (:func:`battery_parts`): Size exactly,
+    completeness and means within 1e-9, the HLL estimate within three
+    standard errors, each KLL percentile within ``rank_limit`` in rank."""
+    rows = sum(p["rows"] for p in parts)
+    n0, n1 = sum(p["n0"] for p in parts), sum(p["n1"] for p in parts)
+    want = {("Size", "*", None): float(rows), ("Completeness", "x0", None): n0 / rows,
+            ("Mean", "x0", None): sum(p["s0"] for p in parts) / n0,
+            ("Mean", "x1", None): sum(p["s1"] for p in parts) / n1}
+    problems = compare_oracle({k: values[k] for k in want}, want)
+    distinct = int((sum(p["cat"] for p in parts) > 0).sum())
+    got = values[("ApproxCountDistinct", "cat", None)]
+    if abs(got - distinct) > 3 * 1.04 / math.sqrt(512) * distinct:
+        problems.append(f"ApproxCountDistinct(cat) {got} vs {distinct} distinct")
+    buckets, data = values[("KLLSketch", "x0", None)]
+    if sum(b[2] for b in buckets) != n0:
+        problems.append(f"KLLSketch(x0) buckets do not add up to {n0}")
+    worst = 0.0
+    for i, x in enumerate(kll_percentiles(data)):
+        q, v = (i + 1) / 100, np.float32(x)
+        lo = sum(np.searchsorted(p["x0"], v, "left") for p in parts) / n0
+        hi = sum(np.searchsorted(p["x0"], v, "right") for p in parts) / n0
+        worst = max(worst, 0.0 if lo <= q <= hi else float(min(abs(q - lo), abs(q - hi))))
+    if worst > rank_limit:
+        problems.append(f"KLLSketch(x0) percentile rank error {worst}")
+    return problems
+
+
+def partitioned_path(torch, dq, table: pa.Table, rows: int, merged: dict, x0_sorted,
+                     seed: int) -> list:
+    """Phase 6 (f) on the card over phase 6's two days: (1) cold, equal to
+    (b)'s merged metrics bit for bit (the sketch within the rank limit of
+    numpy's); (2) warm, no payload read, equal to (1) bit for bit; (3)
+    growth by ``GROWTH_DAY_ROWS``, against numpy over the three days; (4)
+    day2's token changed, equal to (3) bit for bit; (5) day1 dropped,
+    against numpy over day2 and day3. Returns the steps' seconds and rows
+    scanned."""
+    day3 = build_scan_data(GROWTH_DAY_ROWS, INCREMENTAL_SEED + seed + 1)
+    days = {"day1": table.slice(0, rows), "day2": table.slice(rows, rows), "day3": day3}
+    steps = partition_sequence(torch, dq, days, "cuda", "incremental (f)")
+    kll = ("KLLSketch", "x0", None)
+    full = battery_parts(table, x0_sorted)
+    grown = [full, battery_parts(day3)]
+    cold, warm, growth, changed, dropped = (steps[s][0] for s, *_ in PARTITION_STEPS)
+    problems = [f"cold vs (b): {p}" for p in compare_metrics(_without(cold, kll),
+                                                              _without(merged, kll), 0.0)]
+    problems += [f"cold: {p}" for p in check_battery_oracle(cold, [full])]
+    problems += [f"warm vs cold: {p}" for p in compare_metrics(warm, cold, 0.0)]
+    problems += [f"growth: {p}" for p in check_battery_oracle(growth, grown)]
+    problems += [f"changed token vs growth: {p}"
+                 for p in compare_metrics(changed, growth, 0.0)]
+    problems += [f"dropped: {p}" for p in check_battery_oracle(
+        dropped, [battery_parts(days["day2"]), grown[1]])]
+    if problems:
+        raise AssertionError("incremental (f) disagrees:\n" + "\n".join(problems))
+    cost = steps["growth"][1] / steps["cold"][1]
+    print(f"[incremental (f) metrics] cold = (b) bit for bit (KLL sketch equal: "
+          f"{cold[kll] == merged[kll]}), warm = cold, changed token = growth bit for bit; "
+          f"growth, dropped and cold hold numpy's answers; the growth run cost {cost:.4f} of "
+          f"the cold run", flush=True)
+    return [(s, steps[s][1], steps[s][2]) for s, *_ in PARTITION_STEPS]
+
+
+def partitioned_small(torch, dq, small: pa.Table, rows: int, seed: int) -> None:
+    """Phase 6 (f) at 2 x ``rows`` + ``CPU_GROWTH_DAY_ROWS`` on the CPU and
+    on the card: every step's plan and metrics equal (moments within
+    1e-12)."""
+    days = {"day1": small.slice(0, rows), "day2": small.slice(rows, rows),
+            "day3": build_scan_data(CPU_GROWTH_DAY_ROWS, INCREMENTAL_SEED + seed + 1)}
+    t0 = time.perf_counter()
+    cpu = partition_sequence(torch, dq, days, "cpu", "incremental (f) cpu")
+    print(f"[cpu] phase 6 (f) at 2 x {rows} + {CPU_GROWTH_DAY_ROWS} rows on the CPU in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    gpu = partition_sequence(torch, dq, days, "cuda", "incremental (f) small")
+    problems = [f"{step}: {p}" for step in cpu
+                for p in compare_metrics(gpu[step][0], cpu[step][0])]
+    if problems:
+        raise AssertionError("incremental (f) cpu vs card:\n" + "\n".join(problems))
+
+
+def stored_profiles(torch, dq, small: pa.Table, device: str) -> tuple:
+    """Phase 6 (g) on ``device``: ``profile_partitioned`` and
+    ``suggest_partitioned`` (the default rules) twice each over two
+    ``PROFILE_DAY_ROWS``-row days of ``small``, each in its own store
+    dataset; the second call of each reads no payload and equals the
+    first. Returns the profile's values and the suggestions' JSON."""
+    import shutil
+    import tempfile
+
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.repository import PartitionStateStore
+    from deequ_tpu_torch.runners.incremental import profile_partitioned, suggest_partitioned
+    from deequ_tpu_torch.suggestions import Rules
+
+    days = {f"day{d + 1}": small.slice(d * PROFILE_DAY_ROWS, PROFILE_DAY_ROWS) for d in range(2)}
+    tokens = {name: "v1" for name in days}
+    root = tempfile.mkdtemp(prefix="chip-smoke-profiles-")
+    store = PartitionStateStore(root)
+    on_card = device == "cuda"
+    got = {}
+    try:
+        for what, run in (
+            ("profile", lambda p: profile_partitioned(store, "profile", p, checksums=tokens,
+                                                      batch_size=BATCH_ROWS, device=device)),
+            ("suggestions", lambda p: suggest_partitioned(store, "suggest", p, Rules.DEFAULT,
+                                                          checksums=tokens,
+                                                          batch_size=BATCH_ROWS, device=device)),
+        ):
+            outs = []
+            for call in ("first", "second"):
+                payloads = ({n: dq.Dataset.from_arrow(t) for n, t in days.items()}
+                            if call == "first" else {n: _unread(n) for n in days})
+                if on_card:
+                    torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                value, report = run(payloads)
+                if on_card:
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = {k: v for k, v in launch_counts().items() if v}
+                print(f"[incremental (g) {what} {call} on {device}] {seconds:.3f}s; "
+                      f"{report.rows_scanned} of {report.rows_total} rows scanned; "
+                      f"launches={launches}", flush=True)
+                if call == "second" and not report.plan.fully_reused:
+                    raise AssertionError(f"{what}'s second call re-scanned {report.plan.scan}")
+                if on_card and call == "first":
+                    missing = [k for k in PARTITION_SCAN_KERNELS + ("dict_code_counts",
+                                                                   "state_fold")
+                               if not launches.get(k)]
+                    if missing:
+                        raise AssertionError(f"incremental (g) {what} launched no {missing}")
+                outs.append(profile_values(value) if what == "profile" else value.to_json())
+            if repr(outs[0]) != repr(outs[1]):
+                raise AssertionError(f"incremental (g): the reused {what} differs from the first")
+            got[what] = outs[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return got["profile"], got["suggestions"]
+
+
+def compare_stored_profiles(got: dict, want: dict, rtol: float = 1e-12) -> list:
+    """:func:`compare_profiles` for profiles with NaN values (config 4's
+    ``x3n``): NaN equals NaN, the means, sums and standard deviations agree
+    within ``rtol`` relative and every other field is equal in its repr
+    (bit for bit)."""
+    def same(g, w, moment):
+        if isinstance(g, float) and isinstance(w, float):
+            if math.isnan(g) or math.isnan(w):
+                return math.isnan(g) and math.isnan(w)
+            if moment:
+                return abs(g - w) <= rtol * max(abs(w), 1e-300)
+        return repr(g) == repr(w)
+
+    if list(got) != list(want):
+        return [f"different columns: {list(got)} vs {list(want)}"]
+    problems = [] if got["__records__"] == want["__records__"] else ["records differ"]
+    for name in list(want)[1:]:
+        problems += [f"{name}.{field}: {str(got[name][field])[:200]} != {str(w)[:200]}"
+                     for field, w in want[name].items()
+                     if not same(got[name][field], w, field in MOMENT_FIELDS)]
+    return problems
+
+
+def stored_profiles_path(torch, dq, small: pa.Table) -> None:
+    """Phase 6 (g): the card's profiles and suggestions on stored states
+    against the same calls on ``device="cpu"``."""
+    profile, suggestions = stored_profiles(torch, dq, small, "cuda")
+    t0 = time.perf_counter()
+    cpu_profile, cpu_suggestions = stored_profiles(torch, dq, small, "cpu")
+    print(f"[cpu] phase 6 (g) on the CPU in {time.perf_counter() - t0:.1f}s", flush=True)
+    problems = compare_stored_profiles(profile, cpu_profile)
+    if suggestions != cpu_suggestions:
+        problems.append("the suggestions' JSON differs from the CPU run's")
+    if problems:
+        raise AssertionError("incremental (g) cpu vs card:\n" + "\n".join(problems))
+    print(f"[incremental (g) metrics] {len(profile) - 1} column profiles and "
+          f"{len(json.loads(suggestions)['constraint_suggestions'])} suggestions equal the CPU "
+          f"run's and their own reused calls", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2925,12 +3297,14 @@ def host_tier_verification(torch, dq, table: pa.Table, rows: int, device_metrics
     against them)."""
     quantile = dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR)
 
-    def run(monitor, device="cuda", batch_rows=HOST_BATCH_ROWS):
-        return (dq.VerificationSuite.on_data(dq.Dataset.from_arrow(table), device=device)
-                .add_check(build_check(dq, rows))
-                .add_required_analyzers([dq.CountDistinct("cat_large"), quantile])
-                .with_batch_size(batch_rows).with_placement("host").with_monitor(monitor)
-                .run())
+    def run(monitor, device="cuda", batch_rows=HOST_BATCH_ROWS, checkpointer=None):
+        builder = (dq.VerificationSuite.on_data(dq.Dataset.from_arrow(table), device=device)
+                   .add_check(build_check(dq, rows))
+                   .add_required_analyzers([dq.CountDistinct("cat_large"), quantile])
+                   .with_batch_size(batch_rows).with_placement("host").with_monitor(monitor))
+        if checkpointer is not None:
+            builder = builder.checkpoint_with(checkpointer)
+        return builder.run()
 
     def against_device_tier(metrics):
         return compare_metrics({k: v for k, v in metrics.items() if k in device_metrics},
@@ -2951,6 +3325,9 @@ def host_tier_verification(torch, dq, table: pa.Table, rows: int, device_metrics
     error = _rank_error(ranked, gpu[metric_key(quantile)], 0.5)
     if error > HOST_KLL_RANK_LIMIT:
         problems.append(f"ApproxQuantile(a, 0.5) rank error {error}")
+    # phase 11 (b): the same run interrupted and resumed from a checkpoint
+    with part_seconds("phase 11 (b)"):
+        resumable_host_tier(torch, dq, lambda m, c: run(m, checkpointer=c), gpu)
     same, monitor, _ = _timed_run(torch, f"host tier (a) in batches of {BATCH_ROWS} rows",
                                   lambda m: run(m, batch_rows=BATCH_ROWS), rows, HOST_KERNELS)
     _host_tier_report(f"host tier (a) in batches of {BATCH_ROWS} rows", monitor)
@@ -3760,6 +4137,83 @@ def _stream_oracle(table: pa.Table, i: int, rows: int) -> dict:
     }
 
 
+def session_partitions(torch, dq, table: pa.Table) -> None:
+    """Phase 8 (f): ``STREAM_WIDTH`` sessions of (b)'s shape on a
+    ``VerificationService(partition_store=...)`` (a temporary directory)
+    close, each flushing its states as partition ``session-<tenant>``;
+    ``svc.verify_partitioned`` over them reads no payload, counts every row
+    folded and equals the merge of the sessions' own states bit for bit."""
+    import os
+    import shutil
+    import tempfile
+
+    import deequ_tpu_torch.service as service
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.runners.analysis_runner import collect_required_analyzers
+
+    knobs = {"DEEQU_TPU_COALESCE": "1", "DEEQU_TPU_FAST_PATH_MAX_ROWS": "0",
+             "DEEQU_TPU_PLACEMENT": "device"}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    root = tempfile.mkdtemp(prefix="chip-smoke-session-store-")
+    try:
+        with service.VerificationService(STREAM_WORKERS, STREAM_QUEUE, device="cuda",
+                                         background_warm=False, partition_store=root) as svc:
+            checks = [stream_check(dq)]
+            sessions = [svc.session(f"t{i:02d}", "stream", checks) for i in range(STREAM_WIDTH)]
+            t0 = time.perf_counter()
+            handles = [s.ingest(stream_slice(table, i, b, STREAM_ROWS), wait=False)
+                       for b in range(STREAM_BATCHES) for i, s in enumerate(sessions)]
+            for h in handles:
+                h.result(STREAM_WAIT_S)
+            for s in sessions:
+                s.close()
+            torch.cuda.synchronize()
+            folded = time.perf_counter() - t0
+            store = svc.partition_store
+            names = store.list_partitions("stream")
+            want_names = [f"session-t{i:02d}" for i in range(STREAM_WIDTH)]
+            if names != want_names:
+                raise AssertionError(f"stream (f): the store lists {names}")
+            tokens = {n: store.get("stream", n).content_checksum for n in names}
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            result = svc.verify_partitioned("stream", {n: None for n in names}, checks,
+                                            checksums=tokens, timeout=STREAM_WAIT_S)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k: v for k, v in launch_counts().items() if v}
+            counters = svc.json_snapshot()["counters"]
+        analyzers = collect_required_analyzers(checks)
+        schema = dq.Dataset.from_arrow(table.slice(0, 1)).schema
+        merged = dq.AnalysisRunner.run_on_aggregated_states(
+            schema, analyzers, [s.provider for s in sessions], device="cuda")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rows = STREAM_WIDTH * STREAM_BATCHES * STREAM_ROWS
+    got = metric_values(result)
+    report = result.incremental
+    print(f"[stream (f)] {STREAM_WIDTH} sessions folded and flushed in {folded:.3f}s; "
+          f"verify_partitioned over their {len(names)} partitions in {seconds:.3f}s, "
+          f"{report.rows_scanned} of {report.rows_total} rows scanned; launches={launches}; "
+          f"partition counters "
+          f"{ {k: v for k, v in counters.items() if k.startswith('deequ_service_partitions')} }",
+          flush=True)
+    problems = compare_metrics(got, metric_values(dq.VerificationSuite.evaluate(
+        checks, merged)), 0.0)
+    if got[("Size", "*", None)] != float(rows) or not report.plan.fully_reused:
+        problems.append(f"Size {got[('Size', '*', None)]} of {rows} rows; plan "
+                        f"{report.plan.as_dict()}")
+    if problems:
+        raise AssertionError("stream (f) disagrees:\n" + "\n".join(problems))
+
+
 def streaming_service(torch, dq, seed: int) -> tuple:
     """Phase 8: (a) the stacked kernels at two group shapes; (b) the
     coalesced run of 1,000 sessions x 2 x 4,096 rows and (c) its first 250
@@ -3806,11 +4260,187 @@ def streaming_service(torch, dq, seed: int) -> tuple:
         problems.append(f"(e) KLL median rank error {worst} above {STREAM_KLL_RANK_LIMIT}")
     if problems:
         raise AssertionError("phase 8 disagrees:\n" + "\n".join(problems[:40]))
+    # (f) sessions flushing into a partition store as they close
+    with part_seconds("phase 8 (f)"):
+        session_partitions(torch, dq, table)
     print(f"[stream metrics] (b) = (c) for {STREAM_SERIAL_SESSIONS} sessions and (d) coalesced = "
           f"serial for {STREAM_LARGE_SESSIONS}, bit for bit; {STREAM_CPU_SESSIONS} sessions "
           f"equal their CPU run and the oracle; largest KLL median rank error {worst:.6f} "
           f"(limit {STREAM_KLL_RANK_LIMIT})", flush=True)
     return measured, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: resumable ingest, each part where its data lives
+# ---------------------------------------------------------------------------
+
+#: phase 11 (c)'s batches: 62 over the mesh cut, two chunk folds of 32
+MESH_RESUME_BATCH_ROWS = 1 << 14
+
+
+def interrupted_then_resumed(torch, dq, label: str, run, spec, every: int, kernels=()) -> tuple:
+    """``run(monitor, checkpointer)`` interrupted by ``spec`` with an
+    ``IngestCheckpointer`` over a ``FileSystemStateProvider`` in a
+    temporary directory, then run again with a fresh checkpointer over the
+    same directory. Prints both runs' seconds and the resumed run's
+    launches; fails when the fault did not fire, no checkpoint was saved,
+    or the resumed run launched no kernel of ``kernels``. Returns the
+    resumed run's output, its monitor and the interrupted run's saves."""
+    import shutil
+    import tempfile
+
+    from deequ_tpu_torch.analyzers.state_provider import FileSystemStateProvider
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.reliability import IngestCheckpointer, inject
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-checkpoint-")
+    try:
+        first = IngestCheckpointer(FileSystemStateProvider(root), every=every)
+        t0 = time.perf_counter()
+        with inject(spec) as injector:
+            try:
+                run(dq.RunMonitor(), first)
+            except KeyboardInterrupt:
+                pass
+            else:
+                raise AssertionError(f"{label}: the interrupt did not stop the run")
+        torch.cuda.synchronize()
+        cut = time.perf_counter() - t0
+        if not injector.fired or not first.saves:
+            raise AssertionError(f"{label}: fired {injector.fired}, saves {first.saves}")
+        monitor = dq.RunMonitor()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run(monitor, IngestCheckpointer(FileSystemStateProvider(root), every=every))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[{label}] interrupted at {injector.fired} after {cut:.3f}s with checkpoints at "
+          f"{[i for i, _ in first.saves]}; resumed at batch {monitor.resumed_at_batch}, "
+          f"{monitor.batches} batches in {seconds:.3f}s; checkpoint_saves="
+          f"{monitor.checkpoint_saves}; launches={launches}", flush=True)
+    missing = [k for k in kernels if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{label}: the resumed run launched no {missing}")
+    return out, monitor, first.saves
+
+
+def resumable_device_tier(torch, dq, data, check, rows: int, device_metrics: dict) -> None:
+    """Phase 11 (a): phase 3's run with ``checkpoint_with`` (every 4
+    batches), interrupted before its 7th batch; the resumed run re-enters
+    at batch 4, folds only the 6 batches after it and equals phase 3's
+    uninterrupted run bit for bit."""
+    from deequ_tpu_torch.reliability import FaultSpec
+
+    def run(monitor, checkpointer):
+        return (dq.VerificationSuite.on_data(data, device="cuda").add_check(check)
+                .add_required_analyzer(dq.CountDistinct("cat_large"))
+                .with_monitor(monitor).checkpoint_with(checkpointer).run())
+
+    result, monitor, _ = interrupted_then_resumed(
+        torch, dq, "resume (a) device tier", run,
+        FaultSpec("device_update", "interrupt", at=7), 4, VERIFICATION_KERNELS)
+    batches = -(-rows // BATCH_ROWS)
+    problems = compare_metrics(metric_values(result), device_metrics, 0.0)
+    if monitor.resumed_at_batch != 4 or monitor.batches != batches - 4:
+        problems.append(f"resumed at {monitor.resumed_at_batch} with {monitor.batches} batches")
+    if problems:
+        raise AssertionError("resume (a) disagrees:\n" + "\n".join(problems))
+
+
+def resumable_host_tier(torch, dq, run, want: dict) -> None:
+    """Phase 11 (b): 7 (a)'s run (40 batches of 2^18 rows) with a checkpoint
+    every 8 batches, interrupted at batch 38's host partial; the resumed run
+    re-enters at the chunk boundary 32 and equals 7 (a)'s run bit for
+    bit."""
+    from deequ_tpu_torch.reliability import FaultSpec
+
+    result, monitor, saves = interrupted_then_resumed(
+        torch, dq, "resume (b) host tier", run, FaultSpec("host_partial", "interrupt", match="38"),
+        8, HOST_KERNELS)
+    problems = compare_metrics(metric_values(result), want, 0.0)
+    if [i for i, _ in saves] != [CHUNK] or monitor.resumed_at_batch != CHUNK:
+        problems.append(f"saves {saves}, resumed at {monitor.resumed_at_batch}")
+    if problems:
+        raise AssertionError("resume (b) disagrees:\n" + "\n".join(problems))
+
+
+def resumable_mesh(torch, dq, table: pa.Table) -> None:
+    """Phase 11 (c): the host tier over ``make_mesh(8, device="cuda")`` on
+    ``MESH_CUT_ROWS`` rows in batches of ``MESH_RESUME_BATCH_ROWS``,
+    interrupted at its second chunk fold; the checkpoint (the shards'
+    merged states after the first chunk) resumes on ``make_mesh(4)`` and
+    on the plain host tier. Both equal the uninterrupted mesh run: counts,
+    minima, maxima, HLL and statuses exactly, moments within 1e-12 (the
+    shards' sums associate differently), the quantile within
+    ``HOST_KLL_RANK_LIMIT`` of numpy's."""
+    import shutil
+    import tempfile
+
+    from deequ_tpu_torch.analyzers.state_provider import FileSystemStateProvider
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.parallel import make_mesh
+    from deequ_tpu_torch.reliability import FaultSpec, IngestCheckpointer, inject
+
+    cut = table.slice(0, MESH_CUT_ROWS)
+    quantile = dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR)
+    qkey = metric_key(quantile)
+
+    def run(monitor, shards, checkpointer=None):
+        builder = (dq.VerificationSuite.on_data(dq.Dataset.from_arrow(cut), device="cuda")
+                   .add_check(build_check(dq, cut.num_rows))
+                   .add_required_analyzers([dq.CountDistinct("cat_large"), quantile])
+                   .with_batch_size(MESH_RESUME_BATCH_ROWS).with_placement("host")
+                   .with_monitor(monitor))
+        if shards:
+            builder = builder.with_sharding(make_mesh(shards, device="cuda"))
+        if checkpointer is not None:
+            builder = builder.checkpoint_with(checkpointer)
+        return builder.run()
+
+    want = metric_values(run(dq.RunMonitor(), MESH_SHARDS))
+    root = tempfile.mkdtemp(prefix="chip-smoke-mesh-checkpoint-")
+    problems = []
+    try:
+        first = IngestCheckpointer(FileSystemStateProvider(f"{root}/on8"), every=8)
+        with inject(FaultSpec("ingest_fold", "interrupt", at=2)):
+            try:
+                run(dq.RunMonitor(), MESH_SHARDS, first)
+                problems.append("the interrupt did not stop the mesh run")
+            except KeyboardInterrupt:
+                pass
+        shutil.copytree(f"{root}/on8", f"{root}/copy")
+        for shards, where in ((4, f"{root}/on8"), (0, f"{root}/copy")):
+            monitor = dq.RunMonitor()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got = metric_values(run(monitor, shards, IngestCheckpointer(
+                FileSystemStateProvider(where), every=8)))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k: v for k, v in launch_counts().items() if v}
+            label = f"make_mesh({shards})" if shards else "the plain host tier"
+            print(f"[resume (c) on {label}] checkpoints of the 8-shard run at "
+                  f"{[i for i, _ in first.saves]}; resumed at batch {monitor.resumed_at_batch}, "
+                  f"{monitor.batches} batches in {seconds:.3f}s; launches={launches}",
+                  flush=True)
+            if monitor.resumed_at_batch != CHUNK or (shards and monitor.shard_losses):
+                problems.append(f"{label}: resumed at {monitor.resumed_at_batch}")
+            problems += [f"{label}: {p}" for p in compare_metrics(_without(got, qkey),
+                                                                  _without(want, qkey))]
+            error = _quantile_error(cut, got[qkey])
+            if error > HOST_KLL_RANK_LIMIT:
+                problems.append(f"{label}: ApproxQuantile(a) rank error {error}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if problems:
+        raise AssertionError("resume (c) disagrees:\n" + "\n".join(problems))
+    print("[resume (c) metrics] a checkpoint of the 8-shard mesh resumed on 4 shards and on "
+          "the plain host tier with the uninterrupted mesh run's metrics", flush=True)
 
 
 def _nvidia_smi() -> str:
@@ -4139,6 +4769,9 @@ def main(argv=None) -> int:
     print(f"[metrics] {len(gpu_metrics)} metrics agree with the CPU run and the oracle; "
           f"check status {result.status.value}", flush=True)
     del result, cpu_result
+    # phase 11 (a): the same run interrupted and resumed from a checkpoint
+    with part_seconds("phase 11 (a)"):
+        resumable_device_tier(torch, dq, data, check, ROWS, gpu_metrics)
 
     # phase 7 (a): the same table and checks on the host tier
     host_launches, host_metrics, host_statuses = host_tier_verification(
@@ -4147,6 +4780,9 @@ def main(argv=None) -> int:
     mesh_battery = battery + [dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR)]
     mesh_measured = check_mesh_kernels(torch, dq, data, mesh_battery)
     mesh_launches = mesh_runs(torch, dq, table, host_metrics, host_statuses, gpu_metrics)
+    # phase 11 (c): a mesh checkpoint resumed on a smaller mesh and without one
+    with part_seconds("phase 11 (c)"):
+        resumable_mesh(torch, dq, table)
     cross_process(torch, dq, data, mesh_battery)
     del table, data
 

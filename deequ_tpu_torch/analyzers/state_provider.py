@@ -27,6 +27,7 @@ tensor states live on the CPU; merges move them to the run's device.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 import io as _io
@@ -143,6 +144,9 @@ def copy_state(state: Any) -> Any:
                                      state.group_columns)
     if isinstance(state, ExactQuantileState):
         return state
+    if state is None or isinstance(state, dict):
+        # an ingest checkpoint's meta record (``reliability.checkpoint``)
+        return copy.deepcopy(state)
     return with_leaves(state, [t.detach().clone() for t in state_leaves(state)])
 
 

@@ -464,11 +464,15 @@ class Dataset:
         batch_size: int,
         columns: Optional[Sequence[str]] = None,
         pad_to_batch_size: bool = True,
+        start_batch: int = 0,
     ) -> Iterator[Batch]:
+        """The table's batches of ``batch_size`` rows, from batch
+        ``start_batch`` on (a resumed pass skips what it folded without
+        reading it)."""
         names = list(columns) if columns is not None else self._schema.names
         table = self._table.select(names) if names != self._schema.names else self._table
         n = table.num_rows
-        for start in range(0, max(n, 1), batch_size):
+        for start in range(start_batch * batch_size, max(n, 1), batch_size):
             sl = table.slice(start, batch_size)
             m = min(batch_size, n - start)  # not sl.num_rows: 0-col tables misreport
             cols: Dict[str, Column] = {}

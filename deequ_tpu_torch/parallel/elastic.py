@@ -23,6 +23,11 @@ by construction. So a lost shard costs only its own batches:
 4. **Replay**: every fold records which batches each shard owns; the
    engine recomputes and re-folds exactly the lost shards' batches, so the
    final merge covers every batch once.
+
+Checkpoints compose: the engine checkpoints the canonical merged states
+(:meth:`ElasticMeshFold.canonical`), and :meth:`ElasticMeshFold.seed`
+resumes them as shard 0's state, so a checkpoint taken on 8 shards resumes
+on 4, on 1 or on the plain host tier.
 """
 
 from __future__ import annotations
@@ -236,6 +241,21 @@ class ElasticMeshFold:
         todo = sorted(self._lost_batches)
         self._lost_batches.clear()
         return todo
+
+    def seed(self, canonical: Tuple, folded_batches: int) -> None:
+        """Resume from a checkpoint's canonical states, which cover batches
+        ``[0, folded_batches)`` (the reference's ``ElasticMeshFold.seed``,
+        deequ_tpu/parallel/elastic.py:270). The merge becomes shard 0's
+        state on a mesh of any rung, the other shards start from the
+        identity, and its batches enter shard 0's ledger, so a later loss
+        of shard 0 replays them instead of dropping the resumed history."""
+        if self.host_mode:
+            self.states = tuple(canonical)
+        else:
+            self.states = stack_canonical_states(self.analyzers, tuple(canonical), self.n_dev,
+                                                 self.mesh.home)
+        self._owned = [set() for _ in range(self.n_dev)]
+        self._owned[0] = set(range(int(folded_batches)))
 
     def fold(self, stacked: Tuple, flags, batch_indices: Sequence[int]):
         """Fold one chunk of stacked partials. ``batch_indices`` names the

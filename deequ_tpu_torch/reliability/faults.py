@@ -1,6 +1,6 @@
-"""Deterministic fault injection at named service sites (copied from the
-reference's ``deequ_tpu/reliability/faults.py``, cut to the sites and
-kinds this package has).
+"""Deterministic fault injection at named engine and service sites (copied
+from the reference's ``deequ_tpu/reliability/faults.py``, cut to the sites
+and kinds this package has).
 
 Recovery claims are only worth anything if they are EXERCISED, and real
 device faults cannot be provoked on demand. This module plants cheap
@@ -18,6 +18,16 @@ Instrumented sites (grep ``fault_point(`` for ground truth):
 ===================  ========================================================
 site                 fires
 ===================  ========================================================
+``device_update``    before each device-tier batch's launches, tag = batch
+                     number (1-based)
+``host_partial``     before each host-tier partial, tag = batch index
+``ingest_fold``      before each host-tier chunk fold on the device
+``checkpoint``       before an ingest checkpoint is persisted, tag = batch
+``repository_load``  in the partitioned metrics repository's bucket read,
+                     tag = path
+``partition_store_load``  in ``PartitionStateStore.get``, tag =
+                     ``dataset/partition``
+``lease_acquire``    at a compaction-lease election attempt, tag = lease path
 ``worker``           at job pickup in the service scheduler, tag = worker id
 ``stream_fold``      before a streaming session's fold mutates state
 ``coalesced_fold``   before a coalesced fast/device fold executes a claimed
@@ -27,6 +37,12 @@ site                 fires
 ``shard_probe``      per mesh shard in the heartbeat health probe, tag = shard
 ===================  ========================================================
 
+The ``interrupt`` kind (a ``KeyboardInterrupt`` subclass) at
+``device_update``, ``host_partial`` or ``ingest_fold`` kills a run mid-fold,
+which an ingest checkpoint then resumes; the ``corrupt`` kind (a typed
+``CorruptStateError``) at the two load sites stands in for bit rot or a
+torn write the checksum layer would detect.
+
 The mesh kinds: ``mesh_loss`` (a typed ``ShardLossError`` whose ``lost``
 list carries the spec's ``shard``, default 0) stands in for a device or
 process dying mid-pass: injected at ``sharded_fold`` or
@@ -35,9 +51,10 @@ at ``shard_probe`` it makes the heartbeat declare that shard dead;
 ``shard_stall`` (a typed ``ShardStallError``, the same payload) stands in
 for a shard that wedged without raising.
 
-The engine's other sites (device dispatch, compile, host partials, state
-fetch), the ingest and cluster kinds belong to the reliability wrapper,
-the watchdog and the planes the port has not taken yet (ROADMAP A3, A6).
+The engine's other sites (per-analyzer isolation, compile, device feed,
+state fetch), the ingest and cluster kinds belong to the reliability
+wrapper, the watchdog and the planes the port has not taken yet (ROADMAP
+A6).
 """
 
 from __future__ import annotations
@@ -118,6 +135,13 @@ FAULT_KINDS = (
 #: package names a site listed here, and every site listed here has at
 #: least one live probe (``tests/test_torch_service.py`` checks both).
 KNOWN_FAULT_SITES = frozenset({
+    "device_update",
+    "host_partial",
+    "ingest_fold",
+    "checkpoint",
+    "repository_load",
+    "partition_store_load",
+    "lease_acquire",
     "worker",
     "stream_fold",
     "coalesced_fold",

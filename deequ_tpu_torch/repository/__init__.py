@@ -6,10 +6,10 @@ tag/time/analyzer-filtered multi-result queries
 (reference `repository/MetricsRepository.scala:25-51`,
 `repository/MetricsRepositoryMultipleResultsLoader.scala:27-139`).
 
-A copy of the JAX package's ``deequ_tpu/repository``: the in-memory and
-file-system repositories and the JSON serde (whose files the two packages
-share). The partitioned repository and the partition state store are not
-part of this port yet.
+A copy of the JAX package's ``deequ_tpu/repository``: the in-memory,
+file-system and time-partitioned repositories, the JSON serde, the
+partition state store of incremental verification and the compaction
+lease (whose files the two packages share).
 """
 
 from __future__ import annotations
@@ -150,12 +150,34 @@ class MetricsRepositoryMultipleResultsLoader(abc.ABC):
 
 from .memory import InMemoryMetricsRepository  # noqa: E402
 from .fs import FileSystemMetricsRepository  # noqa: E402
+from .lease import FileLease  # noqa: E402
+from .partitioned import (  # noqa: E402
+    PartitionedMetricsRepository,
+    month_bucket,
+)
+from .partition_store import (  # noqa: E402
+    PartitionManifest,
+    PartitionStateStore,
+    RollupManifest,
+    default_partition_store,
+    partition_bucket,
+    partition_quarantined_total,
+)
 
 __all__ = [
     "AnalysisResult",
+    "FileLease",
     "FileSystemMetricsRepository",
     "InMemoryMetricsRepository",
     "MetricsRepository",
     "MetricsRepositoryMultipleResultsLoader",
+    "PartitionManifest",
+    "PartitionStateStore",
+    "PartitionedMetricsRepository",
     "ResultKey",
+    "RollupManifest",
+    "default_partition_store",
+    "month_bucket",
+    "partition_bucket",
+    "partition_quarantined_total",
 ]

@@ -148,6 +148,7 @@ class AnalysisRunner:
         save_or_append_results_with_key: Optional[Any] = None,
         placement: Optional[str] = None,
         sharding: Optional[Any] = None,
+        checkpointer: Optional[Any] = None,
     ) -> AnalyzerContext:
         """Compute every analyzer's metric in one pass over ``data``.
         ``freq_table_slots`` and ``freq_buffer_entries`` size the device
@@ -162,7 +163,15 @@ class AnalysisRunner:
         :class:`~deequ_tpu_torch.parallel.Mesh` to shard the pass's rows
         over (either tier; the batch size rounds up to
         ``mesh_batch_quantum``); the run then lies on the mesh's first
-        device, and ``device``, when given, must be of its type."""
+        device, and ``device``, when given, must be of its type.
+        ``checkpointer`` (a
+        :class:`~deequ_tpu_torch.reliability.IngestCheckpointer`) makes the
+        pass resumable (``ScanEngine.run``): a run interrupted mid-pass and
+        called again with a checkpointer over the same provider restarts
+        from its last checkpoint, with the metrics of an uninterrupted run.
+        A battery with a host-exclusive analyzer (the exact quantile mode,
+        whose states do not persist) runs without checkpoints, with a
+        warning; a device frequency table's re-run pass never checkpoints."""
         dev = _run_device(device, sharding)
         if placement is not None and placement not in PLACEMENTS:
             raise ValueError(f"placement must be one of {PLACEMENTS}, got {placement!r}")
@@ -202,6 +211,13 @@ class AnalysisRunner:
                 passed.append(a)
             else:
                 failures[a] = a.to_failure_metric(exc)
+        if checkpointer is not None and any(getattr(a, "host_exclusive", False)
+                                            for a in passed):
+            logging.getLogger(__name__).warning(
+                "ingest checkpointing is not supported with host-exclusive analyzers (the "
+                "exact quantile mode, whose raw-value states are not persistable); running "
+                "without checkpoints")
+            checkpointer = None
 
         # validate each analyzer's features on a synthetic 1-row batch so a
         # bad predicate/regex fails only that analyzer, not the shared scan
@@ -255,7 +271,8 @@ class AnalysisRunner:
         batch_rows = effective_batch_size(batch_size, sharding)
         table_scans: Dict[Tuple[str, ...], DeviceFrequencyTableScan] = {}
         host_sets: List[Tuple[str, ...]] = []
-        tables_ok = (slim and device_freq and any(c not in dict_sets for c in grouping_sets)
+        tables_ok = (slim and checkpointer is None and device_freq
+                     and any(c not in dict_sets for c in grouping_sets)
                      and _device_tier_expected(scanning, placement, dev))
         for cols, members in grouping_sets.items():
             if cols in dict_sets:
@@ -282,7 +299,8 @@ class AnalysisRunner:
             return _results(results_loaded + AnalyzerContext(failures), metrics_repository,
                             save_or_append_results_with_key)
         states, shared, host_errors = _run_pass(data, battery, host_sets, batch_size, dev,
-                                                run_monitor, placement, sharding, host_accum)
+                                                run_monitor, placement, sharding, host_accum,
+                                                checkpointer)
         by_analyzer = dict(zip(battery, states))
 
         # drain the device frequency tables; a table that dropped groups
@@ -458,7 +476,7 @@ def _run_device(device, sharding):
 def _run_pass(data: Dataset, battery: Sequence[ScanShareableAnalyzer],
               host_sets: Sequence[Tuple[str, ...]], batch_size: Optional[int], device,
               monitor: RunMonitor, placement: Optional[str] = None, sharding=None,
-              host_accum: Sequence[Analyzer] = (),
+              host_accum: Sequence[Analyzer] = (), checkpointer: Optional[Any] = None,
               ) -> Tuple[List[Any], Dict[Any, Any], Dict[Any, BaseException]]:
     """One pass: ``battery`` on the ingest tier ``placement`` resolves to
     (row-sharded over the mesh ``sharding``), a host group-by per set of
@@ -467,7 +485,8 @@ def _run_pass(data: Dataset, battery: Sequence[ScanShareableAnalyzer],
     set's :class:`FrequenciesAndNumRows` by its columns, an accumulator's by
     the analyzer) and the errors of the host folds that raised, by the same
     keys: such a fold stops, and its state is dropped (the reference's
-    guarded host updates, deequ_tpu/reliability/isolation.py:116)."""
+    guarded host updates, deequ_tpu/reliability/isolation.py:116).
+    ``checkpointer`` makes the pass resumable (``ScanEngine.run``)."""
     engine = ScanEngine(battery, device, monitor=monitor, placement=placement,
                         sharding=sharding)
     states: Dict[Any, Any] = {
@@ -499,6 +518,7 @@ def _run_pass(data: Dataset, battery: Sequence[ScanShareableAnalyzer],
         columns=_columns_needed(engine, data.schema, host_sets, host_accum),
         host_accumulators=states,
         host_update_fns={key: guarded(key, fn) for key, fn in update.items()},
+        checkpointer=checkpointer,
     )
     for key in errors:
         states.pop(key, None)

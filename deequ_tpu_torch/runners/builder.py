@@ -76,6 +76,13 @@ class AnalysisRunBuilder:
         self._sharding = sharding
         return self
 
+    def checkpoint_with(self, checkpointer) -> "AnalysisRunBuilder":
+        """Make the pass resumable through an
+        :class:`~deequ_tpu_torch.reliability.IngestCheckpointer`
+        (:meth:`AnalysisRunner.do_analysis_run`'s ``checkpointer``)."""
+        self._state_options["checkpointer"] = checkpointer
+        return self
+
     def with_frequency_options(self, **options) -> "AnalysisRunBuilder":
         """``freq_table_slots``, ``freq_buffer_entries`` and ``device_freq``
         of :meth:`AnalysisRunner.do_analysis_run`."""

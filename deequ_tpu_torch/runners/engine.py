@@ -27,8 +27,9 @@ shards' contiguous slices (:meth:`BundledScanProgram.call_sharded`); on
 the host tier each shard folds its slice of every chunk of partials into
 its own states through the elastic fold (``parallel.elastic``), which
 survives the loss of shards, and the pass ends in the collective merge.
-The reliability wrapper, the watchdog and checkpoints are not part of the
-port; any other device failure raises.
+An ingest checkpointer (``checkpointer=``, ``reliability.checkpoint``)
+makes a pass resumable on every tier. The reliability wrapper and the
+watchdog are not part of the port; any other device failure raises.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ from ..kernels.kll_compact import kll_compact_ingest
 from ..kernels.scan_reduce import MAX_SLOTS, partials, scan_reduce, scan_reduce_stacked
 from ..kernels.state_fold import state_fold_carry
 from ..ops.kll import KLLSketchState
+from ..reliability.faults import fault_point
 from ..utils import BoundedLRU
 from .features import FeatureBuilder
 
@@ -99,7 +101,15 @@ class RunMonitor:
     ``isolation_reruns``, ``stalls``, ``device_stalls``, ``degraded``),
     which stay 0 and empty: the port has no reliability wrapper. A run
     over a mesh counts ``shard_losses``, ``mesh_reshards`` and
-    ``salvaged_states`` and notes its re-shards in ``degraded``."""
+    ``salvaged_states`` and notes its re-shards in ``degraded``.
+
+    Resumable ingest and incremental runs: ``checkpoint_saves`` (phase
+    ``checkpoint``), ``resumed_at_batch`` (the batch a resumed pass
+    re-entered at, None for a fresh one), the delta planner's
+    ``partitions_scanned`` / ``partitions_reused`` /
+    ``partitions_invalidated`` / ``partitions_dropped``, the partitions a
+    merge took from the rollup cache (``partitions_rolled_up``) and the
+    corrupt payloads quarantined or discarded (``corrupt_quarantined``)."""
 
     passes: int = 0
     batches: int = 0
@@ -127,6 +137,14 @@ class RunMonitor:
     shard_losses: int = 0
     mesh_reshards: int = 0
     salvaged_states: int = 0
+    checkpoint_saves: int = 0
+    resumed_at_batch: Optional[int] = None
+    partitions_scanned: int = 0
+    partitions_reused: int = 0
+    partitions_invalidated: int = 0
+    partitions_dropped: int = 0
+    partitions_rolled_up: int = 0
+    corrupt_quarantined: int = 0
     _lock: Any = field(default_factory=threading.Lock, repr=False, compare=False)
 
     #: the counters :meth:`merge_from` adds up
@@ -135,6 +153,9 @@ class RunMonitor:
         "device_freq_sets", "freq_overflow_fallbacks", "ingest_folds",
         "device_failovers", "batch_bisections", "isolation_reruns", "stalls",
         "device_stalls", "shard_losses", "mesh_reshards", "salvaged_states",
+        "checkpoint_saves", "partitions_scanned", "partitions_reused",
+        "partitions_invalidated", "partitions_dropped", "partitions_rolled_up",
+        "corrupt_quarantined",
     )
 
     def add_phase_time(self, phase: str, seconds: float) -> None:
@@ -179,6 +200,8 @@ class RunMonitor:
                 self.placement = other.placement
             if other.device is not None:
                 self.device = other.device
+            if other.resumed_at_batch is not None:
+                self.resumed_at_batch = other.resumed_at_batch
 
     def timed(self, phase: str) -> "_PhaseTimer":
         return _PhaseTimer(self, phase)
@@ -554,6 +577,18 @@ class HostIngest:
             leaves = [init[i].tensors() for i in idx]
             stacked.extend(torch.stack(list(col)).contiguous() for col in zip(*leaves))
 
+    def seed(self, states: Sequence[Any]) -> None:
+        """Start the carry and the stacked sketches from ``states`` (a
+        resumed checkpoint's, in battery order) in place of the identity."""
+        if self.jobs:
+            jobs = [[s] for s, kll in zip(states, self.sketch_of) if not kll]
+            self.carry = [m[0].contiguous().to(self.device) for m in
+                          pack_states(jobs, self.layout)[0]]
+        for idx, stacked in self.sketch_groups.values():
+            cols = zip(*[states[i].tensors() for i in idx])
+            stacked[:] = [torch.stack([t.to(self.device, ref.dtype) for t in col]).contiguous()
+                          for col, ref in zip(cols, list(stacked))]
+
     def pack(self, partials: Sequence[Any]) -> Tuple[List[torch.Tensor], List[Any]]:
         """One batch's partials as three packed host rows (float64, int64,
         int32) and its KLL samples."""
@@ -631,12 +666,22 @@ class ScanEngine:
         columns: Optional[Sequence[str]] = None,
         host_accumulators: Optional[Dict[Any, Any]] = None,
         host_update_fns: Optional[Dict[Any, Callable[[Any, Any], Any]]] = None,
+        checkpointer: Optional[Any] = None,
     ) -> List[Any]:
         """Fold every batch into the analyzers' states; returns the states
         on the host, in analyzer order. ``host_accumulators`` (key -> state)
         fold each batch on the host in the same pass, through
         ``host_update_fns[key](state, batch)``; the dict is updated in
-        place."""
+        place. ``checkpointer`` (a
+        :class:`~deequ_tpu_torch.reliability.IngestCheckpointer`) persists
+        the pass's states every ``checkpointer.every`` batches (on the host
+        tier at the first chunk boundary past that, the mesh's states
+        merged), and a pass over data of the same shape then restarts from
+        its last checkpoint with the batch indices it had; a checkpointed
+        pass rounds its batch size to the re-shard ladder's quantum, mesh or
+        not, so its checkpoints resume on any mesh shape and on the plain
+        host tier (the reference's ``ScanEngine.run``,
+        deequ_tpu/runners/engine.py:2015-2075)."""
         from ..native import pattern_routes
 
         monitor = self.monitor
@@ -645,17 +690,27 @@ class ScanEngine:
         monitor.device = str(self.device)
         if not self.scan_analyzers and not host_states:
             return []
-        bs = effective_batch_size(batch_size, self.mesh)
+        bs = effective_batch_size(batch_size, self.mesh, checkpointed=checkpointer is not None)
         tier = resolve_scan_placement(self.scan_analyzers, self.placement, self.device, monitor)
         monitor.placement = tier
+        ckpt = None
+        if checkpointer is not None:
+            ckpt = _PassCheckpoint(checkpointer, bs, data, self.scan_analyzers, host_states,
+                                   monitor)
         routes = pattern_routes()
         try:
             if tier == "host" and self.mesh is not None:
-                return self._run_host_tier_mesh(data, bs, columns, host_states,
-                                                host_update_fns)
-            if tier == "host":
-                return self._run_host_tier(data, bs, columns, host_states, host_update_fns)
-            return self._run_device_tier(data, bs, columns, host_states, host_update_fns)
+                states = self._run_host_tier_mesh(data, bs, columns, host_states,
+                                                  host_update_fns, ckpt)
+            elif tier == "host":
+                states = self._run_host_tier(data, bs, columns, host_states, host_update_fns,
+                                             ckpt)
+            else:
+                states = self._run_device_tier(data, bs, columns, host_states,
+                                               host_update_fns, ckpt)
+            if ckpt is not None:
+                ckpt.complete()
+            return states
         finally:
             for route, n in pattern_routes().items():
                 if n > routes[route]:
@@ -663,11 +718,17 @@ class ScanEngine:
                         monitor.pattern_routes.get(route, 0) + n - routes[route])
 
     def _run_device_tier(self, data: Dataset, bs: int, columns, host_states,
-                         host_update_fns) -> List[Any]:
+                         host_update_fns, ckpt: Optional["_PassCheckpoint"] = None) -> List[Any]:
         monitor = self.monitor
         states = self.program.init_states(self.device)
-        for batch in data.batches(bs, columns=columns):
+        start = 0
+        if ckpt is not None and ckpt.resume is not None:
+            start = ckpt.start
+            states = ckpt.resumed_states(states, self.device)
+        for index, batch in enumerate(data.batches(bs, columns=columns, start_batch=start),
+                                      start):
             if self.scan_analyzers:
+                fault_point("device_update", tag=str(index + 1))
                 with monitor.timed("feature_build"):
                     host_features = self.builder.build(batch, monitor.phase_seconds)
                 with monitor.timed("host_to_device"):
@@ -687,13 +748,16 @@ class ScanEngine:
                     for key, fn in host_update_fns.items():
                         host_states[key] = fn(host_states[key], batch)
             monitor.batches += 1
+            if ckpt is not None and (index + 1) % ckpt.every == 0:
+                ckpt.save(index + 1, states)
         if not self.scan_analyzers:
             return []
         with monitor.timed("state_fetch"):
             return fetch_states(states)
 
     def _host_pipeline(self, data: Dataset, bs: int, columns, host_states, host_update_fns,
-                       chunk: int, compute_partial, fold) -> None:
+                       chunk: int, compute_partial, fold, start: int = 0, host_start: int = 0,
+                       after_fold: Optional[Callable[[int, int], None]] = None) -> None:
         """The host tier's pipeline (the reference's ``_run_host_tier``,
         deequ_tpu/runners/engine.py:2223): a pool of ``os.cpu_count()``
         threads computes each batch's partial (``compute_partial(index,
@@ -701,13 +765,17 @@ class ScanEngine:
         partials fold in submission order (the KLL sampler's offset keys on
         the batch index) through ``fold(partials, first_index)`` in chunks
         of ``chunk``, the last chunk holding what is left. Host accumulators
-        fold each batch on the submitting thread meanwhile."""
+        fold each batch on the submitting thread meanwhile. A resumed pass
+        starts at batch ``start`` (a chunk boundary), its host accumulators
+        at ``host_start``; ``after_fold(folded, submitted)`` runs after each
+        full chunk's fold (the checkpoints)."""
         monitor = self.monitor
         workers = os.cpu_count() or 1
         window = workers + chunk
         pending: deque = deque()
         buffer: List[Any] = []
-        folded = 0
+        folded = start
+        submitted = start
 
         def drain_one() -> None:
             nonlocal folded
@@ -716,14 +784,18 @@ class ScanEngine:
                 fold(list(buffer), folded)
                 folded += chunk
                 buffer.clear()
+                if after_fold is not None:
+                    after_fold(folded, submitted)
 
         with ThreadPoolExecutor(max_workers=workers) as pool:
             for index, batch in enumerate(
-                data.batches(bs, columns=columns, pad_to_batch_size=False)
+                data.batches(bs, columns=columns, pad_to_batch_size=False, start_batch=start),
+                start,
             ):
                 monitor.batches += 1
                 pending.append(pool.submit(compute_partial, index, batch))
-                if host_states:
+                submitted = index + 1
+                if host_states and index >= host_start:
                     with monitor.timed("host_accumulators"):
                         for key, fn in host_update_fns.items():
                             host_states[key] = fn(host_states[key], batch)
@@ -735,18 +807,23 @@ class ScanEngine:
             fold(list(buffer), folded)
 
     def _run_host_tier(self, data: Dataset, bs: int, columns, host_states,
-                       host_update_fns) -> List[Any]:
+                       host_update_fns, ckpt: Optional["_PassCheckpoint"] = None) -> List[Any]:
         """The host ingest tier on one device: :meth:`_host_pipeline` in
         chunks of 32, each chunk one fold into the carry."""
         monitor = self.monitor
         analyzers = self.scan_analyzers
         ingest = HostIngest(analyzers, self.device)
+        start = host_start = 0
+        if ckpt is not None and ckpt.resume is not None:
+            start, host_start = ckpt.start, ckpt.host_start
+            ingest.seed(ckpt.resumed_states(ingest.states(), self.device))
         # one token per pass: host partials may skip what an earlier batch
         # of the SAME pass contributed (the HLL dictionary memo), never
         # across passes
         run_token = object()
 
         def compute_partial(index: int, batch) -> Tuple[List[torch.Tensor], List[Any]]:
+            fault_point("host_partial", tag=str(index))
             t0 = time.perf_counter()
             ctx = HostBatchContext(batch, batch_index=index, run_token=run_token)
             packed = ingest.pack([a.host_partial(ctx) for a in analyzers])
@@ -754,19 +831,26 @@ class ScanEngine:
             return packed
 
         def fold(chunk, first: int) -> None:
+            fault_point("ingest_fold")
             with monitor.timed("ingest_fold") as timer:
                 ingest.fold(chunk)
                 synchronize(self.device)
             monitor.attribute(self.cost_keys, timer.seconds)
             monitor.ingest_folds += 1
 
+        def after_fold(folded: int, submitted: int) -> None:
+            if ckpt.due(folded):
+                ckpt.save(folded, ingest.states(), host_batch_index=submitted)
+
         self._host_pipeline(data, bs, columns, host_states, host_update_fns, INGEST_CHUNK,
-                            compute_partial, fold)
+                            compute_partial, fold, start, host_start,
+                            after_fold if ckpt is not None else None)
         with monitor.timed("state_fetch"):
             return fetch_states(ingest.states())
 
     def _run_host_tier_mesh(self, data: Dataset, bs: int, columns, host_states,
-                            host_update_fns) -> List[Any]:
+                            host_update_fns, ckpt: Optional["_PassCheckpoint"] = None
+                            ) -> List[Any]:
         """The host tier over a mesh (the reference's ``_run_host_tier`` with a
         mesh, deequ_tpu/runners/engine.py:2248-2264, 2480-2550):
         :meth:`_host_pipeline` computes each batch's partials as on one
@@ -777,7 +861,9 @@ class ScanEngine:
         ``kll_compact_ingest`` over every shard's sketches); the last chunk is
         padded with flagged-off partials. Batches lost with dead shards are
         recomputed (with a fresh memo token) and re-folded, then the pass ends
-        in the collective merge (``ElasticMeshFold.finish``)."""
+        in the collective merge (``ElasticMeshFold.finish``). Checkpoints
+        hold the shards' merged (canonical) states, which a resume seeds
+        into shard 0 of whatever mesh it runs on (``ElasticMeshFold.seed``)."""
         from ..observability import trace as _trace
         from ..parallel import ElasticMeshFold
         from ..parallel.dcn import stack_partials
@@ -788,9 +874,16 @@ class ScanEngine:
         local_chunk = max(1, INGEST_CHUNK // mesh.size)
         chunk = local_chunk * mesh.size
         elastic = ElasticMeshFold(analyzers, mesh, monitor=monitor)
+        start = host_start = 0
+        if ckpt is not None and ckpt.resume is not None:
+            start, host_start = ckpt.start, ckpt.host_start
+            home = mesh.home
+            elastic.seed(tuple(ckpt.resumed_states(
+                [a.init_state(home) for a in analyzers], home)), start)
         run_token = object()
 
         def compute_partial(index: int, batch, token=None) -> Tuple:
+            fault_point("host_partial", tag=str(index))
             t0 = time.perf_counter()
             ctx = HostBatchContext(batch, batch_index=index,
                                    run_token=run_token if token is None else token)
@@ -803,15 +896,26 @@ class ScanEngine:
             group = group + [group[0]] * (chunk - n_real)
             flags = np.zeros(chunk, dtype=bool)
             flags[:n_real] = True
+            fault_point("ingest_fold")
             with monitor.timed("ingest_fold") as timer:
                 elastic.fold(stack_partials(analyzers, group), flags, indices)
                 synchronize(elastic.mesh.home if not elastic.host_mode else None)
             monitor.attribute(self.cost_keys, timer.seconds)
             monitor.ingest_folds += 1
 
+        def after_fold(folded: int, submitted: int) -> None:
+            # a shard loss leaves batches awaiting replay, which the merge
+            # does not cover yet: no checkpoint until they are back
+            if not ckpt.due(folded) or elastic.pending_replay:
+                return
+            canonical = elastic.canonical()
+            if not elastic.pending_replay:
+                ckpt.save(folded, list(canonical), host_batch_index=submitted)
+
         self._host_pipeline(
             data, bs, columns, host_states, host_update_fns, chunk, compute_partial,
-            lambda group, first: fold(group, list(range(first, first + len(group)))))
+            lambda group, first: fold(group, list(range(first, first + len(group)))),
+            start, host_start, after_fold if ckpt is not None else None)
 
         def replay_pending() -> None:
             # a fresh memo token per round: the pass token's cross-batch skip
@@ -850,18 +954,69 @@ class ScanEngine:
             return fetch_states(states)
 
 
-def effective_batch_size(batch_size: Optional[int] = None, mesh=None) -> int:
+def effective_batch_size(batch_size: Optional[int] = None, mesh=None,
+                         checkpointed: bool = False) -> int:
     """The rows per batch of a pass (every batch of the device tier is
-    padded to it); over a mesh, rounded up to ``mesh_batch_quantum``, so
-    every batch splits evenly over the shards and keeps its boundaries
-    when the mesh shrinks a rung (deequ_tpu/runners/engine.py:2021)."""
+    padded to it); over a mesh, or with an ingest checkpointer, rounded up
+    to ``mesh_batch_quantum``, so every batch splits evenly over the shards
+    and keeps its boundaries when the mesh shrinks a rung, and a checkpoint
+    pins the same batch size on any mesh shape and without one
+    (deequ_tpu/runners/engine.py:2021-2033)."""
     bs = int(batch_size or DEFAULT_BATCH_SIZE)
-    if mesh is not None:
+    if mesh is not None or checkpointed:
         from ..parallel import mesh_batch_quantum
 
-        q = mesh_batch_quantum(mesh.size)
+        q = mesh_batch_quantum(1 if mesh is None else mesh.size)
         bs = -(-bs // q) * q
     return bs
+
+
+class _PassCheckpoint:
+    """A pass's side of its ingest checkpointer: the epoch that fences
+    earlier passes, the resume point (``start``, the first batch the pass
+    folds; ``host_start``, the host accumulators'), and the saves."""
+
+    def __init__(self, checkpointer, bs: int, data: Dataset, analyzers: Sequence[Any],
+                 host_states: Dict[Any, Any], monitor: RunMonitor):
+        self.checkpointer = checkpointer
+        self.every = checkpointer.every
+        self.bs = bs
+        self.num_rows = int(data.num_rows)
+        self.analyzers = list(analyzers)
+        self.host_states = host_states
+        self.monitor = monitor
+        self.epoch = checkpointer.begin_run()
+        self.resume = checkpointer.load(bs, self.num_rows, self.analyzers, list(host_states),
+                                        monitor=monitor)
+        self.start = self.host_start = 0
+        if self.resume is not None:
+            self.start = self.resume.batch_index
+            self.host_start = self.resume.host_batch_index
+            monitor.resumed_at_batch = self.start
+            host_states.update(self.resume.host_states)
+        self.saved = self.start
+
+    def resumed_states(self, templates: Sequence[Any], device: torch.device) -> List[Any]:
+        """The checkpoint's scan states as copies on ``device``, each leaf in
+        its template's dtype (a loaded state lies on the CPU)."""
+        return [with_leaves(s, [leaf.to(device=device, dtype=t.dtype, copy=True)
+                                for leaf, t in zip(state_leaves(s), state_leaves(tmpl))])
+                for s, tmpl in zip(self.resume.scan_states, templates)]
+
+    def due(self, folded: int) -> bool:
+        return folded - self.saved >= self.every
+
+    def save(self, folded: int, states: Sequence[Any],
+             host_batch_index: Optional[int] = None) -> None:
+        with self.monitor.timed("checkpoint"):
+            self.checkpointer.save(folded, self.bs, self.num_rows, self.analyzers,
+                                   fetch_states(states), self.host_states,
+                                   host_batch_index=host_batch_index, epoch=self.epoch)
+        self.monitor.bump("checkpoint_saves")
+        self.saved = folded
+
+    def complete(self) -> None:
+        self.checkpointer.complete(self.epoch)
 
 
 # ---------------------------------------------------------------------------

@@ -35,9 +35,15 @@ Usage::
     print(service.prometheus_text())
     service.close()
 
+Partition-aware incremental verification: ``partition_store=`` (a
+:class:`~deequ_tpu_torch.repository.PartitionStateStore`, a path, or None
+for ``DEEQU_TPU_PARTITION_STORE``) backs
+:meth:`VerificationService.submit_partitioned_verification`, and streaming
+sessions flush their states into it as partitions when they close.
+
 Not ported: the mesh and the fleet scheduler (ROADMAP A5b), the tenant
-catalog, the fleet watch and the tuning controller (A6), partition stores
-and partitioned verification (A3); each raises naming its item.
+catalog, the fleet watch and the tuning controller (A6); each raises
+naming its item.
 """
 
 from __future__ import annotations
@@ -106,8 +112,6 @@ class VerificationService:
             raise _not_ported("a device mesh", "A5b")
         if fleet:
             raise _not_ported("the fleet scheduler", "A5b")
-        if partition_store is not None:
-            raise _not_ported("a partition store", "A3")
         if catalog is not None:
             raise _not_ported("the tenant catalog", "A6")
         #: every run and fold of this service goes to this device
@@ -123,6 +127,19 @@ class VerificationService:
             router=self.router,
         )
         self.state_root = state_root
+        # the store incremental verification diffs against; sessions flush
+        # into it on close
+        from ..repository.partition_store import (
+            PartitionStateStore,
+            default_partition_store,
+        )
+
+        if partition_store is None:
+            self.partition_store = default_partition_store()
+        elif isinstance(partition_store, str):
+            self.partition_store = PartitionStateStore(partition_store)
+        else:
+            self.partition_store = partition_store
         #: cross-session fold coalescing + tiny-delta host fast path
         #: (DEEQU_TPU_COALESCE=0 bypasses it per ingest, exactly
         #: reproducing the serial path)
@@ -209,11 +226,61 @@ class VerificationService:
         timeout = kw.pop("timeout", None)
         return self.submit_verification(data, checks, **kw).result(timeout)
 
-    def submit_partitioned_verification(self, *args, **kwargs):
-        raise _not_ported("partition-aware incremental verification", "A3")
+    def submit_partitioned_verification(
+        self,
+        dataset_name: str,
+        partitions,
+        checks: Sequence[Check],
+        *,
+        checksums=None,
+        required_analyzers: Sequence[Analyzer] = (),
+        tenant: str = "default",
+        priority: Priority = Priority.NORMAL,
+        deadline_s: Optional[float] = None,
+        max_retries: int = 0,
+        batch_size: Optional[int] = None,
+        store=None,
+        metrics_repository: Optional[Any] = None,
+        save_or_append_results_with_key: Optional[Any] = None,
+        delete_dropped: bool = False,
+    ) -> JobHandle:
+        """Queue one incremental verification run against the service's
+        partition store (or ``store``): the delta planner diffs
+        ``partitions`` against it, scans only new or changed partitions on
+        the service's device and checks the merge of stored and fresh
+        states (``VerificationSuite.verify_partitioned``). The job's
+        partition counters go to the export plane per tenant
+        (``deequ_service_partitions_*_total``). ``max_retries`` defaults to
+        0: a scan persists states and commits manifests as it goes, so a
+        re-run after a partial failure re-plans and reuses what committed."""
+        from ..verification import VerificationSuite
 
-    def verify_partitioned(self, *args, **kwargs):
-        raise _not_ported("partition-aware incremental verification", "A3")
+        target = store if store is not None else self.partition_store
+        if target is None:
+            raise ValueError(
+                "no partition store: pass store=, construct the service with "
+                "partition_store=, or set DEEQU_TPU_PARTITION_STORE"
+            )
+        checks = list(checks)
+        required = list(required_analyzers)
+
+        def run(ctx: JobContext):
+            return VerificationSuite.verify_partitioned(
+                target, dataset_name, partitions, checks, required, checksums=checksums,
+                batch_size=batch_size, monitor=ctx.monitor, placement=ctx.placement,
+                metrics_repository=metrics_repository,
+                save_or_append_results_with_key=save_or_append_results_with_key,
+                delete_dropped=delete_dropped, device=self.device,
+            )
+
+        return self.scheduler.submit(run, tenant=tenant, priority=priority,
+                                     deadline_s=deadline_s, max_retries=max_retries)
+
+    def verify_partitioned(self, dataset_name: str, partitions, checks: Sequence[Check], **kw):
+        """Blocking convenience of :meth:`submit_partitioned_verification`."""
+        timeout = kw.pop("timeout", None)
+        return self.submit_partitioned_verification(dataset_name, partitions, checks,
+                                                    **kw).result(timeout)
 
     def watch_metrics(self, *args, **kwargs):
         raise _not_ported("the fleet watch", "A6")

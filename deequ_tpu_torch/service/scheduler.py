@@ -253,6 +253,34 @@ class JobScheduler:
             "measured compile+dispatch seconds split across its slots, "
             "labeled by analyzer repr.",
         )
+        # incremental verification: the delta planner's partition decisions
+        # (the reference's series, deequ_tpu/service/scheduler.py:341-366)
+        self.metrics.describe(
+            "deequ_service_partitions_scanned_total",
+            "Partitions the incremental delta planner scheduled a scan "
+            "for (new + invalidated).",
+        )
+        self.metrics.describe(
+            "deequ_service_partitions_reused_total",
+            "Partitions served from stored algebraic states with zero "
+            "data touched.",
+        )
+        self.metrics.describe(
+            "deequ_service_partitions_invalidated_total",
+            "Stored partitions that went stale (content change, "
+            "fingerprint mismatch, battery growth, corruption) and were "
+            "re-scanned.",
+        )
+        self.metrics.describe(
+            "deequ_service_partitions_dropped_total",
+            "Stored partitions absent from an incoming partition set — "
+            "excluded from the merge by re-merge semantics.",
+        )
+        self.metrics.describe(
+            "deequ_service_partitions_rolled_up_total",
+            "Partitions served by the rollup cache (the persisted "
+            "left-fold prefix) — neither data nor state blobs touched.",
+        )
         self.metrics.set_gauge_fn(
             "deequ_service_queue_depth", self.pending,
             "Jobs admitted but not yet running.",
@@ -816,6 +844,12 @@ class JobScheduler:
                 ("deequ_service_degraded_analyzers_total",
                  float(len(monitor.degraded)), tenant_label)
             )
+        # the delta planner's per-run partition decisions, per tenant
+        for field_name in ("scanned", "reused", "invalidated", "dropped", "rolled_up"):
+            value = getattr(monitor, f"partitions_{field_name}")
+            if value:
+                updates.append((f"deequ_service_partitions_{field_name}_total", float(value),
+                                tenant_label))
         if flush:
             self.metrics.inc_many(updates)
 

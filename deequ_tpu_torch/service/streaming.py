@@ -26,8 +26,13 @@ promised) are coerced and counted; incompatible drift (column added,
 dropped, retyped) raises a typed ``SchemaDriftError`` with the persisted
 states untouched, or coerces/degrades per the session's ``drift_policy``.
 
+A session of a service with a partition store flushes its cumulative
+states into it as partition ``session-<tenant>`` when it closes
+(:meth:`StreamingSession.flush_to_partition`), for incremental
+verification to reuse.
+
 Not ported here: the row gate and tenant quotas (the catalog's ingest
-plane, ROADMAP A6) and the flush into a partition store (ROADMAP A3).
+plane, ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -748,17 +753,78 @@ class StreamingSession:
     def closed(self) -> bool:
         return self._closed
 
-    def flush_to_partition(self, store=None, partition: Optional[str] = None):
-        """Flush the session's cumulative states into a partition store:
-        the partition store is not ported (ROADMAP A3)."""
-        raise NotImplementedError(
-            "flush_to_partition needs repository/partition_store.py, which "
-            "deequ_tpu_torch has not ported yet (ROADMAP A3)"
+    def flush_to_partition(self, store=None, partition: Optional[str] = None
+                           ) -> Optional[str]:
+        """Flush the session's cumulative states into a partition store as
+        one partition of ``self.dataset`` (the reference's
+        ``flush_to_partition``, deequ_tpu/service/streaming.py:844): a
+        finished ingestion window becomes a partition that incremental
+        verification reuses. ``store`` defaults to the service's partition
+        store, ``partition`` to ``session-<tenant>``. Returns the partition
+        name, or None when there is no store or the session never folded a
+        batch. Each flush overwrites the partition with the newest states
+        and a version token made from the fold counters; :meth:`close`
+        flushes when the service has a store."""
+        with self._serial:
+            return self._flush_to_partition_locked(store, partition)
+
+    def _flush_to_partition_locked(self, store=None, partition=None):
+        store = store if store is not None else getattr(self.service, "partition_store", None)
+        if store is None or self.batches_ingested == 0 or self._schema is None:
+            return None
+        from ..integrity import checksum_json
+        from ..observability import trace as _trace
+        from ..runners.incremental import analyzer_key, contract_fingerprint
+
+        name = partition or f"session-{self.tenant}"
+        keys = []
+        provider = store.provider(self.dataset, name)
+        store.invalidate(self.dataset, name)
+        for a in self._analyzers:
+            state = self.provider.load(a)
+            if state is None:
+                continue
+            provider.persist(a, state)
+            keys.append(analyzer_key(a))
+        # the schema contract goes with the states: a session re-opened
+        # against this partition's provider loads it, so its drift policy
+        # holds across the move
+        contract_path = getattr(provider, "path", None)
+        if contract_path is not None:
+            from .. import io as dio
+
+            self._store_contract(dio.join(contract_path, self._CONTRACT_FILENAME))
+        store.commit(
+            self.dataset, name,
+            fingerprint=contract_fingerprint(self._schema),
+            # the version token: a digest of the fold counters, so a
+            # re-flush after more folds reads as changed
+            content_checksum=checksum_json({
+                "batches": self.batches_ingested,
+                "rows": self.rows_ingested,
+                "bytes": self.bytes_ingested,
+            }),
+            num_rows=self.rows_ingested,
+            analyzer_keys=keys,
+            schema=[(c.name, c.kind.value) for c in self._schema.columns],
         )
+        _trace.add_event("session_flushed_to_partition", dataset=self.dataset,
+                         partition=name, rows=self.rows_ingested)
+        return name
 
     def close(self) -> None:
         with self._serial:
+            if self._closed:
+                return
             self._closed = True
+            # a session of a service with a partition store flushes its
+            # cumulative states as a partition on close (best effort:
+            # closing never fails on a full disk)
+            try:
+                self._flush_to_partition_locked()
+            except Exception:  # noqa: BLE001 - the flush is an optimization
+                _logger.warning("could not flush session %s/%s states to the partition "
+                                "store", self.tenant, self.dataset, exc_info=True)
 
 
 def session_key(tenant: str, dataset: str) -> Tuple[str, str]:

@@ -8,8 +8,13 @@ the resulting AnalyzerContext and reports an overall status
 28-341`, `VerificationResult.scala:33-119`). A run can merge loaded states
 (``aggregate_with``), persist its states (``save_states_with``), keep its
 metrics in a repository and check the newest metrics against their history
-(``use_repository(...).add_anomaly_check(...)``); partition-aware
-incremental verification is not part of this port yet.
+(``use_repository(...).add_anomaly_check(...)``), and resume an
+interrupted pass from an ingest checkpoint (``checkpoint_with``).
+Partition-aware incremental verification (``on_partitions`` /
+``verify_partitioned``) diffs an incoming partition set against a
+:class:`~deequ_tpu_torch.repository.PartitionStateStore`, scans only new
+or changed partitions and checks the merge of stored and fresh states
+(``runners/incremental.py``).
 """
 
 from __future__ import annotations
@@ -96,6 +101,19 @@ class VerificationResult:
         return json.dumps(df.to_dict(orient="records"))
 
 
+class IncrementalVerificationResult(VerificationResult):
+    """A :class:`VerificationResult` plus the incremental run's report
+    (``incremental``: an
+    :class:`~deequ_tpu_torch.runners.incremental.IncrementalRunReport`, the
+    scan/reuse/invalidated/dropped partitions, rows scanned against the
+    total, the reuse ratio)."""
+
+    def __init__(self, result: VerificationResult, report):
+        super().__init__(result.status, result.check_results, result.metrics,
+                         result.cost_by_analyzer)
+        self.incremental = report
+
+
 class VerificationSuite:
     """(reference `VerificationSuite.scala:42-315`)."""
 
@@ -120,6 +138,7 @@ class VerificationSuite:
         save_or_append_results_with_key: Optional[Any] = None,
         placement: Optional[str] = None,
         sharding: Optional[Any] = None,
+        checkpointer: Optional[Any] = None,
         **freq_options,
     ) -> VerificationResult:
         """One pass computing every metric the checks need, then the
@@ -129,8 +148,9 @@ class VerificationSuite:
         keywords are its own too, except that the results are saved after
         the checks are evaluated, so an anomaly check never sees the current
         point in its own history (reference `VerificationSuite.scala:121-139`).
-        ``placement``: the pass's ingest tier, and ``sharding``: the mesh its
-        rows shard over, as ``do_analysis_run``'s."""
+        ``placement``: the pass's ingest tier, ``sharding``: the mesh its
+        rows shard over, and ``checkpointer``: the ingest checkpointer that
+        makes the pass resumable, as ``do_analysis_run``'s."""
         checks = list(checks)  # evaluate() walks them again after the run
         analyzers = collect_required_analyzers(checks, required_analyzers)
         # a monitor always, so the result carries the run's cost by analyzer
@@ -141,7 +161,7 @@ class VerificationSuite:
             metrics_repository=metrics_repository,
             reuse_existing_results_for_key=reuse_existing_results_for_key,
             fail_if_results_missing=fail_if_results_missing, placement=placement,
-            sharding=sharding, **freq_options,
+            sharding=sharding, checkpointer=checkpointer, **freq_options,
         )
         result = VerificationSuite.evaluate(checks, analysis_results)
         result.cost_by_analyzer = dict(monitor.cost_by_analyzer)
@@ -174,20 +194,60 @@ class VerificationSuite:
         return VerificationSuite.evaluate(checks, context)
 
     @staticmethod
-    def on_partitions(store, dataset_name: str, partitions, checksums=None):
-        """Partition-aware incremental verification: not ported yet."""
-        raise NotImplementedError(
-            "PartitionedVerificationRunBuilder (VerificationSuite.on_partitions, "
-            "runners/incremental.py) is not supported by deequ_tpu_torch yet"
-        )
+    def verify_partitioned(
+        store,
+        dataset_name: str,
+        partitions,
+        checks: Sequence[Check],
+        required_analyzers: Sequence[Analyzer] = (),
+        *,
+        checksums=None,
+        batch_size: Optional[int] = None,
+        monitor: Optional[RunMonitor] = None,
+        sharding: Optional[Any] = None,
+        placement: Optional[str] = None,
+        metrics_repository: Optional[Any] = None,
+        save_or_append_results_with_key: Optional[Any] = None,
+        delete_dropped: bool = False,
+        device: DeviceLike = None,
+    ) -> IncrementalVerificationResult:
+        """Partition-aware incremental verification (the reference's
+        ``verify_partitioned``, deequ_tpu/verification.py:183): diff the
+        incoming partitions (name -> payload: a Dataset, an Arrow table, a
+        dict of columns or a zero-argument callable giving one) against
+        ``store`` (a :class:`~deequ_tpu_torch.repository.PartitionStateStore`),
+        scan only new or changed partitions on ``device`` (persisting their
+        states), load the unchanged partitions' states with no data touched
+        and evaluate ``checks`` against the merge. ``checksums`` maps a
+        partition to its version token (else its content is hashed). The
+        result's ``incremental`` report carries the plan and the rows
+        scanned."""
+        from .observability import trace as _trace
+        from .runners.incremental import run_incremental
+
+        checks = list(checks)
+        analyzers = collect_required_analyzers(checks, required_analyzers)
+        monitor = monitor if monitor is not None else RunMonitor()
+        with _trace.span("incremental_verification", kind="verification",
+                         dataset=str(dataset_name), checks=len(checks)):
+            context, report = run_incremental(
+                store, dataset_name, partitions, analyzers, checksums=checksums,
+                batch_size=batch_size, monitor=monitor, sharding=sharding,
+                placement=placement, metrics_repository=metrics_repository,
+                save_or_append_results_with_key=save_or_append_results_with_key,
+                delete_dropped=delete_dropped, device=device,
+            )
+            with _trace.span("constraint_evaluation", kind="phase"):
+                result = VerificationSuite.evaluate(checks, context)
+            result.cost_by_analyzer = dict(monitor.cost_by_analyzer)
+        return IncrementalVerificationResult(result, report)
 
     @staticmethod
-    def verify_partitioned(store, dataset_name: str, partitions, checks, *args, **kwargs):
-        """Partition-aware incremental verification: not ported yet."""
-        raise NotImplementedError(
-            "VerificationSuite.verify_partitioned (runners/incremental.py) is not "
-            "supported by deequ_tpu_torch yet"
-        )
+    def on_partitions(store, dataset_name: str, partitions, checksums=None,
+                      device: DeviceLike = None) -> "PartitionedVerificationRunBuilder":
+        """Fluent entry point of :meth:`verify_partitioned`."""
+        return PartitionedVerificationRunBuilder(store, dataset_name, partitions, checksums,
+                                                 device=device)
 
     @staticmethod
     def evaluate(checks: Sequence[Check], context: AnalyzerContext) -> VerificationResult:
@@ -279,6 +339,16 @@ class VerificationRunBuilder:
         self._sharding = sharding
         return self
 
+    def checkpoint_with(self, checkpointer) -> "VerificationRunBuilder":
+        """Make the pass resumable: a
+        :class:`~deequ_tpu_torch.reliability.IngestCheckpointer` persists
+        the states every K batches through its provider, and an interrupted
+        run called again with a checkpointer over the same provider resumes
+        from the last checkpoint, with the metrics of an uninterrupted run
+        (reference `verification.py:357`)."""
+        self._state_options["checkpointer"] = checkpointer
+        return self
+
     def with_frequency_options(self, **options) -> "VerificationRunBuilder":
         """``freq_table_slots``, ``freq_buffer_entries`` and ``device_freq``
         of :meth:`AnalysisRunner.do_analysis_run`."""
@@ -317,6 +387,87 @@ class VerificationRunBuilder:
         if self._success_metrics_path is not None:
             dio.write_text_atomic(self._success_metrics_path, result.success_metrics_as_json())
         return result
+
+
+class PartitionedVerificationRunBuilder:
+    """Fluent configuration of partition-aware incremental verification
+    (``VerificationSuite.on_partitions(store, name, partitions)``; reference
+    `verification.py:410`): the checks of a :class:`VerificationRunBuilder`,
+    run through the delta planner instead of one data pass."""
+
+    def __init__(self, store, dataset_name: str, partitions, checksums=None,
+                 device: DeviceLike = None):
+        self.store = store
+        self.dataset_name = dataset_name
+        self.partitions = partitions
+        self.checksums = checksums
+        self.device = resolve_device(device)
+        self.checks: List[Check] = []
+        self.required_analyzers: List[Analyzer] = []
+        self._batch_size: Optional[int] = None
+        self._monitor: Optional[RunMonitor] = None
+        self._sharding = None
+        self._placement: Optional[str] = None
+        self._metrics_repository = None
+        self._save_key = None
+        self._delete_dropped = False
+
+    def add_check(self, check: Check) -> "PartitionedVerificationRunBuilder":
+        self.checks.append(check)
+        return self
+
+    def add_checks(self, checks: Sequence[Check]) -> "PartitionedVerificationRunBuilder":
+        self.checks.extend(checks)
+        return self
+
+    def add_required_analyzer(self, analyzer: Analyzer) -> "PartitionedVerificationRunBuilder":
+        self.required_analyzers.append(analyzer)
+        return self
+
+    def add_required_analyzers(self, analyzers: Sequence[Analyzer]
+                               ) -> "PartitionedVerificationRunBuilder":
+        self.required_analyzers.extend(analyzers)
+        return self
+
+    def with_batch_size(self, batch_size: int) -> "PartitionedVerificationRunBuilder":
+        self._batch_size = batch_size
+        return self
+
+    def with_monitor(self, monitor: RunMonitor) -> "PartitionedVerificationRunBuilder":
+        self._monitor = monitor
+        return self
+
+    def with_sharding(self, sharding) -> "PartitionedVerificationRunBuilder":
+        self._sharding = sharding
+        return self
+
+    def with_placement(self, placement: str) -> "PartitionedVerificationRunBuilder":
+        self._placement = placement
+        return self
+
+    def use_repository(self, repository) -> "PartitionedVerificationRunBuilder":
+        self._metrics_repository = repository
+        return self
+
+    def save_or_append_result(self, key) -> "PartitionedVerificationRunBuilder":
+        self._save_key = key
+        return self
+
+    def delete_dropped_partitions(self) -> "PartitionedVerificationRunBuilder":
+        """Retention: partitions absent from the incoming set are deleted
+        from the store after the merge (the merge already left them out)."""
+        self._delete_dropped = True
+        return self
+
+    def run(self) -> IncrementalVerificationResult:
+        return VerificationSuite.verify_partitioned(
+            self.store, self.dataset_name, self.partitions, self.checks,
+            self.required_analyzers, checksums=self.checksums, batch_size=self._batch_size,
+            monitor=self._monitor, sharding=self._sharding, placement=self._placement,
+            metrics_repository=self._metrics_repository,
+            save_or_append_results_with_key=self._save_key,
+            delete_dropped=self._delete_dropped, device=self.device,
+        )
 
 
 class VerificationRunBuilderWithRepository(VerificationRunBuilder):

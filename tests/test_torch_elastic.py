@@ -6,9 +6,12 @@ same losses, re-shards and salvaged states, and end with the same metrics
 (within 1e-9 relative, KLL sketches in bucket-count sums), equal to the
 fault-free run's. The port runs on ``make_mesh(8, device="cpu")``.
 
-Not ported here: the checkpoint cases (:262-333, ROADMAP A3) and the
-device tier's pass-level re-shard (:154-172), which needs the reliability
-wrapper (ROADMAP A6)."""
+The checkpoint cases (:262-333): a checkpoint taken on one mesh shape
+resumes on a smaller one and on the plain host tier, in both packages,
+with the fault-free run's metrics (the same tolerances); a resumed mesh
+seeds the canonical merge into shard 0 (``ElasticMeshFold.seed``). Not
+ported here: the device tier's pass-level re-shard (:154-172), which needs
+the reliability wrapper (ROADMAP A6)."""
 
 from __future__ import annotations
 
@@ -349,3 +352,38 @@ def test_shard_loss_listeners_hear_the_lost_devices(table):
     finally:
         TP.remove_shard_loss_listener(heard.append)
     assert heard == [[CPU]]
+
+
+@pytest.mark.parametrize("big,small,batch", [(8, 4, BATCH), (4, 1, BATCH), (8, None, BATCH),
+                                             (8, None, 500)])
+def test_a_checkpoint_resumes_on_a_smaller_mesh_or_the_plain_host_tier(
+        table, clean, big, small, batch):
+    """Interrupted at the second chunk fold on a mesh of ``big`` shards, the
+    run resumes on ``small`` shards (None: the plain host tier) from the
+    checkpoint of the first chunk, in both packages; a batch size that is
+    no multiple of the ladder's quantum rounds alike on both sides."""
+    from deequ_tpu.analyzers.state_provider import InMemoryStateProvider as JMemory
+    from deequ_tpu_torch.analyzers.state_provider import InMemoryStateProvider
+
+    def resumed(pkg, runner, data, analyzers, make, memory, monitor_cls, kw):
+        ckpt = pkg.IngestCheckpointer(memory(), every=8)
+        with pkg.inject(pkg.FaultSpec("ingest_fold", "interrupt", at=2)):
+            with pytest.raises(KeyboardInterrupt):
+                runner.do_analysis_run(data, analyzers, batch_size=batch, sharding=make(big),
+                                       placement="host", checkpointer=ckpt, **kw)
+        assert ckpt.saves
+        mon = monitor_cls()
+        ctx = runner.do_analysis_run(data, analyzers, batch_size=batch,
+                                     sharding=make(small) if small else None,
+                                     placement="host", checkpointer=ckpt, monitor=mon, **kw)
+        assert mon.resumed_at_batch == ckpt.saves[-1][0] > 0
+        return [ctx.metric(a) for a in analyzers]
+
+    jb, tb = battery(J), battery(T)
+    jv = _values(resumed(JR, JaxRunner, JD.Dataset.from_arrow(table), jb, JP.make_mesh, JMemory,
+                         JaxMonitor, {}), jb)
+    tv = _values(resumed(TR, AnalysisRunner, dq.Dataset.from_arrow(table), tb,
+                         lambda n: TP.make_mesh(n, device="cpu"), InMemoryStateProvider,
+                         RunMonitor, {"device": "cpu"}), tb)
+    assert_parity(jv, tv)
+    assert_parity(_values(clean, tb), tv)

@@ -475,8 +475,25 @@ def test_has_correlation_through_verification_suite():
                     {_ident(a): m for a, m in got.metrics.items()}, 1e-9)
 
 
-def test_paths_not_in_this_slice_raise_by_name():
-    with pytest.raises(NotImplementedError, match="PartitionedVerificationRunBuilder"):
-        dq.VerificationSuite.on_partitions(None, "ds", {})
+def test_paths_not_in_this_slice_raise_by_name(tmp_path):
+    # partitioned verification is ported: config 4's two days through the
+    # delta planner equal the merged refresh of their states
+    table = build_scan_data(ROWS)
+    half = ROWS // 2
+    days = {f"day{d}": dq.Dataset.from_arrow(table.slice(d * half, half)) for d in range(2)}
+    result = (dq.VerificationSuite.on_partitions(TR.PartitionStateStore(str(tmp_path)),
+                                                 "events", days, device="cpu")
+              .add_required_analyzers(battery(dq)).with_batch_size(BATCH).run())
+    assert result.incremental.plan.scan == ["day0", "day1"]
+    providers = []
+    for d in range(2):
+        provider = InMemoryStateProvider()
+        dq.AnalysisRunner.do_analysis_run(days[f"day{d}"], battery(dq), batch_size=BATCH,
+                                          save_states_with=provider, device="cpu")
+        providers.append(provider)
+    merged = dq.AnalysisRunner.run_on_aggregated_states(days["day0"].schema, battery(dq),
+                                                        providers, device="cpu")
+    assert ({repr(a): repr(m.value.get()) for a, m in result.metrics.items()}
+            == {repr(a): repr(m.value.get()) for a, m in merged.metric_map.items()})
     with pytest.raises(NotImplementedError, match="HoltWinters"):
         TA.HoltWinters  # noqa: B018

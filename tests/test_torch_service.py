@@ -38,6 +38,7 @@ from deequ_tpu_torch.analyzers.state_provider import FileSystemStateProvider
 from deequ_tpu_torch.exceptions import SchemaDriftError
 from deequ_tpu_torch.reliability import FaultSpec, inject
 from deequ_tpu_torch.reliability.faults import KNOWN_FAULT_SITES
+from deequ_tpu_torch.repository import PartitionStateStore
 from deequ_tpu_torch.service import (
     JobFailed,
     SessionClosed,
@@ -254,7 +255,7 @@ def test_drift_is_rejected_before_the_fold(coalesce, monkeypatch):
         assert svc.metrics.counter_value("deequ_service_drift_rejections_total") == 1
 
 
-def test_closed_sessions_refuse_typed():
+def test_closed_sessions_refuse_typed(tmp_path):
     with VerificationService(workers=1, device="cpu", background_warm=False) as svc:
         s = svc.session("t", "closed", [soak_check(dq)])
         s.ingest(table(100, seed=3), timeout=WAIT_S)
@@ -266,8 +267,12 @@ def test_closed_sessions_refuse_typed():
             svc.session("t", "closed")
         assert svc.get_session("t", "closed") is None
         assert svc.get_session("t", "closed", include_closed=True) is s
-        with pytest.raises(NotImplementedError, match="A3"):
-            s.flush_to_partition()
+        # a service without a partition store flushes nowhere; a closed
+        # session still flushes its states into a store it is given
+        assert svc.partition_store is None and s.flush_to_partition() is None
+        store = PartitionStateStore(str(tmp_path / "store"))
+        assert s.flush_to_partition(store) == "session-t"
+        assert store.get("closed", "session-t").num_rows == 100
 
 
 def _reference_stream(state_root, batches):
@@ -324,21 +329,105 @@ def test_one_shot_verification_matches_a_direct_run():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"mesh": object()}, "A5"), ({"fleet": True}, "A5"),
-    ({"catalog": "catalog-root"}, "A6"), ({"partition_store": "store-root"}, "A3"),
+    ({"catalog": "catalog-root"}, "A6"),
 ])
 def test_planes_not_ported_raise_naming_their_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         VerificationService(device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("call,item", [
-    ("submit_partitioned_verification", "A3"), ("verify_partitioned", "A3"),
-    ("watch_metrics", "A6"),
-])
+@pytest.mark.parametrize("form", ["store", "path", "env"])
+def test_the_partition_store_is_a_store_a_path_or_the_env(form, tmp_path, monkeypatch):
+    """``partition_store=`` takes a store or a path, and None reads
+    ``DEEQU_TPU_PARTITION_STORE`` (the reference's three forms)."""
+    root = str(tmp_path / "store")
+    monkeypatch.delenv("DEEQU_TPU_PARTITION_STORE", raising=False)
+    with VerificationService(device="cpu") as svc:
+        assert svc.partition_store is None
+    if form == "env":
+        monkeypatch.setenv("DEEQU_TPU_PARTITION_STORE", root)
+        kwargs = {}
+    else:
+        kwargs = {"partition_store": PartitionStateStore(root) if form == "store" else root}
+    with VerificationService(device="cpu", **kwargs) as svc:
+        assert isinstance(svc.partition_store, PartitionStateStore)
+        assert svc.partition_store.path == root
+
+
+@pytest.mark.parametrize("call,item", [("watch_metrics", "A6")])
 def test_service_entry_points_not_ported_raise(call, item):
     with VerificationService(workers=1, device="cpu") as svc:
         with pytest.raises(NotImplementedError, match=item):
             getattr(svc, call)("t")
+
+
+def _partitions(m, seeds):
+    return {f"2026-07-{s:02d}": m.Dataset.from_arrow(table(1024, seed=s)) for s in seeds}
+
+
+@pytest.mark.parametrize("call", ["submit_partitioned_verification", "verify_partitioned"])
+def test_partitioned_verification_through_the_service(call, tmp_path):
+    """The service's incremental entry points against the reference's
+    service: the same plans (scan, then full reuse) and the reference's
+    metrics, and the delta planner's counters on the export plane per
+    tenant."""
+    got = {}
+    for name, service, m in (("jax", JService, deequ_tpu), ("torch", VerificationService, dq)):
+        kw = {"fleet": False} if name == "jax" else {"device": "cpu"}
+        with service(workers=2, background_warm=False,
+                     partition_store=str(tmp_path / name), **kw) as svc:
+            def verify(parts, svc=svc, m=m):
+                if call == "verify_partitioned" or name == "jax":
+                    return svc.verify_partitioned("tbl", parts, [soak_check(m)], tenant="ten",
+                                                  batch_size=1024, timeout=WAIT_S)
+                return svc.submit_partitioned_verification(
+                    "tbl", parts, [soak_check(m)], tenant="ten",
+                    batch_size=1024).result(WAIT_S)
+
+            first = verify(_partitions(m, (1, 2)))
+            second = verify(_partitions(m, (1, 2)))
+            counters = svc.json_snapshot()["counters"]
+        assert first.incremental.plan.scan == ["2026-07-01", "2026-07-02"]
+        assert second.incremental.plan.fully_reused
+        assert counters["deequ_service_partitions_scanned_total"] == {"tenant=ten": 2.0}
+        assert counters["deequ_service_partitions_reused_total"] == {"tenant=ten": 2.0}
+        got[name] = ({repr(a): _value(mt) for a, mt in second.metrics.items()},
+                     second.status.value)
+    _assert_metrics(got["torch"][0], got["jax"][0])
+    assert got["torch"][1] == got["jax"][1]
+
+
+def test_sessions_flush_into_the_store_when_they_close(tmp_path, monkeypatch):
+    """A closing session flushes its cumulative states as partition
+    ``session-<tenant>``, which incremental verification then reuses beside
+    a new partition: the merged metrics equal a direct run over the
+    session's batches and the new one."""
+    monkeypatch.setenv("DEEQU_TPU_COALESCE", "0")
+    store = PartitionStateStore(str(tmp_path / "store"))
+    frames = [table(700, seed=31), table(500, seed=32)]
+    with VerificationService(workers=2, device="cpu", background_warm=False,
+                             partition_store=store) as svc:
+        s = svc.session("ten", "streamed", [soak_check(dq)])
+        for frame in frames:
+            s.ingest(frame, timeout=WAIT_S)
+        s.close()
+        assert store.list_partitions("streamed") == ["session-ten"]
+        manifest = store.get("streamed", "session-ten")
+        assert manifest.num_rows == 1200
+        day2 = table(300, seed=33)
+        result = svc.verify_partitioned(
+            "streamed", {"session-ten": None, "day2": dq.Dataset.from_arrow(day2)},
+            [soak_check(dq)], checksums={"session-ten": manifest.content_checksum},
+            tenant="ten", timeout=WAIT_S)
+    assert result.incremental.plan.reuse == ["session-ten"]
+    assert result.incremental.plan.scan == ["day2"]
+    direct = dq.VerificationSuite.on_data(
+        dq.Dataset.from_arrow(pa.concat_tables(frames + [day2])), device="cpu") \
+        .add_check(soak_check(dq)).run()
+    # KLL sketches of a different fold order hold their rank envelope only
+    _assert_metrics({repr(a): _value(mt) for a, mt in result.metrics.items()},
+                    {repr(a): _value(mt) for a, mt in direct.metrics.items()},
+                    skip=("ApproxQuantile",))
 
 
 def test_the_service_runs_on_the_card_by_default():
