@@ -167,7 +167,39 @@ Phases, each of which fails the run when it fails:
    device="cuda")`` on 1M rows in 2^14-row batches, interrupted at the
    second chunk fold, its checkpoint resumed on ``make_mesh(4)`` and on
    the plain host tier, each equal to the uninterrupted mesh run (moments
-   within 1e-12, the quantile within the host rank limit).
+   within 1e-12, the quantile within the host rank limit);
+12. the tenant plane, last, at the reference's soak sizes, each part with
+   its seconds and its launch gate: (a) ``tools/catalog_soak.py
+   --registered 10000 --active 500``: 10,000 tenants register the soak's
+   document, 500 go hot on ``VerificationService(workers=8,
+   max_queue_depth=256, catalog=root)`` with an ApproxQuantile on ``v``
+   and an ApproxCountDistinct on ``id`` installed on each session, 3 x
+   2,048-row frames each, every fold coalesced on the card (K1's and K2's
+   stacked entries, K4, K5, K8); the mid-soak edit and the corrupt-edit
+   drills; 16 hot tenants against the same tenants on ``device="cpu"``
+   and numpy; (b) the soak's drill 4 (24 x 65,536 rows gated and ungated,
+   bit for bit, both warm, alternating over 4 rounds: the median
+   ``gated_throughput_fraction``), 512 MB of Arrow IPC frames
+   of 65,536 rows through ``ingest.fold_stream`` (MB/s, rows/s) against
+   the same frames through ``session.ingest``, and ``IngestEndpoint`` on
+   ``start_exporter(host="127.0.0.1", port=0)``: 200, 400 for a bad
+   checksum with nothing folded, 404, 409; (c)
+   ``tools/anomaly_fleet_bench.py --series 10000`` in one ``detect_batch``
+   against serial ``detect``, then a live harvest over 16 tenants with
+   five weeks of daily Size and a ``HoltWinters(DAILY, WEEKLY)`` watch,
+   their newest folds on the card (K1), one day broken: the harvest's
+   flags equal a plain Holt-Winters recurrence's on the same days (that
+   day and no other), the ``deequ_service_anomaly_*`` series moved, the
+   fits cached, ``/statusz`` serving its six planes; (d) the HLL and KLL
+   states of a 1M-row cut of phase 3's table as JVM blobs, read back onto
+   the card equal to the originals and merged with them (K8, K5's merge)
+   equal to the originals merged with themselves, and a 365-day JVM
+   history of the card's and the CPU's metrics imported into partitioned
+   repositories with equal entries; (e) ``Applicability.is_applicable_check`` of phase
+   3's check and of a check naming a missing column on the card (K1),
+   equal to the CPU's. ``python3 -c "import torch, chip_smoke,
+   deequ_tpu_torch as dq; chip_smoke.tenant_plane(torch, dq)"`` runs this
+   phase alone, printing no result lines.
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
@@ -3891,6 +3923,28 @@ def stream_check(m):
     )
 
 
+@contextlib.contextmanager
+def service_knobs(**knobs):
+    """Set the service's env knobs for a block and restore them after."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update({k: str(v) for k, v in knobs.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+#: every fold on the device route, coalesced (phase 8's knobs)
+DEVICE_FOLDS = {"DEEQU_TPU_COALESCE": "1", "DEEQU_TPU_FAST_PATH_MAX_ROWS": "0",
+                "DEEQU_TPU_PLACEMENT": "device"}
+
+
 def stream_run(torch, dq, table: pa.Table, sessions: int, rows: int, coalesce: bool,
                device: str = "cuda", label: str = "", kernels=()) -> tuple:
     """``sessions`` streaming sessions x ``STREAM_BATCHES`` micro-batches
@@ -3903,19 +3957,15 @@ def stream_run(torch, dq, table: pa.Table, sessions: int, rows: int, coalesce: b
     session's cumulative metric values (its last fold's result), the
     run's summary and its launches; fails on a shed or a failed fold, or
     when a kernel of ``kernels`` was not launched."""
-    import os
     import threading
 
     import deequ_tpu_torch.service as service
     from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
     from deequ_tpu_torch.service.metrics import histogram_quantile
 
-    knobs = {"DEEQU_TPU_COALESCE": "1" if coalesce else "0",
-             "DEEQU_TPU_FAST_PATH_MAX_ROWS": "0", "DEEQU_TPU_PLACEMENT": "device"}
-    saved = {k: os.environ.get(k) for k in knobs}
-    os.environ.update(knobs)
+    knobs = {**DEVICE_FOLDS, "DEEQU_TPU_COALESCE": "1" if coalesce else "0"}
     on_card = device == "cuda"
-    try:
+    with service_knobs(**knobs):
         with service.VerificationService(STREAM_WORKERS, STREAM_QUEUE, device=device,
                                          background_warm=False) as svc:
             checks = [stream_check(dq)]
@@ -3980,12 +4030,6 @@ def stream_run(torch, dq, table: pa.Table, sessions: int, rows: int, coalesce: b
                     for q in (0.5, 0.99)},
             }
             values = [metric_values(s.latest) if s.latest is not None else {} for s in sess]
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     print(f"[{label}] {sessions} sessions x {STREAM_BATCHES} x {rows} rows, coalesce="
           f"{int(coalesce)} on {device}: {summary['sessions_per_s']:.1f} sessions/s "
           f"({summary['folds_per_s']:.1f} folds/s, {wall:.3f}s); widths={summary['widths']} "
@@ -4143,7 +4187,6 @@ def session_partitions(torch, dq, table: pa.Table) -> None:
     close, each flushing its states as partition ``session-<tenant>``;
     ``svc.verify_partitioned`` over them reads no payload, counts every row
     folded and equals the merge of the sessions' own states bit for bit."""
-    import os
     import shutil
     import tempfile
 
@@ -4151,13 +4194,9 @@ def session_partitions(torch, dq, table: pa.Table) -> None:
     from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
     from deequ_tpu_torch.runners.analysis_runner import collect_required_analyzers
 
-    knobs = {"DEEQU_TPU_COALESCE": "1", "DEEQU_TPU_FAST_PATH_MAX_ROWS": "0",
-             "DEEQU_TPU_PLACEMENT": "device"}
-    saved = {k: os.environ.get(k) for k in knobs}
-    os.environ.update(knobs)
     root = tempfile.mkdtemp(prefix="chip-smoke-session-store-")
     try:
-        with service.VerificationService(STREAM_WORKERS, STREAM_QUEUE, device="cuda",
+        with service_knobs(**DEVICE_FOLDS), service.VerificationService(STREAM_WORKERS, STREAM_QUEUE, device="cuda",
                                          background_warm=False, partition_store=root) as svc:
             checks = [stream_check(dq)]
             sessions = [svc.session(f"t{i:02d}", "stream", checks) for i in range(STREAM_WIDTH)]
@@ -4191,11 +4230,6 @@ def session_partitions(torch, dq, table: pa.Table) -> None:
             schema, analyzers, [s.provider for s in sessions], device="cuda")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     rows = STREAM_WIDTH * STREAM_BATCHES * STREAM_ROWS
     got = metric_values(result)
     report = result.incremental
@@ -4441,6 +4475,761 @@ def resumable_mesh(torch, dq, table: pa.Table) -> None:
         raise AssertionError("resume (c) disagrees:\n" + "\n".join(problems))
     print("[resume (c) metrics] a checkpoint of the 8-shard mesh resumed on 4 shards and on "
           "the plain host tier with the uninterrupted mesh run's metrics", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the tenant plane (the catalog, the row gate, the Arrow IPC
+# ingest, the fleet watch with Holt-Winters, /statusz and JVM interop)
+# ---------------------------------------------------------------------------
+
+#: (a) the catalog soak at its documented full size (tools/catalog_soak.py
+#: ``--registered 10000 --active 500``): 3 micro-batches of 2,048 rows a
+#: hot tenant, on the service of phase 8
+TENANT_REGISTERED = 10_000
+TENANT_ACTIVE = 500
+TENANT_BATCHES = 3
+TENANT_ROWS = 2048
+#: (a) this many hot tenants re-run on the CPU and against numpy
+TENANT_CPU_TENANTS = 16
+TENANT_SEED = 23
+#: (b) the catalog soak's drill 4 (24 frames x 65,536 rows, gated against
+#: ungated in 4 rounds) and the ingest soak's stream (tools/ingest_soak.py
+#: ``--stream-mb 512``, in frames of 65,536 rows)
+GATE_BATCHES = 24
+GATE_ROWS = 65_536
+GATE_ROUNDS = 4
+WIRE_MB = 512
+WIRE_ROWS = 65_536
+#: (c) tools/anomaly_fleet_bench.py ``--series 10000`` (seed 17), and the
+#: live harvest's tenants, each with five weeks of daily Size history and a
+#: newest day, a weekly pattern with 1.5% noise. At that noise the watch's
+#: 1.96-sigma rule flags about one clean newest day in five; with seed 25
+#: the plain recurrence (``hw_oracle``) flags none of the clean ones
+FLEET_SERIES = 10_000
+FLEET_SEED = 17
+WATCH_TENANTS = 16
+WATCH_DAYS = 35
+WATCH_BASE_ROWS = 3000
+WATCH_WEEK = (1.0, 1.1, 1.15, 1.05, 0.95, 0.85, 0.9)
+WATCH_SEED = 25
+#: (d) the KLL state's rows and the JVM metrics history's days
+INTEROP_ROWS = 1_000_000
+JVM_HISTORY_DAYS = 365
+#: bound on every wait of phase 12
+TENANT_WAIT_S = 300
+#: what each part must launch: (a) the coalesced tenant folds (K1's and
+#: K2's stacked entries, K4 and K5 per session, K8 into the persisted
+#: states); (b) the wire's coalesced folds; (c) the newest folds (K1);
+#: (d) the merges of the read-back states (K8, K5's merge); (e) the
+#: applicability run's K1. The wire's battery has no HLL column.
+TENANT_KERNELS = STACKED_KERNELS + ("kll_sample", "kll_compact", "state_fold")
+WIRE_KERNELS = ("scan_reduce_stacked", "state_fold")
+WATCH_KERNELS = ("scan_reduce",)
+INTEROP_KERNELS = ("state_fold", "kll_compact")
+APPLICABILITY_KERNELS = ("scan_reduce",)
+
+
+def tenant_doc(priority: str = "normal", max_len: int = 8) -> dict:
+    """The catalog soak's document (tools/catalog_soak.py ``_doc``): three
+    constraints and a two-column row gate."""
+    return {
+        "checks": [{"name": "soak", "constraints": [
+            {"kind": "complete", "column": "id"},
+            {"kind": "min", "column": "v", "min": 0},
+            {"kind": "size", "min": 1},
+        ]}],
+        "row_gate": {"columns": [
+            {"name": "id", "type": "int", "nullable": False},
+            {"name": "s", "type": "string", "max_length": max_len},
+        ]},
+        "priority": priority,
+        "session": {"admission_block_s": 10.0},
+    }
+
+
+def tenant_frame(i: int, b: int, rows: int = TENANT_ROWS, s: str = "ok") -> dict:
+    """Tenant ``i``'s micro-batch ``b`` (the soak's ``_frame``: ids, a short
+    string, ``v``), with ``v`` drawn from a seed per tenant and batch."""
+    rng = np.random.default_rng([TENANT_SEED, i, b])
+    return {
+        "id": np.arange(b * rows, (b + 1) * rows),
+        "s": np.array([s] * rows),
+        "v": rng.exponential(10.0, rows),
+    }
+
+
+def sketch_check(dq):
+    """The ApproxQuantile on ``v`` the phase adds to each hot tenant's
+    document checks (so K4 and K5 fold), with an ApproxCountDistinct on
+    ``id`` (so K2's stacked entry does): the document's constraint kinds
+    carry neither quantiles nor the checks' analyzers, so the harness
+    installs it on the materialized session with ``reconfigure``."""
+    def yes(_):
+        return True
+
+    return (dq.Check(dq.CheckLevel.ERROR, "sketches")
+            .has_approx_quantile("v", 0.5, yes)
+            .has_approx_count_distinct("id", yes))
+
+
+def _launched(label: str, launches: dict, kernels) -> None:
+    missing = [name for name in kernels if launches.get(name, 0) == 0]
+    if missing:
+        raise AssertionError(f"{label} launched no {missing}: {launches}")
+
+
+def catalog_hot_tier(svc, dq, tenants: list, frames_of) -> tuple:
+    """Materialize ``tenants`` from the catalog, install :func:`sketch_check`
+    and fold each tenant's frames, fed by 32 threads. Returns the sessions
+    and the number of folds that succeeded; fails on a shed or a failed
+    fold."""
+    import threading
+
+    plane = svc.catalog_plane
+    sessions = {}
+    for t in tenants:
+        session = plane.ensure_session(t, "stream")
+        session.reconfigure(checks=[*session.checks, sketch_check(dq)])
+        sessions[t] = session
+    handles, errors, lock = [], [], threading.Lock()
+
+    def feed(chunk):
+        mine = []
+        for t in chunk:
+            for frame in frames_of(t):
+                try:
+                    mine.append(sessions[t].ingest(frame, wait=False))
+                except Exception as exc:  # noqa: BLE001 - the phase fails on any
+                    with lock:
+                        errors.append(f"{t}: {type(exc).__name__}: {exc}")
+        with lock:
+            handles.extend(mine)
+
+    threads = [threading.Thread(target=feed, args=(tenants[f::32],), daemon=True)
+               for f in range(min(32, len(tenants)))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(TENANT_WAIT_S)
+    ok = 0
+    for h in handles:
+        try:
+            ok += h.result(TENANT_WAIT_S).status.name == "SUCCESS"
+        except Exception as exc:  # noqa: BLE001 - counted: the phase fails on any
+            errors.append(f"{type(exc).__name__}: {exc}")
+    if errors:
+        raise AssertionError("tenant folds failed:\n" + "\n".join(errors[:20]))
+    return sessions, ok
+
+
+def _tenant_oracle(i: int) -> tuple:
+    frames = [tenant_frame(i, b) for b in range(TENANT_BATCHES)]
+    v = np.concatenate([f["v"] for f in frames])
+    want = {("Size", "*", None): float(len(v)), ("Completeness", "id", None): 1.0,
+            ("Minimum", "v", None): float(v.min())}
+    return want, np.sort(v.astype(np.float32))
+
+
+def catalog_soak(torch, dq) -> None:
+    """Phase 12 (a): tiering at the soak's full size, the edit and corrupt
+    drills, 16 hot tenants against the CPU and numpy."""
+    import os
+    import shutil
+    import tempfile
+
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.service import TenantCatalog, VerificationService
+    from deequ_tpu_torch.service.scheduler import Priority
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-catalog-")
+    try:
+        catalog = TenantCatalog(os.path.join(root, "catalog"))
+        t0 = time.perf_counter()
+        for i in range(TENANT_REGISTERED):
+            catalog.register(f"tenant-{i:06d}", tenant_doc())
+        register_s = time.perf_counter() - t0
+        hot = [f"tenant-{i:06d}" for i in range(TENANT_ACTIVE)]
+        index = {t: i for i, t in enumerate(hot)}
+
+        def frames_of(t):
+            return [tenant_frame(index[t], b) for b in range(TENANT_BATCHES)]
+
+        with service_knobs(**DEVICE_FOLDS), VerificationService(
+                STREAM_WORKERS, STREAM_QUEUE, device="cuda", background_warm=False,
+                catalog=catalog) as svc:
+            plane = svc.catalog_plane
+            plane.poll_s = 0.0  # the drills must not wait out a debounce
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            sessions, folds_ok = catalog_hot_tier(svc, dq, hot, frames_of)
+            torch.cuda.synchronize()
+            soak_s = time.perf_counter() - t0
+            launches = launch_counts()
+            card = {t: metric_values(sessions[t].latest) for t in hot[1:1 + TENANT_CPU_TENANTS]}
+            shed = (svc.metrics.counter_value("deequ_service_jobs_shed_total")
+                    + svc.metrics.counter_value("deequ_service_quota_shed_total"))
+            summary = {"registered": catalog.registered_count(), "hot": plane.hot_count(),
+                       "folds_ok": folds_ok, "shed": shed}
+            print(f"[tenant (a)] {TENANT_REGISTERED} registered in {register_s:.1f}s; "
+                  f"{TENANT_ACTIVE} hot x {TENANT_BATCHES} x {TENANT_ROWS} rows in "
+                  f"{soak_s:.2f}s = {TENANT_ACTIVE * TENANT_BATCHES / soak_s:.1f} folds/s; "
+                  f"{summary}; launches={launches}", flush=True)
+            if summary != {"registered": TENANT_REGISTERED, "hot": TENANT_ACTIVE,
+                           "folds_ok": TENANT_ACTIVE * TENANT_BATCHES, "shed": 0}:
+                raise AssertionError(f"tiering: {summary}")
+            _launched("phase 12 (a)", launches, TENANT_KERNELS)
+
+            # the mid-soak edit: a lower priority and a looser gate, live at
+            # the next fold boundary without a restart
+            victim = hot[0]
+            session = sessions[victim]
+            catalog.register(victim, tenant_doc(priority="low", max_len=64))
+            plane.on_fold_boundary(session)
+            rows_before = session.rows_ingested
+            edit = session.ingest(tenant_frame(0, TENANT_BATCHES, s="x" * 32),
+                                  timeout=TENANT_WAIT_S)
+            reloads = svc.metrics.counter_value("deequ_service_catalog_reloads_total",
+                                                tenant=victim)
+            edit_drill = {"priority_live": session.priority is Priority.LOW,
+                          "loosened_gate_live": edit.status.name == "SUCCESS"
+                          and session.rows_ingested == rows_before + TENANT_ROWS,
+                          "reloads": reloads}
+            # the corrupt edit: last-good keeps serving, one quarantine
+            torn = os.path.join(catalog.path, f"t-{victim}", "v00000099.json")
+            with open(torn, "w") as fh:
+                fh.write('{"torn": tru')
+            before = svc.metrics.counter_value("deequ_service_catalog_quarantined_total",
+                                               tenant=victim)
+            for _ in range(3):
+                plane.on_fold_boundary(session)
+            served = session.ingest(tenant_frame(0, TENANT_BATCHES + 1, s="x" * 32),
+                                    timeout=TENANT_WAIT_S)
+            bumps = svc.metrics.counter_value("deequ_service_catalog_quarantined_total",
+                                              tenant=victim) - before
+            qdir = catalog.path + ".quarantine"
+            preserved = [n for n in os.listdir(qdir) if n.startswith("v00000099.json-")]
+            corrupt_drill = {"still_serving": served.status.name == "SUCCESS",
+                             "config_kept": session.priority is Priority.LOW,
+                             "quarantine_bumps": bumps, "preserved": len(preserved)}
+            print(f"[tenant (a) drills] edit {edit_drill}; corrupt {corrupt_drill}", flush=True)
+            if edit_drill != {"priority_live": True, "loosened_gate_live": True, "reloads": 1}:
+                raise AssertionError(f"edit drill: {edit_drill}")
+            if corrupt_drill != {"still_serving": True, "config_kept": True,
+                                 "quarantine_bumps": 1, "preserved": 1}:
+                raise AssertionError(f"corrupt drill: {corrupt_drill}")
+
+        # the same tenants, frames and checks on the CPU, and numpy
+        cpu_catalog = TenantCatalog(os.path.join(root, "cpu-catalog"))
+        compared = list(card)
+        for t in compared:
+            cpu_catalog.register(t, tenant_doc())
+        with service_knobs(**DEVICE_FOLDS), VerificationService(
+                STREAM_WORKERS, STREAM_QUEUE, device="cpu", background_warm=False,
+                catalog=cpu_catalog) as svc:
+            cpu_sessions, _ = catalog_hot_tier(svc, dq, compared, frames_of)
+            cpu = {t: metric_values(cpu_sessions[t].latest) for t in compared}
+        problems, worst = [], 0.0
+        for t in compared:
+            problems += [f"{t}: {p}" for p in compare_metrics(card[t], cpu[t])]
+            want, items = _tenant_oracle(index[t])
+            problems += [f"{t} oracle: {p}" for p in compare_oracle(card[t], want, 0.0)]
+            worst = max(worst, _rank_error(items, card[t][("ApproxQuantile-0.5", "v", None)], 0.5))
+        if worst > STREAM_KLL_RANK_LIMIT:
+            problems.append(f"KLL median rank error {worst} above {STREAM_KLL_RANK_LIMIT}")
+        if problems:
+            raise AssertionError("phase 12 (a) disagrees:\n" + "\n".join(problems[:40]))
+        print(f"[tenant (a) metrics] {len(compared)} hot tenants equal their CPU run (moments "
+              f"within 1e-12) and numpy; largest KLL median rank error {worst:.6f}", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def wire_checks(dq):
+    """The ingest soak's battery (tools/ingest_soak.py ``_checks``)."""
+    return [dq.Check(dq.CheckLevel.ERROR, "ingest battery")
+            .has_size(lambda n: n > 0)
+            .is_complete("x")
+            .has_mean("y", lambda m: -100.0 < m < 100.0)]
+
+
+def gate_checks(dq):
+    """The catalog soak's drill-4 battery (tools/catalog_soak.py
+    ``run_gate_throughput``)."""
+    return [dq.Check(dq.CheckLevel.ERROR, "gate-throughput")
+            .has_size(lambda n: n > 0)
+            .is_complete("id")
+            .has_mean("v", lambda m: 0.0 < m < 20.0)
+            .has_sum("v", lambda s: s > 0)]
+
+
+def _post(exporter, path: str, body: bytes, headers=None) -> tuple:
+    import http.client
+
+    conn = http.client.HTTPConnection(exporter.host, exporter.port, timeout=60)
+    try:
+        conn.request("POST", path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read().decode())
+    finally:
+        conn.close()
+
+
+def gate_and_wire(torch, dq) -> None:
+    """Phase 12 (b): gated against ungated, the 512 MB Arrow IPC stream
+    through ``fold_stream`` against ``session.ingest``, and the HTTP
+    endpoint's statuses."""
+    from deequ_tpu_torch.ingest import (
+        CHECKSUM_HEADER, RowGate, encode_ipc_stream, fold_stream)
+    from deequ_tpu_torch.integrity import checksum_bytes
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.schema import RowLevelSchema
+    from deequ_tpu_torch.service import VerificationService
+
+    rng = np.random.default_rng(11)
+    payloads = [encode_ipc_stream(pa.table({
+        "id": pa.array(np.arange(b * GATE_ROWS, (b + 1) * GATE_ROWS)),
+        "v": pa.array(rng.normal(10.0, 2.0, size=GATE_ROWS))})) for b in range(GATE_BATCHES)]
+    gate_mb = sum(len(p) for p in payloads) / 2**20
+    with service_knobs(**DEVICE_FOLDS), VerificationService(
+            2, 64, device="cuda", background_warm=False) as svc:
+        gate = RowGate(RowLevelSchema().with_int_column("id", is_nullable=False),
+                       metrics=svc.metrics)
+        kinds = {"ungated": {}, "gated": {"row_gate": gate}}
+        # one warm frame down each kind first, so that neither timed stream
+        # pays the battery's first fold; then the kinds alternate in order
+        # from round to round, and the fraction is the median of the rounds'
+        for name, kw in kinds.items():
+            fold_stream(svc.session("tp-warm", name, gate_checks(dq), **kw), payloads[0],
+                        source="warm")
+        fractions, problems, gate_rows = [], [], []
+        for r in range(GATE_ROUNDS):
+            timings, values = {}, {}
+            for name in sorted(kinds, reverse=r % 2 == 1):
+                session = svc.session("tp", f"{name}{r}", gate_checks(dq), **kinds[name])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for payload in payloads:
+                    fold_stream(session, payload, source=name)
+                torch.cuda.synchronize()
+                timings[name] = time.perf_counter() - t0
+                values[name] = metric_values(session.current())
+            fractions.append(timings["ungated"] / timings["gated"])
+            problems += compare_metrics(values["gated"], values["ungated"], 0.0)
+            gate_rows.append(svc.metrics.counter_value("deequ_service_rowgate_rows_total",
+                                                       tenant="tp", dataset=f"gated{r}"))
+            print(f"[tenant (b) gate] round {r} ({' then '.join(timings)}): "
+                  f"{GATE_BATCHES} x {GATE_ROWS} rows ({gate_mb:.1f} MiB): ungated "
+                  f"{gate_mb / timings['ungated']:.1f} MiB/s, gated "
+                  f"{gate_mb / timings['gated']:.1f} MiB/s; fraction {fractions[-1]:.3f}; "
+                  f"gate rows {gate_rows[-1]:.0f}", flush=True)
+        print(f"[tenant (b) gate] gated_throughput_fraction {float(np.median(fractions)):.3f} "
+              f"(median of {GATE_ROUNDS} rounds: {[round(f, 3) for f in fractions]})",
+              flush=True)
+        if problems or gate_rows != [GATE_BATCHES * GATE_ROWS] * GATE_ROUNDS:
+            raise AssertionError(f"gated against ungated: {problems}, gate rows {gate_rows}")
+
+        # the ingest soak's stream: one session fed through fold_stream
+        soak = pa.table({"x": rng.normal(size=WIRE_ROWS), "y": rng.normal(10.0, 2.0, WIRE_ROWS),
+                         "k": rng.integers(0, 1000, WIRE_ROWS), "v": rng.uniform(0, 1, WIRE_ROWS)})
+        payload = encode_ipc_stream(soak)
+        streams = max(1, int(WIRE_MB * 1e6 / len(payload)))
+        wire = svc.session("tput", "stream", wire_checks(dq), admission_block_s=60.0)
+        svc.session("tput-warm", "stream", wire_checks(dq)).ingest(soak, timeout=TENANT_WAIT_S)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        frames = sum(fold_stream(wire, payload, source="soak").frames for _ in range(streams))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        mb = streams * len(payload) / 1e6
+        print(f"[tenant (b) wire] {frames} frames, {mb:.1f} MB in {wall:.2f}s = "
+              f"{mb / wall:.1f} MB/s, {streams * WIRE_ROWS / wall:.0f} rows/s; "
+              f"launches={launches}", flush=True)
+        _launched("phase 12 (b)", launches, WIRE_KERNELS)
+        direct = svc.session("tput", "direct", wire_checks(dq), admission_block_s=60.0)
+        for _ in range(streams):
+            direct.ingest(soak, timeout=TENANT_WAIT_S)
+        problems = compare_metrics(metric_values(wire.current()), metric_values(direct.current()),
+                                   0.0)
+        if problems or wire.rows_ingested != streams * WIRE_ROWS:
+            raise AssertionError(f"fold_stream against session.ingest: {problems}")
+
+        # the HTTP endpoint on the exporter
+        exporter = svc.start_exporter(host="127.0.0.1", port=0)
+        svc.session("wire", "d", wire_checks(dq))
+        small = encode_ipc_stream(soak.slice(0, 4096), max_chunksize=2048)
+        ok = _post(exporter, "/ingest/v1/wire/d", small,
+                   {CHECKSUM_HEADER: checksum_bytes(small)})
+        bad = _post(exporter, "/ingest/v1/wire/d", small, {CHECKSUM_HEADER: "0" * 16})
+        folded = svc.get_session("wire", "d").batches_ingested
+        unknown = _post(exporter, "/ingest/v1/nobody/d", small)
+        drifted = encode_ipc_stream(pa.table({"x": pa.array(["oops"] * 64),
+                                              "y": pa.array(np.ones(64)),
+                                              "k": pa.array(np.ones(64, dtype=np.int64)),
+                                              "v": pa.array(np.ones(64))}))
+        drift = _post(exporter, "/ingest/v1/wire/d", drifted)
+        statuses = [ok[0], bad[0], unknown[0], drift[0]]
+        print(f"[tenant (b) endpoint] good checksum {ok[0]} ({ok[1].get('frames')} frames), bad "
+              f"checksum {bad[0]} {bad[1].get('error')}, unregistered {unknown[0]} "
+              f"{unknown[1].get('error')}, drift {drift[0]} {drift[1].get('error')}; "
+              f"{folded} frames folded", flush=True)
+        if statuses != [200, 400, 404, 409] or folded != 2 or ok[1].get("rows") != 4096:
+            raise AssertionError(f"endpoint statuses {statuses}, folded {folded}")
+
+
+def build_fleet(n_series: int, seed: int = FLEET_SEED) -> list:
+    """tools/anomaly_fleet_bench.py ``build_fleet``: N ragged daily metric
+    histories (60-120 points, mild drift and noise), about one in eight
+    with an anomalous newest point."""
+    rng = np.random.default_rng(seed)
+    fleet = []
+    for i in range(n_series):
+        n = int(rng.integers(60, 120))
+        base = 50.0 + float(rng.normal(0, 10))
+        s = base + 0.02 * np.arange(n) + rng.normal(0, 1.0, n)
+        if i % 8 == 0:
+            s[-1] += float(rng.choice([-1, 1])) * 25.0
+        fleet.append(s.tolist())
+    return fleet
+
+
+def _flags(rows) -> list:
+    return [(i, float(a.value), a.detail) for i, a in rows]
+
+
+def watch_series(i: int, broken: bool) -> list:
+    """Tenant ``i``'s daily Size: five weeks of history and the newest day,
+    a weekly pattern around ``WATCH_BASE_ROWS`` with 1.5% noise; a broken
+    tenant's newest day lies 30% below its pattern."""
+    rng = np.random.default_rng([WATCH_SEED, 1000 + i])
+    days = [float(round(WATCH_BASE_ROWS * WATCH_WEEK[d % 7] * (1 + 0.015 * rng.normal())))
+            for d in range(WATCH_DAYS + 1)]
+    if broken:
+        days[-1] = float(round(0.7 * days[-1]))
+    return days
+
+
+def hw_oracle(series: list, alpha: float, beta: float, gamma: float) -> tuple:
+    """The newest day's forecast and flag by the plain additive Holt-Winters
+    recurrence (reference ``HoltWinters.scala:76-124``) and the 1.96-sigma
+    residual rule, written here apart from the port; the parameters are the
+    ones the watch fitted."""
+    m, history = 7, np.asarray(series[:-1], dtype=np.float64)
+    level = history[:m].sum() / m
+    trend = (history[m:2 * m].sum() - history[:m].sum()) / (m * m)
+    season = list(history[:m] - level)
+    residuals = []
+    for t, y in enumerate(history):
+        residuals.append(y - (level + trend + season[t]))
+        new_level = alpha * (y - season[t]) + (1 - alpha) * (level + trend)
+        season.append(gamma * (y - level - trend) + (1 - gamma) * season[t])
+        level, trend = new_level, beta * (new_level - level) + (1 - beta) * trend
+    forecast = float(level + trend + season[len(history)])
+    band = 1.96 * float(np.std(np.abs(residuals), ddof=1))
+    return forecast, abs(series[-1] - forecast) > band
+
+
+def fleet_watch(torch, dq) -> None:
+    """Phase 12 (c): the bench fleet in one batched call, and a live
+    Holt-Winters harvest over 16 tenants whose newest folds run on the
+    card, one of them broken; then /statusz."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from deequ_tpu_torch.anomalydetection import (
+        HoltWinters, MetricInterval, OnlineNormalStrategy, SeriesSeasonality)
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.metrics import DoubleMetric, Entity, Success
+    from deequ_tpu_torch.repository import PartitionedMetricsRepository, ResultKey
+    from deequ_tpu_torch.runners.context import AnalyzerContext
+    from deequ_tpu_torch.service import VerificationService
+    from deequ_tpu_torch.service.statusz import REQUIRED_PLANES, validate_statusz
+
+    fleet = build_fleet(FLEET_SERIES)
+    intervals = [(len(s) - 1, len(s)) for s in fleet]
+    strategy = OnlineNormalStrategy()
+    t0 = time.perf_counter()
+    batched = strategy.detect_batch(fleet, intervals)
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serial = [strategy.detect(s, iv) for s, iv in zip(fleet, intervals)]
+    serial_s = time.perf_counter() - t0
+    differ = sum(_flags(g) != _flags(w) for g, w in zip(batched, serial))
+    flagged = sum(1 for rows in batched if rows)
+    print(f"[tenant (c) fleet] {FLEET_SERIES} series: detect_batch {batch_s:.3f}s, serial "
+          f"{serial_s:.3f}s; {flagged} flagged; {differ} differ", flush=True)
+    if differ or not flagged:
+        raise AssertionError(f"detect_batch differs from detect on {differ} series")
+
+    day_ms = 86_400_000
+    now_ms = int(time.time() * 1000)
+    broken = 5
+    root = tempfile.mkdtemp(prefix="chip-smoke-watch-")
+    try:
+        with service_knobs(DEEQU_TPU_PLACEMENT="device"), VerificationService(
+                4, 64, device="cuda", background_warm=False) as svc:
+            hw = HoltWinters(MetricInterval.DAILY, SeriesSeasonality.WEEKLY)
+            fits, fitted = [], {}
+            fit_batch = hw.fit_batch
+
+            def counted_fit(series, intervals):
+                params = fit_batch(series, intervals)
+                fits.append(len(series))
+                fitted.update((tuple(map(float, x)), p) for x, p in zip(series, params))
+                return params
+
+            hw.fit_batch = counted_fit
+            days = [watch_series(i, i == broken) for i in range(WATCH_TENANTS)]
+            repos = {}
+            for i in range(WATCH_TENANTS):
+                t = f"watched-{i:02d}"
+                repos[t] = PartitionedMetricsRepository(f"{root}/{t}")
+                for d, size in enumerate(days[i][:WATCH_DAYS]):
+                    repos[t].save(ResultKey(now_ms - (WATCH_DAYS - d) * day_ms), AnalyzerContext(
+                        {dq.Size(): DoubleMetric(Entity.DATASET, "Size", "*", Success(size))}))
+            checks = [dq.Check(dq.CheckLevel.ERROR, "daily").has_size(lambda n: n > 0)]
+            rng = np.random.default_rng(TENANT_SEED)
+
+            def day_frame(rows):
+                return dq.Dataset.from_dict({"x": rng.normal(size=rows)})
+
+            # the first fold of the battery's row bucket shelters on the host
+            # tier (a cold battery with no background warm); later ones run on
+            # the card
+            svc.verify(day_frame(WATCH_BASE_ROWS), checks, tenant="warm", timeout=TENANT_WAIT_S)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            # each tenant's newest day: a fold on the card that saves its
+            # metrics into the tenant's history; tenant 5's day is broken
+            handles = []
+            for i, t in enumerate(repos):
+                rows = int(days[i][-1])
+                handles.append(svc.submit_verification(
+                    day_frame(rows), checks, tenant=t, metrics_repository=repos[t],
+                    save_or_append_results_with_key=ResultKey(now_ms)))
+            for h in handles:
+                h.result(TENANT_WAIT_S)
+            # the standing watch, then one more job of a watched tenant: its
+            # harvest schedules the scoring job
+            for t, repo in repos.items():
+                svc.watch_metrics(t, repo, [dq.Size()], strategy=hw)
+            svc.verify(day_frame(WATCH_BASE_ROWS), checks, tenant="watched-00",
+                       timeout=TENANT_WAIT_S)
+            deadline = time.time() + TENANT_WAIT_S
+            while time.time() < deadline and (svc.fleetwatch.last_report is None
+                                              or not svc.scheduler.idle()
+                                              or svc.fleetwatch._job_pending):
+                time.sleep(0.05)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            report = svc.fleetwatch.last_report
+            counters = svc.json_snapshot()["counters"]
+            print(f"[tenant (c) watch] {WATCH_TENANTS} newest folds and the harvest in "
+                  f"{wall:.2f}s; report {report}; fits {fits}; launches={launches}", flush=True)
+            _launched("phase 12 (c)", launches, WATCH_KERNELS)
+            flagged = sorted({(f[0], f[3]) for f in report.flagged}) if report else None
+            # the plain recurrence on the same days, with the watch's fits
+            if any(tuple(d) not in fitted for d in days):
+                raise AssertionError(f"the watch fitted {len(fitted)} of the series")
+            oracle = [hw_oracle(d, *fitted[tuple(d)]) for d in days]
+            expected = [(f"watched-{i:02d}", WATCH_DAYS) for i, o in enumerate(oracle) if o[1]]
+            # the watch's forecast of each flagged day, from its message
+            said = {f[0]: float(f[5].split("Forecasted ")[1].split()[0]) for f in report.flagged}
+            plain = {t: oracle[int(t[-2:])][0] for t in said}
+            print(f"[tenant (c) watch] the plain recurrence flags {expected}; the watch "
+                  f"flagged {flagged}; forecasts of the flagged days: the watch's {said}, "
+                  f"the plain recurrence's {plain}", flush=True)
+            if flagged != expected or any(abs(said[t] - plain[t]) > 1e-9 * abs(plain[t])
+                                          for t in said):
+                raise AssertionError(f"the harvest flagged {flagged}, the plain recurrence "
+                                     f"{expected}")
+            if expected != [(f"watched-{broken:02d}", WATCH_DAYS)]:
+                raise AssertionError(f"the scenario's clean days are not clean: {expected}")
+            if report.series_scored != WATCH_TENANTS or report.detect_calls != 1:
+                raise AssertionError(f"the harvest scored {report}")
+            scored = counters.get("deequ_service_anomaly_series_scored_total", {})
+            moved = {"flagged": counters.get("deequ_service_anomaly_flagged_total", {}),
+                     "harvests": counters.get("deequ_service_anomaly_harvests_total", 0),
+                     "scored": sorted(scored)}
+            if (moved["flagged"] != {f"tenant=watched-{broken:02d}": 1.0} or moved["harvests"] < 1
+                    or moved["scored"] != sorted(f"tenant={t}" for t in repos)):
+                raise AssertionError(f"the anomaly series: {moved}")
+            again = svc.fleetwatch.harvest_now()
+            if sum(fits) != WATCH_TENANTS or again.flagged != report.flagged:
+                raise AssertionError(f"fits {fits}: the cached fit was not reused")
+            exporter = svc.start_exporter(host="127.0.0.1", port=0)
+            with urllib.request.urlopen(f"http://{exporter.host}:{exporter.port}/statusz",
+                                        timeout=60) as resp:
+                doc = json.loads(resp.read())
+            problems = validate_statusz(doc)
+            print(f"[tenant (c) statusz] planes {sorted(doc['planes'])}; problems {problems}; "
+                  f"fleetwatch {doc['planes']['fleetwatch']}", flush=True)
+            if problems or not set(REQUIRED_PLANES) <= set(doc["planes"]):
+                raise AssertionError(f"/statusz: {problems}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _state_leaves(state) -> dict:
+    return {name: getattr(state, name).detach().cpu().numpy()
+            for name in ("items", "sizes", "parity", "count", "g_min", "g_max")}
+
+
+def history_entries(repo) -> list:
+    return sorted((r.result_key.data_set_date, tuple(sorted(r.result_key.tags_dict.items())),
+                   tuple(sorted((repr(a), m.value.get())
+                                for a, m in r.analyzer_context.metric_map.items())))
+                  for r in repo.load().get())
+
+
+def interop_path(torch, dq, table: pa.Table) -> None:
+    """Phase 12 (d): HLL and KLL states of the card as JVM blobs, read back
+    onto the card and merged with the originals (K8, K5's merge); a year of
+    JVM metrics history imported into partitioned repositories."""
+    import shutil
+    import tempfile
+
+    from deequ_tpu_torch import interop
+    from deequ_tpu_torch.analyzers.base import merge_states_batched
+    from deequ_tpu_torch.analyzers.state_provider import InMemoryStateProvider
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.ops.kll import kll_merge
+    from deequ_tpu_torch.repository import AnalysisResult, PartitionedMetricsRepository, ResultKey
+
+    data = dq.Dataset.from_arrow(table)
+    hll, kll = dq.ApproxCountDistinct("cat_large"), dq.KLLSketch("a")
+    provider = InMemoryStateProvider()
+    dq.AnalysisRunner.do_analysis_run(data, [hll, kll], batch_size=BATCH_ROWS,
+                                      save_states_with=provider, device="cuda")
+    # the run's states come back from the card in its one packed fetch;
+    # the merges below take them on the card
+    hll_state = provider.load(hll)
+    hll_state = type(hll_state)(hll_state.registers.to("cuda"))
+    kll_state = provider.load(kll)
+    kll_state = type(kll_state)(*(leaf.to("cuda") for leaf in kll_state.tensors()),
+                                sketch_size=kll_state.sketch_size)
+    hll_blob = interop.write_jvm_hll_state_blob(hll_state)
+    kll_blob = interop.write_jvm_kll_state_blob(kll_state)
+    hll_read = interop.read_jvm_hll_state_blob(hll_blob, device="cuda")
+    kll_read, _ = interop.read_jvm_kll_state_blob(kll_blob, device="cuda")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    merged = merge_states_batched(hll, [hll_state, hll_read], device="cuda")
+    doubled = merge_states_batched(hll, [hll_state, hll_state], device="cuda")
+    kll_merged, kll_doubled = kll_merge(kll_state, kll_read), kll_merge(kll_state, kll_state)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    problems = []
+    # the reads themselves first: an HLL merge is an elementwise max, so a
+    # reader that lost registers would still merge to the original's
+    if not torch.equal(hll_read.registers, hll_state.registers) or \
+            hll_read.registers.device.type != "cuda":
+        problems.append("HLL: the blob reads back other registers")
+    got, want = _state_leaves(kll_read), _state_leaves(kll_state)
+    problems += [f"KLL read {name}" for name in got if not np.array_equal(got[name], want[name])]
+    if kll_read.items.device.type != "cuda":
+        problems.append("KLL: the blob reads back off the card")
+    if not torch.equal(merged.registers, doubled.registers) or \
+            merged.registers.device.type != "cuda":
+        problems.append("HLL: the read-back state merges to other registers")
+    got, want = _state_leaves(kll_merged), _state_leaves(kll_doubled)
+    problems += [f"KLL {name}" for name in got if not np.array_equal(got[name], want[name])]
+    print(f"[tenant (d) blobs] HLL blob {len(hll_blob)} bytes, KLL blob {len(kll_blob)} bytes "
+          f"({int(kll_state.count)} values); read back and merged with the originals on the "
+          f"card: {problems or 'bit for bit'} (KLL ticks aside: the blob carries none); "
+          f"launches={launches}", flush=True)
+    _launched("phase 12 (d)", launches, INTEROP_KERNELS)
+    if problems:
+        raise AssertionError(f"interop merges: {problems}")
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-jvm-")
+    try:
+        battery = [dq.Size(), dq.Mean("a"), dq.Completeness("b"), dq.Uniqueness(["cat_small"])]
+        entries = {}
+        for device in ("cuda", "cpu"):
+            ctx = dq.AnalysisRunner.do_analysis_run(data, battery, batch_size=BATCH_ROWS,
+                                                    device=device)
+            history = [AnalysisResult(ResultKey(1_704_067_200_000 + d * 86_400_000,
+                                                {"table": "orders"}), ctx)
+                       for d in range(JVM_HISTORY_DAYS)]
+            payload = interop.write_jvm_metrics_history_json(history)
+            repo = PartitionedMetricsRepository(f"{root}/{device}")
+            t0 = time.perf_counter()
+            count = repo.import_jvm_history(payload, source=f"{device}.json")
+            seconds = time.perf_counter() - t0
+            entries[device] = history_entries(repo)
+            print(f"[tenant (d) history] {count} days from the {device} run imported in "
+                  f"{seconds:.2f}s ({len(payload)} bytes)", flush=True)
+        problems = []
+        for g, w in zip(entries["cuda"], entries["cpu"]):
+            if g[:2] != w[:2] or [k for k, _ in g[2]] != [k for k, _ in w[2]]:
+                problems.append(f"{g[:2]}: keys differ")
+                continue
+            for (key, gv), (_, wv) in zip(g[2], w[2]):
+                if gv != wv and not ("Mean" in key and abs(gv - wv) <= 1e-12 * abs(wv)):
+                    problems.append(f"{g[0]} {key}: {gv!r} != {wv!r}")
+        if len(entries["cuda"]) != JVM_HISTORY_DAYS or problems:
+            raise AssertionError(f"imported histories differ: {problems[:10]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _applicability(result) -> tuple:
+    return (result.is_applicable, sorted(result.failures),
+            sorted((str(c), ok) for c, ok in result.constraint_applicabilities.items()))
+
+
+def applicability_path(torch, dq, table: pa.Table) -> None:
+    """Phase 12 (e): phase 3's check, and a check that names a missing
+    column, on random rows of phase 3's schema, on the card and the CPU."""
+    from deequ_tpu_torch.applicability import Applicability
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    schema = dq.Dataset.from_arrow(table.slice(0, 1)).schema
+    missing = (dq.Check(dq.CheckLevel.ERROR, "missing").is_complete("no_such_column")
+               .has_mean("a", lambda v: True))
+    for label, check in (("phase 3's check", build_check(dq, ROWS)), ("missing column", missing)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        card = Applicability.is_applicable_check(check, schema, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        cpu = Applicability.is_applicable_check(check, schema, device="cpu")
+        print(f"[tenant (e) applicability] {label}: applicable {card.is_applicable}, "
+              f"{len(card.failures)} failures of {len(card.constraint_applicabilities)} "
+              f"constraints in {seconds:.2f}s; launches={launches}", flush=True)
+        _launched(f"phase 12 (e) {label}", launches, APPLICABILITY_KERNELS)
+        if _applicability(card) != _applicability(cpu):
+            raise AssertionError(f"{label}: the card's applicability differs from the CPU's")
+    if card.is_applicable or "no_such_column" not in " ".join(card.failures):
+        raise AssertionError(f"the missing column was not found: {card.failures}")
+
+
+def tenant_plane(torch, dq) -> None:
+    """Phase 12: the tenant plane on the card, parts (a)-(e), each with its
+    seconds. ``python3 -c "import torch, chip_smoke, deequ_tpu_torch as dq;
+    chip_smoke.tenant_plane(torch, dq)"`` runs it alone (the kernels build
+    at first use), printing no result lines."""
+    t0 = time.perf_counter()
+    with part_seconds("phase 12 (a)"):
+        catalog_soak(torch, dq)
+    with part_seconds("phase 12 (b)"):
+        gate_and_wire(torch, dq)
+    with part_seconds("phase 12 (c)"):
+        fleet_watch(torch, dq)
+    table = build_table(INTEROP_ROWS, TENANT_SEED)
+    with part_seconds("phase 12 (d)"):
+        interop_path(torch, dq, table)
+    with part_seconds("phase 12 (e)"):
+        applicability_path(torch, dq, table)
+    print(f"[seconds] phase 12: {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def _nvidia_smi() -> str:
@@ -4801,6 +5590,8 @@ def main(argv=None) -> int:
     stacked_measured, stream_launches = streaming_service(torch, dq, args.seed)
     # phase 10: constraint suggestion, BASELINE config 5
     suggestion_path(torch, dq)
+    # phase 12: the tenant plane
+    tenant_plane(torch, dq)
 
     # K1-K3 as the verification path runs them, K4 and K5 as the profile
     # path does (the verification path runs no sketch); each with the

@@ -7,8 +7,8 @@ sort/filter/new-point protocol. Series here are metric histories (length
 << 1e5), so everything is plain numpy on host — same as the reference, where
 this is breeze code on the host.
 
-A copy of the JAX package's module (it imports no JAX). The seasonal
-Holt-Winters strategy is not part of this port yet.
+A copy of the JAX package's module (it imports no JAX), with the seasonal
+Holt-Winters strategy in :mod:`.seasonal`.
 """
 
 from __future__ import annotations
@@ -129,6 +129,7 @@ from .strategies import (  # noqa: E402
     RelativeRateOfChangeStrategy,
     SimpleThresholdStrategy,
 )
+from .seasonal import HoltWinters, MetricInterval, SeriesSeasonality  # noqa: E402
 
 __all__ = [
     "AbsoluteChangeStrategy",
@@ -138,21 +139,12 @@ __all__ = [
     "BatchNormalStrategy",
     "DataPoint",
     "DetectionResult",
+    "HoltWinters",
+    "MetricInterval",
     "OnlineNormalStrategy",
     "RateOfChangeStrategy",
     "RelativeRateOfChangeStrategy",
+    "SeriesSeasonality",
     "SimpleThresholdStrategy",
 ]
 
-
-#: the seasonal strategy's names, which this port does not carry yet
-_NOT_PORTED = ("HoltWinters", "MetricInterval", "SeriesSeasonality")
-
-
-def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} (seasonal Holt-Winters anomaly detection) is not supported by "
-            "deequ_tpu_torch yet"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -84,6 +84,44 @@ class SchemaDriftError(MetricCalculationRuntimeException):
         )
 
 
+class MalformedFrameError(MetricCalculationRuntimeException, ValueError):
+    """A frame on the ingestion plane failed to decode: torn Arrow IPC
+    bytes, a schema message that is not a schema, or a payload whose
+    declared checksum does not match the bytes received. Raised BEFORE
+    anything folds, so a corrupt producer can never contaminate a
+    session's persisted states — the frame is rejected typed and the
+    stream position it occupied is reported for operator triage."""
+
+    def __init__(self, source: str, detail: str = "", frame_index: int = -1):
+        self.source = source
+        self.frame_index = int(frame_index)
+        where = f" (frame {frame_index})" if frame_index >= 0 else ""
+        super().__init__(
+            f"malformed ingest frame from {source}{where}"
+            + (f": {detail}" if detail else "")
+        )
+
+
+class FeedDisconnectError(MetricCalculationRuntimeException):
+    """An ingest stream ended mid-frame: the producer disconnected, the
+    socket died, or the payload was truncated below its declared length.
+    Frames that decoded COMPLETELY before the disconnect have already
+    folded (each is one atomic micro-batch merge); the torn tail frame
+    never touches state. Carries how far the stream got so a resuming
+    producer knows what committed."""
+
+    def __init__(self, source: str, frames_decoded: int = 0,
+                 bytes_read: int = 0, detail: str = ""):
+        self.source = source
+        self.frames_decoded = int(frames_decoded)
+        self.bytes_read = int(bytes_read)
+        super().__init__(
+            f"ingest feed from {source} disconnected mid-frame after "
+            f"{frames_decoded} complete frame(s), {bytes_read} byte(s)"
+            + (f": {detail}" if detail else "")
+        )
+
+
 class ScanStallError(DeviceFailureException):
     """A pass exceeded its watchdog deadline without finishing or failing.
     The port has no watchdog yet (ROADMAP A6); the service's scheduler

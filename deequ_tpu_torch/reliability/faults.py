@@ -35,13 +35,25 @@ site                 fires
 ``sharded_fold``     before a mesh ingest fold dispatch
 ``collective_merge`` before a collective state merge dispatch
 ``shard_probe``      per mesh shard in the heartbeat health probe, tag = shard
+``frame_decode``     per ingest-plane frame before it folds, tag = frame idx
+``catalog_load``     before a tenant catalog document parses, tag = tenant
+``row_gate``         per frame before the row-level conformance mask runs,
+                     tag = ``tenant/dataset``
 ===================  ========================================================
 
 The ``interrupt`` kind (a ``KeyboardInterrupt`` subclass) at
 ``device_update``, ``host_partial`` or ``ingest_fold`` kills a run mid-fold,
 which an ingest checkpoint then resumes; the ``corrupt`` kind (a typed
 ``CorruptStateError``) at the two load sites stands in for bit rot or a
-torn write the checksum layer would detect.
+torn write the checksum layer would detect. At ``catalog_load`` the
+``corrupt`` kind stands in for a torn or garbled tenant catalog document
+(the catalog quarantines it and keeps serving last-good); at ``row_gate``
+it stands in for a frame the conformance mask cannot even be computed over
+(the gate surfaces it typed before anything folds).
+
+The ingest kind ``frame_corrupt`` (a typed ``MalformedFrameError``)
+injected at ``frame_decode`` stands in for torn or garbled Arrow IPC bytes
+a producer shipped.
 
 The mesh kinds: ``mesh_loss`` (a typed ``ShardLossError`` whose ``lost``
 list carries the spec's ``shard``, default 0) stands in for a device or
@@ -52,9 +64,10 @@ at ``shard_probe`` it makes the heartbeat declare that shard dead;
 for a shard that wedged without raising.
 
 The engine's other sites (per-analyzer isolation, compile, device feed,
-state fetch), the ingest and cluster kinds belong to the reliability
-wrapper, the watchdog and the planes the port has not taken yet (ROADMAP
-A6).
+state fetch, the feed pipeline's ``prefetch``) and the ``feed_stall`` and
+cluster kinds belong to the reliability wrapper, the watchdog, the
+engine's feed pipeline and the cluster plane, which the port has not
+taken yet.
 """
 
 from __future__ import annotations
@@ -72,6 +85,7 @@ from ..exceptions import (
     DeviceFailureException,
     DeviceOOMException,
     PoisonedBatchException,
+    MalformedFrameError,
     SchemaDriftError,
     ShardLossError,
     ShardStallError,
@@ -119,6 +133,12 @@ def _make_error(kind: str, site: str, tag: str, shard: Optional[int] = None) -> 
         return CorruptStateError("injected payload", site, note)
     if kind == "drift":
         return SchemaDriftError(site, [note])
+    if kind == "frame_corrupt":
+        try:
+            index = int(tag)
+        except (TypeError, ValueError):
+            index = -1
+        return MalformedFrameError(site, note, frame_index=index)
     if kind == "mesh_loss":
         return ShardLossError([0 if shard is None else shard], site, detail=note)
     if kind == "shard_stall":
@@ -129,6 +149,7 @@ def _make_error(kind: str, site: str, tag: str, shard: Optional[int] = None) -> 
 FAULT_KINDS = (
     "device", "oom", "poison", "analyzer", "interrupt", "worker_death",
     "stall", "corrupt", "drift", "mesh_loss", "shard_stall",
+    "frame_corrupt",
 )
 
 #: The fault-site REGISTRY: every ``fault_point(site, ...)`` planted in the
@@ -148,6 +169,9 @@ KNOWN_FAULT_SITES = frozenset({
     "sharded_fold",
     "collective_merge",
     "shard_probe",
+    "frame_decode",
+    "catalog_load",
+    "row_gate",
 })
 
 

@@ -23,9 +23,8 @@ buckets):
   corrupt entry/file quarantines content-addressed to
   ``<root>.quarantine/`` and the rest of the history keeps serving (the
   FS repository's stance, kept bucket-local);
-- the reference's Gson/JVM metrics-history dialect is an input of the
-  JAX package's ``import_jvm_history``; the port's raises until its JVM
-  interop module is ported (ROADMAP A4b).
+- the reference's Gson/JVM metrics-history dialect is an input
+  (``import_jvm_history``, through :mod:`deequ_tpu_torch.interop`).
 
 The public API is exactly :class:`MetricsRepository` — callers,
 ``VerificationSuite.use_repository`` and the anomaly wiring see no
@@ -484,12 +483,15 @@ class PartitionedMetricsRepository(MetricsRepository):
 
     def import_jvm_history(self, payload: str, source: str = "<jvm>") -> int:
         """Read a reference-written (Gson dialect) metrics-history JSON
-        payload into the partitioned layout: it needs the JVM interop
-        module, which the port has not taken yet (ROADMAP A4b)."""
-        raise NotImplementedError(
-            "import_jvm_history needs interop.py, which deequ_tpu_torch has not ported yet "
-            "(ROADMAP A4b)"
-        )
+        payload and save every entry into the partitioned layout; returns
+        the entry count. The JVM dialect stays an INPUT format — storage
+        is always the checksummed native layout."""
+        from ..interop import read_jvm_metrics_history_json
+
+        results = read_jvm_metrics_history_json(payload, source=source)
+        for result in results:
+            self.save(result.result_key, result.analyzer_context)
+        return len(results)
 
     # -- quarantine ----------------------------------------------------------
 

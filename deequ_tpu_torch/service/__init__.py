@@ -17,7 +17,16 @@ One :class:`VerificationService` hosts:
   kernels are warm run on the device tier, cold ones on the host tier while
   their kernels build in the background;
 - an **export plane** (`metrics.ServiceMetrics` / `MetricsExporter`):
-  Prometheus text and JSON snapshots fed from each run's RunMonitor.
+  Prometheus text and JSON snapshots fed from each run's RunMonitor, the
+  unified ``/statusz`` ops snapshot (`statusz`) and the Arrow IPC ingest
+  frontend (``POST /ingest/v1/<tenant>/<dataset>``,
+  `deequ_tpu_torch.ingest.endpoint`);
+- the **tenant plane**: a catalog of per-tenant suite documents
+  (`catalog.TenantCatalog`, bound by `catalog.CatalogPlane`: sessions with
+  their row gates, quotas and watches materialize from documents on first
+  ingest and hot-reload at fold boundaries), per-tenant admission quotas
+  (`scheduler.TenantQuota`), and the standing anomaly watch over the
+  tenants' metric histories (`fleetwatch.FleetWatch`).
 
 Every run and fold of a service goes to its ``device`` (``"cuda"`` unless
 the caller names another; without a card, construction raises unless the
@@ -41,9 +50,9 @@ for ``DEEQU_TPU_PARTITION_STORE``) backs
 :meth:`VerificationService.submit_partitioned_verification`, and streaming
 sessions flush their states into it as partitions when they close.
 
-Not ported: the mesh and the fleet scheduler (ROADMAP A5b), the tenant
-catalog, the fleet watch and the tuning controller (A6); each raises
-naming its item.
+Not ported: the mesh and the fleet scheduler (ROADMAP A5b), which raise
+naming their item, and the tuning controller (A6): every knob reads its
+env override or static default.
 """
 
 from __future__ import annotations
@@ -56,20 +65,30 @@ from ..checks import Check
 from ..config import DeviceLike, resolve_device
 from ..data import Dataset
 from ..exceptions import SchemaDriftError
+from .catalog import CatalogError, CatalogPlane, TenantCatalog, TenantDocument
 from .coalesce import CrossoverRouter, FoldCoalescer
 from .drift import DriftReport, SchemaContract
 from .errors import (
     JobFailed,
     JobTimeout,
+    QuotaExceeded,
     ServiceClosed,
     ServiceError,
     ServiceOverloaded,
     SessionClosed,
     TransientFailure,
 )
+from .fleetwatch import (
+    FLEETWATCH_ENV,
+    FleetWatch,
+    HarvestReport,
+    WatchSpec,
+    fleetwatch_enabled,
+)
 from .metrics import MetricsExporter, ServiceMetrics
 from .placement import PlacementRouter, battery_signature, shape_qualified_signature
-from .scheduler import JobContext, JobHandle, JobScheduler, Priority
+from .scheduler import JobContext, JobHandle, JobScheduler, Priority, TenantQuota
+from .statusz import StatuszRegistry
 from .streaming import StreamingSession, session_key
 
 __all__ = [
@@ -79,9 +98,13 @@ __all__ = [
     "PlacementRouter", "battery_signature", "shape_qualified_signature",
     "ServiceMetrics", "MetricsExporter",
     "FoldCoalescer", "CrossoverRouter",
+    "FleetWatch", "HarvestReport", "WatchSpec", "fleetwatch_enabled",
+    "FLEETWATCH_ENV",
     "ServiceError", "ServiceOverloaded", "JobTimeout", "JobFailed",
     "TransientFailure", "SessionClosed", "ServiceClosed",
     "SchemaContract", "DriftReport", "SchemaDriftError",
+    "TenantCatalog", "TenantDocument", "CatalogPlane", "CatalogError",
+    "TenantQuota", "QuotaExceeded",
 ]
 
 
@@ -112,8 +135,6 @@ class VerificationService:
             raise _not_ported("a device mesh", "A5b")
         if fleet:
             raise _not_ported("the fleet scheduler", "A5b")
-        if catalog is not None:
-            raise _not_ported("the tenant catalog", "A6")
         #: every run and fold of this service goes to this device
         self.device = resolve_device(device)
         self.metrics = metrics or ServiceMetrics()
@@ -144,6 +165,13 @@ class VerificationService:
         #: (DEEQU_TPU_COALESCE=0 bypasses it per ingest, exactly
         #: reproducing the serial path)
         self.coalescer = FoldCoalescer(self)
+        #: the standing fleet-scale anomaly watch: every scheduler harvest
+        #: of a WATCHED tenant re-scores the fleet's metric histories in
+        #: batched detect_batch calls and surfaces anomalies on the export
+        #: plane (DEEQU_TPU_FLEETWATCH=0 detaches the trigger; explicit
+        #: harvest_now() always works)
+        self.fleetwatch = FleetWatch(self)
+        self.fleetwatch.attach()
         #: the self-tuning controller is not ported: every knob reads its
         #: env override or static default, as the reference's does under
         #: DEEQU_TPU_AUTOTUNE=0
@@ -163,6 +191,106 @@ class VerificationService:
         from .streaming import describe_streaming_series
 
         describe_streaming_series(self.metrics)
+        # the tenant plane's declarative frontend: a catalog of per-tenant
+        # suite DOCUMENTS (checks, row gate, quotas, watches, drift and
+        # priority policy), bound to this service by a CatalogPlane that
+        # materializes sessions from documents on first ingest and
+        # hot-reloads them at fold boundaries. A TenantCatalog or a root
+        # path; None = no catalog (sessions are built programmatically).
+        self.catalog_plane = None
+        if catalog is not None:
+            if isinstance(catalog, str):
+                catalog = TenantCatalog(catalog, metrics=self.metrics)
+            self.catalog_plane = CatalogPlane(self, catalog)
+        #: the unified ops snapshot (/statusz): one section per plane, read
+        #: through to the live planes at snapshot time
+        self.statusz = StatuszRegistry()
+        self._register_statusz_planes()
+
+    def _register_statusz_planes(self) -> None:
+        """Register the six REQUIRED_PLANES sections of the /statusz
+        document (the reference's, deequ_tpu/service/__init__.py:226-325)
+        against this service's live planes, plus one section each for the
+        mesh and the fleet scheduler, which say that they are not ported.
+        Sections read through to the planes at snapshot time — never
+        cached."""
+
+        def scheduler_section():
+            return {
+                "queue_depth": self.scheduler.pending(),
+                "active_jobs": self.scheduler._active,
+                "workers": len(self.scheduler._workers),
+                "shed_total": self.metrics.counter_value("deequ_service_jobs_shed_total"),
+                "quota_shed_total": self.metrics.counter_value(
+                    "deequ_service_quota_shed_total"),
+                "ingest_shed_total": self.metrics.counter_value(
+                    "deequ_service_ingest_shed_total"),
+            }
+
+        def tuning_section():
+            # no controller: every knob is its env override or static default
+            from ..tuning import knobs
+
+            return {"enabled": False,
+                    "static_knobs": {name: knobs.value(name) for name in sorted(knobs.REGISTRY)}}
+
+        def catalog_section():
+            plane = self.catalog_plane
+            if plane is None:
+                return {"enabled": False}
+            catalog = plane.catalog
+            return {
+                "enabled": True,
+                "tenant_versions": {
+                    tenant: catalog.current_version(tenant) for tenant in catalog.tenants()
+                },
+            }
+
+        def partition_store_section():
+            store = self.partition_store
+            if store is None:
+                return {"attached": False}
+            from ..repository.partition_store import partition_quarantined_total
+
+            section = {
+                "attached": True,
+                "path": getattr(store, "path", None),
+                "quarantined_total": partition_quarantined_total(),
+            }
+            # compaction lag lives on the metrics-HISTORY repositories; the
+            # long-lived ones the service knows are the fleet watch's
+            lags = {}
+            with self.fleetwatch._lock:
+                repos = {f"{t}/{d}": w.repository
+                         for (t, d), w in self.fleetwatch._watches.items()}
+            for key, repo in sorted(repos.items()):
+                lag_fn = getattr(repo, "compaction_lag", None)
+                if callable(lag_fn):
+                    try:
+                        lags[key] = lag_fn()
+                    except Exception:  # noqa: BLE001 - one sick repo must
+                        # not blank the whole section
+                        lags[key] = {"error": "unreadable"}
+            section["compaction_lag"] = lags
+            section["max_loose_entries"] = max(
+                (lag.get("max_loose", 0) for lag in lags.values()
+                 if isinstance(lag, dict) and "max_loose" in lag),
+                default=0,
+            )
+            return section
+
+        def not_ported(what: str, item: str):
+            return lambda: {"attached": False, "ported": False,
+                            "detail": f"{what} is not ported (ROADMAP {item})"}
+
+        self.statusz.register("scheduler", scheduler_section)
+        self.statusz.register("tuning", tuning_section)
+        self.statusz.register("cluster", not_ported("the cluster plane", "A6"))
+        self.statusz.register("catalog", catalog_section)
+        self.statusz.register("fleetwatch", self.fleetwatch.statusz_section)
+        self.statusz.register("partition_store", partition_store_section)
+        self.statusz.register("mesh", not_ported("the service's device mesh", "A5b"))
+        self.statusz.register("fleet", not_ported("the fleet scheduler", "A5b"))
 
     # -- one-shot jobs -------------------------------------------------------
 
@@ -282,8 +410,24 @@ class VerificationService:
         return self.submit_partitioned_verification(dataset_name, partitions, checks,
                                                     **kw).result(timeout)
 
-    def watch_metrics(self, *args, **kwargs):
-        raise _not_ported("the fleet watch", "A6")
+    def watch_metrics(
+        self,
+        tenant: str,
+        repository: Any,
+        analyzers,
+        strategy: Any = None,
+        dataset: str = "default",
+        tags: Optional[Dict[str, str]] = None,
+    ):
+        """Register a standing anomaly watch over ``tenant``'s committed
+        metric history (see `service.fleetwatch`): on every scheduler
+        harvest the fleet watch re-scores every watched series in batched
+        ``detect_batch`` calls and surfaces anomalies as
+        ``deequ_service_anomaly_*`` export series plus trace-correlated
+        flight dumps."""
+        return self.fleetwatch.watch(
+            tenant, repository, analyzers, strategy=strategy, dataset=dataset, tags=tags,
+        )
 
     # -- streaming sessions --------------------------------------------------
 
@@ -339,8 +483,15 @@ class VerificationService:
     def json_snapshot(self) -> Dict[str, Any]:
         return self.metrics.json_snapshot()
 
-    def start_exporter(self, host: str = "127.0.0.1", port: int = 0) -> MetricsExporter:
-        """Serve ``/metrics``, ``/metrics.json`` and ``/trace`` over HTTP."""
+    def start_exporter(
+        self, host: str = "127.0.0.1", port: int = 0, ingest: bool = True
+    ) -> MetricsExporter:
+        """Serve the HTTP plane: ``/metrics``, ``/metrics.json``, ``/trace``
+        and the unified ``/statusz`` ops snapshot, and (with
+        ``ingest=True``, the default) the Arrow IPC ingest frontend at
+        ``POST /ingest/v1/<tenant>/<dataset>`` bound to this service's
+        streaming sessions. The handler threads only decode frames and
+        submit folds; the folds run on the scheduler's workers."""
         if self._exporter is not None:
             if host != self._exporter.host or port not in (0, self._exporter.port):
                 raise ValueError(
@@ -349,7 +500,15 @@ class VerificationService:
                     f"rebind to {host}:{port}"
                 )
             return self._exporter
-        self._exporter = MetricsExporter(self.metrics, host=host, port=port)
+        endpoint = None
+        if ingest:
+            from ..ingest import IngestEndpoint
+
+            endpoint = IngestEndpoint(self)
+        self._exporter = MetricsExporter(
+            self.metrics, host=host, port=port, ingest=endpoint,
+            statusz=self.statusz.snapshot,
+        )
         return self._exporter
 
     # -- lifecycle -----------------------------------------------------------

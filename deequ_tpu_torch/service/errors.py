@@ -29,6 +29,38 @@ class ServiceOverloaded(ServiceError):
         )
 
 
+class QuotaExceeded(ServiceOverloaded):
+    """A tenant exceeded ITS OWN admission budget (rows/s, bytes/s, or
+    queue share — typically set from its catalog document), not the
+    service-wide queue bound.
+
+    Deliberately a :class:`ServiceOverloaded` subclass: every transport
+    mapping that sheds overload typed (HTTP 429, retry-with-backoff
+    guidance) applies unchanged — but the type carries WHICH tenant blew
+    WHICH budget, so a flooding tenant reads its own name in the error
+    instead of blaming the service. Raised AT ADMISSION after any bounded
+    backpressure wait (``block_s``) expires; neighbors' admission is
+    untouched."""
+
+    def __init__(
+        self, tenant: str, resource: str, limit: float, observed: float
+    ):
+        self.tenant = str(tenant)
+        self.resource = str(resource)
+        self.limit = float(limit)
+        self.observed = float(observed)
+        # the parent's queue-shaped attrs stay valid for callers that
+        # branch on ServiceOverloaded without knowing about quotas
+        self.queue_depth = 0
+        self.max_queue_depth = 0
+        Exception.__init__(
+            self,
+            f"tenant {tenant!r} over its {resource} quota "
+            f"({observed:.6g} > {limit:.6g}); retry with backoff — "
+            "neighbors are unaffected",
+        )
+
+
 class JobTimeout(ServiceError):
     """The job's deadline elapsed before a result was delivered.
 

@@ -77,6 +77,21 @@ def histogram_quantile(state: Dict[str, Any], q: float) -> Optional[float]:
     return float("inf")
 
 
+def histogram_fraction_le(state: Dict[str, Any], threshold: float) -> float:
+    """Fraction of observations ``<= threshold`` (resolved at bucket
+    granularity: buckets whose upper edge fits under the threshold). The
+    SLO evaluator's achieved-fraction primitive. 1.0 on an empty state —
+    no traffic violates no objective."""
+    total = state["count"]
+    if total <= 0:
+        return 1.0
+    good = sum(
+        c for i, c in enumerate(state["counts"])
+        if i < len(HISTOGRAM_EDGES) and HISTOGRAM_EDGES[i] <= threshold
+    )
+    return good / total
+
+
 def _labels_key(name: str, labels: Dict[str, str]) -> _LabelKey:
     return name, tuple(sorted(labels.items()))
 
@@ -382,25 +397,157 @@ def _format(value: float) -> str:
     return repr(value)
 
 
+class SloEvaluator:
+    """Objective (latency target + achieved-fraction goal) over a sliding
+    window -> current burn rate, fed straight from the histogram buckets.
+
+    ``burn rate`` follows the multiwindow-alert convention: the ratio of
+    the error budget consumed per unit time to the budget the objective
+    allows — ``(1 - achieved) / (1 - objective)`` over the window. 1.0
+    means burning exactly at budget; >1 means the objective will be missed
+    if the window's behavior continues; 0 means no violations at all.
+
+    The evaluator keeps a ring of (monotonic time, good count, total
+    count) samples per objective: evaluating takes a fresh histogram
+    snapshot, appends it, and differences against the oldest sample still
+    inside the window — so the burn rate reflects the WINDOW, not the
+    process's whole life.
+    """
+
+    def __init__(self, metrics: ServiceMetrics):
+        self._metrics = metrics
+        self._lock = threading.Lock()
+        self._objectives: Dict[str, Dict[str, Any]] = {}
+
+    def add_objective(
+        self,
+        slug: str,
+        histogram: str,
+        threshold_s: float,
+        objective: float = 0.99,
+        window_s: float = 300.0,
+        **labels: str,
+    ) -> None:
+        """Register one objective: fraction ``objective`` of observations
+        in ``histogram`` (filtered to cells whose labels contain
+        ``labels``) must land at or under ``threshold_s`` seconds."""
+        objective = min(max(float(objective), 0.0), 0.9999)
+        with self._lock:
+            self._objectives[slug] = {
+                "histogram": histogram, "threshold_s": float(threshold_s),
+                "objective": objective, "window_s": float(window_s),
+                "labels": dict(labels), "samples": [],
+            }
+
+    def objectives(self) -> List[str]:
+        with self._lock:
+            return sorted(self._objectives)
+
+    def _good_total(self, spec: Dict[str, Any]) -> Tuple[float, float]:
+        state = self._metrics.histogram_merged(
+            spec["histogram"], **spec["labels"]
+        )
+        good = histogram_fraction_le(state, spec["threshold_s"]) * state[
+            "count"
+        ]
+        return good, float(state["count"])
+
+    def burn_rate(self, slug: str, now: Optional[float] = None) -> float:
+        """Current burn rate for one objective (0.0 when the window saw no
+        traffic — idle tenants are not on fire)."""
+        import time as _time
+
+        if now is None:
+            now = _time.monotonic()
+        with self._lock:
+            spec = self._objectives.get(slug)
+            if spec is None:
+                raise KeyError(slug)
+        good, total = self._good_total(spec)
+        with self._lock:
+            samples = spec["samples"]
+            samples.append((now, good, total))
+            horizon = now - spec["window_s"]
+            # keep ONE sample at or before the horizon so the window
+            # delta spans the full window, drop everything staler
+            while len(samples) > 1 and samples[1][0] <= horizon:
+                samples.pop(0)
+            base_t, base_good, base_total = samples[0]
+            delta_total = total - base_total
+            delta_good = good - base_good
+            objective = spec["objective"]
+        if delta_total <= 0:
+            return 0.0
+        achieved = min(max(delta_good / delta_total, 0.0), 1.0)
+        return (1.0 - achieved) / (1.0 - objective)
+
+    def burn_rates(self, now: Optional[float] = None) -> Dict[str, float]:
+        return {slug: self.burn_rate(slug, now) for slug in self.objectives()}
+
+
+def _format(value: float) -> str:
+    if value != value:  # NaN
+        return "NaN"
+    if value == float("inf"):
+        return "+Inf"  # int(inf) raises; Prometheus accepts the literal
+    if value == float("-inf"):
+        return "-Inf"
+    if value == int(value) and abs(value) < 1e15:
+        return str(int(value))
+    return repr(value)
+
+
 class MetricsExporter:
-    """Serves ``/metrics`` (Prometheus text), ``/metrics.json`` and the
+    """Serves ``/metrics`` (Prometheus text), ``/metrics.json``, the
     trace plane — ``/trace`` (Chrome trace-event / Perfetto-loadable JSON
     of the flight-recorder ring) and ``/trace.jsonl`` (the span journal) —
-    from a daemon thread. Binds to an ephemeral port by default
-    (``port=0``); the bound port is on ``.port``. The reference's
-    ``/statusz`` and Arrow IPC ingest routes are not ported (ROADMAP A6)."""
+    the unified ops snapshot (``/statusz``, when constructed with a
+    ``statusz`` callable; see `deequ_tpu_torch.service.statusz`) and, when
+    constructed with an ``ingest`` endpoint, the Arrow IPC ingestion
+    frontend (``POST /ingest/v1/<tenant>/<dataset>``, see
+    `deequ_tpu_torch.ingest.endpoint`) — from a daemon thread. Binds to an
+    ephemeral port by default (``port=0``); the bound port is on
+    ``.port``."""
 
     def __init__(
         self,
         metrics: ServiceMetrics,
         host: str = "127.0.0.1",
         port: int = 0,
+        ingest: Optional[Any] = None,
+        statusz: Optional[Callable[[], Dict[str, Any]]] = None,
     ):
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
         plane = metrics
+        ingest_endpoint = ingest
+        statusz_fn = statusz
 
         class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802 - BaseHTTPRequestHandler API
+                if ingest_endpoint is None or not ingest_endpoint.matches(
+                    self.path
+                ):
+                    self.send_error(404)
+                    return
+                from ..ingest.endpoint import render_response
+
+                status, body_dict = ingest_endpoint.handle_post(
+                    self.path, self.headers, self.rfile
+                )
+                body = render_response(status, body_dict)
+                try:
+                    self.send_response(status)
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                except (BrokenPipeError, ConnectionResetError):
+                    # a producer that died mid-stream cannot read its
+                    # error; the fold report already landed on the
+                    # counters and flight record
+                    self.close_connection = True
+
             def do_GET(self):  # noqa: N802 - BaseHTTPRequestHandler API
                 if self.path.startswith("/metrics.json"):
                     body = plane.json_text().encode()
@@ -418,6 +565,12 @@ class MetricsExporter:
 
                     body = _obs_export.chrome_trace_text().encode()
                     ctype = "application/json"
+                elif self.path.startswith("/statusz"):
+                    if statusz_fn is None:
+                        self.send_error(404)
+                        return
+                    body = json.dumps(statusz_fn(), sort_keys=True).encode()
+                    ctype = "application/json"
                 else:
                     self.send_error(404)
                     return
@@ -427,6 +580,9 @@ class MetricsExporter:
                 self.end_headers()
                 self.wfile.write(body)
 
+            # a producer that stops sending mid-body must not pin a
+            # handler thread forever: the socket read times out and the
+            # ingest path records a typed disconnect
             timeout = 30
 
             def log_message(self, *args):  # quiet: the plane IS the log

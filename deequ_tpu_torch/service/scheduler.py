@@ -1,7 +1,7 @@
-"""Multi-tenant job scheduler: bounded queue, priorities, deadlines, retry
-(copied from the reference's ``deequ_tpu/service/scheduler.py``, without
-its per-tenant quotas, fleet leases and harvest listeners, which belong to
-the planes ROADMAP A5 and A6 still owe).
+"""Multi-tenant job scheduler: bounded queue, priorities, deadlines, retry,
+per-tenant quotas and harvest listeners (copied from the reference's
+``deequ_tpu/service/scheduler.py``, without its fleet leases, which belong
+to the fleet scheduler the port has not taken yet).
 
 The reference deequ runs as one-shot batch jobs; a service hosting repeated
 verification (the production mode of Schelter et al., VLDB 2018) needs an
@@ -28,6 +28,11 @@ admission-controlled queue between callers and the engine. Design points:
   `retry_on` types the caller registers) re-enqueues with exponential
   backoff until the retry budget or the deadline runs out; everything
   else fails fast as :class:`JobFailed`.
+- **Per-tenant quotas.** :class:`TenantQuota` budgets (rows/s and bytes/s
+  token buckets charged at the streaming admission edge, a share of the
+  queue enforced in :meth:`JobScheduler.submit`) shed one tenant's flood
+  as ITS OWN typed :class:`QuotaExceeded`; tenants without a quota are
+  unthrottled.
 - **Cache-aware pickup.** Workers prefer ready jobs whose battery they
   have run before (see `placement.PlacementRouter`), falling back to the
   global head — soft affinity without starvation.
@@ -55,6 +60,7 @@ from ..runners.engine import RunMonitor
 from .errors import (
     JobFailed,
     JobTimeout,
+    QuotaExceeded,
     ServiceClosed,
     ServiceError,
     ServiceOverloaded,
@@ -76,6 +82,58 @@ def _priority_label(priority: Any) -> str:
     """Stable label value for the per-priority histogram series ("high" /
     "normal" / "low"; raw ints degrade to their str)."""
     return getattr(priority, "name", str(priority)).lower()
+
+
+@dataclass(frozen=True)
+class TenantQuota:
+    """Per-tenant admission budget — the isolation half of multi-tenancy:
+    one tenant's flood becomes ITS OWN typed :class:`QuotaExceeded` (HTTP
+    429) instead of everyone's queue latency.
+
+    ``rows_per_s`` / ``bytes_per_s`` are sustained ingest rates enforced
+    by token bucket at the streaming admission edge (before anything is
+    queued or folded); ``queue_share`` is the fraction of the scheduler's
+    ``max_queue_depth`` this tenant's pending jobs may occupy (enforced
+    inside :meth:`JobScheduler.submit`). ``None`` per field = unlimited.
+    Tenants with NO quota registered are entirely unthrottled — quotas
+    are opt-in per tenant (normally set from the tenant catalog's
+    ``quotas`` document section)."""
+
+    rows_per_s: Optional[float] = None
+    bytes_per_s: Optional[float] = None
+    queue_share: Optional[float] = None
+
+
+class _TokenBucket:
+    """Deficit token bucket on ``time.monotonic``: a charge is admitted
+    whenever the balance is non-negative and then subtracts its FULL
+    amount (the balance may go deeply negative), so any single batch size
+    is admittable and the steady-state rate still converges on ``rate`` —
+    a producer who sent a 1M-row frame simply owes the bucket ~1M/rate
+    seconds of silence. ``charge`` returns 0.0 on admission or the
+    seconds until the balance refills to zero (the caller's bounded
+    backpressure wait); a refused charge consumes NOTHING."""
+
+    __slots__ = ("rate", "burst", "tokens", "last")
+
+    def __init__(self, rate: float):
+        self.rate = float(rate)
+        #: accrual cap: at most one second of idle credit, so a tenant
+        #: idle for an hour cannot burst an hour's budget in one frame
+        self.burst = float(rate)
+        self.tokens = 0.0
+        self.last: Optional[float] = None
+
+    def charge(self, amount: float, now: float) -> float:
+        if self.last is not None:
+            self.tokens = min(
+                self.tokens + (now - self.last) * self.rate, self.burst
+            )
+        self.last = now
+        if self.tokens < 0:
+            return -self.tokens / self.rate
+        self.tokens -= float(amount)
+        return 0.0
 
 
 @dataclass
@@ -218,12 +276,32 @@ class JobScheduler:
         #: coalesce keys under an ACTIVE drain: their jobs stay queued for
         #: bulk absorption instead of being picked (see _eligible)
         self._deferred: set = set()
+        #: tenant -> TenantQuota; buckets are lazily built per (tenant,
+        #: resource) and rebuilt when a quota edit changes the rate.
+        #: Guarded by _quota_lock (NOT the queue lock: charge_quota's
+        #: bounded sleeps must never park inside queue admission)
+        self._quota_lock = threading.Lock()
+        self._quotas: Dict[str, TenantQuota] = {}
+        self._buckets: Dict[Tuple[str, str], _TokenBucket] = {}
+        #: harvest listeners (fn(tenant)) invoked OUTSIDE the queue lock
+        #: after every job harvest — the fleet watch's re-score trigger
+        #: (see service.fleetwatch). Append-only; registration races at
+        #: worst miss the in-flight harvest.
+        self._harvest_listeners: List[Callable[[str], None]] = []
         self.metrics.describe(
             "deequ_service_jobs_submitted_total", "Jobs accepted into the queue."
         )
         self.metrics.describe(
             "deequ_service_jobs_shed_total",
             "Jobs rejected by admission control (ServiceOverloaded).",
+        )
+        self.metrics.describe(
+            "deequ_service_quota_shed_total",
+            "Admissions refused by a PER-TENANT quota (typed "
+            "QuotaExceeded), by tenant and resource (rows_per_s / "
+            "bytes_per_s / queue_share) — distinct from global "
+            "jobs_shed_total: the tenant exceeded its OWN budget while "
+            "neighbors kept their full service.",
         )
         self.metrics.describe(
             "deequ_service_jobs_completed_total",
@@ -325,6 +403,84 @@ class JobScheduler:
                 not self._ready and not self._delayed and self._active == 0
             )
 
+    # -- tenant quotas -------------------------------------------------------
+
+    def set_quota(self, tenant: str, quota: TenantQuota) -> None:
+        """Install (or replace) ``tenant``'s admission budget. Takes
+        effect on the next charge/submit; rate edits rebuild the token
+        buckets (fresh balance — a quota RAISE must not inherit an hour
+        of debt accrued under the old rate)."""
+        tenant = str(tenant)
+        with self._quota_lock:
+            self._quotas[tenant] = quota
+            for key in [k for k in self._buckets if k[0] == tenant]:
+                del self._buckets[key]
+
+    def clear_quota(self, tenant: str) -> None:
+        tenant = str(tenant)
+        with self._quota_lock:
+            self._quotas.pop(tenant, None)
+            for key in [k for k in self._buckets if k[0] == tenant]:
+                del self._buckets[key]
+
+    def get_quota(self, tenant: str) -> Optional[TenantQuota]:
+        with self._quota_lock:
+            return self._quotas.get(str(tenant))
+
+    def charge_quota(
+        self,
+        tenant: str,
+        rows: int = 0,
+        nbytes: int = 0,
+        block_s: Optional[float] = None,
+    ) -> None:
+        """Charge one ingest frame against ``tenant``'s rate quotas, or
+        refuse it typed. Called at the streaming admission edge BEFORE
+        anything queues or folds. Over-rate charges park the caller in
+        bounded backpressure for up to ``block_s`` seconds (the bucket's
+        own refill estimate paces the sleeps), then shed with
+        :class:`QuotaExceeded` — which consumes NONE of the budget, so a
+        shed flood cannot starve the tenant's own later frames. No quota
+        registered: free. Never touches the queue lock."""
+        tenant = str(tenant)
+        with self._quota_lock:
+            quota = self._quotas.get(tenant)
+        if quota is None:
+            return
+        deadline = (
+            None if not block_s else time.monotonic() + float(block_s)
+        )
+        for resource, rate, amount in (
+            ("rows_per_s", quota.rows_per_s, rows),
+            ("bytes_per_s", quota.bytes_per_s, nbytes),
+        ):
+            if not rate or amount <= 0:
+                continue
+            while True:
+                now = time.monotonic()
+                with self._quota_lock:
+                    bucket = self._buckets.get((tenant, resource))
+                    if bucket is None:
+                        bucket = _TokenBucket(float(rate))
+                        self._buckets[(tenant, resource)] = bucket
+                    wait = bucket.charge(float(amount), now)
+                    debt = -bucket.tokens
+                if wait <= 0:
+                    break
+                remaining = (
+                    None if deadline is None else deadline - time.monotonic()
+                )
+                if remaining is None or remaining <= 0:
+                    self.metrics.inc(
+                        "deequ_service_quota_shed_total",
+                        tenant=tenant, resource=resource,
+                    )
+                    raise QuotaExceeded(
+                        tenant, resource, float(rate),
+                        float(debt + amount),
+                    )
+                time.sleep(min(wait, remaining))
+
     def submit(
         self,
         fn: Callable[[JobContext], Any],
@@ -343,7 +499,9 @@ class JobScheduler:
         defer_key: Optional[Any] = None,
         recover_fn: Optional[Callable[[Any, BaseException], Any]] = None,
     ) -> JobHandle:
-        """Admit one job, or shed it with :class:`ServiceOverloaded`.
+        """Admit one job, or shed it with :class:`ServiceOverloaded` (or
+        :class:`QuotaExceeded`, when the tenant's pending jobs fill its
+        quota's ``queue_share``).
 
         ``warm_fn``, if given, is what the placement router runs in the
         background when this job's battery is cold (typically a 1-row
@@ -369,14 +527,36 @@ class JobScheduler:
         already committed the fold makes the job succeed with the
         committed result, and an unclaimed fold is withdrawn so no later
         drain can commit a batch whose caller was told it failed."""
+        # per-tenant queue share (quota-opted tenants only): a tenant's
+        # pending jobs may occupy at most share * max_queue_depth slots,
+        # so one tenant's backlog can fill ITS slice — never the queue
+        with self._quota_lock:
+            quota = self._quotas.get(tenant)
+        share_limit = None
+        if quota is not None and quota.queue_share:
+            share_limit = max(1, int(float(quota.queue_share) * self.max_queue_depth))
         with self._cond:
             if self._closed:
                 raise ServiceClosed("verification service is shut down")
+
+            def _tenant_depth() -> int:
+                return sum(1 for _, _, j in self._ready if j.tenant == tenant) + sum(
+                    1 for _, _, j in self._delayed if j.tenant == tenant)
+
+            deadline = time.monotonic() + float(block_s) if block_s else None
+            if share_limit is not None and block_s:
+                # a tenant over its share waits for its OWN slots outside
+                # the arrival line below, so it never holds up neighbours
+                # (pickups free tenant slots and notify this waiter set)
+                while not self._closed and _tenant_depth() >= share_limit:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    self._space.wait(remaining)
             depth = len(self._ready) + len(self._delayed)
             if block_s and (depth >= self.max_queue_depth or self._space_waiters):
                 ticket = object()
                 self._space_waiters.append(ticket)
-                deadline = time.monotonic() + float(block_s)
                 try:
                     while not self._closed and (depth >= self.max_queue_depth
                                                 or self._space_waiters[0] is not ticket):
@@ -388,11 +568,18 @@ class JobScheduler:
                 finally:
                     self._space_waiters.remove(ticket)
                     self._space.notify_all()  # the next waiter is now the head
-                if self._closed:
-                    raise ServiceClosed("verification service is shut down")
+            if self._closed:
+                raise ServiceClosed("verification service is shut down")
             if depth >= self.max_queue_depth:
                 self.metrics.inc("deequ_service_jobs_shed_total", tenant=tenant)
                 raise ServiceOverloaded(depth, self.max_queue_depth)
+            if share_limit is not None:
+                tdepth = _tenant_depth()
+                if tdepth >= share_limit:
+                    self.metrics.inc("deequ_service_quota_shed_total",
+                                     tenant=tenant, resource="queue_share")
+                    raise QuotaExceeded(tenant, "queue_share", float(share_limit),
+                                        float(tdepth))
             seq = next(self._seq)
             now = time.monotonic()
             jid = job_id or f"{tenant}-{seq}"
@@ -852,6 +1039,27 @@ class JobScheduler:
                                 tenant_label))
         if flush:
             self.metrics.inc_many(updates)
+        for listener in self._harvest_listeners:
+            # the fleet watch's trigger: a completed job means this tenant
+            # may have committed fresh metrics. Defensive — a raising
+            # listener must not take the harvested job down with it, and
+            # listeners run outside every scheduler lock (they typically
+            # re-enter submit())
+            try:
+                listener(tenant)
+            except Exception:  # noqa: BLE001 - observability only
+                import logging
+
+                logging.getLogger(__name__).warning(
+                    "harvest listener failed for tenant %s", tenant,
+                    exc_info=True,
+                )
+
+    def add_harvest_listener(self, fn: Callable[[str], None]) -> None:
+        """Register ``fn(tenant)`` to run after every job harvest (outside
+        the queue lock; exceptions are swallowed with a warning). The
+        fleet watch uses this as its standing re-score trigger."""
+        self._harvest_listeners.append(fn)
 
     def _maybe_retry(self, job: _Job, exc: BaseException) -> bool:
         from ..exceptions import ScanStallError

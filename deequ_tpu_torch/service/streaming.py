@@ -31,8 +31,12 @@ states into it as partition ``session-<tenant>`` when it closes
 (:meth:`StreamingSession.flush_to_partition`), for incremental
 verification to reuse.
 
-Not ported here: the row gate and tenant quotas (the catalog's ingest
-plane, ROADMAP A6).
+Every ingest first charges the tenant's rate quotas
+(:meth:`~deequ_tpu_torch.service.scheduler.JobScheduler.charge_quota`), then,
+when the session has a row gate
+(:class:`~deequ_tpu_torch.ingest.rowgate.RowGate`, normally installed from
+the tenant catalog), folds only the frame's conforming rows and sends the
+rest to the gate's quarantine sidecar.
 """
 
 from __future__ import annotations
@@ -102,6 +106,11 @@ def describe_streaming_series(metrics) -> None:
     )
 
 
+#: reconfigure()'s "field not passed" sentinel (None is meaningful for
+#: row_gate: it means REMOVE the gate)
+_UNSET = object()
+
+
 def _bucket_batch_size(rows: int) -> int:
     """Micro-batch rows -> the next power of two (floor 1024): the
     reference's buckets, which bound its compiled shapes; here they decide
@@ -143,6 +152,7 @@ class StreamingSession:
         keep_results: int = 256,
         drift_policy: str = "reject",
         admission_block_s: Optional[float] = None,
+        row_gate: Optional[Any] = None,
     ):
         # max_retries defaults to 0 because a fold MUTATES persisted state:
         # a transient failure in the middle of a run can leave some
@@ -174,6 +184,11 @@ class StreamingSession:
         #: (backpressure for streaming producers); None keeps the
         #: scheduler's shed-immediately default
         self.admission_block_s = admission_block_s
+        #: optional row-level gate (`deequ_tpu_torch.ingest.rowgate.RowGate`):
+        #: every frame is conformance-masked BEFORE the fold, clean rows
+        #: fold bit-exact, rejects quarantine typed. Normally installed
+        #: from the tenant catalog's ``row_gate`` document section.
+        self.row_gate = row_gate
         from .drift import DRIFT_POLICIES
 
         if drift_policy not in DRIFT_POLICIES:
@@ -262,6 +277,27 @@ class StreamingSession:
         from ..ingest.columnar import as_dataset
 
         data = as_dataset(data)
+        # per-tenant admission budget FIRST (one dict lookup for quota-
+        # free tenants): the producer is charged for the WHOLE incoming
+        # frame — garbage rows included — before any CPU is spent masking
+        # or folding it, so an over-quota flood sheds typed (QuotaExceeded
+        # -> 429) at the cheapest possible point
+        from ..ingest.columnar import payload_bytes
+
+        self.service.scheduler.charge_quota(
+            self.tenant,
+            rows=int(data.num_rows),
+            nbytes=payload_bytes(data),
+            block_s=(
+                block_s if block_s is not None else self.admission_block_s
+            ),
+        )
+        if self.row_gate is not None:
+            # one vectorized conformance mask per frame BEFORE the fold:
+            # clean rows continue bit-exact (arrow filter of the original
+            # buffers), rejects quarantine typed; a fully-rejected frame
+            # raises FrameQuarantinedError here and nothing folds
+            data = self.row_gate.split(data, self.tenant, self.dataset)
         done: dict = {}  # per-job memo: a retried job must never re-fold
         bs = _session_batch_size(int(data.num_rows), self.batch_size)
         effective_deadline = (
@@ -687,14 +723,22 @@ class StreamingSession:
         checks=None,
         drift_policy: Optional[str] = None,
         priority: Optional[Priority] = None,
+        row_gate: Any = _UNSET,
     ) -> None:
-        """Swap the session's checks, drift policy or priority IN PLACE at
-        a fold boundary, without touching the persisted algebraic states
+        """Swap the session's declarative surface IN PLACE at a fold
+        boundary — the hot-reload primitive the tenant catalog's
+        :class:`~deequ_tpu_torch.service.catalog.CatalogPlane` drives: a
+        catalog edit re-materializes checks, drift policy, priority and row
+        gate on the live session without a restart, and without touching
+        the persisted algebraic states, which stay on the device
         (analyzers shared between the old and new check set keep their
         cumulative history; newly-required analyzers start folding from
-        their next batch). Serialized against folds by the session lock,
-        so every fold runs under exactly ONE configuration. Fields left at
-        None are untouched."""
+        their next batch).
+
+        Serialized against folds by the session lock, so every fold runs
+        under exactly ONE configuration. Fields left at their defaults are
+        untouched (``row_gate`` uses a sentinel so passing ``None``
+        explicitly REMOVES the gate)."""
         with self._serial:
             if checks is not None:
                 self.checks = list(checks)
@@ -721,6 +765,8 @@ class StreamingSession:
                 self.drift_policy = drift_policy
             if priority is not None:
                 self.priority = priority
+            if row_gate is not _UNSET:
+                self.row_gate = row_gate
 
     # -- state-only queries --------------------------------------------------
 

@@ -495,5 +495,10 @@ def test_paths_not_in_this_slice_raise_by_name(tmp_path):
                                                         providers, device="cpu")
     assert ({repr(a): repr(m.value.get()) for a, m in result.metrics.items()}
             == {repr(a): repr(m.value.get()) for a, m in merged.metric_map.items()})
-    with pytest.raises(NotImplementedError, match="HoltWinters"):
-        TA.HoltWinters  # noqa: B018
+    # Holt-Winters is ported: over three weeks of a weekly pattern it flags
+    # a broken newest day with the reference's value and message
+    series = [1000.0 + 100.0 * (d % 7) + (d % 3) for d in range(21)] + [5000.0]
+    found = [[(i, a.value, a.detail) for i, a in m.HoltWinters(
+        m.MetricInterval.DAILY, m.SeriesSeasonality.WEEKLY).detect(series, (21, 22))]
+        for m in (JA, TA)]
+    assert found[1] == found[0] and [i for i, _, _ in found[1]] == [21]

@@ -36,6 +36,12 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import deequ_tpu_torch.reliability.checkpoint, deequ_tpu_torch.runners.incremental\n"
         "import deequ_tpu_torch.repository.partition_store, deequ_tpu_torch.repository.lease\n"
         "import deequ_tpu_torch.repository.partitioned\n"
+        "import deequ_tpu_torch.anomalydetection.seasonal, deequ_tpu_torch.schema\n"
+        "import deequ_tpu_torch.applicability, deequ_tpu_torch.interop\n"
+        "import deequ_tpu_torch.analyzers.distance, deequ_tpu_torch.ingest.endpoint\n"
+        "import deequ_tpu_torch.ingest.arrow_stream, deequ_tpu_torch.ingest.rowgate\n"
+        "import deequ_tpu_torch.service.catalog\n"
+        "import deequ_tpu_torch.service.fleetwatch, deequ_tpu_torch.service.statusz\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -85,3 +91,40 @@ def test_chip_smoke_fails_alone(tmp_path):
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _tenant_plane_entry_points():
+    """Every entry point of the tenant plane that builds or holds state on a
+    device, called with no ``device``."""
+    from deequ_tpu_torch import interop
+    from deequ_tpu_torch.applicability import Applicability
+    from deequ_tpu_torch.checks import Check, CheckLevel
+    from deequ_tpu_torch.data import ColumnKind, ColumnSchema, Schema
+    from deequ_tpu_torch.ops.kll import kll_init
+    from deequ_tpu_torch.service import VerificationService
+    import torch
+
+    schema = Schema([ColumnSchema("x", ColumnKind.FRACTIONAL)])
+    check = Check(CheckLevel.ERROR, "c").has_size(lambda n: n > 0)
+    hll = interop.write_jvm_hll_state_blob(
+        type("S", (), {"registers": torch.zeros(512, dtype=torch.int32)})())
+    kll = interop.write_jvm_kll_state_blob(kll_init(16))
+    return {
+        "is_applicable_check": lambda: Applicability.is_applicable_check(check, schema),
+        "is_applicable_analyzers": lambda: Applicability.is_applicable_analyzers([], schema),
+        "read_jvm_hll_state_blob": lambda: interop.read_jvm_hll_state_blob(hll),
+        "read_jvm_kll_state_blob": lambda: interop.read_jvm_kll_state_blob(kll),
+        "VerificationService(catalog=)": lambda: VerificationService(catalog="unused-root"),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_tenant_plane_entry_points()))
+def test_tenant_plane_entry_points_run_on_the_card_by_default(entry):
+    """With no ``device`` they resolve ``cuda``: without a card they raise
+    (no quiet CPU run), and with ``device="cpu"`` they run."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _tenant_plane_entry_points()[entry]()

@@ -24,6 +24,7 @@ import pytest
 
 import deequ_tpu.analyzers as J
 import deequ_tpu.exceptions as JE
+import deequ_tpu.interop as JInterop
 import deequ_tpu.io as JIO
 import deequ_tpu.reliability as JRel
 import deequ_tpu.repository as JRepo
@@ -250,8 +251,16 @@ def test_loader_filters_records_and_reopen(m, tmp_path):
 
 
 def test_jvm_history_import_waits_for_the_interop_module(tmp_path):
-    with pytest.raises(NotImplementedError, match="A4b"):
-        repo_of(PORT, tmp_path / "hist").import_jvm_history("[]")
+    """The interop module is ported: a JVM history one package wrote
+    imports into the port's partitioned layout with the writer's entries."""
+    populate(REF, repo_of(REF, tmp_path / "ref"), 5, {"env": "prod"})
+    payload = JInterop.write_jvm_metrics_history_json(repo_of(REF, tmp_path / "ref").load().get())
+    repo = repo_of(PORT, tmp_path / "hist")
+    assert repo.import_jvm_history(payload) == 5
+    assert repo.import_jvm_history("[]") == 0
+    got = sorted((r.result_key.data_set_date, r.analyzer_context.metric_map[PORT.A.Size()]
+                  .value.get()) for r in repo.load().get())
+    assert got == [(BASE_MS + d * DAY_MS, 64.0) for d in range(5)]
 
 
 @pytest.mark.parametrize("writer", ["jax", "torch"])

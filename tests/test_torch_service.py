@@ -17,6 +17,7 @@ import ast
 import math
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -331,7 +332,19 @@ def test_one_shot_verification_matches_a_direct_run():
     ({"mesh": object()}, "A5"), ({"fleet": True}, "A5"),
     ({"catalog": "catalog-root"}, "A6"),
 ])
-def test_planes_not_ported_raise_naming_their_item(kwargs, item):
+def test_planes_not_ported_raise_naming_their_item(kwargs, item, tmp_path):
+    if "catalog" in kwargs:
+        # the tenant catalog is ported: a root path builds the plane, and a
+        # tenant registered there materializes its session from its document
+        root = str(tmp_path / kwargs["catalog"])
+        with VerificationService(device="cpu", background_warm=False, catalog=root) as svc:
+            svc.catalog_plane.catalog.register("acme", {"checks": [
+                {"name": "c", "constraints": [{"kind": "size", "min": 1}]}]})
+            session = svc.catalog_plane.ensure_session("acme", "d")
+            assert session.ingest(table(100, seed=1), timeout=WAIT_S).status.value == "Success"
+            assert svc.statusz.snapshot()["planes"]["catalog"] == {
+                "enabled": True, "tenant_versions": {"acme": 1}}
+        return
     with pytest.raises(NotImplementedError, match=item):
         VerificationService(device="cpu", **kwargs)
 
@@ -355,10 +368,21 @@ def test_the_partition_store_is_a_store_a_path_or_the_env(form, tmp_path, monkey
 
 
 @pytest.mark.parametrize("call,item", [("watch_metrics", "A6")])
-def test_service_entry_points_not_ported_raise(call, item):
-    with VerificationService(workers=1, device="cpu") as svc:
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(svc, call)("t")
+def test_service_entry_points_not_ported_raise(call, item, tmp_path):
+    """The fleet watch is ported: ``watch_metrics`` registers a standing
+    watch that the next harvest scores."""
+    from deequ_tpu_torch.analyzers import Size
+    from deequ_tpu_torch.repository import InMemoryMetricsRepository, ResultKey
+
+    with VerificationService(workers=1, device="cpu", background_warm=False) as svc:
+        repo = InMemoryMetricsRepository()
+        ctx = dq.AnalysisRunner.do_analysis_run(dq.Dataset.from_arrow(table(64, seed=2)),
+                                                [Size()], device="cpu")
+        now_ms = int(time.time() * 1000)
+        for day in range(5):  # inside the watch's twelve-month window
+            repo.save(ResultKey(now_ms - (5 - day) * 86_400_000), ctx)
+        spec = getattr(svc, call)("t", repo, [Size()])
+        assert spec.tenant == "t" and svc.fleetwatch.harvest_now().series_scored == 1
 
 
 def _partitions(m, seeds):
