@@ -49,10 +49,11 @@ Phases, each of which fails the run when it fails:
    ``device="cpu"`` and against a numpy oracle;
 4. the profile path: ``ColumnProfilerRunner`` over a 10M-row TPC-H
    lineitem-shaped table (BASELINE config 3's 16 columns, cut from 100M to
-   10M rows) on ``device="cuda"``, held against the same profile on
-   ``device="cpu"`` and against a numpy oracle (exact counts, histograms,
-   type counts, min and max; moments within 1e-9; KLL percentiles within
-   twice the sketch's relative error in rank);
+   10M rows) on ``device="cuda"``, held against a numpy oracle (exact
+   counts, histograms, type counts, min and max; moments within 1e-9; KLL
+   percentiles within twice the sketch's relative error in rank), and the
+   same profile of the table's first ``PROFILE_CPU_ROWS`` rows on the card
+   against ``device="cpu"``;
 5. the grouping path: Uniqueness, CountDistinct and Entropy over the
    JAX bench's grouping workload (25M int64 keys, 3,571,428 distinct,
    seed 1) with a resident frequency table (a), a non-resident one (b) and
@@ -145,11 +146,12 @@ Phases, each of which fails the run when it fails:
    the rows held out (seed 0), run twice on ``device="cuda"`` (cold and
    warm), with K1's and K2's launches a batch (50 columns take two
    launches of each a batch of the first profile pass: over 64 slots,
-   over 32 HLL columns); the suggestions and their statuses on the test
-   split equal the same run on ``device="cpu"`` character for character,
-   and a numpy oracle holds the training split's row count,
-   completeness, minima and category counts and every status on the test
-   split; (f) the same table's first 1M rows with
+   over 32 HLL columns); a numpy oracle holds the training split's row
+   count, completeness, minima and category counts and every status on
+   the test split, and on the table's first ``WIDE_CPU_ROWS`` rows the
+   suggestions and their statuses on the card equal the same run on
+   ``device="cpu"`` character for character; (f) the same table's first
+   1M rows with
    ``UniqueIfApproximatelyUniqueRule`` added, whose ``is_unique``
    constraints launch K6, held likewise. Phase 2 holds K1 (every bundle)
    and K2's battery entry at the first batch of the training split's first
@@ -199,10 +201,36 @@ Phases, each of which fails the run when it fails:
    3's check and of a check naming a missing column on the card (K1),
    equal to the CPU's. ``python3 -c "import torch, chip_smoke,
    deequ_tpu_torch as dq; chip_smoke.tenant_plane(torch, dq)"`` runs this
-   phase alone, printing no result lines.
+   phase alone, printing no result lines;
+13. the reliability wrapper, the scan watchdog and the feed pipeline,
+   after phase 3 on its table and checks (with an ApproxQuantile), driven
+   through the port's own fault sites, each drill asserting the
+   recoveries its fault explains: on the first 1M rows in batches of
+   2^18, (a) an ``analyzer`` fault matched to Mean(a): that analyzer alone
+   a Failure, the rest equal to a clean device-tier run, at most
+   ceil(log2 N) + 1 isolation re-runs; (b) a ``device`` fault at batch 3:
+   one failover, a clean host-tier run's metrics bit for bit, K8's carry
+   and K5's ingest entries launched after it; (c) an injected ``oom``:
+   one bisection and the halved batch's metrics; a persistent one: three
+   and the host tier; one real allocator OOM read as "oom"; (d) a 6 s
+   ``stall`` at batch 2 under ``DEEQU_TPU_SCAN_DEADLINE_S=2``: a
+   ``ScanStallError`` within twice the deadline, the failover, no
+   ``scan-watchdog`` thread alive 5 s after the stall ended and no K1
+   launch after the abandonment; (e) 65,536-row jobs through
+   ``VerificationService``: a device fault sends the battery's next 8
+   jobs to the host tier (``deequ_service_suspect_host_routes_total``) and
+   the ninth back to the device; (f) phase 3 at ``DEEQU_TPU_PREFETCH_DEPTH``
+   0, 2, 2, 0, the states bit for bit and each run's seconds and phases
+   printed, then a ``feed_stall`` at ``prefetch`` under
+   ``DEEQU_TPU_FEED_STALL_S=1``: a ``FeedStallError`` and the failover.
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
+Every phase fails when any run of it recovered from a fault (a failover,
+an OOM bisection, an isolation re-run, a stall, a shard loss or a
+degradation in the port's process-wide tally) that no drill of it
+injected. Each phase's own seconds print as ``[seconds] phase N`` lines,
+with the total, before the result lines.
 The native host library (``deequ_tpu_torch/native``) builds with g++ at
 its first use, inside phase 2.
 The last two lines of standard output are the ``{"kernels": [...]}`` table
@@ -352,6 +380,9 @@ def build_table(rows: int, seed: int) -> pa.Table:
 #: BASELINE config 3's table: TPC-H lineitem's 16 columns (bench.py
 #: build_lineitem_data, seed 19), at 10M rows (scale factor ~1.7)
 LINEITEM_ROWS = 10_000_000
+#: phase 4: the cut of lineitem the card's profile is held against the
+#: CPU's on (the full-size profile is held against the oracle)
+PROFILE_CPU_ROWS = 1_000_000
 LINEITEM_SEED = 19
 COMMENT_POOL = 1_000_000
 
@@ -405,6 +436,9 @@ WIDE_TESTSET_RATIO = 0.25
 WIDE_SPLIT_SEED = 0
 #: phase 10 (f): the uniqueness rule's run, over the table's first rows
 WIDE_UNIQUE_ROWS = 1_000_000
+#: phase 10 (d): the cut of the table the card's run is held against the
+#: CPU's on (the full-size run is held against the oracle)
+WIDE_CPU_ROWS = 1_000_000
 
 
 def build_wide(rows: int, n_numeric: int = WIDE_NUMERIC, n_string: int = WIDE_STRING,
@@ -759,57 +793,95 @@ def _rank_error(sorted_items: np.ndarray, x: float, q: float) -> float:
     return 0.0 if lo <= q <= hi else float(min(abs(q - lo), abs(q - hi)))
 
 
+#: per table (by identity): numpy's exact answers the profile oracle reads,
+#: computed once for the phases that profile the same table
+_PROFILE_TRUTH: dict = {}
+
+
+def _column_truth(table: pa.Table, name: str) -> dict:
+    """numpy's exact answers for one column of ``table``, computed once: its
+    valid count and distinct values' count; the value counts where a
+    histogram or type counts need them (120 distinct values or fewer, or a
+    string column); for a numeric column its minimum, maximum, mean, sum,
+    standard deviation and sorted float32-rounded values (the items a
+    sketch holds)."""
+    import pyarrow.compute as pc
+
+    cached = _PROFILE_TRUTH.get(id(table))
+    if cached is None or cached[0] is not table:
+        cached = _PROFILE_TRUTH[id(table)] = (table, {})
+    columns = cached[1]
+    if name in columns:
+        return columns[name]
+    col = table[name].combine_chunks()
+    if isinstance(col, pa.DictionaryArray):
+        col = col.dictionary_decode()
+    truth = {"valid": table.num_rows - col.null_count,
+             "distinct": pc.count_distinct(col).as_py(), "string": pa.types.is_string(col.type)}
+    if truth["string"] or truth["distinct"] <= 120:
+        counts = {row["values"]: row["counts"] for row in pc.value_counts(col).to_pylist()}
+        counts.pop(None, None)
+        truth["counts"] = counts
+        truth["key"] = float if pa.types.is_floating(col.type) or pa.types.is_integer(col.type) \
+            else str
+    if pa.types.is_integer(col.type) or pa.types.is_floating(col.type):
+        v = col.to_numpy(zero_copy_only=False).astype(np.float64)
+        truth["stats"] = {"minimum": v.min(), "maximum": v.max(), "mean": v.mean(),
+                          "sum": v.sum(), "std_dev": v.std()}
+        truth["items"] = np.sort(
+            np.clip(v, -3.4028234663852886e38, 3.4028234663852886e38).astype(np.float32))
+    columns[name] = truth
+    return truth
+
+
 def compare_profile_oracle(got: dict, table: pa.Table, rtol: float = 1e-9,
                            rank_limit: float = 2 * KLL_RELATIVE_ERROR) -> tuple:
     """Differences between a profile and numpy's exact answers on
-    ``table``: record count, completeness, type counts, histograms, bucket
-    totals, min and max exactly; mean, sum and standard deviation within
-    ``rtol``; each of the 100 percentiles within twice the KLL relative
-    error in rank, ranked among the column's float32-rounded values (the
-    items a sketch holds). Returns (problems, largest rank error)."""
-    import pyarrow.compute as pc
-
+    ``table`` (:func:`_column_truth`, computed once a table): record count,
+    completeness, type counts, histograms, bucket totals, min and max
+    exactly; mean, sum and standard deviation within ``rtol``; each of the
+    100 percentiles within twice the KLL relative error in rank, ranked
+    among the column's float32-rounded values (the items a sketch holds).
+    Returns (problems, largest rank error)."""
     problems = []
     rows = table.num_rows
     if got["__records__"] != rows:
         problems.append(f"records: {got['__records__']} != {rows}")
     worst_rank = 0.0
     for name in table.column_names:
-        col = table[name].combine_chunks()
-        if isinstance(col, pa.DictionaryArray):
-            col = col.dictionary_decode()
-        valid = rows - col.null_count
+        truth = _column_truth(table, name)
+        valid = truth["valid"]
         p = got[name]
         if p["completeness"] != valid / rows:
             problems.append(f"{name}.completeness: {p['completeness']} != {valid / rows}")
-        counts = {row["values"]: row["counts"] for row in pc.value_counts(col).to_pylist()}
-        counts.pop(None, None)
-        if pa.types.is_string(col.type):
+        if truth["string"]:
             want = dict.fromkeys(TYPE_NAMES, 0)
             want["Unknown"] = rows - valid
-            for value, c in counts.items():
+            for value, c in truth["counts"].items():
                 want[_type_name(value)] += c
             if p["type_counts"] != want:
                 problems.append(f"{name}.type_counts: {p['type_counts']} != {want}")
-        if (p["histogram"] is not None) != (len(counts) <= 120):
-            problems.append(f"{name}: histogram {p['histogram'] is not None} at {len(counts)} values")
-        if p["histogram"] is not None:
-            key = float if pa.types.is_floating(col.type) or pa.types.is_integer(col.type) else str
+        if (p["histogram"] is not None) != (truth["distinct"] <= 120):
+            problems.append(f"{name}: histogram {p['histogram'] is not None} at "
+                            f"{truth['distinct']} values")
+        if p["histogram"] is not None and truth["distinct"] <= 120:
+            key = truth["key"]
             hist = {key(k): a for k, (a, _) in p["histogram"][1].items()}
-            if hist != {key(k): c for k, c in counts.items()}:
+            if hist != {key(k): c for k, c in truth["counts"].items()}:
                 problems.append(f"{name}.histogram differs from the exact counts")
         if p["kll"] is None:
             continue
-        v = col.to_numpy(zero_copy_only=False).astype(np.float64)
-        for field, exact in (("minimum", v.min()), ("maximum", v.max())):
-            if p[field] != float(exact):
-                problems.append(f"{name}.{field}: {p[field]!r} != {float(exact)!r}")
-        for field, exact in (("mean", v.mean()), ("sum", v.sum()), ("std_dev", v.std())):
+        stats = truth["stats"]
+        for field in ("minimum", "maximum"):
+            if p[field] != float(stats[field]):
+                problems.append(f"{name}.{field}: {p[field]!r} != {float(stats[field])!r}")
+        for field in ("mean", "sum", "std_dev"):
+            exact = stats[field]
             if abs(p[field] - exact) > rtol * max(abs(exact), 1e-300):
                 problems.append(f"{name}.{field}: {p[field]!r}, oracle {float(exact)!r}")
         if sum(b[2] for b in p["kll"][0]) != valid:
             problems.append(f"{name}: KLL buckets do not add up to {valid}")
-        items = np.sort(np.clip(v, -3.4028234663852886e38, 3.4028234663852886e38).astype(np.float32))
+        items = truth["items"]
         errors = [_rank_error(items, x, (i + 1) / 100) for i, x in enumerate(p["approx_percentiles"])]
         worst_rank = max(worst_rank, max(errors))
         if max(errors) > rank_limit:
@@ -2234,8 +2306,9 @@ def grouping_path(torch, dq, lineitem: pa.Table) -> tuple:
     grouping = build_grouping()
     print(f"[grouping data] {grouping.num_rows} rows, {GROUPING_DISTINCT} possible keys in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    measured = check_freq_kernels(torch, dq, grouping, lineitem)
-    _print_kernel_totals(measured, FREQ_KERNELS, "grouping path")
+    with phase(2):
+        measured = check_freq_kernels(torch, dq, grouping, lineitem)
+        _print_kernel_totals(measured, FREQ_KERNELS, "grouping path")
     launches = grouping_runs(torch, dq, grouping)
     del grouping
 
@@ -2693,11 +2766,12 @@ def incremental_path(torch, dq, seed: int) -> tuple:
         raise AssertionError(f"merged Size {values[('Size', '*', None)]}")
 
     # phase 2 at this path's shapes
-    engine = ScanEngine([dq.Correlation("x0", "x1")], torch.device("cuda"))
-    first = next(dq.Dataset.from_arrow(table.slice(0, BATCH_ROWS)).batches(BATCH_ROWS))
-    features = to_device(engine.builder.build(first), torch.device("cuda"))
-    measured = check_fold_kernels(torch, dq, providers, battery, features)
-    del features
+    with phase(2):
+        engine = ScanEngine([dq.Correlation("x0", "x1")], torch.device("cuda"))
+        first = next(dq.Dataset.from_arrow(table.slice(0, BATCH_ROWS)).batches(BATCH_ROWS))
+        features = to_device(engine.builder.build(first), torch.device("cuda"))
+        measured = check_fold_kernels(torch, dq, providers, battery, features)
+        del features
 
     # (c) anomaly checks over the day history
     statuses = anomaly_days(dq, table, repo, rows, "cuda")
@@ -2710,7 +2784,9 @@ def incremental_path(torch, dq, seed: int) -> tuple:
         raise AssertionError("metrics merged from persisted files differ from (b)'s")
 
     # phase 7 (b): the same days on the host tier, refreshed with these
-    host_problems = host_tier_partitions(torch, dq, table, rows, providers)
+    truth = incremental_oracle(table)
+    with phase(7):
+        host_problems = host_tier_partitions(torch, dq, table, rows, providers, truth)
     if host_problems:
         raise AssertionError("host tier (b) disagrees with the oracle:\n"
                              + "\n".join(host_problems))
@@ -2736,7 +2812,6 @@ def incremental_path(torch, dq, seed: int) -> tuple:
     exact_keys = [k for k in values2 if k[0] != "KLLSketch"]
     problems = compare_metrics({k: values2[k] for k in exact_keys},
                                {k: full[k] for k in exact_keys}, 1e-12)
-    truth = incremental_oracle(table)
     oracle_problems, worst = check_incremental_oracle({**values, **values2}, table, truth=truth)
     problems += oracle_problems
 
@@ -2775,6 +2850,67 @@ def part_seconds(label: str):
     t0 = time.perf_counter()
     yield
     print(f"[seconds] {label}: {time.perf_counter() - t0:.1f}s", flush=True)
+
+
+#: wall seconds by phase, each phase's own: a phase run inside another
+#: pauses the outer one's clock
+PHASE_SECONDS: dict = {}
+_PHASE_STACK: list = []
+
+
+@contextlib.contextmanager
+def phase(n: int):
+    """Charge the enclosed wall time to phase ``n`` and, when it ends, fail
+    the run if any run of it recovered from a fault: the port's
+    process-wide tally of failovers, OOM bisections, isolation re-runs,
+    stalls, shard losses and degradations (``recovery_counts``) must
+    still be 0 and empty. A fault drill asserts its own recoveries and
+    clears them (:func:`drill`), so a recovery no drill injected fails the
+    script."""
+    now = time.perf_counter()
+    if _PHASE_STACK:
+        outer = _PHASE_STACK[-1]
+        PHASE_SECONDS[outer[0]] = PHASE_SECONDS.get(outer[0], 0.0) + now - outer[1]
+    _PHASE_STACK.append([n, now])
+    try:
+        yield
+    finally:
+        now = time.perf_counter()
+        _, start = _PHASE_STACK.pop()
+        PHASE_SECONDS[n] = PHASE_SECONDS.get(n, 0.0) + now - start
+        if _PHASE_STACK:
+            _PHASE_STACK[-1][1] = now
+    assert_no_recoveries(f"phase {n}")
+
+
+def assert_no_recoveries(label: str) -> None:
+    """Fail unless no run since the tally's last reset recovered."""
+    from deequ_tpu_torch.runners.engine import recovery_counts
+
+    found = {k: v for k, v in recovery_counts().items() if v}
+    if found:
+        raise AssertionError(f"{label}: runs recovered from faults that no drill injected: "
+                             f"{found}")
+
+
+@contextlib.contextmanager
+def drill(label: str):
+    """A fault drill: it asserts the recoveries it counts itself; the
+    tally is clean before it and cleared after it."""
+    from deequ_tpu_torch.runners.engine import reset_recovery_counts
+
+    assert_no_recoveries(f"before {label}")
+    try:
+        yield
+    finally:
+        reset_recovery_counts()
+
+
+def print_phase_seconds(total: float) -> None:
+    """The ``[seconds] phase N`` lines of every phase and the total."""
+    for n in range(1, 14):
+        print(f"[seconds] phase {n}: {PHASE_SECONDS.get(n, 0.0):.1f}s", flush=True)
+    print(f"[seconds] total: {total:.1f}s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3358,7 +3494,7 @@ def host_tier_verification(torch, dq, table: pa.Table, rows: int, device_metrics
     if error > HOST_KLL_RANK_LIMIT:
         problems.append(f"ApproxQuantile(a, 0.5) rank error {error}")
     # phase 11 (b): the same run interrupted and resumed from a checkpoint
-    with part_seconds("phase 11 (b)"):
+    with phase(11), part_seconds("phase 11 (b)"):
         resumable_host_tier(torch, dq, lambda m, c: run(m, checkpointer=c), gpu)
     same, monitor, _ = _timed_run(torch, f"host tier (a) in batches of {BATCH_ROWS} rows",
                                   lambda m: run(m, batch_rows=BATCH_ROWS), rows, HOST_KERNELS)
@@ -3374,12 +3510,14 @@ def host_tier_verification(torch, dq, table: pa.Table, rows: int, device_metrics
     return launches, metric_values(same), _statuses(same)
 
 
-def host_tier_partitions(torch, dq, table: pa.Table, rows: int, device_providers: list) -> list:
+def host_tier_partitions(torch, dq, table: pa.Table, rows: int, device_providers: list,
+                         truth: tuple) -> list:
     """Phase 7 (b): BASELINE config 4's day partitions on the host tier with
     ``save_states_with``, their saved states held bit for bit against the
     same runs on ``device="cpu"``; refreshed alone (bit for bit against
     the CPU's refresh) and merged with phase 6's device-tier states of the
-    other day, every refresh against phase 6's numpy figures. Returns the
+    other day, every refresh against phase 6's numpy figures (``truth``,
+    :func:`incremental_oracle`'s answer over ``table``). Returns the
     problems."""
     schema = dq.Dataset.from_arrow(table.slice(0, 1)).schema
     battery = incremental_battery(dq)
@@ -3404,7 +3542,7 @@ def host_tier_partitions(torch, dq, table: pa.Table, rows: int, device_providers
         if pair is providers and repr(values) != repr(cpu_refresh):
             problems.append("the refresh of the host days differs from the CPU's")
         found, err = check_incremental_oracle(values, table, HOST_KLL_RANK_LIMIT,
-                                              battery_only=True)
+                                              battery_only=True, truth=truth)
         problems += [f"{label}: {p}" for p in found]
         worst = max(worst, err)
     print(f"[host tier (b) metrics] saved states and the host days' refresh equal the CPU "
@@ -3726,8 +3864,9 @@ def mesh_runs(torch, dq, table: pa.Table, host_metrics: dict, host_statuses: lis
             raise AssertionError("mesh (e): the injected shard loss did not fire")
         return out
 
-    result, monitor, _ = _timed_run(torch, "mesh (e) shard loss", lossy, MESH_LOSS_ROWS,
-                                    MESH_HOST_KERNELS)
+    with drill("mesh (e)"):
+        result, monitor, _ = _timed_run(torch, "mesh (e) shard loss", lossy, MESH_LOSS_ROWS,
+                                        MESH_HOST_KERNELS)
     print(f"[mesh (e) recovery] shard_losses={monitor.shard_losses} "
           f"mesh_reshards={monitor.mesh_reshards} salvaged_states={monitor.salvaged_states} "
           f"degraded={monitor.degraded}", flush=True)
@@ -5232,6 +5371,364 @@ def tenant_plane(torch, dq) -> None:
     print(f"[seconds] phase 12: {time.perf_counter() - t0:.1f}s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the reliability wrapper, the scan watchdog and the feed pipeline
+# ---------------------------------------------------------------------------
+
+#: (a)-(d): phase 3's table cut to its first rows, in 4 batches
+DRILL_ROWS = 1_000_000
+DRILL_BATCH_ROWS = 1 << 18
+#: (c): a real allocator OOM's request, more bytes than any card holds
+OOM_BYTES = 1 << 46
+#: (d): the scan deadline, the injected stall, and how long after the
+#: stall's end no abandoned pass may still be alive
+DRILL_DEADLINE_S = 2
+DRILL_STALL_S = 6.0
+DRILL_SETTLE_S = 5.0
+#: (e): the service's micro-batches
+SERVICE_ROWS = 65_536
+#: (f): phase 3 at these feed depths, in this order, and the feed-stall
+#: drill's deadline and stall
+FEED_DEPTHS = (0, 2, 2, 0)
+FEED_STALL_DEADLINE_S = 1
+FEED_STALL_S = 3.0
+#: the recovery counters each drill prints and asserts
+RECOVERY_FIELDS = ("device_failovers", "batch_bisections", "isolation_reruns", "stalls",
+                   "device_stalls")
+
+
+@contextlib.contextmanager
+def _env(name: str, value: str):
+    import os
+
+    prior = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prior is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prior
+
+
+def _recoveries(monitor) -> dict:
+    out = {name: getattr(monitor, name) for name in RECOVERY_FIELDS}
+    out["degraded"] = list(monitor.degraded)
+    return out
+
+
+def _expect(label: str, monitor, **want) -> list:
+    """Problems where ``monitor``'s recovery counters differ from ``want``
+    (counters not named must be 0, ``degraded`` empty unless named)."""
+    got = _recoveries(monitor)
+    full = {name: 0 for name in RECOVERY_FIELDS}
+    full["degraded"] = []
+    full.update(want)
+    return [f"{label}: {name}={got[name]!r}, expected {full[name]!r}"
+            for name in full if got[name] != full[name]]
+
+
+def _drill_run(dq, data, rows: int, monitor, device: str = "cuda", batch_size=None,
+               placement=None, states=None):
+    """Phase 3's checks and its CountDistinct, with an ApproxQuantile (K4
+    and K5 on the device tier, K5's ingest entry on the host tier), over
+    ``data`` of ``rows`` rows."""
+    builder = (dq.VerificationSuite.on_data(data, device=device)
+               .add_check(build_check(dq, rows))
+               .add_required_analyzer(dq.CountDistinct("cat_large"))
+               .add_required_analyzer(dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR))
+               .with_batch_size(batch_size or DRILL_BATCH_ROWS).with_monitor(monitor))
+    if placement is not None:
+        builder = builder.with_placement(placement)
+    if states is not None:
+        builder = builder.save_states_with(states)
+    return builder.run()
+
+
+def _battery_size(dq, data, rows: int) -> int:
+    """N, the analyzers of the drills' shared pass: the scan-shareable
+    analyzers of phase 3's checks and one frequency scan per dictionary
+    column a grouping set or histogram reads (cat_small, cat_large)."""
+    from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
+    from deequ_tpu_torch.runners.analysis_runner import collect_required_analyzers
+
+    analyzers = dict.fromkeys(collect_required_analyzers(
+        [build_check(dq, rows)], [dq.CountDistinct("cat_large"),
+                                  dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR)]))
+    return sum(isinstance(a, ScanShareableAnalyzer) for a in analyzers) + 2
+
+
+def reliability_path(torch, dq, table: pa.Table, data, device: str = "cuda") -> None:
+    """Phase 13: the reliability wrapper, the scan watchdog and the feed
+    pipeline driven on the card through the port's own fault sites, on
+    phase 3's table and checks (with an ApproxQuantile). (a)-(d) on the
+    table's first ``DRILL_ROWS`` rows in batches of ``DRILL_BATCH_ROWS``,
+    (e) on ``SERVICE_ROWS``-row micro-batches, (f) at phase 3's size.
+    Every drill asserts the recoveries its fault explains and no other
+    (:func:`drill`); the depth runs of (f) assert none."""
+    import threading
+
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.observability.recorder import recorder
+    from deequ_tpu_torch.reliability import FaultSpec, classify_failure, inject
+    from deequ_tpu_torch.reliability.watchdog import SCAN_DEADLINE_ENV, THREAD_PREFIX
+    from deequ_tpu_torch.ingest.prefetch import FEED_STALL_ENV, PREFETCH_DEPTH_ENV
+
+    on_card = device == "cuda"
+    rows = DRILL_ROWS
+    cut = dq.Dataset.from_arrow(table.slice(0, rows))
+    n = _battery_size(dq, cut, rows)
+    problems: list = []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def faulted(label: str, spec, **kw) -> tuple:
+        """One drill run under ``spec`` with the launch counts set to 0
+        just before; prints its counters, launches and seconds."""
+        monitor = dq.RunMonitor()
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with inject(spec) as inj:
+            result = _drill_run(dq, cut, rows, monitor, device, **kw)
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        print(f"[drill {label}] {seconds:.3f}s; fired={inj.fired}; placement={monitor.placement}"
+              f"; passes={monitor.passes}; {_recoveries(monitor)}; launches={launches}",
+              flush=True)
+        if not inj.fired:
+            problems.append(f"{label}: the injected fault did not fire")
+        return metric_values(result), monitor, launches, seconds
+
+    clean = metric_values(_drill_run(dq, cut, rows, dq.RunMonitor(), device))
+    clean_host = metric_values(_drill_run(dq, cut, rows, dq.RunMonitor(), device,
+                                          placement="host"))
+
+    # (a) analyzer isolation: one analyzer's fault, matched to its tag
+    with part_seconds("phase 13 (a)"), drill("phase 13 (a)"):
+        target = dq.Mean("a")
+        got, monitor, launches, _ = faulted(
+            "(a) isolation", FaultSpec("analyzer", "analyzer", match=repr(target), count=None))
+        key = metric_key(target)
+        failed = [k for k, v in got.items() if isinstance(v, tuple) and v[0] == "failure"]
+        if failed != [key] or "injected fault at site='analyzer'" not in got[key][1]:
+            problems.append(f"(a): failures {failed}, expected {key} alone")
+        problems += [f"(a) against the clean run: {p}" for p in compare_metrics(
+            {k: v for k, v in got.items() if k != key},
+            {k: v for k, v in clean.items() if k != key}, 1e-12)]
+        bound = math.ceil(math.log2(n)) + 1
+        if not 0 < monitor.isolation_reruns <= bound:
+            problems.append(f"(a): {monitor.isolation_reruns} isolation re-runs, bound {bound}")
+        problems += _expect("(a)", monitor, isolation_reruns=monitor.isolation_reruns,
+                            degraded=[repr(target)])
+        problems += [f"(a) launched no {k}" for k in VERIFICATION_KERNELS if k not in launches
+                     and on_card]
+        print(f"[drill (a) isolation] {n} analyzers; {monitor.isolation_reruns} re-runs "
+              f"(bound {bound}); {repr(target)} alone failed", flush=True)
+
+    # (b) tier failover: a device fault at batch 3
+    with part_seconds("phase 13 (b)"), drill("phase 13 (b)"):
+        got, monitor, launches, _ = faulted("(b) failover", FaultSpec("device_update", "device",
+                                                                      at=3))
+        problems += _expect("(b)", monitor, device_failovers=1,
+                            degraded=["tier:device->device"])
+        if monitor.placement != "host":
+            problems.append(f"(b): completed on {monitor.placement}")
+        problems += [f"(b) against the host tier: {p}"
+                     for p in compare_metrics(got, clean_host, 0.0)]
+        problems += [f"(b) launched no {k} after the failover"
+                     for k in HOST_KERNELS if k not in launches and on_card]
+
+    # (c) OOM: one injected OOM halves the batch; a persistent one falls
+    # through to the host tier; a real allocator OOM reads "oom"
+    with part_seconds("phase 13 (c)"), drill("phase 13 (c)"):
+        half = metric_values(_drill_run(dq, cut, rows, dq.RunMonitor(), device,
+                                        batch_size=DRILL_BATCH_ROWS // 2))
+        got, monitor, _, _ = faulted("(c) oom", FaultSpec("device_update", "oom", at=1))
+        problems += _expect("(c)", monitor, batch_bisections=1)
+        problems += [f"(c) against the halved batch: {p}" for p in compare_metrics(got, half, 0.0)]
+        got, monitor, launches, _ = faulted("(c) persistent oom",
+                                            FaultSpec("device_update", "oom", count=None))
+        problems += _expect("(c) persistent", monitor, batch_bisections=3, device_failovers=1,
+                            degraded=["tier:device->oom"])
+        host_eighth = metric_values(_drill_run(dq, cut, rows, dq.RunMonitor(), device,
+                                               batch_size=DRILL_BATCH_ROWS // 8,
+                                               placement="host"))
+        problems += [f"(c) persistent against the host tier: {p}"
+                     for p in compare_metrics(got, host_eighth, 0.0)]
+        if on_card:
+            try:
+                torch.empty(OOM_BYTES, dtype=torch.uint8, device=device)
+                problems.append("(c): an allocation of OOM_BYTES did not fail")
+            except Exception as exc:  # noqa: BLE001 - classified below
+                kind = classify_failure(exc)
+                print(f"[drill (c) real oom] {type(exc).__name__}: {str(exc)[:120]!r} "
+                      f"-> {kind!r}", flush=True)
+                if kind != "oom":
+                    problems.append(f"(c): a real allocator OOM classified {kind!r}")
+            torch.cuda.empty_cache()
+
+    # (d) the watchdog: a 6 s stall at batch 2 under a 2 s deadline
+    with part_seconds("phase 13 (d)"), drill("phase 13 (d)"), \
+            _env(SCAN_DEADLINE_ENV, str(DRILL_DEADLINE_S)):
+        recorder().clear()
+        started = time.perf_counter()
+        got, monitor, launches, seconds = faulted(
+            "(d) stall", FaultSpec("device_update", "stall", at=2, delay_s=DRILL_STALL_S))
+        k1_after_run = launch_counts()["scan_reduce"]
+        waited = [ev["attrs"]["waited_s"] for s in recorder().spans() for ev in s.events
+                  if ev["name"] == "scan_stall"]
+        problems += _expect("(d)", monitor, stalls=1, device_stalls=1, device_failovers=1,
+                            degraded=["tier:device->device"])
+        if len(waited) != 1 or waited[0] > 2 * DRILL_DEADLINE_S:
+            problems.append(f"(d): the stall fired after {waited}s (deadline "
+                            f"{DRILL_DEADLINE_S}s)")
+        problems += [f"(d) against the host tier: {p}"
+                     for p in compare_metrics(got, clean_host, 0.0)]
+        # the stall ends DRILL_STALL_S after batch 2 began; DRILL_SETTLE_S
+        # later no abandoned pass may be alive, nor have launched again
+        time.sleep(max(0.0, started + DRILL_STALL_S + DRILL_SETTLE_S - time.perf_counter()))
+        alive = [t.name for t in threading.enumerate() if t.name.startswith(THREAD_PREFIX)]
+        if alive:
+            problems.append(f"(d): {alive} alive {DRILL_SETTLE_S}s after the stall ended")
+        if launch_counts()["scan_reduce"] != k1_after_run:
+            problems.append(f"(d): K1 launched {launch_counts()['scan_reduce'] - k1_after_run} "
+                            f"times after the pass was abandoned")
+        print(f"[drill (d) watchdog] ScanStallError after {waited}s (deadline "
+              f"{DRILL_DEADLINE_S}s, stall {DRILL_STALL_S}s); run {seconds:.3f}s; K1 "
+              f"{k1_after_run} launches before the stall, none after; watchdog threads alive "
+              f"{DRILL_SETTLE_S}s after the stall: {alive}", flush=True)
+
+    # (e) the service: a device fault puts the battery on probation
+    with part_seconds("phase 13 (e)"), drill("phase 13 (e)"):
+        service_probation(torch, dq, table, device, problems)
+
+    # (f) the feed pipeline: phase 3 at depth 0 and 2, alternating
+    with part_seconds("phase 13 (f)"):
+        feed_depths(torch, dq, data, device, problems)
+        with drill("phase 13 (f) feed stall"), _env(FEED_STALL_ENV, str(FEED_STALL_DEADLINE_S)), \
+                _env(PREFETCH_DEPTH_ENV, "2"):
+            before = recorder().dump_counts.get("FeedStallError", 0)
+            got, monitor, launches, seconds = faulted(
+                "(f) feed stall", FaultSpec("prefetch", "feed_stall", at=2,
+                                            delay_s=FEED_STALL_S))
+            stalls = recorder().dump_counts.get("FeedStallError", 0) - before
+            problems += _expect("(f) feed stall", monitor, device_failovers=1,
+                                degraded=["tier:device->device"])
+            if stalls != 1:
+                problems.append(f"(f): {stalls} FeedStallError recorded, expected 1")
+            problems += [f"(f) feed stall against the host tier: {p}"
+                         for p in compare_metrics(got, clean_host, 0.0)]
+            print(f"[drill (f) feed stall] FeedStallError {stalls}; run {seconds:.3f}s "
+                  f"(feed deadline {FEED_STALL_DEADLINE_S}s, stall {FEED_STALL_S}s)",
+                  flush=True)
+    if problems:
+        raise AssertionError("phase 13 disagrees:\n" + "\n".join(problems[:40]))
+    print("[reliability metrics] (a) one analyzer isolated, the rest equal the clean run; "
+          "(b), (d) and the feed stall fail over to the host tier's metrics bit for bit; (c) "
+          "the halved batch's metrics; (e) eight probation runs on the host tier; (f) depths "
+          "0 and 2 bit for bit", flush=True)
+
+
+def service_probation(torch, dq, table: pa.Table, device: str, problems: list) -> None:
+    """Phase 13 (e): phase 3's checks over ``SERVICE_ROWS``-row micro-batches
+    through ``VerificationService``: a device fault under the battery
+    sends its next ``SUSPECT_PROBATION_RUNS`` jobs to the host tier
+    (``deequ_service_suspect_host_routes_total``), and the one after them
+    returns to the device tier."""
+    from deequ_tpu_torch.reliability import FaultSpec, inject
+    from deequ_tpu_torch.service import VerificationService
+
+    micro = dq.Dataset.from_arrow(table.slice(0, SERVICE_ROWS))
+    check = build_check(dq, SERVICE_ROWS)
+    t0 = time.perf_counter()
+    with VerificationService(workers=1, device=device, background_warm=False) as svc:
+        counter = svc.metrics.counter_value
+        svc.verify(micro, [check], timeout=TENANT_WAIT_S)  # warm (a host shelter if cold)
+        svc.verify(micro, [check], timeout=TENANT_WAIT_S)
+        hits = counter("deequ_service_placement_cache_hits_total")
+        with inject(FaultSpec("device_update", "device", at=1)) as inj:
+            faulted = svc.verify(micro, [check], timeout=TENANT_WAIT_S)
+        if not inj.fired or hits < 1:
+            problems.append(f"(e): the fault {inj.fired} did not meet a warm battery ({hits})")
+        if faulted.status != faulted.status.SUCCESS and faulted.status.value == "Error":
+            problems.append("(e): the faulted job failed")
+        runs = svc.router.SUSPECT_PROBATION_RUNS
+        statuses = [svc.verify(micro, [check], timeout=TENANT_WAIT_S).status.value
+                    for _ in range(runs)]
+        host_routes = counter("deequ_service_suspect_host_routes_total")
+        hits_during = counter("deequ_service_placement_cache_hits_total")
+        ninth = svc.verify(micro, [check], timeout=TENANT_WAIT_S)
+        hits_after = counter("deequ_service_placement_cache_hits_total")
+        failures = counter("deequ_service_device_failures_total")
+    print(f"[drill (e) service] {SERVICE_ROWS}-row jobs: the fault {inj.fired}; "
+          f"deequ_service_device_failures_total={failures}; the next {runs} jobs: "
+          f"suspect host routes {host_routes}, cache hits {hits_during - hits - 1}; job "
+          f"{runs + 1}: cache hits +{hits_after - hits_during} (device tier); statuses "
+          f"{sorted(set(statuses + [ninth.status.value]))}; {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    if host_routes != runs or failures != 1:
+        problems.append(f"(e): {host_routes} probation routes, {failures} device failures")
+    if hits_during != hits + 1 or hits_after != hits_during + 1:
+        problems.append(f"(e): cache hits {hits} -> {hits_during} -> {hits_after}: the "
+                        f"probation runs took the device tier or the job after them did not")
+
+
+def feed_depths(torch, dq, data, device: str, problems: list) -> None:
+    """Phase 13 (f): phase 3 at ``DEEQU_TPU_PREFETCH_DEPTH`` 0 and 2 in the
+    order ``FEED_DEPTHS``; every run's states (through an in-memory state
+    provider) equal the first's bit for bit, and no run recovered from
+    anything. Prints each run's seconds and its ``feature_build``,
+    ``host_to_device`` and ``kernels`` phases."""
+    from deequ_tpu_torch.analyzers.state_provider import InMemoryStateProvider
+    from deequ_tpu_torch.ingest.prefetch import PREFETCH_DEPTH_ENV
+
+    check = build_check(dq, ROWS)
+    first = None
+    for depth in FEED_DEPTHS:
+        states = InMemoryStateProvider()
+        monitor = dq.RunMonitor()
+        with _env(PREFETCH_DEPTH_ENV, str(depth)):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (dq.VerificationSuite.on_data(data, device=device).add_check(check)
+             .add_required_analyzer(dq.CountDistinct("cat_large"))
+             .with_monitor(monitor).save_states_with(states).run())
+            if device == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        ph = monitor.phase_seconds
+        print(f"[feed depth {depth}] {ROWS} rows in {seconds:.3f}s; feature_build "
+              f"{ph.get('feature_build', 0.0):.4f} host_to_device "
+              f"{ph.get('host_to_device', 0.0):.4f} feed_wait "
+              f"{ph.get('feed_wait', 0.0):.4f} kernels "
+              f"{ph.get('kernels', 0.0):.4f} state_fetch {ph.get('state_fetch', 0.0):.4f} "
+              f"metric_derivation {ph.get('metric_derivation', 0.0):.4f}", flush=True)
+        problems += _expect(f"(f) depth {depth}", monitor)
+        got = {repr(a): states.load(a) for a in states.analyzers()}
+        if first is None:
+            first = got
+        elif set(got) != set(first) or not all(_same_persisted(got[k], first[k]) for k in first):
+            problems.append(f"(f): depth {depth}'s states differ from depth "
+                            f"{FEED_DEPTHS[0]}'s")
+
+
+def _same_persisted(got, want) -> bool:
+    """Two persisted states equal bit for bit: tensor states leaf by leaf,
+    a grouping set's frequencies by their rows and counts."""
+    from deequ_tpu_torch.analyzers.grouping import FrequenciesAndNumRows
+
+    if isinstance(want, FrequenciesAndNumRows):
+        return (isinstance(got, FrequenciesAndNumRows) and got.num_rows == want.num_rows
+                and got.frequencies.sort_index().equals(want.frequencies.sort_index()))
+    return same_state_bits(got, want)
+
+
 def _nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5262,20 +5759,22 @@ def profile_path(torch, dq, table: pa.Table) -> tuple:
 
     # phase 2 at the shapes of the profile's first pass, the one whose
     # battery holds every kernel
-    probe = dq.Dataset.from_arrow(table)
-    first_pass = first_pass_analyzers(probe, probe.schema.names, {})
-    battery = [a for a in first_pass if not isinstance(a, Histogram)]
-    battery += [DeviceFrequencyScan(a.column, probe.dictionary_size(a.column))
-                for a in first_pass if isinstance(a, Histogram)]
-    engine = ScanEngine(battery, device)
-    features = to_device(engine.builder.build(next(probe.batches(BATCH_ROWS))), device)
-    measured = check_kernels(torch, engine, features)
-    check_kll_edges(torch, features["num:l_extendedprice"], features["rows"])
-    del features
-    check_kll_cases(torch)
-    _print_kernel_totals(measured, PROFILE_KERNELS, "profile path")
-    ingest_measured, ingest_sketches = check_ingest_kernels(torch, dq, probe, table, first_pass)
-    del probe
+    with phase(2):
+        probe = dq.Dataset.from_arrow(table)
+        first_pass = first_pass_analyzers(probe, probe.schema.names, {})
+        battery = [a for a in first_pass if not isinstance(a, Histogram)]
+        battery += [DeviceFrequencyScan(a.column, probe.dictionary_size(a.column))
+                    for a in first_pass if isinstance(a, Histogram)]
+        engine = ScanEngine(battery, device)
+        features = to_device(engine.builder.build(next(probe.batches(BATCH_ROWS))), device)
+        measured = check_kernels(torch, engine, features)
+        check_kll_edges(torch, features["num:l_extendedprice"], features["rows"])
+        del features
+        check_kll_cases(torch)
+        _print_kernel_totals(measured, PROFILE_KERNELS, "profile path")
+        ingest_measured, ingest_sketches = check_ingest_kernels(torch, dq, probe, table,
+                                                                first_pass)
+        del probe
 
     # phase 4: the profile on the card, launch counts set to 0 just before
     data = dq.Dataset.from_arrow(table)
@@ -5302,17 +5801,23 @@ def profile_path(torch, dq, table: pa.Table) -> tuple:
         raise AssertionError(f"expected one K2 launch a first-pass batch, got {launches}")
 
     gpu = profile_values(profiles)
+    # the CPU comparison at the table's first PROFILE_CPU_ROWS rows, on the
+    # card and the CPU; the full-size run is held against the oracle
+    cut = dq.Dataset.from_arrow(table.slice(0, PROFILE_CPU_ROWS))
     t0 = time.perf_counter()
-    cpu = profile_values(dq.ColumnProfilerRunner.on_data(data, device="cpu").run())
-    print(f"[cpu] the same profile on the CPU in {time.perf_counter() - t0:.1f}s", flush=True)
-    problems = compare_profiles(gpu, cpu)
+    cut_card = profile_values(dq.ColumnProfilerRunner.on_data(cut, device="cuda").run())
+    cpu = profile_values(dq.ColumnProfilerRunner.on_data(cut, device="cpu").run())
+    print(f"[cpu] the same profile at {PROFILE_CPU_ROWS} rows on the card and the CPU in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    problems = compare_profiles(cut_card, cpu)
     oracle_problems, worst_rank = compare_profile_oracle(gpu, table)
     if problems or oracle_problems:
         raise AssertionError("profiles disagree:\n" + "\n".join(problems + oracle_problems))
     numeric = sum(1 for v in list(gpu.values())[1:] if v["kll"] is not None)
-    print(f"[profile metrics] {len(gpu) - 1} column profiles agree with the CPU run and the "
-          f"oracle; {numeric} KLL sketches, largest percentile rank error {worst_rank:.6f} "
-          f"(limit {2 * KLL_RELATIVE_ERROR:.6f})", flush=True)
+    print(f"[profile metrics] {len(gpu) - 1} column profiles agree with the oracle, and at "
+          f"{PROFILE_CPU_ROWS} rows with the CPU run; {numeric} KLL sketches, largest "
+          f"percentile rank error {worst_rank:.6f} (limit {2 * KLL_RELATIVE_ERROR:.6f})",
+          flush=True)
     return measured, launches, ingest_measured, ingest_sketches
 
 
@@ -5353,21 +5858,23 @@ def suggestion_path(torch, dq) -> tuple:
 
     # phase 2 at the shapes of the training split's first profile pass:
     # K1's bundles and K2's battery (the other kernels' shapes are phase 4's)
-    t0 = time.perf_counter()
-    train, _ = data.random_split(1.0 - WIDE_TESTSET_RATIO, seed=WIDE_SPLIT_SEED)
-    print(f"[suggest split] random_split of {WIDE_ROWS} rows in {time.perf_counter() - t0:.3f}s",
-          flush=True)
-    first_pass = first_pass_analyzers(train, train.schema.names, {})
-    battery = [a for a in first_pass if isinstance(a, ApproxCountDistinct) or (
-        isinstance(a, ScanShareableAnalyzer) and a.scan_slot() is not None)]
-    engine = ScanEngine(battery, device)
-    features = to_device(engine.builder.build(next(train.batches(BATCH_ROWS))), device)
-    print(f"[suggestion battery] {len(battery)} analyzers of the first pass: "
-          f"{[len(b) for b in engine.program.bundles]} K1 slots a bundle, "
-          f"{len(engine.program.hll_of)} HLL columns", flush=True)
-    measured = check_kernels(torch, engine, features)
-    del features, train, engine
-    _print_kernel_totals(measured, ("scan_reduce", "hll_registers_columns"), "suggestion path")
+    with phase(2):
+        t0 = time.perf_counter()
+        train, _ = data.random_split(1.0 - WIDE_TESTSET_RATIO, seed=WIDE_SPLIT_SEED)
+        print(f"[suggest split] random_split of {WIDE_ROWS} rows in "
+              f"{time.perf_counter() - t0:.3f}s", flush=True)
+        first_pass = first_pass_analyzers(train, train.schema.names, {})
+        battery = [a for a in first_pass if isinstance(a, ApproxCountDistinct) or (
+            isinstance(a, ScanShareableAnalyzer) and a.scan_slot() is not None)]
+        engine = ScanEngine(battery, device)
+        features = to_device(engine.builder.build(next(train.batches(BATCH_ROWS))), device)
+        print(f"[suggestion battery] {len(battery)} analyzers of the first pass: "
+              f"{[len(b) for b in engine.program.bundles]} K1 slots a bundle, "
+              f"{len(engine.program.hll_of)} HLL columns", flush=True)
+        measured = check_kernels(torch, engine, features)
+        del features, train, engine
+        _print_kernel_totals(measured, ("scan_reduce", "hll_registers_columns"),
+                             "suggestion path")
 
     # phase 10 (c): the bench's run, cold then warm, launch counts set to
     # 0 just before each
@@ -5410,23 +5917,29 @@ def suggestion_path(torch, dq) -> tuple:
         raise AssertionError(f"expected at least two K1 launches a first-pass batch, got "
                              f"{launches['scan_reduce']}")
 
-    # (d) the same run on the CPU, character for character, and numpy
+    # (d) the same run on the CPU, character for character, at the table's
+    # first WIDE_CPU_ROWS rows on the card and the CPU; the full-size run is
+    # held against numpy
     got = suggestion_values(result)
     if got != suggestion_values(runs[1][0]):
         raise AssertionError("the cold and warm runs disagree")
+    cut = dq.Dataset.from_arrow(table.slice(0, WIDE_CPU_ROWS))
     t0 = time.perf_counter()
-    want = suggestion_values(_suggestion_run(dq, data, "cpu", Rules.DEFAULT))
-    print(f"[cpu] the same suggestion run on the CPU in {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    problems = [] if got == want else ["the card's suggestions or statuses differ from the CPU's"]
+    cut_card = suggestion_values(_suggestion_run(dq, cut, "cuda", Rules.DEFAULT))
+    want = suggestion_values(_suggestion_run(dq, cut, "cpu", Rules.DEFAULT))
+    print(f"[cpu] the same suggestion run at {WIDE_CPU_ROWS} rows on the card and the CPU in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    del cut
+    problems = [] if cut_card == want else [
+        f"at {WIDE_CPU_ROWS} rows the card's suggestions or statuses differ from the CPU's"]
     t0 = time.perf_counter()
     train, test = split_rows(table)
     problems += suggestion_oracle(result, got[1], train, test)
     if problems:
         raise AssertionError("suggestions disagree:\n" + "\n".join(problems))
     print(f"[suggest metrics] {len(result.all_suggestions)} suggestions and their statuses on "
-          f"the test split ({got[1].count('Success')} Success) equal the CPU run; the "
-          f"oracle holds {len(result.column_profiles)} profiles and every status "
+          f"the test split ({got[1].count('Success')} Success); at {WIDE_CPU_ROWS} rows "
+          f"the card's equal the CPU run's; the oracle holds {len(result.column_profiles)} profiles and every status "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
     del runs, result, train, test, data
 
@@ -5461,60 +5974,12 @@ def suggestion_path(torch, dq) -> tuple:
     return measured, launches
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--seed", type=int, default=0)
-    args = parser.parse_args(argv)
+def verification_path(torch, dq, table: pa.Table, data, check) -> tuple:
+    """Phase 3: the main path on the card, launch counts set to 0 just
+    before, against the same run on the CPU and the oracle. Returns the
+    card's metrics and the run's launches."""
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
 
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-
-    import deequ_tpu_torch as dq
-    from deequ_tpu_torch.analyzers.grouping import DeviceFrequencyScan
-    from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
-    from deequ_tpu_torch.kernels import build, launch_counts, reset_launch_counts
-    from deequ_tpu_torch.runners.analysis_runner import collect_required_analyzers
-    from deequ_tpu_torch.runners.engine import ScanEngine, to_device
-
-    device = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
-    card = _nvidia_smi()
-    print(f"[device] {kind}; nvidia-smi: {card}", flush=True)
-
-    # phase 1: build every kernel, one nvcc per source in parallel
-    t0 = time.perf_counter()
-    reports = build.build(force=True)
-    print(f"[build] {len(reports)} kernels in {time.perf_counter() - t0:.1f}s", flush=True)
-    for name, report in reports.items():
-        for line in report.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}")
-
-    # the data and the battery of the main path
-    t0 = time.perf_counter()
-    table = build_table(ROWS, args.seed)
-    data = dq.Dataset.from_arrow(table)
-    check = build_check(dq, ROWS)
-    print(f"[data] {ROWS} rows in {time.perf_counter() - t0:.1f}s", flush=True)
-
-    # phase 2: each kernel against its plain version at main-path shapes
-    analyzers = list(dict.fromkeys(collect_required_analyzers([check])))
-    battery = [a for a in analyzers if isinstance(a, ScanShareableAnalyzer)]
-    battery += [DeviceFrequencyScan(c, data.dictionary_size(c)) for c in ("cat_small", "cat_large")]
-    engine = ScanEngine(battery, device)
-    first = next(data.batches(BATCH_ROWS))
-    features = to_device(engine.builder.build(first), device)
-    measured = check_kernels(torch, engine, features)
-    check_count_paths(torch, features["rows"])
-    check_hll_edges(torch)
-    del features
-    _print_kernel_totals(measured, VERIFICATION_KERNELS, "verification path")
-    carry_measured = check_carry_kernel(torch, dq, data, battery)
-
-    # phase 3: the main path on the card, launch counts set to 0 just before
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     monitor = dq.RunMonitor()
@@ -5557,41 +6022,119 @@ def main(argv=None) -> int:
         raise AssertionError("metrics disagree:\n" + "\n".join(problems))
     print(f"[metrics] {len(gpu_metrics)} metrics agree with the CPU run and the oracle; "
           f"check status {result.status.value}", flush=True)
-    del result, cpu_result
+    return gpu_metrics, launches
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+
+    import deequ_tpu_torch as dq
+    from deequ_tpu_torch.analyzers.grouping import DeviceFrequencyScan
+    from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
+    from deequ_tpu_torch.kernels import build
+    from deequ_tpu_torch.runners.analysis_runner import collect_required_analyzers
+    from deequ_tpu_torch.runners.engine import ScanEngine, to_device
+
+    device = torch.device("cuda")
+    started = time.perf_counter()
+    with phase(1):
+        kind = torch.cuda.get_device_name(0)
+        card = _nvidia_smi()
+        print(f"[device] {kind}; nvidia-smi: {card}", flush=True)
+
+        # build every kernel, one nvcc per source in parallel
+        t0 = time.perf_counter()
+        reports = build.build(force=True)
+        print(f"[build] {len(reports)} kernels in {time.perf_counter() - t0:.1f}s", flush=True)
+        for name, report in reports.items():
+            for line in report.splitlines():
+                if "Compiling entry" in line or "registers" in line or "spill" in line:
+                    print(f"[ptxas {name}] {line.strip()}")
+
+    with phase(3):
+        # the data and the battery of the main path
+        t0 = time.perf_counter()
+        table = build_table(ROWS, args.seed)
+        data = dq.Dataset.from_arrow(table)
+        check = build_check(dq, ROWS)
+        print(f"[data] {ROWS} rows in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    with phase(2):
+        # each kernel against its plain version at main-path shapes
+        analyzers = list(dict.fromkeys(collect_required_analyzers([check])))
+        battery = [a for a in analyzers if isinstance(a, ScanShareableAnalyzer)]
+        battery += [DeviceFrequencyScan(c, data.dictionary_size(c))
+                    for c in ("cat_small", "cat_large")]
+        engine = ScanEngine(battery, device)
+        first = next(data.batches(BATCH_ROWS))
+        features = to_device(engine.builder.build(first), device)
+        measured = check_kernels(torch, engine, features)
+        check_count_paths(torch, features["rows"])
+        check_hll_edges(torch)
+        del features
+        _print_kernel_totals(measured, VERIFICATION_KERNELS, "verification path")
+        carry_measured = check_carry_kernel(torch, dq, data, battery)
+
+    with phase(3):
+        # the main path on the card, launch counts set to 0 just before
+        gpu_metrics, launches = verification_path(torch, dq, table, data, check)
+    # phase 13: the reliability wrapper, the scan watchdog and the feed
+    # pipeline on phase 3's table and checks
+    with phase(13):
+        reliability_path(torch, dq, table, data)
     # phase 11 (a): the same run interrupted and resumed from a checkpoint
-    with part_seconds("phase 11 (a)"):
+    with phase(11), part_seconds("phase 11 (a)"):
         resumable_device_tier(torch, dq, data, check, ROWS, gpu_metrics)
 
     # phase 7 (a): the same table and checks on the host tier
-    host_launches, host_metrics, host_statuses = host_tier_verification(
-        torch, dq, table, ROWS, gpu_metrics)
+    with phase(7):
+        host_launches, host_metrics, host_statuses = host_tier_verification(
+            torch, dq, table, ROWS, gpu_metrics)
     # phase 9: the same table and checks over a mesh
-    mesh_battery = battery + [dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR)]
-    mesh_measured = check_mesh_kernels(torch, dq, data, mesh_battery)
-    mesh_launches = mesh_runs(torch, dq, table, host_metrics, host_statuses, gpu_metrics)
+    with phase(9):
+        mesh_battery = battery + [dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR)]
+        mesh_measured = check_mesh_kernels(torch, dq, data, mesh_battery)
+        mesh_launches = mesh_runs(torch, dq, table, host_metrics, host_statuses, gpu_metrics)
     # phase 11 (c): a mesh checkpoint resumed on a smaller mesh and without one
-    with part_seconds("phase 11 (c)"):
+    with phase(11), part_seconds("phase 11 (c)"):
         resumable_mesh(torch, dq, table)
-    cross_process(torch, dq, data, mesh_battery)
+    with phase(9):
+        cross_process(torch, dq, data, mesh_battery)
     del table, data
 
-    t0 = time.perf_counter()
-    lineitem = build_lineitem(LINEITEM_ROWS, LINEITEM_SEED + args.seed)
-    print(f"[lineitem] {LINEITEM_ROWS} rows x {lineitem.num_columns} columns in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
-    profile_measured, profile_launches, ingest_measured, ingest_sketches = profile_path(
-        torch, dq, lineitem)
-    freq_measured, freq_launches = grouping_path(torch, dq, lineitem)
+    with phase(4):
+        t0 = time.perf_counter()
+        lineitem = build_lineitem(LINEITEM_ROWS, LINEITEM_SEED + args.seed)
+        print(f"[lineitem] {LINEITEM_ROWS} rows x {lineitem.num_columns} columns in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        profile_measured, profile_launches, ingest_measured, ingest_sketches = profile_path(
+            torch, dq, lineitem)
+    with phase(5):
+        freq_measured, freq_launches = grouping_path(torch, dq, lineitem)
     # phase 7 (c): the profile on the host tier
-    ingest_launches = host_tier_profile(torch, dq, lineitem, ingest_sketches)
+    with phase(7):
+        ingest_launches = host_tier_profile(torch, dq, lineitem, ingest_sketches)
     del lineitem
-    fold_measured, fold_launches = incremental_path(torch, dq, args.seed)
+    with phase(6):
+        fold_measured, fold_launches = incremental_path(torch, dq, args.seed)
     # phase 8: the streaming service
-    stacked_measured, stream_launches = streaming_service(torch, dq, args.seed)
+    with phase(8):
+        stacked_measured, stream_launches = streaming_service(torch, dq, args.seed)
     # phase 10: constraint suggestion, BASELINE config 5
-    suggestion_path(torch, dq)
+    with phase(10):
+        suggestion_path(torch, dq)
     # phase 12: the tenant plane
-    tenant_plane(torch, dq)
+    with phase(12):
+        tenant_plane(torch, dq)
+    print_phase_seconds(time.perf_counter() - started)
 
     # K1-K3 as the verification path runs them, K4 and K5 as the profile
     # path does (the verification path runs no sketch); each with the

@@ -262,7 +262,12 @@ class FileSystemStateProvider(StateLoader, StatePersister):
             )
 
     def load(self, analyzer: Analyzer) -> Optional[Any]:
+        from ..reliability.faults import fault_point
+
         base = dio.join(self.path, self._key(analyzer))
+        # an injected "corrupt" fault here stands in for a blob whose bytes
+        # rotted after it was written
+        fault_point("state_load", tag=repr(analyzer))
         if dio.exists(base + "-frequencies.parquet"):
             return self._load_frequencies(base)
         if dio.exists(base + "-state.npz"):

@@ -122,10 +122,28 @@ class FeedDisconnectError(MetricCalculationRuntimeException):
         )
 
 
+class FeedStallError(DeviceFailureException):
+    """The feed pipeline that stages a device pass's host-to-device copies
+    (``ingest.prefetch``) stopped delivering batches: a wedged copy thread
+    or a starved source. A ``DeviceFailureException``: the pipeline exists
+    only on the device tier, so ``classify_failure`` fails the pass over to
+    the host tier, whose chunk iteration shares none of it."""
+
+    def __init__(self, site: str, detail: str = ""):
+        self.site = site
+        super().__init__(
+            f"ingest feed pipeline stalled at {site}"
+            + (f": {detail}" if detail else "")
+        )
+
+
 class ScanStallError(DeviceFailureException):
-    """A pass exceeded its watchdog deadline without finishing or failing.
-    The port has no watchdog yet (ROADMAP A6); the service's scheduler
-    retries this type, as the reference's does."""
+    """A device or host-tier pass exceeded its watchdog deadline without
+    finishing or failing (``reliability.watchdog``). A
+    ``DeviceFailureException``: ``classify_failure`` maps it to the tier
+    failover (the battery re-runs on the host tier with fresh states), the
+    service's placement router puts the battery on probation, and its
+    scheduler retries an escaped stall."""
 
     def __init__(self, site: str, deadline_s: float, waited_s: float):
         self.site = site

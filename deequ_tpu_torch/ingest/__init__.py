@@ -13,15 +13,15 @@ scheduler workers, which launch the kernels).
 - :mod:`.rowgate` — row-level ingest gating: one vectorized conformance
   mask per frame BEFORE the fold, clean rows fold bit-exact, rejects go
   to a typed, bounded, content-addressed Arrow quarantine sidecar
-  (`RowGate`, `QuarantineSidecar`).
-
-The JAX package's double-buffered feed pipeline (``ingest/prefetch.py``)
-is not here: only its engine's device tier runs through it, and the
-port's engine builds its batches inline.
+  (`RowGate`, `QuarantineSidecar`);
+- :mod:`.prefetch` — the double-buffered feed pipeline of the engine's
+  device tier (`PrefetchingBatchIterator`, ``DEEQU_TPU_PREFETCH_DEPTH``,
+  ``DEEQU_TPU_FEED_STALL_S``).
 """
 
 from ..exceptions import (
     FeedDisconnectError,
+    FeedStallError,
     MalformedFrameError,
 )
 from .arrow_stream import (
@@ -35,6 +35,16 @@ from .arrow_stream import (
 )
 from .columnar import as_dataset, payload_bytes
 from .endpoint import INGEST_PREFIX, IngestEndpoint
+from .prefetch import (
+    DEFAULT_FEED_STALL_S,
+    DEFAULT_PREFETCH_DEPTH,
+    FEED_STALL_ENV,
+    PREFETCH_DEPTH_ENV,
+    PrefetchingBatchIterator,
+    feed_stall_s,
+    prefetch_depth,
+    staging_depth,
+)
 from .rowgate import (
     DEFAULT_QUARANTINE_MAX_ROWS,
     QUARANTINE_MAX_ROWS_ENV,
@@ -49,7 +59,10 @@ __all__ = [
     "encode_ipc_stream", "iter_frames", "fold_stream", "IngestReport",
     "fold_stream_reader", "BoundedReader",
     "CHECKSUM_HEADER", "INGEST_PREFIX", "IngestEndpoint",
-    "MalformedFrameError", "FeedDisconnectError",
+    "MalformedFrameError", "FeedDisconnectError", "FeedStallError",
+    "PrefetchingBatchIterator", "prefetch_depth", "staging_depth", "feed_stall_s",
+    "PREFETCH_DEPTH_ENV", "DEFAULT_PREFETCH_DEPTH", "FEED_STALL_ENV",
+    "DEFAULT_FEED_STALL_S",
     "RowGate", "QuarantineSidecar", "FrameQuarantinedError",
     "quarantine_max_rows", "QUARANTINE_MAX_ROWS_ENV",
     "DEFAULT_QUARANTINE_MAX_ROWS",

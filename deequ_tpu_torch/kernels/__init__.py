@@ -63,10 +63,12 @@ def count_launch(name: str) -> None:
 
 
 def check_status(name: str, status: int) -> None:
-    """Raise when a C entry point reports a CUDA error (its
-    ``cudaGetLastError()`` after the launch)."""
+    """Raise :class:`~.build.KernelLaunchError` when a C entry point
+    reports a CUDA error (its ``cudaGetLastError()`` after the launch)."""
     if status != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {status}")
+        from .build import KernelLaunchError
+
+        raise KernelLaunchError(f"CUDA kernel {name} failed to launch: cudaError {status}")
 
 
 def on_cuda(t: torch.Tensor, name: str) -> bool:

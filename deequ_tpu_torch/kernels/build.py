@@ -35,6 +35,27 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: serialises builds: threads that find the same sources stale wait for
+#: one build instead of starting an nvcc each
+_BUILD_LOCK = threading.Lock()
+#: set once :func:`ensure_built` has found every kernel built
+_ALL_BUILT = threading.Event()
+
+
+class KernelError(RuntimeError):
+    """A fault of this package's own kernels, not of the card or the data:
+    the reliability layer (``reliability.isolation``) never fails it over
+    to the host tier nor bisects it into ``Failure`` metrics; it raises out
+    of the run, so no fallback hides a kernel."""
+
+
+class KernelBuildError(KernelError):
+    """A kernel (or the native host library) failed to build or load."""
+
+
+class KernelLaunchError(KernelError):
+    """A kernel failed to launch (its C entry point reported a CUDA error),
+    or its wrapper and its library disagree."""
 
 
 def nvcc_path() -> str:
@@ -44,7 +65,7 @@ def nvcc_path() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found: the CUDA kernels of deequ_tpu_torch build on a "
         "machine with the CUDA toolkit"
     )
@@ -70,7 +91,20 @@ def build(names: Iterable[str] = SOURCES, force: bool = False) -> Dict[str, str]
     one ``nvcc`` process per source, started together. Returns each built
     library's ptxas report; raises with the compiler's output when a
     build fails."""
-    todo = [n for n in names if force or _stale(n)]
+    with _BUILD_LOCK:
+        return _build([n for n in names if force or _stale(n)])
+
+
+def ensure_built() -> None:
+    """Build every stale kernel, once a process: the engine calls it before
+    a guarded pass's clock starts, so ``nvcc`` at first use is never taken
+    for a stall (later calls cost one flag read)."""
+    if not _ALL_BUILT.is_set():
+        build()
+        _ALL_BUILT.set()
+
+
+def _build(todo) -> Dict[str, str]:
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -96,7 +130,7 @@ def build(names: Iterable[str] = SOURCES, force: bool = False) -> Dict[str, str]
         os.replace(tmp, library_path(name))
         reports[name] = out
     if failures:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(failures))
     return reports
 
 
@@ -106,6 +140,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            try:
+                lib = ctypes.CDLL(str(library_path(name)))
+            except OSError as exc:
+                raise KernelBuildError(f"cannot load kernel library {name}: {exc}") from exc
             _LIBS[name] = lib
         return lib

@@ -72,7 +72,8 @@ def _lib() -> ctypes.CDLL:
         ]
         if (lib.dict_code_counts_cluster_max_k() != CLUSTER_MAX_K
                 or lib.dict_code_counts_cluster_size() != CLUSTER_SIZE):
-            raise RuntimeError("dict_code_counts library and wrapper disagree on the cluster path")
+            raise build.KernelLaunchError(
+                "dict_code_counts library and wrapper disagree on the cluster path")
         lib._deequ_bound = True
     return lib
 

@@ -145,7 +145,7 @@ def _lib() -> ctypes.CDLL:
                 or lib.freq_keys_threads() != THREADS or lib.freq_keys_tile() != TILE
                 or lib.freq_keys_table_bytes() != ctypes.sizeof(_Table)
                 or lib.freq_keys_blocks_per_sm() != BLOCKS_PER_SM):
-            raise RuntimeError("freq_keys library and wrapper disagree on the table")
+            raise build.KernelLaunchError("freq_keys library and wrapper disagree on the table")
         lib._deequ_bound = True
     return lib
 

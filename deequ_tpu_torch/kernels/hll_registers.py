@@ -137,7 +137,8 @@ def _lib() -> ctypes.CDLL:
                 or lib.hll_registers_table_bytes() != ctypes.sizeof(_Table)
                 or lib.hll_registers_threads() != THREADS
                 or lib.hll_registers_tile() != TILE or lib.hll_registers_spread() != SPREAD):
-            raise RuntimeError("hll_registers library and wrapper disagree on the table")
+            raise build.KernelLaunchError(
+                "hll_registers library and wrapper disagree on the table")
         lib._deequ_bound = True
     return lib
 

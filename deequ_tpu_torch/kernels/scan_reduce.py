@@ -257,7 +257,8 @@ def _lib() -> ctypes.CDLL:
                 or lib.scan_reduce_int_width() != I_WIDTH
                 or lib.scan_reduce_table_bytes() != ctypes.sizeof(_Table)
                 or lib.scan_reduce_partial_width() != PARTIAL_WIDTH):
-            raise RuntimeError("scan_reduce library and wrapper disagree on the slot layout")
+            raise build.KernelLaunchError(
+                "scan_reduce library and wrapper disagree on the slot layout")
         lib._deequ_bound = True
     return lib
 

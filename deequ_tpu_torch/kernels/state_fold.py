@@ -155,7 +155,7 @@ def _lib() -> ctypes.CDLL:
     if (lib.state_fold_span() != SPAN or lib.state_fold_max_shards() != MAX_SHARDS
             or any(lib.state_fold_butterfly_span(n) != butterfly_span(n)
                    for n in (1, 2, 3, 8, 100, 513, MAX_SHARDS))):
-        raise RuntimeError("state_fold library and wrapper disagree on its limits")
+        raise build.KernelLaunchError("state_fold library and wrapper disagree on its limits")
     return lib
 
 

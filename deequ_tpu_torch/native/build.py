@@ -16,6 +16,8 @@ import sys
 import tempfile
 from pathlib import Path
 
+from ..kernels.build import KernelBuildError
+
 _DIR = Path(__file__).resolve().parent
 SOURCE = _DIR / "src" / "host_kernels.cpp"
 BUILD_DIR = _DIR / "_build"
@@ -31,8 +33,8 @@ def library_path() -> Path:
 
 def build(force: bool = False) -> str:
     """Compile the library if it is missing or older than its source;
-    returns its path. Raises ``RuntimeError`` with the compiler's output
-    when the build fails."""
+    returns its path. Raises ``KernelBuildError`` (a ``RuntimeError``) with
+    the compiler's output when the build fails."""
     lib = library_path()
     if not force and lib.exists() and lib.stat().st_mtime >= SOURCE.stat().st_mtime:
         return str(lib)
@@ -46,9 +48,9 @@ def build(force: bool = False) -> str:
         try:
             result = subprocess.run(cmd, capture_output=True, text=True)
         except OSError as exc:
-            raise RuntimeError(f"native build failed: cannot run {CXX}: {exc}") from exc
+            raise KernelBuildError(f"native build failed: cannot run {CXX}: {exc}") from exc
         if result.returncode != 0:
-            raise RuntimeError(f"native build failed ({' '.join(cmd)}):\n{result.stderr}")
+            raise KernelBuildError(f"native build failed ({' '.join(cmd)}):\n{result.stderr}")
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):

@@ -7,7 +7,10 @@ by construction. So a lost shard costs only its own batches:
 
 1. **Detection**: a fold raising :class:`ShardLossError` (an injected
    ``mesh_loss`` or ``shard_stall`` fault, a failed device, a heartbeat
-   probe declaring a shard dead, ``health.py``) names the lost positions.
+   probe declaring a shard dead, ``health.py``) names the lost positions;
+   a raw error that ``classify_failure`` reads as ``"device"`` (a CUDA
+   error) on a mesh of more than one shard probes the shards and recovers
+   the dead ones (shard 0 when no probe fails) as a shard loss.
 2. **Salvage**: the surviving shards' states merge into one canonical
    state per analyzer, on the rebuilt mesh's first device
    (:func:`device_merge_states`), or on the host when no device is left
@@ -279,6 +282,20 @@ class ElasticMeshFold:
                                                   stacked, flags)
             except ShardLossError as exc:
                 self._recover(exc)
+                continue
+            except Exception as exc:  # noqa: BLE001 - classified below
+                from ..reliability.isolation import classify_failure
+
+                if classify_failure(exc) != "device" or self.n_dev <= 1:
+                    raise
+                # a raw device error on a mesh of more than one shard:
+                # probe which shards died rather than abandon every
+                # survivor (the reference's elastic.py:305-325)
+                from .health import probe_shards
+
+                dead = probe_shards(self.mesh)
+                self._recover(ShardLossError(dead or [0], "sharded_fold",
+                                             detail=f"{type(exc).__name__}: {exc}"))
                 continue
             self._record_ownership(flags, batch_indices)
             return self.states

@@ -18,11 +18,21 @@ Instrumented sites (grep ``fault_point(`` for ground truth):
 ===================  ========================================================
 site                 fires
 ===================  ========================================================
+``analyzer``         once per scan analyzer per pass, tag = ``repr(analyzer)``
+``compile``          when a battery's program is first built (the port's
+                     counterpart of the reference's fused-program build)
 ``device_update``    before each device-tier batch's launches, tag = batch
                      number (1-based)
+``device_feed``      before a batch's features are copied to the device,
+                     tag = batch index
+``prefetch``         per staged batch of the device feed pipeline, tag =
+                     batch index (0-based)
 ``host_partial``     before each host-tier partial, tag = batch index
 ``ingest_fold``      before each host-tier chunk fold on the device
+``state_fetch``      before a pass's device-to-host state fetch
 ``checkpoint``       before an ingest checkpoint is persisted, tag = batch
+``state_load``       in ``FileSystemStateProvider.load``, tag =
+                     ``repr(analyzer)``
 ``repository_load``  in the partitioned metrics repository's bucket read,
                      tag = path
 ``partition_store_load``  in ``PartitionStateStore.get``, tag =
@@ -44,7 +54,7 @@ site                 fires
 The ``interrupt`` kind (a ``KeyboardInterrupt`` subclass) at
 ``device_update``, ``host_partial`` or ``ingest_fold`` kills a run mid-fold,
 which an ingest checkpoint then resumes; the ``corrupt`` kind (a typed
-``CorruptStateError``) at the two load sites stands in for bit rot or a
+``CorruptStateError``) at the three load sites stands in for bit rot or a
 torn write the checksum layer would detect. At ``catalog_load`` the
 ``corrupt`` kind stands in for a torn or garbled tenant catalog document
 (the catalog quarantines it and keeps serving last-good); at ``row_gate``
@@ -63,11 +73,15 @@ at ``shard_probe`` it makes the heartbeat declare that shard dead;
 ``shard_stall`` (a typed ``ShardStallError``, the same payload) stands in
 for a shard that wedged without raising.
 
-The engine's other sites (per-analyzer isolation, compile, device feed,
-state fetch, the feed pipeline's ``prefetch``) and the ``feed_stall`` and
-cluster kinds belong to the reliability wrapper, the watchdog, the
-engine's feed pipeline and the cluster plane, which the port has not
-taken yet.
+The engine's ``feed_stall`` kind (a typed ``FeedStallError``) at
+``prefetch`` stands in for the device feed pipeline wedging mid-pass; with
+a ``delay_s`` it sleeps that long first, modeling a slow feed before the
+stall is declared. The ``stall`` kind at ``device_update`` or
+``host_partial`` holds a pass past the scan watchdog's deadline; ``oom``
+and ``device`` at ``device_update`` drive the tier ladder, and
+``analyzer`` at ``analyzer`` (matched to one analyzer's tag) the battery
+bisection (``reliability.isolation``). The cluster plane's kind and sites
+are not ported.
 """
 
 from __future__ import annotations
@@ -84,6 +98,7 @@ from ..exceptions import (
     CorruptStateError,
     DeviceFailureException,
     DeviceOOMException,
+    FeedStallError,
     PoisonedBatchException,
     MalformedFrameError,
     SchemaDriftError,
@@ -143,20 +158,28 @@ def _make_error(kind: str, site: str, tag: str, shard: Optional[int] = None) -> 
         return ShardLossError([0 if shard is None else shard], site, detail=note)
     if kind == "shard_stall":
         return ShardStallError([0 if shard is None else shard], site, detail=note)
+    if kind == "feed_stall":
+        return FeedStallError(site, note)
     raise ValueError(f"unknown fault kind {kind!r}")
 
 
 FAULT_KINDS = (
     "device", "oom", "poison", "analyzer", "interrupt", "worker_death",
     "stall", "corrupt", "drift", "mesh_loss", "shard_stall",
-    "frame_corrupt",
+    "frame_corrupt", "feed_stall",
 )
 
 #: The fault-site REGISTRY: every ``fault_point(site, ...)`` planted in the
 #: package names a site listed here, and every site listed here has at
 #: least one live probe (``tests/test_torch_service.py`` checks both).
 KNOWN_FAULT_SITES = frozenset({
+    "analyzer",
+    "compile",
     "device_update",
+    "device_feed",
+    "prefetch",
+    "state_fetch",
+    "state_load",
     "host_partial",
     "ingest_fold",
     "checkpoint",

@@ -92,6 +92,7 @@ from ..config import (
 )
 from ..data import Dataset, Schema
 from ..exceptions import MetricCalculationException
+from ..kernels.build import KernelError
 from ..metrics import Metric
 from .context import AnalyzerContext
 from .engine import (
@@ -298,36 +299,42 @@ class AnalysisRunner:
         if not battery and not host_sets and not host_accum:
             return _results(results_loaded + AnalyzerContext(failures), metrics_repository,
                             save_or_append_results_with_key)
-        states, shared, host_errors = _run_pass(data, battery, host_sets, batch_size, dev,
-                                                run_monitor, placement, sharding, host_accum,
-                                                checkpointer)
-        by_analyzer = dict(zip(battery, states))
+        outcome = _run_pass(data, battery, host_sets, batch_size, dev, run_monitor, placement,
+                            sharding, host_accum, checkpointer)
+        shared: Dict[Any, Any] = dict(outcome.host_states)
+        host_errors: Dict[Any, BaseException] = dict(outcome.host_errors)
 
-        # drain the device frequency tables; a table that dropped groups
-        # re-runs its set through the host group-by in one more pass
+        # drain the device frequency tables. A set whose table dropped
+        # groups, or whose scan degraded, re-runs through the host group-by
+        # in one more pass
         fallback: List[Tuple[str, ...]] = []
+        losses: List[str] = []
         with run_monitor.timed("drain"):
             for cols, scan in table_scans.items():
-                drained = scan.drain(by_analyzer[scan])
-                if drained is None:
-                    fallback.append(cols)
-                else:
+                state = outcome.states.get(scan)
+                drained = None if state is None else scan.drain(state)
+                if drained is not None:
                     shared[cols] = drained
+                    continue
+                fallback.append(cols)
+                if state is not None:
+                    run_monitor.bump("freq_overflow_fallbacks")
+                    losses.append(f"{cols}: ~{int(state.lost_groups)} groups / "
+                                  f"{int(state.lost_rows)} rows dropped")
+                else:
+                    losses.append(f"{cols}: pass degraded")
         if fallback:
-            losses = "; ".join(
-                f"{cols}: ~{int(by_analyzer[table_scans[cols]].lost_groups)} groups / "
-                f"{int(by_analyzer[table_scans[cols]].lost_rows)} rows dropped"
-                for cols in fallback
-            )
             logging.getLogger(__name__).warning(
-                "device frequency table overflowed for grouping sets [%s]; re-running "
-                "them through the host group-by", losses,
+                "device frequency table overflowed (or degraded) for grouping sets [%s]; "
+                "re-running them through the host group-by", "; ".join(losses),
             )
-            run_monitor.freq_overflow_fallbacks += len(fallback)
-            _, refolded, refold_errors = _run_pass(data, [], fallback, batch_size, dev,
-                                                   run_monitor, sharding=sharding)
-            shared.update(refolded)
-            host_errors.update(refold_errors)
+            refold = _run_pass(data, [], fallback, batch_size, dev, run_monitor,
+                               sharding=sharding)
+            shared.update(refold.host_states)
+            host_errors.update(refold.host_errors)
+        for cols in fallback:
+            if cols not in shared and cols not in host_errors:
+                host_errors[cols] = outcome.errors[table_scans[cols]]
 
         # load old state -> merge -> persist -> metric (reference
         # `Analyzer.calculateMetric`, `Analyzer.scala:107-128`)
@@ -336,10 +343,16 @@ class AnalysisRunner:
 
         with run_monitor.timed("metric_derivation"):
             for a in scanning:
-                metrics[a] = finalize(a, by_analyzer[a])
+                if a in outcome.states:
+                    metrics[a] = finalize(a, outcome.states[a])
+                else:
+                    metrics[a] = a.to_failure_metric(outcome.errors[a])
             for cols in dict_sets:
                 scan = freq_scans[cols]
-                shared[cols] = scan.to_frequencies(by_analyzer[scan], dictionaries[cols])
+                if scan in outcome.states:
+                    shared[cols] = scan.to_frequencies(outcome.states[scan], dictionaries[cols])
+                else:
+                    host_errors[cols] = outcome.errors[scan]
             for cols, members in grouping_sets.items():
                 for a in members:
                     if cols in host_errors:
@@ -348,8 +361,11 @@ class AnalysisRunner:
                         metrics[a] = finalize(a, shared[cols])
             for a in histograms:
                 scan = freq_scans[(a.column,)]
+                if scan not in outcome.states:
+                    metrics[a] = a.to_failure_metric(outcome.errors[scan])
+                    continue
                 hist = device_counts_to_histogram_frequencies(
-                    scan, by_analyzer[scan], dictionaries[(a.column,)]
+                    scan, outcome.states[scan], dictionaries[(a.column,)]
                 )
                 metrics[a] = finalize(a, hist)
             for a in host_accum:
@@ -428,6 +444,8 @@ def _finalize(analyzer: Analyzer, state: Any, aggregate_with: Optional[Any],
         if save_states_with is not None and state is not None:
             save_states_with.persist(analyzer, state)
         return analyzer.compute_metric_from(state)
+    except KernelError:
+        raise  # a faulty kernel fails the run, never one metric
     except Exception as exc:  # noqa: BLE001
         return analyzer.to_failure_metric(exc)
 
@@ -476,58 +494,69 @@ def _run_device(device, sharding):
 def _run_pass(data: Dataset, battery: Sequence[ScanShareableAnalyzer],
               host_sets: Sequence[Tuple[str, ...]], batch_size: Optional[int], device,
               monitor: RunMonitor, placement: Optional[str] = None, sharding=None,
-              host_accum: Sequence[Analyzer] = (), checkpointer: Optional[Any] = None,
-              ) -> Tuple[List[Any], Dict[Any, Any], Dict[Any, BaseException]]:
-    """One pass: ``battery`` on the ingest tier ``placement`` resolves to
-    (row-sharded over the mesh ``sharding``), a host group-by per set of
-    ``host_sets`` and each analyzer of ``host_accum`` folding its own host
-    state. Returns the battery's states (on the host), the host states (a
-    set's :class:`FrequenciesAndNumRows` by its columns, an accumulator's by
-    the analyzer) and the errors of the host folds that raised, by the same
-    keys: such a fold stops, and its state is dropped (the reference's
-    guarded host updates, deequ_tpu/reliability/isolation.py:116).
-    ``checkpointer`` makes the pass resumable (``ScanEngine.run``)."""
-    engine = ScanEngine(battery, device, monitor=monitor, placement=placement,
-                        sharding=sharding)
-    states: Dict[Any, Any] = {
-        cols: FrequenciesAndNumRows.empty(list(cols)) for cols in host_sets
-    }
-    update: Dict[Any, Any] = {cols: FrequenciesAndNumRows.update for cols in host_sets}
-    for a in host_accum:
-        states[a] = a.host_init()
-        update[a] = a.host_update
-    errors: Dict[Any, BaseException] = {}
+              host_accum: Sequence[Analyzer] = (), checkpointer: Optional[Any] = None):
+    """One shared pass through the reliability layer (the reference's
+    ``run_pass`` under ``run_scan_resilient``,
+    deequ_tpu/runners/analysis_runner.py:330-426): ``battery`` on the ingest
+    tier ``placement`` resolves to (row-sharded over the mesh
+    ``sharding``), a host group-by per set of ``host_sets`` and each
+    analyzer of ``host_accum`` folding its own host state.
 
-    def guarded(key, fn):
-        def fold(state, batch):
-            if key in errors:
-                return state
-            try:
-                return fn(state, batch)
-            except Exception as exc:  # noqa: BLE001 - fails this key's metrics only
-                errors[key] = exc
-                monitor.note_degraded(f"host:{key}")
-                logging.getLogger(__name__).warning(
-                    "host accumulator %s knocked out: %s", key, exc)
-                return state
+    A device failure fails the battery over to the host tier (an OOM first
+    halves the batch, an escaped shard loss re-shards the mesh), an
+    analyzer fault bisects the battery until exactly the faulty analyzers
+    degrade, and a host fold that raises is knocked out alone
+    (``reliability.isolation``). Returns the
+    :class:`~deequ_tpu_torch.reliability.ResilientScanOutcome`: the
+    battery's host states and errors by analyzer, the host states (a set's
+    :class:`FrequenciesAndNumRows` by its columns, an accumulator's by the
+    analyzer) and the errors of the host folds. ``checkpointer`` makes the
+    full battery's pass resumable (``ScanEngine.run``); bisection passes
+    never save."""
+    from ..reliability.isolation import run_scan_resilient
 
-        return fold
+    def make_host_states():
+        states: Dict[Any, Any] = {cols: FrequenciesAndNumRows.empty(list(cols))
+                                  for cols in host_sets}
+        update: Dict[Any, Any] = {cols: FrequenciesAndNumRows.update for cols in host_sets}
+        for a in host_accum:
+            states[a] = a.host_init()
+            update[a] = a.host_update
+        return states, update
 
-    battery_states = engine.run(
-        data, batch_size=batch_size,
-        columns=_columns_needed(engine, data.schema, host_sets, host_accum),
-        host_accumulators=states,
-        host_update_fns={key: guarded(key, fn) for key, fn in update.items()},
-        checkpointer=checkpointer,
-    )
-    for key in errors:
-        states.pop(key, None)
-    return battery_states, states, errors
+    full_battery = tuple(battery)
+    keep = object()
+
+    def run_pass(part, host_states, host_updates, *, placement=None, batch_size=None,
+                 sharding=keep):
+        # the ladder overrides ``sharding`` only after a shard loss escaped
+        # the engine: the pass re-runs whole on a mesh rebuilt over the
+        # surviving devices (None: the mesh is gone)
+        mesh = outer_sharding if sharding is keep else sharding
+        engine = ScanEngine(list(part), device if mesh is None else mesh.home,
+                            monitor=monitor, placement=placement, sharding=mesh)
+        sets = [key for key in host_states if isinstance(key, tuple)]
+        accum = [key for key in host_states if not isinstance(key, tuple)]
+        states = engine.run(
+            data, batch_size=batch_size,
+            columns=_columns_needed(engine, data.schema, sets, accum),
+            host_accumulators=host_states, host_update_fns=host_updates,
+            checkpointer=checkpointer if tuple(part) == full_battery else None,
+        )
+        return states, host_states
+
+    outer_sharding = sharding
+    return run_scan_resilient(
+        run_pass, full_battery, make_host_states, monitor,
+        batch_size=effective_batch_size(batch_size), placement=placement,
+        sharding=sharding, device=device)
 
 
 def _metric(analyzer: Analyzer, state: Any) -> Metric:
     try:
         return analyzer.compute_metric_from(state)
+    except KernelError:
+        raise
     except Exception as exc:  # noqa: BLE001
         return analyzer.to_failure_metric(exc)
 

@@ -28,12 +28,24 @@ the host tier each shard folds its slice of every chunk of partials into
 its own states through the elastic fold (``parallel.elastic``), which
 survives the loss of shards, and the pass ends in the collective merge.
 An ingest checkpointer (``checkpointer=``, ``reliability.checkpoint``)
-makes a pass resumable on every tier. The reliability wrapper and the
-watchdog are not part of the port; any other device failure raises.
+makes a pass resumable on every tier.
+
+A pass runs under the scan watchdog (``reliability.watchdog``) once a
+deadline applies: past it the pass is abandoned with a typed
+``ScanStallError``, and its engine's cancel event stops it at the next
+batch boundary (no launch, fold, checkpoint or fault probe after it). The
+device tier's batches come through the feed pipeline (``ingest.prefetch``):
+at ``DEEQU_TPU_PREFETCH_DEPTH`` >= 1 a feed thread builds the next
+batches' features while the launching thread copies this batch's to the
+card and launches its kernels. A CUDA error at the wait after the kernels
+raises as a ``KernelLaunchError`` (:func:`wait_kernels`). The runner wraps each pass in the reliability layer
+(``reliability.isolation``): analyzer isolation, the device-to-host tier
+failover, OOM batch bisection and the pass-level re-shard of a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -68,13 +80,44 @@ from ..utils import BoundedLRU
 from .features import FeatureBuilder
 
 
+#: the reliability layer's counters, also tallied for the whole process: the
+#: failovers, bisections, re-runs, stalls and shard losses of every
+#: :class:`RunMonitor`, the service's fold monitors included
+RECOVERY_COUNTERS = ("device_failovers", "batch_bisections", "isolation_reruns", "stalls",
+                     "device_stalls", "shard_losses", "mesh_reshards")
+_RECOVERIES: Dict[str, Any] = {}
+_RECOVERIES_LOCK = threading.Lock()
+
+
+def reset_recovery_counts() -> None:
+    """Set the process's recovery tally to 0 (a drive does so before the
+    runs it then shows needed none)."""
+    with _RECOVERIES_LOCK:
+        _RECOVERIES.clear()
+        _RECOVERIES.update({name: 0 for name in RECOVERY_COUNTERS}, degraded=[])
+
+
+def recovery_counts() -> Dict[str, Any]:
+    """The recoveries of every run since :func:`reset_recovery_counts`:
+    each of :data:`RECOVERY_COUNTERS` and ``degraded``, the degradations in
+    the order they were noted."""
+    with _RECOVERIES_LOCK:
+        return {**_RECOVERIES, "degraded": list(_RECOVERIES["degraded"])}
+
+
+reset_recovery_counts()
+
+
 @dataclass
 class RunMonitor:
     """Counts execution events and records per-phase wall time
     (``phase_seconds``), so a run's cost is attributable without external
     tooling. Phases: ``feature_build`` (host features, split by feature
-    kind under ``feature_build.<kind>``), ``host_to_device`` (copies),
-    ``kernels`` (launches, state folds and the wait for them),
+    kind under ``feature_build.<kind>``; at a feed depth >= 1 summed from
+    the feed thread), ``feed_wait`` (at a feed depth >= 1: the launching
+    thread's wait for the feed thread's next batch), ``host_to_device``
+    (copies and the wait for them), ``kernels`` (launches, state folds
+    and the wait for them),
     ``host_accumulators`` (the host group-by's and the other host
     accumulators' batch folds),
     ``state_fetch`` (the device-to-host copy of the states); on the host
@@ -97,11 +140,16 @@ class RunMonitor:
     pass's battery, as the reference splits a bundle's dispatch time over
     its slots; exported per tenant, and a verification result's
     ``cost_by_analyzer``), and the reliability counters its scheduler
-    harvests (``device_failovers``, ``batch_bisections``,
-    ``isolation_reruns``, ``stalls``, ``device_stalls``, ``degraded``),
-    which stay 0 and empty: the port has no reliability wrapper. A run
-    over a mesh counts ``shard_losses``, ``mesh_reshards`` and
-    ``salvaged_states`` and notes its re-shards in ``degraded``.
+    harvests from the reliability layer: ``device_failovers`` (passes
+    failed over to the host tier), ``batch_bisections`` (OOM batch
+    halvings), ``isolation_reruns`` (battery bisection re-passes),
+    ``stalls`` and ``device_stalls`` (watchdog deadlines, every tier and
+    the device's), and ``degraded`` (the degradations, once each). A run
+    over a mesh counts ``shard_losses``, ``mesh_reshards`` (in-pass and
+    pass-level) and ``salvaged_states`` and notes its re-shards in
+    ``degraded``. These are also tallied for the whole process
+    (:func:`recovery_counts`). Every counter and phase is safe to bump from
+    the feed and watchdog threads.
 
     Resumable ingest and incremental runs: ``checkpoint_saves`` (phase
     ``checkpoint``), ``resumed_at_batch`` (the batch a resumed pass
@@ -167,6 +215,9 @@ class RunMonitor:
         atomic across the service's worker threads)."""
         with self._lock:
             setattr(self, field_name, getattr(self, field_name) + by)
+        if field_name in RECOVERY_COUNTERS:
+            with _RECOVERIES_LOCK:
+                _RECOVERIES[field_name] += by
 
     def attribute(self, keys: Sequence[str], seconds: float) -> None:
         """Split ``seconds`` evenly over ``keys`` in ``cost_by_analyzer``."""
@@ -180,22 +231,32 @@ class RunMonitor:
     def note_degraded(self, tag: str) -> None:
         """Record a degradation (``"mesh:8->4"``, ``"mesh:host"``) once."""
         with self._lock:
-            if tag not in self.degraded:
-                self.degraded.append(tag)
+            if tag in self.degraded:
+                return
+            self.degraded.append(tag)
+        with _RECOVERIES_LOCK:
+            _RECOVERIES["degraded"].append(tag)
 
     def merge_from(self, other: "RunMonitor") -> None:
         """Absorb another monitor's counters and phase times: the service
         records a fold's costs into a fold-local monitor while the fold
         runs inside another job's launch, and the fold's own job absorbs
         them here once."""
+        with other._lock:
+            # a snapshot under the other monitor's lock: its pass may still
+            # be adding phases from a feed or watchdog thread
+            counters = {name: getattr(other, name) for name in self._COUNTERS}
+            phases = dict(other.phase_seconds)
+            costs = dict(other.cost_by_analyzer)
+            degraded = list(other.degraded)
         with self._lock:
-            for name in self._COUNTERS:
-                setattr(self, name, getattr(self, name) + getattr(other, name))
-            for phase, seconds in other.phase_seconds.items():
+            for name, value in counters.items():
+                setattr(self, name, getattr(self, name) + value)
+            for phase, seconds in phases.items():
                 self.phase_seconds[phase] = self.phase_seconds.get(phase, 0.0) + seconds
-            for key, seconds in other.cost_by_analyzer.items():
+            for key, seconds in costs.items():
                 self.cost_by_analyzer[key] = self.cost_by_analyzer.get(key, 0.0) + seconds
-            self.degraded.extend(other.degraded)
+            self.degraded.extend(degraded)
             if other.placement is not None:
                 self.placement = other.placement
             if other.device is not None:
@@ -240,7 +301,8 @@ class BundledScanProgram:
     (:func:`fold_sessions_coalesced`); equal per-analyzer signatures alone
     do not suffice, since slots deduplicate (Mean("a") and Sum("a") share
     one, Mean("a") and Sum("b") do not). ``executed`` turns True once the
-    battery has launched in this process: the service's warmth."""
+    battery has launched in this process (:meth:`mark_executed`): the
+    service's warmth."""
 
     def __init__(self, analyzers: Sequence[ScanShareableAnalyzer]):
         self.analyzers = tuple(analyzers)
@@ -277,6 +339,19 @@ class BundledScanProgram:
 
     def init_states(self, device) -> List[Any]:
         return [a.init_state(device) for a in self.analyzers]
+
+    def mark_executed(self) -> None:
+        """The battery launched: warm from now on, under its own key and
+        under the battery a user's checks name, which lacks the frequency
+        scans the runner adds for grouping sets at run time (the router's
+        warmth key, :func:`fused_program_is_cached`)."""
+        if not self.executed:
+            self.executed = True
+            from ..analyzers.grouping import DeviceFrequencyScan, DeviceFrequencyTableScan
+
+            named = tuple(a for a in self.analyzers
+                          if not isinstance(a, (DeviceFrequencyScan, DeviceFrequencyTableScan)))
+            _WARM_BATTERIES[named] = True
 
     def __call__(self, states: Sequence[Any], features: Dict[str, torch.Tensor]) -> List[Any]:
         rows = features["rows"]
@@ -655,6 +730,9 @@ class ScanEngine:
         self.program = _fused_program(tuple(self.scan_analyzers))
         #: the battery's keys in ``RunMonitor.cost_by_analyzer``
         self.cost_keys = [repr(a) for a in self.scan_analyzers]
+        #: set when the watchdog abandons this engine's pass: the pass stops
+        #: at its next batch boundary
+        self._cancelled = threading.Event()
 
     def required_columns(self) -> List[str]:
         return self.builder.required_columns
@@ -681,18 +759,81 @@ class ScanEngine:
         pass rounds its batch size to the re-shard ladder's quantum, mesh or
         not, so its checkpoints resume on any mesh shape and on the plain
         host tier (the reference's ``ScanEngine.run``,
-        deequ_tpu/runners/engine.py:2015-2075)."""
-        from ..native import pattern_routes
+        deequ_tpu/runners/engine.py:2015-2075).
+
+        The pass runs under the scan watchdog once a deadline applies
+        (``DEEQU_TPU_SCAN_DEADLINE_S``, or one derived from the rates of
+        this process's earlier passes on the tier): on a thread of its own,
+        with this engine's device current, abandoned with a typed
+        ``ScanStallError`` past its deadline (the reference's
+        ``ScanEngine.run``, deequ_tpu/runners/engine.py:1933-2005). Only
+        completed, representative passes teach the rate tracker."""
+        from ..observability import trace as _trace
+        from ..reliability.watchdog import (
+            in_failover_pass,
+            rate_key,
+            rate_tracker,
+            run_with_deadline,
+            scan_deadline_s,
+        )
 
         monitor = self.monitor
         host_states = host_accumulators if host_accumulators is not None else {}
-        monitor.passes += 1
-        monitor.device = str(self.device)
         if not self.scan_analyzers and not host_states:
+            monitor.bump("passes")
+            monitor.device = str(self.device)
             return []
         bs = effective_batch_size(batch_size, self.mesh, checkpointed=checkpointer is not None)
         tier = resolve_scan_placement(self.scan_analyzers, self.placement, self.device, monitor)
+        n_rows = max(1, int(data.num_rows))
+        n_batches = max(1, -(-n_rows // bs))
+        key = rate_key(tier, self.device)
+        failed_tier = rate_key("device", self.device) if in_failover_pass() else None
+        deadline = scan_deadline_s(n_rows, key, failed_tier)
+        if deadline is not None and self.device.type == "cuda":
+            # nvcc at first use can outlast any deadline: build the stale
+            # kernels before the clock starts (once a process)
+            from ..kernels.build import ensure_built
+
+            ensure_built()
+        warm = getattr(_WARM_RUN, "active", False)
+
+        def body() -> List[Any]:
+            return self._run_inner(data, bs, tier, columns, host_states, host_update_fns,
+                                   checkpointer)
+
+        batches_before = monitor.batches
+        t0 = time.perf_counter()
+        with _trace.span("engine_pass", kind="engine", tier=tier, rows=n_rows,
+                         batches=n_batches, analyzers=len(self.scan_analyzers)):
+            if deadline is None:
+                states = body()
+            else:
+                states = run_with_deadline(body, deadline, monitor, tier, device=self.device,
+                                           on_stall=self._cancelled.set)
+        # only COMPLETED, representative passes teach the rate tracker: not a
+        # background warm's 1-row sample, and only the batches this pass
+        # folded (a resume skips the rest); a delta above the pass's own
+        # batch count means another pass shared the monitor meanwhile
+        if not warm:
+            folded = monitor.batches - batches_before
+            if 0 < folded <= n_batches:
+                rate_tracker().observe(key, min(folded * bs, n_rows), time.perf_counter() - t0)
+        return states
+
+    def _run_inner(self, data: Dataset, bs: int, tier: str, columns, host_states,
+                   host_update_fns, checkpointer) -> List[Any]:
+        from ..native import pattern_routes
+
+        monitor = self.monitor
+        monitor.bump("passes")
+        monitor.device = str(self.device)
         monitor.placement = tier
+        for a in self.scan_analyzers:
+            # one probe per analyzer per pass: the site through which a
+            # drill pins "exactly the faulty analyzer degrades"
+            with self._live():
+                fault_point("analyzer", tag=repr(a))
         ckpt = None
         if checkpointer is not None:
             ckpt = _PassCheckpoint(checkpointer, bs, data, self.scan_analyzers, host_states,
@@ -709,51 +850,102 @@ class ScanEngine:
                 states = self._run_device_tier(data, bs, columns, host_states,
                                                host_update_fns, ckpt)
             if ckpt is not None:
+                self._check_cancelled()
                 ckpt.complete()
             return states
         finally:
-            for route, n in pattern_routes().items():
-                if n > routes[route]:
-                    monitor.pattern_routes[route] = (
-                        monitor.pattern_routes.get(route, 0) + n - routes[route])
+            if not self._cancelled.is_set():
+                for route, n in pattern_routes().items():
+                    if n > routes[route]:
+                        monitor.pattern_routes[route] = (
+                            monitor.pattern_routes.get(route, 0) + n - routes[route])
+
+    def _check_cancelled(self) -> None:
+        """Stop an abandoned pass (the watchdog gave up on it and the
+        caller has moved on: nothing it folds from here on is read)."""
+        if self._cancelled.is_set():
+            raise _PassAbandoned()
+
+    @contextlib.contextmanager
+    def _live(self):
+        """Around a fault probe of the pass: never probed once the pass is
+        abandoned, and a probe that held the pass past its deadline (an
+        injected stall) stops it at once."""
+        self._check_cancelled()
+        yield
+        self._check_cancelled()
+
+    def _attribute(self, seconds: float) -> None:
+        if not self._cancelled.is_set():
+            self.monitor.attribute(self.cost_keys, seconds)
+
+    def _fetch_pass_states(self, states: Sequence[Any]) -> List[Any]:
+        """The pass's states to the host (phase ``state_fetch``)."""
+        with self._live():
+            fault_point("state_fetch")
+        with self.monitor.timed("state_fetch"):
+            return fetch_states(states)
 
     def _run_device_tier(self, data: Dataset, bs: int, columns, host_states,
                          host_update_fns, ckpt: Optional["_PassCheckpoint"] = None) -> List[Any]:
+        """The device tier: per batch the features reach the device and the
+        battery's kernels fold them into the states there. The batches come
+        through the feed pipeline (:class:`_DeviceFeed` under
+        ``ingest.prefetch.PrefetchingBatchIterator``) at the depth decided
+        here, once: at depth 0, and for a one-batch pass, this thread builds
+        each batch's features itself, as the serial loop always did; at
+        depth >= 1 a feed thread builds the next batches' features while
+        this thread copies the current one to the device and launches. Both
+        depths give the same states bit for bit: the same batches reach the
+        same kernels in the same order."""
+        from ..ingest.prefetch import PrefetchingBatchIterator, prefetch_depth, staging_depth
+
         monitor = self.monitor
         states = self.program.init_states(self.device)
         start = 0
         if ckpt is not None and ckpt.resume is not None:
             start = ckpt.start
             states = ckpt.resumed_states(states, self.device)
-        for index, batch in enumerate(data.batches(bs, columns=columns, start_batch=start),
-                                      start):
-            if self.scan_analyzers:
-                fault_point("device_update", tag=str(index + 1))
-                with monitor.timed("feature_build"):
-                    host_features = self.builder.build(batch, monitor.phase_seconds)
-                with monitor.timed("host_to_device"):
-                    features = to_device(host_features, self.device)
-                    synchronize(self.device)
-                with monitor.timed("kernels") as timer:
-                    if self.mesh is None:
-                        states = self.program(states, features)
-                    else:
-                        states = self.program.call_sharded(states, features, self.mesh)
-                    synchronize(self.device)
-                monitor.attribute(self.cost_keys, timer.seconds)
-                monitor.bump("device_updates")
-                self.program.executed = True
-            if host_states:
-                with monitor.timed("host_accumulators"):
-                    for key, fn in host_update_fns.items():
-                        host_states[key] = fn(host_states[key], batch)
-            monitor.batches += 1
-            if ckpt is not None and (index + 1) % ckpt.every == 0:
-                ckpt.save(index + 1, states)
+        n_batches = max(1, -(-int(data.num_rows) // bs))
+        depth = staging_depth(n_batches - start)
+        depth = prefetch_depth() if depth is None else depth
+        feed = _DeviceFeed(self, data.batches(bs, columns=columns, start_batch=start), start)
+        with PrefetchingBatchIterator(feed.produce, depth=depth,
+                                      stop=self._cancelled) as staged:
+            while True:
+                t0 = time.perf_counter()
+                item = next(staged, None)
+                if depth > 0:
+                    monitor.add_phase_time("feed_wait", time.perf_counter() - t0)
+                if item is None:
+                    break
+                index, batch, host_features = item
+                self._check_cancelled()
+                if self.scan_analyzers:
+                    features = feed.place(index, host_features)
+                    with self._live():
+                        fault_point("device_update", tag=str(index + 1))
+                    with monitor.timed("kernels") as timer:
+                        if self.mesh is None:
+                            states = self.program(states, features)
+                        else:
+                            states = self.program.call_sharded(states, features, self.mesh)
+                        wait_kernels(self.device)
+                    self._attribute(timer.seconds)
+                    monitor.bump("device_updates")
+                    self.program.mark_executed()
+                if host_states:
+                    with monitor.timed("host_accumulators"):
+                        for key, fn in host_update_fns.items():
+                            host_states[key] = fn(host_states[key], batch)
+                monitor.bump("batches")
+                if ckpt is not None and (index + 1) % ckpt.every == 0:
+                    self._check_cancelled()
+                    ckpt.save(index + 1, states)
+        self._check_cancelled()
         if not self.scan_analyzers:
             return []
-        with monitor.timed("state_fetch"):
-            return fetch_states(states)
+        return self._fetch_pass_states(states)
 
     def _host_pipeline(self, data: Dataset, bs: int, columns, host_states, host_update_fns,
                        chunk: int, compute_partial, fold, start: int = 0, host_start: int = 0,
@@ -792,7 +984,8 @@ class ScanEngine:
                 data.batches(bs, columns=columns, pad_to_batch_size=False, start_batch=start),
                 start,
             ):
-                monitor.batches += 1
+                self._check_cancelled()
+                monitor.bump("batches")
                 pending.append(pool.submit(compute_partial, index, batch))
                 submitted = index + 1
                 if host_states and index >= host_start:
@@ -805,6 +998,7 @@ class ScanEngine:
                 drain_one()
         if buffer:
             fold(list(buffer), folded)
+        self._check_cancelled()
 
     def _run_host_tier(self, data: Dataset, bs: int, columns, host_states,
                        host_update_fns, ckpt: Optional["_PassCheckpoint"] = None) -> List[Any]:
@@ -823,7 +1017,8 @@ class ScanEngine:
         run_token = object()
 
         def compute_partial(index: int, batch) -> Tuple[List[torch.Tensor], List[Any]]:
-            fault_point("host_partial", tag=str(index))
+            with self._live():
+                fault_point("host_partial", tag=str(index))
             t0 = time.perf_counter()
             ctx = HostBatchContext(batch, batch_index=index, run_token=run_token)
             packed = ingest.pack([a.host_partial(ctx) for a in analyzers])
@@ -831,22 +1026,23 @@ class ScanEngine:
             return packed
 
         def fold(chunk, first: int) -> None:
-            fault_point("ingest_fold")
+            with self._live():
+                fault_point("ingest_fold")
             with monitor.timed("ingest_fold") as timer:
                 ingest.fold(chunk)
-                synchronize(self.device)
-            monitor.attribute(self.cost_keys, timer.seconds)
-            monitor.ingest_folds += 1
+                wait_kernels(self.device)
+            self._attribute(timer.seconds)
+            monitor.bump("ingest_folds")
 
         def after_fold(folded: int, submitted: int) -> None:
+            self._check_cancelled()
             if ckpt.due(folded):
                 ckpt.save(folded, ingest.states(), host_batch_index=submitted)
 
         self._host_pipeline(data, bs, columns, host_states, host_update_fns, INGEST_CHUNK,
                             compute_partial, fold, start, host_start,
                             after_fold if ckpt is not None else None)
-        with monitor.timed("state_fetch"):
-            return fetch_states(ingest.states())
+        return self._fetch_pass_states(ingest.states())
 
     def _run_host_tier_mesh(self, data: Dataset, bs: int, columns, host_states,
                             host_update_fns, ckpt: Optional["_PassCheckpoint"] = None
@@ -883,7 +1079,8 @@ class ScanEngine:
         run_token = object()
 
         def compute_partial(index: int, batch, token=None) -> Tuple:
-            fault_point("host_partial", tag=str(index))
+            with self._live():
+                fault_point("host_partial", tag=str(index))
             t0 = time.perf_counter()
             ctx = HostBatchContext(batch, batch_index=index,
                                    run_token=run_token if token is None else token)
@@ -896,14 +1093,16 @@ class ScanEngine:
             group = group + [group[0]] * (chunk - n_real)
             flags = np.zeros(chunk, dtype=bool)
             flags[:n_real] = True
-            fault_point("ingest_fold")
+            with self._live():
+                fault_point("ingest_fold")
             with monitor.timed("ingest_fold") as timer:
                 elastic.fold(stack_partials(analyzers, group), flags, indices)
-                synchronize(elastic.mesh.home if not elastic.host_mode else None)
-            monitor.attribute(self.cost_keys, timer.seconds)
-            monitor.ingest_folds += 1
+                wait_kernels(elastic.mesh.home if not elastic.host_mode else None)
+            self._attribute(timer.seconds)
+            monitor.bump("ingest_folds")
 
         def after_fold(folded: int, submitted: int) -> None:
+            self._check_cancelled()
             # a shard loss leaves batches awaiting replay, which the merge
             # does not cover yet: no checkpoint until they are back
             if not ckpt.due(folded) or elastic.pending_replay:
@@ -932,6 +1131,7 @@ class ScanEngine:
             ):
                 if index > last:
                     break
+                self._check_cancelled()
                 if index not in todo:
                     continue
                 group.append(compute_partial(index, batch, token))
@@ -947,11 +1147,83 @@ class ScanEngine:
                 replay_pending()
             with monitor.timed("collective_merge"):
                 states = elastic.finish()
-                synchronize(None if elastic.host_mode else elastic.mesh.home)
+                wait_kernels(None if elastic.host_mode else elastic.mesh.home)
             if not elastic.pending_replay:
                 break
-        with monitor.timed("state_fetch"):
-            return fetch_states(states)
+        return self._fetch_pass_states(states)
+
+
+class _PassAbandoned(Exception):
+    """Raised inside a pass the watchdog abandoned, at its next batch
+    boundary: the caller already failed over, and nothing the pass folds
+    is read."""
+
+
+#: per-thread flag of a background warm's run (a 1-row sample that must
+#: not teach the watchdog's rate tracker)
+_WARM_RUN = threading.local()
+
+
+class _DeviceFeed:
+    """The device tier's feed: :meth:`produce` returns the next ``(index,
+    batch, host features)`` or None at the end (on the feed thread at a
+    depth >= 1, phase ``feature_build``), and :meth:`place` copies a
+    batch's features to the device on the launching thread and waits for
+    the copy (phase ``host_to_device``; on the CPU the features are views
+    of the host arrays)."""
+
+    def __init__(self, engine: "ScanEngine", batches, start: int):
+        self.engine = engine
+        self.batches = batches
+        self.index = start
+
+    def produce(self):
+        engine = self.engine
+        if engine._cancelled.is_set():
+            return None
+        try:
+            batch = next(self.batches)
+        except StopIteration:
+            return None
+        index = self.index
+        self.index += 1
+        if not engine.scan_analyzers:
+            return index, batch, None
+        kinds: Dict[str, float] = {}
+        with engine.monitor.timed("feature_build"):
+            host_features = engine.builder.build(batch, kinds)
+        for phase, seconds in kinds.items():
+            engine.monitor.add_phase_time(phase, seconds)
+        return index, batch, host_features
+
+    def place(self, index: int, host_features: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """The batch's features on the device."""
+        engine = self.engine
+        with engine._live():
+            fault_point("device_feed", tag=str(index))
+        with engine.monitor.timed("host_to_device"):
+            features = to_device(host_features, engine.device)
+            synchronize(engine.device)
+        return features
+
+
+def wait_kernels(device: Optional[torch.device]) -> None:
+    """Wait for the kernels just launched on ``device``. Torch reports a
+    kernel's CUDA error (an illegal address, a failed assert) at this wait,
+    not at the launch, and everything queued before the launches was
+    waited for already: so a CUDA error here is the kernels' own, and
+    raises as a ``KernelLaunchError``, which no recovery absorbs."""
+    try:
+        synchronize(device)
+    except RuntimeError as exc:
+        from ..reliability.isolation import as_kernel_error, classify_failure
+
+        if classify_failure(exc) not in ("kernel", "device"):
+            raise
+        error = as_kernel_error(exc)
+        if error is exc:
+            raise
+        raise error from exc
 
 
 def effective_batch_size(batch_size: Optional[int] = None, mesh=None,
@@ -1028,6 +1300,9 @@ class _PassCheckpoint:
 #: LRU-bounded so a service cycling through many batteries does not grow
 _PROGRAM_CACHE = BoundedLRU(256)
 _PROGRAM_CACHE_LOCK = threading.Lock()
+#: the batteries (without run-time frequency scans) of programs that have
+#: launched in this process
+_WARM_BATTERIES = BoundedLRU(256)
 _SCAN_SIG_CACHE = BoundedLRU(4096)
 
 
@@ -1037,6 +1312,9 @@ def _fused_program(battery: Tuple[ScanShareableAnalyzer, ...]) -> BundledScanPro
     with _PROGRAM_CACHE_LOCK:
         program = _PROGRAM_CACHE.get(battery)
         if program is None:
+            # fault site: the port's counterpart of the reference's fused
+            # program build (its "compile")
+            fault_point("compile", tag=str(len(battery)))
             program = BundledScanProgram(battery)
             _PROGRAM_CACHE[battery] = program
         return program
@@ -1070,10 +1348,13 @@ def _scan_signature(a: ScanShareableAnalyzer) -> Tuple:
 
 
 def fused_program_is_cached(analyzers: Sequence[ScanShareableAnalyzer]) -> bool:
-    """Whether this battery's program has launched in this process (its
-    kernels are then built and loaded): the service's warmth."""
-    program = _PROGRAM_CACHE.get(_deduped_battery(analyzers))
-    return program is not None and program.executed
+    """Whether this battery's program, or a program of it with the
+    frequency scans a run added for its grouping sets, has launched in
+    this process (its kernels are then built and loaded): the service's
+    warmth."""
+    battery = _deduped_battery(analyzers)
+    program = _PROGRAM_CACHE.get(battery)
+    return (program is not None and program.executed) or bool(_WARM_BATTERIES.get(battery))
 
 
 def detached_warm_sample(data: Dataset) -> Dataset:
@@ -1104,10 +1385,14 @@ def warm_fused_program(
     from .analysis_runner import AnalysisRunner
 
     sample = Dataset(data.arrow.slice(0, 1), probe_encoding=False)
-    AnalysisRunner.do_analysis_run(
-        sample, list(analyzers), batch_size=batch_size or DEFAULT_BATCH_SIZE,
-        placement="device", device=device,
-    )
+    _WARM_RUN.active = True
+    try:
+        AnalysisRunner.do_analysis_run(
+            sample, list(analyzers), batch_size=batch_size or DEFAULT_BATCH_SIZE,
+            placement="device", device=device,
+        )
+    finally:
+        _WARM_RUN.active = False
 
 
 def _stack_to_device(arrays: Sequence[np.ndarray], device: torch.device) -> torch.Tensor:
@@ -1182,7 +1467,7 @@ def fold_sessions_coalesced(
                 out_i, out_f = outs[slot // MAX_SLOTS]
                 folded.append(a.fold_slot(a.init_state(device),
                                           partials(out_i, out_f, slot % MAX_SLOTS)))
-        synchronize(device)
+        wait_kernels(device)
     with mon.timed("state_fetch"):
         leaves = [[leaf for st in f for leaf in state_leaves(st)] if isinstance(f, list)
                   else state_leaves(f) for f in folded]
@@ -1200,5 +1485,5 @@ def fold_sessions_coalesced(
             per_analyzer.append([with_leaves(f, [leaf[w] for leaf in got])
                                  for w in range(width)])
     for program in programs:
-        program.executed = True
+        program.mark_executed()
     return [[states[w] for states in per_analyzer] for w in range(width)]

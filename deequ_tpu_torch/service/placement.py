@@ -15,6 +15,11 @@ so warmth is not per batch size here, unlike XLA's. The router:
 - raises, for every later job of a battery whose background warm failed,
   the warm's error (a kernel that does not build or launch): the battery
   is never served from the host tier in its place;
+- answers "host" for the next ``SUSPECT_PROBATION_RUNS`` jobs of a battery
+  whose run recorded a device-tier failure (a failover, an OOM bisection,
+  a device stall, a shard loss: the scheduler's harvest calls
+  :meth:`PlacementRouter.note_device_failure`), then lets it try the
+  device again;
 - remembers which WORKER ran each signature so the scheduler can prefer
   handing a battery back to the thread that ran it.
 """
@@ -117,6 +122,13 @@ class PlacementRouter:
         #: signature -> the exception its background warm raised: decide()
         #: raises it for every later job of the battery
         self._warm_failed = BoundedLRU(256)
+        #: signature -> remaining host-tier probation runs after a
+        #: device-tier failure on that battery (failover evidence the
+        #: scheduler harvests from the RunMonitor). While positive, decide()
+        #: answers "host" outright: the battery keeps completing next to
+        #: the data instead of re-hitting a sick device; the countdown then
+        #: re-admits it to the device tier
+        self._device_suspect = BoundedLRU(256)
         self._warmer: Optional[ThreadPoolExecutor] = (
             ThreadPoolExecutor(max_workers=1, thread_name_prefix="deequ-warmer")
             if background_warm
@@ -140,6 +152,17 @@ class PlacementRouter:
             "deequ_service_warm_failures_total",
             "Background warms that raised; every later job of the battery "
             "fails with the warm's error.",
+        )
+        self.metrics.describe(
+            "deequ_service_device_failures_total",
+            "Jobs whose engine run recorded a device-tier failure "
+            "(failover, OOM bisection, a device stall or a shard loss); the "
+            "battery enters host-tier probation.",
+        )
+        self.metrics.describe(
+            "deequ_service_suspect_host_routes_total",
+            "Placement decisions answered 'host' because the battery was "
+            "on device-failure probation.",
         )
 
     def is_warm(self, signature: Signature) -> bool:
@@ -168,12 +191,28 @@ class PlacementRouter:
         own data that builds and launches the battery's kernels), so the
         cold window closes after one build regardless of arrival rate.
 
+        A battery on device-failure probation (:meth:`note_device_failure`)
+        answers "host" for its next ``SUSPECT_PROBATION_RUNS`` decisions.
+
         Raises :class:`~deequ_tpu_torch.exceptions.DeviceFailureException`
         from the warm's error once the battery's warm has failed."""
         from ..observability import trace as _trace
 
         if not signature:
             return None
+        with self._lock:
+            probation = self._device_suspect.get(signature)
+            if probation:
+                # the battery recently took a device-tier fault: serve it
+                # from the host tier for the rest of its probation, then
+                # let it try the device again
+                self._device_suspect[signature] = probation - 1
+                self.metrics.inc("deequ_service_suspect_host_routes_total")
+                _trace.add_event(
+                    "placement_routed", decision="host", reason="probation",
+                    probation_left=probation - 1,
+                )
+                return "host"
         failure = self._warm_failed.get(signature)
         if failure is not None:
             from ..exceptions import DeviceFailureException
@@ -247,6 +286,24 @@ class PlacementRouter:
             # worker that asked for a placement
             with self._lock:
                 self._warming.discard(signature)
+
+    #: decisions a battery spends on the host tier after a device failure
+    #: before it may try the device again
+    SUSPECT_PROBATION_RUNS = 8
+
+    def note_device_failure(self, signature: Signature) -> None:
+        """The engine recorded a device-tier failure (a failover to the host
+        tier, an OOM bisection, a device stall, a shard loss) running this
+        battery: the scheduler harvests it from the job's RunMonitor. Routes
+        the battery to the host tier for the next
+        :data:`SUSPECT_PROBATION_RUNS` decisions and drops its warmth
+        claim (the program that was resident is suspect)."""
+        if not signature:
+            return
+        with self._lock:
+            self._device_suspect[signature] = self.SUSPECT_PROBATION_RUNS
+        self._ran.pop(signature, None)
+        self.metrics.inc("deequ_service_device_failures_total")
 
     # -- worker affinity -----------------------------------------------------
 

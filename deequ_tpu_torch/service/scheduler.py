@@ -965,7 +965,7 @@ class JobScheduler:
             job.attempts = 1  # the drain WAS the attempt
             job.span.add_event("absorbed_by_drain")
             self._harvest_monitor(
-                tenant, monitor, job.handle, updates=updates
+                tenant, monitor, job.handle, signature, updates=updates
             )
             if error is None:
                 self.router.note_ran(signature, worker_id, monitor.placement)
@@ -984,11 +984,11 @@ class JobScheduler:
 
     def _harvest(self, job: _Job, ctx: JobContext) -> None:
         self._harvest_monitor(
-            job.tenant, ctx.monitor, job.handle
+            job.tenant, ctx.monitor, job.handle, job.signature
         )
 
     def _harvest_monitor(
-        self, tenant: str, monitor: RunMonitor, handle: JobHandle,
+        self, tenant: str, monitor: RunMonitor, handle: JobHandle, signature=(),
         updates: Optional[list] = None,
     ) -> None:
         # ONE batched metrics-lock round-trip for the whole harvest: at
@@ -1001,11 +1001,15 @@ class JobScheduler:
         flush = updates is None
         if flush:
             updates = []
+        with monitor._lock:
+            # an abandoned pass of this job may still add a phase
+            phases = dict(monitor.phase_seconds)
+            costs = dict(monitor.cost_by_analyzer)
         updates += [
             ("deequ_service_phase_seconds_total", seconds, {"phase": phase})
-            for phase, seconds in monitor.phase_seconds.items()
+            for phase, seconds in phases.items()
         ]
-        for phase, seconds in monitor.phase_seconds.items():
+        for phase, seconds in phases.items():
             handle.phase_seconds[phase] = (
                 handle.phase_seconds.get(phase, 0.0) + seconds
             )
@@ -1013,10 +1017,12 @@ class JobScheduler:
         updates.extend(
             ("deequ_service_analyzer_cost_seconds_total", seconds,
              {"analyzer": analyzer, "tenant": tenant})
-            for analyzer, seconds in dict(monitor.cost_by_analyzer).items()
+            for analyzer, seconds in costs.items()
         )
         if monitor.stalls:
-            # every stall surfaces on the export plane
+            # every stall surfaces on the export plane; only DEVICE-tier
+            # stalls feed the probation below (pinning a battery to the host
+            # tier because the HOST hung would put it on the sick tier)
             updates.append(
                 ("deequ_service_scan_stalls_total", float(monitor.stalls),
                  tenant_label)
@@ -1039,6 +1045,18 @@ class JobScheduler:
                                 tenant_label))
         if flush:
             self.metrics.inc_many(updates)
+        if (
+            monitor.device_failovers
+            or monitor.batch_bisections
+            or monitor.device_stalls
+            or monitor.shard_losses
+        ):
+            # the engine survived a device-tier fault under this battery:
+            # teach the router to keep the battery on the host tier for a
+            # probation window (also fires on failed attempts, so a retry
+            # lands on the healthy tier at once; the reference's
+            # scheduler.py:1105-1115)
+            self.router.note_device_failure(signature)
         for listener in self._harvest_listeners:
             # the fleet watch's trigger: a completed job means this tenant
             # may have committed fresh metrics. Defensive — a raising

@@ -1,5 +1,6 @@
 """The tunable-knob registry: one audited surface for the routing
-constants the streaming service and the mesh read (the reference's
+constants the streaming service, the engine's feed pipeline and the mesh
+read (the reference's
 ``deequ_tpu/tuning/knobs.py``, cut to the knobs this package reads).
 
 Every knob is a registered :class:`Knob` with a name, an optional
@@ -62,6 +63,13 @@ def _registry() -> Dict[str, Knob]:
         k("router_device_rows_per_s", None, 100e6, float,
           lo=1e3, hi=1e13, substrate_sensitive=True,
           description="Seed device per-row throughput of the cost model."),
+        # -- ingest feed pipeline (ingest/prefetch.py) ---------------------
+        k("prefetch_depth", "DEEQU_TPU_PREFETCH_DEPTH", 0, int,
+          lo=0, hi=64, substrate_sensitive=True, env_minimum=0,
+          description=(
+              "Staged batches in the double-buffered host->device feed "
+              "pipeline (0 = serial inline)."
+          )),
         # -- the mesh's heartbeat (parallel/health.py) ----------------------
         k("shard_heartbeat_s", "DEEQU_TPU_SHARD_HEARTBEAT_S", 5.0, float,
           lo=0.0, hi=3600.0, substrate_sensitive=False,

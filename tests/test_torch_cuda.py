@@ -12,6 +12,11 @@ states' own ``merge`` bit for bit (NaN equal to NaN), and ``scan_reduce``'s
 co-moment slot its plain version within 1e-12 of the magnitudes that bound
 its rounding.
 
+The engine's feed pipeline at depth 2 (features staged through pinned
+memory and copied on a side stream) must give the serial loop's states
+bit for bit, with the same launches, also when the pass launches on a
+busy non-default stream.
+
 Every test here is marked ``cuda`` and needs a CUDA device and ``nvcc``:
 without a card it skips (the kernels are CUDA C++ with no CPU build). The
 file imports neither JAX nor the reference package, so on a machine
@@ -64,6 +69,7 @@ from deequ_tpu_torch.kernels.scan_reduce import (
     scan_reduce_stacked_plain,
 )
 from deequ_tpu_torch.kernels.state_fold import state_fold, state_fold_plain
+from deequ_tpu_torch.runners.engine import ScanEngine
 from deequ_tpu_torch.ops.kll import KLLSketchState, kll_init
 
 RTOL = 1e-12
@@ -1360,3 +1366,59 @@ def test_freq_keys_kernel_matches_plain_on_edge_cases(cuda_device, case):
         assert torch.equal(got, want)
     if case == "sentinel row":
         assert int(got[0]) > 0
+
+
+# ---------------------------------------------------------------------------
+# the engine's feed pipeline: depth 2 against the serial loop
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_the_feed_at_depth_2_equals_the_serial_loop(cuda_device, monkeypatch):
+    """On the card, depth 2 builds each batch on the feed thread (the
+    launching thread waits for it: phase ``feed_wait``) and gives the
+    serial loop's states bit for bit, with the same launches."""
+    import chip_smoke
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    rng = np.random.default_rng(11)
+    rows = 300_000
+    data = dq.Dataset.from_dict({"x": rng.normal(size=rows), "k": rng.integers(0, 900, rows)})
+    battery = [dq.Size(), dq.Mean("x"), dq.Sum("x"), dq.Minimum("x"),
+               dq.ApproxCountDistinct("k"), dq.KLLSketch("x")]
+    out = []
+    for depth in (0, 2, 2, 0):
+        monkeypatch.setenv("DEEQU_TPU_PREFETCH_DEPTH", str(depth))
+        monitor = dq.RunMonitor()
+        reset_launch_counts()
+        states = ScanEngine(battery, cuda_device, monitor=monitor, placement="device").run(
+            data, batch_size=1 << 15)
+        out.append((states, monitor, launch_counts()))
+    for states, monitor, launches in out[1:]:
+        assert all(chip_smoke.same_state_bits(a, b) for a, b in zip(states, out[0][0]))
+        assert launches == out[0][2]
+    assert "feed_wait" in out[1][1].phase_seconds
+    assert "feed_wait" not in out[0][1].phase_seconds
+
+
+@pytest.mark.cuda
+def test_the_feed_on_a_busy_stream_equals_the_serial_loop(cuda_device, monkeypatch):
+    """A depth-2 pass started on a busy non-default stream gives the
+    serial loop's states bit for bit: each batch's copy is waited for
+    before its launches, and its launches before the next batch's copy."""
+    import chip_smoke
+
+    rng = np.random.default_rng(12)
+    data = dq.Dataset.from_dict({"x": rng.normal(size=200_000)})
+    battery = [dq.Sum("x"), dq.Maximum("x")]
+    monkeypatch.setenv("DEEQU_TPU_PREFETCH_DEPTH", "0")
+    want = ScanEngine(battery, cuda_device, placement="device").run(data, batch_size=1 << 14)
+    monkeypatch.setenv("DEEQU_TPU_PREFETCH_DEPTH", "2")
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        busy = torch.randn(4096, 4096, device=cuda_device)
+        for _ in range(8):
+            busy = busy @ busy  # queue work ahead of the pass's launches
+        got = ScanEngine(battery, cuda_device, placement="device").run(data,
+                                                                       batch_size=1 << 14)
+    stream.synchronize()
+    assert all(chip_smoke.same_state_bits(a, b) for a, b in zip(got, want))

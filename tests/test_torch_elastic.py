@@ -9,9 +9,10 @@ fault-free run's. The port runs on ``make_mesh(8, device="cpu")``.
 The checkpoint cases (:262-333): a checkpoint taken on one mesh shape
 resumes on a smaller one and on the plain host tier, in both packages,
 with the fault-free run's metrics (the same tolerances); a resumed mesh
-seeds the canonical merge into shard 0 (``ElasticMeshFold.seed``). Not
-ported here: the device tier's pass-level re-shard (:154-172), which needs
-the reliability wrapper (ROADMAP A6)."""
+seeds the canonical merge into shard 0 (``ElasticMeshFold.seed``). The
+device tier's pass-level re-shard (:154-172), which runs through the
+reliability wrapper, is held in ``tests/test_torch_reliability.py``
+(``test_pass_level_reshard_on_device_path``)."""
 
 from __future__ import annotations
 

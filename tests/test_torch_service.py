@@ -39,6 +39,7 @@ from deequ_tpu_torch.analyzers.state_provider import FileSystemStateProvider
 from deequ_tpu_torch.exceptions import SchemaDriftError
 from deequ_tpu_torch.reliability import FaultSpec, inject
 from deequ_tpu_torch.reliability.faults import KNOWN_FAULT_SITES
+from deequ_tpu_torch.runners.analysis_runner import collect_required_analyzers
 from deequ_tpu_torch.repository import PartitionStateStore
 from deequ_tpu_torch.service import (
     JobFailed,
@@ -315,16 +316,49 @@ def test_a_session_resumes_across_packages(first, tmp_path, monkeypatch):
         _port_stream(str(tmp_path / "shared"), [drifted])
 
 
-def test_one_shot_verification_matches_a_direct_run():
+def _routed_verify(svc, data, checks):
+    """``svc.verify`` and the route it took: the router's
+    ``placement_routed`` decisions and the engine passes' tiers, read from
+    the flight recorder's spans of this job."""
+    from deequ_tpu_torch.observability.recorder import recorder
+
+    recorder().clear()
+    result = svc.verify(data, checks, timeout=WAIT_S)
+    spans = recorder().spans()
+    decisions = [ev["attrs"]["decision"] for s in spans for ev in s.events
+                 if ev["name"] == "placement_routed"]
+    tiers = [s.attrs["tier"] for s in spans if s.name == "engine_pass"]
+    return result, decisions, tiers
+
+
+def test_one_shot_verification_matches_a_direct_run(monkeypatch):
+    """A one-shot job equals a direct run on the tier the router sent it
+    to. The router's route depends on the process's program cache (a
+    battery is warm once its program has launched), so each case makes its
+    own: an empty cache (cold: the host tier, while the kernels would warm)
+    and then the battery warmed explicitly first (warm: the device tier)."""
+    from deequ_tpu_torch.runners import engine
+    from deequ_tpu_torch.utils import BoundedLRU
+
     data = table(3000, seed=8)
-    with VerificationService(workers=2, device="cpu") as svc:
-        got = svc.verify(dq.Dataset.from_arrow(data), [soak_check(dq)], timeout=WAIT_S)
-        assert "deequ_service_jobs_completed_total" in svc.prometheus_text()
-    want = dq.VerificationSuite.on_data(dq.Dataset.from_arrow(data), device="cpu") \
-        .add_check(soak_check(dq)).run()
-    assert got.status == want.status
-    assert ({repr(a): _value(m) for a, m in got.metrics.items()}
-            == {repr(a): _value(m) for a, m in want.metrics.items()})
+    checks = [soak_check(dq)]
+    for case, tier in (("cold", "host"), ("warm", "device")):
+        monkeypatch.setattr(engine, "_PROGRAM_CACHE", BoundedLRU(256))
+        monkeypatch.setattr(engine, "_WARM_BATTERIES", BoundedLRU(256))
+        if case == "warm":
+            engine.warm_fused_program(collect_required_analyzers(checks),
+                                      dq.Dataset.from_arrow(data),
+                                      batch_size=_session_batch_size(3000, None), device="cpu")
+        with VerificationService(workers=2, device="cpu", background_warm=False) as svc:
+            got, decisions, tiers = _routed_verify(svc, dq.Dataset.from_arrow(data), checks)
+            assert "deequ_service_jobs_completed_total" in svc.prometheus_text()
+        assert decisions == (["host"] if case == "cold" else ["auto"]), case
+        assert tiers == [tier], case
+        want = dq.VerificationSuite.on_data(dq.Dataset.from_arrow(data), device="cpu") \
+            .add_check(soak_check(dq)).with_placement(tier).run()
+        assert got.status == want.status, case
+        assert ({repr(a): _value(m) for a, m in got.metrics.items()}
+                == {repr(a): _value(m) for a, m in want.metrics.items()}), case
     assert _session_batch_size(3000, None) == 4096
 
 
