@@ -222,7 +222,29 @@ Phases, each of which fails the run when it fails:
    the ninth back to the device; (f) phase 3 at ``DEEQU_TPU_PREFETCH_DEPTH``
    0, 2, 2, 0, the states bit for bit and each run's seconds and phases
    printed, then a ``feed_stall`` at ``prefetch`` under
-   ``DEEQU_TPU_FEED_STALL_S=1``: a ``FeedStallError`` and the failover.
+   ``DEEQU_TPU_FEED_STALL_S=1``: a ``FeedStallError`` and the failover;
+14. the self-tuning plane, after phase 13 on its table and checks: (a)
+   ``tuning.calibrate.calibrate(device="cuda")`` into a fresh profile
+   directory, every probe and derived knob printed beside its static
+   default, each derived value inside its knob's bounds, K1 and K6
+   launched (a probe pass that left the device tier raises); (b) the
+   profile read back with the card's name in its substrate, a corrupted
+   copy raising ``CorruptStateError`` into ``.quarantine/``; (c) a
+   ``VerificationService`` booted on that directory: a controller, the
+   profile's values tuned, the router seeded from them, ``/statusz``'s
+   tuning plane enabled; (d) a shadow experiment (``fast_path_max_rows``
+   0 against the router) over 200 8,192-row folds of one session: exactly
+   every 20th a shadow fold, each arm's rate printed; (e) the reference's
+   chaos-soak tuning drill (a static burst, ``fast_path_max_rows=0``
+   planted, a recovered burst; ``DEEQU_TPU_TUNING_MIN_SAMPLES=8``): the
+   three sessions/s figures and the decisions printed, whether the floor
+   fired a finding; the gates: every fold recorded, the live samples those
+   since the last floor demotion, the demotion counter the floor's
+   demoted knobs, no knob tuned after; (f) phase 3's verification under
+   the profile (its ``prefetch_depth`` printed) and with static knobs,
+   both equal to phase 3's metrics. The whole script runs with
+   ``DEEQU_TPU_TUNING_PROFILE_DIR`` set to an empty temporary directory,
+   so no other phase boots with a profile.
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
@@ -242,14 +264,18 @@ with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import functools
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2908,7 +2934,7 @@ def drill(label: str):
 
 def print_phase_seconds(total: float) -> None:
     """The ``[seconds] phase N`` lines of every phase and the total."""
-    for n in range(1, 14):
+    for n in range(1, 15):
         print(f"[seconds] phase {n}: {PHASE_SECONDS.get(n, 0.0):.1f}s", flush=True)
     print(f"[seconds] total: {total:.1f}s", flush=True)
 
@@ -5718,6 +5744,295 @@ def feed_depths(torch, dq, data, device: str, problems: list) -> None:
                             f"{FEED_DEPTHS[0]}'s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the self-tuning plane (calibration, profiles, the controller)
+# ---------------------------------------------------------------------------
+
+#: (d): micro-batches of one session folded while a shadow experiment on
+#: ``fast_path_max_rows`` runs; at the default shadow fraction (0.05, a
+#: period of 20) every 20th rides the candidate
+TUNING_SHADOW_FOLDS = 200
+#: (d), (e): rows of a micro-batch (the reference's drill: 8,192)
+TUNING_FOLD_ROWS = 8192
+#: (e): folds per burst and the samples an experiment arm needs
+TUNING_BURST = 24
+TUNING_MIN_SAMPLES = 8
+#: the kernels calibration must launch: K1 (device probes), K6 (the
+#: grouping-knee probe's device frequency table)
+CALIBRATION_KERNELS = ("scan_reduce", "freq_keys")
+TUNING_WAIT_S = 120
+
+
+def tuning_check(dq):
+    """The reference drill's battery (``tools/chaos_soak.py``,
+    ``_tuning_drill``): fast-path capable."""
+    return (dq.Check(dq.CheckLevel.ERROR, "tuning drill")
+            .is_complete("x").has_mean("y", lambda m: 5.0 < m < 15.0))
+
+
+def tuning_table(rows: int = TUNING_FOLD_ROWS) -> pa.Table:
+    rng = np.random.default_rng(77)
+    return pa.table({"x": rng.normal(size=rows), "y": rng.normal(10.0, 2.0, size=rows)})
+
+
+def _record_spy(controller) -> dict:
+    """Count the controller's ``record`` calls, and those after its last
+    floor demotion (which restarts the live EWMA)."""
+    seen = {"calls": 0, "since_reset": 0}
+    record = controller.record
+
+    def spied(rows, seconds, arm=None):
+        before = len(controller.decisions)
+        record(rows, seconds, arm=arm)
+        seen["calls"] += 1
+        seen["since_reset"] += 1
+        if any(d["verdict"] == "floor_demotion" for d in controller.decisions[before:]):
+            seen["since_reset"] = 0
+
+    controller.record = spied
+    return seen
+
+
+def tuning_plane(torch, dq, table: pa.Table, data, gpu_metrics: dict,
+                 device: str = "cuda") -> None:
+    """Phase 14: the self-tuning plane on the card. (a) ``calibrate`` into
+    a fresh profile directory, K1 and K6 launched; (b) the profile read
+    back, a corrupted copy quarantined; (c) a ``VerificationService`` booted
+    on that directory; (d) a shadow experiment's exact shadow count; (e)
+    the reference's guardrail drill; (f) phase 3's verification under the
+    profile and under static knobs. The script-wide profile directory (set
+    in ``main``) stays empty, so no other phase boots with a profile."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    from deequ_tpu_torch.exceptions import CorruptStateError
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.service import VerificationService
+    from deequ_tpu_torch.tuning import knobs
+    from deequ_tpu_torch.tuning.calibrate import calibrate
+    from deequ_tpu_torch.tuning.profile import load_profile
+
+    problems: list = []
+    dev = torch.device(device)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tuning_")
+    profile_dir = os.path.join(workdir, "profiles")
+    knobs.clear_tuned()
+    try:
+        # (a) calibration
+        with part_seconds("phase 14 (a)"):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            profile = calibrate(save=True, profile_dir=profile_dir, device=device)
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+        for name, value in sorted(profile.probes.items()):
+            print(f"[tuning probe] {name} = {value!r}", flush=True)
+        for name, value in sorted(profile.knob_values.items()):
+            k = knobs.REGISTRY[name]
+            print(f"[tuning knob] {name} = {value!r} (static {k.static_default!r}, bounds "
+                  f"[{k.lo}, {k.hi}])", flush=True)
+            if not (k.lo <= value <= k.hi) or k.cast(value) != value:
+                problems.append(f"(a): {name}={value!r} outside its bounds or cast")
+        slope = profile.probes["device_stack_slope_s"]
+        print(f"[tuning calibrate] {wall:.2f}s ({profile.calibration_wall_s:.2f}s inside); "
+              f"launches {{{', '.join(f'{n}: {launches[n]}' for n in CALIBRATION_KERNELS)}}}; "
+              f"device_stack_slope_s {slope!r}: coalesce_max_width "
+              f"{'derived' if 'coalesce_max_width' in profile.knob_values else 'static (slope below 1e-7 s)'}; "
+              f"every device probe pass on the device tier (calibrate raises otherwise)",
+              flush=True)
+        missing = [n for n in CALIBRATION_KERNELS if launches[n] == 0]
+        if missing:
+            problems.append(f"(a): calibration launched no {missing}")
+        if knobs.any_tuned():
+            problems.append("(a): calibrate installed tuned values")
+
+        # (b) the profile on disk
+        with part_seconds("phase 14 (b)"):
+            loaded = load_profile(profile_dir, device=device)
+            kind = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+            if loaded != profile or loaded.substrate["device_kind"] != kind:
+                problems.append(f"(b): the saved profile read back as {loaded}")
+            bad_dir = os.path.join(workdir, "corrupt")
+            os.makedirs(bad_dir)
+            name = f"profile-{profile.fingerprint}.json"
+            shutil.copy(os.path.join(profile_dir, name), os.path.join(bad_dir, name))
+            with open(os.path.join(bad_dir, name)) as fh:
+                record = _json.load(fh)
+            record["payload"]["probes"]["device_fixed_s"] = -1.0
+            with open(os.path.join(bad_dir, name), "w") as fh:
+                _json.dump(record, fh)
+            try:
+                load_profile(bad_dir, device=device)
+                problems.append("(b): a corrupted profile loaded")
+            except CorruptStateError as exc:
+                print(f"[tuning profile] {profile.fingerprint} ({loaded.substrate}) read back; "
+                      f"the corrupted copy: {type(exc).__name__}", flush=True)
+            quarantined = os.listdir(os.path.join(bad_dir, ".quarantine"))
+            if len(quarantined) != 1 or os.path.exists(os.path.join(bad_dir, name)):
+                problems.append(f"(b): quarantine holds {quarantined}")
+
+        # (c) boot on the profile, (d) a shadow experiment in it
+        with _env("DEEQU_TPU_TUNING_PROFILE_DIR", profile_dir), \
+                _env("DEEQU_TPU_PLACEMENT", "device"), part_seconds("phase 14 (c, d)"):
+            with VerificationService(workers=1, device=device, background_warm=False) as svc:
+                ctl = svc.tuning_controller
+                tuned = {n: v["value"] for n, v in knobs.tuned_snapshot().items()}
+                router = svc.coalescer.router
+                seeds = {"router_host_rows_per_s": router._default_host_rate,
+                         "router_device_fixed_s": router._device_fixed_s,
+                         "router_device_rows_per_s": router._device_rows_per_s}
+                status = svc.statusz.snapshot()["planes"]["tuning"]
+                print(f"[tuning boot] controller {ctl is not None}; tuned {tuned}; router "
+                      f"seeds {seeds}; /statusz tuning enabled {status.get('enabled')}",
+                      flush=True)
+                if ctl is None or ctl.profile != profile:
+                    problems.append("(c): no controller, or not on the saved profile")
+                if tuned != profile.knob_values:
+                    problems.append(f"(c): tuned {tuned} != the profile's "
+                                    f"{profile.knob_values}")
+                if any(seeds[k] != profile.knob_values[k] for k in seeds):
+                    problems.append(f"(c): router seeds {seeds} are not the profile's")
+                if status.get("enabled") is not True:
+                    problems.append(f"(c): /statusz tuning {status}")
+
+                if ctl is not None:
+                    seen = _record_spy(ctl)
+                    session = svc.session("tuning", "shadow", [tuning_check(dq)])
+                    micro = tuning_table()
+                    session.ingest(micro, timeout=TUNING_WAIT_S)  # warm both routes' code
+                    incumbent = knobs.value("fast_path_max_rows")
+                    started = ctl.propose("fast_path_max_rows", 0, mode="shadow")
+                    shadow0 = svc.metrics.counter_value(
+                        "deequ_service_tuning_shadow_folds_total")
+                    t0 = time.perf_counter()
+                    for _ in range(TUNING_SHADOW_FOLDS):
+                        session.ingest(micro, timeout=TUNING_WAIT_S)
+                    seconds = time.perf_counter() - t0
+                    shadow = svc.metrics.counter_value(
+                        "deequ_service_tuning_shadow_folds_total") - shadow0
+                    period = max(int(round(1.0 / knobs.shadow_fraction())), 2)
+                    exp = ctl.snapshot()["experiments"].get("fast_path_max_rows", {})
+                    print(f"[tuning shadow] {TUNING_SHADOW_FOLDS} folds of {TUNING_FOLD_ROWS} "
+                          f"rows in {seconds:.3f}s; candidate fast_path_max_rows=0 against "
+                          f"{incumbent}: {shadow:.0f} shadow folds (period {period}); "
+                          f"incumbent {exp.get('incumbent_rate', 0.0):.0f} rows/s over "
+                          f"{exp.get('incumbent_samples')} folds, candidate "
+                          f"{exp.get('candidate_rate', 0.0):.0f} rows/s over "
+                          f"{exp.get('candidate_samples')}", flush=True)
+                    if not started or shadow != TUNING_SHADOW_FOLDS // period:
+                        problems.append(f"(d): {shadow} shadow folds, expected "
+                                        f"{TUNING_SHADOW_FOLDS // period}")
+                    if seen["calls"] != TUNING_SHADOW_FOLDS + 1:
+                        problems.append(f"(d): {seen['calls']} folds recorded of "
+                                        f"{TUNING_SHADOW_FOLDS + 1}")
+        knobs.clear_tuned()
+
+        # (e) the guardrail drill, on a service with no profile
+        with _env(knobs.TUNING_MIN_SAMPLES_ENV, str(TUNING_MIN_SAMPLES)), \
+                _env("DEEQU_TPU_PLACEMENT", "device"), part_seconds("phase 14 (e)"):
+            problems += guardrail_drill(dq, device)
+        if knobs.any_tuned():
+            problems.append(f"(e): knobs still tuned after the drill: {knobs.tuned_snapshot()}")
+
+        # (f) phase 3's verification under the profile, then static
+        with part_seconds("phase 14 (f)"):
+            rows = table.num_rows
+            runs = {}
+            for label in ("profile", "static"):
+                if label == "profile":
+                    profile.apply(source="profile")
+                depth = knobs.value("prefetch_depth")
+                monitor = dq.RunMonitor()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = (dq.VerificationSuite.on_data(data, device=device)
+                          .add_check(build_check(dq, rows))
+                          .add_required_analyzer(dq.CountDistinct("cat_large"))
+                          .with_monitor(monitor).run())
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                knobs.clear_tuned()
+                ph = monitor.phase_seconds
+                print(f"[tuning verification {label}] {rows} rows in {seconds:.3f}s at "
+                      f"prefetch_depth {depth}; feature_build "
+                      f"{ph.get('feature_build', 0.0):.4f} feed_wait "
+                      f"{ph.get('feed_wait', 0.0):.4f} host_to_device "
+                      f"{ph.get('host_to_device', 0.0):.4f} kernels "
+                      f"{ph.get('kernels', 0.0):.4f}", flush=True)
+                runs[label] = metric_values(result)
+                problems += [f"(f) {label}: {p}"
+                             for p in compare_metrics(runs[label], gpu_metrics)]
+    finally:
+        knobs.clear_tuned()
+        shutil.rmtree(workdir, ignore_errors=True)
+    if problems:
+        raise AssertionError("phase 14:\n" + "\n".join(problems))
+
+
+def guardrail_drill(dq, device: str) -> list:
+    """Phase 14 (e): the reference's chaos-soak tuning drill
+    (``tools/chaos_soak.py``, ``_tuning_drill``) on the card: a static
+    burst, ``fast_path_max_rows=0`` planted (every fold on the device),
+    then a recovered burst, through one session. Whether the floor fires
+    is printed, not gated (on the card a device fold may cost no more than
+    the fast path); the gates are the controller's bookkeeping."""
+    from deequ_tpu_torch.service import VerificationService
+    from deequ_tpu_torch.tuning import knobs
+
+    problems = []
+    micro = tuning_table()
+    with VerificationService(workers=1, device=device, background_warm=False) as svc:
+        ctl = svc.tuning_controller
+        if ctl is None or ctl.profile is not None:
+            return [f"(e): expected a controller without a profile, got {ctl}"]
+        seen = _record_spy(ctl)
+        session = svc.session("tuning-drill", "stream", [tuning_check(dq)])
+
+        def burst(n: int) -> float:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                session.ingest(micro, timeout=TUNING_WAIT_S)
+            return n / (time.perf_counter() - t0)
+
+        rates = {}
+        try:
+            knobs.clear_tuned()  # the floor is measured at true static
+            session.ingest(micro, timeout=TUNING_WAIT_S)  # warm the static route
+            rates["static"] = burst(TUNING_BURST)
+            before = svc.metrics.counter_value("deequ_service_tuning_demotions_total")
+            knobs.set_tuned("fast_path_max_rows", 0, source="drill")
+            rates["poisoned"] = burst(TUNING_BURST)
+            rates["recovered"] = burst(TUNING_BURST)
+            demoted = not knobs.tuned_snapshot()
+        finally:
+            knobs.clear_tuned()
+        snap = ctl.snapshot()
+        decisions = snap["decisions"]
+        floor = [d for d in decisions if d["verdict"] == "floor_demotion"]
+        demotions = svc.metrics.counter_value("deequ_service_tuning_demotions_total") - before
+        routes = {r: svc.metrics.counter_value("deequ_service_fold_route_total", route=r)
+                  for r in ("fast", "device")}
+    folds = 1 + 3 * TUNING_BURST
+    print(f"[tuning drill] {TUNING_FOLD_ROWS}-row folds, sessions/s static "
+          f"{rates['static']:.1f}, poisoned {rates['poisoned']:.1f}, recovered "
+          f"{rates['recovered']:.1f}; decisions {[d['verdict'] for d in decisions]}; floor "
+          f"fired {bool(floor)} (demoted {demoted}); routes {routes}; static floor "
+          f"{snap['static_rate_ewma']:.0f} rows/s over {snap['static_samples']} folds, live "
+          f"{snap['live_rate_ewma']:.0f} rows/s over {snap['live_samples']}", flush=True)
+    if seen["calls"] != folds or snap["live_samples"] != seen["since_reset"]:
+        problems.append(f"(e): {seen['calls']} folds recorded of {folds}, live samples "
+                        f"{snap['live_samples']} against {seen['since_reset']} since the "
+                        f"last floor demotion")
+    knobs_demoted = sum(len(d["knob"].split(",")) for d in floor)
+    if demotions != knobs_demoted:
+        problems.append(f"(e): the demotion counter moved {demotions}, the floor demoted "
+                        f"{knobs_demoted} knob(s)")
+    return problems
+
+
 def _same_persisted(got, want) -> bool:
     """Two persisted states equal bit for bit: tensor states leaf by leaf,
     a grouping set's frequencies by their rows and counts."""
@@ -6045,6 +6360,12 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda")
     started = time.perf_counter()
+    # a profile left on the machine must not tune any phase: every service
+    # of the script boots on an empty profile directory (phase 14 calibrates
+    # into a directory of its own)
+    profiles = tempfile.mkdtemp(prefix="chip_smoke_profiles_")
+    atexit.register(shutil.rmtree, profiles, True)
+    os.environ["DEEQU_TPU_TUNING_PROFILE_DIR"] = profiles
     with phase(1):
         kind = torch.cuda.get_device_name(0)
         card = _nvidia_smi()
@@ -6090,6 +6411,9 @@ def main(argv=None) -> int:
     # pipeline on phase 3's table and checks
     with phase(13):
         reliability_path(torch, dq, table, data)
+    # phase 14: the self-tuning plane, on phase 3's table and checks
+    with phase(14):
+        tuning_plane(torch, dq, table, data, gpu_metrics)
     # phase 11 (a): the same run interrupted and resumed from a checkpoint
     with phase(11), part_seconds("phase 11 (a)"):
         resumable_device_tier(torch, dq, data, check, ROWS, gpu_metrics)

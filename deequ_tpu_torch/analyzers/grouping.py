@@ -44,9 +44,8 @@ import torch
 from ..config import (
     DEFAULT_FREQ_BUFFER_ENTRIES,
     DEFAULT_FREQ_TABLE_SLOTS,
-    FREQ_HOST_ROUTE_MAX_DISTINCT,
-    FREQ_HOST_ROUTE_MIN_ROWS,
-    FREQ_PROBE_ROWS,
+    DEVICE_FREQ_ENV,
+    FREQ_HOST_ROUTE_ENV,
 )
 from ..data import Batch, ColumnKind, Schema
 from ..exceptions import EmptyStateException, IllegalAnalyzerParameterException, wrap_if_necessary
@@ -730,23 +729,59 @@ def _next_pow2(v: int) -> int:
     return p
 
 
+#: warn-once latches of the two on/off switches (a typo never crashes a
+#: run and never floods the log)
+_ENV_WARNED: set = set()
+
+
+def _switch(env: str, what: str) -> Optional[str]:
+    """An on/off switch's raw value: None when unset or invalid (an
+    invalid value warns once and counts as unset)."""
+    import logging
+    import os
+
+    raw = os.environ.get(env)
+    if raw is None or raw in ("0", "1"):
+        return raw
+    if env not in _ENV_WARNED:
+        _ENV_WARNED.add(env)
+        logging.getLogger(__name__).warning(
+            "ignoring invalid %s=%r (expected 0 or 1); %s stays enabled", env, raw, what,
+        )
+    return None
+
+
+def device_freq_enabled() -> bool:
+    """``DEEQU_TPU_DEVICE_FREQ``: "0" keeps every grouping set that is
+    not a small dictionary column off the device frequency table."""
+    return _switch(DEVICE_FREQ_ENV, "the device frequency engine") != "0"
+
+
 def probably_low_cardinality(data, columns: Sequence[str],
-                             limit: int = FREQ_HOST_ROUTE_MAX_DISTINCT) -> bool:
+                             limit: Optional[int] = None) -> bool:
     """True when every column of the grouping set confidently looks
     low-cardinality (the product of the per-column distinct estimates at
-    most ``limit``), so the host group-by serves it; the reference's probe
+    most ``limit``, by default the ``freq_host_route_max_distinct`` knob),
+    so the host group-by serves it; the reference's probe
     (deequ_tpu/analyzers/grouping.py:1022). A dictionary column counts its
     dictionary; any other column counts the distinct values of head,
-    middle and tail slices, and a layout whose later slices keep revealing
-    new keys answers False. Runs of at most ``FREQ_HOST_ROUTE_MIN_ROWS``
-    rows always answer False."""
+    middle and tail slices of ``freq_probe_rows`` rows, and a layout whose
+    later slices keep revealing new keys answers False. Runs of at most
+    ``freq_host_route_min_rows`` rows always answer False, and so does
+    every set under ``DEEQU_TPU_FREQ_HOST_ROUTE=0``."""
     import pyarrow as pa
     import pyarrow.compute as pc
 
-    n = int(data.num_rows)
-    if n <= FREQ_HOST_ROUTE_MIN_ROWS:
+    from ..tuning import knobs
+
+    if _switch(FREQ_HOST_ROUTE_ENV, "cardinality pre-routing") == "0":
         return False
-    probe_rows = FREQ_PROBE_ROWS
+    if limit is None:
+        limit = knobs.value("freq_host_route_max_distinct")
+    probe_rows = knobs.value("freq_probe_rows")
+    n = int(data.num_rows)
+    if n <= knobs.value("freq_host_route_min_rows"):
+        return False
     estimate = 1
     for col in columns:
         size = data.dictionary_size(col)

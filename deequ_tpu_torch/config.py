@@ -46,6 +46,38 @@ FREQ_HOST_ROUTE_MAX_DISTINCT = 1 << 15
 FREQ_PROBE_ROWS = 1 << 16
 FREQ_HOST_ROUTE_MIN_ROWS = 1 << 21
 
+#: the constants above are the static defaults of the tuning registry
+#: (``tuning/knobs.py``), which the runner and the grouping router read
+#: through: env override > tuned value > static default. Their env
+#: overrides: DEEQU_TPU_DEVICE_FREQ_MAX_CARDINALITY,
+#: DEEQU_TPU_FREQ_TABLE_SLOTS, DEEQU_TPU_FREQ_BUFFER_ENTRIES,
+#: DEEQU_TPU_FREQ_HOST_ROUTE_MAX_DISTINCT, DEEQU_TPU_FREQ_PROBE_ROWS and
+#: DEEQU_TPU_FREQ_HOST_ROUTE_MIN_ROWS. Two switches: "0" turns the device
+#: frequency table off (every grouping set that is not a small dictionary
+#: column takes the host group-by), and "0" turns the cardinality probe off
+#: (no set is routed to the host group-by for looking small).
+DEVICE_FREQ_ENV = "DEEQU_TPU_DEVICE_FREQ"
+FREQ_HOST_ROUTE_ENV = "DEEQU_TPU_FREQ_HOST_ROUTE"
+
+# The self-tuning plane (``deequ_tpu_torch.tuning``: calibration, substrate
+# profiles, the online controller), under the reference's env names:
+
+#: "0" disables the whole plane: no profile load, no controller, every
+#: knob its env override or static default (default on)
+AUTOTUNE_ENV = "DEEQU_TPU_AUTOTUNE"
+#: directory of the checksummed per-substrate profiles (default: a
+#: ``deequ_tpu_tuning`` directory beside ``DEEQU_TPU_COMPILE_CACHE``'s
+#: default); corrupt or stale files are quarantined into ``.quarantine/``
+TUNING_PROFILE_DIR_ENV = "DEEQU_TPU_TUNING_PROFILE_DIR"
+#: fraction of eligible folds routed under a candidate while a shadow
+#: experiment runs (default 0.05, capped at 0.5; 0 starves candidates)
+TUNING_SHADOW_FRACTION_ENV = "DEEQU_TPU_TUNING_SHADOW_FRACTION"
+#: measured folds each experiment arm needs before a verdict (default 32)
+TUNING_MIN_SAMPLES_ENV = "DEEQU_TPU_TUNING_MIN_SAMPLES"
+#: the promotion band, and how far below the static rate the floor
+#: guardrail lets the live rate fall before it demotes (default 0.25)
+TUNING_BAND_ENV = "DEEQU_TPU_TUNING_BAND"
+
 DEFAULT_DEVICE = "cuda"
 
 DeviceLike = Union[str, torch.device, None]

@@ -51,7 +51,7 @@ DEFAULT_FEED_STALL_S = 120.0
 
 
 def prefetch_depth() -> int:
-    """The configured pipeline depth (env override > static 2);
+    """The configured pipeline depth (env override > tuned > static 0);
     warn-and-fallback on bad values."""
     from ..tuning import knobs
 

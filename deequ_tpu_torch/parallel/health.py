@@ -42,9 +42,9 @@ DEFAULT_HEARTBEAT_S = 5.0
 def shard_heartbeat_s() -> Optional[float]:
     """The configured heartbeat interval in seconds, or None when the
     periodic heartbeat is disabled (a value <= 0)."""
-    from ..tuning.knobs import value
+    from ..utils import env_number
 
-    seconds = value("shard_heartbeat_s")
+    seconds = env_number(HEARTBEAT_ENV, DEFAULT_HEARTBEAT_S, float)
     return seconds if seconds > 0 else None
 
 

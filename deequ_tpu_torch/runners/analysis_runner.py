@@ -12,16 +12,18 @@ CountDistinct, Entropy, MutualInformation over one or several columns) on
 one of three routes, as the reference package routes them
 (deequ_tpu/runners/analysis_runner.py:186-460):
 
-1. one dictionary-encoded column of at most ``DEVICE_FREQ_MAX_CARDINALITY``
-   entries: the device frequency scan (kernel ``dict_code_counts``);
+1. one dictionary-encoded column of at most ``device_freq_max_cardinality``
+   entries (a knob, 2^16 by default): the device frequency scan (kernel
+   ``dict_code_counts``);
 2. a set the cardinality probe finds small, a set with a member that reads
    the table's keys (MutualInformation), or any set with
    ``device_freq=False``: the host group-by, folded batch by batch in the
    same pass;
 3. any other set: the device frequency table (kernels ``freq_keys`` and
    ``freq_compact``), sized by ``freq_table_slots`` and
-   ``freq_buffer_entries``. A table that dropped groups re-runs its set
-   through the host group-by in one more pass (``freq_overflow_fallbacks``).
+   ``freq_buffer_entries`` (knobs too). A table that dropped groups re-runs
+   its set through the host group-by in one more pass
+   (``freq_overflow_fallbacks``).
 
 The host accumulators fold their batches in the same pass too: the exact
 quantile mode (``relative_error=0.0``, a full sort of the column's values)
@@ -79,13 +81,11 @@ from ..analyzers.grouping import (
     Histogram,
     ScanShareableFrequencyBasedAnalyzer,
     device_counts_to_histogram_frequencies,
+    device_freq_enabled,
     plan_table_scan,
     probably_low_cardinality,
 )
 from ..config import (
-    DEFAULT_FREQ_BUFFER_ENTRIES,
-    DEFAULT_FREQ_TABLE_SLOTS,
-    DEVICE_FREQ_MAX_CARDINALITY,
     DeviceLike,
     resolve_device,
     synchronize,
@@ -94,6 +94,7 @@ from ..data import Dataset, Schema
 from ..exceptions import MetricCalculationException
 from ..kernels.build import KernelError
 from ..metrics import Metric
+from ..tuning import knobs
 from .context import AnalyzerContext
 from .engine import (
     FEED_BANDWIDTH_THRESHOLD_MBPS,
@@ -138,9 +139,9 @@ class AnalysisRunner:
         batch_size: Optional[int] = None,
         monitor: Optional[RunMonitor] = None,
         device: DeviceLike = None,
-        freq_table_slots: int = DEFAULT_FREQ_TABLE_SLOTS,
-        freq_buffer_entries: int = DEFAULT_FREQ_BUFFER_ENTRIES,
-        device_freq: bool = True,
+        freq_table_slots: Optional[int] = None,
+        freq_buffer_entries: Optional[int] = None,
+        device_freq: Optional[bool] = None,
         aggregate_with: Optional[Any] = None,
         save_states_with: Optional[Any] = None,
         metrics_repository: Optional[Any] = None,
@@ -153,9 +154,10 @@ class AnalysisRunner:
     ) -> AnalyzerContext:
         """Compute every analyzer's metric in one pass over ``data``.
         ``freq_table_slots`` and ``freq_buffer_entries`` size the device
-        frequency tables (see ``config.py``); ``device_freq=False`` sends
-        every grouping set that is not a small dictionary column to the
-        host group-by. ``aggregate_with`` (a StateLoader),
+        frequency tables (None: their knobs, ``tuning/knobs.py``);
+        ``device_freq=False`` sends every grouping set that is not a small
+        dictionary column to the host group-by (None:
+        ``DEEQU_TPU_DEVICE_FREQ``). ``aggregate_with`` (a StateLoader),
         ``save_states_with`` (a StatePersister), ``metrics_repository``
         with ``reuse_existing_results_for_key`` / ``fail_if_results_missing``
         and ``save_or_append_results_with_key``: as the reference's runner
@@ -253,12 +255,22 @@ class AnalysisRunner:
             else:
                 raise _not_in_slice(a, "no execution strategy in this package")
 
+        # the frequency engine's knobs: explicit arguments win, None reads
+        # the registry (env override > tuned > static) and the switch
+        if freq_table_slots is None:
+            freq_table_slots = knobs.value("freq_table_slots")
+        if freq_buffer_entries is None:
+            freq_buffer_entries = knobs.value("freq_buffer_entries")
+        if device_freq is None:
+            device_freq = device_freq_enabled()
+        dict_card_limit = knobs.value("device_freq_max_cardinality")
+
         # route 1: the device frequency scan, for grouping sets of one small
         # dictionary column and for every histogram's column
         dict_sets = set()
         for cols in grouping_sets:
             size = data.dictionary_size(cols[0]) if len(cols) == 1 else None
-            if size is not None and size <= DEVICE_FREQ_MAX_CARDINALITY:
+            if size is not None and size <= dict_card_limit:
                 dict_sets.add(cols)
         freq_cols = dict_sets | {(a.column,) for a in histograms}
         dictionaries = {cols: data.dictionary_values(cols[0]) for cols in freq_cols}

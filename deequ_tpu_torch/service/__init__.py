@@ -50,9 +50,13 @@ for ``DEEQU_TPU_PARTITION_STORE``) backs
 :meth:`VerificationService.submit_partitioned_verification`, and streaming
 sessions flush their states into it as partitions when they close.
 
+The self-tuning plane (:func:`~deequ_tpu_torch.tuning.bootstrap_service`)
+boots with the service: it applies this substrate's calibration profile,
+reseeds the crossover router and runs the online controller off the
+scheduler's harvest tick (``DEEQU_TPU_AUTOTUNE=0`` turns it off).
+
 Not ported: the mesh and the fleet scheduler (ROADMAP A5b), which raise
-naming their item, and the tuning controller (A6): every knob reads its
-env override or static default.
+naming their item.
 """
 
 from __future__ import annotations
@@ -172,10 +176,14 @@ class VerificationService:
         #: harvest_now() always works)
         self.fleetwatch = FleetWatch(self)
         self.fleetwatch.attach()
-        #: the self-tuning controller is not ported: every knob reads its
-        #: env override or static default, as the reference's does under
-        #: DEEQU_TPU_AUTOTUNE=0
-        self.tuning_controller = None
+        from ..tuning import bootstrap_service
+
+        #: the self-tuning plane: loads this substrate's calibration
+        #: profile (a corrupt one is quarantined, never a failed boot),
+        #: reseeds the crossover router and runs the online controller off
+        #: the scheduler's harvest tick. None under DEEQU_TPU_AUTOTUNE=0:
+        #: every knob is then its env override or static default
+        self.tuning_controller = bootstrap_service(self)
         self._sessions: Dict[Tuple[str, str], StreamingSession] = {}
         self._sessions_lock = threading.Lock()
         self._exporter: Optional[MetricsExporter] = None
@@ -228,11 +236,22 @@ class VerificationService:
             }
 
         def tuning_section():
-            # no controller: every knob is its env override or static default
-            from ..tuning import knobs
-
-            return {"enabled": False,
-                    "static_knobs": {name: knobs.value(name) for name in sorted(knobs.REGISTRY)}}
+            controller = self.tuning_controller
+            if controller is None:
+                return {"enabled": False}
+            snap = controller.snapshot()
+            return {
+                "enabled": True,
+                "active_knobs": snap.get("tuned", {}),
+                "experiments": snap.get("experiments", {}),
+                "decisions": snap.get("decisions", []),
+                "floor": {
+                    "static_rate_ewma": snap.get("static_rate_ewma"),
+                    "static_samples": snap.get("static_samples"),
+                    "live_rate_ewma": snap.get("live_rate_ewma"),
+                    "live_samples": snap.get("live_samples"),
+                },
+            }
 
         def catalog_section():
             plane = self.catalog_plane

@@ -44,8 +44,14 @@ typed error; the sibling sessions' folds commit. Drift guards, contract
 capture and session bookkeeping run under each session's serial lock as
 on the serial path. Folds carrying a job deadline are never cross-drained,
 and a fold is drained only after its job was ADMITTED. The fleet sub-mesh
-route of the reference is not ported (ROADMAP A5), nor its tuning
-controller (A6).
+route of the reference is not ported (ROADMAP A5b).
+
+The service's tuning controller (``tuning.controller``) hooks in at three
+places: the route decision (a shadow experiment on
+``fast_path_max_rows`` routes every period-th eligible fold the
+candidate's way and tags it with ``tuning_arm``), the host fast path (its
+partials' seconds) and each coalesced launch (each fold's share of the
+launch's seconds, the engine's wait after its kernels included).
 """
 
 from __future__ import annotations
@@ -314,7 +320,7 @@ class _PendingFold:
     __slots__ = (
         "session", "skey", "data", "bucket", "plan", "route", "key",
         "drainable", "monitor", "done", "event", "state", "result", "error",
-        "submitted", "harvested", "handle", "signature",
+        "submitted", "harvested", "handle", "signature", "tuning_arm",
     )
 
     def __init__(self, session, data, bucket, plan, route, key, drainable):
@@ -338,6 +344,7 @@ class _PendingFold:
         self.harvested = False
         self.handle = None      # the scheduler JobHandle, from mark_submitted
         self.signature = ()     # the job's placement signature (device route)
+        self.tuning_arm = None  # knob name when shadow-routed by tuning
 
 
 class FoldCoalescer:
@@ -465,10 +472,20 @@ class FoldCoalescer:
             )
             return None
         route = self.router.route(plan, rows)
+        tuning_arm = None
+        controller = getattr(self.service, "tuning_controller", None)
+        if controller is not None and plan.fast_ok:
+            shadow = controller.choose(rows)
+            if shadow is not None:
+                # this fold measures the CANDIDATE fast-path ceiling:
+                # route it the way the candidate would
+                tuning_arm = "fast_path_max_rows"
+                route = "fast" if shadow == "host" else "device"
         key = (route,) + plan.signatures + (plan.layout, bucket)
         pending = _PendingFold(
             session, data, bucket, plan, route, key, drainable
         )
+        pending.tuning_arm = tuning_arm
         self.service.metrics.inc(
             "deequ_service_fold_route_total", route=route
         )
@@ -1057,6 +1074,12 @@ class FoldCoalescer:
                         session.checks, AnalyzerContext(metrics)
                     )
                     t_done = time.perf_counter()
+                    controller = getattr(self.service, "tuning_controller", None)
+                    if controller is not None:
+                        # the route's own compute only (observe_host's
+                        # span): the finalize/evaluate tail is paid by both
+                        # routes and would mask what the experiments compare
+                        controller.record(rows, t_fin - t_part, arm=pending.tuning_arm)
                     mon.add_phase_time("host_partials", t_fin - t_part)
                     mon.add_phase_time("metric_derivation", t_done - t_fin)
                     mon.bump("passes")
@@ -1222,11 +1245,14 @@ class FoldCoalescer:
             # session as a launch fault does, and nothing has persisted
             states_list = self._merge_group(prepped, states_list, group)
         self.router.observe_device(rows, elapsed, width)
+        controller = getattr(self.service, "tuning_controller", None)
         # each fold carries its share of the group's phases
         for f, _, _, _ in prepped:
             for phase, seconds in group.phase_seconds.items():
                 f.monitor.add_phase_time(phase, seconds / width)
             f.monitor.device = str(self.service.device)
+            if controller is not None:
+                controller.record(rows, elapsed / width, arm=f.tuning_arm)
         self._note_width(width, coalesced=True)
         return states_list
 

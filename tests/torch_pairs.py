@@ -11,10 +11,10 @@ for runs and state builders (nothing for the reference, ``device="cpu"``
 for the port).
 
 ``reference_isolated`` (autouse in every module that imports it) runs each
-test with the reference's self-tuning plane off, as the port's static
-knobs are, and clears whatever tuned knob values a test leaves, so that
-no test of the pair changes the reference's routing for a later test in
-the same process.
+test with both packages' self-tuning planes off (``DEEQU_TPU_AUTOTUNE=0``
+reaches both) and clears whatever tuned knob values a test leaves in
+either package, so that no test of the pair changes either package's
+routing for a later test in the same process.
 """
 
 from __future__ import annotations
@@ -47,5 +47,7 @@ def reference_isolated(monkeypatch):
     monkeypatch.setenv("DEEQU_TPU_AUTOTUNE", "0")
     yield
     from deequ_tpu.tuning import knobs
+    from deequ_tpu_torch.tuning import knobs as port_knobs
 
     knobs.clear_tuned()
+    port_knobs.clear_tuned()
