@@ -244,7 +244,28 @@ Phases, each of which fails the run when it fails:
    the profile (its ``prefetch_depth`` printed) and with static knobs,
    both equal to phase 3's metrics. The whole script runs with
    ``DEEQU_TPU_TUNING_PROFILE_DIR`` set to an empty temporary directory,
-   so no other phase boots with a profile.
+   so no other phase boots with a profile;
+15. the cluster plane, last: (a) a ``cluster.FrontTier`` over
+   ``LocalWorker``s whose ``VerificationService``s run on the card, each
+   heartbeating one membership directory over one partition store; 16
+   sessions x 8 micro-batches x 65,536 integer-valued rows (the soak's
+   battery with Mean, StandardDeviation and ApproxCountDistinct), a third
+   worker joining mid-stream (graceful migrations), one leaving (a drain)
+   and an injected ``host_loss`` at ``host_heartbeat`` declaring a third
+   lost (adoption and journal replay): every session equal to one unmoved
+   session on a single service (bit for bit, the moments within 1e-12) and
+   to the closed form of Sum and Size, the ``deequ_service_cluster_*``
+   counters equal to a plain ring's for the same script, K1, K2 and K8
+   launched; (b) ``tools/torch_cluster_soak.py --procs 3 --sessions 48
+   --batches 2 --rows 262144 --device cuda`` (three worker processes, 25.2M
+   rows of Arrow IPC over HTTP): the reference's soak gates (exact parity,
+   a cross-process ingest trace, a worker's ``/statusz`` with its six
+   planes), every worker that held a session launched K1 and ran
+   device-tier folds, sessions/s and rows/s printed; (c) its ``--drill
+   kill-one`` at 16 sessions x 2 x 262,144 rows: the reference's drill gates
+   (exact parity, the recovery counters, the victim's span journal), the
+   survivor's launches after the recovery above 0, the seconds from the
+   SIGKILL to the last replayed fold printed. A soak that skips fails.
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
@@ -2934,7 +2955,7 @@ def drill(label: str):
 
 def print_phase_seconds(total: float) -> None:
     """The ``[seconds] phase N`` lines of every phase and the total."""
-    for n in range(1, 15):
+    for n in range(1, 16):
         print(f"[seconds] phase {n}: {PHASE_SECONDS.get(n, 0.0):.1f}s", flush=True)
     print(f"[seconds] total: {total:.1f}s", flush=True)
 
@@ -6044,6 +6065,370 @@ def _same_persisted(got, want) -> bool:
     return same_state_bits(got, want)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the cluster plane
+# ---------------------------------------------------------------------------
+
+#: (a): the in-process front tier's sessions, micro-batches and rows (the
+#: reference's migration cases at a real cluster's load)
+CLUSTER_SESSIONS = 16
+CLUSTER_BATCHES = 8
+CLUSTER_ROWS = 65_536
+CLUSTER_WORKERS = 4
+#: (b) and (c): tools/torch_cluster_soak.py's worker processes, sessions,
+#: micro-batches and rows. 2^18-row folds lie above the coalescer's
+#: crossover for the soak battery (about 143,000 rows at its static seeds),
+#: so they reach the device; 65,536-row folds take the host fast path.
+#: 48 x 2 x 2^18 = 25.2M rows (201 MB of float64 over HTTP); 16 x 2 x 2^18
+#: = 8.4M rows in the drill
+SOAK_PROCS = 3
+SOAK_SESSIONS = 48
+SOAK_BATCHES = 2
+SOAK_ROWS = 1 << 18
+DRILL_SESSIONS = 16
+DRILL_BATCHES = 2
+SOAK_TIMEOUT_S = 300
+#: the kernels of the cluster's folds, by the kernel they enter
+CLUSTER_KERNELS = {
+    "K1": ("scan_reduce", "scan_reduce_stacked"),
+    "K2": ("hll_registers", "hll_registers_stacked", "hll_registers_columns"),
+    "K8": ("state_fold",),
+}
+#: the planes a worker's /statusz must carry (the reference's six)
+STATUSZ_PLANES = ("scheduler", "tuning", "cluster", "catalog", "fleetwatch", "partition_store")
+CLUSTER_COUNTERS = ("routes", "migrations", "host_losses", "ring_moves", "sessions_recovered",
+                    "replayed_folds", "journal_flushes")
+
+
+def cluster_batch(i: int, b: int, rows: int = None) -> dict:
+    """Session ``i``'s micro-batch ``b``: integer-valued float64s, unique
+    per (session, batch) and below 2^53 in every partial sum
+    (tools/cluster_soak.py's data)."""
+    rows = CLUSTER_ROWS if rows is None else rows
+    base = i * 100_000_000 + b * rows
+    return {"v": np.arange(base, base + rows, dtype=np.float64)}
+
+
+def cluster_key(i: int) -> tuple:
+    return (f"tenant-{i % 4}", f"stream-{i}")
+
+
+def cluster_check(dq):
+    """The soak's battery (``is_complete``, ``has_size``, a Sum) with the
+    moments and an ApproxCountDistinct, whose HLL puts every fold on the
+    coalescer's device route."""
+    def yes(_):
+        return True
+
+    return (dq.Check(dq.CheckLevel.ERROR, "cluster battery")
+            .is_complete("v").has_size(lambda n: n > 0)
+            .has_mean("v", yes).has_standard_deviation("v", yes)
+            .has_approx_count_distinct("v", yes))
+
+
+def _blake2b64(key: str) -> int:
+    import hashlib
+
+    return int.from_bytes(hashlib.blake2b(key.encode("utf-8"), digest_size=8).digest(), "big")
+
+
+def plain_route(hosts, key: str, vnodes: int = 64) -> str:
+    """A plain consistent-hash ring (independent of the package): the
+    first of the hosts' ``vnodes`` points clockwise of the key's hash."""
+    import bisect
+
+    points = sorted((_blake2b64(f"{h}#{v}"), h) for h in hosts for v in range(vnodes))
+    i = bisect.bisect_right([p for p, _ in points], _blake2b64(key)) % len(points)
+    return points[i][1]
+
+
+def expected_cluster_counters(script: list, sessions: int) -> dict:
+    """The ``deequ_service_cluster_*`` counters a front tier must show for
+    ``script`` (``("join", host)``, ``("open",)``, ``("ingest", b0, b1)``,
+    ``("flush",)``, ``("remove", host)``, ``("lose", host)``), from the
+    plain ring: every open and ingest routes once; a ring change counts
+    the placed keys it re-homes and migrates them (a graceful move clears
+    the key's journal); a loss recovers the lost host's keys and replays
+    their journals."""
+    counts = dict.fromkeys(CLUSTER_COUNTERS, 0)
+    hosts, placed, journal = [], {}, {}
+    keys = ["/".join(cluster_key(i)) for i in range(sessions)]
+    for step in script:
+        kind = step[0]
+        if kind == "open":
+            for k in keys:
+                placed[k], journal[k] = plain_route(hosts, k), 0
+            counts["routes"] += len(keys)
+        elif kind == "ingest":
+            for k in keys:
+                journal[k] += step[2] - step[1]
+            counts["routes"] += len(keys) * (step[2] - step[1])
+        elif kind == "flush":
+            journal = dict.fromkeys(journal, 0)
+        elif kind in ("join", "remove", "lose"):
+            host = step[1]
+            before = {k: plain_route(hosts, k) for k in placed}
+            hosts = hosts + [host] if kind == "join" else [h for h in hosts if h != host]
+            after = {k: plain_route(hosts, k) for k in placed}
+            counts["ring_moves"] += sum(before[k] != after[k] for k in placed)
+            for k in placed:
+                if kind == "join" and before[k] != after[k] or (
+                        kind == "remove" and placed[k] == host):
+                    counts["migrations"] += 1
+                    journal[k] = 0
+                elif kind == "lose" and placed[k] == host:
+                    counts["sessions_recovered"] += 1
+                    counts["replayed_folds"] += journal[k]
+                else:
+                    continue
+                placed[k] = after[k]
+            counts["host_losses"] += kind == "lose"
+    return counts
+
+
+def _front_counters(front) -> dict:
+    return {name: int(front.metrics.counter_value(f"deequ_service_cluster_{name}_total"))
+            for name in CLUSTER_COUNTERS}
+
+
+def _kernel_launches(launches: dict) -> dict:
+    return {k: sum(launches.get(n, 0) for n in names) for k, names in CLUSTER_KERNELS.items()}
+
+
+def cluster_in_process(torch, dq, device: str = "cuda") -> None:
+    """Phase 15 (a): a ``FrontTier`` over ``LocalWorker``s whose services
+    run on ``device``, each heartbeating one membership directory; 16
+    sessions x 8 micro-batches x 65,536 rows streamed concurrently; a third
+    worker joins after batch 4 (graceful migrations), w0 leaves after
+    batch 6 (a drain) and an injected ``host_loss`` at ``host_heartbeat``
+    declares the host of session 0 lost after batch 7 (adoption from the
+    store and journal replay). Every session's metrics equal one unmoved
+    session's on a single service (bit for bit, the moments within 1e-12)
+    and the closed form of Sum and Size; the cluster counters equal the
+    plain ring's for the same script; K1, K2 and K8 launched."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deequ_tpu_torch import kernels
+    from deequ_tpu_torch.analyzers import Sum
+    from deequ_tpu_torch.cluster import FrontTier, HeartbeatMembership, LocalWorker
+    from deequ_tpu_torch.reliability.faults import FaultSpec, inject
+    from deequ_tpu_torch.service import VerificationService
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    store, beats = os.path.join(root, "store"), os.path.join(root, "hb")
+    required = [Sum("v")]
+
+    def worker(host: str):
+        service = VerificationService(workers=CLUSTER_WORKERS, background_warm=False,
+                                      partition_store=store, device=device)
+        membership = HeartbeatMembership(beats, host_id=host, heartbeat_period_s=0.1,
+                                         ttl_s=3600)
+        return LocalWorker(host, service, membership=membership)
+
+    hosts = {h: worker(h) for h in ("w0", "w1", "w2")}
+    front = FrontTier(membership=HeartbeatMembership(beats, ttl_s=3600))
+    sessions = range(CLUSTER_SESSIONS)
+    script = []
+
+    def stage(b0: int, b1: int) -> None:
+        def drive(i):
+            for b in range(b0, b1):
+                front.ingest(*cluster_key(i), cluster_batch(i, b))
+
+        with ThreadPoolExecutor(max_workers=CLUSTER_SESSIONS) as pool:
+            for future in [pool.submit(drive, i) for i in sessions]:
+                future.result()
+        script.append(("ingest", b0, b1))
+
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for h in ("w0", "w1"):
+            front.add_worker(hosts[h])
+            script.append(("join", h))
+        for i in sessions:
+            front.open_session(*cluster_key(i), [cluster_check(dq)], required_analyzers=required)
+        script.append(("open",))
+        stage(0, 2)
+        front.flush_all()
+        script.append(("flush",))
+        stage(2, 4)
+        front.add_worker(hosts["w2"])
+        script.append(("join", "w2"))
+        stage(4, 6)
+        front.remove_worker("w0")
+        script.append(("remove", "w0"))
+        stage(6, 7)
+        lost = front.placement(*cluster_key(0))
+        with inject(FaultSpec("host_heartbeat", "host_loss", match=lost)):
+            recovered = front.check_membership()
+        script.append(("lose", lost))
+        stage(7, 8)
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        got = []
+        for i in sessions:
+            placed = front.placement(*cluster_key(i))
+            got.append(metric_values(front.workers[placed].service
+                                     .get_session(*cluster_key(i)).current()))
+        counters = _front_counters(front)
+        members = front.workers[front.placement(*cluster_key(0))].service.statusz.snapshot()
+    finally:
+        front.close()
+        for w in hosts.values():  # the drained and the lost hosts
+            w.close()
+        shutil.rmtree(root, ignore_errors=True)
+    rows = CLUSTER_SESSIONS * CLUSTER_BATCHES * CLUSTER_ROWS
+    print(f"[cluster (a)] {CLUSTER_SESSIONS} sessions x {CLUSTER_BATCHES} x {CLUSTER_ROWS} rows "
+          f"over w0, w1 (+w2, -w0, lost {lost}) in {seconds:.3f}s ({rows / seconds:.0f} rows/s); "
+          f"counters {counters}; launches {_kernel_launches(launches)}", flush=True)
+
+    problems = []
+    if recovered != [lost]:
+        problems.append(f"the sweep recovered {recovered}, not [{lost}]")
+    want_counters = expected_cluster_counters(script, CLUSTER_SESSIONS)
+    if counters != want_counters:
+        problems.append(f"counters {counters}, the plain ring's {want_counters}")
+    section = members["planes"]["cluster"]
+    if not section.get("attached") or len(section.get("sessions", [])) == 0:
+        problems.append(f"the adopting worker's /statusz cluster section: {section}")
+    # one unmoved session per key on a single service
+    with VerificationService(workers=CLUSTER_WORKERS, background_warm=False,
+                             device=device) as single:
+        for i in sessions:
+            single.session(*cluster_key(i), [cluster_check(dq)], required_analyzers=required)
+
+        def drive_single(i):
+            for b in range(CLUSTER_BATCHES):
+                single.get_session(*cluster_key(i)).ingest(cluster_batch(i, b))
+
+        with ThreadPoolExecutor(max_workers=CLUSTER_SESSIONS) as pool:
+            for future in [pool.submit(drive_single, i) for i in sessions]:
+                future.result()
+        want = [metric_values(single.get_session(*cluster_key(i)).current()) for i in sessions]
+    for i in sessions:
+        problems += [f"session {i}: {p}" for p in compare_metrics(got[i], want[i])]
+        total = sum((2 * (i * 100_000_000 + b * CLUSTER_ROWS) + CLUSTER_ROWS - 1)
+                    * CLUSTER_ROWS // 2 for b in range(CLUSTER_BATCHES))
+        closed = {("Sum", "v", None): float(total),
+                  ("Size", "*", None): float(CLUSTER_BATCHES * CLUSTER_ROWS)}
+        problems += [f"session {i} closed form: {key} {got[i].get(key)!r} != {value!r}"
+                     for key, value in closed.items() if got[i].get(key) != value]
+    missing = [k for k, n in _kernel_launches(launches).items() if n == 0]
+    if missing:
+        problems.append(f"no launch of {missing}: {launches}")
+    if problems:
+        raise AssertionError("phase 15 (a) disagrees:\n" + "\n".join(problems[:40]))
+
+
+def run_cluster_soak(args: list, device: str) -> dict:
+    """``tools/torch_cluster_soak.py`` with ``args`` on ``device``, from this
+    checkout's root; its JSON line. A skipped soak (exit code 2) fails."""
+    out = subprocess.run(
+        [sys.executable, "-m", "tools.torch_cluster_soak", *args, "--device", device],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=SOAK_TIMEOUT_S,
+    )
+    lines = [line for line in out.stdout.splitlines() if line.strip()]
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"torch_cluster_soak {args} exited {out.returncode}: "
+                             f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def _soak_problems(report: dict) -> list:
+    """The reference's soak gates (tests/test_cluster_soak.py)."""
+    problems = []
+    if not report.get("ok"):
+        problems.append("the verdict is not ok")
+    if report.get("parity_failures"):
+        problems.append(f"parity: {report['parity_failures'][:4]}")
+    obs = report.get("observability", {})
+    if not obs.get("ok") or obs.get("statusz_problems"):
+        problems.append(f"observability: {obs}")
+    if obs.get("cross_process_ingest_traces", 0) < 1:
+        problems.append("no cross-process ingest trace")
+    missing = [p for p in STATUSZ_PLANES if p not in obs.get("statusz_planes", [])]
+    if missing:
+        problems.append(f"/statusz lacks {missing}")
+    return problems
+
+
+def cluster_soak(torch, device: str = "cuda") -> None:
+    """Phase 15 (b): the throughput soak (3 worker processes, 48 sessions x
+    2 x 2^18 rows over HTTP): the reference's gates, and every worker that
+    held a session launched K1 and ran device-tier folds."""
+    report = run_cluster_soak(["--procs", str(SOAK_PROCS), "--sessions", str(SOAK_SESSIONS),
+                               "--batches", str(SOAK_BATCHES), "--rows", str(SOAK_ROWS)],
+                              device)
+    workers = report.get("workers", {})
+    print(f"[cluster (b)] {SOAK_PROCS} processes, {SOAK_SESSIONS} sessions x {SOAK_BATCHES} x "
+          f"{SOAK_ROWS} rows in {report.get('elapsed_s')}s: {report.get('sessions_per_s')} "
+          f"sessions/s, {report.get('rows_per_s')} rows/s; " + "; ".join(
+              f"{h}: {w['sessions']} sessions, folds device {w['device_folds']} / host "
+              f"{w['host_folds']} / fast {w['fast_folds']}, launches "
+              f"{_kernel_launches(w['launches'])}" for h, w in sorted(workers.items())),
+          flush=True)
+    problems = _soak_problems(report)
+    if report.get("sessions_per_s", 0) <= 0:
+        problems.append("no sessions/s")
+    if report.get("counters", {}).get("deequ_service_cluster_routes_total", 0) <= 0:
+        problems.append("no route counted")
+    if report.get("observability", {}).get("journals", 0) < 2:
+        problems.append("fewer than two span journals")
+    if len(workers) != SOAK_PROCS:
+        problems.append(f"{len(workers)} workers reported")
+    for host, w in sorted(workers.items()):
+        if w["sessions"] and (_kernel_launches(w["launches"])["K1"] == 0 or not w["device_folds"]):
+            problems.append(f"{host} held {w['sessions']} sessions and ran "
+                            f"{w['device_folds']} device-tier folds, launches {w['launches']}")
+    if problems:
+        raise AssertionError("phase 15 (b) disagrees:\n" + "\n".join(problems))
+
+
+def cluster_drill(torch, device: str = "cuda") -> None:
+    """Phase 15 (c): the kill-one drill (16 sessions x 2 x 2^18 rows over
+    two worker processes, one SIGKILLed after the flush): the reference's
+    gates, and the survivor launched kernels after the recovery."""
+    report = run_cluster_soak(["--drill", "kill-one", "--sessions", str(DRILL_SESSIONS),
+                               "--batches", str(DRILL_BATCHES), "--rows", str(SOAK_ROWS)],
+                              device)
+    after = _kernel_launches(report.get("survivor_launches_after_recovery", {}))
+    print(f"[cluster (c)] victim {report.get('victim')} ({report.get('victim_sessions')} sessions, "
+          f"{report.get('victim_journal_spans')} spans in its journal); SIGKILL to the last "
+          f"replayed fold {report.get('recovery_s')}s; counters {report.get('counters')}; the "
+          f"survivor's launches after the recovery {after}", flush=True)
+    problems = _soak_problems(report)
+    victim = report.get("victim")
+    if report.get("recovered_hosts") != [victim]:
+        problems.append(f"recovered {report.get('recovered_hosts')}, victim {victim}")
+    for key, (src, dst) in report.get("rehomed", {}).items():
+        if src != victim or dst == src:
+            problems.append(f"{key} moved {src} -> {dst}")
+    counters = report.get("counters", {})
+    for name in ("host_losses", "sessions_recovered", "replayed_folds"):
+        if counters.get(f"deequ_service_cluster_{name}_total", 0) < 1:
+            problems.append(f"no {name}")
+    if report.get("victim_journal_spans", 0) < 1:
+        problems.append("the victim's span journal is empty")
+    if not sum(after.values()):
+        problems.append("the survivor launched nothing after the recovery: "
+                        f"{report.get('survivor_after_recovery')}")
+    if problems:
+        raise AssertionError("phase 15 (c) disagrees:\n" + "\n".join(problems))
+
+
+def cluster_plane(torch, dq, device: str = "cuda") -> None:
+    """Phase 15: the cluster plane, (a) in-process, (b) and (c) across
+    worker processes (``tools/torch_cluster_soak.py``)."""
+    with part_seconds("phase 15 (a)"):
+        cluster_in_process(torch, dq, device)
+    with part_seconds("phase 15 (b)"):
+        cluster_soak(torch, device)
+    with part_seconds("phase 15 (c)"):
+        cluster_drill(torch, device)
+
+
 def _nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6458,6 +6843,9 @@ def main(argv=None) -> int:
     # phase 12: the tenant plane
     with phase(12):
         tenant_plane(torch, dq)
+    # phase 15: the cluster plane, in-process and across worker processes
+    with phase(15):
+        cluster_plane(torch, dq)
     print_phase_seconds(time.perf_counter() - started)
 
     # K1-K3 as the verification path runs them, K4 and K5 as the profile

@@ -78,6 +78,27 @@ TUNING_MIN_SAMPLES_ENV = "DEEQU_TPU_TUNING_MIN_SAMPLES"
 #: guardrail lets the live rate fall before it demotes (default 0.25)
 TUNING_BAND_ENV = "DEEQU_TPU_TUNING_BAND"
 
+# The cluster tier (``deequ_tpu_torch.cluster`` and
+# ``repository/lease.py``), under the reference's names and env names. All
+# five parse via the warn-once ``utils.env_number``: unparseable or
+# out-of-range values log once and keep the default.
+
+#: virtual nodes per host on the front tier's consistent-hash ring
+#: (default 64; minimum 1); a membership change re-homes ~1/N of the keys
+CLUSTER_VNODES_ENV = "DEEQU_TPU_CLUSTER_VNODES"
+#: seconds between a worker's heartbeat writes into the shared membership
+#: directory (default 0.5; minimum 0.05)
+CLUSTER_HEARTBEAT_ENV = "DEEQU_TPU_CLUSTER_HEARTBEAT_S"
+#: seconds without a beat before the front tier declares a host lost and
+#: recovers its sessions (default 3.0; minimum 0.1)
+CLUSTER_HOST_TTL_ENV = "DEEQU_TPU_CLUSTER_HOST_TTL_S"
+#: seconds a compaction lease stays valid without renewal (default 30.0;
+#: minimum 0.1)
+CLUSTER_LEASE_TTL_ENV = "DEEQU_TPU_CLUSTER_LEASE_TTL_S"
+#: payloads a session's loss-replay journal may hold before the front tier
+#: force-flushes the session to the partition store (default 256; minimum 1)
+CLUSTER_JOURNAL_MAX_FOLDS_ENV = "DEEQU_TPU_CLUSTER_JOURNAL_MAX_FOLDS"
+
 DEFAULT_DEVICE = "cuda"
 
 DeviceLike = Union[str, torch.device, None]

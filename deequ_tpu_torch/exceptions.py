@@ -182,6 +182,33 @@ class ShardStallError(ShardLossError):
     the probe deadline and handled exactly like a thrown shard loss."""
 
 
+class HostLossError(ShardLossError):
+    """A cluster WORKER HOST died (missed heartbeats past the TTL, or a
+    cross-host collective hung past its deadline). The cluster-tier
+    sibling of a mesh shard loss, and deliberately a
+    :class:`ShardLossError` subclass so anything routing on the
+    mesh-recoverable family treats it identically; but it names a HOST ID,
+    not mesh positions: recovery is the front tier's job
+    (:mod:`deequ_tpu_torch.cluster.front`: re-hash the ring range to
+    survivors, re-open the dead host's sessions from the partition store,
+    replay unflushed folds), not the elastic mesh ladder's."""
+
+    def __init__(self, host: str, site: str = "", detail: str = "",
+                 survivors=None):
+        self.host = str(host)
+        self.lost = ()
+        self.site = site
+        self.survivors = None if survivors is None else list(survivors)
+        # bypass ShardLossError's shard-index message: a host loss names
+        # a host id, and "shard(s) [] lost" would read as a no-op
+        Exception.__init__(
+            self,
+            f"cluster host {self.host or '<host>'} lost"
+            + (f" at {site}" if site else "")
+            + (f": {detail}" if detail else ""),
+        )
+
+
 class MeshExhaustedError(RuntimeError):
     """No rung of the re-shard ladder fits the surviving devices. The
     elastic fold then drops to host mode, unless every shard of the mesh

@@ -1,6 +1,5 @@
 """Deterministic fault injection at named engine and service sites (copied
-from the reference's ``deequ_tpu/reliability/faults.py``, cut to the sites
-and kinds this package has).
+from the reference's ``deequ_tpu/reliability/faults.py``).
 
 Recovery claims are only worth anything if they are EXERCISED, and real
 device faults cannot be provoked on demand. This module plants cheap
@@ -27,6 +26,8 @@ site                 fires
                      tag = batch index
 ``prefetch``         per staged batch of the device feed pipeline, tag =
                      batch index (0-based)
+``host_heartbeat``   per host in the cluster membership scan, tag = host id
+``ring_rebalance``   before a hash-ring host add/remove re-hashes key ranges
 ``host_partial``     before each host-tier partial, tag = batch index
 ``ingest_fold``      before each host-tier chunk fold on the device
 ``state_fetch``      before a pass's device-to-host state fetch
@@ -80,8 +81,12 @@ stall is declared. The ``stall`` kind at ``device_update`` or
 ``host_partial`` holds a pass past the scan watchdog's deadline; ``oom``
 and ``device`` at ``device_update`` drive the tier ladder, and
 ``analyzer`` at ``analyzer`` (matched to one analyzer's tag) the battery
-bisection (``reliability.isolation``). The cluster plane's kind and sites
-are not ported.
+bisection (``reliability.isolation``).
+
+The cluster kind: ``host_loss`` (a typed ``HostLossError`` whose ``host``
+carries the probe tag) stands in for a whole worker process dying:
+injected at ``host_heartbeat`` it makes the membership scan declare that
+host dead and the front tier re-hash its ring range to survivors.
 """
 
 from __future__ import annotations
@@ -99,6 +104,7 @@ from ..exceptions import (
     DeviceFailureException,
     DeviceOOMException,
     FeedStallError,
+    HostLossError,
     PoisonedBatchException,
     MalformedFrameError,
     SchemaDriftError,
@@ -160,13 +166,15 @@ def _make_error(kind: str, site: str, tag: str, shard: Optional[int] = None) -> 
         return ShardStallError([0 if shard is None else shard], site, detail=note)
     if kind == "feed_stall":
         return FeedStallError(site, note)
+    if kind == "host_loss":
+        return HostLossError(tag or site, site=site, detail=note)
     raise ValueError(f"unknown fault kind {kind!r}")
 
 
 FAULT_KINDS = (
     "device", "oom", "poison", "analyzer", "interrupt", "worker_death",
     "stall", "corrupt", "drift", "mesh_loss", "shard_stall",
-    "frame_corrupt", "feed_stall",
+    "frame_corrupt", "feed_stall", "host_loss",
 )
 
 #: The fault-site REGISTRY: every ``fault_point(site, ...)`` planted in the
@@ -192,6 +200,8 @@ KNOWN_FAULT_SITES = frozenset({
     "sharded_fold",
     "collective_merge",
     "shard_probe",
+    "host_heartbeat",
+    "ring_rebalance",
     "frame_decode",
     "catalog_load",
     "row_gate",

@@ -42,11 +42,13 @@ import socket
 import time
 from typing import Optional
 
+from ..config import CLUSTER_LEASE_TTL_ENV as LEASE_TTL_ENV
+
 _logger = logging.getLogger(__name__)
 
-#: env knob: seconds a compaction lease lives before any other process may
-#: take it over (stale-holder recovery bound). Warn-once parser.
-LEASE_TTL_ENV = "DEEQU_TPU_CLUSTER_LEASE_TTL_S"
+#: env knob (``LEASE_TTL_ENV``): seconds a compaction lease lives before
+#: any other process may take it over (stale-holder recovery bound).
+#: Warn-once parser.
 DEFAULT_LEASE_TTL_S = 30.0
 
 

@@ -304,7 +304,9 @@ class VerificationService:
 
         self.statusz.register("scheduler", scheduler_section)
         self.statusz.register("tuning", tuning_section)
-        self.statusz.register("cluster", not_ported("the cluster plane", "A6"))
+        # detached until a cluster.LocalWorker wraps this service and
+        # registers its per-host view over this one
+        self.statusz.register("cluster", lambda: {"attached": False})
         self.statusz.register("catalog", catalog_section)
         self.statusz.register("fleetwatch", self.fleetwatch.statusz_section)
         self.statusz.register("partition_store", partition_store_section)

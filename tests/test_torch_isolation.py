@@ -1,5 +1,6 @@
-"""The PyTorch/CUDA port stands alone: ``deequ_tpu_torch`` and
-``chip_smoke.py`` import neither JAX nor the JAX package ``deequ_tpu``, and
+"""The PyTorch/CUDA port stands alone: ``deequ_tpu_torch``, ``chip_smoke.py``
+and the port's tools (``tools/torch_*.py``) import neither JAX nor the JAX
+package ``deequ_tpu`` (nor the reference's test harness), and
 ``chip_smoke.py`` refuses to report a result without a CUDA device or
 without the package beside it."""
 
@@ -16,7 +17,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "deequ_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "deequ_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "deequ_tpu", "cluster_harness")
+TOOLS = sorted(p.relative_to(REPO).as_posix() for p in (REPO / "tools").glob("torch_*.py"))
 
 
 def _env_without_cuda():
@@ -42,6 +44,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import deequ_tpu_torch.ingest.arrow_stream, deequ_tpu_torch.ingest.rowgate\n"
         "import deequ_tpu_torch.service.catalog\n"
         "import deequ_tpu_torch.service.fleetwatch, deequ_tpu_torch.service.statusz\n"
+        "import deequ_tpu_torch.cluster, deequ_tpu_torch.cluster.front\n"
+        "import tools.torch_cluster_soak\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -65,7 +69,8 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(p.relative_to(REPO).as_posix() for p in PACKAGE.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(p.relative_to(REPO).as_posix() for p in PACKAGE.rglob("*.py")) + ["chip_smoke.py"]
+    + TOOLS,
 )
 def test_no_source_of_the_port_imports_jax_or_the_reference(path):
     roots = set(_imported_roots(REPO / path))
