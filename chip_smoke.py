@@ -265,7 +265,37 @@ Phases, each of which fails the run when it fails:
    kill-one`` at 16 sessions x 2 x 262,144 rows: the reference's drill gates
    (exact parity, the recovery counters, the victim's span journal), the
    survivor's launches after the recovery above 0, the seconds from the
-   SIGKILL to the last replayed fold printed. A soak that skips fails.
+   SIGKILL to the last replayed fold printed. A soak that skips fails;
+16. the fleet scheduler and the service's mesh route, run after phase 9
+   while phase 3's table is in memory (``fleet_plane``): (a) on a
+   ``VerificationService(fleet=True, fleet_devices=8)`` over 8 shards of
+   the card, config 2's check at 10M rows as tenant ``a`` alone (all 8
+   shards), tenant ``b`` alone on a second table of the same builder (the
+   next seed), then both at once on disjoint 4-shard slices (positions
+   printed), every job on the device tier (its phases; the battery warmed
+   first at widths 8 and 4): ``a`` equal to phase 3's metrics (bit for
+   bit, moments within 1e-12) and its oracle, ``b`` equal to its run
+   alone; one cold job of a third tenant on the host tier over its
+   2-shard slice, equal to phase 3's metrics; ``verify_partitioned`` of
+   two 1M-row ``build_scan_data`` partitions under the fleet, equal to
+   ``VerificationSuite.verify_partitioned`` on the card, with a fleet
+   lease counted; K1 and K2 stacked, K3 and K8 launched, and on the cold
+   job K8's stacked carry and butterfly; (b) fleet stream folds: 2
+   tenants x 4 sessions x 4 micro-batches x 2^18 integer-valued rows (the
+   reference's exact battery with Mean, StandardDeviation and
+   ApproxCountDistinct) at the default ``DEEQU_TPU_FLEET_STREAM_MIN_ROWS``:
+   32 fleet stream folds, every session equal to the same session on a
+   ``fleet=False`` service on the card (bit for bit, the moments within
+   1e-12), sessions/s printed, K8's stacked carry and butterfly launched;
+   (c) the shard-loss drill: ``FaultSpec("sharded_fold", "mesh_loss",
+   at=1, shard=2)`` on tenant ``a``'s second fold: exactly 7 healthy
+   positions, lacking the one ``a``'s lease mapped shard 2 to, one fleet
+   shard loss counted, a re-pack, later leases avoiding the dead position,
+   every session equal to the ``fleet=False`` run; (d) an explicit
+   ``mesh=make_mesh(8)``: no fleet, one config-2 verify equal to phase 9
+   (c)'s metrics, two sessions' folds on the serial path over the mesh
+   (no coalesced width counted), each equal to its one-card session.
+   ``mesh_substrate()`` and the lease table print first.
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
@@ -2955,7 +2985,7 @@ def drill(label: str):
 
 def print_phase_seconds(total: float) -> None:
     """The ``[seconds] phase N`` lines of every phase and the total."""
-    for n in range(1, 16):
+    for n in range(1, 17):
         print(f"[seconds] phase {n}: {PHASE_SECONDS.get(n, 0.0):.1f}s", flush=True)
     print(f"[seconds] total: {total:.1f}s", flush=True)
 
@@ -3824,7 +3854,8 @@ def mesh_runs(torch, dq, table: pa.Table, host_metrics: dict, host_statuses: lis
     cut (the gather route) against the unsharded host tier and its CPU
     run; (e) a shard lost at the second chunk fold of a host-tier run:
     the counters and the fault-free metrics. Every run of (b)-(d) must
-    lose no shard and keep its mesh. Returns (b)'s launches."""
+    lose no shard and keep its mesh. Returns (b)'s launches and (c)'s
+    metrics (the quantile left out)."""
     from deequ_tpu_torch.reliability import FaultSpec, inject
 
     quantile = dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR)
@@ -3869,6 +3900,7 @@ def mesh_runs(torch, dq, table: pa.Table, host_metrics: dict, host_statuses: lis
     problems += [f"(c) against phase 3: {p}" for p in compare_metrics(
         {k: v for k, v in gpu.items() if k in device_metrics}, device_metrics)]
     problems += [f"(c) oracle: {p}" for p in compare_oracle(gpu, truth)]
+    device_metrics_c = _without(gpu, qkey)
     device_error = _quantile_error(table, gpu[qkey])
     if device_error > 2 * KLL_RELATIVE_ERROR:
         problems.append(f"(c) ApproxQuantile rank error {device_error}")
@@ -3932,7 +3964,7 @@ def mesh_runs(torch, dq, table: pa.Table, host_metrics: dict, host_statuses: lis
           f"run; (d) the gather route the unsharded run and its CPU run; (e) the fault-free "
           f"run; quantile rank errors (b) {worst:.6f} (limit {HOST_KLL_RANK_LIMIT}), (c) "
           f"{device_error:.6f} (limit {2 * KLL_RELATIVE_ERROR:.6f})", flush=True)
-    return launches
+    return launches, device_metrics_c
 
 
 def _spawn_world(world: int, store: str, job: dict, workdir: str) -> list:
@@ -6429,6 +6461,393 @@ def cluster_plane(torch, dq, device: str = "cuda") -> None:
         cluster_drill(torch, device)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the fleet scheduler and the service's mesh route (ROADMAP A5b)
+# ---------------------------------------------------------------------------
+
+#: shards of the card in the fleet's device table (``fleet_devices=``)
+FLEET_SHARDS = 8
+#: (b): tenants x sessions x micro-batches x rows
+FLEET_TENANTS = 2
+FLEET_SESSIONS = 4
+FLEET_BATCHES = 4
+FLEET_ROWS = 1 << 18
+FLEET_SEED = 29
+#: (a): the partitions of the fleet's ``verify_partitioned``
+FLEET_PARTITION_ROWS = 1_000_000
+FLEET_WAIT_S = 300
+#: launches each part must show
+FLEET_DEVICE_KERNELS = ("scan_reduce_stacked", "hll_registers_stacked", "dict_code_counts",
+                        "state_fold")
+FLEET_HOST_KERNELS = ("state_fold_carry_stacked", "state_fold_butterfly")
+FLEET_STREAM_KERNELS = ("state_fold_carry_stacked", "state_fold_butterfly", "state_fold")
+
+
+def fleet_stream_check(dq):
+    """The reference's exact fleet battery (Size, Completeness, Minimum,
+    Maximum, Sum: ``tests/test_fleet.py``) with Mean, StandardDeviation
+    and ApproxCountDistinct."""
+    def yes(_):
+        return True
+
+    return (dq.Check(dq.CheckLevel.ERROR, "fleet stream")
+            .has_size(lambda n: n > 0).is_complete("x")
+            .has_min("x", yes).has_max("x", yes).has_sum("x", yes)
+            .has_mean("x", yes).has_standard_deviation("x", yes)
+            .has_approx_count_distinct("x", yes))
+
+
+def fleet_batch(tenant: int, session: int, batch: int, rows: int = FLEET_ROWS) -> pa.Table:
+    """One micro-batch of integer-valued float64 (sums stay exact: below
+    2^53 at every fold boundary)."""
+    rng = np.random.default_rng([FLEET_SEED, tenant, session, batch])
+    return pa.table({"x": rng.integers(0, 1_000_000, rows).astype(np.float64)})
+
+
+def _job_tier(handle) -> str:
+    """The tier a job's pass ran on, from its monitor's phases."""
+    phases = handle.phase_seconds
+    if "ingest_fold" in phases:
+        return "host"
+    return "device" if "kernels" in phases else "none"
+
+
+def _fleet_streams(torch, dq, svc, sessions: list, batches: int = FLEET_BATCHES) -> tuple:
+    """Ingest ``batches`` micro-batches into each ``(tenant index, session
+    index)`` of ``sessions`` on ``svc``, the sessions concurrently and each
+    one's folds in order (each waited for). Returns the sessions' metrics
+    and the seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    handles = {key: svc.session(f"t{key[0]}", f"s{key[1]}", [fleet_stream_check(dq)])
+               for key in sessions}
+
+    def drive(key):
+        for b in range(batches):
+            handles[key].ingest(fleet_batch(key[0], key[1], b), timeout=FLEET_WAIT_S)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(sessions)) as pool:
+        for f in [pool.submit(drive, k) for k in sessions]:
+            f.result()
+    seconds = time.perf_counter() - t0
+    return {key: metric_values(h.current()) for key, h in handles.items()}, seconds
+
+
+def _fleet_verify(torch, svc, data, check, required, tenant: str, label: str, rows: int,
+                  kernels=()) -> tuple:
+    """One verification job of ``tenant`` on ``svc``, launch counts set to
+    0 just before; returns its metrics, its tier and its launches."""
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    handle = svc.submit_verification(data, [check], required_analyzers=required, tenant=tenant)
+    result = handle.result(FLEET_WAIT_S)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    tier = _job_tier(handle)
+    print(f"[fleet {label}] {rows} rows in {seconds:.3f}s = {rows / seconds:.0f} rows/s; tier "
+          f"{tier}; positions {svc.fleet.devices_of(tenant) if svc.fleet else None}; "
+          f"launches={launches}", flush=True)
+    _launched(f"fleet {label}", launches, kernels)
+    return metric_values(result), tier, launches
+
+
+def fleet_batch_jobs(torch, dq, table: pa.Table, data, check, phase3: dict,
+                     device: str = "cuda") -> None:
+    """Phase 16 (a): batch jobs on disjoint sub-meshes, the cold job on the
+    host tier, ``verify_partitioned`` under the fleet."""
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.parallel import make_mesh
+    from deequ_tpu_torch.repository import PartitionStateStore
+    from deequ_tpu_torch.runners.analysis_runner import collect_required_analyzers
+    from deequ_tpu_torch.runners.engine import warm_fused_program
+    from deequ_tpu_torch.service import VerificationService
+
+    rows = table.num_rows
+    required = [dq.CountDistinct("cat_large")]
+    problems = []
+    t0 = time.perf_counter()
+    table_b = build_table(rows, FLEET_SEED + 1)
+    data_b = dq.Dataset.from_arrow(table_b)
+    print(f"[fleet (a) data] the second table, {rows} rows, in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    # the battery warm at both widths the packing hands out here, so every
+    # job below but the cold one runs on the device tier
+    analyzers = collect_required_analyzers([check], required)
+    for width in (FLEET_SHARDS, FLEET_SHARDS // 2):
+        warm_fused_program(analyzers, data, batch_size=BATCH_ROWS, device=device,
+                           mesh=make_mesh(width, device=device))
+    with VerificationService(workers=4, background_warm=False, device=device, fleet=True,
+                             fleet_devices=FLEET_SHARDS) as svc:
+        fleet = svc.fleet
+        a8, tier, launches = _fleet_verify(torch, svc, data, check, required, "a",
+                                           "(a) tenant a alone", rows, FLEET_DEVICE_KERNELS)
+        if fleet.devices_of("a") != tuple(range(FLEET_SHARDS)) or tier != "device":
+            problems.append(f"a alone: positions {fleet.devices_of('a')}, tier {tier}")
+        fleet.evict_idle()
+        b8, tier, _ = _fleet_verify(torch, svc, data_b, check, required, "b",
+                                    "(a) tenant b alone", rows, FLEET_DEVICE_KERNELS)
+        if fleet.devices_of("b") != tuple(range(FLEET_SHARDS)) or tier != "device":
+            problems.append(f"b alone: positions {fleet.devices_of('b')}, tier {tier}")
+        fleet.evict_idle()
+        # both tenants join the packing before their jobs run, so neither
+        # job runs on a lease cut before the other arrived
+        for tenant in ("a", "b"):
+            fleet.acquire(tenant)
+            fleet.release(tenant)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        handles = [svc.submit_verification(d, [check], required_analyzers=required, tenant=t)
+                   for t, d in (("a", data), ("b", data_b))]
+        results = [h.result(FLEET_WAIT_S) for h in handles]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        packed = {k: v for k, v in launch_counts().items() if v}
+        pos_a, pos_b = fleet.devices_of("a"), fleet.devices_of("b")
+        tiers = [_job_tier(h) for h in handles]
+        print(f"[fleet (a) packed] a and b at once, {2 * rows} rows in {seconds:.3f}s = "
+              f"{2 * rows / seconds:.0f} rows/s; a on positions {pos_a}, b on {pos_b}; tiers "
+              f"{tiers}; launches={packed}", flush=True)
+        print(f"[fleet lease table] {fleet.snapshot()}", flush=True)
+        _launched("fleet (a) packed", packed, FLEET_DEVICE_KERNELS)
+        if len(pos_a) != 4 or len(pos_b) != 4 or set(pos_a) & set(pos_b):
+            problems.append(f"packed positions a {pos_a}, b {pos_b}")
+        if tiers != ["device", "device"]:
+            problems.append(f"packed tiers {tiers}")
+        a4, b4 = metric_values(results[0]), metric_values(results[1])
+        for label, got, want in (("a alone", a8, phase3), ("a packed", a4, phase3),
+                                 ("b packed", b4, b8)):
+            problems += [f"{label}: {p}" for p in compare_metrics(got, want)]
+        problems += [f"a oracle: {p}" for p in compare_oracle(a4, oracle(table))]
+        problems += [f"b oracle: {p}" for p in compare_oracle(b4, oracle(table_b))]
+        # a third tenant re-packs the table into 2-shard slices: its width
+        # is cold, so its job runs on the host tier over its slice
+        c2, tier, _ = _fleet_verify(torch, svc, data, check, required, "c",
+                                    "(a) cold tenant c", rows, FLEET_HOST_KERNELS)
+        if tier != "host" or len(fleet.devices_of("c")) != 2:
+            problems.append(f"cold c: tier {tier}, positions {fleet.devices_of('c')}")
+        problems += [f"cold c: {p}" for p in compare_metrics(c2, phase3)]
+        # incremental verification under the fleet
+        root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+        try:
+            parts = {f"p{i}": build_scan_data(FLEET_PARTITION_ROWS, INCREMENTAL_SEED + 10 + i)
+                     for i in range(2)}
+            battery = [dq.Size(), dq.Completeness("x0"), dq.Mean("x0"), dq.Mean("x1"),
+                       dq.ApproxCountDistinct("cat")]
+            leases = svc.metrics.counter_value("deequ_service_fleet_leases_total")
+            t0 = time.perf_counter()
+            got = svc.verify_partitioned(
+                "fleet-parts", {n: dq.Dataset.from_arrow(t) for n, t in parts.items()},
+                [partitioned_check(dq)], required_analyzers=battery, tenant="a",
+                store=PartitionStateStore(os.path.join(root, "fleet")), timeout=FLEET_WAIT_S)
+            seconds = time.perf_counter() - t0
+            leases = svc.metrics.counter_value("deequ_service_fleet_leases_total") - leases
+            want = dq.VerificationSuite.verify_partitioned(
+                PartitionStateStore(os.path.join(root, "card")), "fleet-parts",
+                {n: dq.Dataset.from_arrow(t) for n, t in parts.items()},
+                [partitioned_check(dq)], battery, device=device)
+            print(f"[fleet (a) partitions] 2 x {FLEET_PARTITION_ROWS} rows in {seconds:.3f}s "
+                  f"under the fleet ({leases:.0f} leases), status {got.status.value}", flush=True)
+            if leases < 1:
+                problems.append("verify_partitioned took no fleet lease")
+            problems += [f"partitions: {p}" for p in compare_metrics(
+                metric_values(got), metric_values(want))]
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    if problems:
+        raise AssertionError("phase 16 (a) disagrees:\n" + "\n".join(problems[:40]))
+
+
+def fleet_stream_folds(torch, dq, device: str = "cuda") -> dict:
+    """Phase 16 (b): fleet stream folds against the same sessions on a
+    ``fleet=False`` service. Returns the one-card sessions' metrics."""
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.service import VerificationService
+
+    sessions = [(t, s) for t in range(FLEET_TENANTS) for s in range(FLEET_SESSIONS)]
+    n_rows = len(sessions) * FLEET_BATCHES * FLEET_ROWS
+    with VerificationService(workers=8, background_warm=False, device=device,
+                             fleet=False) as svc:
+        single, seconds = _fleet_streams(torch, dq, svc, sessions)
+    print(f"[fleet (b) one card] {len(sessions)} sessions x {FLEET_BATCHES} x {FLEET_ROWS} rows "
+          f"in {seconds:.3f}s = {len(sessions) / seconds:.2f} sessions/s, "
+          f"{n_rows / seconds:.0f} rows/s", flush=True)
+    with VerificationService(workers=8, background_warm=False, device=device, fleet=True,
+                             fleet_devices=FLEET_SHARDS) as svc:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got, seconds = _fleet_streams(torch, dq, svc, sessions)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        folds = svc.metrics.counter_value("deequ_service_fleet_stream_folds_total")
+        snap = svc.fleet.snapshot()
+    print(f"[fleet (b) fleet] {len(sessions)} sessions x {FLEET_BATCHES} x {FLEET_ROWS} rows in "
+          f"{seconds:.3f}s = {len(sessions) / seconds:.2f} sessions/s, {n_rows / seconds:.0f} "
+          f"rows/s; fleet stream folds {folds:.0f}; assignment {snap['assignment']}; "
+          f"launches={launches}", flush=True)
+    _launched("fleet (b)", launches, FLEET_STREAM_KERNELS)
+    problems = []
+    if folds != len(sessions) * FLEET_BATCHES:
+        problems.append(f"{folds} fleet stream folds, not {len(sessions) * FLEET_BATCHES}")
+    for key in sessions:
+        problems += [f"session {key}: {p}" for p in compare_metrics(got[key], single[key])]
+    if problems:
+        raise AssertionError("phase 16 (b) disagrees:\n" + "\n".join(problems[:40]))
+    return single
+
+
+def fleet_loss_drill(torch, dq, single: dict, device: str = "cuda") -> None:
+    """Phase 16 (c): a shard of tenant a's 4-shard lease lost at a's second
+    fold; one session a tenant, folds in order."""
+    from deequ_tpu_torch.reliability import FaultSpec, inject
+    from deequ_tpu_torch.service import VerificationService
+
+    sessions = [(t, 0) for t in range(FLEET_TENANTS)]
+    with drill("fleet (c)"), VerificationService(
+            workers=4, background_warm=False, device=device, fleet=True,
+            fleet_devices=FLEET_SHARDS) as svc:
+        fleet = svc.fleet
+        for key in sessions:
+            fleet.acquire(f"t{key[0]}")
+            fleet.release(f"t{key[0]}")
+        lease_a = fleet.devices_of("t0")
+        dead = lease_a[2]
+        granted = []
+        acquire = fleet.acquire
+
+        def recording(tenant):
+            lease = acquire(tenant)
+            granted.append((tenant, lease.positions))
+            return lease
+
+        fleet.acquire = recording
+        handles = {key: svc.session(f"t{key[0]}", f"s{key[1]}", [fleet_stream_check(dq)])
+                   for key in sessions}
+        t0 = time.perf_counter()
+        for b in range(FLEET_BATCHES):
+            for key in sessions:
+                batch = fleet_batch(key[0], key[1], b)
+                if key == sessions[0] and b == 1:
+                    repacks = fleet.repacks
+                    with inject(FaultSpec("sharded_fold", "mesh_loss", at=1, shard=2)) as inj:
+                        handles[key].ingest(batch, timeout=FLEET_WAIT_S)
+                    mark = len(granted)
+                else:
+                    handles[key].ingest(batch, timeout=FLEET_WAIT_S)
+        seconds = time.perf_counter() - t0
+        got = {key: metric_values(h.current()) for key, h in handles.items()}
+        snap = fleet.snapshot()
+        losses = svc.metrics.counter_value("deequ_service_fleet_shard_losses_total")
+    after = granted[mark:]
+    print(f"[fleet (c)] a's lease {lease_a}, shard 2 = position {dead}; healthy after "
+          f"{snap['healthy']}; fleet shard losses {losses:.0f}; re-packs "
+          f"{snap['repacks'] - repacks}; assignment after {snap['assignment']}; leases after "
+          f"the loss {after}; {seconds:.3f}s", flush=True)
+    problems = []
+    if not inj.fired:
+        problems.append("the injected shard loss did not fire")
+    if snap["healthy"] != [p for p in range(FLEET_SHARDS) if p != dead]:
+        problems.append(f"healthy {snap['healthy']}, lost {dead}")
+    if losses != 1.0:
+        problems.append(f"{losses} fleet shard losses")
+    if snap["repacks"] <= repacks:
+        problems.append("no re-pack")
+    if not after or any(dead in positions for _, positions in after):
+        problems.append(f"the leases after the loss: {after}")
+    for key in sessions:
+        problems += [f"session {key}: {p}" for p in compare_metrics(got[key], single[key])]
+    if problems:
+        raise AssertionError("phase 16 (c) disagrees:\n" + "\n".join(problems))
+
+
+def fleet_explicit_mesh(torch, dq, data, check, mesh_metrics: dict, single: dict,
+                        device: str = "cuda") -> None:
+    """Phase 16 (d): ``VerificationService(mesh=make_mesh(8))``."""
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.parallel import make_mesh
+    from deequ_tpu_torch.runners.analysis_runner import collect_required_analyzers
+    from deequ_tpu_torch.runners.engine import warm_fused_program
+    from deequ_tpu_torch.service import VerificationService
+
+    required = [dq.CountDistinct("cat_large")]
+    mesh = make_mesh(FLEET_SHARDS, device=device)
+    warm_fused_program(collect_required_analyzers([check], required), data,
+                       batch_size=BATCH_ROWS, device=device, mesh=mesh)
+    problems = []
+    with VerificationService(workers=4, background_warm=False, device=device,
+                             mesh=mesh) as svc:
+        if svc.fleet is not None:
+            problems.append("an explicit mesh left a fleet on")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        handle = svc.submit_verification(data, [check], required_analyzers=required)
+        got = metric_values(handle.result(FLEET_WAIT_S))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        print(f"[fleet (d) mesh] {data.num_rows} rows in {seconds:.3f}s = "
+              f"{data.num_rows / seconds:.0f} rows/s; tier {_job_tier(handle)}; "
+              f"launches={launches}", flush=True)
+        _launched("fleet (d)", launches, FLEET_DEVICE_KERNELS)
+        if _job_tier(handle) != "device":
+            problems.append(f"the mesh verify ran on the {_job_tier(handle)} tier")
+        want = {k: v for k, v in mesh_metrics.items() if k in got}
+        problems += [f"verify: {p}" for p in compare_metrics(got, want)]
+        sessions = [(t, 0) for t in range(FLEET_TENANTS)]
+        widths = svc.metrics.counter_value("deequ_service_coalesce_width_total")
+        reset_launch_counts()
+        streams, seconds = _fleet_streams(torch, dq, svc, sessions)
+        launches = {k: v for k, v in launch_counts().items() if v}
+        moved = svc.metrics.counter_value("deequ_service_coalesce_width_total") - widths
+        print(f"[fleet (d) sessions] {len(sessions)} sessions x {FLEET_BATCHES} folds on the "
+              f"serial path over the mesh in {seconds:.3f}s; coalesce width moved by {moved}; "
+              f"launches={launches}", flush=True)
+        if moved:
+            problems.append(f"the coalesce width moved by {moved}")
+        for key in sessions:
+            problems += [f"session {key}: {p}" for p in compare_metrics(streams[key],
+                                                                        single[key])]
+    if problems:
+        raise AssertionError("phase 16 (d) disagrees:\n" + "\n".join(problems[:40]))
+
+
+def fleet_plane(torch, dq, table=None, data=None, check=None, phase3=None, mesh_metrics=None,
+                device: str = "cuda") -> None:
+    """Phase 16: the fleet scheduler and the service's mesh route, (a)-(d).
+    Alone (no table given) it builds phase 3's table and check and runs
+    phase 3's verification and phase 9 (c)'s mesh run for their metrics."""
+    from deequ_tpu_torch.parallel import make_mesh
+    from deequ_tpu_torch.service import mesh_substrate
+
+    if table is None:
+        table = build_table(ROWS, 0)
+        data = dq.Dataset.from_arrow(table)
+        check = build_check(dq, ROWS)
+        phase3 = metric_values(dq.VerificationSuite.on_data(data, device=device)
+                               .add_check(check)
+                               .add_required_analyzer(dq.CountDistinct("cat_large")).run())
+        quantile = dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR)
+        mesh_metrics = _without(metric_values(_mesh_run(dq, table, quantile, dq.RunMonitor(),
+                                                        device=device, placement="device")),
+                                metric_key(quantile))
+    print(f"[fleet substrate] {mesh_substrate(make_mesh(FLEET_SHARDS, device=device).devices)}; "
+          f"the visible cards: {mesh_substrate()}", flush=True)
+    with part_seconds("phase 16 (a)"):
+        fleet_batch_jobs(torch, dq, table, data, check, phase3, device)
+    with part_seconds("phase 16 (b)"):
+        single = fleet_stream_folds(torch, dq, device)
+    with part_seconds("phase 16 (c)"):
+        fleet_loss_drill(torch, dq, single, device)
+    with part_seconds("phase 16 (d)"):
+        fleet_explicit_mesh(torch, dq, data, check, mesh_metrics, single, device)
+
+
 def _nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6811,12 +7230,17 @@ def main(argv=None) -> int:
     with phase(9):
         mesh_battery = battery + [dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR)]
         mesh_measured = check_mesh_kernels(torch, dq, data, mesh_battery)
-        mesh_launches = mesh_runs(torch, dq, table, host_metrics, host_statuses, gpu_metrics)
+        mesh_launches, mesh_metrics = mesh_runs(torch, dq, table, host_metrics, host_statuses,
+                                                gpu_metrics)
     # phase 11 (c): a mesh checkpoint resumed on a smaller mesh and without one
     with phase(11), part_seconds("phase 11 (c)"):
         resumable_mesh(torch, dq, table)
     with phase(9):
         cross_process(torch, dq, data, mesh_battery)
+    # phase 16: the fleet scheduler and the service's mesh route, while
+    # phase 3's table is in memory
+    with phase(16):
+        fleet_plane(torch, dq, table, data, check, gpu_metrics, mesh_metrics)
     del table, data
 
     with phase(4):

@@ -53,15 +53,33 @@ ROW_AXIS = "rows"
 class Mesh:
     """A 1-D mesh over the row axis: one device per shard, in shard order.
     Devices may repeat (shards of one card); the mesh's states live on its
-    first device, :attr:`home`."""
+    first device, :attr:`home`.
 
-    def __init__(self, devices: Sequence[DeviceLike]):
+    A fleet scheduler's sub-mesh also knows where its shards sit in the
+    fleet's device table: ``fleet_positions`` (one table position per
+    shard) and ``fleet_token`` (what identifies that fleet), so a shard
+    loss reports positions, which devices cannot name when shards share a
+    card. Both are None on any other mesh."""
+
+    def __init__(self, devices: Sequence[DeviceLike],
+                 fleet_positions: Optional[Sequence[int]] = None, fleet_token: Any = None):
         self.devices: Tuple[torch.device, ...] = tuple(torch.device(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
         for d in self.devices:
             if d.type not in ("cuda", "cpu"):
                 raise ValueError(f"unsupported mesh device {d}")
+        if fleet_positions is not None and len(fleet_positions) != len(self.devices):
+            raise ValueError("a mesh needs one fleet position per shard")
+        self.fleet_positions = None if fleet_positions is None else tuple(fleet_positions)
+        self.fleet_token = fleet_token
+
+    def sub_mesh(self, keep: Sequence[int]) -> "Mesh":
+        """The mesh of the shards at positions ``keep`` (in that order),
+        their fleet positions carried along."""
+        return Mesh([self.devices[i] for i in keep],
+                    None if self.fleet_positions is None
+                    else [self.fleet_positions[i] for i in keep], self.fleet_token)
 
     @property
     def size(self) -> int:

@@ -176,10 +176,32 @@ def salvage_stacked_states(analyzers: Sequence[Any], stacked: Tuple, lost: Seque
     return shard_states, salvaged
 
 
-#: subscribers told which devices a salvage declared lost (a fleet
-#: scheduler would re-pack tenants off them); advisory: a raising listener
-#: is logged and never breaks the recovery
+#: subscribers told which shards a salvage declared lost (the fleet
+#: scheduler re-packs tenants off them); advisory: a raising listener is
+#: logged and never breaks the recovery
 _SHARD_LOSS_LISTENERS: List[Any] = []
+
+
+class LostShards(list):
+    """What a shard-loss listener hears: the lost shards' devices (a list,
+    as the reference's listeners hear them) and, for a fleet's sub-mesh,
+    their positions in that fleet's device table (``fleet_positions``,
+    with the fleet's ``fleet_token``; both None for any other mesh)."""
+
+    def __init__(self, devices: Sequence, fleet_positions: Optional[Sequence[int]] = None,
+                 fleet_token: Any = None):
+        super().__init__(devices)
+        self.fleet_positions = None if fleet_positions is None else list(fleet_positions)
+        self.fleet_token = fleet_token
+
+
+def _lost_shards(mesh, lost: Sequence[int]) -> LostShards:
+    """The report of the shards at mesh positions ``lost``."""
+    lost = [i for i in lost if 0 <= i < mesh.size]
+    positions = mesh.fleet_positions
+    return LostShards([mesh.devices[i] for i in lost],
+                      None if positions is None else [positions[i] for i in lost],
+                      mesh.fleet_token)
 
 
 def add_shard_loss_listener(fn) -> None:
@@ -194,10 +216,10 @@ def remove_shard_loss_listener(fn) -> None:
         pass
 
 
-def _notify_shard_loss(devices: Sequence) -> None:
+def _notify_shard_loss(lost: LostShards) -> None:
     for fn in list(_SHARD_LOSS_LISTENERS):
         try:
-            fn(devices)
+            fn(lost)
         except Exception:  # noqa: BLE001 - listeners are advisory
             _logger.warning("shard-loss listener failed", exc_info=True)
 
@@ -329,20 +351,19 @@ class ElasticMeshFold:
         host mode), queue the lost shards' batches for replay."""
         from ..observability import trace as _trace
         from ..observability.recorder import record_failure
-        from . import Mesh
-
         lost = sorted(set(exc.lost)) or [0]
         devices = list(self.mesh.devices)
         old_n = len(devices)
         record_failure(exc)
-        _notify_shard_loss([devices[i] for i in lost if 0 <= i < old_n])
+        _notify_shard_loss(_lost_shards(self.mesh, lost))
         _trace.add_event("shard_loss", site=getattr(exc, "site", ""), lost=lost,
                          mesh_devices=old_n, error=f"{type(exc).__name__}: {str(exc)[:200]}")
         if self.monitor is not None:
             self.monitor.bump("shard_losses", len(lost))
         _logger.warning("mesh shard loss (%d of %d shards: %s); salvaging the surviving "
                         "states and re-sharding", len(lost), old_n, lost)
-        survivors = [d for i, d in enumerate(devices) if i not in set(lost)]
+        alive = [i for i in range(old_n) if i not in set(lost)]
+        survivors = [devices[i] for i in alive]
         rung = next_rung(self.ladder, len(survivors))
         if rung is None and _one_card(devices):
             # every shard lay on this card: host mode would move the rest
@@ -385,7 +406,7 @@ class ElasticMeshFold:
                             "continues on the host with the salvaged canonical states",
                             len(survivors), self.ladder)
             return
-        self.mesh = Mesh(survivors[:rung])
+        self.mesh = self.mesh.sub_mesh(alive[:rung])
         self.states = stack_canonical_states(self.analyzers, canonical, rung, self.mesh.home)
         self._owned = [set() for _ in range(rung)]
         self._owned[0] = kept

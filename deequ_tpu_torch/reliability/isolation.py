@@ -510,9 +510,11 @@ def _degraded_mesh(mesh, exc):
 
     devices = list(mesh.devices)
     survivors = getattr(exc, "survivors", None)
+    alive = None
     if survivors is None:
         lost = set(getattr(exc, "lost", ()) or (0,))
-        survivors = [d for i, d in enumerate(devices) if i not in lost]
+        alive = [i for i in range(len(devices)) if i not in lost]
+        survivors = [devices[i] for i in alive]
     if not survivors:
         return None
     rung = next_rung(
@@ -520,6 +522,10 @@ def _degraded_mesh(mesh, exc):
     )
     if rung is None:
         return None
+    if alive is not None:
+        # the survivors by position: a fleet sub-mesh keeps its shards'
+        # table positions
+        return mesh.sub_mesh(alive[:rung])
     return make_mesh(devices=survivors[:rung])
 
 

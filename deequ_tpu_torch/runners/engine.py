@@ -193,6 +193,9 @@ class RunMonitor:
     partitions_dropped: int = 0
     partitions_rolled_up: int = 0
     corrupt_quarantined: int = 0
+    #: streaming folds sharded over a fleet sub-mesh
+    #: (``service.coalesce``'s mesh fold)
+    fleet_mesh_folds: int = 0
     _lock: Any = field(default_factory=threading.Lock, repr=False, compare=False)
 
     #: the counters :meth:`merge_from` adds up
@@ -203,7 +206,7 @@ class RunMonitor:
         "device_stalls", "shard_losses", "mesh_reshards", "salvaged_states",
         "checkpoint_saves", "partitions_scanned", "partitions_reused",
         "partitions_invalidated", "partitions_dropped", "partitions_rolled_up",
-        "corrupt_quarantined",
+        "corrupt_quarantined", "fleet_mesh_folds",
     )
 
     def add_phase_time(self, phase: str, seconds: float) -> None:
@@ -300,13 +303,14 @@ class BundledScanProgram:
     signatures) stack position by position into one coalesced launch
     (:func:`fold_sessions_coalesced`); equal per-analyzer signatures alone
     do not suffice, since slots deduplicate (Mean("a") and Sum("a") share
-    one, Mean("a") and Sum("b") do not). ``executed`` turns True once the
-    battery has launched in this process (:meth:`mark_executed`): the
-    service's warmth."""
+    one, Mean("a") and Sum("b") do not). ``executed_widths`` holds the mesh
+    widths (1: no mesh) at which the battery has launched in this process
+    (:meth:`mark_executed`): the service's warmth."""
 
     def __init__(self, analyzers: Sequence[ScanShareableAnalyzer]):
         self.analyzers = tuple(analyzers)
-        self.executed = False
+        #: the mesh widths (1: no mesh) at which the battery has launched
+        self.executed_widths: set = set()
         slot_index: Dict[SlotSpec, int] = {}
         #: per analyzer: its slot's index, or None for a kernel of its own
         self.slot_of: List[Optional[int]] = []
@@ -340,18 +344,22 @@ class BundledScanProgram:
     def init_states(self, device) -> List[Any]:
         return [a.init_state(device) for a in self.analyzers]
 
-    def mark_executed(self) -> None:
-        """The battery launched: warm from now on, under its own key and
-        under the battery a user's checks name, which lacks the frequency
-        scans the runner adds for grouping sets at run time (the router's
-        warmth key, :func:`fused_program_is_cached`)."""
-        if not self.executed:
-            self.executed = True
-            from ..analyzers.grouping import DeviceFrequencyScan, DeviceFrequencyTableScan
+    def mark_executed(self, width: int = 1) -> None:
+        """The battery launched, on one device (``width`` 1) or sharded over
+        a mesh of ``width`` shards (:meth:`call_sharded`): warm from now on
+        at that width, under its own key and under the battery a user's
+        checks name, which lacks the frequency scans the runner adds for
+        grouping sets at run time (the router's warmth key,
+        :func:`fused_program_is_cached`). A launch at one width says
+        nothing of another: the sharded path runs other kernel entries."""
+        if width in self.executed_widths:
+            return
+        self.executed_widths.add(width)
+        from ..analyzers.grouping import DeviceFrequencyScan, DeviceFrequencyTableScan
 
-            named = tuple(a for a in self.analyzers
-                          if not isinstance(a, (DeviceFrequencyScan, DeviceFrequencyTableScan)))
-            _WARM_BATTERIES[named] = True
+        named = tuple(a for a in self.analyzers
+                      if not isinstance(a, (DeviceFrequencyScan, DeviceFrequencyTableScan)))
+        _WARM_BATTERIES[named if width == 1 else (named, ("__mesh__", width))] = True
 
     def __call__(self, states: Sequence[Any], features: Dict[str, torch.Tensor]) -> List[Any]:
         rows = features["rows"]
@@ -933,7 +941,7 @@ class ScanEngine:
                         wait_kernels(self.device)
                     self._attribute(timer.seconds)
                     monitor.bump("device_updates")
-                    self.program.mark_executed()
+                    self.program.mark_executed(1 if self.mesh is None else self.mesh.size)
                 if host_states:
                     with monitor.timed("host_accumulators"):
                         for key, fn in host_update_fns.items():
@@ -1296,7 +1304,7 @@ class _PassCheckpoint:
 # ---------------------------------------------------------------------------
 
 #: battery -> its BundledScanProgram (analyzers are frozen dataclasses, so
-#: equal batteries share one program and its ``executed`` warmth flag);
+#: equal batteries share one program and its ``executed_widths`` warmth);
 #: LRU-bounded so a service cycling through many batteries does not grow
 _PROGRAM_CACHE = BoundedLRU(256)
 _PROGRAM_CACHE_LOCK = threading.Lock()
@@ -1347,14 +1355,35 @@ def _scan_signature(a: ScanShareableAnalyzer) -> Tuple:
     return sig
 
 
-def fused_program_is_cached(analyzers: Sequence[ScanShareableAnalyzer]) -> bool:
+def mesh_width(mesh) -> int:
+    """The shard count of a mesh-like value: a
+    :class:`~deequ_tpu_torch.parallel.Mesh`, a fleet
+    :class:`~deequ_tpu_torch.service.fleet.SubMeshLease`, an int, or None
+    (1)."""
+    if mesh is None:
+        return 1
+    if isinstance(mesh, int):
+        return mesh
+    n = getattr(mesh, "n_dev", None)
+    if n is not None:
+        return int(n)
+    return int(getattr(mesh, "size", 1))
+
+
+def fused_program_is_cached(analyzers: Sequence[ScanShareableAnalyzer], mesh=None) -> bool:
     """Whether this battery's program, or a program of it with the
     frequency scans a run added for its grouping sets, has launched in
     this process (its kernels are then built and loaded): the service's
-    warmth."""
+    warmth. Over a ``mesh`` of more than one shard (a mesh, a lease or a
+    shard count), only a launch of the sharded path at that width counts
+    (the reference keys its programs by the mesh's devices,
+    deequ_tpu/runners/engine.py:919)."""
     battery = _deduped_battery(analyzers)
+    width = mesh_width(mesh)
     program = _PROGRAM_CACHE.get(battery)
-    return (program is not None and program.executed) or bool(_WARM_BATTERIES.get(battery))
+    key = battery if width == 1 else (battery, ("__mesh__", width))
+    return (program is not None and width in program.executed_widths) or bool(
+        _WARM_BATTERIES.get(key))
 
 
 def detached_warm_sample(data: Dataset) -> Dataset:
@@ -1377,11 +1406,13 @@ def warm_fused_program(
     data: Dataset,
     batch_size: Optional[int] = None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> None:
     """Make a battery warm ahead of its first production run: run the real
-    device-tier pipeline over the first row of ``data`` on ``device``,
-    building the kernels (``nvcc`` compiles them at first use) and
-    launching each once."""
+    device-tier pipeline over the first row of ``data`` on ``device`` (or
+    sharded over ``mesh``, whose width it then warms), building the
+    kernels (``nvcc`` compiles them at first use) and launching each
+    once."""
     from .analysis_runner import AnalysisRunner
 
     sample = Dataset(data.arrow.slice(0, 1), probe_encoding=False)
@@ -1389,7 +1420,7 @@ def warm_fused_program(
     try:
         AnalysisRunner.do_analysis_run(
             sample, list(analyzers), batch_size=batch_size or DEFAULT_BATCH_SIZE,
-            placement="device", device=device,
+            placement="device", device=device, sharding=mesh,
         )
     finally:
         _WARM_RUN.active = False

@@ -16,6 +16,11 @@ One :class:`VerificationService` hosts:
 - **cache-aware placement** (`placement.PlacementRouter`): batteries whose
   kernels are warm run on the device tier, cold ones on the host tier while
   their kernels build in the background;
+- a **fleet scheduler** (`fleet.FleetScheduler`): over a device table of
+  more than one card, every tenant's scans and large streaming folds shard
+  across that tenant's DISJOINT slice of the table, with elastic
+  re-packing over the survivors when a shard dies (``DEEQU_TPU_FLEET=0``
+  restores one-device routing byte for byte);
 - an **export plane** (`metrics.ServiceMetrics` / `MetricsExporter`):
   Prometheus text and JSON snapshots fed from each run's RunMonitor, the
   unified ``/statusz`` ops snapshot (`statusz`) and the Arrow IPC ingest
@@ -55,8 +60,16 @@ boots with the service: it applies this substrate's calibration profile,
 reseeds the crossover router and runs the online controller off the
 scheduler's harvest tick (``DEEQU_TPU_AUTOTUNE=0`` turns it off).
 
-Not ported: the mesh and the fleet scheduler (ROADMAP A5b), which raise
-naming their item.
+Meshes: ``mesh=`` (a :class:`~deequ_tpu_torch.parallel.Mesh`) shards every
+job of the service over that one mesh and turns both the fleet and fold
+coalescing off. ``fleet=`` (None: the default policy of
+:func:`fleet.fleet_enabled`) runs the fleet scheduler over the table
+``fleet_devices=`` names (:func:`fleet.fleet_table`: None for every
+visible card, an int n for n shards of the service's device, as
+``make_mesh(n, device=...)`` places them, or a sequence of devices). An int
+is the port's form of the reference's virtual devices
+(``--xla_force_host_platform_device_count``): ``fleet_devices=8`` on one
+card packs tenants onto disjoint slices of 8 shards of it.
 """
 
 from __future__ import annotations
@@ -82,6 +95,13 @@ from .errors import (
     SessionClosed,
     TransientFailure,
 )
+from .fleet import (
+    FLEET_ENV,
+    FleetScheduler,
+    SubMeshLease,
+    fleet_enabled,
+    mesh_substrate,
+)
 from .fleetwatch import (
     FLEETWATCH_ENV,
     FleetWatch,
@@ -102,6 +122,8 @@ __all__ = [
     "PlacementRouter", "battery_signature", "shape_qualified_signature",
     "ServiceMetrics", "MetricsExporter",
     "FoldCoalescer", "CrossoverRouter",
+    "FleetScheduler", "SubMeshLease", "fleet_enabled", "mesh_substrate",
+    "FLEET_ENV",
     "FleetWatch", "HarvestReport", "WatchSpec", "fleetwatch_enabled",
     "FLEETWATCH_ENV",
     "ServiceError", "ServiceOverloaded", "JobTimeout", "JobFailed",
@@ -110,12 +132,6 @@ __all__ = [
     "TenantCatalog", "TenantDocument", "CatalogPlane", "CatalogError",
     "TenantQuota", "QuotaExceeded",
 ]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not part of deequ_tpu_torch's service yet (ROADMAP {item})"
-    )
 
 
 class VerificationService:
@@ -134,23 +150,40 @@ class VerificationService:
         fleet: Optional[bool] = None,
         partition_store=None,
         catalog=None,
+        fleet_devices=None,
     ):
-        if mesh is not None:
-            raise _not_ported("a device mesh", "A5b")
-        if fleet:
-            raise _not_ported("the fleet scheduler", "A5b")
         #: every run and fold of this service goes to this device
         self.device = resolve_device(device)
+        if mesh is not None and mesh.home.type != self.device.type:
+            raise ValueError(f"the mesh {mesh} does not lie on the service's device "
+                             f"{self.device}")
         self.metrics = metrics or ServiceMetrics()
         self.router = PlacementRouter(
-            self.metrics, device=self.device, background_warm=background_warm
+            self.metrics, device=self.device, background_warm=background_warm, mesh=mesh,
         )
+        # fleet scheduling: with no EXPLICIT mesh and a table of more than
+        # one card (or DEEQU_TPU_FLEET=1 / fleet=True forcing it on a table
+        # of shards of one device), every tenant's scans shard across its
+        # own disjoint slice. fleet=False (or DEEQU_TPU_FLEET=0) restores
+        # one-device routing byte for byte; an explicit mesh= keeps the
+        # one-global-mesh behavior
+        from .fleet import FleetScheduler, fleet_enabled, fleet_table
+
+        #: the fleet scheduler, or None (one-device routing or ``mesh=``)
+        self.fleet = None
+        if mesh is None:
+            table = fleet_table(fleet_devices, self.device)
+            if fleet if fleet is not None else fleet_enabled(table):
+                self.fleet = FleetScheduler(self.metrics, devices=table)
         self.scheduler = JobScheduler(
             workers=workers,
             max_queue_depth=max_queue_depth,
             metrics=self.metrics,
             router=self.router,
+            fleet=self.fleet,
         )
+        #: the service's explicit mesh: every job shards over it
+        self.mesh = mesh
         self.state_root = state_root
         # the store incremental verification diffs against; sessions flush
         # into it on close
@@ -218,10 +251,8 @@ class VerificationService:
     def _register_statusz_planes(self) -> None:
         """Register the six REQUIRED_PLANES sections of the /statusz
         document (the reference's, deequ_tpu/service/__init__.py:226-325)
-        against this service's live planes, plus one section each for the
-        mesh and the fleet scheduler, which say that they are not ported.
-        Sections read through to the planes at snapshot time — never
-        cached."""
+        against this service's live planes. Sections read through to the
+        planes at snapshot time — never cached."""
 
         def scheduler_section():
             return {
@@ -298,10 +329,6 @@ class VerificationService:
             )
             return section
 
-        def not_ported(what: str, item: str):
-            return lambda: {"attached": False, "ported": False,
-                            "detail": f"{what} is not ported (ROADMAP {item})"}
-
         self.statusz.register("scheduler", scheduler_section)
         self.statusz.register("tuning", tuning_section)
         # detached until a cluster.LocalWorker wraps this service and
@@ -310,8 +337,6 @@ class VerificationService:
         self.statusz.register("catalog", catalog_section)
         self.statusz.register("fleetwatch", self.fleetwatch.statusz_section)
         self.statusz.register("partition_store", partition_store_section)
-        self.statusz.register("mesh", not_ported("the service's device mesh", "A5b"))
-        self.statusz.register("fleet", not_ported("the fleet scheduler", "A5b"))
 
     # -- one-shot jobs -------------------------------------------------------
 
@@ -356,9 +381,17 @@ class VerificationService:
                 batch_size=effective_bs,
                 monitor=ctx.monitor,
                 device=self.device,
+                # the tenant's leased sub-mesh under the fleet, else the
+                # explicit service mesh, else one device (the escape hatch)
+                sharding=ctx.mesh if ctx.mesh is not None else self.mesh,
                 placement=ctx.placement,
             )
 
+        # warmth is claimed per mesh width too: under the fleet the slice
+        # this tenant is expected to get qualifies the key (and the warm
+        # runs over that slice), so a re-packed tenant reads cold at its
+        # new width
+        warm_mesh = self.fleet.peek(tenant) if self.fleet is not None else self.mesh
         return self.scheduler.submit(
             run,
             tenant=tenant,
@@ -366,8 +399,9 @@ class VerificationService:
             deadline_s=deadline_s,
             max_retries=max_retries,
             retry_on=retry_on,
-            signature=shape_qualified_signature(analyzers, effective_bs),
-            warm_fn=make_warm_fn(self.router, analyzers, data, effective_bs),
+            signature=shape_qualified_signature(analyzers, effective_bs, warm_mesh),
+            warm_fn=make_warm_fn(self.router, analyzers, warm_mesh, data, effective_bs),
+            mesh_tenant=tenant if self.fleet is not None else None,
         )
 
     def verify(self, data: Dataset, checks: Sequence[Check], **kw):
@@ -399,7 +433,9 @@ class VerificationService:
         the service's device and checks the merge of stored and fresh
         states (``VerificationSuite.verify_partitioned``). The job's
         partition counters go to the export plane per tenant
-        (``deequ_service_partitions_*_total``). ``max_retries`` defaults to
+        (``deequ_service_partitions_*_total``). Fresh partitions shard over
+        the tenant's fleet sub-mesh, the service's mesh, or no mesh, in
+        :meth:`submit_verification`'s order. ``max_retries`` defaults to
         0: a scan persists states and commits manifests as it goes, so a
         re-run after a partial failure re-plans and reuses what committed."""
         from ..verification import VerificationSuite
@@ -420,10 +456,12 @@ class VerificationService:
                 metrics_repository=metrics_repository,
                 save_or_append_results_with_key=save_or_append_results_with_key,
                 delete_dropped=delete_dropped, device=self.device,
+                sharding=ctx.mesh if ctx.mesh is not None else self.mesh,
             )
 
         return self.scheduler.submit(run, tenant=tenant, priority=priority,
-                                     deadline_s=deadline_s, max_retries=max_retries)
+                                     deadline_s=deadline_s, max_retries=max_retries,
+                                     mesh_tenant=tenant if self.fleet is not None else None)
 
     def verify_partitioned(self, dataset_name: str, partitions, checks: Sequence[Check], **kw):
         """Blocking convenience of :meth:`submit_partitioned_verification`."""
@@ -547,6 +585,8 @@ class VerificationService:
         if self._exporter is not None:
             self._exporter.close()
             self._exporter = None
+        if self.fleet is not None:
+            self.fleet.close()
 
     def __enter__(self) -> "VerificationService":
         return self

@@ -43,8 +43,19 @@ Failure semantics: a fold that fails inside a launch fails ALONE with its
 typed error; the sibling sessions' folds commit. Drift guards, contract
 capture and session bookkeeping run under each session's serial lock as
 on the serial path. Folds carrying a job deadline are never cross-drained,
-and a fold is drained only after its job was ADMITTED. The fleet sub-mesh
-route of the reference is not ported (ROADMAP A5b).
+and a fold is drained only after its job was ADMITTED.
+
+Fleet stream folds: under the fleet scheduler a fold of at least
+``fleet_stream_min_rows`` rows (``DEEQU_TPU_FLEET_STREAM_MIN_ROWS``, default
+65,536) of a battery whose analyzers all have host partials takes the
+device route even where the crossover would send it to the fast path, and
+its drain shards it over the tenant's sub-mesh
+(:meth:`FoldCoalescer._execute_mesh_fold`: one row slice per shard, each
+slice's host partials folded into its shard's state by
+``sharded_ingest_fold`` under the elastic ladder, the shards merged at the
+drain boundary by ``collective_merge_states``). An explicit service
+``mesh=`` turns coalescing off: every fold takes the serial path over that
+mesh.
 
 The service's tuning controller (``tuning.controller``) hooks in at three
 places: the route decision (a shadow experiment on
@@ -217,12 +228,17 @@ class FoldPlan:
     share one slot; Mean("a"), Sum("b") need two), and only equal layouts
     stack position by position."""
 
-    __slots__ = ("battery", "columns", "fast_ok", "signatures", "layout", "_builder")
+    __slots__ = ("battery", "columns", "fast_ok", "mesh_ok", "signatures", "layout",
+                 "_builder")
 
-    def __init__(self, battery, columns, fast_ok, signatures):
+    def __init__(self, battery, columns, fast_ok, signatures, mesh_ok=False):
         self.battery = battery
         self.columns = columns
         self.fast_ok = fast_ok
+        #: may this battery's folds shard over a fleet sub-mesh? Requires
+        #: host partials (the shard-local fold feeds `sharded_ingest_fold`
+        #: with per-slice partial states)
+        self.mesh_ok = mesh_ok
         self.signatures = signatures
         self.layout = self.program().layout
         self._builder = None
@@ -296,10 +312,16 @@ def build_fold_plan(analyzers, schema) -> Optional[FoldPlan]:
         and identity_merge_transparent(type(a.init_state(torch.device("cpu"))))
         for a in battery
     )
+    # the fleet's shard-local stream fold computes per-slice HOST partials
+    # and folds them over the sub-mesh: any host-partial-capable battery
+    # qualifies (identity-merge transparency is not required — the
+    # collective merge is the same merge the host tier runs over a mesh)
+    mesh_ok = all(a.supports_host_partial for a in battery)
     battery = tuple(battery)
     return FoldPlan(
         battery, columns, fast_ok,
         tuple(_scan_signature(a) for a in battery),
+        mesh_ok=mesh_ok,
     )
 
 
@@ -435,6 +457,12 @@ class FoldCoalescer:
             "Folds isolated to a typed failure by coalesced-launch "
             "bisection while their group siblings committed.",
         )
+        m.describe(
+            "deequ_service_fleet_stream_folds_total",
+            "Streaming folds sharded over a fleet sub-mesh (shard-local "
+            "states, butterfly merge at the drain boundary), labeled by "
+            "tenant and slice device count.",
+        )
         m.describe_histogram(
             "deequ_service_coalesce_flush_seconds",
             "Wall time of the coalesced drain that flushed each pending "
@@ -460,7 +488,7 @@ class FoldCoalescer:
         pre-coalescing behavior). Called with the session's submit lock
         held; the returned fold must then be `mark_submitted` after the
         scheduler admitted its job, or `abandon`-ed if admission shed."""
-        if not coalesce_enabled():
+        if not coalesce_enabled() or self.service.mesh is not None:
             return None
         rows = int(data.num_rows)
         if rows > bucket:
@@ -472,13 +500,23 @@ class FoldCoalescer:
             )
             return None
         route = self.router.route(plan, rows)
+        fleet_forced = False
+        if route == "fast" and self._fleet_stream_eligible(
+            plan, rows, tenant=session.tenant
+        ):
+            # the fleet's sharding contract outranks the crossover model: a
+            # delta at or above DEEQU_TPU_FLEET_STREAM_MIN_ROWS must reach
+            # the mesh drain path (which lives on the device route)
+            route = "device"
+            fleet_forced = True
         tuning_arm = None
         controller = getattr(self.service, "tuning_controller", None)
-        if controller is not None and plan.fast_ok:
+        if controller is not None and plan.fast_ok and not fleet_forced:
             shadow = controller.choose(rows)
             if shadow is not None:
                 # this fold measures the CANDIDATE fast-path ceiling:
-                # route it the way the candidate would
+                # route it the way the candidate would (the fleet contract
+                # above still outranks any candidate)
                 tuning_arm = "fast_path_max_rows"
                 route = "fast" if shadow == "host" else "device"
         key = (route,) + plan.signatures + (plan.layout, bucket)
@@ -527,7 +565,7 @@ class FoldCoalescer:
         fold of the session can be cross-drained ahead of it. Returns
         whether a barrier was raised (the caller clears it when the
         serial fold's job body runs)."""
-        if not coalesce_enabled():
+        if not coalesce_enabled() or self.service.mesh is not None:
             return False
         skey = (session.tenant, session.dataset)
         with self._lock:
@@ -940,6 +978,7 @@ class FoldCoalescer:
             batch_size=pending.bucket,
             monitor=pending.monitor,
             device=self.service.device,
+            sharding=self.service.mesh,
         )
         session._commit_fold(result, data, pending_contract, pending.done)
         return result
@@ -960,7 +999,8 @@ class FoldCoalescer:
         except Exception as exc:  # noqa: BLE001 - typed Failure metric
             return analyzer.to_failure_metric(exc)
 
-    def _merge_group(self, prepped, states_list, monitor) -> List[List[Any]]:
+    def _merge_group(self, prepped, states_list, monitor,
+                     held: bool = False) -> List[List[Any]]:
         """Merge a coalesced group's delta states into each session's
         persisted states on the service's device: every scalar state of
         the group in one ``merge_states_batched_many`` call (one
@@ -969,7 +1009,10 @@ class FoldCoalescer:
         path's ``_finalize`` merge bit for bit. A state that will not load
         is returned as its exception (the analyzer's metric fails, as on
         the serial path); a delta with nothing persisted is its own
-        cumulative state."""
+        cumulative state. ``held``: the caller holds the sessions' serial
+        locks."""
+        import contextlib
+
         from ..analyzers.base import merge_states_batched_many
         from ..runners.engine import fetch_states
 
@@ -978,7 +1021,7 @@ class FoldCoalescer:
         for w, ((f, _, _, _), states) in enumerate(zip(prepped, states_list)):
             provider = f.session.provider
             row = list(states)
-            with f.session._serial:
+            with contextlib.nullcontext() if held else f.session._serial:
                 for i, a in enumerate(f.plan.battery):
                     try:
                         loaded = provider.load(a)
@@ -1123,11 +1166,49 @@ class FoldCoalescer:
             cache[key] = batch
         return batch
 
+    def _fleet_stream_eligible(
+        self, plan, rows: int, tenant: Optional[str] = None
+    ) -> bool:
+        """Would a fold of this battery at this size shard over a fleet
+        sub-mesh? (The routing half of :meth:`_fleet_lease`; the lease
+        itself happens at drain time.) With ``tenant``, also requires the
+        CURRENT packing to grant that tenant a slice of two or more shards:
+        a fast-routed fold must not be flipped onto the device route for a
+        one-shard slice the drain would never shard."""
+        fleet = getattr(self.service, "fleet", None)
+        if fleet is None or plan is None or not plan.mesh_ok:
+            return False
+        from .fleet import fleet_stream_min_rows
+
+        if int(rows) < fleet_stream_min_rows():
+            return False
+        return tenant is None or fleet.peek(tenant).n_dev >= 2
+
+    def _fleet_lease(self, f: _PendingFold):
+        """Acquire the tenant's sub-mesh lease for a fleet-eligible fold,
+        or None (no fleet, battery without host partials, delta below the
+        sharding floor, or a one-shard slice). The caller must release a
+        non-None lease."""
+        fleet = getattr(self.service, "fleet", None)
+        if fleet is None or not f.plan.mesh_ok:
+            return None
+        from .fleet import fleet_stream_min_rows
+
+        if int(f.data.num_rows) < fleet_stream_min_rows():
+            return None
+        lease = fleet.acquire(f.skey[0])
+        if lease.n_dev < 2:
+            fleet.release(f.skey[0])
+            return None
+        return lease
+
     def _execute_device(self, group: List[_PendingFold]) -> None:
         """Guard + stage every fold (features built on the host, per
         session), then launch the group as one stacked fold; bisect on
         launch failure so a fault inside the joint launch quarantines only
-        the owning session(s)."""
+        the owning session(s). Fleet-sized folds peel off first: each
+        shards over its tenant's sub-mesh (:meth:`_execute_mesh_fold`)
+        instead of joining the one-device stack."""
         from ..reliability.faults import fault_point
 
         prepped = []
@@ -1135,6 +1216,20 @@ class FoldCoalescer:
             try:
                 if f.state == _DONE:
                     continue  # claim-wait backstop resolved it
+                lease = self._fleet_lease(f)
+                if lease is not None:
+                    fleet = self.service.fleet
+                    try:
+                        result, error = self._execute_mesh_fold(f, lease)
+                    finally:
+                        fleet.release(f.skey[0])
+                        if f.monitor.shard_losses:
+                            # the fold survived through the ladder: make the
+                            # NEXT lease pack over the survivors
+                            fleet.note_shard_loss()
+                    if f.state != _DONE:
+                        self._complete(f, result=result, error=error)
+                    continue
                 degraded = False
                 fault_point("stream_fold", tag=_job_tag(f))
                 with f.session._serial:
@@ -1164,6 +1259,126 @@ class FoldCoalescer:
                     raise
         if prepped:
             self._launch_bisect(prepped)
+
+    def _execute_mesh_fold(self, f: _PendingFold, lease):
+        """One streaming fold sharded over the tenant's sub-mesh (the
+        reference's ``_execute_mesh_fold``, deequ_tpu/service/coalesce.py:
+        1239-1375): the micro-batch splits into one row slice per shard,
+        each slice's HOST partials fold into that shard's state
+        (``sharded_ingest_fold`` under the ``ElasticMeshFold`` ladder, so a
+        shard lost mid-fold salvages and re-shards as a batch scan does),
+        and the shards merge at THIS drain boundary
+        (``collective_merge_states`` inside ``finish()``) into the delta
+        that the session's persisted states absorb on the service's device
+        (one ``state_fold`` launch, :meth:`_merge_group`). Checks, drift
+        and commit are the coalesced path's own. Returns ``(result,
+        error)``."""
+        import math
+
+        from ..analyzers.base import HostBatchContext
+        from ..parallel import ElasticMeshFold
+        from ..parallel.dcn import stack_partials
+        from ..reliability.faults import fault_point
+        from ..runners.engine import fetch_states, wait_kernels
+
+        session = f.session
+        mon = f.monitor
+        mesh = lease.mesh
+        n_dev = lease.n_dev
+        sharded = True
+        try:
+            fault_point("stream_fold", tag=_job_tag(f))
+            fault_point("coalesced_fold", tag=f"{f.skey[0]}/{f.skey[1]}")
+            with session._serial:
+                if session._closed:
+                    from .errors import SessionClosed
+
+                    raise SessionClosed(*f.skey)
+                data, pending_contract, degraded = session._pre_fold(f.data)
+                if degraded:
+                    # drift-degraded columns: only the full runner's
+                    # per-analyzer degradation can honor this fold
+                    sharded = False
+                    self._serial_fallback(f, data, pending_contract)
+                else:
+                    battery = f.plan.battery
+                    rows = int(data.num_rows)
+                    slice_rows = max(1, math.ceil(rows / n_dev))
+                    elastic = ElasticMeshFold(battery, mesh, monitor=mon)
+
+                    def slice_partials(wanted=None):
+                        # one FRESH memo token per round: slices of one
+                        # round may share per-pass memo work (the HLL
+                        # dictionary skip), but a REPLAY round must never
+                        # skip an entry whose only contribution died with
+                        # the lost shard
+                        run_token = object()
+                        out = []
+                        with mon.timed("host_partials"):
+                            for i, batch in enumerate(data.batches(
+                                slice_rows, columns=f.plan.columns,
+                                pad_to_batch_size=False,
+                            )):
+                                if wanted is not None and i not in wanted:
+                                    continue
+                                ctx = HostBatchContext(batch, batch_index=i,
+                                                       run_token=run_token)
+                                out.append((i, tuple(a.host_partial(ctx) for a in battery)))
+                        return out
+
+                    def fold_slices(slices):
+                        group = [p for _, p in slices]
+                        idx = [i for i, _ in slices]
+                        # one slot per shard: the padding repeats a real
+                        # partial and its flag skips it
+                        group = group + [group[0]] * (n_dev - len(group))
+                        flags = np.zeros(n_dev, dtype=bool)
+                        flags[: len(idx)] = True
+                        with mon.timed("ingest_fold"):
+                            elastic.fold(stack_partials(battery, group), flags,
+                                         batch_indices=idx)
+                            wait_kernels(None if elastic.host_mode else elastic.mesh.home)
+
+                    fold_slices(slice_partials())
+                    # the drain-boundary merge: a shard lost mid-fold (or
+                    # during the merge itself) queues its slices for
+                    # replay: recompute exactly those, re-fold on the
+                    # rebuilt mesh and merge again, until a merge leaves
+                    # nothing pending
+                    while True:
+                        while elastic.pending_replay:
+                            todo = set(elastic.take_lost_batches())
+                            fold_slices(slice_partials(wanted=todo))
+                        with mon.timed("ingest_fold"):
+                            states = elastic.finish()
+                        if not elastic.pending_replay:
+                            break
+                    with mon.timed("state_fetch"):
+                        delta = fetch_states(list(states))
+                    merged = self._merge_group([(f, data, pending_contract, None)],
+                                               [delta], mon, held=True)[0]
+                    result = self._finalize_states(f, merged)
+                    mon.bump("passes")
+                    mon.bump("batches")
+                    mon.bump("device_updates")
+                    mon.bump("fleet_mesh_folds")
+                    # "mesh", NOT "device": note_ran treats an executed
+                    # placement of "device" as warmth of the one-device
+                    # program, which this path never launches (it runs host
+                    # partials and the mesh's fold and merge entries)
+                    mon.placement = "mesh"
+                    session._commit_fold(result, data, pending_contract, f.done)
+            result = session._notify(f.done)
+            if sharded:
+                self.service.metrics.inc(
+                    "deequ_service_fleet_stream_folds_total",
+                    tenant=f.skey[0], devices=str(n_dev),
+                )
+            return result, None
+        except BaseException as exc:
+            if not isinstance(exc, Exception):
+                raise
+            return None, exc
 
     def _launch_bisect(self, prepped) -> None:
         from ..observability import trace as _trace

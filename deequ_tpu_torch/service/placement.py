@@ -5,7 +5,10 @@ A battery's program is cached per process, keyed by its analyzer tuple
 (``runners/engine.py _fused_program``). On this package's device a battery
 is WARM once its kernels have been built (``nvcc`` at first use) and it
 has launched once in this process; CUDA kernels do not compile per shape,
-so warmth is not per batch size here, unlike XLA's. The router:
+so warmth is not per batch size here, unlike XLA's. It is per mesh width:
+a run over a mesh of n shards launches the sharded path's kernel entries
+(K1's and K2's stacked entries, K8), so a mesh signature reads warm only
+once the sharded path of that width has launched. The router:
 
 - answers "auto" (None) when the battery is warm;
 - answers "host" for a cold battery, so a cold run completes on the host
@@ -58,37 +61,75 @@ def battery_signature(analyzers: Sequence[Analyzer]) -> Signature:
     return _deduped_battery(analyzers)
 
 
-def shape_qualified_signature(analyzers: Sequence[Analyzer], batch_size: int) -> Tuple:
-    """``battery_signature`` plus the padded batch size: the job's warmth
-    and affinity key. An EMPTY battery (grouping or host-only checks) stays
-    the empty signature — there is nothing to warm."""
+def _mesh_devices(mesh) -> int:
+    """Shard count of a mesh-like value: a
+    :class:`~deequ_tpu_torch.parallel.Mesh`, a
+    :class:`~deequ_tpu_torch.service.fleet.SubMeshLease`, an int, or None
+    (1)."""
+    from ..runners.engine import mesh_width
+
+    return mesh_width(mesh)
+
+
+def _signature_mesh(signature: Signature) -> int:
+    """The shard count a shape-qualified signature carries (1 without
+    one)."""
+    for item in signature:
+        if isinstance(item, tuple) and len(item) == 2 and item[0] == "__mesh__":
+            return int(item[1])
+    return 1
+
+
+def shape_qualified_signature(
+    analyzers: Sequence[Analyzer], batch_size: int, mesh=None
+) -> Tuple:
+    """``battery_signature`` plus the padded batch size, plus, for a run
+    over more than one shard, the mesh's shard count: the job's warmth and
+    affinity key. The sharded path launches other kernel entries (K1's and
+    K2's stacked entries, K8) than the one-device program, so a battery
+    warm on one device, or on 8 shards, reads cold on the 4-shard slice a
+    fleet re-pack hands its tenant. A one-shard run (``mesh`` None or 1)
+    keeps the exact key without a mesh, byte for byte (the
+    ``DEEQU_TPU_FLEET=0`` escape hatch depends on it). An EMPTY battery
+    (grouping or host-only checks) stays the empty signature — there is
+    nothing to warm."""
     battery = battery_signature(analyzers)
     if not battery:
         return ()
-    return battery + (("__batch__", int(batch_size)),)
+    signature = battery + (("__batch__", int(batch_size)),)
+    n_dev = _mesh_devices(mesh)
+    if n_dev > 1:
+        signature += (("__mesh__", n_dev),)
+    return signature
 
 
 def make_warm_fn(
     router: "PlacementRouter",
     analyzers: Sequence[Analyzer],
+    mesh,
     data,
     batch_size: int,
 ) -> Optional[Callable[[], None]]:
     """The warm closure a submitter hands the scheduler: ``None`` when the
-    battery is already warm; otherwise a thunk that runs the battery's
-    device-tier pipeline on the router's device over a DETACHED 1-row
-    sample (so the queued closure never pins the job's dataset), building
-    and launching its kernels."""
-    signature = shape_qualified_signature(analyzers, batch_size)
+    battery is already warm at this shape; otherwise a thunk that runs the
+    battery's device-tier pipeline over a DETACHED 1-row sample (so the
+    queued closure never pins the job's dataset), building and launching
+    its kernels: on the router's device, or sharded over ``mesh`` (a mesh
+    or a fleet lease, which unwraps to its mesh), whose width it warms."""
+    signature = shape_qualified_signature(analyzers, batch_size, mesh)
     if not signature or router.is_warm(signature):
         return None
     from ..runners.engine import detached_warm_sample, warm_fused_program
 
+    warm_mesh = getattr(mesh, "mesh", mesh)  # a lease unwraps to its Mesh
+    if isinstance(warm_mesh, int):
+        warm_mesh = None
     sample = detached_warm_sample(data)
     device = router.device
 
     def warm():
-        warm_fused_program(analyzers, data=sample, batch_size=batch_size, device=device)
+        warm_fused_program(analyzers, data=sample, batch_size=batch_size, device=device,
+                           mesh=warm_mesh)
 
     return warm
 
@@ -99,10 +140,14 @@ class PlacementRouter:
         metrics: Optional[ServiceMetrics] = None,
         device=None,
         background_warm: bool = True,
+        mesh=None,
     ):
         self.metrics = metrics or ServiceMetrics()
         #: the device the service runs on; warms run there
         self.device = device
+        #: the service's explicit mesh, if any (the reference's
+        #: ``PlacementRouter(mesh=)``; the warmth keys carry its width)
+        self.mesh = mesh
         from ..utils import BoundedLRU
 
         self._lock = threading.Lock()
@@ -169,8 +214,10 @@ class PlacementRouter:
         """Side-effect-free warmth probe (no counters, no warm scheduling):
         warm when a run of this signature completed on the device tier or
         a warm finished (``note_ran``), or when the battery's program has
-        launched in this process (``fused_program_is_cached``: its kernels
-        are built, and a CUDA kernel serves every batch size)."""
+        launched in this process at the signature's shard count
+        (``fused_program_is_cached``: its kernels are built, and a CUDA
+        kernel serves every batch size; a launch of the one-device program
+        does not warm a mesh signature)."""
         if not signature:
             return True
         if self._ran.get(signature):
@@ -178,7 +225,7 @@ class PlacementRouter:
         from ..runners.engine import fused_program_is_cached
 
         battery = tuple(a for a in signature if isinstance(a, ScanShareableAnalyzer))
-        return fused_program_is_cached(battery)
+        return fused_program_is_cached(battery, _signature_mesh(signature))
 
     def decide(
         self,

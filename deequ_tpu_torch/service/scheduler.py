@@ -1,7 +1,6 @@
 """Multi-tenant job scheduler: bounded queue, priorities, deadlines, retry,
-per-tenant quotas and harvest listeners (copied from the reference's
-``deequ_tpu/service/scheduler.py``, without its fleet leases, which belong
-to the fleet scheduler the port has not taken yet).
+per-tenant quotas, fleet leases and harvest listeners (copied from the
+reference's ``deequ_tpu/service/scheduler.py``).
 
 The reference deequ runs as one-shot batch jobs; a service hosting repeated
 verification (the production mode of Schelter et al., VLDB 2018) needs an
@@ -139,7 +138,9 @@ class _TokenBucket:
 @dataclass
 class JobContext:
     """What a job body receives: identity, attempt number, the worker it
-    landed on, the placement the router chose for this attempt, and a
+    landed on, the placement the router chose for this attempt, the
+    tenant's leased sub-mesh (``mesh``; None = one device — the fleet
+    scheduler grants it per attempt when the job asked for one), and a
     RunMonitor the scheduler harvests into the export plane afterwards —
     also on failure, so a crashing run still reports its phase costs."""
 
@@ -149,6 +150,7 @@ class JobContext:
     worker_id: int
     placement: Optional[str]
     monitor: RunMonitor = field(default_factory=RunMonitor)
+    mesh: Optional[Any] = None
 
 
 class JobHandle:
@@ -196,11 +198,12 @@ class _Job:
         "job_id", "fn", "tenant", "priority", "deadline_s", "deadline_abs",
         "submit_time", "max_retries", "retry_backoff_s", "retry_on",
         "signature", "handle", "attempts", "seq", "warm_fn", "serial_key",
-        "span", "defer_key", "recover_fn",
+        "span", "defer_key", "mesh_tenant", "recover_fn",
     )
 
     def __init__(self, **kw):
         self.defer_key = None
+        self.mesh_tenant = None
         self.recover_fn = None
         for k, v in kw.items():
             setattr(self, k, v)
@@ -239,9 +242,16 @@ class JobScheduler:
         metrics: Optional[ServiceMetrics] = None,
         router: Optional[PlacementRouter] = None,
         name: str = "deequ-service",
+        fleet=None,
     ):
         self.metrics = metrics or ServiceMetrics()
         self.router = router or PlacementRouter(self.metrics)
+        #: the fleet scheduler (service.fleet.FleetScheduler) packing
+        #: tenants onto disjoint sub-meshes; None = one-device routing
+        #: (the DEEQU_TPU_FLEET=0 escape hatch, or a one-shard table).
+        #: Jobs submitted with ``mesh_tenant`` lease their tenant's slice
+        #: for the duration of each attempt.
+        self.fleet = fleet
         self.max_queue_depth = int(max_queue_depth)
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
@@ -324,6 +334,23 @@ class JobScheduler:
             "deequ_service_scan_stalls_total",
             "Engine passes cancelled by the scan watchdog for exceeding "
             "their deadline (hang-not-crash faults).",
+        )
+        self.metrics.describe(
+            "deequ_service_shard_losses_total",
+            "Mesh shards (devices/processes) declared lost mid-pass and "
+            "absorbed by the elastic layer (salvage + re-shard).",
+        )
+        self.metrics.describe(
+            "deequ_service_mesh_reshards_total",
+            "Degraded-mesh rebuilds after shard loss, walking the "
+            "8->4->2->1->host ladder (in-pass salvages and pass-level "
+            "re-runs both count).",
+        )
+        self.metrics.describe(
+            "deequ_service_salvaged_states_total",
+            "Surviving per-shard algebraic states salvaged into a "
+            "canonical merge after a shard loss (folded work kept, not "
+            "recomputed).",
         )
         self.metrics.describe(
             "deequ_service_analyzer_cost_seconds_total",
@@ -497,6 +524,7 @@ class JobScheduler:
         serial_key: Optional[Any] = None,
         block_s: Optional[float] = None,
         defer_key: Optional[Any] = None,
+        mesh_tenant: Optional[str] = None,
         recover_fn: Optional[Callable[[Any, BaseException], Any]] = None,
     ) -> JobHandle:
         """Admit one job, or shed it with :class:`ServiceOverloaded` (or
@@ -516,6 +544,12 @@ class JobScheduler:
         streaming producer wants (slow down, don't drop), bounded so a
         wedged service still sheds typed rather than hanging the producer
         forever. ``None`` (default) keeps the shed-immediately contract.
+
+        ``mesh_tenant`` opts the job into FLEET scheduling: each attempt
+        leases that tenant's sub-mesh from the fleet scheduler (disjoint
+        from other tenants' slices) and hands it to the body as
+        ``ctx.mesh``; the lease releases when the attempt ends. Ignored
+        when the scheduler has no fleet.
 
         ``recover_fn(ctx, exc)``, if given, is consulted when the job is
         about to terminate WITHOUT its body having run to completion —
@@ -593,7 +627,7 @@ class JobScheduler:
                 retry_on=tuple(retry_on), signature=signature,
                 handle=handle, seq=seq, warm_fn=warm_fn,
                 serial_key=serial_key, defer_key=defer_key,
-                recover_fn=recover_fn,
+                mesh_tenant=mesh_tenant, recover_fn=recover_fn,
             )
             # the trace root of the job's whole causal chain: admission,
             # every attempt/retry, placement, the engine passes it runs
@@ -833,55 +867,71 @@ class JobScheduler:
                 now - job.submit_time, tenant=job.tenant,
                 priority=_priority_label(job.priority),
             )
+        # fleet: lease the tenant's sub-mesh for THIS attempt, disjoint from
+        # other tenants' slices and re-packed over the survivors when a
+        # shard dropped out since the last attempt. The release lives in a
+        # finally so no path out of the attempt (a raising router.decide
+        # included) can leak the refcount: a leaked ref would pin a phantom
+        # tenant into every future packing
+        lease = None
+        if job.mesh_tenant is not None and self.fleet is not None:
+            lease = self.fleet.acquire(job.mesh_tenant)
         ctx = JobContext(
             job_id=job.job_id, tenant=job.tenant, attempt=job.attempts,
             worker_id=worker_id, placement=None,
+            mesh=lease.mesh if lease is not None else None,
         )
         try:
-            # raises when the battery's kernels failed to build or launch
-            # in a background warm: the job fails with that error
-            ctx.placement = self.router.decide(job.signature, job.warm_fn)
-            job.span.add_event(
-                "placement", decision=ctx.placement or "auto",
-                attempt=job.attempts,
-            )
-            from ..reliability.faults import fault_point
-
-            # chaos site: a WorkerCrash here simulates the worker
-            # dying mid-job (executor loss); the job must still
-            # terminate typed
-            fault_point("worker", tag=str(worker_id))
-            value = job.fn(ctx)
-        except BaseException as exc:  # noqa: BLE001 - routed into
-            # the taxonomy below
-            # commit/job-finish atomicity: before failing a job whose
-            # BODY may not have run (an injected worker fault fires
-            # between pickup and fn), let its recover_fn reconcile —
-            # a coalesced drain that already committed the job's fold
-            # makes the job SUCCEED with the committed result, and an
-            # unclaimed fold is withdrawn so no later drain can
-            # commit work the caller was told failed
-            adopted = self._recover(job, ctx, exc)
-            self._harvest(job, ctx)
-            if adopted is not None and adopted[1] is None:
-                self._finish(job, adopted[0], None, outcome="success")
-                return False
-            if adopted is not None:
-                exc = adopted[1]
-            if self._maybe_retry(job, exc):
-                return True  # worker keeps the serial key (FIFO)
-            if isinstance(exc, ServiceError) and not isinstance(
-                exc, TransientFailure
-            ):
-                self._finish(job, None, exc, outcome="failed")
-            else:
-                self._finish(
-                    job, None,
-                    JobFailed(job.job_id, job.attempts, exc),
-                    outcome="failed",
+            try:
+                # raises when the battery's kernels failed to build or
+                # launch in a background warm: the job fails with that error
+                ctx.placement = self.router.decide(job.signature, job.warm_fn)
+                job.span.add_event(
+                    "placement", decision=ctx.placement or "auto",
+                    attempt=job.attempts,
+                    **({"fleet_devices": lease.n_dev}
+                       if lease is not None else {}),
                 )
-            return False
-        self._harvest(job, ctx)
+                from ..reliability.faults import fault_point
+
+                # chaos site: a WorkerCrash here simulates the worker
+                # dying mid-job (executor loss); the job must still
+                # terminate typed
+                fault_point("worker", tag=str(worker_id))
+                value = job.fn(ctx)
+            except BaseException as exc:  # noqa: BLE001 - routed into
+                # the taxonomy below
+                # commit/job-finish atomicity: before failing a job whose
+                # BODY may not have run (an injected worker fault fires
+                # between pickup and fn), let its recover_fn reconcile —
+                # a coalesced drain that already committed the job's fold
+                # makes the job SUCCEED with the committed result, and an
+                # unclaimed fold is withdrawn so no later drain can
+                # commit work the caller was told failed
+                adopted = self._recover(job, ctx, exc)
+                self._harvest(job, ctx)
+                if adopted is not None and adopted[1] is None:
+                    self._finish(job, adopted[0], None, outcome="success")
+                    return False
+                if adopted is not None:
+                    exc = adopted[1]
+                if self._maybe_retry(job, exc):
+                    return True  # worker keeps the serial key (FIFO)
+                if isinstance(exc, ServiceError) and not isinstance(
+                    exc, TransientFailure
+                ):
+                    self._finish(job, None, exc, outcome="failed")
+                else:
+                    self._finish(
+                        job, None,
+                        JobFailed(job.job_id, job.attempts, exc),
+                        outcome="failed",
+                    )
+                return False
+            self._harvest(job, ctx)
+        finally:
+            if lease is not None:
+                self.fleet.release(job.mesh_tenant)
         # the monitor records the placement the engine actually RESOLVED
         # (None for jobs that never touched the engine)
         self.router.note_ran(job.signature, worker_id, ctx.monitor.placement)
@@ -1027,6 +1077,23 @@ class JobScheduler:
                 ("deequ_service_scan_stalls_total", float(monitor.stalls),
                  tenant_label)
             )
+        # mesh elasticity on the export plane: every shard loss, re-shard
+        # and salvaged state, per tenant
+        if monitor.shard_losses:
+            updates.append(
+                ("deequ_service_shard_losses_total",
+                 float(monitor.shard_losses), tenant_label)
+            )
+        if monitor.mesh_reshards:
+            updates.append(
+                ("deequ_service_mesh_reshards_total",
+                 float(monitor.mesh_reshards), tenant_label)
+            )
+        if monitor.salvaged_states:
+            updates.append(
+                ("deequ_service_salvaged_states_total",
+                 float(monitor.salvaged_states), tenant_label)
+            )
         if monitor.isolation_reruns:
             updates.append(
                 ("deequ_service_isolation_reruns_total",
@@ -1057,6 +1124,12 @@ class JobScheduler:
             # lands on the healthy tier at once; the reference's
             # scheduler.py:1105-1115)
             self.router.note_device_failure(signature)
+        if monitor.shard_losses and self.fleet is not None:
+            # a shard dropped out of the ladder during this job: make sure
+            # the fleet packing reflects it (the elastic loss listener
+            # usually already did; this probe-and-repack is the backstop
+            # for pass-level re-shards, which name no position)
+            self.fleet.note_shard_loss()
         for listener in self._harvest_listeners:
             # the fleet watch's trigger: a completed job means this tenant
             # may have committed fresh metrics. Defensive — a raising

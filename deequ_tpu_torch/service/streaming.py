@@ -310,7 +310,7 @@ class StreamingSession:
         # micro-batch fold routes through the coalescer — the tiny-delta
         # host fast path, or a signature-keyed group that a worker stacks
         # into ONE device launch. prepare() returning None (knob off,
-        # ineligible battery, multi-batch) keeps the exact
+        # ineligible battery, multi-batch, mesh) keeps the exact
         # pre-coalescing path below. The submit-order lock makes [enqueue
         # -> submit] atomic per session, so the coalescer's per-session
         # FIFO equals the scheduler's serial-key FIFO; deadline'd folds
@@ -338,9 +338,18 @@ class StreamingSession:
                     signature, warm = (), None
                 else:
                     signature = shape_qualified_signature(self._analyzers, bs)
-                    warm = make_warm_fn(
-                        self.service.router, self._analyzers, data, bs,
-                    )
+                    if coalescer._fleet_stream_eligible(
+                        pending.plan, int(data.num_rows), tenant=self.tenant,
+                    ):
+                        # the drain will shard this fold over the fleet
+                        # sub-mesh (host partials and the mesh's fold and
+                        # merge): there is no one-device program to warm
+                        warm = None
+                    else:
+                        warm = make_warm_fn(
+                            self.service.router, self._analyzers,
+                            self.service.mesh, data, bs,
+                        )
             else:
                 # a SERIAL-path fold raises the session's coalescer
                 # barrier: no later drainable fold may be cross-drained
@@ -360,9 +369,16 @@ class StreamingSession:
                             done["barrier_cleared"] = True
                             coalescer.clear_serial_barrier(skey)
 
-                signature = shape_qualified_signature(self._analyzers, bs)
+                # under the fleet, a LARGE serial delta shards over the
+                # tenant's sub-mesh (the job leases it via mesh_tenant);
+                # warmth keys carry the slice's width so a re-packed
+                # tenant's battery reads cold at its new width
+                serial_mesh = self._fold_mesh_hint(int(data.num_rows))
+                signature = shape_qualified_signature(
+                    self._analyzers, bs, serial_mesh
+                )
                 warm = make_warm_fn(
-                    self.service.router, self._analyzers, data, bs,
+                    self.service.router, self._analyzers, serial_mesh, data, bs,
                 )
             try:
                 handle = self.service.scheduler.submit(
@@ -397,6 +413,16 @@ class StreamingSession:
                     defer_key=(
                         pending.key
                         if pending is not None and pending.drainable
+                        else None
+                    ),
+                    # SERIAL-path folds over fleet-sized deltas lease the
+                    # tenant's sub-mesh per attempt (coalesced folds lease
+                    # inside their drain instead); the ONE hint computed
+                    # above keeps the warmth key and the lease opt-in
+                    # agreeing even across a concurrent re-pack
+                    mesh_tenant=(
+                        self.tenant
+                        if pending is None and serial_mesh is not None
                         else None
                     ),
                     # commit/job-finish atomicity: a job that dies OUTSIDE
@@ -447,6 +473,25 @@ class StreamingSession:
                 raise
         return handle
 
+    def _fold_mesh_hint(self, rows: int):
+        """The mesh this session's SERIAL fold of ``rows`` rows would shard
+        over: the service's explicit mesh when one exists, else the
+        tenant's fleet slice for fleet-sized deltas (a lease-shaped peek;
+        the job's attempt leases the real thing), else None (one device).
+        Drives both the warmth key and the mesh_tenant opt-in."""
+        svc = self.service
+        if svc.mesh is not None:
+            return svc.mesh
+        fleet = getattr(svc, "fleet", None)
+        if fleet is None:
+            return None
+        from .fleet import fleet_stream_min_rows
+
+        if rows < fleet_stream_min_rows():
+            return None
+        lease = fleet.peek(self.tenant)
+        return lease if lease.n_dev >= 2 else None
+
     def _fold_batch(
         self, ctx: JobContext, data: Dataset, done: dict, batch_size: int
     ):
@@ -475,6 +520,10 @@ class StreamingSession:
                 batch_size=batch_size,
                 monitor=ctx.monitor,
                 device=self.service.device,
+                # the attempt's fleet lease (ctx.mesh) when one was granted,
+                # else the service's explicit mesh, else one device:
+                # exactly the order _fold_mesh_hint promised the warmth key
+                sharding=ctx.mesh if ctx.mesh is not None else self.service.mesh,
                 placement=ctx.placement,
             )
             self._commit_fold(result, data, pending_contract, done)

@@ -117,8 +117,7 @@ def _registry() -> Dict[str, Knob]:
           env_minimum=0,
           description=(
               "Minimum micro-batch rows before a streaming fold shards "
-              "over the tenant's fleet sub-mesh (registered so profiles "
-              "carry it; the port has no fleet route yet)."
+              "over the tenant's fleet sub-mesh."
           )),
         # -- ingest feed pipeline (ingest/prefetch.py) ---------------------
         k("prefetch_depth", "DEEQU_TPU_PREFETCH_DEPTH", 0, int,

@@ -363,24 +363,43 @@ def test_one_shot_verification_matches_a_direct_run(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"mesh": object()}, "A5"), ({"fleet": True}, "A5"),
+    ({"mesh": 8}, "A5"), ({"fleet": True, "fleet_devices": 8}, "A5"),
     ({"catalog": "catalog-root"}, "A6"),
 ])
 def test_planes_not_ported_raise_naming_their_item(kwargs, item, tmp_path):
-    if "catalog" in kwargs:
-        # the tenant catalog is ported: a root path builds the plane, and a
-        # tenant registered there materializes its session from its document
-        root = str(tmp_path / kwargs["catalog"])
-        with VerificationService(device="cpu", background_warm=False, catalog=root) as svc:
-            svc.catalog_plane.catalog.register("acme", {"checks": [
-                {"name": "c", "constraints": [{"kind": "size", "min": 1}]}]})
-            session = svc.catalog_plane.ensure_session("acme", "d")
-            assert session.ingest(table(100, seed=1), timeout=WAIT_S).status.value == "Success"
-            assert svc.statusz.snapshot()["planes"]["catalog"] == {
-                "enabled": True, "tenant_versions": {"acme": 1}}
+    """Every plane these cases name is ported now: each builds and runs a
+    job (the mesh and the fleet, A5b; the catalog, A6), and /statusz
+    carries no placeholder section for them."""
+    if "mesh" in kwargs or "fleet" in kwargs:
+        from deequ_tpu_torch.parallel import make_mesh
+
+        if "mesh" in kwargs:
+            kwargs = {"mesh": make_mesh(kwargs["mesh"], device="cpu")}
+        with VerificationService(device="cpu", background_warm=False, **kwargs) as svc:
+            assert (svc.fleet is None) == ("mesh" in kwargs)
+            assert (svc.mesh is not None) == ("mesh" in kwargs)
+            got = svc.verify(dq.Dataset.from_arrow(table(3000, seed=2)), [soak_check(dq)],
+                             tenant="t", timeout=WAIT_S)
+            planes = svc.statusz.snapshot()["planes"]
+            assert "mesh" not in planes and "fleet" not in planes
+            if svc.fleet is not None:
+                assert svc.fleet.devices_of("t") == tuple(range(8))
+        want = dq.VerificationSuite.on_data(dq.Dataset.from_arrow(table(3000, seed=2)),
+                                            device="cpu").add_check(soak_check(dq)).run()
+        assert got.status == want.status
+        assert ({repr(a): _value(m) for a, m in got.metrics.items() if "Size" in repr(a)}
+                == {repr(a): _value(m) for a, m in want.metrics.items() if "Size" in repr(a)})
         return
-    with pytest.raises(NotImplementedError, match=item):
-        VerificationService(device="cpu", **kwargs)
+    # the tenant catalog is ported: a root path builds the plane, and a
+    # tenant registered there materializes its session from its document
+    root = str(tmp_path / kwargs["catalog"])
+    with VerificationService(device="cpu", background_warm=False, catalog=root) as svc:
+        svc.catalog_plane.catalog.register("acme", {"checks": [
+            {"name": "c", "constraints": [{"kind": "size", "min": 1}]}]})
+        session = svc.catalog_plane.ensure_session("acme", "d")
+        assert session.ingest(table(100, seed=1), timeout=WAIT_S).status.value == "Success"
+        assert svc.statusz.snapshot()["planes"]["catalog"] == {
+            "enabled": True, "tenant_versions": {"acme": 1}}
 
 
 @pytest.mark.parametrize("form", ["store", "path", "env"])
