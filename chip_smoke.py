@@ -245,7 +245,7 @@ Phases, each of which fails the run when it fails:
    both equal to phase 3's metrics. The whole script runs with
    ``DEEQU_TPU_TUNING_PROFILE_DIR`` set to an empty temporary directory,
    so no other phase boots with a profile;
-15. the cluster plane, last: (a) a ``cluster.FrontTier`` over
+15. the cluster plane, after phase 12: (a) a ``cluster.FrontTier`` over
    ``LocalWorker``s whose ``VerificationService``s run on the card, each
    heartbeating one membership directory over one partition store; 16
    sessions x 8 micro-batches x 65,536 integer-valued rows (the soak's
@@ -262,9 +262,12 @@ Phases, each of which fails the run when it fails:
    a cross-process ingest trace, a worker's ``/statusz`` with its six
    planes), every worker that held a session launched K1 and ran
    device-tier folds, sessions/s and rows/s printed; (c) its ``--drill
-   kill-one`` at 16 sessions x 2 x 262,144 rows: the reference's drill gates
-   (exact parity, the recovery counters, the victim's span journal), the
-   survivor's launches after the recovery above 0, the seconds from the
+   kill-one`` at 16 sessions x 2 x 262,144 rows, its workers with
+   ``DEEQU_TPU_FAST_PATH_MAX_ROWS=0`` (every fold on the device route, so
+   the replay after the recovery runs the kernels whatever the crossover
+   router has measured): the reference's drill gates (exact parity, the
+   recovery counters, the victim's span journal), the survivor's launches
+   after the recovery above 0, its folds by route and the seconds from the
    SIGKILL to the last replayed fold printed. A soak that skips fails;
 16. the fleet scheduler and the service's mesh route, run after phase 9
    while phase 3's table is in memory (``fleet_plane``): (a) on a
@@ -295,7 +298,22 @@ Phases, each of which fails the run when it fails:
    ``mesh=make_mesh(8)``: no fleet, one config-2 verify equal to phase 9
    (c)'s metrics, two sessions' folds on the serial path over the mesh
    (no coalesced width counted), each equal to its one-card session.
-   ``mesh_substrate()`` and the lease table print first.
+   ``mesh_substrate()`` and the lease table print first;
+17. the whole-service chaos soak, the tuning report and grouping tables
+   on a mesh: (a) ``tools/torch_chaos_soak.py``'s ``run_soak`` at its
+   CLI's defaults (30 jobs, 8 stream batches, 4,096 rows, seed 0, 4
+   workers) on the card, its cluster drill off (15 (c) runs it): the
+   soak ``ok`` with no drill skipped, faults fired, a device failure
+   learned, K1, K2 and K8 launched (every count printed, read before and
+   after); (b) the same soak at 2^18 rows a job; (c) inside phase 14,
+   ``tools/torch_tuning_report.py --json`` on the calibrated profile (its
+   calibrated knobs and probes the profile's), then, last, its
+   ``--bench-point`` once in a subprocess (its JSON line printed, no gate);
+   (d) inside phase 5, Uniqueness, CountDistinct and Entropy of the
+   grouping workload over ``make_mesh(8)``, resident and non-resident:
+   each equal to 5 (a)'s metrics, one device table, K6 launched and K7
+   in the non-resident run. The card's name and power limit print with
+   each part.
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
@@ -2233,11 +2251,11 @@ def _timed_run(torch, label: str, run, rows: int, kernels=()) -> tuple:
     return out, monitor, launches
 
 
-def grouping_runs(torch, dq, grouping: pa.Table) -> dict:
+def grouping_runs(torch, dq, grouping: pa.Table) -> tuple:
     """Phase 5 (a)-(c): the bench grouping workload resident, with a
     non-resident 2^22-slot table, and overflowing a 2^20-slot table; each
     held against (a) on the CPU and a numpy oracle. Returns the launch
-    counts of (a) and (b)."""
+    counts of (a) and (b), and (a)'s metrics."""
     rows = grouping.num_rows
     data = dq.Dataset.from_arrow(grouping)
     battery = [dq.Uniqueness(["k"]), dq.CountDistinct(["k"]), dq.Entropy("k")]
@@ -2284,7 +2302,7 @@ def grouping_runs(torch, dq, grouping: pa.Table) -> dict:
         raise AssertionError("grouping metrics disagree:\n" + "\n".join(problems))
     print(f"[grouping metrics] (a), (b) and (c) agree with the CPU run and the oracle: "
           f"{resident}", flush=True)
-    return {"resident": launches_a, "compaction": launches_b}
+    return {"resident": launches_a, "compaction": launches_b}, resident
 
 
 def build_lineitem_check(dq, rows: int):
@@ -2386,7 +2404,10 @@ def grouping_path(torch, dq, lineitem: pa.Table) -> tuple:
     with phase(2):
         measured = check_freq_kernels(torch, dq, grouping, lineitem)
         _print_kernel_totals(measured, FREQ_KERNELS, "grouping path")
-    launches = grouping_runs(torch, dq, grouping)
+    launches, resident = grouping_runs(torch, dq, grouping)
+    # phase 17 (d): the same workload over a mesh, while it is in memory
+    with phase(17), part_seconds("phase 17 (d)"):
+        mesh_grouping(torch, dq, grouping, resident)
     del grouping
 
     # (d) lineitem's keys through VerificationSuite
@@ -2985,7 +3006,7 @@ def drill(label: str):
 
 def print_phase_seconds(total: float) -> None:
     """The ``[seconds] phase N`` lines of every phase and the total."""
-    for n in range(1, 17):
+    for n in range(1, 18):
         print(f"[seconds] phase {n}: {PHASE_SECONDS.get(n, 0.0):.1f}s", flush=True)
     print(f"[seconds] total: {total:.1f}s", flush=True)
 
@@ -5924,6 +5945,9 @@ def tuning_plane(torch, dq, table: pa.Table, data, gpu_metrics: dict,
             quarantined = os.listdir(os.path.join(bad_dir, ".quarantine"))
             if len(quarantined) != 1 or os.path.exists(os.path.join(bad_dir, name)):
                 problems.append(f"(b): quarantine holds {quarantined}")
+        # phase 17 (c): the tuning report on this profile
+        with phase(17), part_seconds("phase 17 (c) report"):
+            tuning_report_check(profile_dir, profile, device)
 
         # (c) boot on the profile, (d) a shadow experiment in it
         with _env("DEEQU_TPU_TUNING_PROFILE_DIR", profile_dir), \
@@ -6421,15 +6445,26 @@ def cluster_soak(torch, device: str = "cuda") -> None:
 def cluster_drill(torch, device: str = "cuda") -> None:
     """Phase 15 (c): the kill-one drill (16 sessions x 2 x 2^18 rows over
     two worker processes, one SIGKILLed after the flush): the reference's
-    gates, and the survivor launched kernels after the recovery."""
-    report = run_cluster_soak(["--drill", "kill-one", "--sessions", str(DRILL_SESSIONS),
-                               "--batches", str(DRILL_BATCHES), "--rows", str(SOAK_ROWS)],
-                              device)
+    gates, and the survivor launched kernels after the recovery.
+
+    The workers run with ``DEEQU_TPU_FAST_PATH_MAX_ROWS=0``: the crossover
+    router learns the device's cost per fold from the first coalesced
+    launches, and on a loaded host that cost can send every later fold of
+    2^18 rows, the replay included, to the host fast path, which launches
+    no kernel. The gate holds the replay on the card, so the route is
+    fixed; phase 15 (b) keeps the measured route."""
+    with _env("DEEQU_TPU_FAST_PATH_MAX_ROWS", "0"):
+        report = run_cluster_soak(["--drill", "kill-one", "--sessions", str(DRILL_SESSIONS),
+                                   "--batches", str(DRILL_BATCHES), "--rows", str(SOAK_ROWS)],
+                                  device)
     after = _kernel_launches(report.get("survivor_launches_after_recovery", {}))
+    survivor = report.get("survivor_after_recovery", {})
     print(f"[cluster (c)] victim {report.get('victim')} ({report.get('victim_sessions')} sessions, "
           f"{report.get('victim_journal_spans')} spans in its journal); SIGKILL to the last "
           f"replayed fold {report.get('recovery_s')}s; counters {report.get('counters')}; the "
-          f"survivor's launches after the recovery {after}", flush=True)
+          f"survivor's folds device {survivor.get('device_folds')} / host "
+          f"{survivor.get('host_folds')} / fast {survivor.get('fast_folds')}, its launches "
+          f"after the recovery {after}", flush=True)
     problems = _soak_problems(report)
     victim = report.get("victim")
     if report.get("recovered_hosts") != [victim]:
@@ -6444,8 +6479,7 @@ def cluster_drill(torch, device: str = "cuda") -> None:
     if report.get("victim_journal_spans", 0) < 1:
         problems.append("the victim's span journal is empty")
     if not sum(after.values()):
-        problems.append("the survivor launched nothing after the recovery: "
-                        f"{report.get('survivor_after_recovery')}")
+        problems.append(f"the survivor launched nothing after the recovery: {survivor}")
     if problems:
         raise AssertionError("phase 15 (c) disagrees:\n" + "\n".join(problems))
 
@@ -6846,6 +6880,159 @@ def fleet_plane(torch, dq, table=None, data=None, check=None, phase3=None, mesh_
         fleet_loss_drill(torch, dq, single, device)
     with part_seconds("phase 16 (d)"):
         fleet_explicit_mesh(torch, dq, data, check, mesh_metrics, single, device)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the whole-service chaos soak, the tuning report and grouping
+# tables on a mesh
+# ---------------------------------------------------------------------------
+
+#: phase 17 (a): ``tools/torch_chaos_soak.py``'s CLI defaults; (b) the same
+#: soak at 2^18 rows a job (the stream batches keep their 512 rows)
+CHAOS_SOAK = {"jobs": 30, "stream_batches": 8, "rows": 4096, "seed": 0, "workers": 4}
+CHAOS_BIG_ROWS = 1 << 18
+BENCH_POINT_TIMEOUT_S = 600
+
+
+def chaos_soak_run(label: str, card: str, device: str = "cuda", **sizes) -> dict:
+    """One ``run_soak`` of ``tools/torch_chaos_soak.py`` on ``device`` (the
+    cluster drill off: phase 15 (c) runs it), its launches read before and
+    after. Fails unless the soak is ``ok`` with no drill skipped, faults
+    fired, the router learned a device failure, and K1, K2 and K8 were
+    launched. The soak injects its faults itself, so it runs as a drill."""
+    from deequ_tpu_torch.kernels import launch_counts
+    from tools.torch_chaos_soak import run_soak, skipped_drills
+
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with drill(f"phase 17 ({label})"):
+        summary = run_soak(device=device, cluster_drill=False, **sizes)
+    seconds = time.perf_counter() - t0
+    launches = {n: c - before[n] for n, c in launch_counts().items()}
+    # the battery's scan and HLL, the session merges (K1, K2, K8)
+    by_k = _kernel_launches(launches)
+    skipped = skipped_drills(summary)
+    tuning, mesh, fleet = summary["tuning_drill"], summary["mesh_drill"], summary["fleet_drill"]
+    print(f"[chaos ({label})] {sizes['jobs']} jobs x {sizes['rows']} rows, "
+          f"{sizes['stream_batches']} stream batches of 512, {sizes['workers']} workers, seed "
+          f"{sizes['seed']}: {seconds:.3f}s (the soak's clock {summary['seconds']}s) on {card}; "
+          f"ok {summary['ok']}, failed {summary['failed_invariants']}, skipped {skipped}; "
+          f"succeeded {summary['succeeded']}, typed failures {summary['typed_failures']}, "
+          f"degraded metrics {summary['degraded_metrics']}, stream folds "
+          f"{summary['stream_folds_ok']} (drift rejects {summary['drift_rejects']}); faults "
+          f"fired {summary['faults_fired']}, device failures learned "
+          f"{summary['device_failures_learned']}; mesh drill {mesh['devices']} shards, "
+          f"degraded {mesh.get('degraded')}; fleet drill healthy {fleet.get('healthy_after')}, "
+          f"stream folds {fleet.get('mesh_stream_folds')}; tuning drill sessions/s static "
+          f"{tuning.get('static_sessions_per_s')}, poisoned "
+          f"{tuning.get('poisoned_sessions_per_s')}, recovered "
+          f"{tuning.get('recovered_sessions_per_s')}, decisions {tuning.get('decisions')}",
+          flush=True)
+    print(f"[chaos ({label}) launches] {by_k}; by entry "
+          f"{ {n: c for n, c in sorted(launches.items())} }", flush=True)
+    problems = []
+    if not summary["ok"]:
+        problems.append(f"failed invariants {summary['failed_invariants']}: " + "; ".join(
+            f"{name} {summary.get(name)}" for name in summary["failed_invariants"]))
+    if skipped:
+        problems.append(f"skipped drills {skipped}")
+    if summary["faults_fired"] <= 0 or summary["device_failures_learned"] <= 0:
+        problems.append(f"faults fired {summary['faults_fired']}, device failures learned "
+                        f"{summary['device_failures_learned']}")
+    missing = [k for k, n in by_k.items() if n == 0]
+    if missing:
+        problems.append(f"launched no {missing}: {launches}")
+    if problems:
+        raise AssertionError(f"phase 17 ({label}):\n" + "\n".join(problems))
+    return summary
+
+
+def tuning_bench_point(card: str, device: str = "cuda") -> dict:
+    """Phase 17 (c): ``tools/torch_tuning_report.py --bench-point`` once in
+    a subprocess on ``device``; its JSON line printed (no gate on rates)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "tools.torch_tuning_report", "--bench-point", "--device", device],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=BENCH_POINT_TIMEOUT_S,
+    )
+    lines = [line for line in out.stdout.splitlines() if line.strip()]
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"torch_tuning_report --bench-point exited {out.returncode}: "
+                             f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    print(f"[tuning bench point] {card}: {lines[-1]}", flush=True)
+    return json.loads(lines[-1])
+
+
+def chaos_plane(torch, device: str = "cuda") -> None:
+    """Phase 17 (a)-(c) but the report's profile check (run inside phase
+    14, while its profile exists): the soak at its CLI's defaults, the same
+    soak at 2^18 rows a job, and the tuning report's bench point."""
+    card = _nvidia_smi()
+    with part_seconds("phase 17 (a)"):
+        chaos_soak_run("a", card, device, **CHAOS_SOAK)
+    with part_seconds("phase 17 (b)"):
+        chaos_soak_run("b", card, device, **dict(CHAOS_SOAK, rows=CHAOS_BIG_ROWS))
+    with part_seconds("phase 17 (c) bench point"):
+        tuning_bench_point(card, device)
+
+
+def tuning_report_check(profile_dir: str, profile, device: str = "cuda") -> None:
+    """Phase 17 (c): ``tools/torch_tuning_report.py --json`` on the profile
+    phase 14 calibrated: its calibrated knobs equal the profile's derived
+    values, its probes the profile's probes."""
+    import io
+
+    from tools import torch_tuning_report
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = torch_tuning_report.main(["--json", "--dir", profile_dir, "--device", device])
+    report = json.loads(text.getvalue())
+    rows = (report.get("profile") or {}).get("knobs", {})
+    calibrated = {name: row["calibrated"] for name, row in rows.items()}
+    print(f"[tuning report] {_nvidia_smi()}; substrate {report['substrate']}; calibrated "
+          f"{calibrated}; static { {n: r['static'] for n, r in rows.items()} }", flush=True)
+    if rc != 0 or calibrated != profile.knob_values or (
+            report["profile"]["probes"] != profile.probes):
+        raise AssertionError(f"phase 17 (c): the report {report} is not the calibrated "
+                             f"profile {profile}")
+
+
+def mesh_grouping(torch, dq, grouping: pa.Table, resident: dict, device: str = "cuda") -> None:
+    """Phase 17 (d): phase 5's grouping workload over ``make_mesh(8)`` on
+    the card, resident and non-resident (a 2^22-entry buffer, as 5 (b)):
+    each equal to phase 5 (a)'s metrics, one device table, K6 launched and
+    K7 in the non-resident run."""
+    from deequ_tpu_torch.parallel import make_mesh
+
+    rows = grouping.num_rows
+    data = dq.Dataset.from_arrow(grouping)
+    battery = [dq.Uniqueness(["k"]), dq.CountDistinct(["k"]), dq.Entropy("k")]
+    mesh = make_mesh(8, device=device)
+    card = _nvidia_smi()
+
+    def run(**options):
+        def go(monitor):
+            ctx = (dq.AnalysisRunner.on_data(data, device=device).add_analyzers(battery)
+                   .with_batch_size(BATCH_ROWS).with_monitor(monitor).with_sharding(mesh)
+                   .with_frequency_options(**options).run())
+            return {a.name: ctx.metric(a).value.get() for a in battery}
+        return go
+
+    problems = []
+    for label, options, kernels in (
+            ("resident", {}, ("freq_keys",)),
+            ("non-resident", {"freq_buffer_entries": FULL_TABLE_SLOTS}, FREQ_KERNELS)):
+        got, monitor, _ = _timed_run(torch, f"grouping on make_mesh(8) {label}; {card}",
+                                     run(**options), rows, kernels)
+        if monitor.device_freq_sets != 1 or monitor.passes != 1:
+            problems.append(f"{label}: {monitor.device_freq_sets} device tables, "
+                            f"{monitor.passes} passes")
+        problems += [f"{label}: {p}" for p in _compare_grouping(got, resident, 0.0)]
+    if problems:
+        raise AssertionError("phase 17 (d) disagrees with phase 5 (a):\n" + "\n".join(problems))
+    print(f"[grouping on make_mesh(8)] resident and non-resident equal to phase 5 (a): "
+          f"{resident}", flush=True)
 
 
 def _nvidia_smi() -> str:
@@ -7270,6 +7457,10 @@ def main(argv=None) -> int:
     # phase 15: the cluster plane, in-process and across worker processes
     with phase(15):
         cluster_plane(torch, dq)
+    # phase 17: the whole-service chaos soak and the tuning report's bench
+    # point ((c)'s report ran in phase 14, (d) in phase 5)
+    with phase(17):
+        chaos_plane(torch)
     print_phase_seconds(time.perf_counter() - started)
 
     # K1-K3 as the verification path runs them, K4 and K5 as the profile

@@ -823,11 +823,15 @@ def plan_table_scan(schema, columns: Sequence[str], num_rows: int, batch_rows: i
     ``freq_table_slots`` slots (capped at the row count: it can then never
     overflow) and the buffer covers at least one padded batch.
 
-    ``sharded`` (a run over a mesh) gives the same plan: the reference
-    keeps a table per shard and compacts the resident ones into full-size
-    tables at the collective merge, where the port keeps one table per
-    set, fed the whole batch on the mesh's first device, which never
-    compacts when resident (per-shard tables are ROADMAP A5b)."""
+    ``sharded`` (a run over a mesh) gives the same plan. The reference
+    keeps no table per shard either: its sharded update runs with
+    replicated states, so a set's table on a mesh is one global table; the
+    port's is one table on the mesh's first device, fed the whole batch,
+    with the same answers. The reference gives a sharded resident plan
+    the full ``slots`` table, meant for a compaction at the collective
+    merge; that merge never receives a device table scan (it has no host
+    partial), and a resident scan's drain reads its buffer alone, so no
+    path reads the table and the port keeps the 8-slot one."""
     if len(columns) > MAX_KEY_COLUMNS:
         return None
     kinds: List[str] = []

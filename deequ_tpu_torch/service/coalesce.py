@@ -166,6 +166,17 @@ class CrossoverRouter:
                 # have refined it, the EWMA wins over any profile
                 self._device_fixed_s = knobs.value("router_device_fixed_s")
 
+    def reset(self) -> None:
+        """Forget every fitted rate: the model goes back to the registry's
+        seeds, as at boot. The host model has no fixed cost, so a fold of a
+        few rows fits a host rate of a few thousand rows/s from its call
+        overhead alone, and every later fold of that class then routes to
+        the device; a caller that needs the seeds' routing resets first."""
+        with self._lock:
+            self._host_rate.clear()
+            self._device_measured = False
+        self.reseed_from_knobs()
+
     def observe_host(self, cls: type, rows: int, seconds: float) -> None:
         if seconds <= 0 or rows <= 0:
             return

@@ -45,7 +45,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import deequ_tpu_torch.service.catalog\n"
         "import deequ_tpu_torch.service.fleetwatch, deequ_tpu_torch.service.statusz\n"
         "import deequ_tpu_torch.cluster, deequ_tpu_torch.cluster.front\n"
-        "import tools.torch_cluster_soak\n"
+        "import tools.torch_cluster_soak, tools.torch_chaos_soak, tools.torch_tuning_report\n"
+        "import tools.torch_trace_summarize\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -95,6 +96,23 @@ def test_chip_smoke_fails_alone(tmp_path):
         timeout=120, env=env,
     )
     assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("tool", [
+    ["tools.torch_chaos_soak", "--no-cluster-drill", "--jobs", "1"],
+    ["tools.torch_tuning_report"],
+    ["tools.torch_tuning_report", "--bench-point", "--sessions", "1"],
+], ids=["chaos_soak", "tuning_report", "bench_point"])
+def test_tools_run_on_the_card_by_default(tool):
+    """The port's tools default to ``--device cuda``: without a card they
+    raise, and report no result."""
+    out = subprocess.run(
+        [sys.executable, "-m", *tool], cwd=REPO, capture_output=True, text=True,
+        timeout=120, env=_env_without_cuda(),
+    )
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr
     assert '"ok"' not in out.stdout
 
 
