@@ -143,17 +143,18 @@ Phases, each of which fails the run when it fails:
    (``build_wide_data``: 30 numeric, 10 string and 10 categorical columns,
    seed 7) cut from 1B rows to 10M in batches of 2^20;
    ``ConstraintSuggestionRunner`` with the default rules and a quarter of
-   the rows held out (seed 0), run twice on ``device="cuda"`` (cold and
-   warm), with K1's and K2's launches a batch (50 columns take two
-   launches of each a batch of the first profile pass: over 64 slots,
-   over 32 HLL columns); a numpy oracle holds the training split's row
-   count, completeness, minima and category counts and every status on
-   the test split, and on the table's first ``WIDE_CPU_ROWS`` rows the
-   suggestions and their statuses on the card equal the same run on
-   ``device="cpu"`` character for character; (f) the same table's first
-   1M rows with
-   ``UniqueIfApproximatelyUniqueRule`` added, whose ``is_unique``
-   constraints launch K6, held likewise. Phase 2 holds K1 (every bundle)
+   the rows held out (seed 0), on ``device="cuda"``, with K1's and K2's
+   launches a batch (50 columns take two launches of each a batch of the
+   first profile pass: over 64 slots, over 32 HLL columns); a numpy oracle
+   holds the training split's row count, completeness, minima and
+   category counts and every status on the test split; (d, f) the table's
+   first ``WIDE_CPU_ROWS`` rows with ``UniqueIfApproximatelyUniqueRule``
+   added (its ``is_unique`` constraints launch K6) on the card twice (cold
+   and warm, equal), the suggestions and their statuses equal to the same
+   run on ``device="cpu"`` character for character (the default rules'
+   suggestions among them) and held to the oracle (the warm run left the
+   10M rows, and the default rules' own 1M-row comparison merged into this
+   one, for the script's time budget). Phase 2 holds K1 (every bundle)
    and K2's battery entry at the first batch of the training split's first
    profile pass. ``python3 -c "import torch, chip_smoke, deequ_tpu_torch
    as dq; chip_smoke.suggestion_path(torch, dq)"`` runs this phase alone
@@ -313,7 +314,27 @@ Phases, each of which fails the run when it fails:
    grouping workload over ``make_mesh(8)``, resident and non-resident:
    each equal to 5 (a)'s metrics, one device table, K6 launched and K7
    in the non-resident run. The card's name and power limit print with
-   each part.
+   each part;
+18. the device feature cache, the examples suite and the operator
+   switches: (a) after phase 3, its run under
+   ``DEEQU_TPU_DEVICE_FEATURE_CACHE``: a run under a large budget measures
+   the bytes of one table's features, then under a budget of 1.5 tables,
+   at feed depths 0 and 2, a cold run admits every batch and a warm run
+   hits every batch (no ``feature_build``, no ``host_to_device``, K1-K3
+   launched), both equal to phase 3's metrics bit for bit; a second 10M-row
+   table (the next seed) evicts the first whole (one eviction), and
+   ``clear_device_feature_cache()`` returns the cached bytes of device
+   memory; each run's seconds and phases and the cached bytes print; (b)
+   last, every example of ``examples_torch`` on ``device="cuda"``, its
+   result and printed lines equal to its run on ``device="cpu"``, K1 (or
+   its stacked entry) and the kernels of its path launched (counts
+   printed); (c) after (a), on phase 3's first 1M rows with the dictionary
+   columns as plain strings: ``DEEQU_TPU_ADAPTIVE_DICT_ENCODE=0``, the host
+   tier at ``DEEQU_TPU_HOST_TIER_WORKERS`` 1 and 7 (bit for bit the default
+   pool's run) and ``DEEQU_TPU_NO_NATIVE=1`` (the native module imported
+   again under it) against the default run, and ``DEEQU_TPU_PROFILE_DIR``'s
+   one trace of the pass naming K1-K3's CUDA kernels. The card's name and
+   power limit print beside every time.
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
@@ -529,10 +550,9 @@ WIDE_NUMERIC, WIDE_STRING, WIDE_CATEGORICAL = 30, 10, 10
 WIDE_SEED = 7
 WIDE_TESTSET_RATIO = 0.25
 WIDE_SPLIT_SEED = 0
-#: phase 10 (f): the uniqueness rule's run, over the table's first rows
-WIDE_UNIQUE_ROWS = 1_000_000
-#: phase 10 (d): the cut of the table the card's run is held against the
-#: CPU's on (the full-size run is held against the oracle)
+#: phase 10 (d), (f): the table's first rows, over which the run with the
+#: uniqueness rule added is held against the CPU's (the full-size run is
+#: held against the oracle)
 WIDE_CPU_ROWS = 1_000_000
 
 
@@ -583,15 +603,18 @@ def suggestion_values(result) -> tuple:
     return result.to_json(), statuses
 
 
-def _oracle_column(table: pa.Table, name: str) -> tuple:
+def _oracle_column(table: pa.Table, name: str, codes: bool = True) -> tuple:
     """(validity, values, codes, dictionary) of a column: a string column
-    dictionary-encoded by Arrow (values None), any other column as numpy
+    dictionary-encoded by Arrow (values None; with ``codes`` False, not
+    encoded: codes and dictionary None too), any other column as numpy
     values (codes and dictionary None)."""
     import pyarrow.compute as pc
 
     col = table.column(name).combine_chunks()
     valid = np.asarray(col.is_valid())
     if pa.types.is_string(col.type):
+        if not codes:
+            return valid, None, None, None
         col = pc.dictionary_encode(col)
     if pa.types.is_dictionary(col.type):
         codes = col.indices.fill_null(0).to_numpy(zero_copy_only=False)
@@ -599,9 +622,12 @@ def _oracle_column(table: pa.Table, name: str) -> tuple:
     return valid, col.to_numpy(zero_copy_only=False), None, None
 
 
-def _expected_status(code: str, test: pa.Table) -> str:
+def _expected_status(code: str, test: pa.Table, columns: dict = None) -> str:
     """The status a generated constraint must have on ``test``, from the
-    constraint's own code string (the seven rules' forms)."""
+    constraint's own code string (the seven rules' forms). ``columns``
+    memoizes :func:`_oracle_column` of ``test`` by name and whether codes
+    are needed (a column carries several suggestions; a string column is
+    dictionary-encoded only for a membership or uniqueness check)."""
     import ast
 
     call = ast.parse(code.lstrip(".")).body[0].value
@@ -611,7 +637,11 @@ def _expected_status(code: str, test: pa.Table) -> str:
     for a in call.args:
         if isinstance(a, ast.Lambda):  # lambda v: v >= <bound>
             bound = ast.literal_eval(a.body.comparators[0])
-    valid, values, codes, dictionary = _oracle_column(test, args[0])
+    columns = {} if columns is None else columns
+    key = (args[0], method in ("is_contained_in", "is_unique"))
+    if key not in columns:
+        columns[key] = _oracle_column(test, key[0], codes=key[1])
+    valid, values, codes, dictionary = columns[key]
     n = len(valid)
     if method == "is_complete":
         ok = bool(valid.all())
@@ -643,7 +673,8 @@ def suggestion_oracle(result, statuses: list, train: pa.Table, test: pa.Table) -
     if result.num_records != train.num_rows:
         problems.append(f"records: {result.num_records} != {train.num_rows}")
     for name, profile in result.column_profiles.items():
-        valid, values, codes, dictionary = _oracle_column(train, name)
+        valid, values, codes, dictionary = _oracle_column(
+            train, name, codes=profile.histogram is not None)
         completeness = valid.sum() / len(valid)
         if profile.completeness != completeness:
             problems.append(f"{name} completeness {profile.completeness} != {completeness}")
@@ -666,8 +697,9 @@ def suggestion_oracle(result, statuses: list, train: pa.Table, test: pa.Table) -
     suggestions = result.all_suggestions
     if len(statuses) != len(suggestions):
         problems.append(f"{len(statuses)} statuses for {len(suggestions)} suggestions")
+    test_columns: dict = {}
     for s, status in zip(suggestions, statuses):
-        want = _expected_status(s.code_for_constraint, test)
+        want = _expected_status(s.code_for_constraint, test, test_columns)
         if status != want:
             problems.append(f"{s.code_for_constraint}: {status} on the test split, numpy {want}")
     return problems
@@ -3006,7 +3038,7 @@ def drill(label: str):
 
 def print_phase_seconds(total: float) -> None:
     """The ``[seconds] phase N`` lines of every phase and the total."""
-    for n in range(1, 18):
+    for n in range(1, 19):
         print(f"[seconds] phase {n}: {PHASE_SECONDS.get(n, 0.0):.1f}s", flush=True)
     print(f"[seconds] total: {total:.1f}s", flush=True)
 
@@ -7145,10 +7177,12 @@ def suggestion_path(torch, dq) -> tuple:
     """Phase 2 at the suggestion path's shapes, then phase 10 (BASELINE
     config 5): the cut table, K1 and K2 on the first batch of the training
     split's first profile pass (every K1 bundle, the K2 battery of 50
-    columns), the suggestion run twice on the card with the launch counts
-    of each, held against the same run on the CPU and a numpy oracle, and
-    the uniqueness rule's run. Returns the kernels' measurements at those
-    shapes and the launch counts of the first run."""
+    columns), the suggestion run on the card with its launch counts, held
+    against a numpy oracle, and the table's first ``WIDE_CPU_ROWS`` rows
+    with the uniqueness rule added twice on the card (cold and warm,
+    equal), on the CPU and against the oracle. Returns the kernels'
+    measurements at those shapes and the launch counts of the full-size
+    run."""
     from deequ_tpu_torch.analyzers import ApproxCountDistinct, ScanShareableAnalyzer
     from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
     from deequ_tpu_torch.profiles import first_pass_analyzers
@@ -7182,28 +7216,24 @@ def suggestion_path(torch, dq) -> tuple:
         _print_kernel_totals(measured, ("scan_reduce", "hll_registers_columns"),
                              "suggestion path")
 
-    # phase 10 (c): the bench's run, cold then warm, launch counts set to
-    # 0 just before each
-    runs = []
-    for label in ("cold", "warm"):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        monitor = dq.RunMonitor()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        result = _suggestion_run(dq, data, "cuda", Rules.DEFAULT, monitor)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        phases = {k: round(v, 4) for k, v in monitor.phase_seconds.items()}
-        print(f"[suggest {label}] {WIDE_ROWS} rows x {table.num_columns} columns in "
-              f"{seconds:.3f}s = {WIDE_ROWS / seconds:.0f} rows/s; "
-              f"{len(result.all_suggestions)} suggestions; passes={monitor.passes} "
-              f"batches={monitor.batches}; launches={launches}; peak device memory "
-              f"{peak / 2**20:.1f} MiB; phases={phases}", flush=True)
-        runs.append((result, launches, monitor))
-    result, launches, monitor = runs[0]
+    # phase 10 (c): the bench's run, launch counts set to 0 just before it
+    # (its warm twin runs at (d)'s cut: the time budget of the script)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    monitor = dq.RunMonitor()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = _suggestion_run(dq, data, "cuda", Rules.DEFAULT, monitor)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    phases = {k: round(v, 4) for k, v in monitor.phase_seconds.items()}
+    print(f"[suggest cold] {WIDE_ROWS} rows x {table.num_columns} columns in "
+          f"{seconds:.3f}s = {WIDE_ROWS / seconds:.0f} rows/s; "
+          f"{len(result.all_suggestions)} suggestions; passes={monitor.passes} "
+          f"batches={monitor.batches}; launches={launches}; peak device memory "
+          f"{peak / 2**20:.1f} MiB; phases={phases}", flush=True)
 
     # (e) every kernel of the profile ran; K1 and K2 each more than once a
     # batch of the first profile pass (50 columns: over 64 slots, over 32
@@ -7223,35 +7253,24 @@ def suggestion_path(torch, dq) -> tuple:
         raise AssertionError(f"expected at least two K1 launches a first-pass batch, got "
                              f"{launches['scan_reduce']}")
 
-    # (d) the same run on the CPU, character for character, at the table's
-    # first WIDE_CPU_ROWS rows on the card and the CPU; the full-size run is
-    # held against numpy
+    # (d) the full-size run against numpy over its splits
     got = suggestion_values(result)
-    if got != suggestion_values(runs[1][0]):
-        raise AssertionError("the cold and warm runs disagree")
-    cut = dq.Dataset.from_arrow(table.slice(0, WIDE_CPU_ROWS))
     t0 = time.perf_counter()
-    cut_card = suggestion_values(_suggestion_run(dq, cut, "cuda", Rules.DEFAULT))
-    want = suggestion_values(_suggestion_run(dq, cut, "cpu", Rules.DEFAULT))
-    print(f"[cpu] the same suggestion run at {WIDE_CPU_ROWS} rows on the card and the CPU in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
-    del cut
-    problems = [] if cut_card == want else [
-        f"at {WIDE_CPU_ROWS} rows the card's suggestions or statuses differ from the CPU's"]
-    t0 = time.perf_counter()
-    train, test = split_rows(table)
-    problems += suggestion_oracle(result, got[1], train, test)
+    problems = suggestion_oracle(result, got[1], *split_rows(table))
     if problems:
         raise AssertionError("suggestions disagree:\n" + "\n".join(problems))
     print(f"[suggest metrics] {len(result.all_suggestions)} suggestions and their statuses on "
-          f"the test split ({got[1].count('Success')} Success); at {WIDE_CPU_ROWS} rows "
-          f"the card's equal the CPU run's; the oracle holds {len(result.column_profiles)} profiles and every status "
+          f"the test split ({got[1].count('Success')} Success); the oracle holds "
+          f"{len(result.column_profiles)} profiles and every status "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
-    del runs, result, train, test, data
+    del result, data
 
-    # (f) the uniqueness rule at 1M rows: its is_unique constraints run on
-    # the device frequency table of the test split
-    small = table.slice(0, WIDE_UNIQUE_ROWS)
+    # (d), (f): the table's first WIDE_CPU_ROWS rows with the uniqueness rule
+    # added (its is_unique constraints run on the device frequency table of
+    # the test split) on the card, cold then warm (equal), and on the CPU,
+    # character for character (the default rules' suggestions among them),
+    # and against numpy
+    small = table.slice(0, WIDE_CPU_ROWS)
     del table
     rules = tuple(Rules.DEFAULT) + (UniqueIfApproximatelyUniqueRule(),)
     data = dq.Dataset.from_arrow(small)
@@ -7264,20 +7283,417 @@ def suggestion_path(torch, dq) -> tuple:
     unique_launches = launch_counts()
     n_unique = sum(1 for s in unique.all_suggestions
                    if s.code_for_constraint.startswith(".is_unique"))
-    print(f"[suggest (f) uniqueness rule] {WIDE_UNIQUE_ROWS} rows in {seconds:.3f}s; "
+    print(f"[suggest (f) uniqueness rule] {WIDE_CPU_ROWS} rows in {seconds:.3f}s; "
           f"{n_unique} is_unique; device_freq_sets={monitor.device_freq_sets}; "
           f"launches={unique_launches}", flush=True)
     if unique_launches["freq_keys"] == 0:
         raise AssertionError("the uniqueness rule's run launched no freq_keys")
     got = suggestion_values(unique)
+    t0 = time.perf_counter()
+    warm = suggestion_values(_suggestion_run(dq, data, "cuda", rules))
+    torch.cuda.synchronize()
+    print(f"[suggest warm] {WIDE_CPU_ROWS} rows on the card: cold {seconds:.3f}s, warm "
+          f"{time.perf_counter() - t0:.3f}s", flush=True)
+    t0 = time.perf_counter()
     want = suggestion_values(_suggestion_run(dq, data, "cpu", rules))
-    train, test = split_rows(small)
-    problems = [] if got == want else ["the card's suggestions or statuses differ from the CPU's"]
-    problems += suggestion_oracle(unique, got[1], train, test)
+    print(f"[cpu] the same suggestion run at {WIDE_CPU_ROWS} rows on the CPU in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    problems = [] if warm == got else ["the cold and warm runs disagree"]
+    problems += [] if got == want else ["the card's suggestions or statuses differ from the CPU's"]
+    problems += suggestion_oracle(unique, got[1], *split_rows(small))
     if problems:
         raise AssertionError("uniqueness-rule suggestions disagree:\n" + "\n".join(problems))
-    print("[suggest (f) metrics] equal to the CPU run and the oracle", flush=True)
+    print("[suggest (f) metrics] cold equal to warm, equal to the CPU run and the oracle",
+          flush=True)
     return measured, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the device feature cache, the examples suite and the operator
+# switches
+# ---------------------------------------------------------------------------
+
+#: phase 18 (a): the feature cache's budget, in tables' worth of phase 3's
+#: features (one fits, two do not)
+CACHE_BUDGET_TABLES = 1.5
+#: phase 18 (a): the budget of the run that measures one table's bytes
+CACHE_PROBE_GB = 40
+#: phase 18 (b): the examples of ``examples_torch``
+EXAMPLES = (
+    "basic_example", "incremental_metrics_example",
+    "update_metrics_on_partitioned_data_example", "metrics_repository_example",
+    "anomaly_detection_example", "data_profiling_example", "constraint_suggestion_example",
+    "kll_example", "kll_check_example", "multi_device_example",
+    "continuous_verification_example",
+)
+#: phase 18 (b): the kernels each example's path launches besides K1 (or
+#: K1's stacked entry)
+EXAMPLE_KERNELS = {
+    "basic_example": ("kll_sample",),
+    "incremental_metrics_example": ("hll_registers_columns", "state_fold"),
+    "update_metrics_on_partitioned_data_example": ("state_fold",),
+    "data_profiling_example": ("kll_sample", "kll_compact"),
+    "constraint_suggestion_example": ("kll_sample", "kll_compact"),
+    "kll_example": ("kll_sample", "kll_compact"),
+    "kll_check_example": ("kll_sample",),
+    "multi_device_example": ("scan_reduce_stacked", "state_fold_butterfly"),
+}
+#: phase 18 (c): the cut of phase 3's table the switches run on, its
+#: dictionary columns as plain strings (so the ingest-time encoding decides)
+SWITCH_ROWS = 1_000_000
+#: phase 18 (c): host tier pool sizes, each held bit for bit to the default,
+#: and the host tier's batches (16 of them, so the pool has work to share)
+SWITCH_WORKERS = (1, 7)
+SWITCH_HOST_BATCH_ROWS = 1 << 16
+#: masked in the examples' printed lines: epoch milliseconds, temporary paths
+_EXAMPLE_MASKS = ((re.compile(r"\b\d{13}\b"), "<epoch-ms>"), (re.compile(r"/tmp/\S+"), "<tmp>"))
+_NUMBER = re.compile(r"-?\d+\.\d+(?:e[-+]?\d+)?|-?\d+(?:e[-+]?\d+)?")
+
+
+def _cached_run(torch, dq, data, check, label: str, depth: int, card: str) -> tuple:
+    """Phase 3's verification run at feed depth ``depth`` with whatever
+    feature cache the environment sets. Returns (metrics, monitor,
+    launches)."""
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    monitor = dq.RunMonitor()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with _env("DEEQU_TPU_PREFETCH_DEPTH", str(depth)):
+        result = (dq.VerificationSuite.on_data(data, device="cuda").add_check(check)
+                  .add_required_analyzer(dq.CountDistinct("cat_large"))
+                  .with_monitor(monitor).run())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    phases = {k: round(v, 4) for k, v in monitor.phase_seconds.items()
+              if not k.startswith("feature_build.")}
+    print(f"[cache {label}, depth {depth}] {ROWS} rows in {seconds:.3f}s; "
+          f"{monitor.feature_cache_hits} of {monitor.batches} batches hit; "
+          f"launches={ {k: v for k, v in launches.items() if v} }; phases={phases}; {card}",
+          flush=True)
+    return metric_values(result), monitor, launches
+
+
+def feature_cache_path(torch, dq, data, check, gpu_metrics: dict, seed: int, card: str) -> None:
+    """Phase 18 (a): phase 3's run under ``DEEQU_TPU_DEVICE_FEATURE_CACHE``.
+    A first run under a large budget measures one table's features; under
+    a budget of 1.5 tables, at feed depths 0 and 2, a cold run admits every
+    batch and a warm run hits every batch (no feature build, no copy, K1-K3
+    launched), both equal to phase 3's metrics bit for bit; then a second
+    table (the next seed) evicts the first whole, and clearing the cache
+    returns its device memory."""
+    from deequ_tpu_torch.runners import engine
+
+    knob = engine.DEVICE_FEATURE_CACHE_ENV
+    n_batches = -(-ROWS // BATCH_ROWS)
+    engine.clear_device_feature_cache()
+    with _env(knob, str(CACHE_PROBE_GB)):
+        _cached_run(torch, dq, data, check, "probe", 0, card)
+        one_table = engine.device_feature_cache().bytes
+    engine.clear_device_feature_cache()
+    budget_gb = CACHE_BUDGET_TABLES * one_table / 1e9
+    print(f"[cache] one table's features: {one_table} bytes in {n_batches} batches; "
+          f"budget {budget_gb!r} GB", flush=True)
+    problems = []
+    with _env(knob, repr(budget_gb)):
+        for depth in (0, 2):
+            engine.clear_device_feature_cache()
+            cold, cold_mon, _ = _cached_run(torch, dq, data, check, "cold", depth, card)
+            cache = engine.device_feature_cache()
+            if cold_mon.feature_cache_hits or cache.bytes != one_table \
+                    or len(cache.store) != n_batches:
+                problems.append(f"depth {depth}: the cold run hit {cold_mon.feature_cache_hits}"
+                                f" and left {cache.bytes} bytes in {len(cache.store)} entries")
+            warm, warm_mon, warm_launches = _cached_run(torch, dq, data, check, "warm", depth,
+                                                        card)
+            if warm_mon.feature_cache_hits != n_batches or warm_mon.batches != n_batches:
+                problems.append(f"depth {depth}: {warm_mon.feature_cache_hits} of "
+                                f"{warm_mon.batches} warm batches hit")
+            for phase_name in ("feature_build", "host_to_device"):
+                if warm_mon.phase_seconds.get(phase_name, 0.0):
+                    problems.append(f"depth {depth}: the warm run spent "
+                                    f"{warm_mon.phase_seconds[phase_name]} s in {phase_name}")
+            missing = [k for k in VERIFICATION_KERNELS if not warm_launches[k]]
+            if missing:
+                problems.append(f"depth {depth}: the warm run launched no {missing}")
+            for label, got in (("cold", cold), ("warm", warm)):
+                problems += [f"depth {depth} {label}: {p}"
+                             for p in compare_metrics(got, gpu_metrics, rtol=0.0)]
+        held = torch.cuda.memory_allocated()
+        second = dq.Dataset.from_arrow(build_table(ROWS, seed + 1))
+        _cached_run(torch, dq, second, check, "second table", 0, card)
+        cache = engine.device_feature_cache()
+        if cache.evictions != 1 or list(cache.tables) != [id(second.arrow)] \
+                or cache.bytes != one_table:
+            problems.append(f"the second table left evictions={cache.evictions}, tables="
+                            f"{len(cache.tables)}, {cache.bytes} bytes")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    engine.clear_device_feature_cache()
+    del second, cache
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    print(f"[cache] device memory allocated: {held} bytes with the first table cached, "
+          f"{before} with the second, {after} after clear_device_feature_cache()", flush=True)
+    if before - after < one_table:
+        problems.append(f"clearing the cache returned {before - after} bytes of {one_table}")
+    if problems:
+        raise AssertionError("the feature cache:\n" + "\n".join(problems))
+    print(f"[cache] every warm batch hit at depths 0 and 2, phase 3's metrics bit for bit; "
+          f"the second table evicted the first whole", flush=True)
+
+
+def _masked_lines(text: str) -> list:
+    for pattern, mask in _EXAMPLE_MASKS:
+        text = pattern.sub(mask, text)
+    return text.splitlines()
+
+
+def same_printed_lines(got: str, want: str, rtol: float = 1e-12) -> bool:
+    """Equal text once timestamps and temporary paths are masked, numbers
+    within ``rtol`` relative (moments differ in the last bits)."""
+    g_lines, w_lines = _masked_lines(got), _masked_lines(want)
+    if len(g_lines) != len(w_lines):
+        return False
+    for g, w in zip(g_lines, w_lines):
+        if _NUMBER.sub("#", g) != _NUMBER.sub("#", w):
+            return False
+        for x, y in zip(_NUMBER.findall(g), _NUMBER.findall(w)):
+            x, y = float(x), float(y)
+            if x != y and not abs(x - y) <= rtol * max(abs(x), abs(y)):
+                return False
+    return True
+
+
+def example_values(result):
+    """An example's return value as plain data: verification results by
+    their JSON, contexts by their metrics, profiles and suggestions by
+    their JSON, frames by their sorted records (without ``dataset_date``),
+    a service snapshot by its shed and stream-batch counters."""
+    if isinstance(result, (tuple, list)):
+        return [example_values(r) for r in result]
+    if isinstance(result, dict) and "counters" in result:
+        return {k: result["counters"].get(k) for k in (
+            "deequ_service_jobs_shed_total", "deequ_service_stream_batches_total")}
+    if isinstance(result, dict):
+        return {k: example_values(v) for k, v in result.items()}
+    if hasattr(result, "to_dict") and hasattr(result, "columns"):
+        return sorted(result.drop(columns=["dataset_date"]).to_dict("records"),
+                      key=lambda r: (r["entity"], r["instance"], r["name"]))
+    if hasattr(result, "check_results_as_json"):
+        return [result.status.name, json.loads(result.success_metrics_as_json()),
+                json.loads(result.check_results_as_json())]
+    if hasattr(result, "metric_map"):
+        out = {}
+        for analyzer, metric in result.metric_map.items():
+            value = metric.value.get()
+            if hasattr(value, "buckets"):
+                value = repr(value.buckets)
+            out[repr(analyzer)] = value
+        return out
+    if hasattr(result, "to_json"):
+        return json.loads(result.to_json())
+    if hasattr(result, "attempts"):
+        return ["job", result.attempts, result.result().status.name]
+    if hasattr(result, "name") and hasattr(result, "value"):
+        return result.name
+    return result
+
+
+def same_values(got, want, rtol: float = 1e-12) -> bool:
+    if isinstance(got, float) and isinstance(want, (int, float)):
+        return (got == want or (math.isnan(got) and math.isnan(want))
+                or abs(got - want) <= rtol * max(abs(got), abs(want)))
+    if isinstance(got, dict) and isinstance(want, dict):
+        return got.keys() == want.keys() and all(same_values(got[k], want[k], rtol)
+                                                 for k in got)
+    if isinstance(got, list) and isinstance(want, list):
+        return len(got) == len(want) and all(same_values(g, w, rtol)
+                                             for g, w in zip(got, want))
+    return got == want
+
+
+def examples_on_card(torch, card: str) -> None:
+    """Phase 18 (b): every example of ``examples_torch`` on
+    ``device="cuda"``, its result and printed lines equal to its run on
+    ``device="cpu"``, its path's kernels launched (counts printed)."""
+    import importlib
+    import io
+
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    problems = []
+    for name in EXAMPLES:
+        module = importlib.import_module(f"examples_torch.{name}")
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            got = module.main(device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        cpu_out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(cpu_out):
+            want = module.main(device="cpu")
+        cpu_seconds = time.perf_counter() - t0
+        print(f"[example {name}] cuda {seconds:.3f}s, cpu {cpu_seconds:.3f}s; "
+              f"{len(out.getvalue().splitlines())} lines; launches={launches}; {card}",
+              flush=True)
+        if not same_values(example_values(got), example_values(want)):
+            problems.append(f"{name}: the card's result differs from the CPU's")
+        if not same_printed_lines(out.getvalue(), cpu_out.getvalue()):
+            problems.append(f"{name}: the card's printed lines differ from the CPU's")
+        needed = EXAMPLE_KERNELS.get(name, ())
+        missing = [k for k in needed if not launches.get(k)]
+        if not (launches.get("scan_reduce") or launches.get("scan_reduce_stacked")):
+            missing.append("scan_reduce")
+        if missing:
+            problems.append(f"{name}: launched no {missing}")
+    if problems:
+        raise AssertionError("the examples:\n" + "\n".join(problems))
+    print(f"[examples] {len(EXAMPLES)} examples on the card equal to their CPU runs", flush=True)
+
+
+def switch_cut(table: pa.Table) -> pa.Table:
+    """Phase 18 (c)'s table: phase 3's first ``SWITCH_ROWS`` rows, the
+    dictionary columns decoded to plain strings."""
+    cut = table.slice(0, SWITCH_ROWS)
+    for name in ("cat_small", "cat_large"):
+        cut = cut.set_column(cut.schema.get_field_index(name), name,
+                             cut.column(name).cast(pa.string()))
+    return cut
+
+
+def _switch_run(torch, dq, data, label: str, card: str, **kw) -> tuple:
+    """Phase 3's check over the cut on the card; (metrics, monitor, launches)."""
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    monitor = dq.RunMonitor()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = dq.VerificationSuite.do_verification_run(
+        data, [build_check(dq, SWITCH_ROWS)], monitor=monitor, device="cuda", **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    print(f"[switch {label}] {SWITCH_ROWS} rows in {seconds:.3f}s on the {monitor.placement} "
+          f"tier; launches={launches}; {card}", flush=True)
+    return metric_values(result), monitor, launches
+
+
+@contextlib.contextmanager
+def native_disabled():
+    """``DEEQU_TPU_NO_NATIVE=1`` in this process for a block: the switch is
+    read when ``deequ_tpu_torch.native.lib`` is imported, so the module and
+    the package that re-exports it are imported again under it, and again
+    without it after the block (every caller imports the host kernels from
+    the package at call time). Yields the package."""
+    import importlib
+
+    from deequ_tpu_torch import native
+    from deequ_tpu_torch.native import lib
+
+    with _env("DEEQU_TPU_NO_NATIVE", "1"):
+        importlib.reload(lib)
+        importlib.reload(native)
+    try:
+        yield native
+    finally:
+        importlib.reload(lib)
+        importlib.reload(native)
+
+
+def operator_switches(torch, dq, table: pa.Table, card: str) -> None:
+    """Phase 18 (c): on :func:`switch_cut`, the default run on the card
+    against ``DEEQU_TPU_ADAPTIVE_DICT_ENCODE=0`` (no dictionary column),
+    the host tier at ``DEEQU_TPU_HOST_TIER_WORKERS`` 1 and 7 (bit for bit
+    the default pool's run) and ``DEEQU_TPU_NO_NATIVE=1`` (the numpy host
+    kernels, :func:`native_disabled`); each equal to the default run
+    (moments within 1e-12). Then ``DEEQU_TPU_PROFILE_DIR``: one trace of
+    the pass, naming K1-K3's CUDA kernels."""
+    cut = switch_cut(table)
+    data = dq.Dataset.from_arrow(cut)
+    default, _, launches = _switch_run(torch, dq, data, "default", card)
+    problems = []
+    missing = [k for k in VERIFICATION_KERNELS if not launches.get(k)]
+    if missing:
+        problems.append(f"the default run launched no {missing}")
+    with _env("DEEQU_TPU_ADAPTIVE_DICT_ENCODE", "0"):
+        plain = dq.Dataset.from_arrow(cut)
+    print(f"[switch encoding] dictionary sizes of cat_small, cat_large: "
+          f"{data.dictionary_size('cat_small')}, {data.dictionary_size('cat_large')}; "
+          f"with DEEQU_TPU_ADAPTIVE_DICT_ENCODE=0: {plain.dictionary_size('cat_small')}, "
+          f"{plain.dictionary_size('cat_large')}", flush=True)
+    if data.dictionary_size("cat_small") is None or plain.dictionary_size("cat_small") \
+            is not None:
+        problems.append("the encoding switch changed no column")
+    got, _, _ = _switch_run(torch, dq, plain, "DEEQU_TPU_ADAPTIVE_DICT_ENCODE=0", card)
+    problems += [f"no encoding: {p}" for p in compare_metrics(got, default)]
+    del plain
+
+    host, _, host_launches = _switch_run(torch, dq, data, "host tier, every core", card,
+                                         placement="host", batch_size=SWITCH_HOST_BATCH_ROWS)
+    problems += [f"host tier: {p}" for p in compare_metrics(host, default)]
+    if not host_launches.get("state_fold_carry"):
+        problems.append("the host tier launched no state_fold_carry")
+    for workers in SWITCH_WORKERS:
+        with _env("DEEQU_TPU_HOST_TIER_WORKERS", str(workers)):
+            got, _, _ = _switch_run(torch, dq, data, f"host tier, {workers} workers", card,
+                                    placement="host", batch_size=SWITCH_HOST_BATCH_ROWS)
+        problems += [f"{workers} workers: {p}" for p in compare_metrics(got, host, rtol=0.0)]
+
+    with native_disabled() as native:
+        plain_kernels = native.native_xxhash64_strings.__name__.endswith("_plain")
+        got, _, _ = _switch_run(torch, dq, dq.Dataset.from_arrow(cut),
+                                "DEEQU_TPU_NO_NATIVE=1", card)
+    print(f"[switch DEEQU_TPU_NO_NATIVE=1] numpy host kernels: {plain_kernels}; the library "
+          f"again after: {not native.NATIVE_DISABLED}", flush=True)
+    if not plain_kernels or native.NATIVE_DISABLED:
+        problems.append("the DEEQU_TPU_NO_NATIVE=1 run did not switch the host kernels")
+    problems += [f"no native: {p}" for p in compare_metrics(got, default)]
+
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_switches_")
+    try:
+        traces = os.path.join(scratch, "traces")
+        with _env("DEEQU_TPU_PROFILE_DIR", traces):
+            got, _, _ = _switch_run(torch, dq, data, "DEEQU_TPU_PROFILE_DIR", card)
+        problems += [f"profiled: {p}" for p in compare_metrics(got, default, rtol=0.0)]
+        files = sorted(os.listdir(traces)) if os.path.isdir(traces) else []
+        names = set()
+        for f in files:
+            with open(os.path.join(traces, f)) as fh:
+                events = json.load(fh).get("traceEvents", [])
+            names |= {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+        port_kernels = ("scan_reduce", "hll_registers", "dict_code_counts")
+        ours = sorted(n for n in names if any(k in n for k in port_kernels))
+        print(f"[switch DEEQU_TPU_PROFILE_DIR] {len(files)} trace(s); {len(names)} distinct "
+              f"CUDA kernels, the port's: {ours}", flush=True)
+        if len(files) != 1:
+            problems.append(f"expected one trace of the pass, found {files}")
+        for kernel in port_kernels:
+            if not any(kernel in n for n in ours):
+                problems.append(f"the trace names no {kernel} kernel")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    if problems:
+        raise AssertionError("the operator switches:\n" + "\n".join(problems))
+    print("[switch] every switch's run equal to the default run", flush=True)
+
+
+def switches_and_cache(torch, dq, table: pa.Table, data, check, gpu_metrics: dict,
+                       seed: int) -> None:
+    """Phase 18 (a) and (c), after phase 3 on its table."""
+    card = _nvidia_smi()
+    with part_seconds("phase 18 (a)"):
+        feature_cache_path(torch, dq, data, check, gpu_metrics, seed, card)
+    with part_seconds("phase 18 (c)"):
+        operator_switches(torch, dq, table, card)
 
 
 def verification_path(torch, dq, table: pa.Table, data, check) -> tuple:
@@ -7398,6 +7814,10 @@ def main(argv=None) -> int:
     with phase(3):
         # the main path on the card, launch counts set to 0 just before
         gpu_metrics, launches = verification_path(torch, dq, table, data, check)
+    # phase 18 (a), (c): the device feature cache and the operator switches
+    # on phase 3's table and checks
+    with phase(18):
+        switches_and_cache(torch, dq, table, data, check, gpu_metrics, args.seed)
     # phase 13: the reliability wrapper, the scan watchdog and the feed
     # pipeline on phase 3's table and checks
     with phase(13):
@@ -7461,6 +7881,9 @@ def main(argv=None) -> int:
     # point ((c)'s report ran in phase 14, (d) in phase 5)
     with phase(17):
         chaos_plane(torch)
+    # phase 18 (b): the examples suite on the card against the CPU
+    with phase(18), part_seconds("phase 18 (b)"):
+        examples_on_card(torch, card)
     print_phase_seconds(time.perf_counter() - started)
 
     # K1-K3 as the verification path runs them, K4 and K5 as the profile

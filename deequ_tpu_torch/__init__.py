@@ -20,7 +20,10 @@ the suggested check on the rest through the same passes. Entry
 points run on ``device="cuda"`` unless the caller passes ``device="cpu"``,
 which runs the kernels' plain PyTorch versions.
 
-The package imports neither JAX nor ``deequ_tpu``.
+The top level exports the reference's public names (``deequ_tpu``'s
+``__all__``) and its ``__version__``, so code moves between the packages
+by changing the package name and adding ``device=``. The package imports
+neither JAX nor ``deequ_tpu``.
 """
 
 from .analyzers import (
@@ -51,52 +54,105 @@ from .analyzers import (
     Uniqueness,
     UniqueValueRatio,
 )
+from . import observability  # noqa: F401  (tracing and the flight recorder)
 from .checks import Check, CheckLevel, CheckStatus
 from .constraints import ConstrainableDataTypes, ConstraintStatus
-from .data import Dataset
+from .data import ColumnKind, Dataset, Schema
+from .metrics import (
+    BucketDistribution,
+    BucketValue,
+    Distribution,
+    DistributionValue,
+    DoubleMetric,
+    Entity,
+    Failure,
+    HistogramMetric,
+    KeyedDoubleMetric,
+    KLLMetric,
+    Metric,
+    Success,
+)
 from .profiles import ColumnProfiler, ColumnProfilerRunner, ColumnProfiles
+from .repository import (
+    AnalysisResult,
+    FileSystemMetricsRepository,
+    InMemoryMetricsRepository,
+    MetricsRepository,
+    ResultKey,
+)
 from .runners import AnalysisRunner, AnalyzerContext, RunMonitor
-from .verification import VerificationResult, VerificationSuite
+from .verification import (
+    AnomalyCheckConfig,
+    VerificationResult,
+    VerificationRunBuilder,
+    VerificationSuite,
+)
+
+#: the reference's version: the port follows its public surface
+__version__ = "0.1.0"
 
 __all__ = [
+    "AnalysisResult",
     "AnalysisRunner",
     "AnalyzerContext",
+    "AnomalyCheckConfig",
     "ApproxCountDistinct",
     "ApproxQuantile",
     "ApproxQuantiles",
+    "BucketDistribution",
+    "BucketValue",
     "Check",
     "CheckLevel",
     "CheckStatus",
+    "ColumnKind",
     "ColumnProfiler",
     "ColumnProfilerRunner",
     "ColumnProfiles",
     "Completeness",
     "Compliance",
-    "Correlation",
     "ConstrainableDataTypes",
     "ConstraintStatus",
+    "Correlation",
     "CountDistinct",
-    "DataType",
     "Dataset",
+    "DataType",
     "Distinctness",
+    "Distribution",
+    "DistributionValue",
+    "DoubleMetric",
+    "Entity",
     "Entropy",
+    "Failure",
+    "FileSystemMetricsRepository",
     "Histogram",
+    "HistogramMetric",
+    "InMemoryMetricsRepository",
+    "KeyedDoubleMetric",
+    "KLLMetric",
     "KLLParameters",
     "KLLSketch",
-    "MaxLength",
     "Maximum",
+    "MaxLength",
     "Mean",
-    "MinLength",
+    "Metric",
+    "MetricsRepository",
     "Minimum",
+    "MinLength",
     "MutualInformation",
+    "observability",
     "PatternMatch",
     "Patterns",
+    "ResultKey",
     "RunMonitor",
+    "Schema",
     "Size",
     "StandardDeviation",
+    "Success",
     "Sum",
     "Uniqueness",
     "UniqueValueRatio",
     "VerificationResult",
+    "VerificationRunBuilder",
     "VerificationSuite",
+    "__version__",
 ]

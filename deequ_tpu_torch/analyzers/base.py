@@ -34,10 +34,12 @@ from ..exceptions import (
     wrap_if_necessary,
 )
 from ..expr import Predicate
+from ..utils import BoundedLRU  # noqa: F401  (the reference's name here)
 from ..kernels.scan_reduce import Partials, Slot, partials, scan_reduce
-from ..metrics import (
+from ..metrics import (  # noqa: F401  (Failure: the reference's name here)
     DoubleMetric,
     Entity,
+    Failure,
     Metric,
     metric_from_empty,
     metric_from_failure,

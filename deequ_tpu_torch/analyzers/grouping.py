@@ -751,6 +751,29 @@ def _switch(env: str, what: str) -> Optional[str]:
     return None
 
 
+def device_freq_max_cardinality() -> int:
+    """The largest dictionary whose grouping counts on ``dict_code_counts``
+    (the tuning registry's value: env override > tuned > static)."""
+    from ..tuning import knobs
+
+    return knobs.value("device_freq_max_cardinality")
+
+
+def freq_table_slots() -> int:
+    """The device frequency table's distinct-group capacity (registry)."""
+    from ..tuning import knobs
+
+    return knobs.value("freq_table_slots")
+
+
+def freq_buffer_entries() -> int:
+    """The device frequency table's raw-key buffer cap, the resident
+    ceiling (registry)."""
+    from ..tuning import knobs
+
+    return knobs.value("freq_buffer_entries")
+
+
 def device_freq_enabled() -> bool:
     """``DEEQU_TPU_DEVICE_FREQ``: "0" keeps every grouping set that is
     not a small dictionary column off the device frequency table."""

@@ -32,9 +32,10 @@ from ..kernels.scan_reduce import (
     Partials,
     comoments,
 )
-from ..metrics import (
+from ..metrics import (  # noqa: F401  (DoubleMetric: the reference's name here)
     Distribution,
     DistributionValue,
+    DoubleMetric,
     Entity,
     HistogramMetric,
     Success,

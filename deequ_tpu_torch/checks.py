@@ -17,6 +17,7 @@ from .constraints import (
     ConstrainableDataTypes,
     Constraint,
     ConstraintDecorator,
+    ConstraintResult,  # noqa: F401  (the reference's name here)
     ConstraintStatus,
 )
 

@@ -31,7 +31,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..config import CLUSTER_HEARTBEAT_ENV as HEARTBEAT_ENV
 from ..config import CLUSTER_HOST_TTL_ENV as HOST_TTL_ENV
-from ..exceptions import HostLossError
+from ..exceptions import HostLossError, ShardLossError  # noqa: F401
 from ..reliability.faults import fault_point
 from ..utils import env_number
 

@@ -99,6 +99,35 @@ CLUSTER_LEASE_TTL_ENV = "DEEQU_TPU_CLUSTER_LEASE_TTL_S"
 #: force-flushes the session to the partition store (default 256; minimum 1)
 CLUSTER_JOURNAL_MAX_FOLDS_ENV = "DEEQU_TPU_CLUSTER_JOURNAL_MAX_FOLDS"
 
+# Engine placement, the host tier, the feature cache and profiling
+# (implemented in ``runners/engine.py``, ``runners/analysis_runner.py``,
+# ``native/lib.py`` and ``data/__init__.py``; documented here with the
+# other operator-facing switches, as the reference's ``config.py`` does):
+#
+# - DEEQU_TPU_PLACEMENT: the ingest tier when a run names none: "auto"
+#   (probe the feed link), "host" or "device".
+# - DEEQU_TPU_HOST_TIER_WORKERS: the host tier's pool of partial workers
+#   (0 or unset: every core; a bad value warns once and keeps that). The
+#   states are the same at every pool size.
+# - DEEQU_TPU_DEVICE_FEATURE_CACHE: the device feature cache's budget in GB
+#   of the run device's memory; unset or "0" is off (the default). A
+#   repeated device-tier pass over the same table then builds and copies
+#   nothing; whole least-recently-used tables are evicted.
+# - DEEQU_TPU_PROFILE_DIR: a directory receiving a ``torch.profiler``
+#   Chrome trace of every pass (CPU and CUDA activity); unset is off.
+# - DEEQU_TPU_NO_NATIVE: "1" runs every host kernel's numpy version
+#   (``native/plain.py``) instead of the C++ library; read when
+#   ``deequ_tpu_torch.native.lib`` is imported.
+# - DEEQU_TPU_ADAPTIVE_DICT_ENCODE: "0" turns off the ingest-time
+#   dictionary encoding of low-cardinality string columns.
+#
+# Three knobs of the reference drive XLA and have no counterpart here:
+# DEEQU_TPU_NO_COMPILE_CACHE (XLA's persistent compile cache; the port's
+# kernels are built once into ``kernels/_build``), DEEQU_TPU_SCAN_BUNDLE
+# (bundling XLA programs; the port launches one kernel a battery) and
+# DEEQU_TPU_SLIM_FETCH (the JAX state fetch; the port's ``fetch_states``).
+# DEEQU_TPU_NO_X64, the reference's 32-bit accumulators, is not ported yet.
+
 DEFAULT_DEVICE = "cuda"
 
 DeviceLike = Union[str, torch.device, None]

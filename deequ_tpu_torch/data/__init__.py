@@ -489,6 +489,8 @@ class Dataset:
                 break
 
 
+#: set to "0" to turn ingest-time adaptive dictionary encoding off
+ADAPTIVE_DICT_ENCODE_ENV = "DEEQU_TPU_ADAPTIVE_DICT_ENCODE"
 #: rows sampled to estimate a plain string column's cardinality
 _ENCODE_PROBE_ROWS = 1 << 16
 #: a probe must stay under this many distinct values to qualify
@@ -504,7 +506,11 @@ def _maybe_dictionary_encode(table: "pa.Table") -> "pa.Table":
     instead of per-row string work per batch per analyzer: a TPC-H flag
     column's HLL host cost drops ~30x. Columns whose probe looks
     high-cardinality stay as-is (encoding them would waste memory for no
-    reuse)."""
+    reuse). ``DEEQU_TPU_ADAPTIVE_DICT_ENCODE=0`` turns it off."""
+    from ..utils import env_flag
+
+    if not env_flag(ADAPTIVE_DICT_ENCODE_ENV, True):
+        return table
     n = table.num_rows
     if n == 0:
         return table

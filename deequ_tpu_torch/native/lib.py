@@ -5,6 +5,11 @@ large-string layout (one UTF-8 buffer and int64 offsets, a C-speed
 conversion through pyarrow), then each kernel runs one C++ pass over the
 buffers. The library builds and loads at the first call (``build.py``);
 a build or load failure raises.
+
+``DEEQU_TPU_NO_NATIVE=1``, read when this module is imported, routes
+every export to its numpy version in ``plain.py`` (equal bit for bit, and
+slow) and :func:`load` refuses: the reference's switch, whose Python
+fallbacks compute the same values.
 """
 
 from __future__ import annotations
@@ -17,7 +22,21 @@ from typing import Dict, Optional
 import numpy as np
 import pyarrow as pa
 
+from ..utils import env_flag
 from . import build
+
+#: set to 1 to run every host kernel's numpy version instead of the library
+NO_NATIVE_ENV = "DEEQU_TPU_NO_NATIVE"
+NATIVE_DISABLED = env_flag(NO_NATIVE_ENV, False)
+
+#: the library's exports, each with a numpy twin ``<name>_plain`` in plain.py
+EXPORTS = (
+    "native_xxhash64_strings", "native_classify_types", "native_string_lengths",
+    "native_hll_pack_numeric", "native_hll_pack_strings", "native_block_stats",
+    "native_block_comoments", "native_block_hll", "native_block_hll_strings",
+    "native_block_kll_sample", "native_dict_masked_bincount", "native_block_kll_pick",
+    "native_pattern_match", "native_u64_value_counts",
+)
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i64p = ctypes.POINTER(ctypes.c_int64)
@@ -65,6 +84,8 @@ def _bind(lib: ctypes.CDLL) -> None:
 def load() -> ctypes.CDLL:
     """The loaded library, built first if needed."""
     global _LIB
+    if NATIVE_DISABLED:
+        raise ImportError(f"native kernels disabled via {NO_NATIVE_ENV}")
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(build.build())
@@ -391,3 +412,18 @@ def native_dict_masked_bincount(codes: np.ndarray, mask: np.ndarray, num_cats: i
         _ptr(out, _i64p),
     )
     return out
+
+
+def _plain_pattern_match(values, mask, pattern: str) -> np.ndarray:
+    from .plain import native_pattern_match_plain
+
+    _count_route("re")
+    return native_pattern_match_plain(values, mask, pattern)
+
+
+if NATIVE_DISABLED:
+    from . import plain as _plain
+
+    for _name in EXPORTS:
+        globals()[_name] = getattr(_plain, _name + "_plain")
+    native_pattern_match = _plain_pattern_match  # noqa: F811

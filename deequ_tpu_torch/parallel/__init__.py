@@ -46,6 +46,7 @@ from ..analyzers.states import leaves, with_leaves
 from ..config import DeviceLike, resolve_device
 from ..ops.kll import KLLSketchState
 from ..reliability.faults import fault_point
+from ..utils import BoundedLRU  # noqa: F401  (the reference's name here)
 
 ROW_AXIS = "rows"
 

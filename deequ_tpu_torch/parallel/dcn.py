@@ -46,7 +46,12 @@ import torch
 from ..analyzers.base import merge_states_batched_many, stack_states, state_to
 from ..analyzers.states import leaves, with_leaves
 from ..config import DeviceLike, resolve_device, synchronize
-from . import make_mesh, sharded_ingest_fold, stack_identity_states
+from . import (  # noqa: F401  (collective_merge_states: the reference's name here)
+    collective_merge_states,
+    make_mesh,
+    sharded_ingest_fold,
+    stack_identity_states,
+)
 
 #: seconds a cross-process merge may take before a peer counts as lost
 DEFAULT_DCN_DEADLINE_S = 15.0

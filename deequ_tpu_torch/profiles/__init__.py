@@ -40,7 +40,7 @@ from ..analyzers import (
 )
 from ..config import DeviceLike
 from ..data import ColumnKind, Dataset
-from ..metrics import BucketDistribution, Distribution
+from ..metrics import BucketDistribution, Distribution, HistogramMetric  # noqa: F401
 from ..runners.analysis_runner import AnalysisRunner
 
 DEFAULT_CARDINALITY_THRESHOLD = 120  # reference `ColumnProfiler.scala:71`

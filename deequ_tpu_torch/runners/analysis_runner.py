@@ -73,6 +73,7 @@ from ..analyzers.base import (
     merge_states_batched,
     merge_states_batched_many,
 )
+from ..analyzers.state_provider import StateLoader, StatePersister  # noqa: F401
 from ..analyzers.grouping import (
     DeviceFrequencyScan,
     DeviceFrequencyTableScan,

@@ -8,7 +8,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 from ..analyzers.base import Analyzer
-from ..metrics import Metric
+from ..metrics import DoubleMetric, Metric  # noqa: F401  (the reference's names here)
 
 
 @dataclass(frozen=True)

@@ -46,11 +46,12 @@ failover, OOM batch bisection and the pass-level re-shard of a mesh.
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
 import threading
 import time
 import warnings
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -67,6 +68,10 @@ from ..analyzers.base import (
     resolve_slot,
     unpack_states,
 )
+from ..analyzers.grouping import (  # noqa: F401  (the reference's names here)
+    FrequenciesAndNumRows,
+    GroupingAnalyzer,
+)
 from ..analyzers.sketches import ApproxCountDistinct
 from ..analyzers.states import FrequencyTableState, leaves as state_leaves, with_leaves
 from ..config import DEFAULT_BATCH_SIZE, DeviceLike, synchronize
@@ -78,6 +83,8 @@ from ..ops.kll import KLLSketchState
 from ..reliability.faults import fault_point
 from ..utils import BoundedLRU
 from .features import FeatureBuilder
+
+_logger = logging.getLogger(__name__)
 
 
 #: the reliability layer's counters, also tallied for the whole process: the
@@ -157,7 +164,9 @@ class RunMonitor:
     ``partitions_scanned`` / ``partitions_reused`` /
     ``partitions_invalidated`` / ``partitions_dropped``, the partitions a
     merge took from the rollup cache (``partitions_rolled_up``) and the
-    corrupt payloads quarantined or discarded (``corrupt_quarantined``)."""
+    corrupt payloads quarantined or discarded (``corrupt_quarantined``).
+    ``feature_cache_hits`` counts the device-tier batches whose features
+    came from the device feature cache (:func:`device_feature_cache`)."""
 
     passes: int = 0
     batches: int = 0
@@ -196,6 +205,9 @@ class RunMonitor:
     #: streaming folds sharded over a fleet sub-mesh
     #: (``service.coalesce``'s mesh fold)
     fleet_mesh_folds: int = 0
+    #: device-tier batches whose features the device feature cache held
+    #: (no feature build, no copy: :func:`device_feature_cache`)
+    feature_cache_hits: int = 0
     _lock: Any = field(default_factory=threading.Lock, repr=False, compare=False)
 
     #: the counters :meth:`merge_from` adds up
@@ -206,7 +218,7 @@ class RunMonitor:
         "device_stalls", "shard_losses", "mesh_reshards", "salvaged_states",
         "checkpoint_saves", "partitions_scanned", "partitions_reused",
         "partitions_invalidated", "partitions_dropped", "partitions_rolled_up",
-        "corrupt_quarantined", "fleet_mesh_folds",
+        "corrupt_quarantined", "fleet_mesh_folds", "feature_cache_hits",
     )
 
     def add_phase_time(self, phase: str, seconds: float) -> None:
@@ -805,10 +817,14 @@ class ScanEngine:
 
             ensure_built()
         warm = getattr(_WARM_RUN, "active", False)
+        # read on the calling thread: a background warm's flag does not
+        # follow the pass onto the watchdog's thread
+        cache = device_feature_cache()
 
         def body() -> List[Any]:
-            return self._run_inner(data, bs, tier, columns, host_states, host_update_fns,
-                                   checkpointer)
+            with pass_profiler(self.device):
+                return self._run_inner(data, bs, tier, columns, host_states, host_update_fns,
+                                       checkpointer, cache)
 
         batches_before = monitor.batches
         t0 = time.perf_counter()
@@ -830,7 +846,8 @@ class ScanEngine:
         return states
 
     def _run_inner(self, data: Dataset, bs: int, tier: str, columns, host_states,
-                   host_update_fns, checkpointer) -> List[Any]:
+                   host_update_fns, checkpointer,
+                   cache: Optional["_DeviceFeatureCache"] = None) -> List[Any]:
         from ..native import pattern_routes
 
         monitor = self.monitor
@@ -856,7 +873,7 @@ class ScanEngine:
                                              ckpt)
             else:
                 states = self._run_device_tier(data, bs, columns, host_states,
-                                               host_update_fns, ckpt)
+                                               host_update_fns, ckpt, cache)
             if ckpt is not None:
                 self._check_cancelled()
                 ckpt.complete()
@@ -895,7 +912,8 @@ class ScanEngine:
             return fetch_states(states)
 
     def _run_device_tier(self, data: Dataset, bs: int, columns, host_states,
-                         host_update_fns, ckpt: Optional["_PassCheckpoint"] = None) -> List[Any]:
+                         host_update_fns, ckpt: Optional["_PassCheckpoint"] = None,
+                         cache: Optional["_DeviceFeatureCache"] = None) -> List[Any]:
         """The device tier: per batch the features reach the device and the
         battery's kernels fold them into the states there. The batches come
         through the feed pipeline (:class:`_DeviceFeed` under
@@ -905,7 +923,9 @@ class ScanEngine:
         depth >= 1 a feed thread builds the next batches' features while
         this thread copies the current one to the device and launches. Both
         depths give the same states bit for bit: the same batches reach the
-        same kernels in the same order."""
+        same kernels in the same order. With ``cache`` (the device feature
+        cache) each batch's features are looked up first: a hit builds and
+        copies nothing, and a miss is admitted once it is on the device."""
         from ..ingest.prefetch import PrefetchingBatchIterator, prefetch_depth, staging_depth
 
         monitor = self.monitor
@@ -918,6 +938,10 @@ class ScanEngine:
         depth = staging_depth(n_batches - start)
         depth = prefetch_depth() if depth is None else depth
         feed = _DeviceFeed(self, data.batches(bs, columns=columns, start_batch=start), start)
+        if cache is not None and self.scan_analyzers:
+            feed.cache_with(cache, data, (
+                id(data.arrow), bs, None if columns is None else tuple(columns),
+                tuple(sorted(self.builder.specs)), str(self.device)))
         with PrefetchingBatchIterator(feed.produce, depth=depth,
                                       stop=self._cancelled) as staged:
             while True:
@@ -959,18 +983,19 @@ class ScanEngine:
                        chunk: int, compute_partial, fold, start: int = 0, host_start: int = 0,
                        after_fold: Optional[Callable[[int, int], None]] = None) -> None:
         """The host tier's pipeline (the reference's ``_run_host_tier``,
-        deequ_tpu/runners/engine.py:2223): a pool of ``os.cpu_count()``
-        threads computes each batch's partial (``compute_partial(index,
-        batch)``), at most ``workers + chunk`` batches in flight; the
-        partials fold in submission order (the KLL sampler's offset keys on
-        the batch index) through ``fold(partials, first_index)`` in chunks
-        of ``chunk``, the last chunk holding what is left. Host accumulators
+        deequ_tpu/runners/engine.py:2223): a pool of
+        :func:`host_tier_workers` threads computes each batch's partial
+        (``compute_partial(index, batch)``), at most ``workers + chunk``
+        batches in flight; the partials fold in submission order (the KLL
+        sampler's offset keys on the batch index) through
+        ``fold(partials, first_index)`` in chunks of ``chunk``, the last
+        chunk holding what is left. Host accumulators
         fold each batch on the submitting thread meanwhile. A resumed pass
         starts at batch ``start`` (a chunk boundary), its host accumulators
         at ``host_start``; ``after_fold(folded, submitted)`` runs after each
         full chunk's fold (the checkpoints)."""
         monitor = self.monitor
-        workers = os.cpu_count() or 1
+        workers = host_tier_workers()
         window = workers + chunk
         pending: deque = deque()
         buffer: List[Any] = []
@@ -1168,8 +1193,202 @@ class _PassAbandoned(Exception):
 
 
 #: per-thread flag of a background warm's run (a 1-row sample that must
-#: not teach the watchdog's rate tracker)
+#: not teach the watchdog's rate tracker, nor enter the feature cache)
 _WARM_RUN = threading.local()
+
+
+class _DeviceFeatureCache:
+    """The device-resident feature cache (opt-in, the reference's
+    ``_DeviceFeatureCache``, deequ_tpu/runners/engine.py:1554-1665): each
+    batch's features, keyed by ``(table id, batch size, columns, feature
+    specs, device, batch index)``, stay on the device across passes and
+    runs, so a repeated run over the same table builds and copies nothing.
+    The table is pinned once something of it is cached, so its id cannot
+    be reused while keys name it.
+
+    Entries group by their table. When the byte budget is spent, whole
+    least-recently-used groups are evicted, the table's pin with them; the
+    group being admitted is never evicted to make room for itself. An
+    entry that can never fit is refused at once, and admission stopping is
+    logged once. Bytes are the resident tensors' ``nbytes``."""
+
+    def __init__(self, budget_bytes: int):
+        self.budget = budget_bytes
+        self.bytes = 0
+        self.store: Dict[Tuple, Dict[str, torch.Tensor]] = {}
+        self.tables: Dict[int, Any] = {}
+        self.evictions = 0
+        #: table groups, least recently used first
+        self._group_order: "OrderedDict[int, None]" = OrderedDict()
+        self._group_keys: Dict[int, List[Tuple]] = {}
+        self._group_bytes: Dict[int, int] = {}
+        self._admission_stop_logged = False
+        self._lock = threading.Lock()
+
+    def get(self, key: Tuple) -> Optional[Dict[str, torch.Tensor]]:
+        with self._lock:
+            features = self.store.get(key)
+            if features is not None:
+                self._group_order.move_to_end(key[0])
+            return features
+
+    def admit(self, key: Tuple, table: Any, features: Dict[str, torch.Tensor],
+              nbytes: int) -> bool:
+        """Insert ``features`` under ``key`` (``key[0]`` is the table's
+        id), evicting least-recently-used table groups as needed; False
+        when the entry cannot fit without evicting its own group."""
+        table_id = key[0]
+        with self._lock:
+            if key in self.store:
+                # two passes built the same batch at once: keep the first
+                # (a second insert would count its bytes twice)
+                self._group_order.move_to_end(table_id)
+                return True
+            if nbytes + self._group_bytes.get(table_id, 0) > self.budget:
+                # its own group is never evicted for it: no eviction helps
+                self._log_admission_stop(nbytes)
+                return False
+            while self.bytes + nbytes > self.budget and self._evict_lru_group(table_id):
+                pass
+            if self.bytes + nbytes > self.budget:
+                self._log_admission_stop(nbytes)
+                return False
+            self.store[key] = features
+            self.bytes += nbytes
+            self.tables[table_id] = table
+            self._group_keys.setdefault(table_id, []).append(key)
+            self._group_bytes[table_id] = self._group_bytes.get(table_id, 0) + nbytes
+            self._group_order[table_id] = None
+            self._group_order.move_to_end(table_id)
+            return True
+
+    def _log_admission_stop(self, nbytes: int) -> None:
+        if not self._admission_stop_logged:
+            self._admission_stop_logged = True
+            _logger.warning(
+                "device feature cache stopped admitting: entry of %d bytes does not fit "
+                "the %d-byte budget (%d bytes in use by unevictable entries); raise %s or "
+                "expect cold feeds for the overflow batches",
+                nbytes, self.budget, self.bytes, DEVICE_FEATURE_CACHE_ENV)
+
+    def _evict_lru_group(self, exclude: int) -> bool:
+        for table_id in self._group_order:
+            if table_id == exclude:
+                continue
+            del self._group_order[table_id]
+            for key in self._group_keys.pop(table_id):
+                del self.store[key]
+            freed = self._group_bytes.pop(table_id)
+            self.bytes -= freed
+            self.tables.pop(table_id, None)
+            self.evictions += 1
+            _logger.info("device feature cache evicted table group %d (%d bytes)",
+                         table_id, freed)
+            return True
+        return False
+
+    def clear(self) -> None:
+        with self._lock:
+            self.store.clear()
+            self.tables.clear()
+            self.bytes = 0
+            self.evictions = 0
+            self._group_order.clear()
+            self._group_keys.clear()
+            self._group_bytes.clear()
+            self._admission_stop_logged = False
+
+
+#: the host tier's pool of partial workers (0 or unset: every core)
+HOST_TIER_WORKERS_ENV = "DEEQU_TPU_HOST_TIER_WORKERS"
+#: the device feature cache's budget, in GB of the run device's memory
+#: (0 or unset: off)
+DEVICE_FEATURE_CACHE_ENV = "DEEQU_TPU_DEVICE_FEATURE_CACHE"
+#: a directory receiving a ``torch.profiler`` trace of every pass
+PROFILE_DIR_ENV = "DEEQU_TPU_PROFILE_DIR"
+_DEVICE_FEATURE_CACHE: Optional[_DeviceFeatureCache] = None
+_DEVICE_FEATURE_CACHE_LOCK = threading.Lock()
+
+
+def device_feature_cache() -> Optional[_DeviceFeatureCache]:
+    """The process's device feature cache, or None when
+    ``DEEQU_TPU_DEVICE_FEATURE_CACHE`` is unset or 0, and on a background
+    warm's thread (its 1-row sample must not enter the budget)."""
+    from ..utils import env_number
+
+    global _DEVICE_FEATURE_CACHE
+    if getattr(_WARM_RUN, "active", False):
+        return None
+    budget_gb = env_number(DEVICE_FEATURE_CACHE_ENV, 0.0, float, minimum=0.0)
+    if not budget_gb:
+        return None
+    with _DEVICE_FEATURE_CACHE_LOCK:
+        if _DEVICE_FEATURE_CACHE is None:
+            _DEVICE_FEATURE_CACHE = _DeviceFeatureCache(int(budget_gb * 1e9))
+        return _DEVICE_FEATURE_CACHE
+
+
+def clear_device_feature_cache() -> None:
+    """Drop every cached feature (and the tables they pin); the next read
+    of the knob makes a new cache."""
+    global _DEVICE_FEATURE_CACHE
+    with _DEVICE_FEATURE_CACHE_LOCK:
+        if _DEVICE_FEATURE_CACHE is not None:
+            _DEVICE_FEATURE_CACHE.clear()
+        _DEVICE_FEATURE_CACHE = None
+
+
+def host_tier_workers() -> int:
+    """The host tier's pool size: ``DEEQU_TPU_HOST_TIER_WORKERS``, or every
+    core when it is 0 or unset (a bad value warns once and keeps that).
+    The states do not depend on it: partials fold in submission order."""
+    from ..utils import env_number
+
+    return env_number(HOST_TIER_WORKERS_ENV, 0, int, minimum=0) or os.cpu_count() or 1
+
+
+_PROFILE_LOCK = threading.Lock()
+_PROFILE_SEQ = iter(range(1 << 62))
+
+
+@contextlib.contextmanager
+def pass_profiler(device: torch.device):
+    """Around one pass: with ``DEEQU_TPU_PROFILE_DIR`` set, a
+    ``torch.profiler`` trace of the CPU and (on a card) CUDA activity,
+    written into that directory as ``deequ-pass-<pid>-<n>.json`` (Chrome
+    trace format; the reference's ``jax.profiler.trace``). One pass is
+    traced at a time: a pass that starts while another is traced runs
+    untraced."""
+    from ..utils import env_str
+
+    profile_dir = env_str(PROFILE_DIR_ENV)
+    if not profile_dir or not _PROFILE_LOCK.acquire(blocking=False):
+        yield
+        return
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            yield
+        prof.export_chrome_trace(os.path.join(
+            profile_dir, f"deequ-pass-{os.getpid()}-{next(_PROFILE_SEQ)}.json"))
+    finally:
+        _PROFILE_LOCK.release()
+
+
+class _Resident:
+    """A batch's features as the device feature cache holds them: already
+    on the device, so :meth:`_DeviceFeed.place` hands them back as they
+    are."""
+
+    __slots__ = ("features",)
+
+    def __init__(self, features: Dict[str, torch.Tensor]):
+        self.features = features
 
 
 class _DeviceFeed:
@@ -1178,12 +1397,23 @@ class _DeviceFeed:
     depth >= 1, phase ``feature_build``), and :meth:`place` copies a
     batch's features to the device on the launching thread and waits for
     the copy (phase ``host_to_device``; on the CPU the features are views
-    of the host arrays)."""
+    of the host arrays). With a device feature cache (:meth:`cache_with`),
+    a batch whose features the cache holds skips both: the Arrow batch is
+    still read, for the host accumulators."""
 
     def __init__(self, engine: "ScanEngine", batches, start: int):
         self.engine = engine
         self.batches = batches
         self.index = start
+        self.cache: Optional[_DeviceFeatureCache] = None
+
+    def cache_with(self, cache: "_DeviceFeatureCache", data: Dataset, key_base: Tuple) -> None:
+        """Look batches up in ``cache`` under ``key_base + (index,)``
+        (``key_base[0]`` is the table's id) and admit the misses, pinning
+        ``data``'s table."""
+        self.cache = cache
+        self.table = data.arrow
+        self.key_base = key_base
 
     def produce(self):
         engine = self.engine
@@ -1197,6 +1427,11 @@ class _DeviceFeed:
         self.index += 1
         if not engine.scan_analyzers:
             return index, batch, None
+        if self.cache is not None:
+            features = self.cache.get(self.key_base + (index,))
+            if features is not None:
+                engine.monitor.bump("feature_cache_hits")
+                return index, batch, _Resident(features)
         kinds: Dict[str, float] = {}
         with engine.monitor.timed("feature_build"):
             host_features = engine.builder.build(batch, kinds)
@@ -1204,14 +1439,20 @@ class _DeviceFeed:
             engine.monitor.add_phase_time(phase, seconds)
         return index, batch, host_features
 
-    def place(self, index: int, host_features: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """The batch's features on the device."""
+    def place(self, index: int, host_features) -> Dict[str, torch.Tensor]:
+        """The batch's features on the device: the cache's own tensors on a
+        hit, else copied (and admitted to the cache, if there is one)."""
+        if isinstance(host_features, _Resident):
+            return host_features.features
         engine = self.engine
         with engine._live():
             fault_point("device_feed", tag=str(index))
         with engine.monitor.timed("host_to_device"):
             features = to_device(host_features, engine.device)
             synchronize(engine.device)
+        if self.cache is not None:
+            self.cache.admit(self.key_base + (index,), self.table, features,
+                             sum(t.nbytes for t in features.values()))
         return features
 
 

@@ -1,5 +1,6 @@
 """Re-export shim; the taxonomy lives in `deequ_tpu_torch.exceptions`."""
 
+from ..exceptions import *  # noqa: F401,F403
 from ..exceptions import (  # noqa: F401
     EmptyStateException,
     IllegalAnalyzerParameterException,
@@ -8,6 +9,7 @@ from ..exceptions import (  # noqa: F401
     MetricCalculationRuntimeException,
     NoColumnsSpecifiedException,
     NoSuchColumnException,
+    NumberOfSpecifiedColumnsException,
     WrongColumnTypeException,
     wrap_if_necessary,
 )

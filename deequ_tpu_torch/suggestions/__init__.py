@@ -16,7 +16,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 from ..config import DeviceLike, resolve_device
-from ..profiles import ColumnProfile
+from ..constraints import Constraint  # noqa: F401  (the reference's name here)
+from ..profiles import ColumnProfile, ColumnProfiles  # noqa: F401
 from .rules import (  # noqa: F401
     DEFAULT_RULES,
     CategoricalRangeRule,

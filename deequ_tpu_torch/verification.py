@@ -26,7 +26,8 @@ from typing import Any, Dict, List, Optional, Sequence
 from .analyzers import Analyzer
 from .checks import Check, CheckLevel, CheckResult, CheckStatus
 from .config import DeviceLike, resolve_device
-from .data import Dataset
+from .analyzers.state_provider import StateLoader, StatePersister  # noqa: F401
+from .data import Dataset, Schema  # noqa: F401  (Schema: the reference's name here)
 from .metrics import Metric
 from .runners.analysis_runner import (
     AnalysisRunner,

@@ -1,6 +1,7 @@
-"""The PyTorch/CUDA port stands alone: ``deequ_tpu_torch``, ``chip_smoke.py``
-and the port's tools (``tools/torch_*.py``) import neither JAX nor the JAX
-package ``deequ_tpu`` (nor the reference's test harness), and
+"""The PyTorch/CUDA port stands alone: ``deequ_tpu_torch``, ``chip_smoke.py``,
+the port's tools (``tools/torch_*.py``) and its examples (``examples_torch/``)
+import neither JAX nor the JAX package ``deequ_tpu`` (nor the reference's
+test harness or examples), and
 ``chip_smoke.py`` refuses to report a result without a CUDA device or
 without the package beside it."""
 
@@ -17,8 +18,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "deequ_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "deequ_tpu", "cluster_harness")
+FORBIDDEN = ("jax", "jaxlib", "flax", "deequ_tpu", "cluster_harness", "examples")
 TOOLS = sorted(p.relative_to(REPO).as_posix() for p in (REPO / "tools").glob("torch_*.py"))
+EXAMPLES = sorted(p.relative_to(REPO).as_posix() for p in (REPO / "examples_torch").glob("*.py"))
 
 
 def _env_without_cuda():
@@ -47,6 +49,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import deequ_tpu_torch.cluster, deequ_tpu_torch.cluster.front\n"
         "import tools.torch_cluster_soak, tools.torch_chaos_soak, tools.torch_tuning_report\n"
         "import tools.torch_trace_summarize\n"
+        "import examples_torch.example_utils, examples_torch.multi_device_example\n"
+        "import examples_torch.continuous_verification_example, examples_torch.kll_example\n"
+        "import examples_torch.anomaly_detection_example\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -71,7 +76,7 @@ def _imported_roots(path: Path):
 @pytest.mark.parametrize(
     "path",
     sorted(p.relative_to(REPO).as_posix() for p in PACKAGE.rglob("*.py")) + ["chip_smoke.py"]
-    + TOOLS,
+    + TOOLS + EXAMPLES,
 )
 def test_no_source_of_the_port_imports_jax_or_the_reference(path):
     roots = set(_imported_roots(REPO / path))
