@@ -334,7 +334,27 @@ Phases, each of which fails the run when it fails:
    pool's run) and ``DEEQU_TPU_NO_NATIVE=1`` (the native module imported
    again under it) against the default run, and ``DEEQU_TPU_PROFILE_DIR``'s
    one trace of the pass naming K1-K3's CUDA kernels. The card's name and
-   power limit print beside every time.
+   power limit print beside every time;
+19. the reference's 32-bit accumulator mode, last, in a subprocess of this
+   script started with ``DEEQU_TPU_NO_X64=1`` (``--no-x64-child``) before
+   phase 17, whose imports and table build overlap phases 17 and 18 (b)
+   and which uses the card only when phase 19 lets it (``--wait-for-go``): (a)
+   each float32 entry (K1's one-launch and stacked entries, K4, K5's
+   update, merge, stacked merge and ingest, K8's fold, carry, butterfly
+   and stacked carry) and K3's int32 counts against their plain versions
+   at phase 2's and 6's shapes, counts, min, max, registers and items bit
+   for bit, sums and moments within ``F32_KERNEL_RTOL`` of their
+   magnitudes, each timed beside its float64 entry on float64 copies of
+   the same inputs and beside that entry's phase 2 time, with its bound;
+   (b) phase 3's battery over the same 10M-row table on the
+   card, against the float64 oracle (counts exact, the rest within 1e-4)
+   and against the same mode on ``device="cpu"`` over a 1M-row cut, its
+   phases beside phase 3's, and config 1 (the BasicExample) against its
+   CPU run; (c) config 2 and a KLL sketch on the host
+   tier, unsharded and over 8 shards, bit for bit the CPU's; (d) a
+   persisted-state round trip merged on the card; (e) two sessions' two
+   coalesced folds each through ``VerificationService``. Every float32 entry
+   must launch on (b)-(e).
 
 Each main path runs with the kernels' launch counts set to 0 just before it
 and read just after, and every kernel of the path must have been launched.
@@ -1367,7 +1387,15 @@ def sequential_fold(states: list):
 # ---------------------------------------------------------------------------
 
 
-def _time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> dict:
+#: :func:`_time_ms`: a call whose host work takes longer than this (ms) is
+#: timed over at most SLOW_CALL_REPS calls
+SLOW_CALL_HOST_MS = 2.0
+SLOW_CALL_REPS = 3
+#: the longest spin queued before a timed call (ms)
+SPIN_CAP_MS = 150.0
+
+
+def _time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> dict:
     """Times of one call of ``fn``: ``ms``, the median CUDA-event time of
     the device work the call queues; ``host_ms``, the median host time the
     call takes to queue it; ``ahead``, how many of the ``reps`` calls were
@@ -1380,14 +1408,24 @@ def _time_ms(torch, fn, reps: int = 30, warmup: int = 3) -> dict:
     events bracket the queued work alone, back to back, and not the host
     time between launches. A call that waits for the card itself (a copy
     to the host, a data-dependent size) cannot be queued ahead; its ``ms``
-    then includes the host time after that wait, and ``ahead`` says so."""
+    then includes the host time after that wait, and ``ahead`` says so.
+
+    A call whose host work takes more than ``SLOW_CALL_HOST_MS`` (the plain
+    versions, which wait for the card or issue hundreds of small launches)
+    is timed over at most ``SLOW_CALL_REPS`` calls, and no spin lasts more
+    than ``SPIN_CAP_MS``: the slowest call queued ahead in PR 22's runs
+    took 22.4 ms, and the calls of hundreds of ms wait for the card, so
+    a longer spin only waits."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
-    spin_ms = 2.0 + 4e3 * (time.perf_counter() - t0)
+    host_s = time.perf_counter() - t0
+    spin_ms = min(2.0 + 4e3 * host_s, SPIN_CAP_MS)
+    if 1e3 * host_s > SLOW_CALL_HOST_MS:
+        reps = min(reps, SLOW_CALL_REPS)
     torch.cuda.synchronize()
     device, host, queued = [], [], []
     for _ in range(reps):
@@ -3038,7 +3076,7 @@ def drill(label: str):
 
 def print_phase_seconds(total: float) -> None:
     """The ``[seconds] phase N`` lines of every phase and the total."""
-    for n in range(1, 19):
+    for n in range(1, 20):
         print(f"[seconds] phase {n}: {PHASE_SECONDS.get(n, 0.0):.1f}s", flush=True)
     print(f"[seconds] total: {total:.1f}s", flush=True)
 
@@ -7696,6 +7734,10 @@ def switches_and_cache(torch, dq, table: pa.Table, data, check, gpu_metrics: dic
         operator_switches(torch, dq, table, card)
 
 
+#: phase 3's seconds and phases, which phase 19 prints its own beside
+MAIN_PHASES: dict = {}
+
+
 def verification_path(torch, dq, table: pa.Table, data, check) -> tuple:
     """Phase 3: the main path on the card, launch counts set to 0 just
     before, against the same run on the CPU and the oracle. Returns the
@@ -7715,6 +7757,7 @@ def verification_path(torch, dq, table: pa.Table, data, check) -> tuple:
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     phases = {k: round(v, 4) for k, v in monitor.phase_seconds.items()}
+    MAIN_PHASES.update(phases, seconds=round(seconds, 3))
     print(f"[main] {ROWS} rows in {seconds:.3f}s = {ROWS / seconds:.0f} rows/s; "
           f"batches={monitor.batches}; launches={launches}; peak device memory "
           f"{peak / 2**20:.1f} MiB; phases={phases}", flush=True)
@@ -7747,9 +7790,673 @@ def verification_path(torch, dq, table: pa.Table, data, check) -> tuple:
     return gpu_metrics, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the reference's 32-bit accumulator mode (DEEQU_TPU_NO_X64), in
+# a subprocess started with the switch set (the mode is fixed at import)
+# ---------------------------------------------------------------------------
+
+#: each float32 entry's launch-count name and the float64 entry whose
+#: phase 2 time it stands beside
+F32_ENTRIES = {
+    "scan_reduce_f32": "scan_reduce", "scan_reduce_stacked_f32": "scan_reduce_stacked",
+    "kll_sample_f32": "kll_sample", "kll_compact_f32": "kll_compact",
+    "kll_compact_ingest_f32": "kll_compact_ingest",
+    "kll_compact_merge_stacked_f32": "kll_compact_merge_stacked",
+    "state_fold_f32": "state_fold", "state_fold_carry_f32": "state_fold_carry",
+    "state_fold_carry_stacked_f32": "state_fold_carry_stacked",
+    "state_fold_butterfly_f32": "state_fold_butterfly",
+}
+#: float32 sums and moments of a kernel against its plain version, relative
+#: to the magnitudes that bound their rounding (the values' absolute sum,
+#: largest absolute value and sum of squares)
+F32_KERNEL_RTOL = 1e-5
+#: a float32 run's metrics against the float64 numpy oracle (the
+#: reference's own bound, tests/test_no_x64.py) and against the same run on
+#: the CPU (tests/test_torch_no_x64.py measures 9.0e-8 between the packages)
+NO_X64_ORACLE_RTOL = 1e-4
+NO_X64_CPU_RTOL = 1e-5
+#: rows of (b)'s CPU comparison and of (c)-(e)'s runs
+NO_X64_CUT_ROWS = 1_000_000
+
+
+def f32_mats(torch, mats: list) -> list:
+    """``state_fold`` matrices in the 32-bit mode's types: the float matrix
+    as float32, the counts as int32 (wrapping, the same in the kernel and
+    the plain version), the int32 registers as they are."""
+    return [mats[0].float().contiguous(), mats[1].to(torch.int32).contiguous(), mats[2]]
+
+
+def f32_sketch(torch, state) -> list:
+    """A sketch's seven leaves with the 32-bit mode's scalars."""
+    t = list(state.tensors())
+    return t[:4] + [t[4].to(torch.int32), t[5].float(), t[6].float()]
+
+
+def _f32_slot(slot):
+    from deequ_tpu_torch.kernels.scan_reduce import Slot
+
+    def f(t):
+        return t if t is None or not t.dtype.is_floating_point else t.float().contiguous()
+
+    return Slot(slot.kind, slot.where, slot.sel, f(slot.vals), f(slot.vals2), slot.sel2)
+
+
+def _f64_slot(slot):
+    """A float32 slot's twin over float64 copies of its values."""
+    from deequ_tpu_torch.kernels.scan_reduce import Slot
+
+    def f(t):
+        return t if t is None or not t.dtype.is_floating_point else t.double()
+
+    return Slot(slot.kind, slot.where, slot.sel, f(slot.vals), f(slot.vals2), slot.sel2)
+
+
+def _check_f32_scan(torch, add, name, slots, rows, launch, plain) -> float:
+    """Hold a float32 launch of K1 to its plain version; returns the
+    largest absolute difference of the outputs."""
+    ki, kf = launch(slots, rows)
+    pi, pf = plain(slots, rows)
+    torch.cuda.synchronize()
+    if ki.dtype != torch.int32 or kf.dtype != torch.float32 or not torch.equal(ki, pi):
+        raise AssertionError(f"{name}: counts {ki.dtype} differ from the plain version")
+    kf_h, pf_h = kf.cpu().numpy().reshape(-1, 5), pf.cpu().numpy().reshape(-1, 5)
+    for col in (1, 2):  # bit for bit, NaN equal to NaN whatever its payload
+        if not same_tensor_bits([torch.from_numpy(kf_h[:, col])],
+                                [torch.from_numpy(pf_h[:, col])]):
+            raise AssertionError(f"{name}: min/max column {col} differs from the plain version")
+    width = rows.shape[0] if rows.dim() == 2 else 1
+    for s, slot in enumerate(slots):
+        if slot.vals is None:
+            continue
+        v = slot.vals.double().reshape(width, -1)
+        for w in range(width):
+            u = v[w][torch.isfinite(v[w])]
+            scales = [float(u.abs().sum()), float(u.abs().max()) if u.numel() else 0.0,
+                      float((u * u).sum())]
+            for col, scale in zip((0, 3, 4), scales):
+                a, b = kf_h[w * len(slots) + s, col], pf_h[w * len(slots) + s, col]
+                if not ((np.isnan(a) and np.isnan(b))
+                        or abs(float(a) - float(b)) <= F32_KERNEL_RTOL * max(scale, 1.0)):
+                    raise AssertionError(f"{name} slot {s} column {col}: {a!r} vs {b!r}")
+    return _max_abs_err(kf, pf)
+
+
+def check_f32_kernels(torch, dq, data, battery, rows_per_batch: int = BATCH_ROWS,
+                      quick: bool = False) -> dict:
+    """Phase 19 (a): each float32 entry against its plain version at phase
+    2's and phase 6's main-path shapes (one 2^20-row batch of config 2's
+    battery; sketches of size 2,048; 32 packed states of every kind; a
+    host chunk of 32; 8 shards), counts, min, max, registers and items bit
+    for bit, sums and moments within ``F32_KERNEL_RTOL`` of their
+    magnitudes; K3's counts in the process's ``COUNT_DTYPE``. Works in
+    either mode: the inputs are cast to float32 / int32 here. Beside each
+    float32 entry the float64 entry is timed on float64 / int64 copies of
+    the same inputs (``f64_ms``). Returns the measurements by launch-count
+    name."""
+    from deequ_tpu_torch.analyzers.base import pack_states, resolve_slot
+    from deequ_tpu_torch.config import COUNT_DTYPE
+    from deequ_tpu_torch.kernels import scan_reduce as sr
+    from deequ_tpu_torch.kernels import state_fold as sf
+    from deequ_tpu_torch.kernels.dict_code_counts import dict_code_counts, dict_code_counts_plain
+    from deequ_tpu_torch.kernels.kll_compact import (
+        kll_compact_ingest, kll_compact_ingest_plain, kll_compact_merge, kll_compact_merge_plain,
+        kll_compact_merge_stacked, kll_compact_merge_stacked_plain, kll_compact_update,
+        kll_compact_update_plain)
+    from deequ_tpu_torch.kernels.kll_sample import kll_sample, kll_sample_plain
+    from deequ_tpu_torch.ops.kll import kll_init
+    from deequ_tpu_torch.runners.engine import ScanEngine, to_device
+
+    results = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
+                      "max_abs_err": 0.0, "bound_by": "bytes", "f64_ms": 0.0}
+               for name in F32_ENTRIES}
+    add = functools.partial(_add, results)
+
+    def wide(t):
+        """The float64 / int64 type of a float32 / int32 accumulator."""
+        return {torch.float32: torch.float64, torch.int32: torch.int64}[t.dtype]
+
+    def wide_sketch(leaves):
+        """A sketch's leaves with float64 / int64 scalars (items, sizes,
+        parity and ticks keep their types)."""
+        return [*leaves[:4], *(x.to(wide(x)) for x in leaves[4:])]
+
+    def f64_time(name, label, fn):
+        t = time_kernel(fn)
+        results[name]["f64_ms"] += t["ms"]
+        print(f"[launch {F32_ENTRIES[name]} (float64, same inputs) {label}] "
+              f"ms={t['ms']:.4f}", flush=True)
+    time_kernel = (lambda fn: _time_ms(torch, fn, reps=5, warmup=1)) if quick else (
+        lambda fn: _time_kernel_ms(torch, fn))
+    time_plain = (lambda fn: _time_ms(torch, fn, reps=3, warmup=1)) if quick else (
+        lambda fn: _time_ms(torch, fn))
+
+    def reduce_calls(mats):
+        # the float64 rows' library call: torch.amax of the stacked
+        # registers and torch.sum of the stacked counts
+        return time_plain(lambda: (torch.amax(mats[2], dim=0), torch.sum(mats[1], dim=0)))
+    device = torch.device("cuda")
+    engine = ScanEngine(battery, device)
+    features = to_device(engine.builder.build(next(data.batches(rows_per_batch))), device)
+    rows = features["rows"]
+    n = rows.shape[0]
+
+    # K1, one launch per bundle, and the stacked entry at phase 8's group
+    # shape (16 sessions x 4,096 rows of the first bundle)
+    for bundle in engine.program.bundles:
+        slots = [_f32_slot(resolve_slot(spec, features)) for spec in bundle]
+        err = _check_f32_scan(torch, add, "scan_reduce_f32", slots, rows, sr.scan_reduce,
+                              sr.scan_reduce_plain)
+        arrays = {(t.data_ptr(), t.dtype): t for slot in slots
+                  for t in (rows, slot.where, slot.sel, slot.vals, slot.vals2, slot.sel2)
+                  if t is not None}
+        nbytes = sum(t.numel() * t.element_size() for t in arrays.values()) + len(slots) * 12 * 4
+        add("scan_reduce_f32", f"{len(slots)} slots, float32 values", err,
+            time_kernel(lambda: sr.scan_reduce(slots, rows)),
+            time_plain(lambda: sr.scan_reduce_plain(slots, rows)), nbytes, 0)
+        slots64 = [_f64_slot(s) for s in slots]
+        f64_time("scan_reduce_f32", f"{len(slots)} slots",
+                 lambda: sr.scan_reduce(slots64, rows))
+    width, m = 16, 4096
+    stacked_rows = rows[:width * m].reshape(width, m).contiguous()
+    stacked = [sr.Slot(s.kind, *(None if t is None else t[:width * m].reshape(width, m)
+                                 .contiguous() for t in (s.where, s.sel, s.vals, s.vals2, s.sel2)))
+               for s in [_f32_slot(resolve_slot(spec, features))
+                         for spec in engine.program.bundles[0]]]
+    err = _check_f32_scan(torch, add, "scan_reduce_stacked_f32", stacked, stacked_rows,
+                          sr.scan_reduce_stacked, sr.scan_reduce_stacked_plain)
+    got_i, got_f = sr.scan_reduce_stacked(stacked, stacked_rows)
+    for w in range(width):
+        one_i, one_f = sr.scan_reduce([sr.Slot(s.kind, *(None if t is None else t[w] for t in (
+            s.where, s.sel, s.vals, s.vals2, s.sel2))) for s in stacked], stacked_rows[w])
+        if not (torch.equal(one_i, got_i[w]) and same_tensor_bits([one_f], [got_f[w]])):
+            raise AssertionError(f"scan_reduce_stacked_f32 session {w} differs from its "
+                                 "one-session launch")
+    arrays = {(t.data_ptr(), t.dtype): t for slot in stacked
+              for t in (stacked_rows, slot.where, slot.sel, slot.vals) if t is not None}
+    add("scan_reduce_stacked_f32", f"{width} x {m} rows, {len(stacked)} slots", err,
+        time_kernel(lambda: sr.scan_reduce_stacked(stacked, stacked_rows)),
+        time_plain(lambda: sr.scan_reduce_stacked_plain(stacked, stacked_rows)),
+        sum(t.numel() * t.element_size() for t in arrays.values()), 0)
+    stacked64 = [_f64_slot(s) for s in stacked]
+    f64_time("scan_reduce_stacked_f32", f"{width} x {m} rows",
+             lambda: sr.scan_reduce_stacked(stacked64, stacked_rows))
+
+    # K3: a dictionary column's counts, in COUNT_DTYPE
+    for a in engine.scan_analyzers:
+        if type(a).__name__ == "DeviceFrequencyScan":
+            codes, present = features[f"codes:{a.column}"], features[f"mask:{a.column}"]
+            got = dict_code_counts(codes, rows, present, a.num_categories)
+            want = dict_code_counts_plain(codes, rows, present, a.num_categories)
+            torch.cuda.synchronize()
+            if got[0].dtype != COUNT_DTYPE or not all(torch.equal(g, w)
+                                                       for g, w in zip(got, want)):
+                raise AssertionError(f"dict_code_counts {a.column}: counts differ or are not "
+                                     f"{COUNT_DTYPE}")
+            print(f"[launch dict_code_counts {a.column} {COUNT_DTYPE}] bit for bit", flush=True)
+
+    # K4 and K5 on a float32 column: the sample, then an append that
+    # compacts; the merge; 8 stacked merges; a chunk of 32 host samples
+    k = KLL_SKETCH_SIZE
+    values = features["num:a"].float().contiguous()
+    present = features["mask:a"]
+    state = kll_init(k, device=device)
+    leaves = f32_sketch(torch, state)
+    got, want = (kll_sample(values, rows, None, present, leaves[3], k),
+                 kll_sample_plain(values, rows, None, present, leaves[3], k))
+    torch.cuda.synchronize()
+    if got.minmax.dtype != torch.float32 or not same_tensor_bits(got, want):
+        raise AssertionError("kll_sample_f32 differs from the plain version")
+    keep = rows & present & ~torch.isnan(values)
+    items = torch.where(keep, values, float("inf"))
+    add("kll_sample_f32", f"a, {n} rows", 0.0,
+        time_kernel(lambda: kll_sample(values, rows, None, present, leaves[3], k)),
+        time_plain(lambda: kll_sample_plain(values, rows, None, present, leaves[3], k)),
+        4 * n + 2 * n + 4 * k + 12 + 8, n, time_plain(lambda: torch.sort(items)))
+    values64 = values.double()
+    f64_time("kll_sample_f32", f"a, {n} rows",
+             lambda: kll_sample(values64, rows, None, present, leaves[3], k))
+    first = kll_compact_update(leaves, got, k)
+    second = kll_sample(values, rows, None, present, first[3], k)
+    upd = kll_compact_update(first, second, k)
+    upd_plain = kll_compact_update_plain(first, second, k)
+    torch.cuda.synchronize()
+    if upd[4].dtype != torch.int32 or upd[5].dtype != torch.float32 or not same_tensor_bits(
+            upd, upd_plain):
+        raise AssertionError("kll_compact_f32's update differs from the plain version")
+    merged = kll_compact_merge(upd, first, k)
+    if not same_tensor_bits(merged, kll_compact_merge_plain(upd, first, k)):
+        raise AssertionError("kll_compact_f32's merge differs from the plain version")
+    sizes, (m_items, h, _) = first[1].tolist(), second.meta.tolist()
+    level = torch.cat([first[0][h, :sizes[h]], second.samples[:m_items]])
+    add("kll_compact_f32", f"a, level {h}: {sizes[h]} + {m_items} items", 0.0,
+        time_kernel(lambda: kll_compact_update(first, second, k)),
+        time_plain(lambda: kll_compact_update_plain(first, second, k)),
+        _compact_bytes(sizes, h, m_items, k, first[0].shape[1]), 0,
+        time_plain(lambda: torch.sort(level)))
+    first64 = wide_sketch(first)
+    second64 = second._replace(minmax=second.minmax.double())
+    f64_time("kll_compact_f32", f"level {h}", lambda: kll_compact_update(first64, second64, k))
+    pairs = [torch.stack([x] * 8).contiguous() for x in upd]
+    others = [torch.stack([x] * 8).contiguous() for x in first]
+    got = kll_compact_merge_stacked(pairs, others, k)
+    if not same_tensor_bits(got, kll_compact_merge_stacked_plain(pairs, others, k)):
+        raise AssertionError("kll_compact_merge_stacked_f32 differs from the plain version")
+    add("kll_compact_merge_stacked_f32", f"8 pairs, k = {k}", 0.0,
+        time_kernel(lambda: kll_compact_merge_stacked(pairs, others, k)),
+        time_plain(lambda: kll_compact_merge_stacked_plain(pairs, others, k)),
+        _merge_bytes(pairs[1], others[1], got[1]), 0, time_plain(lambda: torch.sort(level)))
+    pairs64, others64 = wide_sketch(pairs), wide_sketch(others)
+    f64_time("kll_compact_merge_stacked_f32", "8 pairs",
+             lambda: kll_compact_merge_stacked(pairs64, others64, k))
+    samples = edge_samples(k, CHUNK, seed=19)
+    sketches = [torch.stack([x] * 3).contiguous() for x in first]
+    fields = [torch.from_numpy(np.stack([np.stack([s[0] for s in samples])] * 3)).to(device)]
+    for j, dtype in ((1, torch.int32), (2, torch.int32), (3, torch.int32), (4, torch.float32),
+                     (5, torch.float32)):
+        fields.append(torch.tensor([[s[j] for s in samples]] * 3, dtype=dtype, device=device))
+    got = [x.clone() for x in sketches]
+    want = [x.clone() for x in sketches]
+    kll_compact_ingest(got, fields, k)
+    kll_compact_ingest_plain(want, fields, k)
+    torch.cuda.synchronize()
+    if not same_tensor_bits(got, want):
+        raise AssertionError("kll_compact_ingest_f32 differs from the plain version")
+    scratch = [x.clone() for x in sketches]
+    nbytes, _ = _ingest_bytes(first[1].tolist(), samples, k, first[0].shape[1])
+    add("kll_compact_ingest_f32", f"3 sketches x {CHUNK} host samples", 0.0,
+        time_kernel(lambda: kll_compact_ingest(scratch, fields, k)),
+        time_plain(lambda: kll_compact_ingest_plain([x.clone() for x in sketches], fields, k)),
+        3 * nbytes, 0, time_plain(lambda: torch.sort(level)))
+    sketches64 = wide_sketch(sketches)
+    fields64 = [*fields[:3], *(x.to(wide(x)) for x in fields[3:])]
+    f64_time("kll_compact_ingest_f32", f"3 sketches x {CHUNK} samples",
+             lambda: kll_compact_ingest(sketches64, fields64, k))
+
+    # K8: the fold of 32 states of every kind, the carry of a host chunk,
+    # the butterfly over 8 shards and the stacked carry of 8 x 4
+    def packed(groups):
+        mats, slots, _ = pack_states([states for _, states in groups])
+        return [m.to(device) for m in f32_mats(torch, mats)], slots
+
+    def f64(mats):
+        return [m.to(wide(m)) for m in mats[:2]] + [mats[2]]
+
+    mats, slots = packed(fold_groups(dq, 32, seed=19))
+    got, want = sf.state_fold(*mats, slots), sf.state_fold_plain(*mats, slots)
+    torch.cuda.synchronize()
+    if got[0].dtype != torch.float32 or not same_tensor_bits(got, want):
+        raise AssertionError("state_fold_f32 differs from the plain version")
+    add("state_fold_f32", "32 states, every kind", 0.0,
+        time_kernel(lambda: sf.state_fold(*mats, slots)),
+        time_plain(lambda: sf.state_fold_plain(*mats, slots)), sf.fold_bytes(*mats), 0,
+        reduce_calls(mats))
+    mats64 = f64(mats)
+    f64_time("state_fold_f32", "32 states", lambda: sf.state_fold(*mats64, slots))
+    mats, slots = packed(carry_groups(dq, CHUNK + 1, seed=19))
+    carry = [m_[0].clone() for m_ in mats]
+    plain = [m_[0].clone() for m_ in mats]
+    parts = [m_[1:].contiguous() for m_ in mats]
+    sf.state_fold_carry(carry, parts, slots)
+    sf.state_fold_carry_plain(plain, parts, slots)
+    torch.cuda.synchronize()
+    if not same_tensor_bits(carry, plain):
+        raise AssertionError("state_fold_carry_f32 differs from the plain version")
+    scratch = [m_[0].clone() for m_ in mats]
+    add("state_fold_carry_f32", f"1 + {CHUNK} rows, every kind a host partial gives", 0.0,
+        time_kernel(lambda: sf.state_fold_carry(scratch, parts, slots)),
+        time_plain(lambda: sf.state_fold_carry_plain(scratch, parts, slots)),
+        sf.fold_bytes(*mats), 0, reduce_calls(parts))
+    carry64, parts64 = f64([m_[0].clone() for m_ in mats]), f64(parts)
+    f64_time("state_fold_carry_f32", f"1 + {CHUNK} rows",
+             lambda: sf.state_fold_carry(carry64, parts64, slots))
+    mats, slots = packed(carry_groups(dq, MESH_SHARDS, seed=20))
+    got = sf.state_fold_butterfly(*mats, slots, MESH_SHARDS)
+    want = sf.state_fold_butterfly_plain(*mats, slots, MESH_SHARDS)
+    torch.cuda.synchronize()
+    if not same_tensor_bits(got, want):
+        raise AssertionError("state_fold_butterfly_f32 differs from the plain version")
+    add("state_fold_butterfly_f32", f"{MESH_SHARDS} shards x 1", 0.0,
+        time_kernel(lambda: sf.state_fold_butterfly(*mats, slots, MESH_SHARDS)),
+        time_plain(lambda: sf.state_fold_butterfly_plain(*mats, slots, MESH_SHARDS)),
+        sf.fold_bytes(*mats) + (MESH_SHARDS - 1) * sum(m_.shape[1] * m_.element_size()
+                                                        for m_ in mats), 0, reduce_calls(mats))
+    mats64 = f64(mats)
+    f64_time("state_fold_butterfly_f32", f"{MESH_SHARDS} shards",
+             lambda: sf.state_fold_butterfly(*mats64, slots, MESH_SHARDS))
+    mats, slots = packed(carry_groups(dq, MESH_SHARDS * 5, seed=21))
+    carry = [m_[:MESH_SHARDS].contiguous() for m_ in mats]
+    parts = [m_[MESH_SHARDS:].contiguous() for m_ in mats]
+    flags = torch.from_numpy(np.random.default_rng(3).random(MESH_SHARDS * 4) < 0.75).to(device)
+    got, want = [c.clone() for c in carry], [c.clone() for c in carry]
+    sf.state_fold_carry_stacked(got, parts, slots, flags)
+    sf.state_fold_carry_stacked_plain(want, parts, slots, flags)
+    torch.cuda.synchronize()
+    if not same_tensor_bits(got, want):
+        raise AssertionError("state_fold_carry_stacked_f32 differs from the plain version")
+    scratch = [c.clone() for c in carry]
+    add("state_fold_carry_stacked_f32", f"{MESH_SHARDS} shards x 4 partials", 0.0,
+        time_kernel(lambda: sf.state_fold_carry_stacked(scratch, parts, slots, flags)),
+        time_plain(lambda: sf.state_fold_carry_stacked_plain(scratch, parts, slots, flags)),
+        sf.fold_bytes(*mats) + sum(c.numel() * c.element_size() for c in carry), 0,
+        reduce_calls(parts))
+    carry64, parts64 = f64(carry), f64(parts)
+    f64_time("state_fold_carry_stacked_f32", f"{MESH_SHARDS} shards x 4",
+             lambda: sf.state_fold_carry_stacked(carry64, parts64, slots, flags))
+    return results
+
+
+def _config2_host_battery(dq) -> list:
+    """BASELINE config 2's analyzers (Completeness, Mean, StdDev, Histogram)
+    and a KLL sketch, so the host tier's K5 ingest entry runs too."""
+    return [dq.Completeness("a"), dq.Completeness("b"), dq.Mean("a"), dq.Mean("b"),
+            dq.StandardDeviation("a"), dq.StandardDeviation("b", where="c > 0"),
+            dq.Histogram("cat_small"), dq.ApproxQuantile("a", 0.5, KLL_RELATIVE_ERROR)]
+
+
+def _analysis_values(ctx) -> dict:
+    return {repr(a): (m.value.get() if not hasattr(m.value.get(), "values") else
+                      (m.value.get().number_of_bins,
+                       {k: v.absolute for k, v in m.value.get().values.items()}))
+            if m.value.is_success else ("failure", str(m.value.exception))
+            for a, m in ctx.metric_map.items()}
+
+
+def _run_counted(torch, fn):
+    """``fn()`` with every launch count set to 0 just before it; returns
+    its result and the counts just after."""
+    from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def _state_dtypes(states) -> set:
+    from deequ_tpu_torch.analyzers.states import leaves
+
+    return {str(t.dtype) for s in states if s is not None and hasattr(s, "__dataclass_fields__")
+            for t in leaves(s)}
+
+
+def no_x64_child(torch, dq, seed: int, wait=None) -> dict:
+    """Phase 19 in its subprocess (``DEEQU_TPU_NO_X64=1``): (a) the float32
+    entries against their plain versions; (b) phase 3's verification
+    battery over the 10M-row config 2 table on the card, against the
+    float64 numpy oracle and against the same mode on ``device="cpu"``
+    over a 1M-row cut, and BASELINE config 1 (``examples_torch.
+    basic_example``) against its CPU run; (c) config 2 (with a KLL sketch) on the host tier,
+    unsharded and over 8 shards, each bit for bit against the same run on
+    the CPU; (d) a persisted-state round trip merged on the card; (e) one
+    coalesced folds of two sessions through ``VerificationService``. Each
+    path's launch counts are set to 0 just before it and read just after.
+    With ``wait`` (a callable), the process builds its table, then calls
+    it and touches the card only when it returns True (None otherwise).
+    Returns the measurements, launches, seconds and phases as JSON."""
+    from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
+    from deequ_tpu_torch.analyzers.grouping import DeviceFrequencyScan
+    from deequ_tpu_torch.analyzers.state_provider import FileSystemStateProvider
+    from deequ_tpu_torch.config import ACC_DTYPE, COUNT_DTYPE, x64_enabled
+    from deequ_tpu_torch.parallel import make_mesh
+    from deequ_tpu_torch.runners.analysis_runner import collect_required_analyzers
+
+    if x64_enabled() or ACC_DTYPE != torch.float32 or COUNT_DTYPE != torch.int32:
+        raise AssertionError("phase 19's process did not start in the 32-bit mode")
+    out = {"launches": {}, "seconds": {}}
+    t0 = time.perf_counter()
+    table = build_table(ROWS, seed)
+    data = dq.Dataset.from_arrow(table)
+    check = build_check(dq, ROWS)
+    out["seconds"]["data"] = time.perf_counter() - t0
+    if wait is not None and not wait():
+        return None
+
+    # (a)
+    t0 = time.perf_counter()
+    analyzers = list(dict.fromkeys(collect_required_analyzers([check])))
+    battery = [a for a in analyzers if isinstance(a, ScanShareableAnalyzer)]
+    battery += [DeviceFrequencyScan(c, data.dictionary_size(c)) for c in ("cat_small", "cat_large")]
+    out["measured"] = check_f32_kernels(torch, dq, data, battery)
+    out["seconds"]["a"] = time.perf_counter() - t0
+
+    # (b)
+    t0 = time.perf_counter()
+    monitor = dq.RunMonitor()
+    t1 = time.perf_counter()
+    result, launches = _run_counted(torch, lambda: (
+        dq.VerificationSuite.on_data(data, device="cuda").add_check(check)
+        .add_required_analyzer(dq.CountDistinct("cat_large")).with_monitor(monitor).run()))
+    run_seconds = time.perf_counter() - t1
+    out["phases"] = {k: round(v, 4) for k, v in monitor.phase_seconds.items()}
+    out["phases"]["seconds"] = round(run_seconds, 3)
+    gpu = metric_values(result)
+    want = oracle(table)
+    problems = []
+    for key, w in want.items():
+        g = gpu.get(key)
+        exact = key[0] not in MOMENT_METRICS + ("Minimum", "Maximum")
+        if not isinstance(g, float) or (exact and g != float(w)) or (
+                not exact and abs(g - float(w)) > NO_X64_ORACLE_RTOL * max(abs(float(w)), 1e-300)):
+            problems.append(f"{key}: {g!r}, oracle {float(w)!r}")
+    cut = dq.Dataset.from_arrow(table.slice(0, NO_X64_CUT_ROWS))
+    cut_check = build_check(dq, NO_X64_CUT_ROWS)
+    runs = [metric_values(dq.VerificationSuite.on_data(cut, device=d).add_check(cut_check)
+                          .add_required_analyzer(dq.CountDistinct("cat_large")).run())
+            for d in ("cuda", "cpu")]
+    problems += compare_metrics(runs[0], runs[1], NO_X64_CPU_RTOL)
+    if problems:
+        raise AssertionError("phase 19 (b): " + "\n".join(problems))
+    out["launches"]["b"] = launches
+    out["b"] = {"seconds": time.perf_counter() - t0, "batches": monitor.batches,
+                "metrics": len(gpu), "status": result.status.value}
+    print(f"[phase 19 (b)] {ROWS} rows in {run_seconds:.3f}s, {len(gpu)} metrics within "
+          f"{NO_X64_ORACLE_RTOL} of the "
+          f"float64 oracle (counts exact) and the 1M-row cut within {NO_X64_CPU_RTOL} of the "
+          f"CPU; phases={out['phases']}; launches={_nonzero(launches)}", flush=True)
+    del result
+    # BASELINE config 1: the BasicExample's checks through the port's example
+    import contextlib as _contextlib
+    import io
+
+    from examples_torch import basic_example
+
+    runs, texts = [], []
+    for i, d in enumerate(("cuda", "cpu")):
+        text = io.StringIO()
+        with _contextlib.redirect_stdout(text):
+            got, counts = _run_counted(torch, lambda: basic_example.main(device=d))
+        runs.append(got)
+        texts.append(text.getvalue())
+        if i == 0:
+            out["launches"]["b config 1"] = counts
+    if not (same_values(example_values(runs[0]), example_values(runs[1]))
+            and texts[0] == texts[1]):
+        raise AssertionError("phase 19 (b): config 1 on the card differs from the CPU's")
+    print(f"[phase 19 (b) config 1] the BasicExample's checks {runs[0].status.value}, "
+          f"equal to the CPU's; launches={_nonzero(out['launches']['b config 1'])}", flush=True)
+
+    # (c)
+    t0 = time.perf_counter()
+    host_battery = _config2_host_battery(dq)
+    for label, sharding in (("c", None), ("c mesh", "mesh")):
+        runs = {}
+        for d in ("cuda", "cpu"):
+            mesh = None if sharding is None else make_mesh(MESH_SHARDS, device=d)
+            ctx, counts = _run_counted(torch, lambda: dq.AnalysisRunner.do_analysis_run(
+                cut, host_battery, batch_size=HOST_BATCH_ROWS // 4, device=d, placement="host",
+                sharding=mesh))
+            runs[d] = _analysis_values(ctx)
+            if d == "cuda":
+                out["launches"][label] = counts
+        problems = compare_metrics(runs["cuda"], runs["cpu"], 0.0)
+        if problems:
+            raise AssertionError(f"phase 19 ({label}): " + "\n".join(problems))
+    out["seconds"]["c"] = time.perf_counter() - t0
+    print(f"[phase 19 (c)] config 2 and a KLL sketch on the host tier, unsharded and over "
+          f"{MESH_SHARDS} shards, bit for bit the CPU's; launches="
+          f"{_nonzero(out['launches']['c'])} / {_nonzero(out['launches']['c mesh'])}", flush=True)
+
+    # (d)
+    t0 = time.perf_counter()
+    store = tempfile.mkdtemp(prefix="chip_smoke_no_x64_")
+    try:
+        dq.AnalysisRunner.do_analysis_run(cut, host_battery, device="cuda", placement="device",
+                                          save_states_with=FileSystemStateProvider(store))
+        provider = FileSystemStateProvider(store)
+        loaded = [provider.load(a) for a in host_battery]
+        if _state_dtypes(loaded) - {"torch.float32", "torch.int32"}:
+            raise AssertionError(f"phase 19 (d): loaded states hold {_state_dtypes(loaded)}")
+        merged = {}
+        for d in ("cuda", "cpu"):
+            ctx, counts = _run_counted(torch, lambda: dq.AnalysisRunner.run_on_aggregated_states(
+                cut.schema, host_battery, [provider, provider], device=d))
+            merged[d] = _analysis_values(ctx)
+            if d == "cuda":
+                out["launches"]["d"] = counts
+        problems = compare_metrics(merged["cuda"], merged["cpu"], 0.0)
+        if problems:
+            raise AssertionError("phase 19 (d): " + "\n".join(problems))
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    out["seconds"]["d"] = time.perf_counter() - t0
+    print(f"[phase 19 (d)] {len(host_battery)} states saved, loaded as float32 / int32 and "
+          f"merged on the card, bit for bit the CPU's merge; launches="
+          f"{_nonzero(out['launches']['d'])}", flush=True)
+
+    # (e)
+    t0 = time.perf_counter()
+    streams = {}
+    for d in ("cuda", "cpu"):
+        with service_knobs(DEEQU_TPU_COALESCE="1", DEEQU_TPU_FAST_PATH_MAX_ROWS="0"):
+            def fold():
+                from deequ_tpu_torch.service import VerificationService
+                from deequ_tpu_torch.service.placement import shape_qualified_signature
+
+                with VerificationService(workers=2, device=d, background_warm=False) as svc:
+                    sessions = [svc.session(f"t{i}", "d", [stream_check(dq)]) for i in range(2)]
+                    svc.router.note_ran(shape_qualified_signature(sessions[0]._analyzers, 4096),
+                                        0, "device")
+                    handles = [s.ingest(stream_table(4096, 100 + 2 * i + b), wait=False)
+                               for b in range(2) for i, s in enumerate(sessions)]
+                    for h in handles:
+                        h.result(300)
+                    folds = svc.json_snapshot()["counters"].get(
+                        "deequ_service_coalesced_folds_total")
+                    return [metric_values(s.current()) for s in sessions], folds
+
+            (metrics, folds), counts = _run_counted(torch, fold)
+        if folds != 4:
+            raise AssertionError(f"phase 19 (e): {folds} coalesced folds on {d}, expected 4")
+        streams[d] = metrics
+        if d == "cuda":
+            out["launches"]["e"] = counts
+    for g, w in zip(streams["cuda"], streams["cpu"]):
+        problems = compare_metrics(g, w, NO_X64_CPU_RTOL)
+        if problems:
+            raise AssertionError("phase 19 (e): " + "\n".join(problems))
+    out["seconds"]["e"] = time.perf_counter() - t0
+    print(f"[phase 19 (e)] two sessions, two coalesced folds each, the card's metrics the CPU's; "
+          f"launches={_nonzero(out['launches']['e'])}", flush=True)
+
+    # every float32 entry launched on one of the paths
+    total = {name: sum(c.get(name, 0) for c in out["launches"].values()) for name in F32_ENTRIES}
+    missing = [name for name, c in total.items() if c == 0]
+    print(f"[phase 19 launches] {total}", flush=True)
+    if missing:
+        raise AssertionError(f"phase 19: no launch of {missing} on its paths")
+    out["f32_launches"] = total
+    return out
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def stream_table(rows: int, seed: int) -> pa.Table:
+    """A micro-batch of the soak's table (x with nulls, y, k, v)."""
+    rng = np.random.default_rng(seed)
+    return pa.table({
+        "x": pa.array(rng.normal(size=rows), mask=rng.random(rows) < 0.05),
+        "y": rng.normal(10.0, 2.0, size=rows),
+        "k": rng.integers(0, 1000, size=rows),
+        "v": rng.uniform(0, 1, size=rows),
+    })
+
+
+def start_no_x64_child() -> tuple:
+    """Start phase 19's process (this script with ``--no-x64-child`` and
+    ``DEEQU_TPU_NO_X64=1``) ahead of its phase: it imports the port and
+    builds its 10M-row table while earlier phases run, then waits for
+    :func:`no_x64_phase` to let it onto the card. Returns the process and
+    the path of its results; the process is killed at exit if still
+    running."""
+    out_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_19_"), "out.json")
+    env = dict(os.environ, DEEQU_TPU_NO_X64="1")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--no-x64-child",
+                             out_path, "--wait-for-go"], env=env, stdin=subprocess.PIPE,
+                            text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out_path
+
+
+def no_x64_phase(torch, child: tuple, f64_ms: dict, main_phases: dict, card: str) -> list:
+    """Phase 19: let the process :func:`start_no_x64_child` started (its
+    table built meanwhile) run :func:`no_x64_child` on the card, wait for
+    it, and print each float32 entry's time beside its float64 entry's
+    from phase 2 (``f64_ms``, by the float64 entry's name), and (b)'s
+    phases beside phase 3's (``main_phases``). Returns the float32
+    entries' rows of the ``kernels`` line."""
+    proc, out_path = child
+    try:
+        proc.stdin.write("go\n")
+        proc.stdin.close()
+    except BrokenPipeError:  # it ended before its phase: its exit code says why
+        pass
+    try:
+        code = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    if code != 0:
+        raise AssertionError(f"phase 19's process failed with exit code {code}")
+    with open(out_path) as fh:
+        out = json.load(fh)
+    shutil.rmtree(os.path.dirname(out_path), ignore_errors=True)
+    for name, base in F32_ENTRIES.items():
+        m = out["measured"][name]
+        print(f"[phase 19 {name}] ms={m['ms']:.4f}, float64 entry on the same inputs "
+              f"{m['f64_ms']:.4f}, {base} in phase 2 at its path's shapes "
+              f"{f64_ms.get(base, 0.0):.4f}; plain_ms={m['plain_ms']:.4f} "
+              f"bound_ms={m['bound_ms']:.6f} launches={out['f32_launches'][name]}; {card}",
+              flush=True)
+    print(f"[phase 19 (b) phases] {out['phases']}; phase 3's: {main_phases}; {card}",
+          flush=True)
+    print(f"[phase 19 seconds] {out['seconds']} (b) {out['b']['seconds']:.1f}; its start and "
+          f"the table's build ran beside phases 17-18", flush=True)
+    rows = []
+    for name, base in F32_ENTRIES.items():
+        m = out["measured"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"deequ_tpu_torch/kernels/csrc/{KERNEL_SOURCES[base]}.cu",
+            "replaces": TPU_KERNELS[base], "launches": out["f32_launches"][name],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        })
+    return rows
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--no-x64-child", metavar="OUT", default=None,
+                        help="phase 19's subprocess (started with DEEQU_TPU_NO_X64=1): write "
+                             "its results to OUT")
+    parser.add_argument("--wait-for-go", action="store_true",
+                        help="with --no-x64-child: build the table, then wait for a 'go' "
+                             "line on standard input before using the card")
     args = parser.parse_args(argv)
 
     import torch
@@ -7759,6 +8466,15 @@ def main(argv=None) -> int:
         return 2
 
     import deequ_tpu_torch as dq
+
+    if args.no_x64_child:
+        wait = (lambda: sys.stdin.readline().strip() == "go") if args.wait_for_go else None
+        out = no_x64_child(torch, dq, args.seed, wait)
+        if out is None:
+            return 3
+        with open(args.no_x64_child, "w") as fh:
+            json.dump(out, fh)
+        return 0
     from deequ_tpu_torch.analyzers.grouping import DeviceFrequencyScan
     from deequ_tpu_torch.analyzers.base import ScanShareableAnalyzer
     from deequ_tpu_torch.kernels import build
@@ -7879,11 +8595,24 @@ def main(argv=None) -> int:
         cluster_plane(torch, dq)
     # phase 17: the whole-service chaos soak and the tuning report's bench
     # point ((c)'s report ran in phase 14, (d) in phase 5)
+    # phase 19's process starts here: its imports and table build overlap
+    # phases 17 and 18 (b); it waits to touch the card until phase 19
+    child19 = start_no_x64_child()
     with phase(17):
         chaos_plane(torch)
     # phase 18 (b): the examples suite on the card against the CPU
     with phase(18), part_seconds("phase 18 (b)"):
         examples_on_card(torch, card)
+    # phase 19: the 32-bit accumulator mode, in a process of its own
+    with phase(19):
+        # each float64 entry's phase 2 time at its path's shapes
+        sources = {"scan_reduce": measured, "scan_reduce_stacked": stacked_measured,
+                   "kll_sample": profile_measured, "kll_compact": profile_measured,
+                   "kll_compact_ingest": ingest_measured, "state_fold": fold_measured,
+                   "state_fold_carry": carry_measured}
+        f64_ms = {base: sources.get(base, mesh_measured)[base]["ms"]
+                  for base in F32_ENTRIES.values()}
+        f32_rows = no_x64_phase(torch, child19, f64_ms, MAIN_PHASES, card)
     print_phase_seconds(time.perf_counter() - started)
 
     # K1-K3 as the verification path runs them, K4 and K5 as the profile
@@ -7920,6 +8649,8 @@ def main(argv=None) -> int:
     kernels += [row(name, stacked_measured, stream_launches) for name in STACKED_KERNELS]
     # the mesh's entries at phase 9 (b)'s shapes, with (b)'s launches
     kernels += [row(name, mesh_measured, mesh_launches) for name in MESH_KERNELS]
+    # the float32 entries (phase 19), each with the launches of its paths
+    kernels += f32_rows
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -391,13 +391,20 @@ class HostBatchContext:
 
 
 def host_count(n) -> torch.Tensor:
-    """A host partial's int64 scalar leaf."""
-    return torch.tensor(int(n), dtype=torch.int64)
+    """A host partial's count leaf (``config.COUNT_DTYPE``: int64, or int32
+    in the 32-bit accumulator mode)."""
+    from ..config import COUNT_DTYPE
+
+    return torch.tensor(int(n), dtype=COUNT_DTYPE)
 
 
 def host_acc(x) -> torch.Tensor:
-    """A host partial's float64 scalar leaf."""
-    return torch.tensor(float(x), dtype=torch.float64)
+    """A host partial's accumulator leaf (``config.ACC_DTYPE``): the host's
+    float64 value, rounded to nearest float32 in the 32-bit mode, as the
+    reference's ``np.asarray(x, dtype=ACC_DTYPE)`` rounds it."""
+    from ..config import ACC_DTYPE
+
+    return torch.tensor(float(x), dtype=ACC_DTYPE)
 
 
 class ScanShareableAnalyzer(Analyzer[S, M]):
@@ -549,6 +556,21 @@ def _signature(state: Any) -> Tuple:
     return (type(state),) + tuple((tuple(t.shape), t.dtype) for t in leaves(state))
 
 
+def merge_operands(states: Sequence[Any]) -> List[Any]:
+    """The states a merge folds, in the dtypes the reference's merge takes
+    them: under ``DEEQU_TPU_NO_X64`` every accumulator and counter in
+    float32 / int32 (a 64-bit blob's leaves round to nearest, as the
+    reference's jnp arrays do); in a 64-bit process states of one dtype
+    signature as they are (two 32-bit blobs merge in float32), differing
+    ones widened to float64 / int64 (numpy's promotion)."""
+    from ..config import x64_enabled
+    from .states import in_mode
+
+    if x64_enabled() and len({_signature(s) for s in states}) == 1:
+        return list(states)
+    return [in_mode(s) for s in states]
+
+
 def merge_states_batched(analyzer: Analyzer, states: Sequence[Any], device=None) -> Optional[Any]:
     """Fold ``states`` left to right with the analyzer's ``merge`` and
     return exactly what the sequential fold returns (None states are
@@ -588,10 +610,15 @@ def merge_states_batched_many(
         # the reference folds them
         host = isinstance(states[0], (FrequenciesAndNumRows, FrequencyCountsState,
                                       ExactQuantileState))
+        if len(states) > 1 and dataclasses.is_dataclass(states[0]) and all(
+                isinstance(t, torch.Tensor) for t in _leaves(states[0])):
+            states = merge_operands(states)
         if (not host and len(states) > 1 and type(states[0]) in layout
                 and len({_signature(s) for s in states}) == 1):
-            # stacked on the host where they lie, then copied once per dtype
-            by_count.setdefault(len(states), []).append((i, states))
+            # stacked on the host where they lie, then copied once per
+            # dtype; one launch for each number of states and float type
+            key = (len(states), _pack_dtypes([states[0]])[0])
+            by_count.setdefault(key, []).append((i, states))
             continue
         states = [state_to(s, torch.device("cpu") if host else dev) for s in states]
         merged = states[0]
@@ -620,7 +647,8 @@ def stack_states(states: Sequence[Any], device=None) -> Any:
 def pack_states(jobs: Sequence[Sequence[Any]], layout=None):
     """The ``state_fold`` inputs of several analyzers' N states each
     (``jobs``: one list of states per analyzer, all with N states, each list
-    of one class and shape): the float64, int64 and int32 matrices, stacked
+    of one class and shape): the float, count and int32 matrices (float64
+    and int64, or float32 and int32 in the 32-bit accumulator mode), stacked
     where the first state lies, the slot table, and per job where each leaf
     lies (field name, matrix, offset, shape)."""
     first = [leaf for states in jobs for leaf in _leaves(states[0])]
@@ -634,6 +662,23 @@ def _leaves(state) -> List[torch.Tensor]:
     return leaves(state)
 
 
+def _pack_dtypes(states: Sequence[Any]) -> Tuple[torch.dtype, torch.dtype, torch.dtype]:
+    """The three ``state_fold`` matrices' dtypes for ``states``: those of
+    their first accumulator or counter leaf's mode (float64 / int64, or
+    float32 / int32), else of the process's ``ACC_DTYPE``."""
+    from ..config import ACC_DTYPE
+    from ..kernels.state_fold import matrix_dtypes
+    from .states import mode_field, tensor_fields
+
+    for state in states:
+        for f in tensor_fields(state):
+            if mode_field(type(state), f.name):
+                dtype = getattr(state, f.name).dtype
+                return matrix_dtypes(torch.float64 if dtype in (torch.float64, torch.int64)
+                                     else torch.float32)
+    return matrix_dtypes(ACC_DTYPE)
+
+
 def pack_stacked(stacked: Sequence[Any], layout=None):
     """:func:`pack_states` of states already stacked: each of ``stacked``
     is one analyzer's N states as one state whose leaves carry a leading
@@ -643,7 +688,7 @@ def pack_stacked(stacked: Sequence[Any], layout=None):
     from ..kernels.state_fold import GROUP_WIDTH, KIND_MATRIX, FoldSlot
 
     layout = layout if layout is not None else fold_layout()
-    dtypes = (torch.float64, torch.int64, torch.int32)
+    dtypes = _pack_dtypes(stacked)
     first = [leaf for st in stacked for leaf in _leaves(st)]
     n = int(first[0].shape[0]) if first else 0
     device = first[0].device if first else torch.device("cpu")

@@ -530,10 +530,12 @@ class DeviceFrequencyScan(ScanShareableAnalyzer):
     def host_partial(self, ctx) -> FrequencyCountsState:
         """The batch's code counts on the host: the native one-pass count
         that DataType and ApproxCountDistinct share."""
+        from ..config import COUNT_DTYPE
+
         counts = ctx.dict_code_counts(self.column)[: self.num_categories]
         return FrequencyCountsState(
-            torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int64)),
-            torch.tensor(ctx.batch.num_rows, dtype=torch.int64),
+            torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int64)).to(COUNT_DTYPE),
+            torch.tensor(ctx.batch.num_rows, dtype=COUNT_DTYPE),
         )
 
     def to_frequencies(self, state, dictionary: np.ndarray) -> FrequenciesAndNumRows:

@@ -22,6 +22,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..config import COUNT_DTYPE
 from ..data import Schema
 from ..expr import Predicate
 from ..kernels.scan_reduce import (
@@ -613,7 +614,7 @@ class DataType(ScanShareableAnalyzer[DataTypeHistogram, HistogramMetric]):
                 counts = np.zeros(5, dtype=np.int64)
                 counts[uniform] = n_valid
                 counts[TYPE_NULL] = n - n_valid
-                return DataTypeHistogram(torch.from_numpy(counts))
+                return DataTypeHistogram(torch.from_numpy(counts).to(COUNT_DTYPE))
             # the shared per-code counts through each entry's class: no
             # per-row classes at all; the last slot (null values) is
             # TYPE_NULL
@@ -623,11 +624,12 @@ class DataType(ScanShareableAnalyzer[DataTypeHistogram, HistogramMetric]):
                 tc, weights=by_code[: col.num_categories], minlength=5
             )[:5].astype(np.int64)
             counts[TYPE_NULL] += by_code[col.num_categories]
-            return DataTypeHistogram(torch.from_numpy(counts))
+            return DataTypeHistogram(torch.from_numpy(counts).to(COUNT_DTYPE))
         codes = ctx.type_codes(self.column)
         mask = ctx.row_mask(self)
         masked = codes if mask.all() else codes[mask]
-        return DataTypeHistogram(torch.from_numpy(np.bincount(masked, minlength=5)[:5].astype(np.int64)))
+        counts = np.bincount(masked, minlength=5)[:5].astype(np.int64)
+        return DataTypeHistogram(torch.from_numpy(counts).to(COUNT_DTYPE))
 
     def merge(self, a, b):
         return a.merge(b)

@@ -368,9 +368,12 @@ class _KLLBackedAnalyzer(ScanShareableAnalyzer[KLLSketchState, KLLMetric]):
                 mn, mx = float(stats[2]), float(stats[6])
         else:
             items, m, h, nv, mn, mx = native_block_kll_sample(vals, mask, k, ctx.batch_index)
+        from ..config import ACC_DTYPE, COUNT_DTYPE
+
+        acc = np.float64 if ACC_DTYPE == torch.float64 else np.float32
+        count = np.int64 if COUNT_DTYPE == torch.int64 else np.int32
         return (
-            items.astype(np.float64), np.int32(m), np.int32(h), np.int64(nv),
-            np.float64(mn), np.float64(mx),
+            items.astype(np.float64), np.int32(m), np.int32(h), count(nv), acc(mn), acc(mx),
         )
 
     def ingest_partial(self, state: KLLSketchState, partial: Tuple) -> KLLSketchState:

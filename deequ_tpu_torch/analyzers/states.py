@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass, field
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -110,11 +110,11 @@ class FrequencyTableState:
         from ..ops.hashing import FREQ_KEY_SENTINEL_I64
 
         return FrequencyTableState(
-            torch.full((slots,), FREQ_KEY_SENTINEL_I64, dtype=COUNT_DTYPE, device=device),
-            torch.zeros(slots, dtype=COUNT_DTYPE, device=device),
-            _i(0, device),
-            torch.zeros(buffer_entries, dtype=COUNT_DTYPE, device=device),
-            *(_i(0, device) for _ in range(5)),
+            torch.full((slots,), FREQ_KEY_SENTINEL_I64, dtype=torch.int64, device=device),
+            torch.zeros(slots, dtype=torch.int64, device=device),
+            torch.zeros((), dtype=torch.int64, device=device),
+            torch.zeros(buffer_entries, dtype=torch.int64, device=device),
+            *(torch.zeros((), dtype=torch.int64, device=device) for _ in range(5)),
         )
 
     @property
@@ -463,6 +463,56 @@ def identity_merge_transparent(state_cls: type) -> bool:
     """Whether ``merge(init(), s)`` returns ``s``'s exact bits for this
     state class (see :data:`IDENTITY_TRANSPARENT_STATES`)."""
     return state_cls in IDENTITY_TRANSPARENT_STATES
+
+
+#: fields whose dtype is the same in both accumulator modes: HLL
+#: registers, a sketch's float32 items and its int32 bookkeeping, and the
+#: frequency table's uint64 keys and int64 counters (the table is off in the
+#: 32-bit mode). Every other tensor field of a state is a float accumulator
+#: (``ACC_DTYPE``) or a counter (``COUNT_DTYPE``).
+FIXED_DTYPE_FIELDS = {
+    ApproxCountDistinctState: frozenset({"registers"}),
+    KLLSketchState: frozenset({"items", "sizes", "parity", "ticks"}),
+    FrequencyTableState: frozenset(f.name for f in dataclasses.fields(FrequencyTableState)),
+}
+
+#: a mode field's dtype in the other accumulator mode
+_OTHER_MODE = {torch.float64: torch.float32, torch.float32: torch.float64,
+               torch.int64: torch.int32, torch.int32: torch.int64}
+
+
+def mode_field(cls: type, name: str) -> bool:
+    """Whether field ``name`` of state class ``cls`` takes the process's
+    accumulator mode's dtype (float64 / int64, or float32 / int32 under
+    ``DEEQU_TPU_NO_X64``)."""
+    return name not in FIXED_DTYPE_FIELDS.get(cls, ())
+
+
+def accepted_dtypes(cls: type, name: str, dtype: torch.dtype) -> Tuple[torch.dtype, ...]:
+    """The dtypes a persisted leaf of field ``name`` may have where this
+    process's identity state has ``dtype``: its own, and for a mode field
+    the other mode's too (a blob written by a process in the other mode,
+    which loads as it was written, as in the reference)."""
+    other = _OTHER_MODE.get(dtype) if mode_field(cls, name) else None
+    return (dtype,) if other is None else (dtype, other)
+
+
+def in_mode(state):
+    """``state`` with every mode field in the process's dtypes
+    (``ACC_DTYPE`` for floats, ``COUNT_DTYPE`` for integers): the state
+    itself when they already are."""
+    fields = tensor_fields(state)
+    tensors = leaves(state)
+    cls = type(state)
+    cast = []
+    for f, t in zip(fields, tensors):
+        want = t.dtype
+        if mode_field(cls, f.name) and t.dtype in _OTHER_MODE:
+            want = ACC_DTYPE if t.dtype.is_floating_point else COUNT_DTYPE
+        cast.append(t if want == t.dtype else t.to(want))
+    if all(a is b for a, b in zip(cast, tensors)):
+        return state
+    return with_leaves(state, cast)
 
 
 def host_merge(a, b):

@@ -8,18 +8,42 @@ the kernel wrappers run their plain PyTorch versions (see
 
 The reference (deequ) computes in JVM doubles, so accumulators are float64
 and counters int64, which holds the +-1e-6 metric parity target.
+``DEEQU_TPU_NO_X64=1`` set before import opts out, as it does in the JAX
+reference: accumulators are then float32 and counters int32 everywhere the
+reference gives them those types (plain float32 sums, no compensated
+summation, as in the reference). The mode is read once, when this module
+is imported, and holds for the process.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
 
+#: "1" (any non-empty value) before import: 32-bit accumulators. The
+#: numeric features then cross to the device as float32 (rounded to
+#: nearest from the host's float64), the kernels take their float32 entries
+#: (K1 scan_reduce, K4 kll_sample, K5 kll_compact's scalars, K8
+#: state_fold) and states hold float32 sums and moments and int32 counts;
+#: the device frequency table (uint64 keys) is off, and grouping sets take
+#: the dictionary scan or the host group-by. Persisted states carry their
+#: leaves' dtypes (the v2 blob's digest hashes them).
+NO_X64_ENV = "DEEQU_TPU_NO_X64"
+_X64 = not os.environ.get(NO_X64_ENV)
+
 #: dtype of floating-point accumulator states (sums, moments, ...)
-ACC_DTYPE = torch.float64
+ACC_DTYPE = torch.float64 if _X64 else torch.float32
 #: dtype of integer counters
-COUNT_DTYPE = torch.int64
+COUNT_DTYPE = torch.int64 if _X64 else torch.int32
+
+
+def x64_enabled() -> bool:
+    """Whether accumulators are 64-bit: False when ``DEEQU_TPU_NO_X64``
+    was set when this module was imported (the counterpart of the
+    reference's ``jax.config.jax_enable_x64``)."""
+    return _X64
 
 #: default number of rows per device batch
 DEFAULT_BATCH_SIZE = 1 << 20
@@ -126,7 +150,7 @@ CLUSTER_JOURNAL_MAX_FOLDS_ENV = "DEEQU_TPU_CLUSTER_JOURNAL_MAX_FOLDS"
 # kernels are built once into ``kernels/_build``), DEEQU_TPU_SCAN_BUNDLE
 # (bundling XLA programs; the port launches one kernel a battery) and
 # DEEQU_TPU_SLIM_FETCH (the JAX state fetch; the port's ``fetch_states``).
-# DEEQU_TPU_NO_X64, the reference's 32-bit accumulators, is not ported yet.
+# DEEQU_TPU_NO_X64 (the 32-bit accumulators) is ``NO_X64_ENV`` above.
 
 DEFAULT_DEVICE = "cuda"
 

@@ -70,7 +70,11 @@ def _identity(cls, leaves: Sequence[np.ndarray]):
 def from_reference(class_name: str, leaves: Sequence[np.ndarray], device: DeviceLike = "cpu"):
     """The port's state equal to the reference state ``class_name`` with
     these leaves. Values are copied bit for bit; a leaf whose dtype does
-    not match the field's raises (no silent casts)."""
+    not match the field's raises (no silent casts). An accumulator or
+    counter leaf may carry the other accumulator mode's dtype (float32 /
+    int32 in a 64-bit process, float64 / int64 under ``DEEQU_TPU_NO_X64``)
+    and keeps it, as the reference keeps a blob's leaves as written
+    (``states.accepted_dtypes``; merges cast them, ``base.merge_operands``)."""
     if class_name == "ExactQuantileState":
         return _exact_from_reference(leaves)
     cls = STATE_CLASSES.get(class_name)
@@ -81,13 +85,14 @@ def from_reference(class_name: str, leaves: Sequence[np.ndarray], device: Device
     if len(leaves) != len(dtypes):
         raise ValueError(f"{class_name} has {len(dtypes)} leaves, got {len(leaves)}")
     u64 = _u64_leaves(identity)
+    names = [f.name for f in S.tensor_fields(identity)]
     tensors = []
     for i, (leaf, dtype) in enumerate(zip(leaves, dtypes)):
         arr = np.asarray(leaf)
         if i in u64 and arr.dtype == np.uint64:
             arr = arr.view(np.int64)  # the same bits
         t = torch.from_numpy(np.array(arr, copy=True))
-        if t.dtype != dtype:
+        if t.dtype not in S.accepted_dtypes(cls, names[i], dtype):
             raise TypeError(f"{class_name} leaf {i}: expected {dtype}, got {arr.dtype}")
         tensors.append(t.to(device))
     state = S.with_leaves(identity, tensors)

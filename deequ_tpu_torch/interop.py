@@ -70,7 +70,7 @@ import struct
 import numpy as np
 import torch
 
-from .config import DeviceLike, resolve_device
+from .config import ACC_DTYPE, COUNT_DTYPE, DeviceLike, resolve_device
 from .exceptions import CorruptStateError
 from .ops.hll import M, NUM_WORDS, registers_to_words, words_to_registers
 
@@ -265,9 +265,9 @@ def read_jvm_kll_state_blob(
         ticks=torch.tensor(
             min(int(count), np.iinfo(np.int32).max), dtype=torch.int32, device=dev
         ),
-        count=torch.tensor(int(count), dtype=torch.int64, device=dev),
-        g_min=torch.tensor(g_min, dtype=torch.float64, device=dev),
-        g_max=torch.tensor(g_max, dtype=torch.float64, device=dev),
+        count=torch.tensor(int(count), dtype=COUNT_DTYPE, device=dev),
+        g_min=torch.tensor(g_min, dtype=ACC_DTYPE, device=dev),
+        g_max=torch.tensor(g_max, dtype=ACC_DTYPE, device=dev),
         sketch_size=k,
     )
     return state, float(shrinking_factor)

@@ -17,7 +17,9 @@ battery's batch in one launch) under ``hll_registers_columns``, and the
 mesh's entries of ``state_fold`` and
 ``kll_compact`` (the collective merge, the sharded host-tier fold) under
 ``state_fold_butterfly``, ``state_fold_carry_stacked`` and
-``kll_compact_merge_stacked``. The counts are safe to bump from the
+``kll_compact_merge_stacked``. An entry's float32 instantiation (the
+reference's 32-bit accumulator mode, ``DEEQU_TPU_NO_X64``) counts under its
+name with ``_f32`` after it. The counts are safe to bump from the
 service's worker threads."""
 
 from __future__ import annotations
@@ -26,6 +28,14 @@ import threading
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+
+#: the launch counts of the float32 entries: the name of the float64
+#: entry with ``_f32`` after it (:func:`entry_name`)
+F32_ENTRIES = (
+    "scan_reduce_f32", "scan_reduce_stacked_f32", "kll_sample_f32", "kll_compact_f32",
+    "kll_compact_ingest_f32", "kll_compact_merge_stacked_f32", "state_fold_f32",
+    "state_fold_carry_f32", "state_fold_carry_stacked_f32", "state_fold_butterfly_f32",
+)
 
 KERNEL_NAMES = (
     "scan_reduce", "hll_registers", "dict_code_counts", "kll_sample", "kll_compact",
@@ -39,6 +49,9 @@ KERNEL_NAMES = (
     # the mesh's entries of K8 and K5 (the collective merge, the sharded
     # host-tier fold), counted apart
     "state_fold_butterfly", "state_fold_carry_stacked", "kll_compact_merge_stacked",
+    # the float32 entries (the 32-bit accumulator mode, DEEQU_TPU_NO_X64):
+    # each entry above that reads or writes accumulators, counted apart
+    *F32_ENTRIES,
 )
 
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
@@ -60,6 +73,12 @@ def reset_launch_counts() -> None:
 def count_launch(name: str) -> None:
     with _LAUNCHES_LOCK:
         _LAUNCHES[name] += 1
+
+
+def entry_name(name: str, dtype: torch.dtype) -> str:
+    """The launch-count name of an entry whose accumulators are ``dtype``:
+    ``name`` for float64, ``name + "_f32"`` for float32."""
+    return name + "_f32" if dtype == torch.float32 else name
 
 
 def check_status(name: str, status: int) -> None:

@@ -31,6 +31,11 @@
 //    gains 1, count gains nv, and g_min / g_max take the sample's min and
 //    max.
 //
+// The scalars count, g_min and g_max (and a host sample's nv, min and
+// max) are int64 and float64, or int32 and float32 in the reference's
+// 32-bit accumulator mode (DEEQU_TPU_NO_X64): every kernel is a template on
+// the two types, and each entry has a _f32 twin. Items are float32 in both.
+//
 // Appends drop items past a level's capacity C and do not count them.
 // Compacting a level sorts its n items stably (-0.0 and +0.0 compare
 // equal and keep their order, as in the reference's sort), promotes every
@@ -92,24 +97,27 @@
 // blocks beside each working block that copy the untouched rows
 #define KC_COPY_BLOCKS 8
 
+// F: the type of g_min and g_max; N: the type of count
+template <class F, class N>
 struct KcState {
   float* items;
   int* sizes;
   int* parity;
   int* ticks;
-  long long* count;
-  double* g_min;
-  double* g_max;
+  N* count;
+  F* g_min;
+  F* g_max;
 };
 
+template <class F, class N>
 struct KcInput {
   const float* items;
   const int* sizes;
   const int* parity;
   const int* ticks;
-  const long long* count;
-  const double* g_min;
-  const double* g_max;
+  const N* count;
+  const F* g_min;
+  const F* g_max;
 };
 
 // a level's sort buffers: a and b hold C float32 bit patterns each, starts
@@ -373,10 +381,11 @@ __device__ KcBufs kc_block_bufs(unsigned char* smem, unsigned long long* gbuf, l
   return buf;
 }
 
+template <class F, class N>
 __global__ void __launch_bounds__(KC_THREADS)
-kc_update(KcInput in, KcState out, int L, int C, int k, const float* __restrict__ samples,
-          const int* __restrict__ meta, const double* __restrict__ minmax,
-          unsigned long long* gbuf) {
+kc_update(KcInput<F, N> in, KcState<F, N> out, int L, int C, int k,
+          const float* __restrict__ samples, const int* __restrict__ meta,
+          const F* __restrict__ minmax, unsigned long long* gbuf) {
   extern __shared__ __align__(16) unsigned char kc_smem[];
   __shared__ KcShared sh;
   const int m = meta[0];
@@ -394,12 +403,12 @@ kc_update(KcInput in, KcState out, int L, int C, int k, const float* __restrict_
   }
   // the scalars' inputs, read early
   int ticks = 0;
-  long long count = 0;
-  double g_min = 0.0;
-  double g_max = 0.0;
+  N count = 0;
+  F g_min = 0;
+  F g_max = 0;
   if (threadIdx.x == 0) {
     ticks = *in.ticks;
-    count = *in.count + meta[2];
+    count = *in.count + (N)meta[2];
     g_min = dq_min_z(*in.g_min, minmax[0]);
     g_max = dq_max_z(*in.g_max, minmax[1]);
   }
@@ -433,9 +442,10 @@ kc_update(KcInput in, KcState out, int L, int C, int k, const float* __restrict_
 // pair i = blockIdx.y of the stacked sketches a (items [M, L, C], sizes and
 // parity [M, L], the scalars [M]) and b (the same shapes): out[i] becomes
 // the merge of a[i] and b[i]; blockIdx.x == 0 merges, the others copy
+template <class F, class N>
 __global__ void __launch_bounds__(KC_THREADS)
-kc_merge(KcInput a, KcInput b, KcState out, int L, int C, int k, unsigned long long* gbuf,
-         long long gbuf_stride) {
+kc_merge(KcInput<F, N> a, KcInput<F, N> b, KcState<F, N> out, int L, int C, int k,
+         unsigned long long* gbuf, long long gbuf_stride) {
   extern __shared__ __align__(16) unsigned char kc_smem[];
   __shared__ KcShared sh;
   const long long i = blockIdx.y;
@@ -456,9 +466,9 @@ kc_merge(KcInput a, KcInput b, KcState out, int L, int C, int k, unsigned long l
   }
   // the scalars, read early
   int ticks = 0;
-  long long count = 0;
-  double g_min = 0.0;
-  double g_max = 0.0;
+  N count = 0;
+  F g_min = 0;
+  F g_max = 0;
   if (threadIdx.x == 0) {
     ticks = (int)((unsigned)a.ticks[i] + (unsigned)b.ticks[i]);
     count = a.count[i] + b.count[i];
@@ -509,11 +519,12 @@ __device__ void kc_stage(double* staging, const double* p_items, int m, long lon
 // h [S, B] int32, nv [S, B] int64, mn, mx [S, B] float64) in order, in
 // place; staged: sample b + 1 is copied into shared memory during sample
 // b's cascade
+template <class F, class N>
 __global__ void __launch_bounds__(KC_THREADS)
-kc_ingest(KcState st, int L, int C, int k, int B, const double* __restrict__ p_items,
+kc_ingest(KcState<F, N> st, int L, int C, int k, int B, const double* __restrict__ p_items,
           const int* __restrict__ p_m, const int* __restrict__ p_h,
-          const long long* __restrict__ p_nv, const double* __restrict__ p_min,
-          const double* __restrict__ p_max, unsigned long long* gbuf, long long gbuf_stride,
+          const N* __restrict__ p_nv, const F* __restrict__ p_min,
+          const F* __restrict__ p_max, unsigned long long* gbuf, long long gbuf_stride,
           int staged) {
   extern __shared__ __align__(16) unsigned char kc_smem[];
   __shared__ KcShared sh;
@@ -565,9 +576,9 @@ kc_ingest(KcState st, int L, int C, int k, int B, const double* __restrict__ p_i
   // the scalars, folded over the samples in order
   if (threadIdx.x == 0) {
     unsigned ticks = (unsigned)st.ticks[s];
-    long long count = st.count[s];
-    double g_min = st.g_min[s];
-    double g_max = st.g_max[s];
+    N count = st.count[s];
+    F g_min = st.g_min[s];
+    F g_max = st.g_max[s];
     for (int b = 0; b < B; ++b) {
       ticks += 1u;
       count += p_nv[first + b];
@@ -612,71 +623,41 @@ static dim3 kc_grid(int L, int M) {
 // out: the seven leaves of a new state (written whole); in: the state
 // updated, read only; gbuf: uint64[kll_compact_scratch(C)] of device
 // scratch, or null when that is 0
-extern "C" int kll_compact_update_launch(const float* items, const int* sizes, const int* parity,
-                                         const int* ticks, const long long* count,
-                                         const double* g_min, const double* g_max,
-                                         float* o_items, int* o_sizes, int* o_parity,
-                                         int* o_ticks, long long* o_count, double* o_g_min,
-                                         double* o_g_max, int L, int C, int k,
-                                         const float* samples, const int* meta,
-                                         const double* minmax, unsigned long long* gbuf,
-                                         void* stream) {
+template <class F, class N>
+static int kc_update_launch(KcInput<F, N> in, KcState<F, N> out, int L, int C, int k,
+                            const float* samples, const int* meta, const F* minmax,
+                            unsigned long long* gbuf, void* stream) {
   if (kc_bad_shape(L, C, k)) return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  cudaError_t err = kc_prepare((const void*)kc_update, C, gbuf, 0, &smem);
+  cudaError_t err = kc_prepare((const void*)kc_update<F, N>, C, gbuf, 0, &smem);
   if (err != cudaSuccess) return (int)err;
-  KcInput in = {items, sizes, parity, ticks, count, g_min, g_max};
-  KcState out = {o_items, o_sizes, o_parity, o_ticks, o_count, o_g_min, o_g_max};
-  kc_update<<<kc_grid(L, 1), KC_THREADS, smem, (cudaStream_t)stream>>>(
+  kc_update<F, N><<<kc_grid(L, 1), KC_THREADS, smem, (cudaStream_t)stream>>>(
       in, out, L, C, k, samples, meta, minmax, smem > 0 ? nullptr : gbuf);
   return (int)cudaGetLastError();
 }
 
-// the stacked merge of M pairs into a new stacked state `o_*`; gbuf:
+// the stacked merge of M pairs into a new stacked state `out`; gbuf:
 // uint64[M * kll_compact_scratch(C)] of device scratch, or null when that
 // is 0
-extern "C" int kll_compact_merge_stacked_launch(
-    const float* items, const int* sizes, const int* parity, const int* ticks,
-    const long long* count, const double* g_min, const double* g_max, const float* b_items,
-    const int* b_sizes, const int* b_parity, const int* b_ticks, const long long* b_count,
-    const double* b_g_min, const double* b_g_max, float* o_items, int* o_sizes, int* o_parity,
-    int* o_ticks, long long* o_count, double* o_g_min, double* o_g_max, int M, int L, int C,
-    int k, unsigned long long* gbuf, void* stream) {
+template <class F, class N>
+static int kc_merge_launch(KcInput<F, N> a, KcInput<F, N> b, KcState<F, N> out, int M, int L,
+                           int C, int k, unsigned long long* gbuf, void* stream) {
   if (kc_bad_shape(L, C, k) || M < 1 || M > 65535) return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  cudaError_t err = kc_prepare((const void*)kc_merge, C, gbuf, 0, &smem);
+  cudaError_t err = kc_prepare((const void*)kc_merge<F, N>, C, gbuf, 0, &smem);
   if (err != cudaSuccess) return (int)err;
-  KcInput a = {items, sizes, parity, ticks, count, g_min, g_max};
-  KcInput b = {b_items, b_sizes, b_parity, b_ticks, b_count, b_g_min, b_g_max};
-  KcState out = {o_items, o_sizes, o_parity, o_ticks, o_count, o_g_min, o_g_max};
-  kc_merge<<<kc_grid(L, M), KC_THREADS, smem, (cudaStream_t)stream>>>(
+  kc_merge<F, N><<<kc_grid(L, M), KC_THREADS, smem, (cudaStream_t)stream>>>(
       a, b, out, L, C, k, smem > 0 ? nullptr : gbuf, kll_compact_scratch(C));
   return (int)cudaGetLastError();
 }
 
-// the merge of one pair: the stacked merge with M = 1
-extern "C" int kll_compact_merge_launch(
-    const float* items, const int* sizes, const int* parity, const int* ticks,
-    const long long* count, const double* g_min, const double* g_max, const float* b_items,
-    const int* b_sizes, const int* b_parity, const int* b_ticks, const long long* b_count,
-    const double* b_g_min, const double* b_g_max, float* o_items, int* o_sizes, int* o_parity,
-    int* o_ticks, long long* o_count, double* o_g_min, double* o_g_max, int L, int C, int k,
-    unsigned long long* gbuf, void* stream) {
-  return kll_compact_merge_stacked_launch(items, sizes, parity, ticks, count, g_min, g_max,
-                                          b_items, b_sizes, b_parity, b_ticks, b_count, b_g_min,
-                                          b_g_max, o_items, o_sizes, o_parity, o_ticks, o_count,
-                                          o_g_min, o_g_max, 1, L, C, k, gbuf, stream);
-}
-
 // the stacked sketches of kc_ingest, updated in place; gbuf: uint64[S *
 // kll_compact_scratch(C)] of device scratch, or null when that is 0
-extern "C" int kll_compact_ingest_launch(float* items, int* sizes, int* parity, int* ticks,
-                                         long long* count, double* g_min, double* g_max,
-                                         int S, int L, int C, int k, int B,
-                                         const double* p_items, const int* p_m, const int* p_h,
-                                         const long long* p_nv, const double* p_min,
-                                         const double* p_max, unsigned long long* gbuf,
-                                         void* stream) {
+template <class F, class N>
+static int kc_ingest_launch(KcState<F, N> st, int S, int L, int C, int k, int B,
+                            const double* p_items, const int* p_m, const int* p_h,
+                            const N* p_nv, const F* p_min, const F* p_max,
+                            unsigned long long* gbuf, void* stream) {
   if (kc_bad_shape(L, C, k) || S < 1 || B < 1) return (int)cudaErrorInvalidValue;
   // stage the samples where shared memory holds them beside the level
   // buffers and the copies are whole 16-byte pieces
@@ -685,11 +666,60 @@ extern "C" int kll_compact_ingest_launch(float* items, int* sizes, int* parity, 
                      kc_level_bytes(C) + staging <= KC_SMEM_LIMIT && (C & 1) == 0 &&
                      ((uintptr_t)p_items & 15u) == 0;
   size_t smem = 0;
-  cudaError_t err = kc_prepare((const void*)kc_ingest, C, gbuf, staged ? staging : 0, &smem);
+  cudaError_t err =
+      kc_prepare((const void*)kc_ingest<F, N>, C, gbuf, staged ? staging : 0, &smem);
   if (err != cudaSuccess) return (int)err;
-  KcState st = {items, sizes, parity, ticks, count, g_min, g_max};
-  kc_ingest<<<S, KC_THREADS, smem, (cudaStream_t)stream>>>(
+  kc_ingest<F, N><<<S, KC_THREADS, smem, (cudaStream_t)stream>>>(
       st, L, C, k, B, p_items, p_m, p_h, p_nv, p_min, p_max, smem > 0 ? nullptr : gbuf,
       kll_compact_scratch(C), staged);
   return (int)cudaGetLastError();
 }
+
+// The C entries, float64 / int64 scalars and their _f32 twins (float32 /
+// int32), one macro body each: the seven leaves of a sketch are
+// items, sizes, parity, ticks, count, g_min, g_max.
+#define KC_ENTRIES(SUFFIX, F, N)                                                               \
+  extern "C" int kll_compact_update_launch##SUFFIX(                                            \
+      const float* items, const int* sizes, const int* parity, const int* ticks,               \
+      const N* count, const F* g_min, const F* g_max, float* o_items, int* o_sizes,            \
+      int* o_parity, int* o_ticks, N* o_count, F* o_g_min, F* o_g_max, int L, int C, int k,    \
+      const float* samples, const int* meta, const F* minmax, unsigned long long* gbuf,        \
+      void* stream) {                                                                          \
+    KcInput<F, N> in = {items, sizes, parity, ticks, count, g_min, g_max};                     \
+    KcState<F, N> out = {o_items, o_sizes, o_parity, o_ticks, o_count, o_g_min, o_g_max};      \
+    return kc_update_launch<F, N>(in, out, L, C, k, samples, meta, minmax, gbuf, stream);      \
+  }                                                                                            \
+  extern "C" int kll_compact_merge_stacked_launch##SUFFIX(                                     \
+      const float* items, const int* sizes, const int* parity, const int* ticks,               \
+      const N* count, const F* g_min, const F* g_max, const float* b_items, const int* b_sizes, \
+      const int* b_parity, const int* b_ticks, const N* b_count, const F* b_g_min,             \
+      const F* b_g_max, float* o_items, int* o_sizes, int* o_parity, int* o_ticks, N* o_count, \
+      F* o_g_min, F* o_g_max, int M, int L, int C, int k, unsigned long long* gbuf,            \
+      void* stream) {                                                                          \
+    KcInput<F, N> a = {items, sizes, parity, ticks, count, g_min, g_max};                      \
+    KcInput<F, N> b = {b_items, b_sizes, b_parity, b_ticks, b_count, b_g_min, b_g_max};        \
+    KcState<F, N> out = {o_items, o_sizes, o_parity, o_ticks, o_count, o_g_min, o_g_max};      \
+    return kc_merge_launch<F, N>(a, b, out, M, L, C, k, gbuf, stream);                         \
+  }                                                                                            \
+  extern "C" int kll_compact_merge_launch##SUFFIX(                                             \
+      const float* items, const int* sizes, const int* parity, const int* ticks,               \
+      const N* count, const F* g_min, const F* g_max, const float* b_items, const int* b_sizes, \
+      const int* b_parity, const int* b_ticks, const N* b_count, const F* b_g_min,             \
+      const F* b_g_max, float* o_items, int* o_sizes, int* o_parity, int* o_ticks, N* o_count, \
+      F* o_g_min, F* o_g_max, int L, int C, int k, unsigned long long* gbuf, void* stream) {   \
+    KcInput<F, N> a = {items, sizes, parity, ticks, count, g_min, g_max};                      \
+    KcInput<F, N> b = {b_items, b_sizes, b_parity, b_ticks, b_count, b_g_min, b_g_max};        \
+    KcState<F, N> out = {o_items, o_sizes, o_parity, o_ticks, o_count, o_g_min, o_g_max};      \
+    return kc_merge_launch<F, N>(a, b, out, 1, L, C, k, gbuf, stream);                         \
+  }                                                                                            \
+  extern "C" int kll_compact_ingest_launch##SUFFIX(                                            \
+      float* items, int* sizes, int* parity, int* ticks, N* count, F* g_min, F* g_max, int S,  \
+      int L, int C, int k, int B, const double* p_items, const int* p_m, const int* p_h,       \
+      const N* p_nv, const F* p_min, const F* p_max, unsigned long long* gbuf, void* stream) { \
+    KcState<F, N> st = {items, sizes, parity, ticks, count, g_min, g_max};                     \
+    return kc_ingest_launch<F, N>(st, S, L, C, k, B, p_items, p_m, p_h, p_nv, p_min, p_max,    \
+                                  gbuf, stream);                                               \
+  }
+
+KC_ENTRIES(, double, long long)
+KC_ENTRIES(_f32, float, int)

@@ -11,7 +11,9 @@
 // through the host between the two.
 //
 // Outputs: samples float32[k] (+inf past m), meta int32[3] = (m, h, n),
-// minmax float64[2].
+// minmax float64[2]. A second entry, kll_sample_launch_f32, serves the
+// reference's 32-bit accumulator mode (DEEQU_TPU_NO_X64): float32 values
+// in (4 bytes a row), float32 minmax out, the same items.
 //
 // What bounds it on this card: bytes. The function reads 10 to 11 bytes
 // per row (the float64 value and the row masks) and writes 4k bytes; the
@@ -135,9 +137,13 @@ __device__ __forceinline__ void ks_count_digits(unsigned* s_hist, uint32_t key, 
 }
 
 // mask, clip, round to float32; count, min and max of the kept values; the
-// four digit histograms of the keys
+// four digit histograms of the keys. V is the values' type: double, or
+// float in the 32-bit accumulator mode, whose values widen to double
+// exactly (the same order keys, clip and rounding, which then changes
+// nothing)
+template <class V>
 __global__ void __launch_bounds__(KS_UP_THREADS)
-ks_upsweep(const double* __restrict__ values, const uint8_t* __restrict__ rows,
+ks_upsweep(const V* __restrict__ values, const uint8_t* __restrict__ rows,
            const uint8_t* __restrict__ where, const uint8_t* __restrict__ present, long long n,
            uint32_t* __restrict__ bits, unsigned long long* __restrict__ ctl) {
   __shared__ unsigned s_hist[4 * KS_RADIX];
@@ -162,7 +168,7 @@ ks_upsweep(const double* __restrict__ values, const uint8_t* __restrict__ rows,
       const long long i = i0 + u * step + lane;
       ok[u] = i < n && rows[i] && (present == nullptr || present[i]) &&
               (where == nullptr || where[i]);
-      v[u] = i < n ? values[i] : 0.0;
+      v[u] = i < n ? (double)values[i] : 0.0;
     }
 #pragma unroll
     for (int u = 0; u < KS_UP_UNROLL; ++u) {
@@ -302,10 +308,13 @@ __device__ __forceinline__ unsigned ks_peers(unsigned d, unsigned lanes) {
 }
 
 // h, the offset and the picks from the sorted bits, by one block; decode
-// min and max (the bits are read from L2: other blocks wrote them)
+// min and max (the bits are read from L2: other blocks wrote them) into
+// minmax of the values' type M (a float's min and max round-trip through
+// double exactly)
+template <class M>
 __device__ void ks_pick_block(const uint32_t* sorted_bits, const unsigned long long* ctl,
                               const int* ticks, int k, float* samples, int* meta,
-                              double* minmax) {
+                              M* minmax) {
   const long long n = *(const int*)(ctl + KS_CTL_COUNT);
   long long m_needed = (n + k - 1) / k;
   if (m_needed < 1) m_needed = 1;
@@ -327,8 +336,8 @@ __device__ void ks_pick_block(const uint32_t* sorted_bits, const unsigned long l
     meta[0] = (int)m;
     meta[1] = h;
     meta[2] = (int)n;
-    minmax[0] = n > 0 ? ks_unorder64(~ctl[KS_CTL_MINMAX]) : CUDART_INF;
-    minmax[1] = n > 0 ? ks_unorder64(ctl[KS_CTL_MINMAX + 1]) : -CUDART_INF;
+    minmax[0] = (M)(n > 0 ? ks_unorder64(~ctl[KS_CTL_MINMAX]) : CUDART_INF);
+    minmax[1] = (M)(n > 0 ? ks_unorder64(ctl[KS_CTL_MINMAX + 1]) : -CUDART_INF);
   }
 }
 
@@ -336,10 +345,11 @@ __device__ void ks_pick_block(const uint32_t* sorted_bits, const unsigned long l
 // block an SM: the tiles of 2^20 rows all run at once, and a block that
 // waits in its look-back slows no other block); bits0 / bits1 are the two
 // buffers, read and written as ks_moved says
+template <class M>
 __global__ void __launch_bounds__(KS_THREADS)
 ks_scatter(uint32_t* bits0, uint32_t* bits1, long long n, int pass, unsigned long long* ctl,
            const int* __restrict__ ticks, int k, float* __restrict__ samples,
-           int* __restrict__ meta, double* __restrict__ minmax) {
+           int* __restrict__ meta, M* __restrict__ minmax) {
   extern __shared__ __align__(16) uint32_t ks_smem[];
   __shared__ int s_tile_id;
   __shared__ unsigned s_start[KS_RADIX];      // the tile's first sorted row of each digit
@@ -488,9 +498,10 @@ ks_scatter(uint32_t* bits0, uint32_t* bits1, long long n, int pass, unsigned lon
 }
 
 // the pick of an empty batch (no pass runs)
+template <class M>
 __global__ void ks_pick(const unsigned long long* __restrict__ ctl, const int* __restrict__ ticks,
                         int k, float* __restrict__ samples, int* __restrict__ meta,
-                        double* __restrict__ minmax) {
+                        M* __restrict__ minmax) {
   ks_pick_block(nullptr, ctl, ticks, k, samples, meta, minmax);
 }
 
@@ -510,11 +521,11 @@ extern "C" long long kll_sample_scratch_bytes(long long n) {
 }
 
 // scratch: kll_sample_scratch_bytes(n) bytes, 16-byte aligned; ticks: the
-// sketch's int32 update counter on the device
-extern "C" int kll_sample_launch(const double* values, const uint8_t* rows,
-                                 const uint8_t* where, const uint8_t* present, long long n,
-                                 int k, const int* ticks, void* scratch, float* samples,
-                                 int* meta, double* minmax, void* stream) {
+// sketch's int32 update counter on the device; values and minmax of type V
+template <class V>
+static int ks_launch(const V* values, const uint8_t* rows, const uint8_t* where,
+                     const uint8_t* present, long long n, int k, const int* ticks, void* scratch,
+                     float* samples, int* meta, V* minmax, void* stream) {
   if (n < 0 || n > 0x7fffffffLL || k < 1 || ((uintptr_t)scratch & 15u) != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -527,19 +538,39 @@ extern "C" int kll_sample_launch(const double* values, const uint8_t* rows,
   if (n > 0) {
     const int up_blocks =
         dq_grid_for(n, KS_UP_THREADS * KS_UP_ROWS_PER_THREAD, KS_UP_MAX_BLOCKS);
-    ks_upsweep<<<up_blocks, KS_UP_THREADS, 0, st>>>(values, rows, where, present, n, bits0, ctl);
+    ks_upsweep<V><<<up_blocks, KS_UP_THREADS, 0, st>>>(values, rows, where, present, n, bits0,
+                                                      ctl);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute((const void*)ks_scatter,
+    err = cudaFuncSetAttribute((const void*)ks_scatter<V>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, KS_SCATTER_SMEM);
     if (err != cudaSuccess) return (int)err;
     // the last pass's last block picks
     for (int pass = 0; pass < 4; ++pass) {
-      ks_scatter<<<(unsigned)ks_tiles(n), KS_THREADS, KS_SCATTER_SMEM, st>>>(
+      ks_scatter<V><<<(unsigned)ks_tiles(n), KS_THREADS, KS_SCATTER_SMEM, st>>>(
           bits0, bits1, n, pass, ctl, ticks, k, samples, meta, minmax);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
     return (int)cudaSuccess;
   }
-  ks_pick<<<1, 1024, 0, st>>>(ctl, ticks, k, samples, meta, minmax);
+  ks_pick<V><<<1, 1024, 0, st>>>(ctl, ticks, k, samples, meta, minmax);
   return (int)cudaGetLastError();
+}
+
+// float64 values, float64 minmax
+extern "C" int kll_sample_launch(const double* values, const uint8_t* rows,
+                                 const uint8_t* where, const uint8_t* present, long long n,
+                                 int k, const int* ticks, void* scratch, float* samples,
+                                 int* meta, double* minmax, void* stream) {
+  return ks_launch<double>(values, rows, where, present, n, k, ticks, scratch, samples, meta,
+                           minmax, stream);
+}
+
+// the 32-bit accumulator mode (DEEQU_TPU_NO_X64): float32 values, float32
+// minmax; the same samples and meta
+extern "C" int kll_sample_launch_f32(const float* values, const uint8_t* rows,
+                                     const uint8_t* where, const uint8_t* present, long long n,
+                                     int k, const int* ticks, void* scratch, float* samples,
+                                     int* meta, float* minmax, void* stream) {
+  return ks_launch<float>(values, rows, where, present, n, k, ticks, scratch, samples, meta,
+                          minmax, stream);
 }

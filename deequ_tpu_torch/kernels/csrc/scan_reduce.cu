@@ -75,6 +75,14 @@
 // the squared distance of its mean from the batch's, in the same order.
 // One division per slot, no chain of pairwise merges. No float atomics:
 // the same order on every run, so the result is the same bits every run.
+//
+// Two instantiations of every kernel, one entry each: scan_reduce_launch
+// (float64 values, sums and moments; int64 counts) and
+// scan_reduce_launch_f32, the reference's 32-bit accumulator mode
+// (DEEQU_TPU_NO_X64: float32 values read as float4, sums, means and M2
+// in float32, min and max keyed on the float's 32 bits so one redux
+// takes each, counts written as int32). Lengths and codes are int32 in
+// both.
 #include <stdint.h>
 
 #include <math_constants.h>
@@ -129,33 +137,56 @@ __device__ __forceinline__ void sr_cp_async16(void* dst, const void* src, int by
                : "memory");
 }
 
-// A float64's place in the order min and max use on non-NaN values: -inf
-// lowest, -0.0 below +0.0 (common.cuh's rules), as an unsigned key.
-__device__ __forceinline__ unsigned long long sr_key(double v) {
-  const unsigned long long b = (unsigned long long)__double_as_longlong(v);
-  return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
-}
+// A value's place in the order min and max use on non-NaN values: -inf
+// lowest, -0.0 below +0.0 (common.cuh's rules), as an unsigned key of the
+// value's width, and the warp's least and greatest key (redux on 32-bit
+// halves). T is the accumulator type: double, or float in the 32-bit
+// accumulator mode (DEEQU_TPU_NO_X64), whose keys are one 32-bit word.
+template <class T>
+struct SrKey;
 
-__device__ __forceinline__ double sr_unkey(unsigned long long k) {
-  return __longlong_as_double((long long)((k >> 63) ? (k & 0x7fffffffffffffffull) : ~k));
-}
+template <>
+struct SrKey<double> {
+  typedef unsigned long long K;
+  __device__ static __forceinline__ K key(double v) {
+    const unsigned long long b = (unsigned long long)__double_as_longlong(v);
+    return (b >> 63) ? ~b : (b | 0x8000000000000000ull);
+  }
+  __device__ static __forceinline__ double unkey(K k) {
+    return __longlong_as_double((long long)((k >> 63) ? (k & 0x7fffffffffffffffull) : ~k));
+  }
+  __device__ static __forceinline__ K warp_min(K k) {
+    const unsigned hi = __reduce_min_sync(0xffffffffu, (unsigned)(k >> 32));
+    const unsigned lo = __reduce_min_sync(
+        0xffffffffu, (unsigned)(k >> 32) == hi ? (unsigned)k : 0xffffffffu);
+    return ((unsigned long long)hi << 32) | lo;
+  }
+  __device__ static __forceinline__ K warp_max(K k) {
+    const unsigned hi = __reduce_max_sync(0xffffffffu, (unsigned)(k >> 32));
+    const unsigned lo =
+        __reduce_max_sync(0xffffffffu, (unsigned)(k >> 32) == hi ? (unsigned)k : 0u);
+    return ((unsigned long long)hi << 32) | lo;
+  }
+};
 
-__device__ __forceinline__ unsigned long long sr_warp_min_key(unsigned long long k) {
-  const unsigned hi = __reduce_min_sync(0xffffffffu, (unsigned)(k >> 32));
-  const unsigned lo = __reduce_min_sync(
-      0xffffffffu, (unsigned)(k >> 32) == hi ? (unsigned)k : 0xffffffffu);
-  return ((unsigned long long)hi << 32) | lo;
-}
-
-__device__ __forceinline__ unsigned long long sr_warp_max_key(unsigned long long k) {
-  const unsigned hi = __reduce_max_sync(0xffffffffu, (unsigned)(k >> 32));
-  const unsigned lo = __reduce_max_sync(0xffffffffu, (unsigned)(k >> 32) == hi ? (unsigned)k : 0u);
-  return ((unsigned long long)hi << 32) | lo;
-}
+template <>
+struct SrKey<float> {
+  typedef unsigned K;
+  __device__ static __forceinline__ K key(float v) {
+    const unsigned b = __float_as_uint(v);
+    return (b >> 31) ? ~b : (b | 0x80000000u);
+  }
+  __device__ static __forceinline__ float unkey(K k) {
+    return __uint_as_float((k >> 31) ? (k & 0x7fffffffu) : ~k);
+  }
+  __device__ static __forceinline__ K warp_min(K k) { return __reduce_min_sync(0xffffffffu, k); }
+  __device__ static __forceinline__ K warp_max(K k) { return __reduce_max_sync(0xffffffffu, k); }
+};
 
 // the same sum in every lane: xor shuffles add each pair in both orders,
 // and a + b == b + a
-__device__ __forceinline__ double sr_warp_sum(double v) {
+template <class T>
+__device__ __forceinline__ T sr_warp_sum(T v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
@@ -202,17 +233,19 @@ struct SrChunk {
     return w;
   }
 
-  // the four values of step k as float64
+  // the four values of step k in the accumulator type T (the value
+  // arrays of a launch are int32 or of type T)
+  template <class T>
   __device__ __forceinline__ void values(const SrTable& t, uint16_t a, bool i32, int k,
-                                         double v[4]) const {
+                                         T v[4]) const {
     const unsigned char* p = array(t, a);
     if (i32) {
       const int4 q = reinterpret_cast<const int4*>(p)[32 * k + lane];
-      v[0] = (double)q.x;
-      v[1] = (double)q.y;
-      v[2] = (double)q.z;
-      v[3] = (double)q.w;
-    } else {
+      v[0] = (T)q.x;
+      v[1] = (T)q.y;
+      v[2] = (T)q.z;
+      v[3] = (T)q.w;
+    } else if constexpr (sizeof(T) == 8) {
       const double2* d = reinterpret_cast<const double2*>(p) + 64 * k + 2 * lane;
       const double2 a0 = d[0];
       const double2 a1 = d[1];
@@ -220,6 +253,12 @@ struct SrChunk {
       v[1] = a0.y;
       v[2] = a1.x;
       v[3] = a1.y;
+    } else {
+      const float4 q = reinterpret_cast<const float4*>(p)[32 * k + lane];
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+      v[3] = q.w;
     }
   }
 };
@@ -287,18 +326,19 @@ __device__ void sr_classes(const SrTable& t, const SrSlot& sl, const SrChunk<K>&
   // PHASE done
 }
 
-template <int K>
+template <int K, class T>
 __device__ void sr_moments(const SrTable& t, const SrSlot& sl, const SrChunk<K>& ch, int s,
-                           int* __restrict__ part_i, double* __restrict__ part_f) {
+                           int* __restrict__ part_i, T* __restrict__ part_f) {
+  typedef SrKey<T> Key;
   // PHASE pass1
   unsigned base = 0, sel = 0, nonnan = 0, has_nan = 0;
-  double sum = 0.0;
-  unsigned long long kmin = sr_key(CUDART_INF), kmax = sr_key(-CUDART_INF);
+  T sum = 0;
+  typename Key::K kmin = Key::key((T)CUDART_INF), kmax = Key::key((T)-CUDART_INF);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const uint32_t b = ch.base(t, sl, k);
     const uint32_t m = ch.selected(t, sl, b, k);
-    double v[4];
+    T v[4];
     ch.values(t, sl.vals, sl.vals_i32, k, v);
     base += __popc(b);
     sel += __popc(m);
@@ -306,11 +346,11 @@ __device__ void sr_moments(const SrTable& t, const SrSlot& sl, const SrChunk<K>&
     for (int j = 0; j < 4; ++j) {
       const bool f = (m >> (8 * j)) & 1u;
       const bool nan = isnan(v[j]);
-      sum += f ? v[j] : 0.0;
+      sum += f ? v[j] : (T)0;
       has_nan |= (unsigned)(f && nan);
       const bool ok = f && !nan;
       nonnan += ok;
-      const unsigned long long key = sr_key(v[j]);
+      const typename Key::K key = Key::key(v[j]);
       kmin = ok && key < kmin ? key : kmin;
       kmax = ok && key > kmax ? key : kmax;
     }
@@ -318,23 +358,23 @@ __device__ void sr_moments(const SrTable& t, const SrSlot& sl, const SrChunk<K>&
   // PHASE reduce1
   const unsigned counts = __reduce_add_sync(0xffffffffu, base | (sel << 16));
   const unsigned nans = __reduce_add_sync(0xffffffffu, nonnan | (has_nan << 16));
-  kmin = sr_warp_min_key(kmin);
-  kmax = sr_warp_max_key(kmax);
+  kmin = Key::warp_min(kmin);
+  kmax = Key::warp_max(kmax);
   sum = sr_warp_sum(sum);
   const unsigned n = counts >> 16;
-  const double mean = n > 0 ? sum / (double)n : 0.0;
+  const T mean = n > 0 ? sum / (T)n : (T)0;
   // PHASE pass2
-  double m2 = 0.0;
+  T m2 = 0;
   if (n > 0) {  // uniform across the warp
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const uint32_t m = ch.selected(t, sl, ch.base(t, sl, k), k);
-      double v[4];
+      T v[4];
       ch.values(t, sl.vals, sl.vals_i32, k, v);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const double d = v[j] - mean;
-        m2 += ((m >> (8 * j)) & 1u) ? d * d : 0.0;
+        const T d = v[j] - mean;
+        m2 += ((m >> (8 * j)) & 1u) ? d * d : (T)0;
       }
     }
     m2 = sr_warp_sum(m2);
@@ -344,25 +384,25 @@ __device__ void sr_moments(const SrTable& t, const SrSlot& sl, const SrChunk<K>&
     part_i[ch.part(s, t.n_slots, 0)] = (int)n;
     part_i[ch.part(s, t.n_slots, 1)] = (int)(counts & 0xffffu);
     part_f[ch.part(s, t.n_slots, 0)] = sum;
-    part_f[ch.part(s, t.n_slots, 1)] = (nans & 0xffffu) ? sr_unkey(kmin) : CUDART_NAN;
-    part_f[ch.part(s, t.n_slots, 2)] = (nans >> 16) ? CUDART_NAN : sr_unkey(kmax);
+    part_f[ch.part(s, t.n_slots, 1)] = (nans & 0xffffu) ? Key::unkey(kmin) : (T)CUDART_NAN;
+    part_f[ch.part(s, t.n_slots, 2)] = (nans >> 16) ? (T)CUDART_NAN : Key::unkey(kmax);
     part_f[ch.part(s, t.n_slots, 3)] = mean;
     part_f[ch.part(s, t.n_slots, 4)] = m2;
   }
   // PHASE done
 }
 
-template <int K>
+template <int K, class T>
 __device__ void sr_comoments(const SrTable& t, const SrSlot& sl, const SrChunk<K>& ch, int s,
-                             int* __restrict__ part_i, double* __restrict__ part_f) {
+                             int* __restrict__ part_i, T* __restrict__ part_f) {
   // PHASE pass1
   unsigned base = 0, sel = 0;
-  double sx = 0.0, sy = 0.0;
+  T sx = 0, sy = 0;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const uint32_t b = ch.base(t, sl, k);
     const uint32_t m = ch.selected(t, sl, b, k);
-    double x[4], y[4];
+    T x[4], y[4];
     ch.values(t, sl.vals, false, k, x);
     ch.values(t, sl.vals2, false, k, y);
     base += __popc(b);
@@ -370,8 +410,8 @@ __device__ void sr_comoments(const SrTable& t, const SrSlot& sl, const SrChunk<K
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const bool f = (m >> (8 * j)) & 1u;
-      sx += f ? x[j] : 0.0;
-      sy += f ? y[j] : 0.0;
+      sx += f ? x[j] : (T)0;
+      sy += f ? y[j] : (T)0;
     }
   }
   // PHASE reduce1
@@ -379,25 +419,25 @@ __device__ void sr_comoments(const SrTable& t, const SrSlot& sl, const SrChunk<K
   sx = sr_warp_sum(sx);
   sy = sr_warp_sum(sy);
   const unsigned n = counts >> 16;
-  const double mx = n > 0 ? sx / (double)n : 0.0;
-  const double my = n > 0 ? sy / (double)n : 0.0;
+  const T mx = n > 0 ? sx / (T)n : (T)0;
+  const T my = n > 0 ? sy / (T)n : (T)0;
   // PHASE pass2
-  double ck = 0.0, xmk = 0.0, ymk = 0.0;
+  T ck = 0, xmk = 0, ymk = 0;
   if (n > 0) {  // uniform across the warp
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const uint32_t m = ch.selected(t, sl, ch.base(t, sl, k), k);
-      double x[4], y[4];
+      T x[4], y[4];
       ch.values(t, sl.vals, false, k, x);
       ch.values(t, sl.vals2, false, k, y);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool f = (m >> (8 * j)) & 1u;
-        const double dx = x[j] - mx;
-        const double dy = y[j] - my;
-        ck += f ? dx * dy : 0.0;
-        xmk += f ? dx * dx : 0.0;
-        ymk += f ? dy * dy : 0.0;
+        const T dx = x[j] - mx;
+        const T dy = y[j] - my;
+        ck += f ? dx * dy : (T)0;
+        xmk += f ? dx * dx : (T)0;
+        ymk += f ? dy * dy : (T)0;
       }
     }
     ck = sr_warp_sum(ck);
@@ -408,7 +448,7 @@ __device__ void sr_comoments(const SrTable& t, const SrSlot& sl, const SrChunk<K
   if (ch.lane == 0) {
     part_i[ch.part(s, t.n_slots, 0)] = (int)n;
     part_i[ch.part(s, t.n_slots, 1)] = (int)(counts & 0xffffu);
-    const double f[SR_PWIDTH] = {sx, sy, mx, my, ck, xmk, ymk};
+    const T f[SR_PWIDTH] = {sx, sy, mx, my, ck, xmk, ymk};
 #pragma unroll
     for (int c = 0; c < SR_PWIDTH; ++c) part_f[ch.part(s, t.n_slots, c)] = f[c];
   }
@@ -457,10 +497,10 @@ __device__ __forceinline__ void sr_stage_chunk(const SrTable& table, long long n
 // the W x n_chunks chunks (session-major): stage the chunk's distinct
 // arrays, then each warp reduces its slots over it. A chunk's partials
 // depend on its rows alone.
-template <int K>
+template <int K, class T>
 __global__ void __launch_bounds__(SR_THREADS)
 scan_reduce_chunks(const __grid_constant__ SrTable table, long long n, int n_chunks,
-                   int* __restrict__ part_i, double* __restrict__ part_f) {
+                   int* __restrict__ part_i, T* __restrict__ part_f) {
   extern __shared__ __align__(16) unsigned char sr_stage[];
   constexpr int CHUNK = SR_STEP * K;
   const long long t = blockIdx.x;
@@ -481,13 +521,13 @@ scan_reduce_chunks(const __grid_constant__ SrTable table, long long n, int n_chu
     const SrSlot sl = table.slot[s];
     switch (sl.kind) {
       case SR_KIND_MOMENTS:
-        sr_moments<K>(table, sl, ch, s, part_i, part_f);
+        sr_moments<K, T>(table, sl, ch, s, part_i, part_f);
         break;
       case SR_KIND_CLASSES:
         sr_classes<K>(table, sl, ch, s, part_i);
         break;
       case SR_KIND_COMOMENTS:
-        sr_comoments<K>(table, sl, ch, s, part_i, part_f);
+        sr_comoments<K, T>(table, sl, ch, s, part_i, part_f);
         break;
       default:
         sr_counts<K>(table, sl, ch, s, part_i);
@@ -503,14 +543,15 @@ scan_reduce_chunks(const __grid_constant__ SrTable table, long long n, int n_chu
 // shuffles, then thread 0 adds the warps in order).
 #define SR_FOLD_BATCH 8
 
+template <class T>
 struct SrFold {
   long long i[SR_IWIDTH];
-  double a, b;    // moments: sum; co-moments: sum x, sum y
-  double mn, mx;  // moments: min, max
+  T a, b;    // moments: sum; co-moments: sum x, sum y
+  T mn, mx;  // moments: min, max
 };
 
-template <int KIND>
-__device__ __forceinline__ void sr_fold_add(SrFold& x, const SrFold& y) {
+template <int KIND, class T>
+__device__ __forceinline__ void sr_fold_add(SrFold<T>& x, const SrFold<T>& y) {
   constexpr int icols = KIND == SR_KIND_CLASSES ? SR_IWIDTH : 2;
 #pragma unroll
   for (int c = 0; c < icols; ++c) x.i[c] += y.i[c];
@@ -524,9 +565,9 @@ __device__ __forceinline__ void sr_fold_add(SrFold& x, const SrFold& y) {
   }
 }
 
-template <int KIND>
-__device__ __forceinline__ SrFold sr_fold_shfl(const SrFold& x, int off) {
-  SrFold y = x;
+template <int KIND, class T>
+__device__ __forceinline__ SrFold<T> sr_fold_shfl(const SrFold<T>& x, int off) {
+  SrFold<T> y = x;
   constexpr int icols = KIND == SR_KIND_CLASSES ? SR_IWIDTH : 2;
 #pragma unroll
   for (int c = 0; c < icols; ++c) y.i[c] = __shfl_down_sync(0xffffffffu, x.i[c], off);
@@ -537,10 +578,10 @@ __device__ __forceinline__ SrFold sr_fold_shfl(const SrFold& x, int off) {
   return y;
 }
 
-// the sum of three float64s over the fold block, in a fixed order; thread
+// the sum of three values over the fold block, in a fixed order; thread
 // 0 gets it
-__device__ __forceinline__ void sr_block_sum3(double& x, double& y, double& z,
-                                              double (*scratch)[3]) {
+template <class T>
+__device__ __forceinline__ void sr_block_sum3(T& x, T& y, T& z, T (*scratch)[3]) {
   for (int off = 16; off > 0; off >>= 1) {
     x += __shfl_down_sync(0xffffffffu, x, off);
     y += __shfl_down_sync(0xffffffffu, y, off);
@@ -564,36 +605,39 @@ __device__ __forceinline__ void sr_block_sum3(double& x, double& y, double& z,
 
 // slot s of session w: pi / pf its partials' columns (column c at c * C),
 // oi / of its outputs
-template <int KIND>
-__device__ void sr_fold_slot(const int* __restrict__ pi, const double* __restrict__ pf, int C,
-                             long long* __restrict__ oi, double* __restrict__ of) {
+template <int KIND, class F, class I>
+__device__ void sr_fold_slot(const int* __restrict__ pi, const F* __restrict__ pf, int C,
+                             I* __restrict__ oi, F* __restrict__ of) {
   constexpr int icols = KIND == SR_KIND_CLASSES ? SR_IWIDTH : 2;
   constexpr bool moments = KIND == SR_KIND_MOMENTS;
   constexpr bool comoments = KIND == SR_KIND_COMOMENTS;
   constexpr int T = SR_FOLD_THREADS;
-  __shared__ SrFold warps[SR_FOLD_WARPS];
-  __shared__ double sums[SR_FOLD_WARPS][3];
-  SrFold f;
+  const F zero = 0;
+  const F nan = (F)CUDART_NAN;
+  const F ninf = (F)-CUDART_INF;
+  __shared__ SrFold<F> warps[SR_FOLD_WARPS];
+  __shared__ F sums[SR_FOLD_WARPS][3];
+  SrFold<F> f;
 #pragma unroll
   for (int c = 0; c < SR_IWIDTH; ++c) f.i[c] = 0;
-  f.a = 0.0;
-  f.b = 0.0;
-  f.mn = CUDART_NAN;
-  f.mx = -CUDART_INF;
+  f.a = zero;
+  f.b = zero;
+  f.mn = nan;
+  f.mx = ninf;
   // pass 1
   for (int c0 = threadIdx.x; c0 < C; c0 += SR_FOLD_BATCH * T) {
     int iv[SR_FOLD_BATCH][icols];
-    double a[SR_FOLD_BATCH], b[SR_FOLD_BATCH], mn[SR_FOLD_BATCH], mx[SR_FOLD_BATCH];
+    F a[SR_FOLD_BATCH], b[SR_FOLD_BATCH], mn[SR_FOLD_BATCH], mx[SR_FOLD_BATCH];
 #pragma unroll
     for (int u = 0; u < SR_FOLD_BATCH; ++u) {
       const int c = c0 + u * T;
       const bool in = c < C;
 #pragma unroll
       for (int col = 0; col < icols; ++col) iv[u][col] = in ? pi[(long long)col * C + c] : 0;
-      a[u] = in && (moments || comoments) ? pf[c] : 0.0;
-      b[u] = in && comoments ? pf[(long long)C + c] : 0.0;
-      mn[u] = in && moments ? pf[(long long)C + c] : CUDART_NAN;
-      mx[u] = in && moments ? pf[2LL * C + c] : -CUDART_INF;
+      a[u] = in && (moments || comoments) ? pf[c] : zero;
+      b[u] = in && comoments ? pf[(long long)C + c] : zero;
+      mn[u] = in && moments ? pf[(long long)C + c] : nan;
+      mx[u] = in && moments ? pf[2LL * C + c] : ninf;
     }
 #pragma unroll
     for (int u = 0; u < SR_FOLD_BATCH; ++u) {
@@ -610,41 +654,43 @@ __device__ void sr_fold_slot(const int* __restrict__ pi, const double* __restric
       }
     }
   }
-  for (int off = 16; off > 0; off >>= 1) sr_fold_add<KIND>(f, sr_fold_shfl<KIND>(f, off));
+  for (int off = 16; off > 0; off >>= 1) {
+    sr_fold_add<KIND, F>(f, sr_fold_shfl<KIND, F>(f, off));
+  }
   if ((threadIdx.x & 31) == 0) warps[threadIdx.x >> 5] = f;
   __syncthreads();
   f = warps[0];
-  for (int k = 1; k < SR_FOLD_WARPS; ++k) sr_fold_add<KIND>(f, warps[k]);
+  for (int k = 1; k < SR_FOLD_WARPS; ++k) sr_fold_add<KIND, F>(f, warps[k]);
   const long long n = f.i[0];
-  const double nd = (double)n;
-  const double xa = n > 0 ? f.a / nd : 0.0;  // the mean (co-moments: of x)
-  const double ya = n > 0 ? f.b / nd : 0.0;
+  const F nd = (F)n;
+  const F xa = n > 0 ? f.a / nd : zero;  // the mean (co-moments: of x)
+  const F ya = n > 0 ? f.b / nd : zero;
   // pass 2: each chunk's own M2 (co-moments) plus n_c times its mean's
   // squared distance from the batch's
-  double p = 0.0, q = 0.0, r = 0.0;
+  F p = zero, q = zero, r = zero;
   if ((moments || comoments) && n > 0) {  // uniform across the block
     for (int c0 = threadIdx.x; c0 < C; c0 += SR_FOLD_BATCH * T) {
-      double nc[SR_FOLD_BATCH], mx_[SR_FOLD_BATCH], my_[SR_FOLD_BATCH];
-      double m0[SR_FOLD_BATCH], m1[SR_FOLD_BATCH], m2[SR_FOLD_BATCH];
+      F nc[SR_FOLD_BATCH], mx_[SR_FOLD_BATCH], my_[SR_FOLD_BATCH];
+      F m0[SR_FOLD_BATCH], m1[SR_FOLD_BATCH], m2[SR_FOLD_BATCH];
 #pragma unroll
       for (int u = 0; u < SR_FOLD_BATCH; ++u) {
         const int c = c0 + u * T;
         const bool in = c < C;
-        nc[u] = in ? (double)pi[c] : 0.0;
-        mx_[u] = in ? pf[(moments ? 3LL : 2LL) * C + c] : 0.0;
-        my_[u] = in && comoments ? pf[3LL * C + c] : 0.0;
-        m0[u] = in ? pf[4LL * C + c] : 0.0;
-        m1[u] = in && comoments ? pf[5LL * C + c] : 0.0;
-        m2[u] = in && comoments ? pf[6LL * C + c] : 0.0;
+        nc[u] = in ? (F)pi[c] : zero;
+        mx_[u] = in ? pf[(moments ? 3LL : 2LL) * C + c] : zero;
+        my_[u] = in && comoments ? pf[3LL * C + c] : zero;
+        m0[u] = in ? pf[4LL * C + c] : zero;
+        m1[u] = in && comoments ? pf[5LL * C + c] : zero;
+        m2[u] = in && comoments ? pf[6LL * C + c] : zero;
       }
 #pragma unroll
       for (int u = 0; u < SR_FOLD_BATCH; ++u) {
-        if (nc[u] == 0.0) continue;  // an empty chunk (or none): nothing
-        const double dx = mx_[u] - xa;
+        if (nc[u] == zero) continue;  // an empty chunk (or none): nothing
+        const F dx = mx_[u] - xa;
         if (moments) {
           p += m0[u] + nc[u] * (dx * dx);
         } else {
-          const double dy = my_[u] - ya;
+          const F dy = my_[u] - ya;
           p += m0[u] + nc[u] * (dx * dy);
           q += m1[u] + nc[u] * (dx * dx);
           r += m2[u] + nc[u] * (dy * dy);
@@ -654,7 +700,7 @@ __device__ void sr_fold_slot(const int* __restrict__ pi, const double* __restric
     sr_block_sum3(p, q, r, sums);
   }
   if (threadIdx.x != 0) return;
-  for (int c = 0; c < SR_IWIDTH; ++c) oi[c] = c < icols ? f.i[c] : 0;
+  for (int c = 0; c < SR_IWIDTH; ++c) oi[c] = c < icols ? (I)f.i[c] : (I)0;
   if (comoments) {
     of[0] = xa;
     of[1] = ya;
@@ -668,40 +714,42 @@ __device__ void sr_fold_slot(const int* __restrict__ pi, const double* __restric
     of[3] = xa;
     of[4] = p;
   } else {
-    of[0] = 0.0;
-    of[1] = CUDART_NAN;
-    of[2] = -CUDART_INF;
-    of[3] = 0.0;
-    of[4] = 0.0;
+    of[0] = zero;
+    of[1] = nan;
+    of[2] = ninf;
+    of[3] = zero;
+    of[4] = zero;
   }
 }
 
 // One block per slot (blockIdx.x) and session (blockIdx.y) folds the
 // session's n_chunks chunk partials (see the head of the file). The same
-// order on every run.
+// order on every run. F and I are the outputs' float and count types:
+// double and long long, or float and int in the 32-bit accumulator mode.
+template <class F, class I>
 __global__ void __launch_bounds__(SR_FOLD_THREADS)
 scan_reduce_fold(const __grid_constant__ SrTable table, int n_chunks,
-                 const int* __restrict__ part_i, const double* __restrict__ part_f,
-                 long long* __restrict__ out_i, double* __restrict__ out_f) {
+                 const int* __restrict__ part_i, const F* __restrict__ part_f,
+                 I* __restrict__ out_i, F* __restrict__ out_f) {
   const int s = blockIdx.x;
   const long long o = (long long)blockIdx.y * table.n_slots + s;
   // PHASE fold0
   const int* pi = part_i + o * SR_PWIDTH * (long long)n_chunks;
-  const double* pf = part_f + o * SR_PWIDTH * (long long)n_chunks;
-  long long* oi = out_i + o * SR_IWIDTH;
-  double* of = out_f + o * 5;
+  const F* pf = part_f + o * SR_PWIDTH * (long long)n_chunks;
+  I* oi = out_i + o * SR_IWIDTH;
+  F* of = out_f + o * 5;
   switch (table.slot[s].kind) {
     case SR_KIND_MOMENTS:
-      sr_fold_slot<SR_KIND_MOMENTS>(pi, pf, n_chunks, oi, of);
+      sr_fold_slot<SR_KIND_MOMENTS, F, I>(pi, pf, n_chunks, oi, of);
       break;
     case SR_KIND_CLASSES:
-      sr_fold_slot<SR_KIND_CLASSES>(pi, pf, n_chunks, oi, of);
+      sr_fold_slot<SR_KIND_CLASSES, F, I>(pi, pf, n_chunks, oi, of);
       break;
     case SR_KIND_COMOMENTS:
-      sr_fold_slot<SR_KIND_COMOMENTS>(pi, pf, n_chunks, oi, of);
+      sr_fold_slot<SR_KIND_COMOMENTS, F, I>(pi, pf, n_chunks, oi, of);
       break;
     default:
-      sr_fold_slot<SR_KIND_COUNTS>(pi, pf, n_chunks, oi, of);
+      sr_fold_slot<SR_KIND_COUNTS, F, I>(pi, pf, n_chunks, oi, of);
       break;
   }
   // PHASE fold1
@@ -717,9 +765,9 @@ extern "C" int scan_reduce_table_bytes() { return (int)sizeof(SrTable); }
 
 extern "C" int scan_reduce_partial_width() { return SR_PWIDTH; }
 
-template <int K>
+template <int K, class T>
 static int sr_launch_chunks(const SrTable& table, long long n, int n_chunks, int width,
-                            int* part_i, double* part_f, cudaStream_t st) {
+                            int* part_i, T* part_f, cudaStream_t st) {
   // the dynamic shared memory this instance may use, by device
   static int opted[64];
   const int smem = SR_STEP * K * table.at[table.n_arrays];
@@ -729,7 +777,7 @@ static int sr_launch_chunks(const SrTable& table, long long n, int n_chunks, int
     if (err != cudaSuccess) return (int)err;
     if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
     if (smem > opted[device]) {
-      err = cudaFuncSetAttribute(scan_reduce_chunks<K>,
+      err = cudaFuncSetAttribute(scan_reduce_chunks<K, T>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return (int)err;
       opted[device] = smem;
@@ -737,19 +785,18 @@ static int sr_launch_chunks(const SrTable& table, long long n, int n_chunks, int
   }
   const long long blocks = (long long)n_chunks * width;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  scan_reduce_chunks<K><<<(int)blocks, SR_THREADS, smem, st>>>(table, n, n_chunks, part_i,
-                                                               part_f);
+  scan_reduce_chunks<K, T><<<(int)blocks, SR_THREADS, smem, st>>>(table, n, n_chunks, part_i,
+                                                                  part_f);
   return (int)cudaGetLastError();
 }
 
 // W sessions of n rows each (W = 1: one batch), in chunks of `chunk` rows
 // (128, 256 or 512). part_i: int32[W * n_slots * 7 * n_chunks] and
-// part_f: float64[W * n_slots * 7 * n_chunks] scratch, n_chunks =
-// max(1, ceil(n / chunk)); out_i: int64[W, n_slots, 7]; out_f:
-// float64[W, n_slots, 5].
-extern "C" int scan_reduce_launch(const SrTable* table, long long n, int width, int chunk,
-                                  int* part_i, double* part_f, long long* out_i, double* out_f,
-                                  void* stream) {
+// part_f: F[W * n_slots * 7 * n_chunks] scratch, n_chunks =
+// max(1, ceil(n / chunk)); out_i: I[W, n_slots, 7]; out_f: F[W, n_slots, 5].
+template <class F, class I>
+static int sr_launch(const SrTable* table, long long n, int width, int chunk, int* part_i,
+                     F* part_f, I* out_i, F* out_f, void* stream) {
   if (table->n_slots < 1 || table->n_slots > SR_MAX_SLOTS || table->n_arrays < 1 ||
       table->n_arrays > SR_MAX_ARRAYS || n < 0 || width < 1 || width > 65535) {
     return (int)cudaErrorInvalidValue;
@@ -761,19 +808,37 @@ extern "C" int scan_reduce_launch(const SrTable* table, long long n, int width, 
   int status;
   switch (chunk) {
     case 128:
-      status = sr_launch_chunks<1>(*table, n, n_chunks, width, part_i, part_f, st);
+      status = sr_launch_chunks<1, F>(*table, n, n_chunks, width, part_i, part_f, st);
       break;
     case 256:
-      status = sr_launch_chunks<2>(*table, n, n_chunks, width, part_i, part_f, st);
+      status = sr_launch_chunks<2, F>(*table, n, n_chunks, width, part_i, part_f, st);
       break;
     case 512:
-      status = sr_launch_chunks<4>(*table, n, n_chunks, width, part_i, part_f, st);
+      status = sr_launch_chunks<4, F>(*table, n, n_chunks, width, part_i, part_f, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   if (status != 0) return status;
-  scan_reduce_fold<<<dim3(table->n_slots, width), SR_FOLD_THREADS, 0, st>>>(
+  scan_reduce_fold<F, I><<<dim3(table->n_slots, width), SR_FOLD_THREADS, 0, st>>>(
       *table, n_chunks, part_i, part_f, out_i, out_f);
   return (int)cudaGetLastError();
+}
+
+// float64 values and sums, int64 counts: out_i int64[W, n_slots, 7],
+// out_f float64[W, n_slots, 5]
+extern "C" int scan_reduce_launch(const SrTable* table, long long n, int width, int chunk,
+                                  int* part_i, double* part_f, long long* out_i, double* out_f,
+                                  void* stream) {
+  return sr_launch<double, long long>(table, n, width, chunk, part_i, part_f, out_i, out_f,
+                                      stream);
+}
+
+// the 32-bit accumulator mode (DEEQU_TPU_NO_X64): float32 values (or the
+// int32 lengths and codes), sums, means and M2 in float32, counts written
+// as int32: out_i int32[W, n_slots, 7], out_f float32[W, n_slots, 5]
+extern "C" int scan_reduce_launch_f32(const SrTable* table, long long n, int width, int chunk,
+                                      int* part_i, float* part_f, int* out_i, float* out_f,
+                                      void* stream) {
+  return sr_launch<float, int>(table, n, width, chunk, part_i, part_f, out_i, out_f, stream);
 }

@@ -48,6 +48,12 @@
 //                x_mk, y_mk)
 // Every column belongs to exactly one item.
 //
+// Types: the float matrix is float64 and the count matrix int64, or float32
+// and int32 in the reference's 32-bit accumulator mode (DEEQU_TPU_NO_X64);
+// the merge kinds keep their names (SF_ADD_I64 adds the count matrix,
+// SF_ADD_F64 the float one). Every kernel is a template on the two types,
+// and each entry has a _f32 twin taking float32 / int32 / int32 matrices.
+//
 // Order: the fold starts from state 0 and merges states 1..N-1 into it in
 // order, as the reference's scan does; the rules are common.cuh's, each
 // operation rounded on its own, so the result equals the sequential fold
@@ -115,27 +121,31 @@ struct SfItem {
 // elementwise kinds), how a value is read from and written to a row at
 // column c, and the merge. The rules are common.cuh's, each operation
 // rounded on its own.
-struct SfAddI64 {
-  typedef long long T;
-  typedef long long V;
+template <class I>
+struct SfAddI {
+  typedef I T;
+  typedef I V;
   enum { G = 0 };
   __device__ static V load(const T* row, int c) { return row[c]; }
   __device__ static void store(T* row, int c, V v) { row[c] = v; }
   __device__ static V merge(V a, V b) { return a + b; }
 };
-struct SfAddF64 {
-  typedef double T;
-  typedef double V;
+template <class F>
+struct SfAddF {
+  typedef F T;
+  typedef F V;
   enum { G = 0 };
   __device__ static V load(const T* row, int c) { return row[c]; }
   __device__ static void store(T* row, int c, V v) { row[c] = v; }
-  __device__ static V merge(V a, V b) { return __dadd_rn(a, b); }
+  __device__ static V merge(V a, V b) { return dq_add(a, b); }
 };
-struct SfMin : SfAddF64 {
-  __device__ static V merge(V a, V b) { return dq_min_nan_largest(a, b); }
+template <class F>
+struct SfMin : SfAddF<F> {
+  __device__ static F merge(F a, F b) { return dq_min_nan_largest(a, b); }
 };
-struct SfMax : SfAddF64 {
-  __device__ static V merge(V a, V b) { return dq_max_nan(a, b); }
+template <class F>
+struct SfMax : SfAddF<F> {
+  __device__ static F merge(F a, F b) { return dq_max_nan(a, b); }
 };
 struct SfMaxI32 {
   typedef int32_t T;
@@ -145,9 +155,10 @@ struct SfMaxI32 {
   __device__ static void store(T* row, int c, V v) { row[c] = v; }
   __device__ static V merge(V a, V b) { return b > a ? b : a; }
 };
+template <class F>
 struct SfMoments {
-  typedef double T;
-  typedef DqMoments V;
+  typedef F T;
+  typedef DqMomentsT<F> V;
   enum { G = 3 };
   __device__ static V load(const T* r, int c) {
     const V v = {r[c], r[c + 1], r[c + 2]};
@@ -160,9 +171,10 @@ struct SfMoments {
   }
   __device__ static V merge(V a, V b) { return dq_merge_moments(a, b); }
 };
+template <class F>
 struct SfComoments {
-  typedef double T;
-  typedef DqComoments V;
+  typedef F T;
+  typedef DqComomentsT<F> V;
   enum { G = 6 };
   __device__ static V load(const T* r, int c) {
     const V v = {r[c], r[c + 1], r[c + 2], r[c + 3], r[c + 4], r[c + 5]};
@@ -180,34 +192,37 @@ struct SfComoments {
 };
 
 // The matrices of one launch: row 0 (f0, i0, r0), the further rows
-// (f64, i64, i32, row-major) and the output (out_f, out_i, out_r).
+// (f64, i64, i32, row-major; F and I the float and count types) and the
+// output (out_f, out_i, out_r).
+template <class F, class I>
 struct SfMats {
-  const double* f0;
-  const long long* i0;
+  const F* f0;
+  const I* i0;
   const int32_t* r0;
-  const double* f64;
-  const long long* i64;
+  const F* f64;
+  const I* i64;
   const int32_t* i32;
-  double* out_f;
-  long long* out_i;
+  F* out_f;
+  I* out_i;
   int32_t* out_r;
   int wf, wi, wr;
 };
 
 // The staging area of the fold: a chunk of a group's rows and the chunk's
 // flags
+template <class F>
 struct SfStage {
-  double vals[SF_STAGE * 6];
+  F vals[SF_STAGE * 6];
   unsigned char flags[SF_STAGE];
 };
 
 // one shard's fold of item (c0, cols) of kind K: row0 folded with the
 // n_rest rows of rest (those whose flag is set, every row when flags is
 // null) into out. Every thread of the block must call it.
-template <class K>
+template <class K, class S>
 __device__ void sf_fold_item(const typename K::T* row0, const typename K::T* rest, int w,
                              long long n_rest, const unsigned char* flags, int c0, int cols,
-                             typename K::T* out, SfStage& st) {
+                             typename K::T* out, S& st) {
   typedef typename K::V V;
   constexpr bool group = K::G > 0;
   const bool mine = group ? threadIdx.x == 0 : threadIdx.x < cols;
@@ -254,39 +269,40 @@ __device__ void sf_fold_item(const typename K::T* row0, const typename K::T* res
 // blockIdx.x: the work item; blockIdx.y: the shard (its row 0 and output
 // at shard * W, its n_rest rows at shard * n_rest * W, its flags at
 // shard * n_rest)
+template <class F, class I>
 __global__ void __launch_bounds__(SF_THREADS)
-state_fold_kernel(const SfItem* __restrict__ items, long long n_rest, SfMats m,
+state_fold_kernel(const SfItem* __restrict__ items, long long n_rest, SfMats<F, I> m,
                   const unsigned char* flags) {
-  __shared__ SfStage st;
+  __shared__ SfStage<F> st;
   const SfItem it = items[blockIdx.x];
   const long long sh = blockIdx.y;
   const unsigned char* fl = flags != nullptr ? flags + sh * n_rest : nullptr;
-  const double* f0 = m.f0 + sh * m.wf;
-  const double* f64 = m.f64 + sh * n_rest * m.wf;
-  double* out_f = m.out_f + sh * m.wf;
+  const F* f0 = m.f0 + sh * m.wf;
+  const F* f64 = m.f64 + sh * n_rest * m.wf;
+  F* out_f = m.out_f + sh * m.wf;
   switch (it.kind) {
     case SF_ADD_I64:
-      sf_fold_item<SfAddI64>(m.i0 + sh * m.wi, m.i64 + sh * n_rest * m.wi, m.wi, n_rest, fl,
-                             it.offset, it.cols, m.out_i + sh * m.wi, st);
+      sf_fold_item<SfAddI<I>>(m.i0 + sh * m.wi, m.i64 + sh * n_rest * m.wi, m.wi, n_rest, fl,
+                              it.offset, it.cols, m.out_i + sh * m.wi, st);
       break;
     case SF_MAX_I32:
       sf_fold_item<SfMaxI32>(m.r0 + sh * m.wr, m.i32 + sh * n_rest * m.wr, m.wr, n_rest, fl,
                              it.offset, it.cols, m.out_r + sh * m.wr, st);
       break;
     case SF_ADD_F64:
-      sf_fold_item<SfAddF64>(f0, f64, m.wf, n_rest, fl, it.offset, it.cols, out_f, st);
+      sf_fold_item<SfAddF<F>>(f0, f64, m.wf, n_rest, fl, it.offset, it.cols, out_f, st);
       break;
     case SF_MIN:
-      sf_fold_item<SfMin>(f0, f64, m.wf, n_rest, fl, it.offset, it.cols, out_f, st);
+      sf_fold_item<SfMin<F>>(f0, f64, m.wf, n_rest, fl, it.offset, it.cols, out_f, st);
       break;
     case SF_MAX:
-      sf_fold_item<SfMax>(f0, f64, m.wf, n_rest, fl, it.offset, it.cols, out_f, st);
+      sf_fold_item<SfMax<F>>(f0, f64, m.wf, n_rest, fl, it.offset, it.cols, out_f, st);
       break;
     case SF_MOMENTS:
-      sf_fold_item<SfMoments>(f0, f64, m.wf, n_rest, fl, it.offset, 1, out_f, st);
+      sf_fold_item<SfMoments<F>>(f0, f64, m.wf, n_rest, fl, it.offset, 1, out_f, st);
       break;
     case SF_COMOMENTS:
-      sf_fold_item<SfComoments>(f0, f64, m.wf, n_rest, fl, it.offset, 1, out_f, st);
+      sf_fold_item<SfComoments<F>>(f0, f64, m.wf, n_rest, fl, it.offset, 1, out_f, st);
       break;
     default:
       break;
@@ -300,7 +316,7 @@ template <class K>
 __device__ void sf_butterfly_item(const typename K::T* in, typename K::T* out, int w, int n_dev,
                                   int k, int c0, int cols, typename K::V* buf) {
   typedef typename K::V V;
-  // a group's batch is short: its values are 3 or 6 doubles each
+  // a group's batch is short: its values are 3 or 6 floats each
   constexpr int NB = K::G > 0 ? 2 : SF_BATCH;
   const int pairs = n_dev * cols;
   V acc[SF_PAIRS];
@@ -372,35 +388,40 @@ __device__ void sf_butterfly_item(const typename K::T* in, typename K::T* out, i
 
 // blockIdx.x: the work item. m.f64 / i64 / i32 are the stacked input
 // states [n_dev * k rows]; m.out_* the output [n_dev rows].
+template <class F, class I>
 __global__ void __launch_bounds__(SF_THREADS, 4)
-state_fold_butterfly_kernel(const SfItem* __restrict__ items, int n_dev, int k, SfMats m) {
+state_fold_butterfly_kernel(const SfItem* __restrict__ items, int n_dev, int k,
+                            SfMats<F, I> m) {
   extern __shared__ double sf_buf[];
   const SfItem it = items[blockIdx.x];
   switch (it.kind) {
     case SF_ADD_I64:
-      sf_butterfly_item<SfAddI64>(m.i64, m.out_i, m.wi, n_dev, k, it.offset, it.cols,
-                                  (long long*)sf_buf);
+      sf_butterfly_item<SfAddI<I>>(m.i64, m.out_i, m.wi, n_dev, k, it.offset, it.cols,
+                                   (I*)sf_buf);
       break;
     case SF_MAX_I32:
       sf_butterfly_item<SfMaxI32>(m.i32, m.out_r, m.wr, n_dev, k, it.offset, it.cols,
                                   (int32_t*)sf_buf);
       break;
     case SF_ADD_F64:
-      sf_butterfly_item<SfAddF64>(m.f64, m.out_f, m.wf, n_dev, k, it.offset, it.cols, sf_buf);
+      sf_butterfly_item<SfAddF<F>>(m.f64, m.out_f, m.wf, n_dev, k, it.offset, it.cols,
+                                   (F*)sf_buf);
       break;
     case SF_MIN:
-      sf_butterfly_item<SfMin>(m.f64, m.out_f, m.wf, n_dev, k, it.offset, it.cols, sf_buf);
+      sf_butterfly_item<SfMin<F>>(m.f64, m.out_f, m.wf, n_dev, k, it.offset, it.cols,
+                                  (F*)sf_buf);
       break;
     case SF_MAX:
-      sf_butterfly_item<SfMax>(m.f64, m.out_f, m.wf, n_dev, k, it.offset, it.cols, sf_buf);
+      sf_butterfly_item<SfMax<F>>(m.f64, m.out_f, m.wf, n_dev, k, it.offset, it.cols,
+                                  (F*)sf_buf);
       break;
     case SF_MOMENTS:
-      sf_butterfly_item<SfMoments>(m.f64, m.out_f, m.wf, n_dev, k, it.offset, 1,
-                                   (DqMoments*)sf_buf);
+      sf_butterfly_item<SfMoments<F>>(m.f64, m.out_f, m.wf, n_dev, k, it.offset, 1,
+                                      (DqMomentsT<F>*)sf_buf);
       break;
     case SF_COMOMENTS:
-      sf_butterfly_item<SfComoments>(m.f64, m.out_f, m.wf, n_dev, k, it.offset, 1,
-                                     (DqComoments*)sf_buf);
+      sf_butterfly_item<SfComoments<F>>(m.f64, m.out_f, m.wf, n_dev, k, it.offset, 1,
+                                        (DqComomentsT<F>*)sf_buf);
       break;
     default:
       break;
@@ -417,27 +438,28 @@ extern "C" int state_fold_butterfly_span(int n_dev) {
   return span < 1 ? 1 : (span > SF_SPAN ? SF_SPAN : span);
 }
 
+template <class F, class I>
 static int sf_launch(const SfItem* items, int n_items, int n_shards, long long n_rest,
-                     const SfMats& m, const unsigned char* flags, void* stream) {
+                     const SfMats<F, I>& m, const unsigned char* flags, void* stream) {
   if (n_items < 1 || n_rest < 0 || n_shards < 1 || n_shards > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  state_fold_kernel<<<dim3(n_items, n_shards), SF_THREADS, 0, (cudaStream_t)stream>>>(
+  state_fold_kernel<F, I><<<dim3(n_items, n_shards), SF_THREADS, 0, (cudaStream_t)stream>>>(
       items, n_rest, m, flags);
   return (int)cudaGetLastError();
 }
 
 // items: the work list [n_items] on the device, spans of at most
-// state_fold_span() columns; f64: float64[n_states * wf], i64:
-// int64[n_states * wi], i32: int32[n_states * wr] (a null pointer where the
-// width is 0); out_f, out_i, out_r: one row of each
-extern "C" int state_fold_launch(const SfItem* items, int n_items, long long n_states,
-                                 const double* f64, int wf, const long long* i64, int wi,
-                                 const int32_t* i32, int wr, double* out_f,
-                                 long long* out_i, int32_t* out_r, void* stream) {
+// state_fold_span() columns; f64: F[n_states * wf], i64: I[n_states * wi],
+// i32: int32[n_states * wr] (a null pointer where the width is 0); out_f,
+// out_i, out_r: one row of each
+template <class F, class I>
+static int sf_fold(const SfItem* items, int n_items, long long n_states, const F* f64, int wf,
+                   const I* i64, int wi, const int32_t* i32, int wr, F* out_f, I* out_i,
+                   int32_t* out_r, void* stream) {
   if (n_states < 1) return (int)cudaErrorInvalidValue;
-  const SfMats m = {f64, i64, i32, f64 ? f64 + wf : nullptr, i64 ? i64 + wi : nullptr,
-                    i32 ? i32 + wr : nullptr, out_f, out_i, out_r, wf, wi, wr};
+  const SfMats<F, I> m = {f64, i64, i32, f64 ? f64 + wf : nullptr, i64 ? i64 + wi : nullptr,
+                          i32 ? i32 + wr : nullptr, out_f, out_i, out_r, wf, wi, wr};
   return sf_launch(items, n_items, 1, n_states - 1, m, nullptr, stream);
 }
 
@@ -446,37 +468,24 @@ extern "C" int state_fold_launch(const SfItem* items, int n_items, long long n_s
 // [n_shards * n_parts * wf], part_i and part_r in order (those whose flag
 // in flags [n_shards * n_parts] is set; every row when flags is null), the
 // result written back into its carry row
-extern "C" int state_fold_carry_stacked_launch(const SfItem* items, int n_items, int n_shards,
-                                               long long n_parts, double* carry_f, int wf,
-                                               long long* carry_i, int wi, int32_t* carry_r,
-                                               int wr, const double* part_f,
-                                               const long long* part_i,
-                                               const int32_t* part_r,
-                                               const unsigned char* flags, void* stream) {
+template <class F, class I>
+static int sf_carry(const SfItem* items, int n_items, int n_shards, long long n_parts,
+                    F* carry_f, int wf, I* carry_i, int wi, int32_t* carry_r, int wr,
+                    const F* part_f, const I* part_i, const int32_t* part_r,
+                    const unsigned char* flags, void* stream) {
   if (n_parts < 1) return (int)cudaErrorInvalidValue;
-  const SfMats m = {carry_f, carry_i, carry_r, part_f, part_i, part_r,
-                    carry_f, carry_i, carry_r, wf, wi, wr};
+  const SfMats<F, I> m = {carry_f, carry_i, carry_r, part_f, part_i, part_r,
+                          carry_f, carry_i, carry_r, wf, wi, wr};
   return sf_launch(items, n_items, n_shards, n_parts, m, flags, stream);
-}
-
-// the carry entry: state_fold_carry_stacked_launch with one shard and no
-// flags
-extern "C" int state_fold_carry_launch(const SfItem* items, int n_items, long long n_parts,
-                                       double* carry_f, int wf, long long* carry_i, int wi,
-                                       int32_t* carry_r, int wr, const double* part_f,
-                                       const long long* part_i, const int32_t* part_r,
-                                       void* stream) {
-  return state_fold_carry_stacked_launch(items, n_items, 1, n_parts, carry_f, wf, carry_i, wi,
-                                         carry_r, wr, part_f, part_i, part_r, nullptr, stream);
 }
 
 // items: the work list with spans of at most state_fold_butterfly_span(
 // n_dev) columns; f64, i64, i32: the stacked states [n_dev * k * w];
 // out_*: every shard's final row [n_dev * w]
-extern "C" int state_fold_butterfly_launch(const SfItem* items, int n_items, int n_dev, int k,
-                                           const double* f64, int wf, const long long* i64,
-                                           int wi, const int32_t* i32, int wr, double* out_f,
-                                           long long* out_i, int32_t* out_r, void* stream) {
+template <class F, class I>
+static int sf_butterfly(const SfItem* items, int n_items, int n_dev, int k, const F* f64,
+                        int wf, const I* i64, int wi, const int32_t* i32, int wr, F* out_f,
+                        I* out_i, int32_t* out_r, void* stream) {
   if (n_items < 1 || n_dev < 1 || n_dev > SF_MAX_SHARDS || k < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -485,8 +494,44 @@ extern "C" int state_fold_butterfly_launch(const SfItem* items, int n_items, int
   // elementwise values, whichever is larger (48 KiB at most)
   const size_t smem = (size_t)n_dev * (span * 8 > (int)sizeof(DqComoments)
                                            ? span * 8 : (int)sizeof(DqComoments));
-  const SfMats m = {nullptr, nullptr, nullptr, f64, i64, i32, out_f, out_i, out_r, wf, wi, wr};
-  state_fold_butterfly_kernel<<<n_items, SF_THREADS, smem, (cudaStream_t)stream>>>(
+  const SfMats<F, I> m = {nullptr, nullptr, nullptr, f64, i64, i32, out_f, out_i, out_r,
+                          wf, wi, wr};
+  state_fold_butterfly_kernel<F, I><<<n_items, SF_THREADS, smem, (cudaStream_t)stream>>>(
       items, n_dev, k, m);
   return (int)cudaGetLastError();
 }
+
+// The four C entries over float64 / int64 / int32 matrices, and their _f32
+// twins over float32 / int32 / int32 (the 32-bit accumulator mode).
+#define SF_ENTRIES(SUFFIX, F, I)                                                               \
+  extern "C" int state_fold_launch##SUFFIX(const SfItem* items, int n_items, long long n_states, \
+                                           const F* f64, int wf, const I* i64, int wi,         \
+                                           const int32_t* i32, int wr, F* out_f, I* out_i,     \
+                                           int32_t* out_r, void* stream) {                     \
+    return sf_fold<F, I>(items, n_items, n_states, f64, wf, i64, wi, i32, wr, out_f, out_i,    \
+                         out_r, stream);                                                       \
+  }                                                                                            \
+  extern "C" int state_fold_carry_stacked_launch##SUFFIX(                                      \
+      const SfItem* items, int n_items, int n_shards, long long n_parts, F* carry_f, int wf,   \
+      I* carry_i, int wi, int32_t* carry_r, int wr, const F* part_f, const I* part_i,          \
+      const int32_t* part_r, const unsigned char* flags, void* stream) {                       \
+    return sf_carry<F, I>(items, n_items, n_shards, n_parts, carry_f, wf, carry_i, wi,        \
+                          carry_r, wr, part_f, part_i, part_r, flags, stream);                 \
+  }                                                                                            \
+  /* the carry entry: the stacked carry with one shard and no flags */                         \
+  extern "C" int state_fold_carry_launch##SUFFIX(                                              \
+      const SfItem* items, int n_items, long long n_parts, F* carry_f, int wf, I* carry_i,     \
+      int wi, int32_t* carry_r, int wr, const F* part_f, const I* part_i,                      \
+      const int32_t* part_r, void* stream) {                                                   \
+    return sf_carry<F, I>(items, n_items, 1, n_parts, carry_f, wf, carry_i, wi, carry_r, wr,  \
+                          part_f, part_i, part_r, nullptr, stream);                            \
+  }                                                                                            \
+  extern "C" int state_fold_butterfly_launch##SUFFIX(                                          \
+      const SfItem* items, int n_items, int n_dev, int k, const F* f64, int wf, const I* i64,  \
+      int wi, const int32_t* i32, int wr, F* out_f, I* out_i, int32_t* out_r, void* stream) {  \
+    return sf_butterfly<F, I>(items, n_items, n_dev, k, f64, wf, i64, wi, i32, wr, out_f,     \
+                              out_i, out_r, stream);                                           \
+  }
+
+SF_ENTRIES(, double, long long)
+SF_ENTRIES(_f32, float, int32_t)

@@ -10,6 +10,11 @@ the dictionary's size and the shared memory one block of the card may opt
 in to: one histogram a block in shared memory (``"shared"``), half the
 bins in each block of a two-block cluster (``"cluster"``, up to
 :data:`CLUSTER_MAX_K` codes), or adds into device memory (``"global"``).
+
+The kernel counts in int64. The wrapper returns the counts in the process's
+``config.COUNT_DTYPE``: int64, or int32 in the reference's 32-bit
+accumulator mode (``DEEQU_TPU_NO_X64``), cast from the kernel's int64 output
+on the device (exact below 2^31, as the batch's rows are).
 """
 
 from __future__ import annotations
@@ -95,8 +100,11 @@ def shared_limit(device: torch.device) -> int:
 def dict_code_counts(
     codes: torch.Tensor, rows: torch.Tensor, present: torch.Tensor, num_categories: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(counts, num_rows)``: int64[K] rows per code among valid, present
-    rows with a code in [0, K), and the int64 count of all valid rows."""
+    """``(counts, num_rows)``: [K] rows per code among valid, present rows
+    with a code in [0, K), and the count of all valid rows, both of
+    ``config.COUNT_DTYPE``."""
+    from ..config import COUNT_DTYPE
+
     n = codes.shape[0] if codes.dim() == 1 else -1
     device = codes.device
     check_tensor(codes, NAME, "codes", torch.int32, n, device)
@@ -117,6 +125,8 @@ def dict_code_counts(
     )
     check_status(NAME, status)
     count_launch(NAME)
+    if COUNT_DTYPE != torch.int64:
+        out = out.to(COUNT_DTYPE)
     return out[:k], out[k]
 
 
@@ -124,9 +134,11 @@ def dict_code_counts_plain(
     codes: torch.Tensor, rows: torch.Tensor, present: torch.Tensor, num_categories: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The same function as the kernel in plain PyTorch (a bincount with
-    one sentinel bin that is dropped)."""
+    one sentinel bin that is dropped), in ``config.COUNT_DTYPE``."""
+    from ..config import COUNT_DTYPE
+
     k = int(num_categories)
     valid = rows & present & (codes >= 0) & (codes < k)
     keys = torch.where(valid, codes, k).to(torch.int64)
     counts = torch.bincount(keys, minlength=k + 1)[:k]
-    return counts, rows.sum(dtype=torch.int64)
+    return counts.to(COUNT_DTYPE), rows.sum(dtype=COUNT_DTYPE)

@@ -15,6 +15,12 @@ entries return new tensors and leave their inputs as they were (the kernel
 writes the new state whole: the rows the cascade touches from its working
 block, the others copied by the launch's other blocks); the ingest entry
 updates a stack of sketches in place.
+
+The scalars count, g_min and g_max are int64 and float64, or int32 and
+float32 in the reference's 32-bit accumulator mode (``DEEQU_TPU_NO_X64``):
+the state's count decides, and each entry then launches its ``_f32`` twin
+(counted under ``kll_compact_f32``, ``kll_compact_ingest_f32`` and
+``kll_compact_merge_stacked_f32``). Items are float32 in both.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..ops.order import max_nan, min_nan_largest
-from . import build, check_status, count_launch, on_cuda, stream_handle
+from . import build, check_status, count_launch, entry_name, on_cuda, stream_handle
 from .kll_sample import Sample, stable_sort
 
 NAME = "kll_compact"
@@ -36,8 +42,26 @@ MERGE_STACKED_NAME = "kll_compact_merge_stacked"
 MAX_LEVELS = 64
 
 Leaves = Tuple[torch.Tensor, ...]
-_DTYPES = (torch.float32, torch.int32, torch.int32, torch.int32, torch.int64,
-           torch.float64, torch.float64)
+#: the float type of min and max beside each count type
+_ACC_OF = {torch.int64: torch.float64, torch.int32: torch.float32}
+
+
+def _dtypes(count_dtype: torch.dtype) -> Tuple[torch.dtype, ...]:
+    """The seven leaves' dtypes of a sketch whose count is ``count_dtype``
+    (int64, or int32 in the 32-bit accumulator mode)."""
+    acc = _ACC_OF.get(count_dtype, torch.float64)
+    return (torch.float32, torch.int32, torch.int32, torch.int32,
+            count_dtype if count_dtype in _ACC_OF else torch.int64, acc, acc)
+
+
+def _entry(lib, name: str, count_dtype: torch.dtype):
+    """The C entry ``name`` for the scalars' types: its ``_f32`` twin for
+    an int32 count."""
+    return getattr(lib, name + ("_f32" if count_dtype == torch.int32 else ""))
+
+
+def _acc(count_dtype: torch.dtype) -> torch.dtype:
+    return _ACC_OF[count_dtype]
 
 
 def _lib() -> ctypes.CDLL:
@@ -45,32 +69,29 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_deequ_bound", False):
         lib.kll_compact_scratch.restype = ctypes.c_longlong
         lib.kll_compact_scratch.argtypes = [ctypes.c_int]
-        lib.kll_compact_update_launch.restype = ctypes.c_int
-        lib.kll_compact_update_launch.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-        )
-        lib.kll_compact_merge_launch.restype = ctypes.c_int
-        lib.kll_compact_merge_launch.argtypes = (
-            [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-        )
-        lib.kll_compact_merge_stacked_launch.restype = ctypes.c_int
-        lib.kll_compact_merge_stacked_launch.argtypes = (
-            [ctypes.c_void_p] * 21 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-        )
-        lib.kll_compact_ingest_launch.restype = ctypes.c_int
-        lib.kll_compact_ingest_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
-        )
+        for suffix in ("", "_f32"):
+            entry = getattr(lib, "kll_compact_update_launch" + suffix)
+            entry.restype = ctypes.c_int
+            entry.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+            entry = getattr(lib, "kll_compact_merge_launch" + suffix)
+            entry.restype = ctypes.c_int
+            entry.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+            entry = getattr(lib, "kll_compact_merge_stacked_launch" + suffix)
+            entry.restype = ctypes.c_int
+            entry.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+            entry = getattr(lib, "kll_compact_ingest_launch" + suffix)
+            entry.restype = ctypes.c_int
+            entry.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
         lib._deequ_bound = True
     return lib
 
 
 def _check_state(state: Sequence[torch.Tensor], k: int, what: str) -> None:
-    if len(state) != len(_DTYPES):
+    if len(state) != 7:
         raise ValueError(f"{NAME}: {what} has {len(state)} leaves, expected 7")
     items = state[0]
     device = items.device
-    for i, (leaf, dtype) in enumerate(zip(state, _DTYPES)):
+    for i, (leaf, dtype) in enumerate(zip(state, _dtypes(state[4].dtype))):
         if leaf.dtype != dtype or leaf.device != device or not leaf.is_contiguous():
             raise TypeError(f"{NAME}: {what} leaf {i} must be contiguous {dtype} on {device}")
     if items.dim() != 2 or not 2 <= items.shape[0] <= MAX_LEVELS:
@@ -101,23 +122,25 @@ def kll_compact_update(state: Sequence[torch.Tensor], sample: Sample, k: int) ->
     items = state[0]
     samples, meta, minmax = sample
     device = items.device
-    if (samples.dtype != torch.float32 or meta.dtype != torch.int32 or minmax.dtype != torch.float64
-            or meta.numel() != 3 or minmax.numel() != 2
+    count_dtype = state[4].dtype
+    if (samples.dtype != torch.float32 or meta.dtype != torch.int32
+            or minmax.dtype != _acc(count_dtype) or meta.numel() != 3 or minmax.numel() != 2
             or any(t.device != device for t in sample)):
-        raise TypeError(f"{NAME}: the sample must be K4's outputs on {device}")
+        raise TypeError(f"{NAME}: the sample must be K4's outputs on {device}, its min and "
+                        f"max of the sketch's {_acc(count_dtype)}")
     if not on_cuda(items, NAME):
         return kll_compact_update_plain(state, sample, k)
     lib = _lib()
     out = _empty_like(state)
     scratch = _scratch(lib, items)
-    status = lib.kll_compact_update_launch(
+    status = _entry(lib, "kll_compact_update_launch", count_dtype)(
         *(leaf.data_ptr() for leaf in state), *(leaf.data_ptr() for leaf in out),
         items.shape[0], items.shape[1], k,
         samples.data_ptr(), meta.data_ptr(), minmax.data_ptr(),
         None if scratch is None else scratch.data_ptr(), stream_handle(device),
     )
     check_status(NAME, status)
-    count_launch(NAME)
+    count_launch(entry_name(NAME, _acc(count_dtype)))
     return out
 
 
@@ -126,30 +149,32 @@ def kll_compact_merge(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor], k: i
     ``b`` appended to ``a``'s, parities XORed, one full cascade."""
     _check_state(a, k, "a")
     _check_state(b, k, "b")
-    if a[0].shape != b[0].shape or a[0].device != b[0].device:
+    if (a[0].shape != b[0].shape or a[0].device != b[0].device
+            or a[4].dtype != b[4].dtype):
         raise ValueError(f"{NAME}: cannot merge sketches of shapes {tuple(a[0].shape)} "
-                         f"and {tuple(b[0].shape)}")
+                         f"and {tuple(b[0].shape)}, counts {a[4].dtype} and {b[4].dtype}")
     items = a[0]
     if not on_cuda(items, NAME):
         return kll_compact_merge_plain(a, b, k)
     lib = _lib()
     out = _empty_like(a)
     scratch = _scratch(lib, items)
-    status = lib.kll_compact_merge_launch(
+    count_dtype = a[4].dtype
+    status = _entry(lib, "kll_compact_merge_launch", count_dtype)(
         *(leaf.data_ptr() for leaf in a), *(leaf.data_ptr() for leaf in b),
         *(leaf.data_ptr() for leaf in out), items.shape[0], items.shape[1], k,
         None if scratch is None else scratch.data_ptr(), stream_handle(items.device),
     )
     check_status(NAME, status)
-    count_launch(NAME)
+    count_launch(entry_name(NAME, _acc(count_dtype)))
     return out
 
 
 def _check_stacked(state: Sequence[torch.Tensor], k: int, what: str) -> None:
-    if len(state) != len(_DTYPES):
+    if len(state) != 7:
         raise ValueError(f"{NAME}: {what} has {len(state)} leaves, expected 7")
     items = state[0]
-    for i, (leaf, dtype) in enumerate(zip(state, _DTYPES)):
+    for i, (leaf, dtype) in enumerate(zip(state, _dtypes(state[4].dtype))):
         if leaf.dtype != dtype or leaf.device != items.device or not leaf.is_contiguous():
             raise TypeError(f"{NAME}: {what} leaf {i} must be contiguous {dtype} on "
                             f"{items.device}")
@@ -174,9 +199,11 @@ def kll_compact_merge_stacked(a: Sequence[torch.Tensor], b: Sequence[torch.Tenso
     pair; the inputs stay as they were."""
     _check_stacked(a, k, "a")
     _check_stacked(b, k, "b")
-    if a[0].shape != b[0].shape or a[0].device != b[0].device:
+    if (a[0].shape != b[0].shape or a[0].device != b[0].device
+            or a[4].dtype != b[4].dtype):
         raise ValueError(f"{NAME}: cannot merge stacked sketches of shapes "
-                         f"{tuple(a[0].shape)} and {tuple(b[0].shape)}")
+                         f"{tuple(a[0].shape)} and {tuple(b[0].shape)}, counts "
+                         f"{a[4].dtype} and {b[4].dtype}")
     items = a[0]
     if not on_cuda(items, NAME):
         return kll_compact_merge_stacked_plain(a, b, k)
@@ -186,28 +213,33 @@ def kll_compact_merge_stacked(a: Sequence[torch.Tensor], b: Sequence[torch.Tenso
     entries = lib.kll_compact_scratch(c)
     scratch = (torch.empty(m * entries, dtype=torch.int64, device=items.device)
                if entries else None)
-    status = lib.kll_compact_merge_stacked_launch(
+    status = _entry(lib, "kll_compact_merge_stacked_launch", a[4].dtype)(
         *(leaf.data_ptr() for leaf in a), *(leaf.data_ptr() for leaf in b),
         *(leaf.data_ptr() for leaf in out), m, levels, c, k,
         None if scratch is None else scratch.data_ptr(), stream_handle(items.device),
     )
     check_status(MERGE_STACKED_NAME, status)
-    count_launch(MERGE_STACKED_NAME)
+    count_launch(entry_name(MERGE_STACKED_NAME, _acc(a[4].dtype)))
     return out
 
 
-#: dtypes of a host sample's six fields: items [S, B, C], m, h, nv, min, max
-_SAMPLE_DTYPES = (torch.float64, torch.int32, torch.int32, torch.int64, torch.float64,
-                  torch.float64)
+def _sample_dtypes(count_dtype: torch.dtype) -> Tuple[torch.dtype, ...]:
+    """dtypes of a host sample's six fields (items [S, B, C], m, h, nv, min,
+    max) beside sketches whose count is ``count_dtype``: nv, min and max
+    follow the sketch's scalars; the items are float64 in both modes."""
+    d = _dtypes(count_dtype)
+    return (torch.float64, torch.int32, torch.int32, d[4], d[5], d[6])
 
 
 def _check_ingest(sketches: Sequence[torch.Tensor], samples: Sequence[torch.Tensor],
                   k: int) -> None:
-    if len(sketches) != len(_DTYPES) or len(samples) != len(_SAMPLE_DTYPES):
+    if len(sketches) != 7 or len(samples) != 6:
         raise ValueError(f"{NAME}: ingest takes 7 stacked sketch leaves and 6 sample fields")
     items = sketches[0]
     device = items.device
-    for i, (leaf, dtype) in enumerate(zip((*sketches, *samples), (*_DTYPES, *_SAMPLE_DTYPES))):
+    count_dtype = sketches[4].dtype
+    for i, (leaf, dtype) in enumerate(zip((*sketches, *samples),
+                                          (*_dtypes(count_dtype), *_sample_dtypes(count_dtype)))):
         if leaf.dtype != dtype or leaf.device != device or not leaf.is_contiguous():
             raise TypeError(f"{NAME}: ingest input {i} must be contiguous {dtype} on {device}")
     if items.dim() != 3 or not 2 <= items.shape[1] <= MAX_LEVELS:
@@ -233,8 +265,9 @@ def kll_compact_ingest(sketches: Sequence[torch.Tensor], samples: Sequence[torch
     sample). ``sketches``: the seven leaves with a leading sketch axis
     (items ``[S, L, C]``, sizes and parity ``[S, L]``, the scalars
     ``[S]``); ``samples``: items ``[S, B, C]`` float64 (ascending, +inf
-    past ``m``), m and h ``[S, B]`` int32, nv ``[S, B]`` int64, min and
-    max ``[S, B]`` float64. One block per sketch."""
+    past ``m``), m and h ``[S, B]`` int32, nv ``[S, B]`` of the sketches'
+    count type, min and max ``[S, B]`` of their min and max type. One
+    block per sketch."""
     _check_ingest(sketches, samples, k)
     items = sketches[0]
     if not on_cuda(items, NAME):
@@ -245,13 +278,14 @@ def kll_compact_ingest(sketches: Sequence[torch.Tensor], samples: Sequence[torch
     entries = lib.kll_compact_scratch(c)
     scratch = (torch.empty(s * entries, dtype=torch.int64, device=items.device)
                if entries else None)
-    status = lib.kll_compact_ingest_launch(
+    count_dtype = sketches[4].dtype
+    status = _entry(lib, "kll_compact_ingest_launch", count_dtype)(
         *(leaf.data_ptr() for leaf in sketches), s, levels, c, k, samples[0].shape[1],
         *(f.data_ptr() for f in samples),
         None if scratch is None else scratch.data_ptr(), stream_handle(items.device),
     )
     check_status(NAME, status)
-    count_launch(INGEST_NAME)
+    count_launch(entry_name(INGEST_NAME, _acc(count_dtype)))
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,11 @@ Replaces the row work of ``kll_update`` in the JAX reference
 (deequ_tpu/ops/kll.py:233-266). The CUDA source is ``csrc/kll_sample.cu``;
 :func:`kll_sample_plain` is the same function in plain PyTorch. Its outputs
 stay on the device and feed K5 (``kll_compact``) directly.
+
+Values are float64, or float32 in the reference's 32-bit accumulator mode
+(``DEEQU_TPU_NO_X64``: the entry ``kll_sample_launch_f32``, counted under
+``kll_sample_f32``); the sample's min and max come out in the values' type,
+its items are float32 in both.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops.order import masked_max, masked_min
-from . import build, check_status, check_tensor, count_launch, on_cuda, stream_handle
+from . import (build, check_status, check_tensor, count_launch, entry_name, on_cuda,
+               stream_handle)
 
 NAME = "kll_sample"
 #: the largest finite float32, the bound the values are clipped to
@@ -28,7 +34,7 @@ class Sample(NamedTuple):
 
     samples: torch.Tensor  # float32[k], +inf past m
     meta: torch.Tensor     # int32[3]: m items picked, level h, n kept values
-    minmax: torch.Tensor   # float64[2]: min and max of the kept values
+    minmax: torch.Tensor   # float64[2] or float32[2]: min and max of the kept values
 
 
 def _lib() -> ctypes.CDLL:
@@ -36,12 +42,13 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_deequ_bound", False):
         lib.kll_sample_scratch_bytes.restype = ctypes.c_longlong
         lib.kll_sample_scratch_bytes.argtypes = [ctypes.c_longlong]
-        lib.kll_sample_launch.restype = ctypes.c_int
-        lib.kll_sample_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
+        for entry in (lib.kll_sample_launch, lib.kll_sample_launch_f32):
+            entry.restype = ctypes.c_int
+            entry.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ]
         lib._deequ_bound = True
     return lib
 
@@ -55,12 +62,14 @@ def kll_sample(
     k: int,
 ) -> Sample:
     """Pre-collapse one batch for a sketch of size ``k`` whose update
-    counter is ``ticks`` (int32, 0-d). The kept values are those of rows
-    ``rows & where & present`` that are not NaN. CPU tensors take
-    :func:`kll_sample_plain`; CUDA tensors launch the kernel."""
+    counter is ``ticks`` (int32, 0-d). The kept values (float64 or
+    float32) are those of rows ``rows & where & present`` that are not
+    NaN. CPU tensors take :func:`kll_sample_plain`; CUDA tensors launch the
+    kernel."""
     n = values.shape[0] if values.dim() == 1 else -1
     device = values.device
-    check_tensor(values, NAME, "values", torch.float64, n, device)
+    vdtype = torch.float32 if values.dtype == torch.float32 else torch.float64
+    check_tensor(values, NAME, "values", vdtype, n, device)
     check_tensor(rows, NAME, "rows", torch.bool, n, device)
     for what, mask in (("where", where), ("present", present)):
         if mask is not None:
@@ -80,9 +89,10 @@ def kll_sample(
     out = Sample(
         torch.empty(k, dtype=torch.float32, device=device),
         torch.empty(3, dtype=torch.int32, device=device),
-        torch.empty(2, dtype=torch.float64, device=device),
+        torch.empty(2, dtype=vdtype, device=device),
     )
-    status = lib.kll_sample_launch(
+    entry = lib.kll_sample_launch if vdtype == torch.float64 else lib.kll_sample_launch_f32
+    status = entry(
         values.data_ptr(), rows.data_ptr(),
         None if where is None else where.data_ptr(),
         None if present is None else present.data_ptr(),
@@ -90,7 +100,7 @@ def kll_sample(
         out.meta.data_ptr(), out.minmax.data_ptr(), stream_handle(device),
     )
     check_status(NAME, status)
-    count_launch(NAME)
+    count_launch(entry_name(NAME, vdtype))
     return out
 
 

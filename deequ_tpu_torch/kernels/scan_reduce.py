@@ -10,7 +10,7 @@ A :class:`Slot` describes one reduction: the rows counted are ``rows &
 where``, the rows selected are those & ``sel``, and a moments slot also
 reduces ``vals`` over the selected rows. A class-count slot counts the
 counted rows by their int32 code in ``vals`` (the five type classes of
-DataType). A co-moment slot reads two float64 value arrays, ``vals`` and
+DataType). A co-moment slot reads two float value arrays, ``vals`` and
 ``vals2``, over the rows ``rows & where & sel & sel2`` (both columns
 present) and gives Correlation's batch state: n, the two means and the
 centred co-moments (deequ_tpu/analyzers/simple.py:661). Analyzers that need
@@ -27,6 +27,14 @@ The wrapper hands the kernel the slot table's distinct arrays
 (:func:`stage_plan`: a mask or column several slots share is read once)
 and the rows of a block's chunk (:func:`chunk_rows`: from the batch's
 rows and the table's bytes a row, never from the number of sessions).
+
+A launch's accumulator type is that of its float value arrays (all of
+one type), else the process's ``config.ACC_DTYPE`` (:func:`acc_dtype`):
+float64 values give float64 outputs and int64 counts
+(``scan_reduce_launch``), float32 values (the reference's 32-bit
+accumulator mode, ``DEEQU_TPU_NO_X64``) float32 outputs and int32 counts
+(``scan_reduce_launch_f32``, counted under ``scan_reduce_f32`` and
+``scan_reduce_stacked_f32``). The plain versions take the same types.
 """
 
 from __future__ import annotations
@@ -42,7 +50,8 @@ import numpy as np
 import torch
 
 from ..ops.order import masked_max, masked_min
-from . import build, check_status, check_tensor, count_launch, on_cuda, stream_handle
+from . import (build, check_status, check_tensor, count_launch, entry_name, on_cuda,
+               stream_handle)
 
 NAME = "scan_reduce"
 #: the stacked entry's launch-count name
@@ -55,10 +64,10 @@ KIND_COMOMENTS = 3
 MAX_SLOTS = 64
 #: classes of a class-count slot; equals SR_CLASSES
 NUM_CLASSES = 5
-#: columns of the int64 output: matches, count, then the class counts
+#: columns of the count output: matches, count, then the class counts
 I_MATCHES, I_COUNT, I_CLASS0 = 0, 1, 2
 I_WIDTH = I_CLASS0 + NUM_CLASSES
-#: columns of the float64 output
+#: columns of the float output
 F_SUM, F_MIN, F_MAX, F_MEAN, F_M2 = 0, 1, 2, 3, 4
 #: the same five columns of a co-moment slot: the two means and the
 #: co-moments about them (its n is the matches column)
@@ -70,22 +79,24 @@ class Slot:
     kind: int
     where: Optional[torch.Tensor] = None  # bool[n] where-filter
     sel: Optional[torch.Tensor] = None    # bool[n] presence / predicate
-    vals: Optional[torch.Tensor] = None   # float64[n] or int32[n] (lengths, codes)
-    vals2: Optional[torch.Tensor] = None  # float64[n]: a co-moment slot's second column
+    vals: Optional[torch.Tensor] = None   # float[n] or int32[n] (lengths, codes)
+    vals2: Optional[torch.Tensor] = None  # float[n]: a co-moment slot's second column
     sel2: Optional[torch.Tensor] = None   # bool[n]: the second column's presence
 
 
 class Partials(NamedTuple):
-    """One slot's batch partials: 0-d views into the launch's outputs."""
+    """One slot's batch partials: 0-d views into the launch's outputs (the
+    counts int64 and the rest float64, or int32 and float32 for a float32
+    launch)."""
 
-    matches: torch.Tensor  # int64: rows & where & sel
-    count: torch.Tensor    # int64: rows & where
-    total: torch.Tensor    # float64 sum of selected values
-    min: torch.Tensor      # float64, NaN-largest order (NaN if none)
-    max: torch.Tensor      # float64, NaN propagates (-inf if none)
-    mean: torch.Tensor     # float64 batch mean (0 if none)
-    m2: torch.Tensor       # float64 sum of squares about the batch mean
-    classes: torch.Tensor  # int64[5]: counted rows by class code (0 unless class slot)
+    matches: torch.Tensor  # rows & where & sel
+    count: torch.Tensor    # rows & where
+    total: torch.Tensor    # sum of selected values
+    min: torch.Tensor      # NaN-largest order (NaN if none)
+    max: torch.Tensor      # NaN propagates (-inf if none)
+    mean: torch.Tensor     # batch mean (0 if none)
+    m2: torch.Tensor       # sum of squares about the batch mean
+    classes: torch.Tensor  # [5]: counted rows by class code (0 unless class slot)
 
 
 def partials(out_i: torch.Tensor, out_f: torch.Tensor, slot: int) -> Partials:
@@ -101,8 +112,8 @@ def partials(out_i: torch.Tensor, out_f: torch.Tensor, slot: int) -> Partials:
 
 def comoments(p: Partials) -> Tuple[torch.Tensor, ...]:
     """A co-moment slot's batch state (n, x_avg, y_avg, ck, x_mk, y_mk),
-    n as float64, read from its :class:`Partials`."""
-    return (p.matches.to(torch.float64), p.total, p.min, p.max, p.mean, p.m2)
+    n in the partials' float type, read from its :class:`Partials`."""
+    return (p.matches.to(p.total.dtype), p.total, p.min, p.max, p.mean, p.m2)
 
 
 #: distinct arrays a launch stages (the row mask and five a slot); equals
@@ -115,7 +126,7 @@ CHUNK_ROWS = (512, 256, 128)
 STAGE_BYTES = 32 * 1024
 #: a batch with the rows for it spreads over at least this many chunks
 MIN_CHUNKS = 8
-#: int32 and float64 columns of a chunk partial; equals SR_PWIDTH
+#: int32 and float columns of a chunk partial; equals SR_PWIDTH
 PARTIAL_WIDTH = 7
 #: a slot's absent array; equals SR_NONE
 NONE = 0xFFFF
@@ -246,12 +257,13 @@ def _lib() -> ctypes.CDLL:
                    "scan_reduce_table_bytes", "scan_reduce_partial_width"):
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = []
-        lib.scan_reduce_launch.restype = ctypes.c_int
-        lib.scan_reduce_launch.argtypes = [
-            ctypes.POINTER(_Table), ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-        ]
+        for entry in (lib.scan_reduce_launch, lib.scan_reduce_launch_f32):
+            entry.restype = ctypes.c_int
+            entry.argtypes = [
+                ctypes.POINTER(_Table), ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p,
+            ]
         if (lib.scan_reduce_max_slots() != MAX_SLOTS
                 or lib.scan_reduce_max_arrays() != MAX_ARRAYS
                 or lib.scan_reduce_int_width() != I_WIDTH
@@ -263,11 +275,31 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _validate(slots: Sequence[Slot], rows: torch.Tensor, name: str, dims: int) -> None:
+#: the accumulator types a launch takes, and the count type of each
+COUNT_DTYPES = {torch.float64: torch.int64, torch.float32: torch.int32}
+
+
+def acc_dtype(slots: Sequence[Slot]) -> torch.dtype:
+    """The launch's accumulator type: that of the slots' float value
+    arrays, else the process's ``config.ACC_DTYPE``. Float arrays of two
+    types, or of another float type, raise ``TypeError``."""
+    found = {t.dtype for slot in slots for t in (slot.vals, slot.vals2)
+             if t is not None and t.dtype != torch.int32}
+    if not found:
+        from ..config import ACC_DTYPE
+
+        return ACC_DTYPE
+    if len(found) > 1 or not found <= set(COUNT_DTYPES):
+        raise TypeError(f"{NAME}: value arrays must all be float64 or all float32, "
+                        f"got {sorted(map(str, found))}")
+    return found.pop()
+
+
+def _validate(slots: Sequence[Slot], rows: torch.Tensor, name: str, dims: int) -> torch.dtype:
     """Check the slot table against ``rows``: ``dims`` is 1 for one batch
     (every array ``[n]``) and 2 for stacked sessions (every array
     ``[W, n]``). An array several slots share is checked once for each
-    dtype it is used as."""
+    dtype it is used as. Returns the launch's accumulator type."""
     if not slots or len(slots) > MAX_SLOTS:
         raise ValueError(f"{name}: takes 1 to {MAX_SLOTS} slots, got {len(slots)}")
     if rows.dim() != dims or (dims == 2 and rows.shape[0] < 1):
@@ -285,6 +317,7 @@ def _validate(slots: Sequence[Slot], rows: torch.Tensor, name: str, dims: int) -
             check_tensor(t, name, what, dtype, tuple(shape), device)
         checked.add(key)
 
+    fdtype = acc_dtype(slots)
     check(rows, "rows", torch.bool)
     for i, slot in enumerate(slots):
         kind = slot.kind
@@ -299,7 +332,7 @@ def _validate(slots: Sequence[Slot], rows: torch.Tensor, name: str, dims: int) -
         if kind == KIND_MOMENTS:
             if slot.vals is None:
                 raise ValueError(f"{name}: moments slot {i} has no values")
-            dtype = torch.int32 if slot.vals.dtype == torch.int32 else torch.float64
+            dtype = torch.int32 if slot.vals.dtype == torch.int32 else fdtype
             check(slot.vals, f"slot {i} vals", dtype)
         elif kind == KIND_CLASSES:
             if slot.vals is None or slot.sel is not None:
@@ -308,15 +341,17 @@ def _validate(slots: Sequence[Slot], rows: torch.Tensor, name: str, dims: int) -
         elif kind == KIND_COMOMENTS:
             if slot.vals is None or slot.vals2 is None:
                 raise ValueError(f"{name}: co-moment slot {i} needs two value columns")
-            check(slot.vals, f"slot {i} vals", torch.float64)
-            check(slot.vals2, f"slot {i} vals2", torch.float64)
+            check(slot.vals, f"slot {i} vals", fdtype)
+            check(slot.vals2, f"slot {i} vals2", fdtype)
+    return fdtype
 
 
-def _launch(slots: Sequence[Slot], rows: torch.Tensor, width: int, n: int
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(slots: Sequence[Slot], rows: torch.Tensor, width: int, n: int,
+            fdtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch over ``width`` sessions of ``n`` rows (``rows`` and every
-    array ``[width, n]``, or ``[n]`` when ``width`` is 1); outputs
-    ``[width, S, 7]`` and ``[width, S, 5]``."""
+    array ``[width, n]``, or ``[n]`` when ``width`` is 1), accumulating in
+    ``fdtype``; outputs ``[width, S, 7]`` counts and ``[width, S, 5]``
+    floats."""
     lib = _lib()
     plan = stage_plan(slots, rows)
     s = len(slots)
@@ -324,15 +359,18 @@ def _launch(slots: Sequence[Slot], rows: torch.Tensor, width: int, n: int
     buf.fill(plan)
     chunk = chunk_rows(n, plan.row_bytes)
     parts = width * s * PARTIAL_WIDTH * blocks_per_session(n, plan.row_bytes)
-    # one allocation: the outputs (int64, float64), then the partials'
-    # float64 and int32 columns
-    out = torch.empty(width * s * (I_WIDTH + 5) + parts + (parts + 1) // 2,
-                      dtype=torch.int64, device=rows.device)
+    # one allocation of elements of the outputs' width: the outputs
+    # (counts, floats), then the partials' float and int32 columns
+    wide = fdtype == torch.float64
+    size = 8 if wide else 4
+    out = torch.empty(width * s * (I_WIDTH + 5) + parts + ((parts + 1) // 2 if wide else parts),
+                      dtype=COUNT_DTYPES[fdtype], device=rows.device)
     out_i = out[:width * s * I_WIDTH].view(width, s, I_WIDTH)
-    out_f = out[width * s * I_WIDTH:width * s * (I_WIDTH + 5)].view(torch.float64)
-    part_f = out.data_ptr() + 8 * width * s * (I_WIDTH + 5)
-    status = lib.scan_reduce_launch(
-        buf.table, n, width, chunk, part_f + 8 * parts, part_f, out_i.data_ptr(),
+    out_f = out[width * s * I_WIDTH:width * s * (I_WIDTH + 5)].view(fdtype)
+    part_f = out.data_ptr() + size * width * s * (I_WIDTH + 5)
+    entry = lib.scan_reduce_launch if wide else lib.scan_reduce_launch_f32
+    status = entry(
+        buf.table, n, width, chunk, part_f + size * parts, part_f, out_i.data_ptr(),
         out_f.data_ptr(), stream_handle(rows.device),
     )
     check_status(NAME, status)
@@ -341,15 +379,16 @@ def _launch(slots: Sequence[Slot], rows: torch.Tensor, width: int, n: int
 
 def scan_reduce(slots: Sequence[Slot], rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reduce every slot over one batch. Returns ``(out_i, out_f)``:
-    int64[S, 7] (matches, count, five class counts) and float64[S, 5]
+    counts [S, 7] (matches, count, five class counts) and floats [S, 5]
     (sum, min, max, mean, m2; for a co-moment slot x_avg, y_avg, ck, x_mk,
-    y_mk). CPU tensors take :func:`scan_reduce_plain`;
+    y_mk), int64 and float64 or, for float32 values, int32 and float32
+    (:func:`acc_dtype`). CPU tensors take :func:`scan_reduce_plain`;
     CUDA tensors launch the kernel."""
-    _validate(slots, rows, NAME, 1)
+    fdtype = _validate(slots, rows, NAME, 1)
     if not on_cuda(rows, NAME):
         return scan_reduce_plain(slots, rows)
-    out_i, out_f = _launch(slots, rows, 1, rows.shape[0])
-    count_launch(NAME)
+    out_i, out_f = _launch(slots, rows, 1, rows.shape[0], fdtype)
+    count_launch(entry_name(NAME, fdtype))
     return out_i[0], out_f[0]
 
 
@@ -357,16 +396,16 @@ def scan_reduce_stacked(slots: Sequence[Slot], rows: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reduce every slot over each of W sessions' batches in one launch:
     ``rows`` and every array of the slot table are ``[W, n]``, session w's
-    batch in row w. Returns int64[W, S, 7] and float64[W, S, 5]; row w
-    equals :func:`scan_reduce` over session w's batch bit for bit (the
-    kernel cuts and folds each session as a launch over it alone).
-    CPU tensors take :func:`scan_reduce_stacked_plain`; CUDA tensors launch
-    the kernel."""
-    _validate(slots, rows, NAME_STACKED, 2)
+    batch in row w. Returns counts [W, S, 7] and floats [W, S, 5] in the
+    types of :func:`scan_reduce`; row w equals :func:`scan_reduce` over
+    session w's batch bit for bit (the kernel cuts and folds each session
+    as a launch over it alone). CPU tensors take
+    :func:`scan_reduce_stacked_plain`; CUDA tensors launch the kernel."""
+    fdtype = _validate(slots, rows, NAME_STACKED, 2)
     if not on_cuda(rows, NAME_STACKED):
         return scan_reduce_stacked_plain(slots, rows)
-    out = _launch(slots, rows, rows.shape[0], rows.shape[1])
-    count_launch(NAME_STACKED)
+    out = _launch(slots, rows, rows.shape[0], rows.shape[1], fdtype)
+    count_launch(entry_name(NAME_STACKED, fdtype))
     return out
 
 
@@ -389,41 +428,45 @@ def scan_reduce_stacked_plain(slots: Sequence[Slot], rows: torch.Tensor
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stacked kernel's function in plain PyTorch, one slot at a time,
     each reduced over the last axis of its ``[W, n]`` arrays for all W
-    sessions at once."""
+    sessions at once, in the kernel's types (:func:`acc_dtype`)."""
     device = rows.device
     width = rows.shape[0]
-    out_i = torch.zeros((width, len(slots), I_WIDTH), dtype=torch.int64, device=device)
-    out_f = torch.empty((width, len(slots), 5), dtype=torch.float64, device=device)
+    fdtype = acc_dtype(slots)
+    idtype = COUNT_DTYPES[fdtype]
+    out_i = torch.zeros((width, len(slots), I_WIDTH), dtype=idtype, device=device)
+    out_f = torch.empty((width, len(slots), 5), dtype=fdtype, device=device)
     for s, slot in enumerate(slots):
         base = rows if slot.where is None else rows & slot.where
-        out_i[:, s, I_COUNT] = base.sum(dim=-1, dtype=torch.int64)
+        out_i[:, s, I_COUNT] = base.sum(dim=-1, dtype=idtype)
         if slot.kind == KIND_CLASSES:
             classes = torch.arange(NUM_CLASSES, dtype=torch.int32, device=device)
             hits = (slot.vals[..., None] == classes) & base[..., None]
-            out_i[:, s, I_CLASS0:I_WIDTH] = hits.sum(dim=-2, dtype=torch.int64)
-            out_i[:, s, I_MATCHES] = out_i[:, s, I_CLASS0:I_WIDTH].sum(dim=-1)
+            out_i[:, s, I_CLASS0:I_WIDTH] = hits.sum(dim=-2, dtype=idtype)
+            out_i[:, s, I_MATCHES] = out_i[:, s, I_CLASS0:I_WIDTH].sum(dim=-1, dtype=idtype)
         else:
             sel = base if slot.sel is None else base & slot.sel
             if slot.sel2 is not None:
                 sel = sel & slot.sel2
-            matches = sel.sum(dim=-1, dtype=torch.int64)
+            matches = sel.sum(dim=-1, dtype=idtype)
             out_i[:, s, I_MATCHES] = matches
         if slot.kind == KIND_MOMENTS:
-            out_f[:, s] = _moments_plain(slot.vals, sel, matches)
+            out_f[:, s] = _moments_plain(slot.vals, sel, matches, fdtype)
         elif slot.kind == KIND_COMOMENTS:
             out_f[:, s] = _comoments_plain(slot.vals, slot.vals2, sel, matches)
         else:
             out_f[:, s] = torch.tensor(
-                [0.0, math.nan, -math.inf, 0.0, 0.0], dtype=torch.float64, device=device
+                [0.0, math.nan, -math.inf, 0.0, 0.0], dtype=fdtype, device=device
             )
     return out_i, out_f
 
 
-def _moments_plain(vals: torch.Tensor, sel: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
-    """(sum, min, max, mean, m2) over the last axis: ``[W, 5]``."""
-    v = vals.to(torch.float64)
-    zero = torch.zeros(n.shape, dtype=torch.float64, device=v.device)
-    nan = torch.full(n.shape, math.nan, dtype=torch.float64, device=v.device)
+def _moments_plain(vals: torch.Tensor, sel: torch.Tensor, n: torch.Tensor,
+                   fdtype: torch.dtype) -> torch.Tensor:
+    """(sum, min, max, mean, m2) over the last axis in ``fdtype``:
+    ``[W, 5]``."""
+    v = vals.to(fdtype)
+    zero = torch.zeros(n.shape, dtype=fdtype, device=v.device)
+    nan = torch.full(n.shape, math.nan, dtype=fdtype, device=v.device)
     if v.shape[-1] == 0:
         return torch.stack([zero, nan, -torch.full_like(zero, math.inf), zero, zero], dim=-1)
     total = torch.where(sel, v, 0.0).sum(dim=-1)
@@ -431,7 +474,7 @@ def _moments_plain(vals: torch.Tensor, sel: torch.Tensor, n: torch.Tensor) -> to
     nonnan = sel & ~torch.isnan(v)
     mn = torch.where(nonnan.any(dim=-1), masked_min(v, nonnan), nan)
     mx = masked_max(v, sel)
-    nf = n.to(torch.float64)
+    nf = n.to(fdtype)
     mean = torch.where(n > 0, total / torch.clamp(nf, min=1.0), zero)
     centered = torch.where(sel, v - mean[..., None], 0.0)
     m2 = torch.where(n > 0, (centered * centered).sum(dim=-1), zero)
@@ -443,8 +486,8 @@ def _comoments_plain(x: torch.Tensor, y: torch.Tensor, sel: torch.Tensor,
     """(x_avg, y_avg, ck, x_mk, y_mk) of the selected rows over the last
     axis, centred on the batch's own means (the reference's
     ``Correlation.update``); all 0 when no row is selected. ``[W, 5]``."""
-    zero = torch.zeros(n.shape, dtype=torch.float64, device=x.device)
-    nf = n.to(torch.float64)
+    zero = torch.zeros(n.shape, dtype=x.dtype, device=x.device)
+    nf = n.to(x.dtype)
     safe_n = torch.where(n > 0, nf, torch.ones_like(nf))
     x_avg = torch.where(sel, x, 0.0).sum(dim=-1) / safe_n
     y_avg = torch.where(sel, y, 0.0).sum(dim=-1) / safe_n

@@ -27,6 +27,13 @@ state: float64 ``[N, Wf]``, int64 ``[N, Wi]`` and int32 ``[N, Wr]``. A
 :class:`FoldSlot` names a merge kind and the columns it owns in its dtype's
 matrix; every column belongs to exactly one slot. The result is one row of
 each matrix: the fold of its N rows, starting from row 0.
+
+In the reference's 32-bit accumulator mode (``DEEQU_TPU_NO_X64``) the
+first two matrices are float32 and int32 (:func:`matrix_dtypes`): the
+float matrix's dtype picks the kernel's ``_f32`` entries, counted under
+``state_fold_f32``, ``state_fold_carry_f32``, ``state_fold_carry_stacked_f32``
+and ``state_fold_butterfly_f32``. The kinds keep their names (ADD_I64 adds
+the count matrix, ADD_F64 the float one).
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from . import build, check_status, count_launch, on_cuda, stream_handle
+from . import build, check_status, count_launch, entry_name, on_cuda, stream_handle
 
 NAME = "state_fold"
 #: the launch counts of the carry entry and the mesh's two entries
@@ -57,8 +64,24 @@ MAX_SHARDS = 1024
 ADD_I64, ADD_F64, MIN, MAX, MOMENTS, COMOMENTS, MAX_I32 = range(7)
 #: float64 columns of a moments / co-moments group
 GROUP_WIDTH = {MOMENTS: 3, COMOMENTS: 6}
-#: the matrix each kind reads: 0 float64, 1 int64, 2 int32
+#: the matrix each kind reads: 0 floats, 1 counts, 2 int32
 KIND_MATRIX = {ADD_I64: 1, ADD_F64: 0, MIN: 0, MAX: 0, MOMENTS: 0, COMOMENTS: 0, MAX_I32: 2}
+
+
+def matrix_dtypes(float_dtype: torch.dtype) -> Tuple[torch.dtype, torch.dtype, torch.dtype]:
+    """The three matrices' dtypes beside a float matrix of ``float_dtype``:
+    float64, int64, int32, or float32, int32, int32 (the 32-bit
+    accumulator mode). Any other float type raises ``TypeError``."""
+    if float_dtype == torch.float64:
+        return torch.float64, torch.int64, torch.int32
+    if float_dtype == torch.float32:
+        return torch.float32, torch.int32, torch.int32
+    raise TypeError(f"{NAME}: the float matrix must be float64 or float32, got {float_dtype}")
+
+
+def _entry(lib, name: str, float_dtype: torch.dtype):
+    """The C entry ``name``, or its ``_f32`` twin for float32 matrices."""
+    return getattr(lib, name + ("_f32" if float_dtype == torch.float32 else ""))
 
 
 @dataclass(frozen=True)
@@ -145,13 +168,17 @@ def _lib() -> ctypes.CDLL:
     lib.state_fold_butterfly_span.restype = ctypes.c_int
     lib.state_fold_butterfly_span.argtypes = [ctypes.c_int]
     p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for entry in (lib.state_fold_launch, lib.state_fold_carry_launch):
+    for suffix in ("", "_f32"):
+        for name in ("state_fold_launch", "state_fold_carry_launch"):
+            entry = getattr(lib, name + suffix)
+            entry.restype = ctypes.c_int
+            entry.argtypes = [p, i, n, p, i, p, i, p, i, p, p, p, p]
+        entry = getattr(lib, "state_fold_carry_stacked_launch" + suffix)
         entry.restype = ctypes.c_int
-        entry.argtypes = [p, i, n, p, i, p, i, p, i, p, p, p, p]
-    lib.state_fold_carry_stacked_launch.restype = ctypes.c_int
-    lib.state_fold_carry_stacked_launch.argtypes = [p, i, i, n, p, i, p, i, p, i, p, p, p, p, p]
-    lib.state_fold_butterfly_launch.restype = ctypes.c_int
-    lib.state_fold_butterfly_launch.argtypes = [p, i, i, i, p, i, p, i, p, i, p, p, p, p]
+        entry.argtypes = [p, i, i, n, p, i, p, i, p, i, p, p, p, p, p]
+        entry = getattr(lib, "state_fold_butterfly_launch" + suffix)
+        entry.restype = ctypes.c_int
+        entry.argtypes = [p, i, i, i, p, i, p, i, p, i, p, p, p, p]
     if (lib.state_fold_span() != SPAN or lib.state_fold_max_shards() != MAX_SHARDS
             or any(lib.state_fold_butterfly_span(n) != butterfly_span(n)
                    for n in (1, 2, 3, 8, 100, 513, MAX_SHARDS))):
@@ -166,7 +193,7 @@ def _ptr(t: torch.Tensor):
 def _validate(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor,
               slots: Sequence[FoldSlot]) -> FoldPlan:
     mats = (f64, i64, i32)
-    for mat, dtype in zip(mats, (torch.float64, torch.int64, torch.int32)):
+    for mat, dtype in zip(mats, matrix_dtypes(f64.dtype)):
         if mat.dtype != dtype or mat.dim() != 2:
             raise TypeError(f"{NAME}: expected a 2-D {dtype} matrix, got {mat.dtype} "
                             f"{tuple(mat.shape)}")
@@ -205,33 +232,34 @@ def _check_slots(widths: Sequence[int], slots: Sequence[FoldSlot]) -> None:
 def state_fold(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor,
                slots: Sequence[FoldSlot]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fold of the N packed states: float64 ``[Wf]``, int64 ``[Wi]`` and
-    int32 ``[Wr]``. CPU tensors take :func:`state_fold_plain`; CUDA tensors
-    launch the kernel once."""
+    int32 ``[Wr]`` (float32, int32, int32 in the 32-bit mode). CPU tensors
+    take :func:`state_fold_plain`; CUDA tensors launch the kernel once."""
     plan = _validate(f64, i64, i32, slots)
     if not on_cuda(f64, NAME):
         return state_fold_plain(f64, i64, i32, slots)
     device = f64.device
     items = plan.device_items(device)
-    out_f = torch.empty(f64.shape[1], dtype=torch.float64, device=device)
-    out_i = torch.empty(i64.shape[1], dtype=torch.int64, device=device)
+    out_f = torch.empty(f64.shape[1], dtype=f64.dtype, device=device)
+    out_i = torch.empty(i64.shape[1], dtype=i64.dtype, device=device)
     out_r = torch.empty(i32.shape[1], dtype=torch.int32, device=device)
-    status = _lib().state_fold_launch(
+    status = _entry(_lib(), "state_fold_launch", f64.dtype)(
         items.data_ptr(), items.shape[0], f64.shape[0], _ptr(f64), f64.shape[1], _ptr(i64),
         i64.shape[1], _ptr(i32), i32.shape[1], _ptr(out_f), _ptr(out_i), _ptr(out_r),
         stream_handle(device),
     )
     check_status(NAME, status)
-    count_launch(NAME)
+    count_launch(entry_name(NAME, f64.dtype))
     return out_f, out_i, out_r
 
 
 def state_fold_carry(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor],
                      slots: Sequence[FoldSlot]) -> None:
     """Fold the B partial rows ``parts`` (float64 ``[B, Wf]``, int64
-    ``[B, Wi]``, int32 ``[B, Wr]``) into the packed ``carry`` (float64
-    ``[Wf]``, int64 ``[Wi]``, int32 ``[Wr]``) in order, in place: the
-    carry becomes the fold of [carry; parts]. CPU tensors take
-    :func:`state_fold_carry_plain`; CUDA tensors launch the kernel once."""
+    ``[B, Wi]``, int32 ``[B, Wr]``; float32, int32, int32 in the 32-bit
+    mode) into the packed ``carry`` (float64 ``[Wf]``, int64 ``[Wi]``,
+    int32 ``[Wr]``) in order, in place: the carry becomes the fold of
+    [carry; parts]. CPU tensors take :func:`state_fold_carry_plain`; CUDA
+    tensors launch the kernel once."""
     plan = _validate_carry(carry, parts, slots)
     if not on_cuda(carry[0], NAME):
         state_fold_carry_plain(carry, parts, slots)
@@ -239,12 +267,12 @@ def state_fold_carry(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor
     device = carry[0].device
     items = plan.device_items(device)
     (cf, ci, cr), (pf, pi, pr) = carry, parts
-    status = _lib().state_fold_carry_launch(
+    status = _entry(_lib(), "state_fold_carry_launch", cf.dtype)(
         items.data_ptr(), items.shape[0], pf.shape[0], _ptr(cf), cf.shape[0], _ptr(ci),
         ci.shape[0], _ptr(cr), cr.shape[0], _ptr(pf), _ptr(pi), _ptr(pr), stream_handle(device),
     )
     check_status(NAME, status)
-    count_launch(CARRY_NAME)
+    count_launch(entry_name(CARRY_NAME, cf.dtype))
 
 
 def _validate_carry(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor],
@@ -252,7 +280,7 @@ def _validate_carry(carry: Sequence[torch.Tensor], parts: Sequence[torch.Tensor]
     if len(carry) != 3 or len(parts) != 3:
         raise ValueError(f"{NAME}: the carry and the parts are three matrices each")
     device = carry[0].device
-    for row, mat, dtype in zip(carry, parts, (torch.float64, torch.int64, torch.int32)):
+    for row, mat, dtype in zip(carry, parts, matrix_dtypes(carry[0].dtype)):
         if row.dtype != dtype or mat.dtype != dtype or row.dim() != 1 or mat.dim() != 2:
             raise TypeError(f"{NAME}: expected a {dtype} row and a 2-D {dtype} matrix, got "
                             f"{row.dtype} {tuple(row.shape)} and {mat.dtype} {tuple(mat.shape)}")
@@ -281,7 +309,8 @@ def state_fold_carry_stacked(carry: Sequence[torch.Tensor], parts: Sequence[torc
                              flags: Optional[torch.Tensor] = None) -> None:
     """Fold a chunk into n shards' carries in place: ``carry`` holds one
     packed row per shard (float64 ``[n, Wf]``, int64 ``[n, Wi]``, int32
-    ``[n, Wr]``), ``parts`` the chunk's ``n * B`` partial rows, shard s
+    ``[n, Wr]``; float32, int32, int32 in the 32-bit mode), ``parts`` the
+    chunk's ``n * B`` partial rows, shard s
     owning rows ``s*B .. s*B+B-1``; each shard's carry becomes the fold of
     [carry; its rows whose ``flags`` entry (bool ``[n * B]``) is set, all
     of them when None], in order. CPU tensors take
@@ -295,13 +324,13 @@ def state_fold_carry_stacked(carry: Sequence[torch.Tensor], parts: Sequence[torc
     items = plan.device_items(device)
     n = carry[0].shape[0]
     (cf, ci, cr), (pf, pi, pr) = carry, parts
-    status = _lib().state_fold_carry_stacked_launch(
+    status = _entry(_lib(), "state_fold_carry_stacked_launch", cf.dtype)(
         items.data_ptr(), items.shape[0], n, pf.shape[0] // n, _ptr(cf), cf.shape[1], _ptr(ci),
         ci.shape[1], _ptr(cr), cr.shape[1], _ptr(pf), _ptr(pi), _ptr(pr),
         None if flags is None else flags.view(torch.uint8).data_ptr(), stream_handle(device),
     )
     check_status(CARRY_STACKED_NAME, status)
-    count_launch(CARRY_STACKED_NAME)
+    count_launch(entry_name(CARRY_STACKED_NAME, cf.dtype))
 
 
 def _validate_carry_stacked(carry, parts, slots, flags) -> FoldPlan:
@@ -309,7 +338,7 @@ def _validate_carry_stacked(carry, parts, slots, flags) -> FoldPlan:
         raise ValueError(f"{NAME}: the carries and the parts are three matrices each")
     device = carry[0].device
     n = carry[0].shape[0] if carry[0].dim() == 2 else 0
-    for rows, mat, dtype in zip(carry, parts, (torch.float64, torch.int64, torch.int32)):
+    for rows, mat, dtype in zip(carry, parts, matrix_dtypes(carry[0].dtype)):
         if rows.dtype != dtype or mat.dtype != dtype or rows.dim() != 2 or mat.dim() != 2:
             raise TypeError(f"{NAME}: expected 2-D {dtype} carries and parts, got "
                             f"{rows.dtype} {tuple(rows.shape)} and {mat.dtype} "
@@ -356,8 +385,9 @@ def state_fold_butterfly(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor
     power-of-two ``n_dev``, log2(n_dev) rounds of ``acc[s] = merge(acc[s],
     acc[s ^ shift])``, else every shard folds all accumulators in shard
     order. Returns every shard's final row (float64 ``[n_dev, Wf]``, int64
-    ``[n_dev, Wi]``, int32 ``[n_dev, Wr]``); row 0 is the merge. CPU tensors
-    take :func:`state_fold_butterfly_plain`; CUDA tensors launch the kernel
+    ``[n_dev, Wi]``, int32 ``[n_dev, Wr]``; float32, int32, int32 in the
+    32-bit mode); row 0 is the merge. CPU tensors take
+    :func:`state_fold_butterfly_plain`; CUDA tensors launch the kernel
     once."""
     plan = _validate(f64, i64, i32, slots)
     n_dev = int(n_dev)
@@ -371,12 +401,12 @@ def state_fold_butterfly(f64: torch.Tensor, i64: torch.Tensor, i32: torch.Tensor
     k = f64.shape[0] // n_dev
     outs = [torch.empty((n_dev, m.shape[1]), dtype=m.dtype, device=device)
             for m in (f64, i64, i32)]
-    status = _lib().state_fold_butterfly_launch(
+    status = _entry(_lib(), "state_fold_butterfly_launch", f64.dtype)(
         items.data_ptr(), items.shape[0], n_dev, k, _ptr(f64), f64.shape[1], _ptr(i64),
         i64.shape[1], _ptr(i32), i32.shape[1], *(_ptr(t) for t in outs), stream_handle(device),
     )
     check_status(BUTTERFLY_NAME, status)
-    count_launch(BUTTERFLY_NAME)
+    count_launch(entry_name(BUTTERFLY_NAME, f64.dtype))
     return outs[0], outs[1], outs[2]
 
 

@@ -90,6 +90,7 @@ from ..config import (
     DeviceLike,
     resolve_device,
     synchronize,
+    x64_enabled,
 )
 from ..data import Dataset, Schema
 from ..exceptions import MetricCalculationException
@@ -280,12 +281,14 @@ class AnalysisRunner:
         }
         # route 3: the device frequency table; route 2: the host group-by.
         # Merged or persisted grouping states must be value-keyed, so a run
-        # that aggregates or saves states keeps route 3 off.
+        # that aggregates or saves states keeps route 3 off, and so does the
+        # 32-bit accumulator mode (the table's keys are uint64; the
+        # reference's gate on jax_enable_x64)
         slim = aggregate_with is None and save_states_with is None
         batch_rows = effective_batch_size(batch_size, sharding)
         table_scans: Dict[Tuple[str, ...], DeviceFrequencyTableScan] = {}
         host_sets: List[Tuple[str, ...]] = []
-        tables_ok = (slim and checkpointer is None and device_freq
+        tables_ok = (slim and checkpointer is None and device_freq and x64_enabled()
                      and any(c not in dict_sets for c in grouping_sets)
                      and _device_tier_expected(scanning, placement, dev))
         for cols, members in grouping_sets.items():

@@ -74,7 +74,7 @@ from ..analyzers.grouping import (  # noqa: F401  (the reference's names here)
 )
 from ..analyzers.sketches import ApproxCountDistinct
 from ..analyzers.states import FrequencyTableState, leaves as state_leaves, with_leaves
-from ..config import DEFAULT_BATCH_SIZE, DeviceLike, synchronize
+from ..config import ACC_DTYPE, DEFAULT_BATCH_SIZE, DeviceLike, synchronize
 from ..data import Dataset
 from ..kernels.kll_compact import kll_compact_ingest
 from ..kernels.scan_reduce import MAX_SLOTS, partials, scan_reduce, scan_reduce_stacked
@@ -539,8 +539,8 @@ def _probe_feed(device: torch.device) -> Tuple[float, float]:
     key = str(device)
     probe = _FEED_PROBES.get(key)
     if probe is None:
-        arr = torch.zeros(1 << 17, dtype=torch.float64)
-        tiny = torch.zeros(512, dtype=torch.float64)
+        arr = torch.zeros(1 << 17, dtype=ACC_DTYPE)
+        tiny = torch.zeros(512, dtype=ACC_DTYPE)
         arr.to(device).cpu()  # warm-up
         latency = float("inf")
         for _ in range(3):
@@ -614,26 +614,28 @@ def stack_samples(samples: Sequence[Sequence[Tuple]], width: int,
                   to_device: Callable[[torch.Tensor], torch.Tensor]) -> List[torch.Tensor]:
     """``kll_compact_ingest``'s six sample fields for S sketches' B host
     samples each (``samples[s][b] = (items, m, h, nv, min, max)``), stacked
-    on the host into one buffer per dtype (items, min and max float64; m
-    and h int32; nv int64), each moved by ``to_device`` once."""
+    on the host into one buffer per dtype (items float64; min and max in
+    the sketches' ``ACC_DTYPE``; m and h int32; nv in ``COUNT_DTYPE``),
+    each moved by ``to_device`` once."""
     s, b = len(samples), len(samples[0])
     n_items = s * b * width
-    f64 = np.empty(n_items + 2 * s * b, dtype=np.float64)
+    wide = ACC_DTYPE == torch.float64
+    f64 = np.empty(n_items + (2 * s * b if wide else 0), dtype=np.float64)
     items = f64[:n_items].reshape(s, b, width)
-    mins = f64[n_items:n_items + s * b].reshape(s, b)
-    maxs = f64[n_items + s * b:].reshape(s, b)
+    minmax = f64[n_items:].reshape(2, s, b) if wide else np.empty((2, s, b), dtype=np.float32)
     i32 = np.empty((2, s, b), dtype=np.int32)
-    nv = np.empty((s, b), dtype=np.int64)
+    nv = np.empty((s, b), dtype=np.int64 if wide else np.int32)
     for si, row in enumerate(samples):
         for bi, (its, m, h, n, mn, mx) in enumerate(row):
             items[si, bi] = its
             i32[0, si, bi], i32[1, si, bi] = m, h
-            nv[si, bi], mins[si, bi], maxs[si, bi] = n, mn, mx
+            nv[si, bi], minmax[0, si, bi], minmax[1, si, bi] = n, mn, mx
     d_f64 = to_device(torch.from_numpy(f64))
+    d_minmax = (d_f64[n_items:].view(2, s, b) if wide
+                else to_device(torch.from_numpy(minmax)))
     d_i32 = to_device(torch.from_numpy(i32))
     return [d_f64[:n_items].view(s, b, width), d_i32[0], d_i32[1],
-            to_device(torch.from_numpy(nv)), d_f64[n_items:n_items + s * b].view(s, b),
-            d_f64[n_items + s * b:].view(s, b)]
+            to_device(torch.from_numpy(nv)), d_minmax[0], d_minmax[1]]
 
 
 class HostIngest:

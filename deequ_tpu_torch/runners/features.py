@@ -21,6 +21,7 @@ from typing import Any, Dict, Iterable, List, Optional
 import numpy as np
 
 from ..analyzers.base import FeatureSpec
+from ..config import x64_enabled
 from ..data import Batch, ColumnKind
 from ..expr import evaluate_predicate
 from ..ops.hashing import as_object_array, hash_column, xxhash64_strings_plain
@@ -270,6 +271,11 @@ def _key_values(col) -> np.ndarray:
     return vals
 
 
+#: the numeric feature's dtype: float64, or float32 when the process runs
+#: the reference's 32-bit accumulator mode (``DEEQU_TPU_NO_X64``)
+NUM_DTYPE = np.float64 if x64_enabled() else np.float32
+
+
 def _is_string_dict(col) -> bool:
     return (
         col.has_dictionary
@@ -280,9 +286,10 @@ def _is_string_dict(col) -> bool:
 
 class FeatureBuilder:
     """Computes the union of requested features for each batch. Arrays come
-    out in the dtypes the kernels take: bool masks, float64 values, int32
-    lengths, codes and type classes, uint16 HLL keys, int64 hash bits and
-    integers of their own width for group keys."""
+    out in the dtypes the kernels take: bool masks, float64 values (float32
+    in the 32-bit accumulator mode, :data:`NUM_DTYPE`), int32 lengths,
+    codes and type classes, uint16 HLL keys, int64 hash bits and integers
+    of their own width for group keys."""
 
     def __init__(self, specs: Iterable[FeatureSpec]):
         # dedupe by key, keep spec objects (payload needed for predicates)
@@ -307,7 +314,15 @@ class FeatureBuilder:
                 features[key] = batch.row_mask
             elif spec.kind == "num":
                 col = batch.column(spec.column)
-                if np.issubdtype(col.values.dtype, np.number):
+                if NUM_DTYPE is np.float32:
+                    # the 32-bit accumulator mode: one cast, rounding to
+                    # nearest as the reference's jnp.asarray of the host
+                    # column does; masked-out garbage may overflow to inf
+                    src = (col.values if np.issubdtype(col.values.dtype, np.number)
+                           else col.numeric_f64())
+                    with np.errstate(over="ignore", invalid="ignore"):
+                        features[key] = np.asarray(src, dtype=np.float32)
+                elif np.issubdtype(col.values.dtype, np.number):
                     # float64 passes through zero-copy: masked-out positions
                     # may carry arbitrary bytes (Arrow leaves null slots
                     # undefined) and every kernel masks before use

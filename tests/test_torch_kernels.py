@@ -241,8 +241,14 @@ def test_scan_reduce_plain_batches_many_slots_at_once():
 
 def test_scan_reduce_rejects_bad_inputs():
     rows = torch.ones(10, dtype=torch.bool)
+    # values of a float type no entry takes, and float32 beside float64
+    # (a launch accumulates in one type: float64, or float32 in the 32-bit
+    # accumulator mode)
     with pytest.raises(TypeError):
-        scan_reduce([Slot(KIND_MOMENTS, vals=torch.zeros(10, dtype=torch.float32))], rows)
+        scan_reduce([Slot(KIND_MOMENTS, vals=torch.zeros(10, dtype=torch.float16))], rows)
+    with pytest.raises(TypeError):
+        scan_reduce([Slot(KIND_MOMENTS, vals=torch.zeros(10, dtype=torch.float32)),
+                     Slot(KIND_MOMENTS, vals=torch.zeros(10, dtype=torch.float64))], rows)
     with pytest.raises(ValueError):
         scan_reduce([Slot(KIND_COUNTS, sel=torch.ones(9, dtype=torch.bool))], rows)
     with pytest.raises(ValueError):

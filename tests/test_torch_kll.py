@@ -194,8 +194,11 @@ def test_empty_batch_samples_nothing():
 def test_wrappers_refuse_bad_inputs():
     ticks = torch.zeros((), dtype=torch.int32)
     rows = torch.ones(4, dtype=torch.bool)
+    # float64 values, or float32 in the 32-bit accumulator mode; no other
     with pytest.raises(TypeError):
-        kll_sample(torch.ones(4, dtype=torch.float32), rows, None, None, ticks, 8)
+        kll_sample(torch.ones(4, dtype=torch.float16), rows, None, None, ticks, 8)
+    with pytest.raises(TypeError):
+        kll_sample(torch.ones(4, dtype=torch.int32), rows, None, None, ticks, 8)
     with pytest.raises(ValueError):
         kll_sample(torch.ones(4, dtype=torch.float64), rows, None, None, ticks, 0)
     with pytest.raises(ValueError):

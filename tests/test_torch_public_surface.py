@@ -76,8 +76,8 @@ JAX_KNOBS = {
         "deequ_tpu_torch.runners.engine:fetch_states"),
 }
 
-#: knobs still to be ported (not JAX constructs, so not in the table)
-STILL_TO_PORT = {"DEEQU_TPU_NO_X64"}
+#: knobs still to be ported (not JAX constructs, so not in the table): none
+STILL_TO_PORT: set = set()
 
 _JAX_SOURCE = re.compile(r"\bjax\b|\bjnp\.|\blax\.|NamedSharding|\bXLA\b|\bjit\b")
 
@@ -158,7 +158,7 @@ def test_every_knob_of_the_reference_is_read_by_the_port():
 
 @pytest.mark.parametrize("knob", [
     "DEEQU_TPU_DEVICE_FEATURE_CACHE", "DEEQU_TPU_HOST_TIER_WORKERS", "DEEQU_TPU_NO_NATIVE",
-    "DEEQU_TPU_ADAPTIVE_DICT_ENCODE", "DEEQU_TPU_PROFILE_DIR",
+    "DEEQU_TPU_ADAPTIVE_DICT_ENCODE", "DEEQU_TPU_PROFILE_DIR", "DEEQU_TPU_NO_X64",
 ])
 def test_the_operator_switches_are_documented_with_the_others(knob):
     assert knob in (REPO / "deequ_tpu_torch" / "config.py").read_text()

@@ -421,8 +421,13 @@ def test_state_carried_across_from_jax(case):
 
 
 def test_convert_rejects_mismatched_leaves():
+    # an accumulator leaf of neither mode's type (float32 and int32 are
+    # the 32-bit mode's, which a blob keeps), and HLL registers, int32 in
+    # both modes
     with pytest.raises(TypeError):
-        from_reference("MeanState", [np.float32(1.0), np.int64(2)])
+        from_reference("MeanState", [np.float16(1.0), np.int64(2)])
+    with pytest.raises(TypeError):
+        from_reference("ApproxCountDistinctState", [np.zeros(512, dtype=np.int64)])
     with pytest.raises(ValueError):
         from_reference("MinState", [np.float64(1.0)])
     with pytest.raises(ValueError):
