@@ -152,6 +152,177 @@ CLUSTER_JOURNAL_MAX_FOLDS_ENV = "DEEQU_TPU_CLUSTER_JOURNAL_MAX_FOLDS"
 # DEEQU_TPU_SLIM_FETCH (the JAX state fetch; the port's ``fetch_states``).
 # DEEQU_TPU_NO_X64 (the 32-bit accumulators) is ``NO_X64_ENV`` above.
 
+# ---------------------------------------------------------------------------
+# Ingestion plane (implemented in ``ingest/prefetch.py``). Both follow the
+# warn-and-fallback convention: an unparseable value warns once and keeps
+# the default.
+#
+# - DEEQU_TPU_PREFETCH_DEPTH: staged batches in the device tier's feed
+#   pipeline, a knob of the tuning registry (``tuning/knobs.py``). The
+#   port's static default is 0, the serial loop with no feed thread (the
+#   reference's is 2); at depth >= 1 a feed thread builds each batch's
+#   features while the launching thread copies and launches. The states
+#   are the same at every depth.
+# - DEEQU_TPU_FEED_STALL_S: seconds the launching thread tolerates a
+#   SILENT feed thread before declaring it wedged with a typed
+#   FeedStallError (default 120; <= 0 disables). A tripped deadline fails
+#   the pass over to the host tier exactly like a thrown device fault. At
+#   depth 0 there is no feed thread, so nothing can stall.
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Cross-session fold coalescing + tiny-delta host fast path (implemented in
+# ``service/coalesce.py``). All follow the warn-and-fallback convention.
+#
+# - DEEQU_TPU_COALESCE: "0" disables the whole coalescing plane: every
+#   streaming ingest takes exactly the serial fold path (the escape hatch;
+#   default on).
+# - DEEQU_TPU_COALESCE_MAX_WIDTH: max sessions stacked into one coalesced
+#   launch (default 16), a knob of the tuning registry.
+# - DEEQU_TPU_FAST_PATH_MAX_ROWS: fixed row ceiling for the host fast
+#   path, a knob of the tuning registry. Default -1 = route from the
+#   MEASURED per-analyzer-class crossover (host rates observed on every
+#   fast fold against the device's fixed cost observed on every coalesced
+#   launch); 0 forces every eligible fold onto the coalesced device path.
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Fleet scheduler (implemented in ``service/fleet.py``).
+#
+# - DEEQU_TPU_FLEET: "0" disables fleet scheduling entirely (single-table
+#   routing, the service path without a fleet); unset = ON exactly when
+#   the visible CUDA cards are more than one. Unlike the reference, where
+#   "1" forces the fleet on even on the CPU backend, "1" here forces it on
+#   only when the service's device table holds more than one shard (a
+#   ``fleet_devices=N`` table or a multi-card one); over a table of one
+#   shard it warns once and the fleet stays off. Any other value warns
+#   once and keeps the default policy. When on, every tenant's batch scans
+#   shard across that tenant's DISJOINT slice of the device table.
+# - DEEQU_TPU_FLEET_STREAM_MIN_ROWS: minimum micro-batch rows before a
+#   streaming fold shards over the tenant's slice (default 65536; 0
+#   shards every eligible fold), a knob of the tuning registry.
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Partition-aware incremental verification (implemented in
+# ``repository/partition_store.py`` and ``runners/incremental.py``).
+#
+# - DEEQU_TPU_PARTITION_STORE: root path (local, or any URI
+#   ``deequ_tpu_torch.io`` opens: s3://, gs://, memory://) of the
+#   service-default PartitionStateStore. When set, VerificationService
+#   plans incremental runs against it and streaming sessions flush their
+#   cumulative states into it as a partition on close. Unset = no default
+#   store (pass one explicitly).
+# - DEEQU_TPU_PARTITION_WINDOW_MONTHS: default listing window, in month
+#   buckets, for partition listings with no explicit window (0 =
+#   unlimited, the default). The store's directory layout is
+#   time-partitioned (YYYY-MM buckets for date-named partitions), so this
+#   knob bounds the default walk for dropped-partition detection on very
+#   old stores. Unparseable values warn once and keep the default.
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Fleet watch, the standing fleet-scale anomaly plane (implemented in
+# ``service/fleetwatch.py``). All three follow the warn-and-fallback
+# convention via the shared ``utils`` parsers.
+#
+# - DEEQU_TPU_FLEETWATCH: "0" detaches the standing watch from scheduler
+#   harvests (an explicit FleetWatch.harvest_now() still scores); default
+#   on. When attached, every completed job of a WATCHED tenant triggers one
+#   debounced scoring pass over every watched tenant's metric history.
+# - DEEQU_TPU_FLEETWATCH_WINDOW_MONTHS: metric-history window each harvest
+#   scores, in month buckets (default 12; 0 = unbounded).
+# - DEEQU_TPU_FLEETWATCH_BUNDLE: maximum series stacked into one batched
+#   detect_batch call (default 16384; larger fleets chunk).
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Tenant isolation plane (``service/catalog.py`` and ``ingest/rowgate.py``).
+# All three parse via the shared warn-once ``utils.env_number``:
+# unparseable or out-of-range values log once and keep the default.
+#
+# - DEEQU_TPU_CATALOG_HOT_TTL_S: seconds a catalog-opened session may sit
+#   idle in the HOT tier before the plane's sweep() closes it back to COLD
+#   (default 300.0; minimum 0.0). Cold tenants cost one registry row, not
+#   a session.
+# - DEEQU_TPU_CATALOG_POLL_S: debounce on the fold-boundary version poll
+#   of a hot tenant's catalog document (default 2.0; minimum 0.0). A
+#   catalog edit becomes effective within one poll interval at the next
+#   fold boundary, with no restart; 0 polls every fold.
+# - DEEQU_TPU_ROWGATE_QUARANTINE_MAX_ROWS: total rows a quarantine sidecar
+#   retains per (tenant, dataset) before further rejects are counted but
+#   dropped (default 100000; minimum 0).
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Host group-by spill tier (implemented in ``analyzers/grouping.py``'s host
+# accumulator). All three follow the warn-and-fallback convention via
+# ``utils.env_number`` / ``env_flag``.
+#
+# - DEEQU_TPU_MAX_FREQUENCY_ENTRIES: host frequency-table entry budget
+#   before the accumulator spills to disk (0 = unbounded, the default).
+# - DEEQU_TPU_FREQUENCY_SPILL: "0" disables the disk spill tier (the
+#   budget then degrades the analyzer instead of spilling).
+# - DEEQU_TPU_FREQUENCY_SPILL_PARTITIONS: hash partitions of the spill
+#   store's disk layout (default 64; minimum 1).
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Deterministic fault injection (implemented in ``reliability/faults.py``;
+# ``tools/torch_chaos_soak.py`` drives these).
+#
+# - DEEQU_TPU_FAULTS: JSON list of FaultSpec dicts arming a process-wide
+#   fault plan. Deliberately NOT warn-and-fallback: a chaos plan that does
+#   not parse must raise, not silently run the drill fault-free.
+# - DEEQU_TPU_FAULT_SEED: rng seed for p-based fault specs (default 0).
+#   Same raise-loudly contract as the plan: a bad seed would silently
+#   change the drill's deterministic fault sequence.
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Scan watchdog and elastic mesh (implemented in ``reliability/watchdog.py``,
+# ``parallel/elastic.py`` and ``parallel/health.py``).
+#
+# - DEEQU_TPU_SCAN_DEADLINE_S: per-pass watchdog deadline in seconds.
+#   Unset = derive from the measured per-batch rate of completed passes on
+#   the same tier (a 10x multiple with a 30 s floor; none until a first
+#   rate exists; rates are kept apart for the card and for a CPU run). Any
+#   value <= 0 disables the watchdog; an unparseable one warns once and
+#   keeps the derived deadline. A pass exceeding its deadline is cancelled
+#   with a typed ScanStallError and fails over to the other tier exactly
+#   like a thrown device fault; a failover pass always has a deadline (the
+#   failed tier's, or the floor).
+# - DEEQU_TPU_MESH_LADDER: comma-separated descending device counts the
+#   re-shard ladder walks after a shard loss (default "8,4,2,1");
+#   unparseable values warn once and keep the default. When no rung fits
+#   the survivors, the fold drops to host mode with the salvaged states,
+#   except on a mesh whose shards all lie on one card: there
+#   MeshExhaustedError escapes and the run fails.
+# - DEEQU_TPU_SHARD_HEARTBEAT_S: seconds between heartbeat probes of a live
+#   mesh fold, and each probe's per-shard deadline (default 5.0; <= 0
+#   disables the periodic heartbeat). A shard missing its heartbeat is
+#   declared lost exactly like a thrown ShardLossError.
+# ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Tracing / flight recorder (implemented in ``observability/``).
+#
+# - DEEQU_TPU_TRACE: span tracing. Default ON ("1"/unset); "0" disables
+#   entirely; a float in (0, 1) samples that fraction of root traces
+#   deterministically (unparseable values warn once and keep the default).
+# - DEEQU_TPU_TRACE_RING: capacity of the flight-recorder ring of recent
+#   finished spans (default 4096, floor 16): what /trace serves and what
+#   typed-failure post-mortem dumps snapshot.
+# - DEEQU_TPU_TRACE_JOURNAL: directory receiving this process's span
+#   JOURNAL (``spans-<host>.jsonl``, one span per line as it finishes):
+#   the per-host half of a cross-process merged trace. Unset = no journal.
+# - DEEQU_TPU_TRACE_HOST: the host label stamped on this process's journal
+#   filename and header (default ``pid<pid>``).
+# - DEEQU_TPU_FLIGHT_DIR: directory receiving the flight-record JSONL
+#   artifacts dumped on typed failures. Unset = a per-process temporary
+#   directory.
+# ---------------------------------------------------------------------------
+
 DEFAULT_DEVICE = "cuda"
 
 DeviceLike = Union[str, torch.device, None]

@@ -1104,12 +1104,18 @@ class JobScheduler:
                 ("deequ_service_degraded_analyzers_total",
                  float(len(monitor.degraded)), tenant_label)
             )
-        # the delta planner's per-run partition decisions, per tenant
-        for field_name in ("scanned", "reused", "invalidated", "dropped", "rolled_up"):
-            value = getattr(monitor, f"partitions_{field_name}")
+        # the delta planner's per-run partition decisions, per tenant; the
+        # series names are literals so the export-help lint can see them
+        for field_name, series in (
+            ("partitions_scanned", "deequ_service_partitions_scanned_total"),
+            ("partitions_reused", "deequ_service_partitions_reused_total"),
+            ("partitions_invalidated", "deequ_service_partitions_invalidated_total"),
+            ("partitions_dropped", "deequ_service_partitions_dropped_total"),
+            ("partitions_rolled_up", "deequ_service_partitions_rolled_up_total"),
+        ):
+            value = getattr(monitor, field_name)
             if value:
-                updates.append((f"deequ_service_partitions_{field_name}_total", float(value),
-                                tenant_label))
+                updates.append((series, float(value), tenant_label))
         if flush:
             self.metrics.inc_many(updates)
         if (

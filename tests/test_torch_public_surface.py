@@ -156,11 +156,16 @@ def test_every_knob_of_the_reference_is_read_by_the_port():
         assert knob in reference and reason and _resolve(counterpart) is not None
 
 
-@pytest.mark.parametrize("knob", [
+OPERATOR_SWITCHES = [
     "DEEQU_TPU_DEVICE_FEATURE_CACHE", "DEEQU_TPU_HOST_TIER_WORKERS", "DEEQU_TPU_NO_NATIVE",
     "DEEQU_TPU_ADAPTIVE_DICT_ENCODE", "DEEQU_TPU_PROFILE_DIR", "DEEQU_TPU_NO_X64",
-])
+]
+
+
+@pytest.mark.parametrize("knob", sorted(set(OPERATOR_SWITCHES) | _knobs(REPO / "deequ_tpu_torch")))
 def test_the_operator_switches_are_documented_with_the_others(knob):
+    """Every ``DEEQU_TPU_*`` knob the port reads is named in its ``config.py``,
+    the one place an operator finds every switch (the reference's rule)."""
     assert knob in (REPO / "deequ_tpu_torch" / "config.py").read_text()
 
 
@@ -176,3 +181,36 @@ def test_the_reference_top_level_imports_work_on_the_port():
     assert set(deequ_tpu.__all__) <= set(deequ_tpu_torch.__all__)
     for name in deequ_tpu_torch.__all__:
         assert hasattr(deequ_tpu_torch, name), name
+
+
+#: (reference module, name, subsystem module) of every reference module's lazy
+#: ``_SUBSYSTEM_EXCEPTIONS`` re-export table (PEP 562): names a namespace walk
+#: never sees, since they resolve through the module's ``__getattr__``
+LAZY_EXCEPTIONS = sorted(
+    (name, exc, target)
+    for name in REFERENCE_MODULES
+    for exc, target in getattr(importlib.import_module(name), "_SUBSYSTEM_EXCEPTIONS", {}).items()
+)
+
+
+def test_the_lazy_exception_tables_are_found():
+    assert len(LAZY_EXCEPTIONS) >= 7
+    assert {m for m, _, _ in LAZY_EXCEPTIONS} == {"deequ_tpu.exceptions"}
+
+
+@pytest.mark.parametrize("row", LAZY_EXCEPTIONS, ids=lambda r: f"{r[0]}.{r[1]}")
+def test_every_lazy_exception_of_the_reference_resolves_on_the_port(row):
+    module, name, target = row
+    port = importlib.import_module(_port_name(module))
+    got = getattr(port, name)
+    assert got is getattr(importlib.import_module(_port_name(target)), name)
+    assert inspect.isclass(got) and issubclass(got, BaseException)
+    assert port._SUBSYSTEM_EXCEPTIONS[name] == _port_name(target)
+
+
+@pytest.mark.parametrize("module", sorted({m for m, _, _ in LAZY_EXCEPTIONS}))
+def test_an_unknown_name_still_raises_attribute_error(module):
+    port = importlib.import_module(_port_name(module))
+    with pytest.raises(AttributeError):
+        getattr(port, "NoSuchSubsystemError")
+    assert not hasattr(port, "NoSuchSubsystemError")
