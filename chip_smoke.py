@@ -46,7 +46,13 @@ Phases, each of which fails the run when it fails:
    float64 columns with NaN, an int64 id, dictionary columns of ~1,000 and
    ~50,000 categories) with about twenty checks covering its analyzers, on
    ``device="cuda"``; its metrics are held against the same run on
-   ``device="cpu"`` and against a numpy oracle;
+   ``device="cpu"`` and against a numpy oracle; its trace is one
+   ``verification_run`` -> ``analysis_run`` -> one device-tier
+   ``engine_pass`` -> phase spans, each timed phase's spans summing to
+   ``phase_seconds`` within 1e-6 relative, no orphan, a Chrome artifact
+   summarised by ``tools/torch_trace_summarize.py`` (a ``[trace]`` line);
+   then the same run untraced (``DEEQU_TPU_TRACE=0``) and traced again,
+   the three runs' seconds on a ``[trace cost]`` line;
 4. the profile path: ``ColumnProfilerRunner`` over a 10M-row TPC-H
    lineitem-shaped table (BASELINE config 3's 16 columns, cut from 100M to
    10M rows) on ``device="cuda"``, held against a numpy oracle (exact
@@ -209,13 +215,18 @@ Phases, each of which fails the run when it fails:
    recoveries its fault explains: on the first 1M rows in batches of
    2^18, (a) an ``analyzer`` fault matched to Mean(a): that analyzer alone
    a Failure, the rest equal to a clean device-tier run, at most
-   ceil(log2 N) + 1 isolation re-runs; (b) a ``device`` fault at batch 3:
-   one failover, a clean host-tier run's metrics bit for bit, K8's carry
-   and K5's ingest entries launched after it; (c) an injected ``oom``:
+   ceil(log2 N) + 1 isolation re-runs; (b) a ``device`` fault at batch 3,
+   inside an open outer span with ``DEEQU_TPU_FLIGHT_DIR`` set: one
+   failover, a clean host-tier run's metrics bit for bit, K8's carry
+   and K5's ingest entries launched after it, one trace holding the
+   failed device pass and the host pass with the
+   ``DeviceFailureException`` failure and ``device_failover`` events, and
+   the flight dump on disk before the outer span closes; (c) an injected ``oom``:
    one bisection and the halved batch's metrics; a persistent one: three
    and the host tier; one real allocator OOM read as "oom"; (d) a 6 s
    ``stall`` at batch 2 under ``DEEQU_TPU_SCAN_DEADLINE_S=2``: a
-   ``ScanStallError`` within twice the deadline, the failover, no
+   ``ScanStallError`` within twice the deadline, the failover, its
+   ``failure`` and ``scan_stall`` events on the run's one trace, no
    ``scan-watchdog`` thread alive 5 s after the stall ended and no K1
    launch after the abandonment; (e) 65,536-row jobs through
    ``VerificationService``: a device fault sends the battery's next 8
@@ -5599,6 +5610,67 @@ def _expect(label: str, monitor, **want) -> list:
             for name in full if got[name] != full[name]]
 
 
+#: the port's phases summed into ``phase_seconds`` alone, with no span
+#: (``RunMonitor``'s docstring)
+MONITOR_ONLY_PHASES = ("feed_wait", "feature_build.")
+
+
+def run_trace(label: str, outer=None) -> tuple:
+    """The flight recorder's spans of one verification run (recorded since
+    its last clear): one trace rooted at ``outer`` (else at the run's
+    ``verification_run``), ``verification_run`` -> ``analysis_run`` ->
+    every ``engine_pass``, no orphan. Returns the spans, the engine passes
+    and every event."""
+    from deequ_tpu_torch.observability.recorder import recorder
+
+    spans = recorder().spans()
+    by_id = {s.span_id: s for s in spans}
+
+    def parent(s):
+        return by_id[s.parent_id].name if s.parent_id in by_id else s.parent_id
+
+    roots = [s.name for s in spans if s.parent_id is None]
+    orphans = [s.name for s in spans if s.parent_id is not None and s.parent_id not in by_id]
+    problems = []
+    if len({s.trace_id for s in spans}) != 1 or roots != [outer or "verification_run"] \
+            or orphans:
+        problems.append(f"{len({s.trace_id for s in spans})} traces, roots {roots}, "
+                        f"orphans {orphans}")
+    tree = {s.name: parent(s) for s in spans if s.kind != "phase"}
+    want = {"verification_run": outer, "analysis_run": "verification_run",
+            "engine_pass": "analysis_run"}
+    if any(tree.get(name, "absent") != up for name, up in want.items()):
+        problems.append(f"the tree {tree}, expected {want}")
+    passes = [s for s in spans if s.name == "engine_pass"]
+    if any(parent(s) != "analysis_run" for s in passes):
+        problems.append("an engine_pass outside the analysis_run")
+    if problems:
+        raise AssertionError(f"{label}'s trace: " + "; ".join(problems))
+    return spans, passes, [ev for s in spans for ev in s.events]
+
+
+def check_phase_spans(label: str, spans, monitor) -> dict:
+    """Each timed phase of ``monitor`` has spans, and their durations sum
+    to its ``phase_seconds`` within 1e-6 relative. Returns the span count
+    by phase."""
+    totals, counts = {}, {}
+    for s in spans:
+        if s.kind == "phase":
+            totals[s.name] = totals.get(s.name, 0.0) + (s.end_ns - s.start_ns) / 1e9
+            counts[s.name] = counts.get(s.name, 0) + 1
+    timed = {p for p in monitor.phase_seconds if not p.startswith(MONITOR_ONLY_PHASES)}
+    # the checks' evaluation is a phase span of the verification, not of
+    # the monitor
+    if set(totals) - {"constraint_evaluation"} != timed:
+        raise AssertionError(f"{label}: phases with spans {sorted(totals)}, timed "
+                             f"{sorted(timed)}")
+    off = {p: (totals[p], monitor.phase_seconds[p]) for p in timed
+           if abs(totals[p] - monitor.phase_seconds[p]) > 1e-6 * monitor.phase_seconds[p] + 1e-9}
+    if off:
+        raise AssertionError(f"{label}: phase spans against phase_seconds: {off}")
+    return counts
+
+
 def _drill_run(dq, data, rows: int, monitor, device: str = "cuda", batch_size=None,
                placement=None, states=None):
     """Phase 3's checks and its CountDistinct, with an ApproxQuantile (K4
@@ -5640,7 +5712,8 @@ def reliability_path(torch, dq, table: pa.Table, data, device: str = "cuda") -> 
     import threading
 
     from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from deequ_tpu_torch.observability.recorder import recorder
+    from deequ_tpu_torch.observability import trace
+    from deequ_tpu_torch.observability.recorder import FLIGHT_DIR_ENV, recorder
     from deequ_tpu_torch.reliability import FaultSpec, classify_failure, inject
     from deequ_tpu_torch.reliability.watchdog import SCAN_DEADLINE_ENV, THREAD_PREFIX
     from deequ_tpu_torch.ingest.prefetch import FEED_STALL_ENV, PREFETCH_DEPTH_ENV
@@ -5700,10 +5773,35 @@ def reliability_path(torch, dq, table: pa.Table, data, device: str = "cuda") -> 
         print(f"[drill (a) isolation] {n} analyzers; {monitor.isolation_reruns} re-runs "
               f"(bound {bound}); {repr(target)} alone failed", flush=True)
 
-    # (b) tier failover: a device fault at batch 3
-    with part_seconds("phase 13 (b)"), drill("phase 13 (b)"):
-        got, monitor, launches, _ = faulted("(b) failover", FaultSpec("device_update", "device",
-                                                                      at=3))
+    # (b) tier failover: a device fault at batch 3, inside an open outer
+    # span with the flight recorder's directory set
+    with part_seconds("phase 13 (b)"), drill("phase 13 (b)"), \
+            tempfile.TemporaryDirectory() as flight_dir, _env(FLIGHT_DIR_ENV, flight_dir):
+        recorder().clear()
+        with trace.span("phase 13 (b) outer", kind="drill"):
+            got, monitor, launches, _ = faulted("(b) failover", FaultSpec(
+                "device_update", "device", at=3))
+            # the run's analysis_run has closed, the outer span has not
+            dumps = [p for p in recorder().dump_paths
+                     if p.startswith(flight_dir) and os.path.exists(p)]
+            if not dumps:
+                raise AssertionError(f"(b): no flight dump under {flight_dir} while the outer "
+                                     f"span is open: {recorder().dump_paths}")
+            with open(dumps[0]) as fh:
+                header = json.loads(fh.readline())
+            if [f["kind"] for f in header["failures"]] != ["DeviceFailureException"]:
+                raise AssertionError(f"(b): the flight dump's failures {header['failures']}")
+        _, passes, events = run_trace("(b)", outer="phase 13 (b) outer")
+        if [(s.attrs["tier"], s.status) for s in passes] != [("device", "error"), ("host", "ok")]:
+            raise AssertionError(f"(b): engine passes {[(s.attrs, s.status) for s in passes]}")
+        failures = [ev["attrs"]["type"] for ev in events if ev["name"] == "failure"]
+        if failures != ["DeviceFailureException"] or \
+                not any(ev["name"] == "device_failover" for ev in events):
+            raise AssertionError(f"(b): events {[ev['name'] for ev in events]}, failures "
+                                 f"{failures}")
+        print(f"[drill (b) trace] one trace: engine_pass device error, host ok; events "
+              f"{sorted({ev['name'] for ev in events})}; flight dump {os.path.basename(dumps[0])} "
+              f"({header['spans']} spans) on disk before the outer span closed", flush=True)
         problems += _expect("(b)", monitor, device_failovers=1,
                             degraded=["tier:device->device"])
         if monitor.placement != "host":
@@ -5768,6 +5866,13 @@ def reliability_path(torch, dq, table: pa.Table, data, device: str = "cuda") -> 
         if launch_counts()["scan_reduce"] != k1_after_run:
             problems.append(f"(d): K1 launched {launch_counts()['scan_reduce'] - k1_after_run} "
                             f"times after the pass was abandoned")
+        _, passes, events = run_trace("(d)")
+        failures = [ev["attrs"]["type"] for ev in events if ev["name"] == "failure"]
+        stall_sites = [ev["attrs"]["site"] for ev in events if ev["name"] == "scan_stall"]
+        if "ScanStallError" not in failures or stall_sites != ["device"] or \
+                [s.attrs["tier"] for s in passes] != ["device", "host"]:
+            raise AssertionError(f"(d): failures {failures}, scan_stall sites {stall_sites}, "
+                                 f"passes {[s.attrs for s in passes]}")
         print(f"[drill (d) watchdog] ScanStallError after {waited}s (deadline "
               f"{DRILL_DEADLINE_S}s, stall {DRILL_STALL_S}s); run {seconds:.3f}s; K1 "
               f"{k1_after_run} launches before the stall, none after; watchdog threads alive "
@@ -7738,15 +7843,67 @@ def switches_and_cache(torch, dq, table: pa.Table, data, check, gpu_metrics: dic
 MAIN_PHASES: dict = {}
 
 
+def traced_run_check(torch, dq, data, check, monitor, seconds: float) -> None:
+    """Phase 3's trace: :func:`run_trace` with one device-tier engine pass,
+    the phase spans against ``phase_seconds`` (:func:`check_phase_spans`),
+    a Chrome artifact summarised by ``tools/torch_trace_summarize.py``
+    with no orphan. Then the same run untraced and traced again, their
+    seconds beside the first's: the cost of tracing on the card."""
+    from deequ_tpu_torch.observability import export as obs_export
+    from deequ_tpu_torch.observability.recorder import recorder
+    from deequ_tpu_torch.observability.trace import TRACE_ENV
+    from tools.torch_trace_summarize import load_spans, span_accounting, summarize
+
+    spans, passes, events = run_trace("phase 3")
+    if [s.attrs["tier"] for s in passes] != ["device"] or events:
+        raise AssertionError(f"phase 3: engine passes {[s.attrs for s in passes]}, events "
+                             f"{events}")
+    counts = check_phase_spans("phase 3", spans, monitor)
+    with tempfile.TemporaryDirectory() as tmp:
+        artifact = obs_export.write_chrome_trace(os.path.join(tmp, "phase3.trace.json"))
+        accounting = span_accounting(load_spans(artifact))
+        text = summarize(artifact)
+    if accounting != {"total": len(spans), "roots": 1, "orphans": 0, "trace_ids": 1} or \
+            "0 orphaned" not in text:
+        raise AssertionError(f"phase 3's artifact: {accounting}\n{text}")
+    print(f"[trace] phase 3: {len(spans)} spans in 1 trace, 0 orphans; "
+          f"{sum(counts.values())} phase spans over {len(counts)} phases {counts}", flush=True)
+    lines = text.splitlines()
+    for line in lines[1:lines.index(next(ln for ln in lines if ln.startswith("top ")))]:
+        print(f"[trace summary] {line}", flush=True)
+
+    def rerun() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (dq.VerificationSuite.on_data(data, device="cuda").add_check(check)
+         .add_required_analyzer(dq.CountDistinct("cat_large")).run())
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    recorder().clear()
+    with _env(TRACE_ENV, "0"):
+        untraced = rerun()
+    if recorder().spans():
+        raise AssertionError("DEEQU_TPU_TRACE=0 recorded spans")
+    traced = rerun()
+    if not recorder().spans():
+        raise AssertionError("the traced re-run recorded no span")
+    recorder().clear()
+    print(f"[trace cost] phase 3's run: traced {seconds:.3f}s, untraced (DEEQU_TPU_TRACE=0) "
+          f"{untraced:.3f}s, traced again {traced:.3f}s", flush=True)
+
+
 def verification_path(torch, dq, table: pa.Table, data, check) -> tuple:
     """Phase 3: the main path on the card, launch counts set to 0 just
     before, against the same run on the CPU and the oracle. Returns the
     card's metrics and the run's launches."""
     from deequ_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from deequ_tpu_torch.observability.recorder import recorder
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     monitor = dq.RunMonitor()
+    recorder().clear()
     reset_launch_counts()
     t0 = time.perf_counter()
     result = (dq.VerificationSuite.on_data(data, device="cuda").add_check(check)
@@ -7755,6 +7912,7 @@ def verification_path(torch, dq, table: pa.Table, data, check) -> tuple:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_counts()
+    traced_run_check(torch, dq, data, check, monitor, seconds)
     peak = torch.cuda.max_memory_allocated()
     phases = {k: round(v, 4) for k, v in monitor.phase_seconds.items()}
     MAIN_PHASES.update(phases, seconds=round(seconds, 3))

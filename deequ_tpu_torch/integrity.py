@@ -9,8 +9,9 @@ scalar xxhash64; larger ones through a vectorised construction over the
 same primitive: the payload's little-endian u64 words are position-tagged
 (``word ^ index * prime``), hashed per word with the numpy ``xxhash64_u64``,
 XOR-combined, and finalised with a scalar xxhash64 over (combined, byte
-tail, length). A mismatch raises :class:`CorruptStateError` and is logged
-(the reference also flight-records it; that plane is not ported).
+tail, length). A mismatch raises :class:`CorruptStateError`, logged and
+flight-recorded (a ``failure`` event on the current span and a dump,
+``observability.record_failure``), as the reference's is.
 """
 
 from __future__ import annotations
@@ -81,7 +82,12 @@ def checksum_json(obj: Dict[str, Any]) -> str:
 
 
 def _raise_corrupt(kind: str, source: str, detail: str) -> None:
+    """Build, flight-record, log and raise the typed corruption error, so a
+    quarantine is explained by the trace alone."""
+    from .observability import record_failure
+
     exc = CorruptStateError(kind, source, detail)
+    record_failure(exc)
     _logger.error("integrity check failed: %s", exc)
     raise exc
 

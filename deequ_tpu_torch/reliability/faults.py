@@ -34,8 +34,9 @@ site                 fires
 ``checkpoint``       before an ingest checkpoint is persisted, tag = batch
 ``state_load``       in ``FileSystemStateProvider.load``, tag =
                      ``repr(analyzer)``
-``repository_load``  in the partitioned metrics repository's bucket read,
-                     tag = path
+``repository_load``  in the FS metrics repository's read-all and the
+                     partitioned metrics repository's bucket read, tag =
+                     path
 ``partition_store_load``  in ``PartitionStateStore.get``, tag =
                      ``dataset/partition``
 ``lease_acquire``    at a compaction-lease election attempt, tag = lease path

@@ -14,8 +14,10 @@ history. Corruption never crashes a reader: the remaining entries keep
 serving (the same partial-results-are-a-feature stance the analyzer
 taxonomy takes).
 
-A copy of the JAX package's module, without its tracing and fault sites
-(not ported); a quarantine is logged."""
+A copy of the JAX package's module: a quarantine is logged, counted on the
+``monitor``'s ``corrupt_quarantined`` and a ``repository_quarantined``
+event of the current span, and the read-all is the ``repository_load``
+fault site."""
 
 from __future__ import annotations
 
@@ -56,10 +58,13 @@ def _count_quarantine(n: int = 1) -> None:
 
 
 class FileSystemMetricsRepository(MetricsRepository):
-    """The whole history in one JSON file, in the JAX package's layout."""
+    """The whole history in one JSON file, in the JAX package's layout.
+    ``monitor`` (a ``RunMonitor``), when given, counts quarantines on its
+    ``corrupt_quarantined``."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, monitor: Optional[Any] = None):
         self.path = path
+        self.monitor = monitor
         #: entries fully deserialized (checksum-verified + metric map
         #: materialized) by this repository's reads — the windowed-load
         #: regression pin: a bounded query must never deserialize entries
@@ -126,6 +131,12 @@ class FileSystemMetricsRepository(MetricsRepository):
             where = "<unwritable quarantine dir>"
         _count_quarantine()
         self.quarantines += 1
+        if self.monitor is not None:
+            self.monitor.bump("corrupt_quarantined")
+        from ..observability import trace as _trace
+
+        _trace.add_event("repository_quarantined", kind=kind, where=where,
+                         reason=str(reason)[:200])
         _logger.warning(
             "quarantined corrupt repository %s from %s to %s: %s",
             kind, self.path, where, reason,
@@ -147,6 +158,8 @@ class FileSystemMetricsRepository(MetricsRepository):
         materialize (``entries_deserialized`` pins it). An entry whose key
         cannot even be peeked still deserializes, so the quarantine path
         sees it."""
+        from ..reliability.faults import fault_point
+
         if not dio.exists(self.path):
             return []
         with dio.open_file(self.path, "r") as f:
@@ -154,6 +167,9 @@ class FileSystemMetricsRepository(MetricsRepository):
         if not payload.strip():
             return []
         try:
+            # fault site: an injected "corrupt" stands in for a history file
+            # whose bytes rotted, and takes the whole-file quarantine path
+            fault_point("repository_load", tag=self.path)
             entries = json.loads(payload)
         except (ValueError, CorruptStateError) as exc:
             # the file itself is torn (a flip landed on JSON structure):

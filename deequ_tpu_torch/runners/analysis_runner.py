@@ -96,6 +96,7 @@ from ..data import Dataset, Schema
 from ..exceptions import MetricCalculationException
 from ..kernels.build import KernelError
 from ..metrics import Metric
+from ..observability import trace as _trace
 from ..tuning import knobs
 from .context import AnalyzerContext
 from .engine import (
@@ -176,13 +177,50 @@ class AnalysisRunner:
         from its last checkpoint, with the metrics of an uninterrupted run.
         A battery with a host-exclusive analyzer (the exact quantile mode,
         whose states do not persist) runs without checkpoints, with a
-        warning; a device frequency table's re-run pass never checkpoints."""
+        warning; a device frequency table's re-run pass never checkpoints.
+
+        Every pass of the run (the primary pass, a battery bisection's
+        re-passes, a tier failover's host pass) nests under one
+        ``analysis_run`` span, so a degraded run reads as one trace."""
         dev = _run_device(device, sharding)
         if placement is not None and placement not in PLACEMENTS:
             raise ValueError(f"placement must be one of {PLACEMENTS}, got {placement!r}")
         if len(analyzers) == 0:
             return AnalyzerContext.empty()
+        with _trace.span("analysis_run", kind="analysis", analyzers=len(analyzers)):
+            return AnalysisRunner._do_analysis_run(
+                data, analyzers, dev, batch_size=batch_size, monitor=monitor,
+                freq_table_slots=freq_table_slots, freq_buffer_entries=freq_buffer_entries,
+                device_freq=device_freq, aggregate_with=aggregate_with,
+                save_states_with=save_states_with, metrics_repository=metrics_repository,
+                reuse_existing_results_for_key=reuse_existing_results_for_key,
+                fail_if_results_missing=fail_if_results_missing,
+                save_or_append_results_with_key=save_or_append_results_with_key,
+                placement=placement, sharding=sharding, checkpointer=checkpointer)
 
+    @staticmethod
+    def _do_analysis_run(
+        data: Dataset,
+        analyzers: Sequence[Analyzer],
+        dev: Any,
+        *,
+        batch_size: Optional[int],
+        monitor: Optional[RunMonitor],
+        freq_table_slots: Optional[int],
+        freq_buffer_entries: Optional[int],
+        device_freq: Optional[bool],
+        aggregate_with: Optional[Any],
+        save_states_with: Optional[Any],
+        metrics_repository: Optional[Any],
+        reuse_existing_results_for_key: Optional[Any],
+        fail_if_results_missing: bool,
+        save_or_append_results_with_key: Optional[Any],
+        placement: Optional[str],
+        sharding: Optional[Any],
+        checkpointer: Optional[Any],
+    ) -> AnalyzerContext:
+        """The body of :meth:`do_analysis_run` on the run's device ``dev``,
+        inside its ``analysis_run`` span."""
         # dedupe identical analyzers, preserving order
         unique: List[Analyzer] = list(dict.fromkeys(analyzers))
 
@@ -310,7 +348,7 @@ class AnalysisRunner:
 
         battery = scanning + list(freq_scans.values()) + list(table_scans.values())
         run_monitor = monitor if monitor is not None else RunMonitor()
-        run_monitor.device_freq_sets += len(table_scans)
+        run_monitor.bump("device_freq_sets", len(table_scans))
         metrics: Dict[Analyzer, Metric] = {}
         if not battery and not host_sets and not host_accum:
             return _results(results_loaded + AnalyzerContext(failures), metrics_repository,

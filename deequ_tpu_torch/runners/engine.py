@@ -79,6 +79,7 @@ from ..data import Dataset
 from ..kernels.kll_compact import kll_compact_ingest
 from ..kernels.scan_reduce import MAX_SLOTS, partials, scan_reduce, scan_reduce_stacked
 from ..kernels.state_fold import state_fold_carry
+from ..observability import trace as _trace
 from ..ops.kll import KLLSketchState
 from ..reliability.faults import fault_point
 from ..utils import BoundedLRU
@@ -146,7 +147,8 @@ class RunMonitor:
     chunk's ``ingest_fold`` time on the host tier, split evenly over the
     pass's battery, as the reference splits a bundle's dispatch time over
     its slots; exported per tenant, and a verification result's
-    ``cost_by_analyzer``), and the reliability counters its scheduler
+    ``cost_by_analyzer``; the shares sum to ``bundle_dispatch_seconds``,
+    the time they split), and the reliability counters its scheduler
     harvests from the reliability layer: ``device_failovers`` (passes
     failed over to the host tier), ``batch_bisections`` (OOM batch
     halvings), ``isolation_reruns`` (battery bisection re-passes),
@@ -166,7 +168,15 @@ class RunMonitor:
     merge took from the rollup cache (``partitions_rolled_up``) and the
     corrupt payloads quarantined or discarded (``corrupt_quarantined``).
     ``feature_cache_hits`` counts the device-tier batches whose features
-    came from the device feature cache (:func:`device_feature_cache`)."""
+    came from the device feature cache (:func:`device_feature_cache`).
+
+    A phase timed by :meth:`timed` is also a finished ``phase`` span of the
+    current trace (:class:`_PhaseTimer`): every phase above but
+    ``feed_wait`` and the ``feature_build.<kind>`` sub-phases, which are
+    summed into ``phase_seconds`` alone. Of the reference's fields the
+    port lacks ``cost_probes`` (its probes of XLA's asynchronous dispatch:
+    the port waits for every batch's kernels inside the ``kernels``
+    phase), ``jit_compiles`` and ``program_compiles`` (XLA's compiles)."""
 
     passes: int = 0
     batches: int = 0
@@ -182,6 +192,8 @@ class RunMonitor:
     pattern_routes: Dict[str, int] = field(default_factory=dict)
     phase_seconds: Dict[str, float] = field(default_factory=dict)
     cost_by_analyzer: Dict[str, float] = field(default_factory=dict)
+    #: the seconds ``cost_by_analyzer`` splits (:meth:`attribute`)
+    bundle_dispatch_seconds: float = 0.0
     device_failovers: int = 0
     batch_bisections: int = 0
     isolation_reruns: int = 0
@@ -235,11 +247,13 @@ class RunMonitor:
                 _RECOVERIES[field_name] += by
 
     def attribute(self, keys: Sequence[str], seconds: float) -> None:
-        """Split ``seconds`` evenly over ``keys`` in ``cost_by_analyzer``."""
+        """Split ``seconds`` evenly over ``keys`` in ``cost_by_analyzer``
+        and add them to ``bundle_dispatch_seconds``."""
         if not keys:
             return
         share = seconds / len(keys)
         with self._lock:
+            self.bundle_dispatch_seconds += seconds
             for key in keys:
                 self.cost_by_analyzer[key] = self.cost_by_analyzer.get(key, 0.0) + share
 
@@ -263,8 +277,10 @@ class RunMonitor:
             counters = {name: getattr(other, name) for name in self._COUNTERS}
             phases = dict(other.phase_seconds)
             costs = dict(other.cost_by_analyzer)
+            dispatch = other.bundle_dispatch_seconds
             degraded = list(other.degraded)
         with self._lock:
+            self.bundle_dispatch_seconds += dispatch
             for name, value in counters.items():
                 setattr(self, name, getattr(self, name) + value)
             for phase, seconds in phases.items():
@@ -284,17 +300,24 @@ class RunMonitor:
 
 
 class _PhaseTimer:
+    """Adds the interval to ``phase_seconds`` and publishes the same
+    interval as a finished ``phase`` span of the calling thread's trace
+    (``trace.record_phase``; nothing when it has none), so a trace's phase
+    durations equal the monitor's. ``seconds`` holds the interval."""
+
     def __init__(self, monitor: RunMonitor, phase: str):
         self.monitor = monitor
         self.phase = phase
 
     def __enter__(self):
-        self.t0 = time.perf_counter()
+        self.t0_ns = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        self.seconds = time.perf_counter() - self.t0
+        end_ns = time.perf_counter_ns()
+        self.seconds = (end_ns - self.t0_ns) / 1e9
         self.monitor.add_phase_time(self.phase, self.seconds)
+        _trace.record_phase(self.phase, self.t0_ns, end_ns)
         return False
 
 
@@ -790,7 +813,6 @@ class ScanEngine:
         ``ScanStallError`` past its deadline (the reference's
         ``ScanEngine.run``, deequ_tpu/runners/engine.py:1933-2005). Only
         completed, representative passes teach the rate tracker."""
-        from ..observability import trace as _trace
         from ..reliability.watchdog import (
             in_failover_pass,
             rate_key,
@@ -944,8 +966,15 @@ class ScanEngine:
             feed.cache_with(cache, data, (
                 id(data.arrow), bs, None if columns is None else tuple(columns),
                 tuple(sorted(self.builder.specs)), str(self.device)))
-        with PrefetchingBatchIterator(feed.produce, depth=depth,
-                                      stop=self._cancelled) as staged:
+        # the feed thread builds features under this pass's trace, so its
+        # feature_build spans stay in the pass's tree
+        trace_ctx = _trace.capture()
+
+        def produce():
+            with _trace.attach(trace_ctx):
+                return feed.produce()
+
+        with PrefetchingBatchIterator(produce, depth=depth, stop=self._cancelled) as staged:
             while True:
                 t0 = time.perf_counter()
                 item = next(staged, None)
@@ -1050,15 +1079,17 @@ class ScanEngine:
         # of the SAME pass contributed (the HLL dictionary memo), never
         # across passes
         run_token = object()
+        # the pool's threads compute under this pass's trace, so their
+        # host_partials spans stay in the pass's tree
+        trace_ctx = _trace.capture()
 
         def compute_partial(index: int, batch) -> Tuple[List[torch.Tensor], List[Any]]:
-            with self._live():
-                fault_point("host_partial", tag=str(index))
-            t0 = time.perf_counter()
-            ctx = HostBatchContext(batch, batch_index=index, run_token=run_token)
-            packed = ingest.pack([a.host_partial(ctx) for a in analyzers])
-            monitor.add_phase_time("host_partials", time.perf_counter() - t0)
-            return packed
+            with _trace.attach(trace_ctx):
+                with self._live():
+                    fault_point("host_partial", tag=str(index))
+                with monitor.timed("host_partials"):
+                    ctx = HostBatchContext(batch, batch_index=index, run_token=run_token)
+                    return ingest.pack([a.host_partial(ctx) for a in analyzers])
 
         def fold(chunk, first: int) -> None:
             with self._live():
@@ -1095,7 +1126,6 @@ class ScanEngine:
         in the collective merge (``ElasticMeshFold.finish``). Checkpoints
         hold the shards' merged (canonical) states, which a resume seeds
         into shard 0 of whatever mesh it runs on (``ElasticMeshFold.seed``)."""
-        from ..observability import trace as _trace
         from ..parallel import ElasticMeshFold
         from ..parallel.dcn import stack_partials
 
@@ -1112,16 +1142,16 @@ class ScanEngine:
             elastic.seed(tuple(ckpt.resumed_states(
                 [a.init_state(home) for a in analyzers], home)), start)
         run_token = object()
+        trace_ctx = _trace.capture()
 
         def compute_partial(index: int, batch, token=None) -> Tuple:
-            with self._live():
-                fault_point("host_partial", tag=str(index))
-            t0 = time.perf_counter()
-            ctx = HostBatchContext(batch, batch_index=index,
-                                   run_token=run_token if token is None else token)
-            partial = tuple(a.host_partial(ctx) for a in analyzers)
-            monitor.add_phase_time("host_partials", time.perf_counter() - t0)
-            return partial
+            with _trace.attach(trace_ctx):
+                with self._live():
+                    fault_point("host_partial", tag=str(index))
+                with monitor.timed("host_partials"):
+                    ctx = HostBatchContext(batch, batch_index=index,
+                                           run_token=run_token if token is None else token)
+                    return tuple(a.host_partial(ctx) for a in analyzers)
 
         def fold(group: List[Tuple], indices: List[int]) -> None:
             n_real = len(group)

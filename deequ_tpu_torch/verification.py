@@ -151,25 +151,32 @@ class VerificationSuite:
         point in its own history (reference `VerificationSuite.scala:121-139`).
         ``placement``: the pass's ingest tier, ``sharding``: the mesh its
         rows shard over, and ``checkpointer``: the ingest checkpointer that
-        makes the pass resumable, as ``do_analysis_run``'s."""
+        makes the pass resumable, as ``do_analysis_run``'s. The run is one
+        ``verification_run`` span, the checks' evaluation a
+        ``constraint_evaluation`` phase span under it."""
+        from .observability import trace as _trace
+
         checks = list(checks)  # evaluate() walks them again after the run
         analyzers = collect_required_analyzers(checks, required_analyzers)
         # a monitor always, so the result carries the run's cost by analyzer
         monitor = monitor if monitor is not None else RunMonitor()
-        analysis_results = AnalysisRunner.do_analysis_run(
-            data, analyzers, batch_size=batch_size, monitor=monitor, device=device,
-            aggregate_with=aggregate_with, save_states_with=save_states_with,
-            metrics_repository=metrics_repository,
-            reuse_existing_results_for_key=reuse_existing_results_for_key,
-            fail_if_results_missing=fail_if_results_missing, placement=placement,
-            sharding=sharding, checkpointer=checkpointer, **freq_options,
-        )
-        result = VerificationSuite.evaluate(checks, analysis_results)
-        result.cost_by_analyzer = dict(monitor.cost_by_analyzer)
-        if metrics_repository is not None and save_or_append_results_with_key is not None:
-            _save_or_append(metrics_repository, save_or_append_results_with_key,
-                            analysis_results)
-        return result
+        with _trace.span("verification_run", kind="verification", checks=len(checks),
+                         analyzers=len(analyzers)):
+            analysis_results = AnalysisRunner.do_analysis_run(
+                data, analyzers, batch_size=batch_size, monitor=monitor, device=device,
+                aggregate_with=aggregate_with, save_states_with=save_states_with,
+                metrics_repository=metrics_repository,
+                reuse_existing_results_for_key=reuse_existing_results_for_key,
+                fail_if_results_missing=fail_if_results_missing, placement=placement,
+                sharding=sharding, checkpointer=checkpointer, **freq_options,
+            )
+            with _trace.span("constraint_evaluation", kind="phase"):
+                result = VerificationSuite.evaluate(checks, analysis_results)
+            result.cost_by_analyzer = dict(monitor.cost_by_analyzer)
+            if metrics_repository is not None and save_or_append_results_with_key is not None:
+                _save_or_append(metrics_repository, save_or_append_results_with_key,
+                                analysis_results)
+            return result
 
     @staticmethod
     def run_on_aggregated_states(
